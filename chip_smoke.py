@@ -5,13 +5,27 @@ card (the kernels are built for sm_90a) and nvcc; it imports nothing of
 JAX. Phases, each printed, each fatal on failure:
 
   1. device: CUDA must be available; prints the card's name and power limit;
-  2. build: nvcc compiles rayito_tpu_torch/csrc into a shared library;
-  3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at stage-6 shapes (131,072 camera, bounce and shadow rays on the
-     n=64 bumpy stand-in, 392 clusters), with median times;
+  2. build: nvcc compiles rayito_tpu_torch/csrc into a shared library, one
+     process per source, all started together;
+  3. kernels: each CUDA kernel of the stage-6 path against its plain
+     PyTorch version on the card, at stage-6 shapes (131,072 camera, bounce
+     and shadow rays on the n=64 bumpy stand-in, 392 clusters), with median
+     times;
   4. frame: one full-size stage-6 frame (512x512, bench.py's config) through
      the entry point, counting every kernel's launches, checked against the
-     same frame rendered with the plain versions; then 3 timed frames.
+     same frame rendered with the plain versions; then 3 timed frames;
+  5. big-scene kernels: the big scene (five n=64 stand-ins, 245,760
+     triangles, 1,920 clusters) and its camera, bounce and shadow
+     populations of one 131,072-ray band: each of the four kernels against
+     its plain version, the item route against the scan route through
+     traverse(), and the item counts and overflow flags at the reference's
+     budget (24,576 items, 64 per block) and at one that never overflows;
+  6. big-scene frame: the 512x512 frame of tools/bench_big_scene.py (1 spp,
+     depth 3, 131,072-ray bands) with traverse_items=True at the budget
+     that never overflows, counting every kernel's launches, checked
+     against the plain versions, the scan route and the reference's budget
+     (both bit-identical; that budget's overflow share is printed); then 3
+     timed frames of the item route and of the scan route.
 
 Prints a JSON line of per-kernel results, then, last, one JSON line
 ``{"ok": true, "device": {...}}``.
@@ -19,6 +33,7 @@ Prints a JSON line of per-kernel results, then, last, one JSON line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -74,13 +89,95 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     cuda_lib.library()
-    return run(torch.device("cuda", 0), card)
+    dev = torch.device("cuda", 0)
+    stage6 = run(dev, card)
+    big = run_big(dev, card)
+
+    print(json.dumps({"kernels": kernel_records(stage6, big)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_records(stage6: dict, big: dict) -> list:
+    """The four kernels' records: launches in the frame of the path each
+    serves first (stage 6; the big scene for traverse_items), and in the
+    big-scene frame; errors over every population; camera-ray times."""
+    src = "rayito_tpu_torch/csrc/"
+    ref = "rayito_tpu/render/pallas_traverse.py:"
+    cam_r, big_cam = stage6["results"]["camera"], big["results"]["camera"]
+    launches, big_launches = stage6["launches"], big["launches"]
+    big_res = big["results"].values()
+    kernels = [
+        {"name": "cluster_masks", "route": "cuda",
+         "source": src + "cluster_masks.cu", "replaces": ref + "1184",
+         "launches": launches["cluster_masks"],
+         "max_abs_err": max(r["mask_err"] for r in
+                            [*stage6["results"].values(), *big_res]),
+         "ms": cam_r["mask_ms"], "plain_ms": cam_r["mask_plain_ms"],
+         "big_ms": big_cam["mask_ms"],
+         "big_plain_ms": big_cam["mask_plain_ms"]},
+        {"name": "traverse_blocks", "route": "cuda",
+         "source": src + "traverse_blocks.cu", "replaces": ref + "488",
+         "launches": launches["traverse_blocks"],
+         "max_abs_err": max(r["t_err"] for r in stage6["results"].values()),
+         "ms": cam_r["trav_ms"], "plain_ms": cam_r["trav_plain_ms"],
+         "big_ms": big_cam["scan_ms"],
+         "big_plain_ms": big_cam["scan_plain_ms"]},
+        {"name": "gather_rows_t", "route": "cuda",
+         "source": src + "gather_rows_t.cu", "replaces": ref + "1141",
+         "launches": launches["gather_rows_t"],
+         "max_abs_err": max(
+             r[k] for r in [*stage6["results"].values(), *big_res] for k in r
+             if k.startswith("gather") and k.endswith("_err")),
+         "ms": cam_r["gather32_ms"], "plain_ms": cam_r["gather32_plain_ms"],
+         "big_ms": big_cam["gather32_ms"],
+         "big_plain_ms": big_cam["gather32_plain_ms"]},
+        {"name": "traverse_items", "route": "cuda",
+         "source": src + "traverse_items.cu", "replaces": ref + "314",
+         "launches": big_launches["traverse_items"],
+         "max_abs_err": max(r["items_t_err"] for r in big_res),
+         "ms": big_cam["items_ms"], "plain_ms": big_cam["items_plain_ms"]},
+    ]
+    for k in kernels:
+        k["launches_big_frame"] = big_launches[k["name"]]
+    return kernels
 
 
 # the stage-6 main path: bench.py's frame on the n=64 bumpy stand-in
 MESH_N = 64
 WIDTH = 512
 RAYS_PER_PASS = 1 << 17  # 256-row bands of 131,072 rays
+STAGE6_KERNELS = ("cluster_masks", "traverse_blocks", "gather_rows_t")
+
+
+def _standin_obj() -> str:
+    from rayito_tpu_torch.models.demo import write_bumpy_standin
+    from rayito_tpu_torch.utils import cuda_lib
+
+    obj = os.path.join(cuda_lib.BUILD_DIR, f"bumpy_standin_n{MESH_N}.obj")
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    write_bumpy_standin(obj, n=MESH_N)
+    return obj
+
+
+def _frame_fn(scene, cfg, cam):
+    """``frame(scene=scene)`` renders sample 0 over every row band through
+    ``_render_path_frame`` and returns (images, issued queries)."""
+    from rayito_tpu_torch.render import pathtracer as pt
+
+    band = cfg.max_rays_per_pass // cfg.width
+    if cfg.height % band:
+        raise ValueError("the frame must be a whole number of bands")
+    row0s = list(range(0, cfg.height, band))
+
+    def frame(scene=scene):
+        imgs, _, q = pt._render_path_frame(scene, cfg, cam,
+                                           [[0]] * len(row0s), row0s, band)
+        return imgs, q
+
+    return frame
 
 
 def stage6_setup(dev):
@@ -88,62 +185,55 @@ def stage6_setup(dev):
     ``frame()`` renders sample 0 over every row band through
     ``_render_path_frame`` and returns (images, issued queries)."""
     from rayito_tpu_torch.models.camera import PerspectiveCamera
-    from rayito_tpu_torch.models.demo import (
-        STAGE6_CAMERA,
-        stage6_scene,
-        write_bumpy_standin,
-    )
-    from rayito_tpu_torch.render import pathtracer as pt
-    from rayito_tpu_torch.utils import cuda_lib
+    from rayito_tpu_torch.models.demo import STAGE6_CAMERA, stage6_scene
     from rayito_tpu_torch.utils.config import RenderConfig
 
-    obj = os.path.join(cuda_lib.BUILD_DIR, f"bumpy_standin_n{MESH_N}.obj")
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    write_bumpy_standin(obj, n=MESH_N)
-    scene = stage6_scene(obj).compile(dev)
+    scene = stage6_scene(_standin_obj()).compile(dev)
     cfg = RenderConfig(width=WIDTH, height=WIDTH, pixel_samples=2,
                        light_samples=1, max_depth=3, aspect_correction=True,
                        max_rays_per_pass=RAYS_PER_PASS)
     cam = PerspectiveCamera.make(30.0, *STAGE6_CAMERA, focal_distance=16.0,
                                  lens_radius=0.0)
-    band = cfg.max_rays_per_pass // cfg.width
-    if cfg.height % band:
-        raise ValueError("the frame must be a whole number of bands")
-    row0s = list(range(0, cfg.height, band))
-
-    def frame():
-        imgs, _, q = pt._render_path_frame(scene, cfg, cam,
-                                           [[0]] * len(row0s), row0s, band)
-        return imgs, q
-
-    return scene, cfg, cam, frame
+    return scene, cfg, cam, _frame_fn(scene, cfg, cam)
 
 
-def run(dev, card: str) -> int:
-    """Phases 3-4 on ``dev``."""
+def big_setup(dev):
+    """(scan scene, items scene, defaults scene, config, camera, frame) of
+    the big-scene frame: tools/bench_big_scene.py's config. The items scene
+    has the budget that never overflows (every block may list every
+    cluster), the defaults scene the reference's ITEMS_MAX / ITEMS_CAP."""
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.models.demo import STAGE6_CAMERA, big_streamed_scene
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    scan = big_streamed_scene(_standin_obj()).compile(dev)
+    c_pad = scan.ktab_box[0].shape[1]
+    n_blocks = RAYS_PER_PASS // scan.traverse_b
+    items = dataclasses.replace(scan, traverse_items=True,
+                                items_max=n_blocks * c_pad, items_cap=c_pad)
+    defaults = dataclasses.replace(scan, traverse_items=True)
+    cfg = RenderConfig(width=WIDTH, height=WIDTH, pixel_samples=1,
+                       light_samples=1, max_depth=3, aspect_correction=True,
+                       max_rays_per_pass=RAYS_PER_PASS)
+    cam = PerspectiveCamera.make(40.0, *STAGE6_CAMERA, focal_distance=16.0,
+                                 lens_radius=0.0)
+    return scan, items, defaults, cfg, cam, _frame_fn(items, cfg, cam)
+
+
+def _populations(scene, cfg, cam, light_corner, light_sides):
+    """Camera rays of the first band (pixel centres), their closest hits,
+    cosine-ish bounce rays from the hits and shadow rays to points of the
+    rect light: [(name, o, d, tmax, mt_mode, any_hit)] and the camera
+    rays' closest-hit prims. Stage 6's phase 3 builds its cases so."""
     import numpy as np
     import torch
 
-    from rayito_tpu_torch.accel.kernel_tables import KTRI
     from rayito_tpu_torch.ops.vec3 import V3
     from rayito_tpu_torch.render import trace as tr
-    from rayito_tpu_torch.render import traverse as tv
     from rayito_tpu_torch.render.integrator import _pixel_grid, screen_uv
-    from rayito_tpu_torch.utils.image import diagnose
 
-    _phase("scene")
-    t0 = time.perf_counter()
-    scene, cfg, cam, frame = stage6_setup(dev)
-    n_cl = scene.ktab_tri[0].shape[0]
-    print(f"stage-6 scene with the n={MESH_N} stand-in: "
-          f"{scene.tri_vm_rows.shape[0]} triangle rows, {n_cl} kernel "
-          f"clusters (padded), box table {tuple(scene.ktab_box[0].shape)}; "
-          f"{time.perf_counter() - t0:.1f} s")
+    dev = scene.device
     band = cfg.max_rays_per_pass // cfg.width
-
-    _phase("kernels")
-    # camera rays of the first band (pixel centres), their closest hits,
-    # cosine-ish bounce rays from the hits and shadow rays to the light
     px, py = _pixel_grid(cfg.width, band, dev)
     half = torch.full(px.shape, 0.5, device=dev)
     xu, yu = screen_uv(cfg, px, py, half, half)
@@ -158,30 +248,155 @@ def run(dev, card: str) -> int:
     bd = bd * inv
     pos = o + d * torch.where(hit.valid, hit.t, 0.0)
     lpt = torch.from_numpy(rng.uniform(0, 1, (2, n)).astype(np.float32)).to(dev)
-    light = V3(-1.5 + 3.0 * lpt[0], torch.full_like(lpt[0], 4.0),
-               -1.5 + 3.0 * lpt[1])
+    (cx, cy, cz), (s1, s2) = light_corner, light_sides
+    light = V3(cx + s1 * lpt[0], torch.full_like(lpt[0], cy), cz + s2 * lpt[1])
     sd = light - pos
     dist = torch.sqrt(sd.x * sd.x + sd.y * sd.y + sd.z * sd.z)
     sd = sd * (1.0 / dist)
     alive = hit.valid
-    cases = [
+    return [
         ("camera", o, d, torch.full((n,), 1e30, device=dev), "bw", False),
         ("bounce", pos, bd, torch.where(alive, 1e30, 0.0), "bw", False),
         ("shadow", pos, sd, tr._occl_tmax_down(~alive, dist - cfg.ray_tmin),
          "vpu", True),
     ]
+
+
+def _winner_rows(scene, p):
+    """Global triangle ids of the kernel winners (0 for misses)."""
+    import torch
+
+    from rayito_tpu_torch.accel.kernel_tables import KTRI
+
+    found = p.view(-1) >= 0
+    p_safe = torch.clamp_min(p.view(-1), 0)
+    cl = p_safe // KTRI
+    return torch.where(
+        found, scene.ktab_base[0][cl.long()] + p_safe - cl * KTRI, 0
+    ).to(torch.int32)
+
+
+def _check_gather(name, scene, p, r):
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    idx = _winner_rows(scene, p)
+    for k, table in ((32, scene.tri_vm_rows), (16, scene.tri_vert_rows)):
+        g_k = tv.gather_rows_t(table, idx)
+        g_p = tv.gather_rows_t_plain(table, idx)
+        torch.cuda.synchronize()
+        bad_g = int((g_k.view(torch.int32) != g_p.view(torch.int32)).sum())
+        r[f"gather{k}_err"] = float((g_k - g_p).abs().max())
+        print(f"{name}: gather_rows_t [T, {k}] elements differing {bad_g}")
+        if bad_g:
+            raise AssertionError(f"{name}: gather_rows_t disagrees")
+        r[f"gather{k}_ms"] = _median_ms(
+            lambda: tv.gather_rows_t(table, idx), 50)
+        r[f"gather{k}_plain_ms"] = _median_ms(
+            lambda: tv.gather_rows_t_plain(table, idx), 50)
+
+
+def _check_masks(name, soat, box, tmin, n_live, r):
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    m_k = tv.cluster_masks(soat, box, tmin, n_live)
+    m_p = tv.cluster_masks_plain(soat, box, tmin, n_live)
+    torch.cuda.synchronize()
+    bad_m = int((m_k != m_p).sum())
+    r["mask_err"] = int((m_k.long() - m_p.long()).abs().max())
+    print(f"{name}: mask words differing {bad_m} of {m_k.numel()}")
+    if bad_m:
+        raise AssertionError(f"{name}: cluster_masks disagrees with plain")
+    r["mask_ms"] = _median_ms(
+        lambda: tv.cluster_masks(soat, box, tmin, n_live), 20)
+    r["mask_plain_ms"] = _median_ms(
+        lambda: tv.cluster_masks_plain(soat, box, tmin, n_live), 3)
+    return m_k
+
+
+def _swap_plain():
+    """Point the path at the plain versions; returns the undo."""
+    from rayito_tpu_torch.render import trace as tr
+    from rayito_tpu_torch.render import traverse as tv
+
+    saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
+             tr.gather_rows_t)
+    tv.cluster_masks = tv.cluster_masks_plain
+    tv.traverse_blocks = tv.traverse_blocks_plain
+    tv.traverse_items = tv.traverse_items_plain
+    tr.gather_rows_t = tv.gather_rows_t_plain
+
+    def undo():
+        (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
+         tr.gather_rows_t) = saved
+
+    return undo
+
+
+def _rel_rmse(img, ref) -> float:
+    import numpy as np
+
+    return float(np.sqrt(np.mean((img - ref) ** 2))
+                 / max(np.sqrt(np.mean(ref ** 2)), 1e-20))
+
+
+def _check_image(img, what):
+    import numpy as np
+
+    from rayito_tpu_torch.utils.image import diagnose
+
+    diag = diagnose(img)
+    if diag["nan_pixels"] or diag["negative_pixels"] or not np.isfinite(img).all():
+        raise AssertionError(f"{what}: NaN, infinite or negative pixels")
+    if not img.max() > 0:
+        raise AssertionError(f"{what}: black frame")
+    return diag
+
+
+def _time_frames(frame, n_frames: int = 3):
+    """(seconds per frame, issued queries per frame) over ``n_frames``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qs = [frame()[1] for _ in range(n_frames)]
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / n_frames,
+            sum(int(q) for q in qs) / n_frames)
+
+
+def run(dev, card: str) -> dict:
+    """Phases 3-4 on ``dev``: {"results": per-population kernel numbers,
+    "launches": per-kernel launches in one stage-6 frame}."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    _phase("scene")
+    t0 = time.perf_counter()
+    scene, cfg, cam, frame = stage6_setup(dev)
+    n_cl = scene.ktab_tri[0].shape[0]
+    print(f"stage-6 scene with the n={MESH_N} stand-in: "
+          f"{scene.tri_vm_rows.shape[0]} triangle rows, {n_cl} kernel "
+          f"clusters (padded), box table {tuple(scene.ktab_box[0].shape)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    band = cfg.max_rays_per_pass // cfg.width
+
+    _phase("kernels")
+    cases = _populations(scene, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0))
     box = scene.ktab_box[0]
     results = {}
     tmin = cfg.ray_tmin
     for name, co, cd, ctmax, mt, any_hit in cases:
         tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
+        n = co.x.shape[0]
         soat, perm, n_live = tv.prepare_rays(co, cd, ctmax, box, tmin)
         live = int(n_live)
-        m_k = tv.cluster_masks(soat, box, tmin, n_live)
-        m_p = tv.cluster_masks_plain(soat, box, tmin, n_live)
-        torch.cuda.synchronize()
-        bad_m = int((m_k != m_p).sum())
-        mask_err = int((m_k.long() - m_p.long()).abs().max())
+        r = {}
+        m_k = _check_masks(name, soat, box, tmin, n_live, r)
         t_k, p_k = tv.traverse_blocks(m_k, soat, tri, tmin, mt, any_hit,
                                       n_live)
         t_p, p_p = tv.traverse_blocks_plain(m_k, soat, tri, tmin, mt,
@@ -198,42 +413,17 @@ def run(dev, card: str) -> int:
             t_err = float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
         hits = int((p_p >= 0).sum())
         print(f"{name}: {n} rays, {live} live steps of {soat.shape[0]}, "
-              f"mask words differing {bad_m}, prim differing {bad_p}, "
-              f"t bits differing {bad_t}, hits {hits}")
-        if bad_m or bad_p or bad_t:
+              f"prim differing {bad_p}, t bits differing {bad_t}, "
+              f"hits {hits}")
+        if bad_p or bad_t:
             raise AssertionError(f"{name}: kernel disagrees with plain")
-        r = {
-            "mask_ms": _median_ms(
-                lambda: tv.cluster_masks(soat, box, tmin, n_live), 20),
-            "mask_plain_ms": _median_ms(
-                lambda: tv.cluster_masks_plain(soat, box, tmin, n_live), 3),
-            "trav_ms": _median_ms(lambda: tv.traverse_blocks(
-                m_k, soat, tri, tmin, mt, any_hit, n_live), 20),
-            "trav_plain_ms": _median_ms(lambda: tv.traverse_blocks_plain(
-                m_k, soat, tri, tmin, mt, any_hit, n_live), 3),
-            "t_err": t_err,
-            "mask_err": mask_err,
-        }
+        r["trav_ms"] = _median_ms(lambda: tv.traverse_blocks(
+            m_k, soat, tri, tmin, mt, any_hit, n_live), 20)
+        r["trav_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
+            m_k, soat, tri, tmin, mt, any_hit, n_live), 3)
+        r["t_err"] = t_err
         if not any_hit:
-            found = p_k.view(-1) >= 0
-            p_safe = torch.clamp_min(p_k.view(-1), 0)
-            cl = p_safe // KTRI
-            idx = torch.where(
-                found, scene.ktab_base[0][cl.long()] + p_safe - cl * KTRI, 0
-            ).to(torch.int32)
-            for k, table in ((32, scene.tri_vm_rows), (16, scene.tri_vert_rows)):
-                g_k = tv.gather_rows_t(table, idx)
-                g_p = tv.gather_rows_t_plain(table, idx)
-                torch.cuda.synchronize()
-                bad_g = int((g_k.view(torch.int32) != g_p.view(torch.int32)).sum())
-                r[f"gather{k}_err"] = float((g_k - g_p).abs().max())
-                print(f"{name}: gather_rows_t [T, {k}] elements differing {bad_g}")
-                if bad_g:
-                    raise AssertionError(f"{name}: gather_rows_t disagrees")
-                r[f"gather{k}_ms"] = _median_ms(
-                    lambda: tv.gather_rows_t(table, idx), 50)
-                r[f"gather{k}_plain_ms"] = _median_ms(
-                    lambda: tv.gather_rows_t_plain(table, idx), 50)
+            _check_gather(name, scene, p_k, r)
         results[name] = r
         print(f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()),
               flush=True)
@@ -247,75 +437,216 @@ def run(dev, card: str) -> int:
     launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
     print(f"launches in one frame: {launches}")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
-    diag = diagnose(img)
+    diag = _check_image(img, "stage-6 frame")
     print(f"frame {img.shape}: queries {int(queries)}, {diag}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in STAGE6_KERNELS) <= 0:
         raise AssertionError("a kernel of the path was never launched")
-    if diag["nan_pixels"] or diag["negative_pixels"] or not np.isfinite(img).all():
-        raise AssertionError("NaN, infinite or negative pixels")
-    if not img.max() > 0:
-        raise AssertionError("black frame")
 
     # the same frame through the plain versions on the card
-    saved = (tv.cluster_masks, tv.traverse_blocks, tr.gather_rows_t)
-    tv.cluster_masks = tv.cluster_masks_plain
-    tv.traverse_blocks = tv.traverse_blocks_plain
-    tr.gather_rows_t = tv.gather_rows_t_plain
+    undo = _swap_plain()
     try:
         t0 = time.perf_counter()
         imgs_p, q_p = frame()
         torch.cuda.synchronize()
         plain_frame_s = time.perf_counter() - t0
     finally:
-        tv.cluster_masks, tv.traverse_blocks, tr.gather_rows_t = saved
+        undo()
     img_p = imgs_p.reshape(cfg.height, cfg.width, 3).cpu().numpy()
-    rel = float(np.sqrt(np.mean((img - img_p) ** 2))
-                / max(np.sqrt(np.mean(img_p ** 2)), 1e-20))
+    rel = _rel_rmse(img, img_p)
     print(f"plain-version frame: queries {int(q_p)}, {plain_frame_s:.2f} s; "
           f"relative RMSE vs kernels {rel:.3e}; max abs diff "
-          f"{float(np.abs(img - img_p).max()):.3e}")
+          f"{float(abs(img - img_p).max()):.3e}")
     if rel > 0.005:
         raise AssertionError(f"frame relative RMSE {rel} > 0.5%")
 
-    n_frames = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    qs = [frame()[1] for _ in range(n_frames)]
-    torch.cuda.synchronize()
-    frame_s = (time.perf_counter() - t0) / n_frames
-    q_frame = sum(int(q) for q in qs) / n_frames
+    frame_s, q_frame = _time_frames(frame)
     mrays = q_frame / frame_s / 1e6
     print(f"stage-6 frame (n={MESH_N} stand-in, {WIDTH}x{WIDTH}, sample 0, "
           f"{cfg.height // band} bands): "
           f"{frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} issued queries, "
           f"{mrays:.3f} Mrays/s on {card}")
+    return {"results": results, "launches": launches}
 
-    src = "rayito_tpu_torch/csrc/"
-    ref = "rayito_tpu/render/pallas_traverse.py:"
-    cam_r = results["camera"]
-    kernels = [
-        {"name": "cluster_masks", "route": "cuda",
-         "source": src + "cluster_masks.cu", "replaces": ref + "1184",
-         "launches": launches["cluster_masks"],
-         "max_abs_err": max(r["mask_err"] for r in results.values()),
-         "ms": cam_r["mask_ms"], "plain_ms": cam_r["mask_plain_ms"]},
-        {"name": "traverse_blocks", "route": "cuda",
-         "source": src + "traverse_blocks.cu", "replaces": ref + "488",
-         "launches": launches["traverse_blocks"],
-         "max_abs_err": max(r["t_err"] for r in results.values()),
-         "ms": cam_r["trav_ms"], "plain_ms": cam_r["trav_plain_ms"]},
-        {"name": "gather_rows_t", "route": "cuda",
-         "source": src + "gather_rows_t.cu", "replaces": ref + "1141",
-         "launches": launches["gather_rows_t"],
-         "max_abs_err": max(r[k] for r in results.values() for k in r
-                            if k.startswith("gather") and k.endswith("_err")),
-         "ms": cam_r["gather32_ms"], "plain_ms": cam_r["gather32_plain_ms"]},
-    ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+
+def _item_counts(masks, w: int = 4):
+    """(items in the w-aligned list, most clusters listed by one block)."""
+    import torch
+
+    bits = torch.stack([(masks >> k) & 1 for k in range(32)]).sum(dim=(0, 2))
+    return int(((bits + w - 1) // w * w).sum()), int(bits.max())
+
+
+def run_big(dev, card: str) -> dict:
+    """Phases 5-6 on ``dev``: {"results": per-population kernel numbers,
+    "launches": per-kernel launches in one big-scene frame}."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    _phase("big scene")
+    t0 = time.perf_counter()
+    scan, items, defaults, cfg, cam, frame = big_setup(dev)
+    box = scan.ktab_box[0]
+    c_pad = box.shape[1]
+    print(f"big scene (five n={MESH_N} stand-ins): "
+          f"{scan.tri_vm_rows.shape[0]} triangle rows, "
+          f"{scan.ktab_tri[0].shape[0]} kernel clusters (padded), box table "
+          f"{tuple(box.shape)}; item budgets {items.items_max}/"
+          f"{items.items_cap} (never overflows) and {defaults.items_max}/"
+          f"{defaults.items_cap} (reference defaults); "
+          f"{time.perf_counter() - t0:.1f} s")
+    w = items.items_w
+
+    _phase("big-scene kernels")
+    cases = _populations(scan, cfg, cam, (-4.0, 10.0, -4.0), (8.0, 8.0))
+    results = {}
+    tmin = cfg.ray_tmin
+    for name, co, cd, ctmax, mt, any_hit in cases:
+        tri = scan.ktab_tri[0] if mt == "vpu" else scan.ktab_mxu[0]
+        soat, _, n_live = tv.prepare_rays(co, cd, ctmax, box, tmin)
+        r = {}
+        masks = _check_masks(name, soat, box, tmin, n_live, r)
+        nblk = masks.shape[0]
+        n_items, most = _item_counts(masks, w)
+        lists = {}
+        for label, sd in (("fits", items), ("defaults", defaults)):
+            lists[label] = tv.build_items(masks, w, sd.items_max, sd.items_cap)
+        ovf = {k: bool(v[2]) for k, v in lists.items()}
+        print(f"{name}: {int(n_live)} live steps, {n_items} items "
+              f"({n_items / nblk:.1f} per block, most {most}); overflow at "
+              f"{defaults.items_max}/{defaults.items_cap}: {ovf['defaults']}; "
+              f"at {items.items_max}/{items.items_cap}: {ovf['fits']}")
+        if ovf["fits"]:
+            raise AssertionError(f"{name}: the never-overflowing budget "
+                                 "overflowed")
+        il, steps, _, _ = lists["fits"]
+        soab = soat.view(nblk, scan.traverse_b, 8)
+        t_k, p_k = tv.traverse_items(il, steps, soab, tri, tmin, mt, w)
+        t_p, p_p = tv.traverse_items_plain(il, steps, soab, tri, tmin, mt, w)
+        t_s, p_s = tv.traverse_blocks(masks, soat, tri, tmin, mt, False,
+                                      n_live)
+        torch.cuda.synchronize()
+        # the item kernel finds the nearest hit on any-hit launches too, so
+        # every comparison here is exact
+        bad = {
+            "prim vs plain": int((p_k != p_p).sum()),
+            "t bits vs plain": int((t_k.view(torch.int32)
+                                    != t_p.view(torch.int32)).sum()),
+            "prim vs scan": int((p_k.view(-1) != p_s.view(-1)).sum()),
+            "t bits vs scan": int((t_k.view(torch.int32).view(-1)
+                                   != t_s.view(torch.int32).view(-1)).sum()),
+        }
+        fin = torch.isfinite(t_p)
+        r["items_t_err"] = (float((t_k[fin] - t_p[fin]).abs().max())
+                            if fin.any() else 0.0)
+        print(f"{name}: traverse_items differing: {bad}; hits "
+              f"{int((p_p >= 0).sum())}")
+        if any(bad.values()):
+            raise AssertionError(f"{name}: traverse_items disagrees")
+        # the two routes through traverse(), at both budgets
+        kw = dict(want_t=not any_hit, mt_mode=mt, any_hit=any_hit)
+        t_r, p_r = tv.traverse(co, cd, ctmax, box, tri, tmin, **kw)
+        for label, sd in (("fits", items), ("defaults", defaults)):
+            t_i, p_i = tv.traverse(co, cd, ctmax, box, tri, tmin, items=True,
+                                   items_w=w, items_max=sd.items_max,
+                                   items_cap=sd.items_cap, **kw)
+            torch.cuda.synchronize()
+            bad_r = int((p_i != p_r).sum())
+            if not any_hit:
+                bad_r += int((t_i.view(torch.int32)
+                              != t_r.view(torch.int32)).sum())
+            print(f"{name}: traverse(items=True) at the {label} budget vs "
+                  f"the scan route: {bad_r} lanes differ")
+            if bad_r:
+                raise AssertionError(f"{name}: item route != scan route")
+        r["items_ms"] = _median_ms(lambda: tv.traverse_items(
+            il, steps, soab, tri, tmin, mt, w), 20)
+        r["items_plain_ms"] = _median_ms(lambda: tv.traverse_items_plain(
+            il, steps, soab, tri, tmin, mt, w), 3)
+        r["scan_ms"] = _median_ms(lambda: tv.traverse_blocks(
+            masks, soat, tri, tmin, mt, any_hit, n_live), 20)
+        r["scan_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
+            masks, soat, tri, tmin, mt, any_hit, n_live), 3)
+        r["build_items_ms"] = _median_ms(lambda: tv.build_items(
+            masks, w, items.items_max, items.items_cap), 20)
+        r["route_items_ms"] = _median_ms(lambda: tv.traverse(
+            co, cd, ctmax, box, tri, tmin, items=True, items_w=w,
+            items_max=items.items_max, items_cap=items.items_cap, **kw), 10)
+        r["route_scan_ms"] = _median_ms(lambda: tv.traverse(
+            co, cd, ctmax, box, tri, tmin, **kw), 10)
+        r["items"] = n_items
+        if not any_hit:
+            _check_gather(name, scan, p_k, r)
+        results[name] = r
+        print(f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()),
+              flush=True)
+
+    _phase("big-scene frame")
+    band = cfg.max_rays_per_pass // cfg.width
+    frame()  # warm-up
+    torch.cuda.synchronize()
+    tv.reset_launch_counts()
+    imgs, queries = frame()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    print(f"launches in one big-scene frame (traverse_items=True): "
+          f"{launches}")
+    img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
+    diag = _check_image(img, "big-scene frame")
+    print(f"frame {img.shape}: queries {int(queries)}, {diag}")
+    if min(launches.values()) <= 0:
+        raise AssertionError("a kernel of the path was never launched")
+
+    undo = _swap_plain()
+    try:
+        t0 = time.perf_counter()
+        imgs_p, q_p = frame()
+        torch.cuda.synchronize()
+        plain_frame_s = time.perf_counter() - t0
+    finally:
+        undo()
+    img_p = imgs_p.reshape(cfg.height, cfg.width, 3).cpu().numpy()
+    rel = _rel_rmse(img, img_p)
+    print(f"plain-version big-scene frame: queries {int(q_p)}, "
+          f"{plain_frame_s:.2f} s; relative RMSE vs kernels {rel:.3e}")
+    if rel > 0.005:
+        raise AssertionError(f"big-scene frame relative RMSE {rel} > 0.5%")
+
+    imgs_s, q_s = frame(scan)
+    flags = []
+    build = tv.build_items
+
+    def spy(*a):
+        res = build(*a)
+        flags.append(res[2])
+        return res
+
+    tv.build_items = spy
+    try:
+        imgs_d, q_d = frame(defaults)
+    finally:
+        tv.build_items = build
+    torch.cuda.synchronize()
+    share = sum(bool(f) for f in flags) / max(len(flags), 1)
+    for label, other, q_o in (("scan route", imgs_s, q_s),
+                              ("reference budget", imgs_d, q_d)):
+        same = torch.equal(imgs.view(torch.int32), other.view(torch.int32))
+        print(f"big-scene frame, item route vs {label}: bit-identical "
+              f"{same}, queries {int(queries)} / {int(q_o)}")
+        if not same or int(q_o) != int(queries):
+            raise AssertionError(f"big-scene frame differs from the {label}")
+    print(f"reference budget {defaults.items_max}/{defaults.items_cap}: "
+          f"{sum(bool(f) for f in flags)} of {len(flags)} launches "
+          f"overflowed to the scan (share {share:.3f})")
+
+    for label, sd in (("items", items), ("scan", scan)):
+        frame_s, q_frame = _time_frames(lambda: frame(sd))
+        mrays = q_frame / frame_s / 1e6
+        print(f"big-scene frame, {label} route ({WIDTH}x{WIDTH}, 1 spp, "
+              f"depth 3, {cfg.height // band} bands): "
+              f"{frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} issued queries, "
+              f"{mrays:.3f} Mrays/s on {card}", flush=True)
+    return {"results": results, "launches": launches}
 
 
 if __name__ == "__main__":

@@ -21,56 +21,12 @@
 // With any_hit the block stops once every ray has an accepted hit: only
 // prim >= 0 is defined then, as in the reference's any-hit launch.
 // Steps at or past the live prefix write the miss values (t = inf,
-// prim = -1) without reading anything.
+// prim = -1) without reading anything. With a run_if flag (the item
+// route's overflow flag, read from device memory) the kernel exits at once
+// when the flag is clear and writes nothing.
 #include "common.cuh"
 
 namespace {
-
-// Möller-Trumbore key for one (ray, lane); rows 0-8 are v0, e1, e2.
-__device__ __forceinline__ int32_t key_vpu(const float* s, int j, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz, float tmin) {
-    const float v0x = s[0 * RT_KTRI + j], v0y = s[1 * RT_KTRI + j];
-    const float v0z = s[2 * RT_KTRI + j], e1x = s[3 * RT_KTRI + j];
-    const float e1y = s[4 * RT_KTRI + j], e1z = s[5 * RT_KTRI + j];
-    const float e2x = s[6 * RT_KTRI + j], e2y = s[7 * RT_KTRI + j];
-    const float e2z = s[8 * RT_KTRI + j];
-    const float px = dy * e2z - dz * e2y;
-    const float py = dz * e2x - dx * e2z;
-    const float pz = dx * e2y - dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const float inv = 1.0f / det;
-    const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-    const float u = (tx * px + ty * py + tz * pz) * inv;
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float v = (dx * qx + dy * qy + dz * qz) * inv;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-    const bool ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-                    (t >= tmin);
-    return ok ? pack_key(t, j) : INT32_MAX;
-}
-
-// Baldwin-Weber key; rows: n.xyz, d, ru.xyz, ud, rv.xyz, vd.
-__device__ __forceinline__ int32_t key_bw(const float* s, int j, float ox,
-                                          float oy, float oz, float dx,
-                                          float dy, float dz, float tmin) {
-    const float nx = s[0 * RT_KTRI + j], ny = s[1 * RT_KTRI + j];
-    const float nz = s[2 * RT_KTRI + j], dpl = s[3 * RT_KTRI + j];
-    const float rux = s[4 * RT_KTRI + j], ruy = s[5 * RT_KTRI + j];
-    const float ruz = s[6 * RT_KTRI + j], rud = s[7 * RT_KTRI + j];
-    const float rvx = s[8 * RT_KTRI + j], rvy = s[9 * RT_KTRI + j];
-    const float rvz = s[10 * RT_KTRI + j], rvd = s[11 * RT_KTRI + j];
-    const float den = nx * dx + ny * dy + nz * dz;
-    const float t = (dpl - (nx * ox + ny * oy + nz * oz)) / den;
-    const float hx = ox + t * dx, hy = oy + t * dy, hz = oz + t * dz;
-    const float u = rux * hx + ruy * hy + ruz * hz + rud;
-    const float v = rvx * hx + rvy * hy + rvz * hz + rvd;
-    const bool ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-                    (t >= tmin);
-    return ok ? pack_key(t, j) : INT32_MAX;
-}
 
 template <bool BW>
 __global__ void traverse_blocks_kernel(
@@ -78,6 +34,7 @@ __global__ void traverse_blocks_kernel(
     const float* __restrict__ soat,     // [n_steps * sb, 8]
     const float* __restrict__ tri,      // [n_clusters, 16, 128]
     const int32_t* __restrict__ n_live, // [] or null
+    const uint8_t* __restrict__ run_if, // [] or null: exit when clear
     float* __restrict__ t_out,          // [n_steps * sb]
     int32_t* __restrict__ p_out,        // [n_steps * sb]
     int n_words, int n_clusters, int sb, int n_steps, float tmin,
@@ -86,6 +43,7 @@ __global__ void traverse_blocks_kernel(
     extern __shared__ float smem[];
     float* tri_s = smem;                                       // [kRows, 128]
     uint32_t* words = (uint32_t*)(smem + kRows * RT_KTRI);     // [n_words]
+    if (run_if != nullptr && !*run_if) return;
     const int b = blockDim.x;
     const long long ray = (long long)blockIdx.x * b + threadIdx.x;
     const int step = (int)(((long long)blockIdx.x * b) / sb);
@@ -148,8 +106,9 @@ __global__ void traverse_blocks_kernel(
 
 extern "C" int rt_traverse_blocks(const int32_t* masks, const float* soat,
                                   const float* tri, const int32_t* n_live,
-                                  float* t_out, int32_t* p_out, int n_blocks,
-                                  int b, int n_words, int n_clusters, int sb,
+                                  const uint8_t* run_if, float* t_out,
+                                  int32_t* p_out, int n_blocks, int b,
+                                  int n_words, int n_clusters, int sb,
                                   int n_steps, float tmin, int bw,
                                   int any_hit, void* stream) {
     const int rows = bw ? 12 : 9;
@@ -158,11 +117,11 @@ extern "C" int rt_traverse_blocks(const int32_t* masks, const float* soat,
     cudaStream_t s = (cudaStream_t)stream;
     if (bw)
         traverse_blocks_kernel<true><<<n_blocks, b, smem, s>>>(
-            masks, soat, tri, n_live, t_out, p_out, n_words, n_clusters, sb,
-            n_steps, tmin, any_hit);
+            masks, soat, tri, n_live, run_if, t_out, p_out, n_words,
+            n_clusters, sb, n_steps, tmin, any_hit);
     else
         traverse_blocks_kernel<false><<<n_blocks, b, smem, s>>>(
-            masks, soat, tri, n_live, t_out, p_out, n_words, n_clusters, sb,
-            n_steps, tmin, any_hit);
+            masks, soat, tri, n_live, run_if, t_out, p_out, n_words,
+            n_clusters, sb, n_steps, tmin, any_hit);
     return (int)cudaGetLastError();
 }

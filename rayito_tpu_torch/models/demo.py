@@ -1,5 +1,5 @@
-"""The stage-6 demo scene and a procedural stand-in for its mesh asset
-(counterpart of ``rayito_tpu/models/demo.py``).
+"""The stage-6 demo scene, the big five-instance scene, and a procedural
+stand-in for their mesh asset (counterpart of ``rayito_tpu/models/demo.py``).
 
 ``write_bumpy_standin`` writes an OBJ file with the published topology of
 the reference's ``bumpy.obj`` (24,578 vertices, 24,576 quads at n=64): a
@@ -73,6 +73,40 @@ def stage6_scene(obj_path: str) -> Scene:
                          (1.0, 1.0, 1.0), 5.0))
     s.add(ShapeLight(Sphere((1.0, 0.5, 2.0), 0.5, blueish),
                      color=(1.0, 1.0, 0.3), power=10.0))
+    return s
+
+
+def big_streamed_scene(obj_path: str) -> Scene:
+    """The scale stressor: five shifted instances of the OBJ mesh at
+    ``obj_path`` (about 245k triangles for ``bumpy.obj`` or the n=64
+    stand-in, ~1,920 clusters in one merged world-space traversal domain)
+    over a ground plane under one area light. Instance normals come from
+    the OBJ."""
+    from .obj import load_obj
+
+    mesh0 = load_obj(obj_path, DiffuseMaterial((0.5, 0.5, 0.5)))
+    if mesh0 is None:
+        raise FileNotFoundError(obj_path)
+    verts = np.asarray(mesh0.vertices, np.float32)
+    idx = np.asarray(mesh0.indices, np.int32)
+    s = Scene()
+    s.add(Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                DiffuseMaterial((0.7, 0.7, 0.7))))
+    mats = [DiffuseMaterial((0.8, 0.3, 0.2)),
+            GlossyMaterial((0.3, 0.7, 0.3), 0.25),
+            DiffuseMaterial((0.3, 0.3, 0.8)),
+            GlossyMaterial((0.8, 0.8, 0.2), 0.15),
+            DiffuseMaterial((0.7, 0.4, 0.7))]
+    offs = [(-5.0, 0, 0), (-2.5, 1.0, -2.0), (0.0, 0, 0),
+            (2.5, 1.0, -2.0), (5.0, 0, 0)]
+    for off, mat in zip(offs, mats):
+        s.add(TriangleMesh(
+            vertices=verts + np.asarray(off, np.float32),
+            indices=idx, material=mat,
+            normals=mesh0.normals, normal_indices=mesh0.normal_indices,
+        ))
+    s.add(RectangleLight((-4, 10, -4), (8, 0, 0), (0, 0, 8),
+                         (1.0, 1.0, 1.0), 3.0))
     return s
 
 

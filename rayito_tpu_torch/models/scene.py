@@ -189,8 +189,11 @@ DOMAIN_FIELDS = ("ktab_tri", "ktab_mxu", "ktab_box", "ktab_base")
 STATIC_FIELDS = (
     "ktab_xf", "ktab_seg", "light_kinds_host", "light_indices_host",
     "traversal", "traverse_mt", "traverse_b", "traverse_sb", "live_prefix",
-    "sort_occl",
+    "sort_occl", "traverse_items", "items_w", "items_max", "items_cap",
 )
+# optional array of the reference's SceneData: the lane-packed winner rows
+# [ceil(T / 4), 128] it ships instead of tri_vm_rows above 96k triangles
+PACKED_ROWS_FIELD = "tri_vm_packed"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,6 +244,14 @@ class SceneData:
     traverse_sb: int = 2048  # rays per step (padding / live-prefix unit)
     live_prefix: bool = True  # skip steps past the sorted live prefix
     sort_occl: bool = True  # coherence-sort occlusion launches
+    # item-list traversal (traverse_items kernel) instead of the block scan;
+    # launches whose list exceeds the budget fall back to the scan. The
+    # reference's module defaults (ITEMS_W, ITEMS_MAX, ITEMS_CAP) and its
+    # trace-time RAYITO_TRAVERSE_ITEMS read, as compile-time fields.
+    traverse_items: bool = False
+    items_w: int = 4  # items per group (per-block runs are w-aligned)
+    items_max: int = 24576  # items per launch
+    items_cap: int = 64  # items per ray block
 
     def __post_init__(self):
         if self.traversal == "xla":
@@ -260,6 +271,7 @@ class SceneData:
             raise ValueError(f"traverse_mt must be 'vpu'|'bw'|'bw_closest', "
                              f"got {self.traverse_mt!r}")
         validate_blocks(self.traverse_b, self.traverse_sb)
+        validate_items(self.items_w, self.items_max, self.items_cap)
         if any(x != 0 for x in self.ktab_xf):
             raise NotImplementedError(
                 "transformed traversal domains are not ported yet"
@@ -308,12 +320,25 @@ def validate_blocks(b: int, sb: int) -> None:
                          f"<= 1024 dividing sb={sb}")
 
 
+def validate_items(w: int, maxitems: int, cap: int) -> None:
+    """Item-list budget: 1 <= w <= 8, maxitems and cap positive."""
+    if not 1 <= w <= 8:
+        raise ValueError(f"items_w={w!r}: must be in 1..8")
+    if maxitems <= 0 or cap <= 0:
+        raise ValueError(f"items_max={maxitems!r}, items_cap={cap!r}: must "
+                         "be positive")
+
+
 def scene_data_from_arrays(arrays: dict, static: dict, device) -> SceneData:
     """Build a SceneData on ``device`` from numpy arrays named like the
     reference SceneData's fields (``ARRAY_FIELDS``; ``DOMAIN_FIELDS`` hold a
     sequence with one array per domain) and host-static values
     (``STATIC_FIELDS``). A TPU-only option in ``static`` raises ValueError;
-    an unknown name raises TypeError."""
+    an unknown name raises TypeError. Where ``arrays`` holds the
+    reference's lane-packed rows (``tri_vm_packed``, 4 rows of 32 per
+    128-float row) and an empty ``tri_vm_rows``, the [T, 32] table is
+    rebuilt from them: the same floats, since device memory here has no
+    lane tiling to save."""
     for k in static:
         if k in UNPORTED_KNOBS:
             raise ValueError(
@@ -327,6 +352,12 @@ def scene_data_from_arrays(arrays: dict, static: dict, device) -> SceneData:
     def dev(a):
         return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
+    arrays = dict(arrays)
+    packed = arrays.pop(PACKED_ROWS_FIELD, None)
+    if (packed is not None and np.shape(packed)[0]
+            and not np.shape(arrays["tri_vm_rows"])[0]):
+        n_tri = np.shape(arrays["tri_vert_rows"])[0]
+        arrays["tri_vm_rows"] = np.asarray(packed).reshape(-1, 32)[:n_tri]
     kw = {k: dev(arrays[k]) for k in ARRAY_FIELDS}
     for k in DOMAIN_FIELDS:
         kw[k] = tuple(dev(a) for a in arrays.get(k, ()))

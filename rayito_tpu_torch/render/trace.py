@@ -146,7 +146,9 @@ def _launch(scene: SceneData, di: int, o: V3, d: V3, tmax, tmin, mt: str,
         o, d, tmax, scene.ktab_box[di], _domain_tri(scene, di, mt), tmin,
         sort_rays=sort_rays, want_t=False, mt_mode=mt, any_hit=any_hit,
         b=scene.traverse_b, sb=scene.traverse_sb,
-        live_prefix=scene.live_prefix,
+        live_prefix=scene.live_prefix, items=scene.traverse_items,
+        items_w=scene.items_w, items_max=scene.items_max,
+        items_cap=scene.items_cap,
     )[1]
 
 
@@ -160,6 +162,11 @@ def _winner_retest(scene: SceneData, di: int, o: V3, d: V3, p_d, tmin, tmax,
     g_d = scene.ktab_base[di][cl.long()] + (p_safe - cl * KTRI)
     idx = torch.where(found, g_d, 0).to(torch.int32)
     if want_meta:
+        # The reference gathers lane-packed rows tri_vm_packed[idx >> 2]
+        # and picks group idx & 3 above 96k triangles
+        # (rayito_tpu/render/trace.py:529-543); the [T, 32] table holds the
+        # same floats (scene_data_from_arrays rebuilds it from the packed
+        # one), so one branch serves both.
         row_t = gather_rows_t(scene.tri_vm_rows, idx)  # [32, N]
         vrow, meta = row_t[:16], row_t[16:]
     else:

@@ -1,4 +1,4 @@
-"""Mesh traversal through the three hand-written CUDA kernels.
+"""Mesh traversal through the four hand-written CUDA kernels.
 
 Counterpart of ``rayito_tpu/render/pallas_traverse.py``'s ``traverse()``.
 One launch domain's nearest (or any) triangle hit for a wavefront:
@@ -11,6 +11,10 @@ One launch domain's nearest (or any) triangle hit for a wavefront:
      its rays slab-hits;
   4. ``traverse_blocks`` (kernel) tests each ray against the listed
      clusters' 128 triangles and keeps the nearest packed (t, lane) key;
+     or, with ``items``, ``build_items`` flattens the masks into one list
+     of (ray block, cluster) items and ``traverse_items`` (kernel) folds
+     it, with ``traverse_blocks`` taking launches whose list overflows
+     the budget (the choice is made on the device);
   5. the results are scattered back to the caller's lane order.
 
 ``gather_rows_t`` (kernel) serves the exact winner re-test in
@@ -31,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..accel.kernel_tables import KTRI
-from ..models.scene import validate_blocks
+from ..models.scene import validate_blocks, validate_items
 from ..utils import cuda_lib
 
 _INF = float("inf")
@@ -158,6 +162,12 @@ def cluster_masks(soat, cl_box, tmin: float, n_live=None, b: int = 128):
 cluster_masks.launches = 0
 
 
+def _check_flag(name, flag):
+    if flag is not None and (flag.dtype != torch.bool or flag.numel() != 1):
+        raise ValueError(f"{name}: the gate flag must be a one-element bool "
+                         "tensor")
+
+
 def _check_live(n_live, device):
     if n_live is not None and (
         n_live.dtype != torch.int32 or n_live.numel() != 1
@@ -172,12 +182,12 @@ def _check_live(n_live, device):
 # ---------------------------------------------------------------------------
 
 
-def _keys(mt_mode, rows, o, d, tmin, lane):
-    """[n, 128] packed keys of rays (o, d: [n, 1] columns) against one
-    cluster's rows [16, 128]; same operation order as the reference."""
+def _keys(mt_mode, row, o, d, tmin, lane):
+    """Packed keys of rays (o, d: columns [..., n, 1]) against cluster rows
+    (``row(k)``: row k broadcast as [..., 1, 128]); same operation order as
+    the reference's ``_mt_key_rows``."""
     ox, oy, oz = o
     dx, dy, dz = d
-    row = lambda k: rows[k][None, :]
     if mt_mode == "bw":
         nx, ny, nz, dpl = row(0), row(1), row(2), row(3)
         rux, ruy, ruz, rud = row(4), row(5), row(6), row(7)
@@ -208,7 +218,8 @@ def _keys(mt_mode, rows, o, d, tmin, lane):
 
 
 def traverse_blocks_plain(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
-                          any_hit: bool = False, n_live=None, b: int = 128):
+                          any_hit: bool = False, n_live=None, b: int = 128,
+                          run_if=None):
     """masks [n_blocks, n_words] i32, soat [n_steps, sb, 8] f32, tri
     [C, 16, 128] f32 (MT rows for 'vpu', BW rows for 'bw') -> (t, prim)
     each [n_steps, sb, 1]: per ray the minimum packed key over the
@@ -216,10 +227,16 @@ def traverse_blocks_plain(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
     lowest cluster), t = key bits with the lane cleared (inf on a miss),
     prim = cluster * 128 + lane (-1). Steps past the live prefix are
     misses. ``any_hit`` only loosens the contract to prim >= 0; the plain
-    version always finds the nearest hit."""
+    version always finds the nearest hit. With a one-element bool
+    ``run_if`` that is False the launch does nothing and its outputs are
+    undefined (here: misses)."""
     del any_hit
     n_steps, sb, _ = soat.shape
     dev = soat.device
+    if run_if is not None and not bool(run_if):
+        return (torch.full((n_steps, sb, 1), _INF, device=dev),
+                torch.full((n_steps, sb, 1), -1, dtype=torch.int32,
+                           device=dev))
     n = n_steps * sb
     rays = soat.reshape(n, 8)
     n_run = _live_floor(n_live, n_steps) * sb
@@ -237,7 +254,8 @@ def traverse_blocks_plain(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
         r = rays[sel]
         o = (r[:, 0:1], r[:, 1:2], r[:, 2:3])
         d = (r[:, 3:4], r[:, 4:5], r[:, 5:6])
-        kmin = _keys(mt_mode, tri[c], o, d, tmin, lane).amin(dim=1)
+        kmin = _keys(mt_mode, lambda k: tri[c, k][None, :], o, d, tmin,
+                     lane).amin(dim=1)
         better = kmin < kb[sel]
         kb[sel] = torch.where(better, kmin, kb[sel])
         cb[sel] = torch.where(better, c, cb[sel])
@@ -248,8 +266,10 @@ def traverse_blocks_plain(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
 
 
 def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
-                    any_hit: bool = False, n_live=None, b: int = 128):
-    """Kernel wrapper of :func:`traverse_blocks_plain` (same contract)."""
+                    any_hit: bool = False, n_live=None, b: int = 128,
+                    run_if=None):
+    """Kernel wrapper of :func:`traverse_blocks_plain` (same contract; a
+    clear ``run_if`` flag makes the kernel exit before writing)."""
     _check_dtype("traverse_blocks", masks, torch.int32, 2)
     _check_dtype("traverse_blocks", soat, torch.float32, 3)
     _check_dtype("traverse_blocks", tri, torch.float32, 3)
@@ -262,18 +282,20 @@ def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
                          " tri [C, 16, 128])")
     if mt_mode not in ("vpu", "bw"):
         raise ValueError(f"traverse_blocks: mt_mode {mt_mode!r}")
-    if _on_cpu("traverse_blocks", masks, soat, tri, n_live):
+    if _on_cpu("traverse_blocks", masks, soat, tri, n_live, run_if):
         return traverse_blocks_plain(masks, soat, tri, tmin, mt_mode,
-                                     any_hit, n_live, b)
+                                     any_hit, n_live, b, run_if)
     _check_live(n_live, soat.device)
-    args = [masks, soat, tri] + ([n_live] if n_live is not None else [])
+    _check_flag("traverse_blocks", run_if)
+    args = [t for t in (masks, soat, tri, n_live, run_if) if t is not None]
     lib, stream = _cuda_args("traverse_blocks", *args)
     t = torch.empty((n_steps, sb, 1), dtype=torch.float32, device=soat.device)
     p = torch.empty((n_steps, sb, 1), dtype=torch.int32, device=soat.device)
     cuda_lib.check(lib.rt_traverse_blocks(
         masks.data_ptr(), soat.data_ptr(), tri.data_ptr(), _ptr(n_live),
-        t.data_ptr(), p.data_ptr(), masks.shape[0], b, masks.shape[1],
-        tri.shape[0], sb, n_steps, float(tmin), int(mt_mode == "bw"),
+        _ptr(run_if), t.data_ptr(), p.data_ptr(), masks.shape[0], b,
+        masks.shape[1], tri.shape[0], sb, n_steps, float(tmin),
+        int(mt_mode == "bw"),
         int(bool(any_hit)), stream,
     ), "traverse_blocks")
     traverse_blocks.launches += 1
@@ -320,7 +342,151 @@ def gather_rows_t(table, idx):
 
 gather_rows_t.launches = 0
 
-KERNELS = (cluster_masks, traverse_blocks, gather_rows_t)
+
+# ---------------------------------------------------------------------------
+# Kernel 4: item-list traversal (replaces _items_kernel)
+# ---------------------------------------------------------------------------
+
+CID_BITS = 13  # cluster-id field of a packed item (bid << 13 | cid)
+_CID_MASK = (1 << CID_BITS) - 1
+_I64_MAX = 2**63 - 1
+# items the plain version folds per batch of tensor ops ([256, b, 128] keys)
+_PLAIN_ITEM_BATCH = 256
+
+
+def build_items(masks, w: int, maxitems: int, cap: int):
+    """masks [n_blocks, n_words] i32 -> the global item list of the item
+    traversal, bit-identical to the reference's ``_build_items``:
+
+    (items [maxitems + w] i32 packed ``bid << 13 | cid``, -1 past the end;
+    n_steps [] i32 item groups to run; overflow [] bool; block_used
+    [n_blocks] bool). Each block's run lists its set clusters ascending,
+    padded to a multiple of ``w`` by repeating the last one; a block with
+    more than ``cap`` set clusters repeats its cap-th. On overflow (more
+    than ``maxitems`` items, or a block above ``cap``) the list is
+    truncated and n_steps clamped to ``maxitems // w``.
+
+    No [n_blocks, cap, 32 n_words] selection tensor: a cumsum ranks each
+    set bit, one scatter writes the block's clusters in rank order, and a
+    gather reads item j's cluster. Nothing waits on the device."""
+    nblk, nw = masks.shape
+    c32 = nw * 32
+    dev = masks.device
+    i32 = torch.int32
+    shifts = torch.arange(32, dtype=i32, device=dev)
+    bits = ((masks[:, :, None] >> shifts) & 1).reshape(nblk, c32)
+    rank = torch.cumsum(bits, dim=1, dtype=i32)
+    counts = rank[:, -1]
+    aligned = (counts + (w - 1)) // w * w
+    ends = torch.cumsum(aligned, dim=0, dtype=i32)
+    start = ends - aligned
+    total = ends[-1]
+    overflow = (total > maxitems) | (counts > cap).any()
+    # order[b * c32 + r] = the cluster of block b's (r+1)-th set bit; unset
+    # bits land in one spare slot past the end
+    row0 = torch.arange(nblk, dtype=torch.int64, device=dev)[:, None] * c32
+    slot = torch.where(bits > 0, row0 + (rank - 1), nblk * c32)
+    cids = torch.arange(c32, dtype=i32, device=dev).expand(nblk, c32)
+    order = torch.zeros(nblk * c32 + 1, dtype=i32, device=dev)
+    order.scatter_(0, slot.reshape(-1), cids.reshape(-1))
+    # item j belongs to the last block whose run starts at or before j
+    j = torch.arange(maxitems, dtype=i32, device=dev)
+    bid = torch.searchsorted(start, j, right=True, out_int32=True) - 1
+    bl = bid.long()
+    r = j - start[bl]
+    r = torch.minimum(r, torch.clamp_min(counts[bl] - 1, 0))
+    r = torch.clamp_max(r, cap - 1)
+    cid = order[bl * c32 + r]
+    items = torch.where(j < total, (bid << CID_BITS) | cid, -1)
+    items = torch.cat([items, torch.full((w,), -1, dtype=i32, device=dev)])
+    n_steps = torch.clamp_max(total, maxitems) // w
+    return items, n_steps, overflow, aligned > 0
+
+
+def traverse_items_plain(items, n_steps, soab, tri, tmin: float,
+                         mt_mode: str = "vpu", w: int = 4, skip=None):
+    """items [maxitems + w] i32, n_steps [] i32 (from :func:`build_items`),
+    soab [n_blocks, b, 8] f32, tri [C, 16, 128] f32 -> (t, prim) each
+    [n_blocks, b, 1]. Per ray, the minimum packed key over its block's
+    items below the initial key ``pack(min(tmax, 3e38), 127)`` (a tie
+    with it is a miss); equal keys go to the lowest cluster, as the scan's
+    strict < over ascending clusters does, so the result equals
+    :func:`traverse_blocks_plain`'s. Rays of blocks without items are
+    misses. Item clusters past the table read its last cluster, as the
+    reference's index map clamps them. A set one-element bool ``skip``
+    makes the launch write misses only."""
+    nblk, b, _ = soab.shape
+    dev = soab.device
+    n = nblk * b
+    rays = soab.reshape(n, 8)
+    kb0 = _pack_key(torch.clamp_max(rays[:, 6], 3e38), KTRI - 1)
+    best = torch.full((n,), _I64_MAX, dtype=torch.int64, device=dev)
+    n_items = 0 if skip is not None and bool(skip) else int(n_steps) * w
+    lane = torch.arange(KTRI, dtype=torch.int32, device=dev)[None, :]
+    ray_ix = torch.arange(b, dtype=torch.int64, device=dev)[None, :]
+    for s0 in range(0, n_items, _PLAIN_ITEM_BATCH):
+        it = items[s0:min(s0 + _PLAIN_ITEM_BATCH, n_items)].long()
+        bid, cid = it >> CID_BITS, it & _CID_MASK
+        rows = tri[torch.clamp_max(cid, tri.shape[0] - 1)]  # [L, 16, 128]
+        r = soab[bid]  # [L, b, 8]
+        o = (r[..., 0:1], r[..., 1:2], r[..., 2:3])
+        d = (r[..., 3:4], r[..., 4:5], r[..., 5:6])
+        kmin = _keys(mt_mode, lambda k: rows[:, k, None, :], o, d, tmin,
+                     lane).amin(dim=2)  # [L, b]
+        ix = bid[:, None] * b + ray_ix
+        cand = torch.where(kmin < kb0[ix], kmin.long() * 2**32 + cid[:, None],
+                           _I64_MAX)
+        best.scatter_reduce_(0, ix.reshape(-1), cand.reshape(-1), "amin")
+    found = best != _I64_MAX
+    key = (best >> 32).to(torch.int32)
+    cl = (best & 0xFFFFFFFF).to(torch.int32)
+    t = torch.where(found, (key & ~(KTRI - 1)).view(torch.float32), _INF)
+    prim = torch.where(found, cl * KTRI + (key & (KTRI - 1)), -1)
+    return t.view(nblk, b, 1), prim.view(nblk, b, 1)
+
+
+def traverse_items(items, n_steps, soab, tri, tmin: float,
+                   mt_mode: str = "vpu", w: int = 4, skip=None):
+    """Kernel wrapper of :func:`traverse_items_plain` (same contract; a
+    set ``skip`` flag makes the fold exit at once)."""
+    _check_dtype("traverse_items", items, torch.int32, 1)
+    _check_dtype("traverse_items", soab, torch.float32, 3)
+    _check_dtype("traverse_items", tri, torch.float32, 3)
+    nblk, b, width = soab.shape
+    if (width != 8 or tuple(tri.shape[1:]) != (16, KTRI)
+            or n_steps.dtype != torch.int32 or n_steps.numel() != 1
+            or not 1 <= w <= 8 or items.shape[0] <= w
+            or tri.shape[0] == 0 or tri.shape[0] > 1 << CID_BITS):
+        raise ValueError("traverse_items: items [maxitems + w] i32, n_steps "
+                         "[] i32, soab [n_blocks, b, 8], tri [C, 16, 128] "
+                         "with 0 < C <= 8192 and 1 <= w <= 8 expected")
+    if mt_mode not in ("vpu", "bw"):
+        raise ValueError(f"traverse_items: mt_mode {mt_mode!r}")
+    if b > 1024 or b & (b - 1):
+        raise ValueError(f"traverse_items: b={b} must be a power of two "
+                         "<= 1024")
+    if _on_cpu("traverse_items", items, n_steps, soab, tri, skip):
+        return traverse_items_plain(items, n_steps, soab, tri, tmin,
+                                    mt_mode, w, skip)
+    _check_flag("traverse_items", skip)
+    args = [t for t in (items, n_steps, soab, tri, skip) if t is not None]
+    lib, stream = _cuda_args("traverse_items", *args)
+    t = torch.empty((nblk, b, 1), dtype=torch.float32, device=soab.device)
+    p = torch.empty((nblk, b, 1), dtype=torch.int32, device=soab.device)
+    best = torch.empty((nblk * b,), dtype=torch.int64, device=soab.device)
+    cuda_lib.check(lib.rt_traverse_items(
+        items.data_ptr(), n_steps.data_ptr(), soab.data_ptr(), tri.data_ptr(),
+        _ptr(skip), best.data_ptr(), t.data_ptr(), p.data_ptr(), nblk, b,
+        tri.shape[0], (items.shape[0] - w) // w, w, float(tmin),
+        int(mt_mode == "bw"), stream,
+    ), "traverse_items")
+    traverse_items.launches += 1
+    return t, p
+
+
+traverse_items.launches = 0
+
+KERNELS = (cluster_masks, traverse_blocks, gather_rows_t, traverse_items)
 
 
 def reset_launch_counts() -> None:
@@ -347,19 +513,17 @@ def coherence_key(ox, oy, oz, dx, dy, dz, tmax, cl_box, tmin: float):
     """Ray-sort key: (miss flag, direction octant, morton cell of the
     root-box entry point) — ``_coherence_key`` of the reference. Purely a
     performance heuristic; results are unsorted afterwards."""
-    f32 = torch.float32
-    dev = ox.device
-    inf = torch.tensor(_INF, dtype=f32, device=dev)
     rmin = cl_box[0:3].amin(dim=1)
-    rmax = torch.where(cl_box[3:6] >= 1e29, -inf, cl_box[3:6]).amax(dim=1)
+    rmax = torch.where(cl_box[3:6] >= 1e29, -_INF, cl_box[3:6]).amax(dim=1)
     ix, iy, iz = 1.0 / dx, 1.0 / dy, 1.0 / dz
     tx0, ty0, tz0 = (rmin[0] - ox) * ix, (rmin[1] - oy) * iy, (rmin[2] - oz) * iz
     tx1, ty1, tz1 = (rmax[0] - ox) * ix, (rmax[1] - oy) * iy, (rmax[2] - oz) * iz
     mn, mx = torch.minimum, torch.maximum
     near = mx(mx(mn(tx0, tx1), mn(ty0, ty1)), mn(tz0, tz1))
     far = mn(mn(mx(tx0, tx1), mx(ty0, ty1)), mx(tz0, tz1))
-    tmin_t = torch.tensor(tmin, dtype=f32, device=dev)
-    live = (mx(near, tmin_t) <= mn(far, tmax)) & (tmax > tmin_t)
+    # clamp_min propagates NaN as torch.maximum does; a Python scalar
+    # keeps the host from copying tmin to the device
+    live = (torch.clamp_min(near, tmin) <= mn(far, tmax)) & (tmax > tmin)
     tn = near.clamp(0.0, 3e38)
     ext = torch.clamp_min(rmax - rmin, 1e-30)
 
@@ -412,21 +576,55 @@ def prepare_rays(o, d, tmax, cl_box, tmin: float, sort_rays: bool = True,
     return soa8[perm].view(n_steps, sb, 8), perm, n_live
 
 
+def _items_route(masks, soat, tri, tmin: float, mt_mode: str, any_hit: bool,
+                 n_live, b: int, w: int, maxitems: int, cap: int):
+    """The item traversal with the scan as its overflow fallback, both
+    launched and gated on the device-side overflow flag (the reference's
+    ``lax.cond``); outputs of blocks without items are misses."""
+    n_steps, sb, _ = soat.shape
+    item_list, n_groups, overflow, block_used = build_items(masks, w,
+                                                            maxitems, cap)
+    t_i, p_i = traverse_items(item_list, n_groups, soat.view(-1, b, 8), tri,
+                              tmin, mt_mode, w, skip=overflow)
+    t_s, p_s = traverse_blocks(masks, soat, tri, tmin, mt_mode, any_hit,
+                               n_live, b, run_if=overflow)
+    used = block_used[:, None].expand(-1, b).reshape(n_steps, sb, 1)
+    t_i = torch.where(used, t_i.view(n_steps, sb, 1), _INF)
+    p_i = torch.where(used, p_i.view(n_steps, sb, 1), -1)
+    return torch.where(overflow, t_s, t_i), torch.where(overflow, p_s, p_i)
+
+
 def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
              want_t: bool = True, mt_mode: str = "vpu", any_hit: bool = False,
-             b: int = 128, sb: int = 2048, live_prefix: bool = True):
+             b: int = 128, sb: int = 2048, live_prefix: bool = True,
+             items: bool = False, items_w: int = 4, items_max: int = 24576,
+             items_cap: int = 64):
     """Nearest triangle hit of rays (o, d: V3 of [N]) against one domain's
     tables (cl_box [8, C_pad], tri [C, 16, 128] rows for ``mt_mode``).
     tmax: [N] or scalar. Returns (t [N] f32 or None, prim [N] i32
-    table-local triangle id or -1); see the module docstring."""
+    table-local triangle id or -1); see the module docstring. ``items``
+    takes the item route for tables of at most 8192 clusters (the packed
+    item's cluster field), with the budget ``items_max`` items per launch
+    and ``items_cap`` per ray block; the result is the scan's, bit for
+    bit (any-hit: prim >= 0). Nothing waits on the device.
+
+    Steps past the live prefix are misses on both routes: the scan kernel
+    writes misses there, and their mask rows are zero, so the item list
+    holds none of their blocks."""
     validate_blocks(b, sb)
     n = o.x.shape[0]
     soat, perm, n_live = prepare_rays(o, d, tmax, cl_box, tmin, sort_rays,
                                       sb, live_prefix)
     n_tot = soat.shape[0] * sb
     masks = cluster_masks(soat, cl_box, float(tmin), n_live, b)
-    t_bn, p_bn = traverse_blocks(masks, soat, tri, float(tmin), mt_mode,
-                                 any_hit, n_live, b)
+    if items and tri.shape[0] <= 1 << CID_BITS:
+        validate_items(items_w, items_max, items_cap)
+        t_bn, p_bn = _items_route(masks, soat, tri, float(tmin), mt_mode,
+                                  any_hit, n_live, b, items_w, items_max,
+                                  items_cap)
+    else:
+        t_bn, p_bn = traverse_blocks(masks, soat, tri, float(tmin), mt_mode,
+                                     any_hit, n_live, b)
     t_bn, p_bn = t_bn.view(n_tot), p_bn.view(n_tot)
     if any_hit and not want_t:
         p_bn = torch.where(p_bn >= 0, 0, -1).to(torch.int32)

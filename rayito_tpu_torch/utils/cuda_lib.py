@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (``rayito_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, ``build/rayito_tpu_torch/libkernels.so`` under the repo root,
-for ``sm_90a`` (Hopper) without FMA contraction. It is rebuilt when the
-sources' hash changes and loaded with ctypes at first use; nothing is
-built or loaded when the package is imported. A failed build raises.
+``nvcc`` compiles every ``csrc/*.cu`` to an object file, one process per
+source, all started together, and links them into one shared library with
+a plain C interface, ``build/rayito_tpu_torch/libkernels.so`` under the
+repo root, for ``sm_90a`` (Hopper) without FMA contraction. It is rebuilt
+when the sources' hash changes and loaded with ctypes at first use;
+nothing is built or loaded when the package is imported. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # every multiply and add rounds on its own, as in the reference
     "-fmad=false", "-prec-div=true", "-ftz=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -36,9 +38,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "rt_cluster_masks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "rt_traverse_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _I, _I, _P],
+    "rt_traverse_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _F, _I, _I, _P],
     "rt_gather_rows_t": [_P, _P, _P, _I, _I, _I, _P],
+    "rt_traverse_items": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _F, _I, _P],
 }
 
 
@@ -76,21 +80,39 @@ def build(verbose: bool = False) -> dict:
             if f.read().strip() == digest:
                 return {"built": False, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(p.args[-1], log) for p, log in zip(procs, logs)
+              if p.returncode != 0]
+    tmp = f"{LIB_PATH}.{tag}"
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", link.stdout + link.stderr))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name}:\n{log}" for name, log in failed))
     os.replace(tmp, LIB_PATH)
     with open(stamp, "w") as f:
         f.write(digest)
-    return {"built": True, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    return {"built": True, "seconds": seconds, "log": "".join(logs)}
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card.
+"""The four CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device. The file
 imports neither jax nor rayito_tpu, so it also runs where JAX is not
@@ -10,9 +10,12 @@ installed; run it on a GPU machine from the repo root with
 cover what the stage-6 frame of chip_smoke.py may not reach: more than 1024
 clusters, far and padded boxes, zero direction components with origins on
 box planes (the 0 * inf = NaN edge), dead steps, a live prefix shorter than
-the launch, and out-of-range gather indices. Every comparison is exact:
-kernel and plain version run the same IEEE float32 operations in the same
-order, without contraction.
+the launch, and out-of-range gather indices; for the item traversal, at
+the big scene's shapes (131,072 rays, more than 1,024 clusters), empty
+blocks, runs padded to a multiple of w, keys tied with the initial key, a
+short group count, and a traverse() that must not wait on the device.
+Every comparison is exact: kernel and plain version run the same IEEE
+float32 operations in the same order, without contraction.
 """
 
 import numpy as np
@@ -184,3 +187,134 @@ def test_gather_rows_t_kernel_matches_plain(dev, k):
     torch.cuda.synchronize()
     assert got.shape == (k, 5000)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+# ------------------------------------------------------ item traversal
+
+N_BIG = 64 * SB  # one 131,072-ray band of the big scene
+
+
+@pytest.fixture(scope="module")
+def big_items(dev):
+    """1,100 clusters of random triangles (more than 1,024), a big-scene
+    band of rays aimed at them (the last 4,096 dead: empty blocks), their
+    sorted kernel rows and masks."""
+    rs = np.random.default_rng(11)
+    n_tris = 1100 * 128
+    centers = np.cumsum(rs.normal(0, 0.05, (n_tris, 3)), 0).astype(np.float32)
+    v0, v1, v2 = (centers + rs.normal(0, 0.05, (n_tris, 3)).astype(np.float32)
+                  for _ in range(3))
+    kt = tkt.build_kernel_tables(v0, v1, v2, np.ones(n_tris, bool))
+    o = (centers.mean(0) + rs.normal(0, 8, (N_BIG, 3))).astype(np.float32)
+    d = centers[rs.integers(0, n_tris, N_BIG)] - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmax = np.full(N_BIG, np.inf, np.float32)
+    tmax[N_BIG // 2:] = rs.uniform(1.0, 20.0, N_BIG // 2)
+    tmax[-2 * SB:] = 0.0
+    box = torch.from_numpy(kt.cl_box).to(dev)
+    tri = {"vpu": torch.from_numpy(kt.tri).to(dev),
+           "bw": torch.from_numpy(tkt.build_bw_rows(kt.tri)).to(dev)}
+    rays = tuple(V3(*(torch.from_numpy(a[:, i].copy()).to(dev)
+                      for i in range(3))) for a in (o, d))
+    tmax_d = torch.from_numpy(tmax).to(dev)
+    soat, _, n_live = tv.prepare_rays(*rays, tmax_d, box, 1e-4)
+    masks = tv.cluster_masks(soat, box, 1e-4, n_live)
+    return dict(box=box, tri=tri, rays=rays, tmax=tmax_d, soat=soat,
+                masks=masks, c_pad=box.shape[1])
+
+
+def _items_both(big, mt, w, n_steps=None, soat=None):
+    soat = big["soat"] if soat is None else soat
+    nblk = big["masks"].shape[0]
+    items, steps, overflow, used = tv.build_items(
+        big["masks"], w, nblk * big["c_pad"], big["c_pad"])
+    if n_steps is not None:
+        steps = torch.full_like(steps, n_steps)
+    soab = soat.view(nblk, 128, 8)
+    got = tv.traverse_items(items, steps, soab, big["tri"][mt], 1e-4, mt, w)
+    ref = tv.traverse_items_plain(items, steps, soab, big["tri"][mt], 1e-4,
+                                  mt, w)
+    torch.cuda.synchronize()
+    return got, ref, overflow, used
+
+
+def _equal(got, ref):
+    (t_k, p_k), (t_p, p_p) = got, ref
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("mt", ["bw", "vpu"])
+@pytest.mark.parametrize("w", [1, 4, 8])
+def test_traverse_items_kernel_matches_plain(dev, big_items, mt, w):
+    """Every block's run, its w pads and its empty blocks; the result is
+    also the scan kernel's, bit for bit."""
+    got, ref, overflow, used = _items_both(big_items, mt, w)
+    assert not bool(overflow) and not bool(used.all()) and bool(used.any())
+    counts = torch.stack([(big_items["masks"] >> k) & 1
+                          for k in range(32)]).sum(dim=(0, 2))
+    if w > 1:
+        assert bool((counts % w != 0).any())  # pads exist
+    _equal(got, ref)
+    assert int((ref[1] >= 0).sum()) > N_BIG // 8
+    scan = tv.traverse_blocks(big_items["masks"], big_items["soat"],
+                              big_items["tri"][mt], 1e-4, mt)
+    torch.cuda.synchronize()
+    _equal((got[0].view(scan[0].shape), got[1].view(scan[1].shape)), scan)
+
+
+@pytest.mark.parametrize("mt", ["bw", "vpu"])
+def test_traverse_items_tie_with_initial_key(dev, big_items, mt):
+    """Rays whose tmax is their own hit's t: the initial key
+    pack(min(tmax, 3e38), 127) then equals the hit's key when the winner
+    sits in lane 127, and such a ray loses that hit."""
+    first = _items_both(big_items, mt, 4)[0]
+    t_hit, p_hit = first[0].reshape(-1), first[1].reshape(-1)
+    found = p_hit >= 0
+    soat = big_items["soat"].clone().view(-1, 8)
+    soat[:, 6] = torch.where(found, t_hit, soat[:, 6])
+    got, ref, _, _ = _items_both(big_items, mt, 4, soat=soat.view_as(
+        big_items["soat"]))
+    _equal(got, ref)
+    lane127 = found & (p_hit % 128 == 127)
+    assert int(lane127.sum()) > 0
+    p_tied = got[1].reshape(-1)
+    assert not bool((p_tied[lane127] == p_hit[lane127]).any())
+    keep = found & (p_hit % 128 != 127)
+    assert bool((p_tied[keep] >= 0).all())
+
+
+@pytest.mark.parametrize("mt", ["bw", "vpu"])
+def test_traverse_items_short_n_steps(dev, big_items, mt):
+    """A group count below the list's: both versions fold only the first
+    n_steps groups."""
+    full = _items_both(big_items, mt, 4)[0]
+    got, ref, _, _ = _items_both(big_items, mt, 4, n_steps=37)
+    _equal(got, ref)
+    assert int((ref[1] >= 0).sum()) < int((full[1] >= 0).sum())
+
+
+@pytest.mark.parametrize("budget", ["overflow", "fits"])
+def test_traverse_items_route_does_not_wait_on_the_device(dev, big_items,
+                                                          budget):
+    """traverse(items=True) with a list that overflows (the scan runs) and
+    one that fits (the item kernel runs) under the sync debug mode 'error':
+    any host synchronisation in the route raises. Both equal the scan."""
+    c_pad = big_items["c_pad"]
+    kw = (dict(items_max=8, items_cap=4) if budget == "overflow"
+          else dict(items_max=N_BIG // 128 * c_pad, items_cap=c_pad))
+    o, d = big_items["rays"]
+    args = (o, d, big_items["tmax"], big_items["box"], big_items["tri"]["bw"],
+            1e-4)
+    scan = tv.traverse(*args, mt_mode="bw")
+    tv.traverse(*args, mt_mode="bw", items=True, **kw)  # warm-up
+    torch.cuda.synchronize()
+    before = tv.traverse_items.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tv.traverse(*args, mt_mode="bw", items=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tv.traverse_items.launches == before + 1
+    _equal(got, scan)

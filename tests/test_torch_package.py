@@ -82,15 +82,19 @@ def _kernel_calls(dev):
     tri = torch.zeros((1, 16, 128), device=dev)
     table = torch.zeros((8, 16), device=dev)
     idx = torch.zeros((4,), dtype=torch.int32, device=dev)
+    items = torch.full((12,), -1, dtype=torch.int32, device=dev)
+    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
     return {
         "cluster_masks": lambda: tv.cluster_masks(soat, box, 1e-4),
         "traverse_blocks": lambda: tv.traverse_blocks(masks, soat, tri, 1e-4),
         "gather_rows_t": lambda: tv.gather_rows_t(table, idx),
+        "traverse_items": lambda: tv.traverse_items(
+            items, n_steps, soat.view(16, 128, 8), tri, 1e-4),
     }
 
 
 @pytest.mark.parametrize("name", ["cluster_masks", "traverse_blocks",
-                                  "gather_rows_t"])
+                                  "gather_rows_t", "traverse_items"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
     tv.reset_launch_counts()
     _kernel_calls("cpu")[name]()  # plain version: no launch counted

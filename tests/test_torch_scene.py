@@ -15,6 +15,7 @@ import torch
 import rayito_tpu as rt
 import rayito_tpu.models.demo as jdemo
 import rayito_tpu.models.obj as jobj
+import rayito_tpu.render.pallas_traverse as jpt
 import rayito_tpu_torch as tt
 from rayito_tpu_torch.models import demo as tdemo
 from rayito_tpu_torch.models import obj as tobj
@@ -125,7 +126,12 @@ def test_scene_data_from_arrays_round_trip(compiled):
     port's own compile, tensor for tensor."""
     jsd, arrays, static = compiled["stage6"]
     ref_arrays = {k: _jax_field(jsd, k) for k in ARRAY_FIELDS + DOMAIN_FIELDS}
-    ref_static = {k: getattr(jsd, k) for k in STATIC_FIELDS}
+    # the item knobs are module defaults in the reference (env at import
+    # and trace time), SceneData fields in the port
+    ref_items = dict(traverse_items=False, items_w=jpt.ITEMS_W,
+                     items_max=jpt.ITEMS_MAX, items_cap=jpt.ITEMS_CAP)
+    ref_static = {k: ref_items[k] if k in ref_items else getattr(jsd, k)
+                  for k in STATIC_FIELDS}
     from_ref = scene_data_from_arrays(ref_arrays, ref_static, "cpu")
     own = scene_data_from_arrays(arrays, static, "cpu")
     assert from_ref.device == torch.device("cpu")
