@@ -10,16 +10,23 @@ JAX. Phases, each printed, each fatal on failure:
   3. kernels: each CUDA kernel of the stage-6 path against its plain
      PyTorch version on the card, at stage-6 shapes (131,072 camera, bounce
      and shadow rays on the n=64 bumpy stand-in, 392 clusters), with median
-     times;
+     device times (CUDA-graph replays of 20 calls, so the host's launch
+     cost stays out; the time around one call beside them), each kernel's
+     bound (the least time for its work on an H100 SXM:
+     operations at 67 TFLOP/s f32 or bytes at 3.35 TB/s, counted from this
+     run's masks) and its share of it, and for gather_rows_t the time of
+     the one PyTorch call that computes the same result (library_ms);
   4. frame: one full-size stage-6 frame (512x512, bench.py's config) through
      the entry point, counting every kernel's launches, checked against the
      same frame rendered with the plain versions; then 3 timed frames;
   5. big-scene kernels: the big scene (five n=64 stand-ins, 245,760
      triangles, 1,920 clusters) and its camera, bounce and shadow
      populations of one 131,072-ray band: each of the four kernels against
-     its plain version, the item route against the scan route through
-     traverse(), and the item counts and overflow flags at the reference's
-     budget (24,576 items, 64 per block) and at one that never overflows;
+     its plain version (bounds and shares as in phase 3; traverse_items is
+     timed beside traverse_blocks as its yardstick), the item route against
+     the scan route through traverse(), and the item counts and overflow
+     flags at the reference's budget (24,576 items, 64 per block) and at one
+     that never overflows;
   6. big-scene frame: the 512x512 frame of tools/bench_big_scene.py (1 spp,
      depth 3, 131,072-ray bands) with traverse_items=True at the budget
      that never overflows, counting every kernel's launches, checked
@@ -27,8 +34,9 @@ JAX. Phases, each printed, each fatal on failure:
      (both bit-identical; that budget's overflow share is printed); then 3
      timed frames of the item route and of the scan route.
 
-Prints a JSON line of per-kernel results, then, last, one JSON line
-``{"ok": true, "device": {...}}``.
+Prints a JSON line of per-kernel results (camera-ray times; launches in
+the frame of the path each kernel serves first, and per frame), then, last,
+one JSON line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -56,6 +64,27 @@ def _median_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def _device_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed between two events (median of ``replays``), per
+    call; the host's launch cost stays out. ``fn`` must not synchronise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return _median_ms(graph.replay, replays) / reps
+
+
+def _fmt(r: dict) -> str:
+    """key value pairs, numbers unrounded to 6 significant digits."""
+    return ", ".join(f"{k} {v:.6g}" if isinstance(v, (int, float))
+                     else f"{k} {v}" for k, v in r.items())
 
 
 def _phase(name: str) -> None:
@@ -102,47 +131,128 @@ def main() -> int:
 
 def kernel_records(stage6: dict, big: dict) -> list:
     """The four kernels' records: launches in the frame of the path each
-    serves first (stage 6; the big scene for traverse_items), and in the
-    big-scene frame; errors over every population; camera-ray times."""
+    serves first (stage 6; the big scene for traverse_items) and per frame
+    of each path; errors over every population; camera-ray times with
+    their bounds (big_* for the big scene)."""
     src = "rayito_tpu_torch/csrc/"
     ref = "rayito_tpu/render/pallas_traverse.py:"
     cam_r, big_cam = stage6["results"]["camera"], big["results"]["camera"]
     launches, big_launches = stage6["launches"], big["launches"]
     big_res = big["results"].values()
+
+    def timed(r, key, big_key=None):
+        """ms, plain_ms, bound_ms, bound_by, library_ms of ``key`` in r,
+        and the big scene's ms and bound_ms (of ``big_key``)."""
+        out = {"ms": r[key + "_ms"], "plain_ms": r[key + "_plain_ms"],
+               "bound_ms": r[key + "_bound_ms"],
+               "bound_by": r[key + "_bound_by"],
+               "library_ms": r.get(key + "_library_ms")}
+        if big_key:
+            out.update(big_ms=big_cam[big_key + "_ms"],
+                       big_plain_ms=big_cam[big_key + "_plain_ms"],
+                       big_bound_ms=big_cam[big_key + "_bound_ms"])
+        return out
+
     kernels = [
         {"name": "cluster_masks", "route": "cuda",
          "source": src + "cluster_masks.cu", "replaces": ref + "1184",
          "launches": launches["cluster_masks"],
          "max_abs_err": max(r["mask_err"] for r in
                             [*stage6["results"].values(), *big_res]),
-         "ms": cam_r["mask_ms"], "plain_ms": cam_r["mask_plain_ms"],
-         "big_ms": big_cam["mask_ms"],
-         "big_plain_ms": big_cam["mask_plain_ms"]},
+         **timed(cam_r, "mask", "mask")},
         {"name": "traverse_blocks", "route": "cuda",
          "source": src + "traverse_blocks.cu", "replaces": ref + "488",
          "launches": launches["traverse_blocks"],
          "max_abs_err": max(r["t_err"] for r in stage6["results"].values()),
-         "ms": cam_r["trav_ms"], "plain_ms": cam_r["trav_plain_ms"],
-         "big_ms": big_cam["scan_ms"],
-         "big_plain_ms": big_cam["scan_plain_ms"]},
+         **timed(cam_r, "trav", "scan")},
         {"name": "gather_rows_t", "route": "cuda",
          "source": src + "gather_rows_t.cu", "replaces": ref + "1141",
          "launches": launches["gather_rows_t"],
          "max_abs_err": max(
              r[k] for r in [*stage6["results"].values(), *big_res] for k in r
              if k.startswith("gather") and k.endswith("_err")),
-         "ms": cam_r["gather32_ms"], "plain_ms": cam_r["gather32_plain_ms"],
-         "big_ms": big_cam["gather32_ms"],
-         "big_plain_ms": big_cam["gather32_plain_ms"]},
+         **timed(cam_r, "gather32", "gather32")},
         {"name": "traverse_items", "route": "cuda",
          "source": src + "traverse_items.cu", "replaces": ref + "314",
          "launches": big_launches["traverse_items"],
          "max_abs_err": max(r["items_t_err"] for r in big_res),
-         "ms": big_cam["items_ms"], "plain_ms": big_cam["items_plain_ms"]},
+         **timed(big_cam, "items")},
     ]
     for k in kernels:
-        k["launches_big_frame"] = big_launches[k["name"]]
+        k["launches_frame"] = {"stage6": launches[k["name"]],
+                               "big_scene": big_launches[k["name"]]}
     return kernels
+
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): f32
+# outside the tensor cores, and device memory. With -fmad=false no multiply
+# and add fuse, so the kernels here can reach at most half the f32 rate.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+TEST_OPS = {"bw": 31, "vpu": 46}  # flops of one (ray, triangle) test
+SLAB_OPS = 24  # flops of one (ray, box) slab test
+
+
+def _bound(ops: float, nbytes: float):
+    """(ms, "operations" | "bytes"): the least time for the work."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _listed(masks, n_clusters: int):
+    """(listed (ray block, cluster) pairs, distinct clusters listed) of a
+    mask table, clusters past the tri table left out as the kernels do."""
+    import torch
+
+    bits = torch.stack([(masks >> k) & 1 for k in range(32)], dim=2)
+    bits = bits.reshape(masks.shape[0], -1)[:, :n_clusters]
+    return int(bits.sum()), int(bits.any(dim=0).sum())
+
+
+def _put_bound(r, key, ops, nbytes):
+    r[key + "_bound_ms"], r[key + "_bound_by"] = _bound(ops, nbytes)
+    r[key + "_share"] = r[key + "_bound_ms"] / r[key + "_ms"]
+
+
+def _traverse_bound(r, key, masks, soat, tri, mt):
+    """Bound of one traverse_blocks (or traverse_items) launch: every
+    listed pair's 128 x 128 tests; each input read once (the masks, the
+    rays, the listed clusters' rows), t and prim written once."""
+    pairs, clusters = _listed(masks, tri.shape[0])
+    rows = 12 if mt == "bw" else 9
+    nbytes = (masks.numel() * 4 + soat.numel() * 4
+              + clusters * rows * 128 * 4 + soat.shape[0] * soat.shape[1] * 8)
+    _put_bound(r, key, pairs * 128 * 128 * TEST_OPS[mt], nbytes)
+    r["pairs"] = pairs
+
+
+def _mask_bound(r, soat, box, tmin, n_live, masks):
+    """Bound of one cluster_masks launch on this run's rays: per live
+    block, one root slab test per (ray, word root) and one exact test per
+    (candidate ray, cluster) of each word (a candidate hits the word's
+    root); the dense pass's bound (every ray against every box) beside it.
+    Bytes: the rays, the box table and the words, once each."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    n_steps, sb, _ = soat.shape
+    b = 128
+    live_steps = max(min(int(n_live), n_steps), 1)
+    alive = tv._step_alive(soat)[:live_steps]
+    live_blocks = int(alive.sum()) * (sb // b)
+    roots = tv.word_roots_plain(box)
+    n_words = box.shape[1] // 32
+    pad_words = int((box[0].view(n_words, 32) >= 1e29).any(dim=1).sum())
+    cand = tv.word_live_plain(soat, roots, tmin, b=1).view(n_steps, sb, -1)
+    cand = cand[:live_steps][alive]
+    ops = (live_blocks * b * (n_words + pad_words) + int(cand.sum()) * 32)
+    nbytes = soat.numel() * 4 + box.numel() * 4 + masks.numel() * 4
+    _put_bound(r, "mask", ops * SLAB_OPS, nbytes)
+    r["mask_dense_bound_ms"] = _bound(
+        live_blocks * b * box.shape[1] * SLAB_OPS, nbytes)[0]
+    r["mask_live_words"] = int(
+        cand.view(-1, b, n_words).any(dim=1).sum()) / max(live_blocks, 1)
 
 
 # the stage-6 main path: bench.py's frame on the n=64 bumpy stand-in
@@ -291,10 +401,21 @@ def _check_gather(name, scene, p, r):
         print(f"{name}: gather_rows_t [T, {k}] elements differing {bad_g}")
         if bad_g:
             raise AssertionError(f"{name}: gather_rows_t disagrees")
-        r[f"gather{k}_ms"] = _median_ms(
-            lambda: tv.gather_rows_t(table, idx), 50)
+        r[f"gather{k}_ms"] = _device_ms(lambda: tv.gather_rows_t(table, idx))
         r[f"gather{k}_plain_ms"] = _median_ms(
             lambda: tv.gather_rows_t_plain(table, idx), 50)
+        # the one PyTorch call that gives the same [K, N] result, on a
+        # table transposed once beforehand (the port never calls it)
+        table_t = table.t().contiguous()
+        lib = torch.index_select(table_t, 1, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(lib.view(torch.int32), g_p.view(torch.int32)):
+            raise AssertionError(f"{name}: index_select yardstick differs")
+        r[f"gather{k}_library_ms"] = _device_ms(
+            lambda: torch.index_select(table_t, 1, idx))
+        # bytes: the indices, each distinct table row once, the output
+        n, rows = idx.shape[0], int(torch.unique(idx).numel())
+        _put_bound(r, f"gather{k}", 0, n * 4 + rows * k * 4 + n * k * 4)
 
 
 def _check_masks(name, soat, box, tmin, n_live, r):
@@ -310,7 +431,9 @@ def _check_masks(name, soat, box, tmin, n_live, r):
     print(f"{name}: mask words differing {bad_m} of {m_k.numel()}")
     if bad_m:
         raise AssertionError(f"{name}: cluster_masks disagrees with plain")
-    r["mask_ms"] = _median_ms(
+    r["mask_ms"] = _device_ms(
+        lambda: tv.cluster_masks(soat, box, tmin, n_live))
+    r["mask_call_ms"] = _median_ms(
         lambda: tv.cluster_masks(soat, box, tmin, n_live), 20)
     r["mask_plain_ms"] = _median_ms(
         lambda: tv.cluster_masks_plain(soat, box, tmin, n_live), 3)
@@ -417,16 +540,19 @@ def run(dev, card: str) -> dict:
               f"hits {hits}")
         if bad_p or bad_t:
             raise AssertionError(f"{name}: kernel disagrees with plain")
-        r["trav_ms"] = _median_ms(lambda: tv.traverse_blocks(
+        r["trav_ms"] = _device_ms(lambda: tv.traverse_blocks(
+            m_k, soat, tri, tmin, mt, any_hit, n_live))
+        r["trav_call_ms"] = _median_ms(lambda: tv.traverse_blocks(
             m_k, soat, tri, tmin, mt, any_hit, n_live), 20)
         r["trav_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
             m_k, soat, tri, tmin, mt, any_hit, n_live), 3)
         r["t_err"] = t_err
+        _mask_bound(r, soat, box, tmin, n_live, m_k)
+        _traverse_bound(r, "trav", m_k, soat, tri, mt)
         if not any_hit:
             _check_gather(name, scene, p_k, r)
         results[name] = r
-        print(f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()),
-              flush=True)
+        print(f"{name}: " + _fmt(r), flush=True)
 
     _phase("frame")
     frame()  # warm-up
@@ -543,6 +669,16 @@ def run_big(dev, card: str) -> dict:
               f"{int((p_p >= 0).sum())}")
         if any(bad.values()):
             raise AssertionError(f"{name}: traverse_items disagrees")
+        if any_hit:
+            # the scan's own any-hit launch: only prim >= 0 is defined
+            _, p_a = tv.traverse_blocks(masks, soat, tri, tmin, mt, True,
+                                        n_live)
+            torch.cuda.synchronize()
+            bad_a = int(((p_a.view(-1) >= 0) != (p_p.view(-1) >= 0)).sum())
+            print(f"{name}: traverse_blocks any-hit vs plain: prim >= 0 "
+                  f"differing {bad_a}")
+            if bad_a:
+                raise AssertionError(f"{name}: any-hit scan disagrees")
         # the two routes through traverse(), at both budgets
         kw = dict(want_t=not any_hit, mt_mode=mt, any_hit=any_hit)
         t_r, p_r = tv.traverse(co, cd, ctmax, box, tri, tmin, **kw)
@@ -559,27 +695,32 @@ def run_big(dev, card: str) -> dict:
                   f"the scan route: {bad_r} lanes differ")
             if bad_r:
                 raise AssertionError(f"{name}: item route != scan route")
-        r["items_ms"] = _median_ms(lambda: tv.traverse_items(
-            il, steps, soab, tri, tmin, mt, w), 20)
+        r["items_ms"] = _device_ms(lambda: tv.traverse_items(
+            il, steps, soab, tri, tmin, mt, w))
         r["items_plain_ms"] = _median_ms(lambda: tv.traverse_items_plain(
             il, steps, soab, tri, tmin, mt, w), 3)
-        r["scan_ms"] = _median_ms(lambda: tv.traverse_blocks(
+        r["scan_ms"] = _device_ms(lambda: tv.traverse_blocks(
+            masks, soat, tri, tmin, mt, any_hit, n_live))
+        r["scan_call_ms"] = _median_ms(lambda: tv.traverse_blocks(
             masks, soat, tri, tmin, mt, any_hit, n_live), 20)
         r["scan_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
             masks, soat, tri, tmin, mt, any_hit, n_live), 3)
-        r["build_items_ms"] = _median_ms(lambda: tv.build_items(
-            masks, w, items.items_max, items.items_cap), 20)
+        r["build_items_ms"] = _device_ms(lambda: tv.build_items(
+            masks, w, items.items_max, items.items_cap))
         r["route_items_ms"] = _median_ms(lambda: tv.traverse(
             co, cd, ctmax, box, tri, tmin, items=True, items_w=w,
             items_max=items.items_max, items_cap=items.items_cap, **kw), 10)
         r["route_scan_ms"] = _median_ms(lambda: tv.traverse(
             co, cd, ctmax, box, tri, tmin, **kw), 10)
         r["items"] = n_items
+        _mask_bound(r, soat, box, tmin, n_live, masks)
+        _traverse_bound(r, "scan", masks, soat, tri, mt)
+        _traverse_bound(r, "items", masks, soat, tri, mt)
+        r["scan_vs_items"] = r["scan_ms"] / r["items_ms"]
         if not any_hit:
             _check_gather(name, scan, p_k, r)
         results[name] = r
-        print(f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()),
-              flush=True)
+        print(f"{name}: " + _fmt(r), flush=True)
 
     _phase("big-scene frame")
     band = cfg.max_rays_per_pass // cfg.width

@@ -8,22 +8,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 #define RT_KTRI 128    // triangles per cluster (lanes of a cluster block)
 #define RT_KCOMP 16    // rows per cluster block
 
 // jnp.minimum / jnp.maximum propagate NaN; fminf / fmaxf drop it. A zero
 // direction component with the origin on a slab plane gives 0 * inf = NaN,
 // and the reference's result depends on that NaN reaching the compare.
+// min.NaN / max.NaN (sm_80 and later) do it in one instruction; their NaN
+// is the canonical one, which no compare tells from another NaN.
 __device__ __forceinline__ float nan_min(float a, float b) {
-    if (a != a) return a;
-    if (b != b) return b;
-    return a < b ? a : b;
+    float d;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+    return d;
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
-    if (a != a) return a;
-    if (b != b) return b;
-    return a > b ? a : b;
+    float d;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+    return d;
 }
 
 // Order-preserving (t, lane) key: the low 7 mantissa bits of t are
@@ -31,6 +35,33 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 // triangle with ~2^-17 relative slack and unique ties.
 __device__ __forceinline__ int32_t pack_key(float t, int32_t lane) {
     return (__float_as_int(t) & ~(RT_KTRI - 1)) | lane;
+}
+
+// A ray's 64-bit best, ((uint32)key << 32) | cluster: a signed atomicMin
+// takes the least key and, among equal keys, the lowest cluster, which is
+// the tie order of a strict < over ascending clusters (keys carry the
+// lane, so one cluster never ties with itself). The key goes through
+// uint32, so a negative key (t = -0.0 at tmin 0) still orders as the int32
+// compare does. A ray merges only a hit below its initial key and the
+// best starts at LLONG_MAX, so a tie with the initial key stays a miss.
+__device__ __forceinline__ long long pack_best(int32_t key, int32_t cid) {
+    return (long long)(((unsigned long long)(uint32_t)key << 32) |
+                       (uint32_t)cid);
+}
+
+// t (inf on a miss) and prim = cluster * 128 + lane (-1) of a 64-bit best.
+__device__ __forceinline__ void emit_best(long long best, float* t_out,
+                                          int32_t* p_out) {
+    if (best == LLONG_MAX) {
+        *t_out = __int_as_float(0x7f800000);
+        *p_out = -1;
+        return;
+    }
+    const unsigned long long v = (unsigned long long)best;
+    const int32_t key = (int32_t)(uint32_t)(v >> 32);
+    const int32_t cid = (int32_t)(uint32_t)(v & 0xffffffffull);
+    *t_out = __int_as_float(key & ~(RT_KTRI - 1));
+    *p_out = cid * RT_KTRI + (key & (RT_KTRI - 1));
 }
 
 // Number of live ray steps (rows past it are skipped): the device-side
@@ -43,20 +74,19 @@ __device__ __forceinline__ int live_steps(const int32_t* n_live,
     return n > 1 ? n : 1;
 }
 
-// Triangle-test keys of one ray against lane j of a cluster block staged
-// as rows of RT_KTRI floats (s), for traverse_blocks and traverse_items:
-// the reference's _mt_key_rows in its operation order; INT32_MAX when the
-// ray misses the triangle.
+// Triangle-test keys of one ray against one triangle of lane j, given the
+// triangle's rows r[0..11] (read by the caller from its staged layout), for
+// traverse_blocks and traverse_items: the reference's _mt_key_rows in its
+// operation order; INT32_MAX when the ray misses the triangle.
 
 // Möller-Trumbore key; rows 0-8 are v0, e1, e2.
-__device__ __forceinline__ int32_t key_vpu(const float* s, int j, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz, float tmin) {
-    const float v0x = s[0 * RT_KTRI + j], v0y = s[1 * RT_KTRI + j];
-    const float v0z = s[2 * RT_KTRI + j], e1x = s[3 * RT_KTRI + j];
-    const float e1y = s[4 * RT_KTRI + j], e1z = s[5 * RT_KTRI + j];
-    const float e2x = s[6 * RT_KTRI + j], e2y = s[7 * RT_KTRI + j];
-    const float e2z = s[8 * RT_KTRI + j];
+__device__ __forceinline__ int32_t key_vpu(const float (&r)[12], int j,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float tmin) {
+    const float v0x = r[0], v0y = r[1], v0z = r[2];
+    const float e1x = r[3], e1y = r[4], e1z = r[5];
+    const float e2x = r[6], e2y = r[7], e2z = r[8];
     const float px = dy * e2z - dz * e2y;
     const float py = dz * e2x - dx * e2z;
     const float pz = dx * e2y - dy * e2x;
@@ -75,15 +105,13 @@ __device__ __forceinline__ int32_t key_vpu(const float* s, int j, float ox,
 }
 
 // Baldwin-Weber key; rows: n.xyz, d, ru.xyz, ud, rv.xyz, vd.
-__device__ __forceinline__ int32_t key_bw(const float* s, int j, float ox,
-                                          float oy, float oz, float dx,
-                                          float dy, float dz, float tmin) {
-    const float nx = s[0 * RT_KTRI + j], ny = s[1 * RT_KTRI + j];
-    const float nz = s[2 * RT_KTRI + j], dpl = s[3 * RT_KTRI + j];
-    const float rux = s[4 * RT_KTRI + j], ruy = s[5 * RT_KTRI + j];
-    const float ruz = s[6 * RT_KTRI + j], rud = s[7 * RT_KTRI + j];
-    const float rvx = s[8 * RT_KTRI + j], rvy = s[9 * RT_KTRI + j];
-    const float rvz = s[10 * RT_KTRI + j], rvd = s[11 * RT_KTRI + j];
+__device__ __forceinline__ int32_t key_bw(const float (&r)[12], int j,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float tmin) {
+    const float nx = r[0], ny = r[1], nz = r[2], dpl = r[3];
+    const float rux = r[4], ruy = r[5], ruz = r[6], rud = r[7];
+    const float rvx = r[8], rvy = r[9], rvz = r[10], rvd = r[11];
     const float den = nx * dx + ny * dy + nz * dz;
     const float t = (dpl - (nx * ox + ny * oy + nz * oz)) / den;
     const float hx = ox + t * dx, hy = oy + t * dy, hz = oz + t * dz;

@@ -27,8 +27,6 @@
 //
 // A set skip flag (the launch's overflow flag, read from device memory)
 // makes the fold exit at once; the emit then writes misses.
-#include <climits>
-
 #include "common.cuh"
 
 namespace {
@@ -41,11 +39,6 @@ __global__ void items_init_kernel(long long* __restrict__ best, int n) {
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += gridDim.x * blockDim.x)
         best[i] = LLONG_MAX;
-}
-
-__device__ __forceinline__ long long pack_best(int32_t key, int32_t cid) {
-    return (long long)(((unsigned long long)(uint32_t)key << 32) |
-                       (uint32_t)cid);
 }
 
 template <bool BW>
@@ -84,8 +77,10 @@ __global__ void traverse_items_kernel(
             const float* r = soab + ((long long)bid * b + threadIdx.x) * 8;
             ox = r[0], oy = r[1], oz = r[2];
             dx = r[3], dy = r[4], dz = r[5];
-            // clamp: an inf tmax would pack to NaN bits
-            kb = pack_key(nan_min(r[6], 3e38f), RT_KTRI - 1);
+            // clamp: an inf tmax would pack to NaN bits; a NaN tmax keeps
+            // its own bits, sign included, as torch.clamp_max does
+            const float tm = r[6];
+            kb = pack_key(tm != tm ? tm : nan_min(tm, 3e38f), RT_KTRI - 1);
             cb = -1;
         }
         for (int i = threadIdx.x; i < w * kBlock; i += b) {
@@ -103,9 +98,12 @@ __global__ void traverse_items_kernel(
             prev = cid;
             const float* s = tri_s + jj * kBlock;
             for (int j = 0; j < RT_KTRI; ++j) {
+                float r[12];
+#pragma unroll
+                for (int k = 0; k < kRows; ++k) r[k] = s[k * RT_KTRI + j];
                 const int32_t key =
-                    BW ? key_bw(s, j, ox, oy, oz, dx, dy, dz, tmin)
-                       : key_vpu(s, j, ox, oy, oz, dx, dy, dz, tmin);
+                    BW ? key_bw(r, j, ox, oy, oz, dx, dy, dz, tmin)
+                       : key_vpu(r, j, ox, oy, oz, dx, dy, dz, tmin);
                 if (key < kb) {
                     kb = key;
                     cb = cid;
@@ -122,17 +120,7 @@ __global__ void items_emit_kernel(const long long* __restrict__ best,
                                   float* __restrict__ t_out,
                                   int32_t* __restrict__ p_out, int n) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const unsigned long long v = (unsigned long long)best[i];
-    if (v == (unsigned long long)LLONG_MAX) {
-        t_out[i] = __int_as_float(0x7f800000);
-        p_out[i] = -1;
-        return;
-    }
-    const int32_t key = (int32_t)(uint32_t)(v >> 32);
-    const int32_t cid = (int32_t)(uint32_t)(v & 0xffffffffull);
-    t_out[i] = __int_as_float(key & ~(RT_KTRI - 1));
-    p_out[i] = cid * RT_KTRI + (key & (RT_KTRI - 1));
+    if (i < n) emit_best(best[i], t_out + i, p_out + i);
 }
 
 }  // namespace

@@ -8,9 +8,12 @@ One launch domain's nearest (or any) triangle hit for a wavefront:
      with one packed sort; lanes with the key's miss flag sort to the end,
      and the number of live steps stays on the device;
   3. ``cluster_masks`` (kernel) marks, per ray block, the clusters any of
-     its rays slab-hits;
+     its rays slab-hits; the kernel tests a 32-cluster word's clusters only
+     against the rays that hit the word's root box (``word_roots_plain``,
+     ``word_live_plain``);
   4. ``traverse_blocks`` (kernel) tests each ray against the listed
-     clusters' 128 triangles and keeps the nearest packed (t, lane) key;
+     clusters' 128 triangles and keeps the nearest packed (t, lane) key,
+     one (ray block, nonzero mask word) unit at a time, merged per ray;
      or, with ``items``, ``build_items`` flattens the masks into one list
      of (ray block, cluster) items and ``traverse_items`` (kernel) folds
      it, with ``traverse_blocks`` taking launches whose list overflows
@@ -34,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from ..accel.kernel_tables import KTRI
+from ..accel.kernel_tables import KTRI, NEVER_HIT
 from ..models.scene import validate_blocks, validate_items
 from ..utils import cuda_lib
 
@@ -162,6 +165,57 @@ def cluster_masks(soat, cl_box, tmin: float, n_live=None, b: int = 128):
 cluster_masks.launches = 0
 
 
+def word_roots_plain(cl_box):
+    """cl_box [8, C_pad] f32 -> roots [12, C_pad / 32] f32: per 32-cluster
+    mask word, rows 0-5 the exact f32 union box (min.xyz, max.xyz) of its
+    real clusters and rows 6-11 that of its lane pads (``box[0] >= 1e29``,
+    left out of the real union as the reference's unit roots leave them).
+    Each axis spans the min and max of both planes of every member box; a
+    group without members is the never-hit 1e30 point box. The gate of the
+    cluster_masks kernel."""
+    n_words = cl_box.shape[1] // 32
+    g = cl_box[:6].reshape(6, n_words, 32)
+    lo, hi = torch.minimum(g[:3], g[3:]), torch.maximum(g[:3], g[3:])
+    real = (cl_box[0] < 1e29).reshape(1, n_words, 32)
+    rows = []
+    for member in (real, ~real):
+        empty = ~member.any(dim=2)
+        rows.append(torch.where(empty, float(NEVER_HIT), torch.where(
+            member, lo, _INF).amin(dim=2)))
+        rows.append(torch.where(empty, float(NEVER_HIT), torch.where(
+            member, hi, -_INF).amax(dim=2)))
+    return torch.cat(rows, dim=0)
+
+
+def word_live_plain(soat, roots, tmin: float, b: int = 128):
+    """soat [n_steps, sb, 8] f32, roots [12, n_words] (from
+    :func:`word_roots_plain`) -> [n_steps * sb / b, n_words] bool: some ray
+    of the block hits the word's real or pad root under the reference's
+    NaN-robust root slab (``slab_root``: an axis whose entry or exit is NaN
+    spans (-inf, inf)). A ray that hits a cluster of the word hits one of
+    its roots, so a word the masks set is live; ``b=1`` gives the per-ray
+    root hits."""
+    n_steps, sb, _ = soat.shape
+    rays = soat.reshape(n_steps * sb, 8)
+    tmax = rays[:, 6:7]
+    mn, mx = torch.minimum, torch.maximum
+
+    def slab_root(rt):
+        near = far = None
+        for k in range(3):
+            o, inv = rays[:, k:k + 1], 1.0 / rays[:, 3 + k:4 + k]
+            t0, t1 = (rt[k][None, :] - o) * inv, (rt[k + 3][None, :] - o) * inv
+            bad = torch.isnan(t0) | torch.isnan(t1)
+            lo = torch.where(bad, -_INF, mn(t0, t1))
+            hi = torch.where(bad, _INF, mx(t0, t1))
+            near = lo if near is None else mx(near, lo)
+            far = hi if far is None else mn(far, hi)
+        return (torch.clamp_min(near, tmin) <= mn(far, tmax)) & (far >= tmin)
+
+    hit = slab_root(roots[0:6]) | slab_root(roots[6:12])
+    return hit.view(n_steps * sb // b, b, -1).any(dim=1)
+
+
 def _check_flag(name, flag):
     if flag is not None and (flag.dtype != torch.bool or flag.numel() != 1):
         raise ValueError(f"{name}: the gate flag must be a one-element bool "
@@ -265,6 +319,9 @@ def traverse_blocks_plain(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
     return t.view(n_steps, sb, 1), prim.view(n_steps, sb, 1)
 
 
+_LIST_HEAD = 4  # int32 counters ahead of the kernel's unit list
+
+
 def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
                     any_hit: bool = False, n_live=None, b: int = 128,
                     run_if=None):
@@ -289,13 +346,22 @@ def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
     _check_flag("traverse_blocks", run_if)
     args = [t for t in (masks, soat, tri, n_live, run_if) if t is not None]
     lib, stream = _cuda_args("traverse_blocks", *args)
+    n_units = masks.shape[0] * masks.shape[1]
+    if n_units + _LIST_HEAD >= 2**31:
+        raise ValueError("traverse_blocks: too many mask words")
+    if soat.data_ptr() % 16:
+        raise ValueError("traverse_blocks: soat must be 16-byte aligned")
+    n = n_steps * sb
     t = torch.empty((n_steps, sb, 1), dtype=torch.float32, device=soat.device)
     p = torch.empty((n_steps, sb, 1), dtype=torch.int32, device=soat.device)
+    # the rays' 64-bit bests, then the unit list (head and word ids)
+    scratch = torch.empty((n + (n_units + _LIST_HEAD + 1) // 2,),
+                          dtype=torch.int64, device=soat.device)
     cuda_lib.check(lib.rt_traverse_blocks(
         masks.data_ptr(), soat.data_ptr(), tri.data_ptr(), _ptr(n_live),
-        _ptr(run_if), t.data_ptr(), p.data_ptr(), masks.shape[0], b,
-        masks.shape[1], tri.shape[0], sb, n_steps, float(tmin),
-        int(mt_mode == "bw"),
+        _ptr(run_if), scratch.data_ptr(), scratch.data_ptr() + 8 * n,
+        t.data_ptr(), p.data_ptr(), masks.shape[0], b, masks.shape[1],
+        tri.shape[0], sb, n_steps, float(tmin), int(mt_mode == "bw"),
         int(bool(any_hit)), stream,
     ), "traverse_blocks")
     traverse_blocks.launches += 1

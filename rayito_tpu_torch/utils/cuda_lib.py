@@ -38,8 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "rt_cluster_masks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "rt_traverse_blocks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _F, _I, _I, _P],
+    "rt_traverse_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _F, _I, _I, _P],
     "rt_gather_rows_t": [_P, _P, _P, _I, _I, _I, _P],
     "rt_traverse_items": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _F, _I, _P],

@@ -8,12 +8,16 @@ installed; run it on a GPU machine from the repo root with
 
 (``--noconftest``: the suite's conftest pins JAX to the CPU). The inputs
 cover what the stage-6 frame of chip_smoke.py may not reach: more than 1024
-clusters, far and padded boxes, zero direction components with origins on
-box planes (the 0 * inf = NaN edge), dead steps, a live prefix shorter than
-the launch, and out-of-range gather indices; for the item traversal, at
-the big scene's shapes (131,072 rays, more than 1,024 clusters), empty
-blocks, runs padded to a multiple of w, keys tied with the initial key, a
-short group count, and a traverse() that must not wait on the device.
+clusters, far and padded boxes, diagonal rays that hit the lane pads, zero
+direction components with origins on box planes (the 0 * inf = NaN edge),
+dead steps, a live prefix shorter than the launch, a block whose rays reach
+every mask word, and out-of-range gather indices; for the block traversal,
+a key tie across mask words, a short live prefix, the run_if gate clear and
+set, any-hit launches over many words, and a block listing every cluster of
+a 1,920-cluster table; for the item traversal, at the big scene's shapes
+(131,072 rays, more than 1,024 clusters), empty blocks, runs padded to a
+multiple of w, keys tied with the initial key, a short group count; and
+traverse() on both routes, which must not wait on the device.
 Every comparison is exact: kernel and plain version run the same IEEE
 float32 operations in the same order, without contraction.
 """
@@ -25,6 +29,7 @@ import torch
 from rayito_tpu_torch.accel import kernel_tables as tkt
 from rayito_tpu_torch.ops.vec3 import V3
 from rayito_tpu_torch.render import traverse as tv
+from rayito_tpu_torch.utils import cuda_lib
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +85,23 @@ def _mask_case(name):
         tmax = np.full(n, 40.0, np.float32)
         tmax[SB:] = 0.0  # a dead step
         return _soat(o, d, tmax), box, 0.0
+    if name == "spanning":
+        # a 16 x 16 x 8 grid of unit boxes in grid order (64 words of
+        # neighbours); each block's rays start at one point and ray k aims
+        # at the centre of word k % 64's first box, so every block lists
+        # clusters of every word
+        g = np.arange(16, dtype=np.float32)
+        gx, gy, gz = np.meshgrid(g, g, g[:8], indexing="ij")
+        lo = np.stack([gx.ravel(), gy.ravel(), gz.ravel()]) * 1.5
+        box = np.concatenate([lo, lo + 1.0, np.zeros((2, lo.shape[1]),
+                                                     np.float32)])
+        n = 2 * SB
+        o = np.repeat(rs.uniform(-2, 26, (n // 128, 3)), 128, axis=0)
+        target = lo[:, 32 * (np.arange(n) % 64)].T + 0.5
+        d = target - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return _soat(o.astype(np.float32), d.astype(np.float32),
+                     np.full(n, np.inf, np.float32)), box, 1e-4
     box = _random_boxes(rs, 1920 if name == "groups" else 2816)
     if name == "padded":
         box[1, 2048:] += 400.0
@@ -89,10 +111,15 @@ def _mask_case(name):
     tmax = np.full(2 * SB, np.inf, np.float32)
     tmax[SB:] = rs.uniform(1, 50, SB)
     tmax[:64] = 0.0
+    if name == "padded":
+        # diagonal rays with an infinite tmax hit the 1e30 pad boxes
+        d[64:80] = np.float32(1.0 / np.sqrt(np.float32(3.0)))
+        tmax[64:80] = np.inf
     return _soat(o, d, tmax), box, 1e-4
 
 
-@pytest.mark.parametrize("case", ["groups", "padded", "nan_edge"])
+@pytest.mark.parametrize("case", ["groups", "padded", "nan_edge",
+                                  "spanning"])
 @pytest.mark.parametrize("live", [None, 1])
 def test_cluster_masks_kernel_matches_plain(dev, case, live):
     soat, box, tmin = _mask_case(case)
@@ -107,6 +134,10 @@ def test_cluster_masks_kernel_matches_plain(dev, case, live):
     assert bool(ref.any())
     if live == 1:
         assert not bool(got[SB // 128:].any())
+    if case == "padded":
+        assert int(ref[0, -1]) == -1  # every pad of the last word
+    if case == "spanning":
+        assert bool((ref[:SB // 128] != 0).all())
 
 
 @pytest.fixture(scope="module")
@@ -174,6 +205,142 @@ def test_traverse_on_the_card_matches_the_cpu(dev, tri_scene, mt, any_hit):
     assert torch.equal(p_g, p_c)
     if not any_hit:
         assert torch.equal(t_g.view(torch.int32), t_c.view(torch.int32))
+
+
+def _blocks_both(masks, soat, tri, mt, any_hit=False, n_live=None,
+                 run_if=None):
+    got = tv.traverse_blocks(masks, soat, tri, 1e-4, mt, any_hit, n_live,
+                             run_if=run_if)
+    ref = tv.traverse_blocks_plain(masks, soat, tri, 1e-4, mt, any_hit,
+                                   n_live, run_if=run_if)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def _check_blocks(got, ref, any_hit):
+    (t_k, p_k), (t_p, p_p) = got, ref
+    if any_hit:
+        assert torch.equal(p_k >= 0, p_p >= 0)
+    else:
+        assert torch.equal(p_k, p_p)
+        assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+
+
+TIE_LANES = (0, 3, 64, 127)
+
+
+def _tie_case(dev):
+    """Triangle 37 * 128 + j repeats triangle 5 * 128 + j (clusters 5 and
+    37: mask words 0 and 1) for j in TIE_LANES, each in the plane z = 2;
+    every other triangle lies beyond z = 50; one ray straight up at each
+    pair (tests/test_torch_traverse.py holds the reference to the same
+    input)."""
+    rs = np.random.default_rng(31)
+    n_tri = 40 * 128
+    v0, v1, v2 = (np.float32(rs.uniform(-5, 5, (n_tri, 3))) for _ in range(3))
+    for v in (v0, v1, v2):
+        v[:, 2] += 60.0
+    rows = np.zeros((SB, 8), np.float32)
+    rows[:, 3:6] = 1.0
+    for i, j in enumerate(TIE_LANES):
+        x = 10.0 * i
+        for t in (5 * 128 + j, 37 * 128 + j):
+            v0[t], v1[t], v2[t] = (x - 2, -2, 2), (x + 2, -2, 2), (x, 2, 2)
+        rows[i] = (x, 0, 0, 0, 0, 1, np.inf, 0)
+    kt = tkt.build_kernel_tables(v0, v1, v2, np.ones(n_tri, bool))
+    soat = torch.from_numpy(rows.reshape(1, SB, 8)).to(dev)
+    box = torch.from_numpy(kt.cl_box).to(dev)
+    tri = {"vpu": torch.from_numpy(kt.tri).to(dev),
+           "bw": torch.from_numpy(tkt.build_bw_rows(kt.tri)).to(dev)}
+    return soat, box, tri
+
+
+@pytest.mark.parametrize("mt", ["bw", "vpu"])
+def test_traverse_blocks_key_tie_across_words(dev, mt):
+    """Equal keys in clusters 5 and 37, listed in two mask words (two work
+    units of the kernel, merged in any order): the lower cluster wins."""
+    soat, box, tri = _tie_case(dev)
+    masks = tv.cluster_masks(soat, box, 1e-4)
+    got, ref = _blocks_both(masks, soat, tri[mt], mt)
+    _check_blocks(got, ref, False)
+    want = torch.tensor([5 * 128 + j for j in TIE_LANES], dtype=torch.int32)
+    assert torch.equal(got[1].view(-1)[:len(TIE_LANES)].cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["short_live", "run_if_set",
+                                  "run_if_clear"])
+@pytest.mark.parametrize("mt,any_hit", MODES)
+def test_traverse_blocks_gates(dev, big_items, case, mt, any_hit):
+    """A live prefix shorter than the launch (later steps are misses), and
+    the run_if gate: set, the launch runs; clear, it writes nothing."""
+    s = big_items
+    masks, soat, tri = s["masks"], s["soat"], s["tri"][mt]
+    if case == "short_live":
+        n_live = torch.tensor([3], dtype=torch.int32, device=dev)
+        got, ref = _blocks_both(masks, soat, tri, mt, any_hit, n_live)
+        _check_blocks(got, ref, any_hit)
+        assert not bool((got[1][3:] >= 0).any())
+        assert bool((got[1][:3] >= 0).any())
+        return
+    flag = torch.tensor(case == "run_if_set", device=dev)
+    if case == "run_if_set":
+        got, ref = _blocks_both(masks, soat, tri, mt, any_hit, run_if=flag)
+        _check_blocks(got, ref, any_hit)
+        assert int((ref[1] >= 0).sum()) > N_BIG // 8
+        return
+    t = torch.full(soat.shape[:2] + (1,), 7.0, device=dev)
+    p = torch.full(soat.shape[:2] + (1,), 7, dtype=torch.int32, device=dev)
+    lib, stream = tv._cuda_args("traverse_blocks", masks, soat, tri)
+    n = soat.shape[0] * SB
+    n_units = masks.shape[0] * masks.shape[1]
+    scratch = torch.zeros(n + (n_units + 5) // 2, dtype=torch.int64,
+                          device=dev)
+    cuda_lib.check(lib.rt_traverse_blocks(
+        masks.data_ptr(), soat.data_ptr(), tri.data_ptr(), None,
+        flag.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8 * n,
+        t.data_ptr(), p.data_ptr(), masks.shape[0], 128, masks.shape[1],
+        tri.shape[0], SB, soat.shape[0], 1e-4, int(mt == "bw"),
+        int(any_hit), stream), "traverse_blocks")
+    torch.cuda.synchronize()
+    assert bool((t == 7.0).all()) and bool((p == 7).all())
+    assert not bool(scratch.any())
+
+
+@pytest.fixture(scope="module")
+def all_words(dev):
+    """1,920 clusters of random triangles (C_pad 1,920, 60 mask words),
+    rays aimed at them, and masks whose first block lists every cluster."""
+    rs = np.random.default_rng(13)
+    n_tris = 1920 * 128
+    centers = np.cumsum(rs.normal(0, 0.05, (n_tris, 3)), 0).astype(np.float32)
+    v0, v1, v2 = (centers + rs.normal(0, 0.05, (n_tris, 3)).astype(np.float32)
+                  for _ in range(3))
+    kt = tkt.build_kernel_tables(v0, v1, v2, np.ones(n_tris, bool))
+    n = 4 * SB
+    o = (centers.mean(0) + rs.normal(0, 8, (n, 3))).astype(np.float32)
+    d = centers[rs.integers(0, n_tris, n)] - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    box = torch.from_numpy(kt.cl_box).to(dev)
+    assert box.shape[1] == 1920
+    tri = {"vpu": torch.from_numpy(kt.tri).to(dev),
+           "bw": torch.from_numpy(tkt.build_bw_rows(kt.tri)).to(dev)}
+    tmax = np.full(n, np.inf, np.float32)
+    soat = torch.from_numpy(_soat(o, d, tmax)).to(dev)
+    masks = tv.cluster_masks(soat, box, 1e-4)
+    masks[0] = -1
+    return dict(soat=soat, box=box, tri=tri, masks=masks)
+
+
+@pytest.mark.parametrize("mt,any_hit", MODES)
+def test_traverse_blocks_block_lists_every_cluster(dev, all_words, mt,
+                                                   any_hit):
+    """C_pad 1,920: block 0 lists all 1,920 clusters (60 full words, each a
+    heavy unit), the other blocks their own lists."""
+    s = all_words
+    got, ref = _blocks_both(s["masks"], s["soat"], s["tri"][mt], mt,
+                            any_hit)
+    _check_blocks(got, ref, any_hit)
+    assert int((ref[1][0, :128] >= 0).sum()) > 64
 
 
 @pytest.mark.parametrize("k", [16, 32])
@@ -294,27 +461,39 @@ def test_traverse_items_short_n_steps(dev, big_items, mt):
     assert int((ref[1] >= 0).sum()) < int((full[1] >= 0).sum())
 
 
-@pytest.mark.parametrize("budget", ["overflow", "fits"])
+@pytest.mark.parametrize("budget", ["overflow", "fits", "scan"])
 def test_traverse_items_route_does_not_wait_on_the_device(dev, big_items,
                                                           budget):
     """traverse(items=True) with a list that overflows (the scan runs) and
-    one that fits (the item kernel runs) under the sync debug mode 'error':
-    any host synchronisation in the route raises. Both equal the scan."""
+    one that fits (the item kernel runs), and the scan route itself
+    (items=False), under the sync debug mode 'error': any host
+    synchronisation in the route raises. All equal the plain scan."""
     c_pad = big_items["c_pad"]
     kw = (dict(items_max=8, items_cap=4) if budget == "overflow"
           else dict(items_max=N_BIG // 128 * c_pad, items_cap=c_pad))
+    if budget == "scan":
+        kw = dict(items=False)
+    else:
+        kw["items"] = True
     o, d = big_items["rays"]
     args = (o, d, big_items["tmax"], big_items["box"], big_items["tri"]["bw"],
             1e-4)
-    scan = tv.traverse(*args, mt_mode="bw")
-    tv.traverse(*args, mt_mode="bw", items=True, **kw)  # warm-up
+    _swap = (tv.cluster_masks, tv.traverse_blocks)
+    tv.cluster_masks, tv.traverse_blocks = (tv.cluster_masks_plain,
+                                            tv.traverse_blocks_plain)
+    try:
+        scan = tv.traverse(*args, mt_mode="bw")
+    finally:
+        tv.cluster_masks, tv.traverse_blocks = _swap
+    tv.traverse(*args, mt_mode="bw", **kw)  # warm-up
     torch.cuda.synchronize()
-    before = tv.traverse_items.launches
+    kernel = tv.traverse_blocks if budget == "scan" else tv.traverse_items
+    before = kernel.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = tv.traverse(*args, mt_mode="bw", items=True, **kw)
+        got = tv.traverse(*args, mt_mode="bw", **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert tv.traverse_items.launches == before + 1
+    assert kernel.launches == before + 1
     _equal(got, scan)

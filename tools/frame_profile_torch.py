@@ -1,8 +1,11 @@
-"""Where a stage-6 frame's time goes on a CUDA GPU (rayito_tpu_torch).
+"""Where a frame's time goes on a CUDA GPU (rayito_tpu_torch).
 
 Renders chip_smoke.py's stage-6 frame (n=64 bumpy stand-in, 512x512,
-sample 0 over both 256-row bands) once to warm up, times three frames on
-the host clock, then profiles one frame with torch.profiler and prints:
+sample 0 over both 256-row bands), or with ``--scene big`` its big-scene
+frame (five stand-ins, 1 spp, depth 3; ``--route items`` at the list
+budget that never overflows, or ``--route scan``), once to warm up, times
+three frames on the host clock, then profiles one frame with
+torch.profiler and prints:
 
   * the card (nvidia-smi name and power limit) and the frame time;
   * device time summed over kernels, and the busy share of the frame;
@@ -10,11 +13,12 @@ the host clock, then profiles one frame with torch.profiler and prints:
   * the twelve kernels that take the most device time.
 
 Run from the repo root on a machine with a GPU:
-``python3 tools/frame_profile_torch.py``.
+``python3 tools/frame_profile_torch.py [--scene big --route scan]``.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -28,8 +32,12 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import stage6_setup
+    from chip_smoke import big_setup, stage6_setup
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("stage6", "big"), default="stage6")
+    ap.add_argument("--route", choices=("items", "scan"), default="items")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to profile", file=sys.stderr)
         return 1
@@ -37,7 +45,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    _, _, _, frame = stage6_setup(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if args.scene == "stage6":
+        frame = stage6_setup(dev)[3]
+    else:
+        scan, _, _, _, _, big_frame = big_setup(dev)
+        frame = (big_frame if args.route == "items"
+                 else lambda: big_frame(scan))
     frame()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -58,7 +72,8 @@ def main() -> int:
     launches = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
-    print(f"card: {card}")
+    print(f"card: {card}; scene {args.scene}"
+          + (f", {args.route} route" if args.scene == "big" else ""))
     print(f"frame: {frame_ms:.1f} ms (host clock, mean of 3); "
           f"{prof_ms:.1f} ms under the profiler")
     print(f"device time: {device_ms:.1f} ms over kernels: "

@@ -1,0 +1,124 @@
+"""Device times of the traversal kernels of one tree of this repository.
+
+Builds the tree's kernels and, on chip_smoke.py's six populations (camera,
+bounce and shadow rays of one 131,072-ray band of the stage-6 frame and of
+the big-scene frame), times ``cluster_masks`` and ``traverse_blocks`` (and,
+on the big scene, ``traverse_items`` at the list budget that never
+overflows) two ways: on the device (20 calls captured in a CUDA graph and
+replayed between two events, median of 5 replays, per call) and around one
+call with CUDA events (median of 20 calls, the host's enqueue included).
+Prints one JSON line per population, with the card's name and power limit.
+
+``--root`` names the tree whose ``chip_smoke.py`` and ``rayito_tpu_torch``
+are imported (default: this checkout), so two commits can be compared in
+one run: unpack the other with ``git archive`` under ``build/`` and run
+
+    python3 tools/kernel_times_torch.py --root build/parent --label parent
+    python3 tools/kernel_times_torch.py --label change
+
+in turns (parent, change, change, parent) on one GPU, from the repo root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _median_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return _median_ms(graph.replay, 5) / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--label", default="change")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: nothing to time", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from rayito_tpu_torch.render import traverse as tv
+
+    if not os.path.abspath(tv.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {tv.__file__}, not the tree {root}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    scene6, cfg6, cam6, _ = cs.stage6_setup(dev)
+    scan, items, _, cfg_b, cam_b, _ = cs.big_setup(dev)
+    runs = (("stage6", scene6, cfg6, cam6, (-1.5, 4.0, -1.5), (3.0, 3.0)),
+            ("big_scene", scan, cfg_b, cam_b, (-4.0, 10.0, -4.0),
+             (8.0, 8.0)))
+    for scene_name, scene, cfg, cam, corner, sides in runs:
+        box = scene.ktab_box[0]
+        tmin = cfg.ray_tmin
+        for name, o, d, tmax, mt, any_hit in cs._populations(
+                scene, cfg, cam, corner, sides):
+            tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
+            soat, _, n_live = tv.prepare_rays(o, d, tmax, box, tmin)
+            masks = tv.cluster_masks(soat, box, tmin, n_live)
+
+            def mask_fn():
+                return tv.cluster_masks(soat, box, tmin, n_live)
+
+            def trav_fn():
+                return tv.traverse_blocks(masks, soat, tri, tmin, mt,
+                                          any_hit, n_live)
+
+            rec = {"tree": args.label, "scene": scene_name,
+                   "population": name,
+                   "mask_ms": _device_ms(mask_fn),
+                   "mask_call_ms": _median_ms(mask_fn, 20),
+                   "trav_ms": _device_ms(trav_fn),
+                   "trav_call_ms": _median_ms(trav_fn, 20)}
+            if scene_name == "big_scene":
+                w = items.items_w
+                il, steps, _, _ = tv.build_items(masks, w, items.items_max,
+                                                 items.items_cap)
+                soab = soat.view(masks.shape[0], scene.traverse_b, 8)
+                rec["items_ms"] = _device_ms(lambda: tv.traverse_items(
+                    il, steps, soab, tri, tmin, mt, w))
+            rec["card"] = card
+            print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
