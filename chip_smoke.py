@@ -21,12 +21,15 @@ JAX. Phases, each printed, each fatal on failure:
      same frame rendered with the plain versions; then 3 timed frames;
   5. big-scene kernels: the big scene (five n=64 stand-ins, 245,760
      triangles, 1,920 clusters) and its camera, bounce and shadow
-     populations of one 131,072-ray band: each of the four kernels against
-     its plain version (bounds and shares as in phase 3; traverse_items is
-     timed beside traverse_blocks as its yardstick), the item route against
-     the scan route through traverse(), and the item counts and overflow
-     flags at the reference's budget (24,576 items, 64 per block) and at one
-     that never overflows;
+     populations of one 131,072-ray band: each of the five kernels against
+     its plain version (bounds and shares as in phase 3): build_items bit
+     for bit on all four outputs at the reference's budget (24,576 items,
+     64 per block) and at one that never overflows, with the item counts
+     and overflow flags; traverse_items against its plain version and
+     against traverse_blocks (t bits and prim); traverse_items,
+     traverse_blocks and build_items timed by CUDA-graph replay in the same
+     run (scan_vs_items: the scan's time over the item kernel's); the item
+     route against the scan route through traverse();
   6. big-scene frame: the 512x512 frame of tools/bench_big_scene.py (1 spp,
      depth 3, 131,072-ray bands) with traverse_items=True at the budget
      that never overflows, counting every kernel's launches, checked
@@ -130,8 +133,8 @@ def main() -> int:
 
 
 def kernel_records(stage6: dict, big: dict) -> list:
-    """The four kernels' records: launches in the frame of the path each
-    serves first (stage 6; the big scene for traverse_items) and per frame
+    """The five kernels' records: launches in the frame of the path each
+    serves first (stage 6; the big scene for the item route) and per frame
     of each path; errors over every population; camera-ray times with
     their bounds (big_* for the big scene)."""
     src = "rayito_tpu_torch/csrc/"
@@ -177,6 +180,11 @@ def kernel_records(stage6: dict, big: dict) -> list:
          "launches": big_launches["traverse_items"],
          "max_abs_err": max(r["items_t_err"] for r in big_res),
          **timed(big_cam, "items")},
+        {"name": "build_items", "route": "cuda",
+         "source": src + "build_items.cu", "replaces": ref + "262",
+         "launches": big_launches["build_items"],
+         "max_abs_err": max(r["build_err"] for r in big_res),
+         **timed(big_cam, "build_items")},
     ]
     for k in kernels:
         k["launches_frame"] = {"stage6": launches[k["name"]],
@@ -446,15 +454,16 @@ def _swap_plain():
     from rayito_tpu_torch.render import traverse as tv
 
     saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
-             tr.gather_rows_t)
+             tv.build_items, tr.gather_rows_t)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
     tv.traverse_items = tv.traverse_items_plain
+    tv.build_items = tv.build_items_plain
     tr.gather_rows_t = tv.gather_rows_t_plain
 
     def undo():
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
-         tr.gather_rows_t) = saved
+         tv.build_items, tr.gather_rows_t) = saved
 
     return undo
 
@@ -635,8 +644,24 @@ def run_big(dev, card: str) -> dict:
         nblk = masks.shape[0]
         n_items, most = _item_counts(masks, w)
         lists = {}
+        r["build_err"] = 0
         for label, sd in (("fits", items), ("defaults", defaults)):
             lists[label] = tv.build_items(masks, w, sd.items_max, sd.items_cap)
+            plain = tv.build_items_plain(masks, w, sd.items_max,
+                                         sd.items_cap)
+            torch.cuda.synchronize()
+            bad_b = [int((g.long() != p.long()).sum()) for g, p in
+                     zip(lists[label], plain)]
+            r["build_err"] = max([r["build_err"]] + [
+                int((g.long() - p.long()).abs().max()) for g, p in
+                zip(lists[label], plain)])
+            print(f"{name}: build_items at the {label} budget "
+                  f"{sd.items_max}/{sd.items_cap}: items, n_steps, overflow, "
+                  f"block_used differing {bad_b} (n_steps "
+                  f"{int(lists[label][1])})")
+            if any(bad_b):
+                raise AssertionError(f"{name}: build_items disagrees with "
+                                     "plain")
         ovf = {k: bool(v[2]) for k, v in lists.items()}
         print(f"{name}: {int(n_live)} live steps, {n_items} items "
               f"({n_items / nblk:.1f} per block, most {most}); overflow at "
@@ -705,8 +730,16 @@ def run_big(dev, card: str) -> dict:
             masks, soat, tri, tmin, mt, any_hit, n_live), 20)
         r["scan_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
             masks, soat, tri, tmin, mt, any_hit, n_live), 3)
-        r["build_items_ms"] = _device_ms(lambda: tv.build_items(
-            masks, w, items.items_max, items.items_cap))
+        for label, sd in (("build_items", items),
+                          ("build_items_ref", defaults)):
+            r[label + "_ms"] = _device_ms(lambda: tv.build_items(
+                masks, w, sd.items_max, sd.items_cap))
+            r[label + "_plain_ms"] = _device_ms(lambda: tv.build_items_plain(
+                masks, w, sd.items_max, sd.items_cap))
+            # bytes: the mask words read, the list, n_steps, overflow and
+            # block_used written once
+            _put_bound(r, label, 0, masks.numel() * 4
+                       + (sd.items_max + w + 1) * 4 + 1 + nblk)
         r["route_items_ms"] = _median_ms(lambda: tv.traverse(
             co, cd, ctmax, box, tri, tmin, items=True, items_w=w,
             items_max=items.items_max, items_cap=items.items_cap, **kw), 10)
@@ -717,6 +750,11 @@ def run_big(dev, card: str) -> dict:
         _traverse_bound(r, "scan", masks, soat, tri, mt)
         _traverse_bound(r, "items", masks, soat, tri, mt)
         r["scan_vs_items"] = r["scan_ms"] / r["items_ms"]
+        print(f"{name}: device ms per launch (CUDA-graph replay): "
+              f"traverse_items {r['items_ms']:.6g}, traverse_blocks "
+              f"{r['scan_ms']:.6g} (scan_vs_items {r['scan_vs_items']:.4f}), "
+              f"build_items {r['build_items_ms']:.6g} (reference budget "
+              f"{r['build_items_ref_ms']:.6g}); {n_items} items")
         if not any_hit:
             _check_gather(name, scan, p_k, r)
         results[name] = r
@@ -762,11 +800,14 @@ def run_big(dev, card: str) -> dict:
         flags.append(res[2])
         return res
 
+    # the wrapper counts its launches on the name it is called by
+    spy.launches = build.launches
     tv.build_items = spy
     try:
         imgs_d, q_d = frame(defaults)
     finally:
         tv.build_items = build
+        build.launches = spy.launches
     torch.cuda.synchronize()
     share = sum(bool(f) for f in flags) / max(len(flags), 1)
     for label, other, q_o in (("scan route", imgs_s, q_s),

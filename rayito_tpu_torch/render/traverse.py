@@ -1,4 +1,4 @@
-"""Mesh traversal through the four hand-written CUDA kernels.
+"""Mesh traversal through the five hand-written CUDA kernels.
 
 Counterpart of ``rayito_tpu/render/pallas_traverse.py``'s ``traverse()``.
 One launch domain's nearest (or any) triangle hit for a wavefront:
@@ -14,10 +14,10 @@ One launch domain's nearest (or any) triangle hit for a wavefront:
   4. ``traverse_blocks`` (kernel) tests each ray against the listed
      clusters' 128 triangles and keeps the nearest packed (t, lane) key,
      one (ray block, nonzero mask word) unit at a time, merged per ray;
-     or, with ``items``, ``build_items`` flattens the masks into one list
-     of (ray block, cluster) items and ``traverse_items`` (kernel) folds
-     it, with ``traverse_blocks`` taking launches whose list overflows
-     the budget (the choice is made on the device);
+     or, with ``items``, ``build_items`` (kernel) flattens the masks into
+     one list of (ray block, cluster) items and ``traverse_items``
+     (kernel) folds it, with ``traverse_blocks`` taking launches whose list
+     overflows the budget (the choice is made on the device);
   5. the results are scattered back to the caller's lane order.
 
 ``gather_rows_t`` (kernel) serves the exact winner re-test in
@@ -410,7 +410,8 @@ gather_rows_t.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Kernel 4: item-list traversal (replaces _items_kernel)
+# Kernels 4 and 5: item-list traversal (replaces _items_kernel) and its list
+# (replaces the XLA _build_items)
 # ---------------------------------------------------------------------------
 
 CID_BITS = 13  # cluster-id field of a packed item (bid << 13 | cid)
@@ -420,7 +421,7 @@ _I64_MAX = 2**63 - 1
 _PLAIN_ITEM_BATCH = 256
 
 
-def build_items(masks, w: int, maxitems: int, cap: int):
+def build_items_plain(masks, w: int, maxitems: int, cap: int):
     """masks [n_blocks, n_words] i32 -> the global item list of the item
     traversal, bit-identical to the reference's ``_build_items``:
 
@@ -467,6 +468,39 @@ def build_items(masks, w: int, maxitems: int, cap: int):
     items = torch.cat([items, torch.full((w,), -1, dtype=i32, device=dev)])
     n_steps = torch.clamp_max(total, maxitems) // w
     return items, n_steps, overflow, aligned > 0
+
+
+def build_items(masks, w: int, maxitems: int, cap: int):
+    """Kernel wrapper of :func:`build_items_plain` (same contract): three
+    launches from one C entry, nothing read back to the host."""
+    _check_dtype("build_items", masks, torch.int32, 2)
+    validate_items(w, maxitems, cap)
+    nblk, nw = masks.shape
+    if nblk == 0 or nw == 0:
+        raise ValueError("build_items: masks [n_blocks > 0, n_words > 0] "
+                         "expected")
+    if _on_cpu("build_items", masks):
+        return build_items_plain(masks, w, maxitems, cap)
+    if nblk * (nw * 32 + w) >= 2**31 or maxitems + w >= 2**31:
+        raise ValueError("build_items: the list's counts must fit in int32")
+    lib, stream = _cuda_args("build_items", masks)
+    dev = masks.device
+    # the list, the group count, then count / aligned / start / total
+    ints = torch.empty((maxitems + w + 1 + 3 * nblk + 1,), dtype=torch.int32,
+                       device=dev)
+    # the overflow flag, then block_used
+    flags = torch.empty((nblk + 1,), dtype=torch.bool, device=dev)
+    cuda_lib.check(lib.rt_build_items(
+        masks.data_ptr(), ints.data_ptr(), ints.data_ptr() + 4 * (maxitems + w),
+        flags.data_ptr(), flags.data_ptr() + 1,
+        ints.data_ptr() + 4 * (maxitems + w + 1), nblk, nw, w, maxitems, cap,
+        stream,
+    ), "build_items")
+    build_items.launches += 1
+    return ints[:maxitems + w], ints[maxitems + w], flags[0], flags[1:]
+
+
+build_items.launches = 0
 
 
 def traverse_items_plain(items, n_steps, soab, tri, tmin: float,
@@ -537,14 +571,18 @@ def traverse_items(items, n_steps, soab, tri, tmin: float,
     _check_flag("traverse_items", skip)
     args = [t for t in (items, n_steps, soab, tri, skip) if t is not None]
     lib, stream = _cuda_args("traverse_items", *args)
+    if soab.data_ptr() % 16:
+        raise ValueError("traverse_items: soab must be 16-byte aligned")
     t = torch.empty((nblk, b, 1), dtype=torch.float32, device=soab.device)
     p = torch.empty((nblk, b, 1), dtype=torch.int32, device=soab.device)
-    best = torch.empty((nblk * b,), dtype=torch.int64, device=soab.device)
+    # the rays' 64-bit bests, then the group counter
+    best = torch.empty((nblk * b + 1,), dtype=torch.int64, device=soab.device)
     cuda_lib.check(lib.rt_traverse_items(
         items.data_ptr(), n_steps.data_ptr(), soab.data_ptr(), tri.data_ptr(),
-        _ptr(skip), best.data_ptr(), t.data_ptr(), p.data_ptr(), nblk, b,
-        tri.shape[0], (items.shape[0] - w) // w, w, float(tmin),
-        int(mt_mode == "bw"), stream,
+        _ptr(skip), best.data_ptr(), best.data_ptr() + 8 * nblk * b,
+        t.data_ptr(), p.data_ptr(), nblk, b, tri.shape[0],
+        (items.shape[0] - w) // w, w, float(tmin), int(mt_mode == "bw"),
+        stream,
     ), "traverse_items")
     traverse_items.launches += 1
     return t, p
@@ -552,7 +590,8 @@ def traverse_items(items, n_steps, soab, tri, tmin: float,
 
 traverse_items.launches = 0
 
-KERNELS = (cluster_masks, traverse_blocks, gather_rows_t, traverse_items)
+KERNELS = (cluster_masks, traverse_blocks, gather_rows_t, traverse_items,
+           build_items)
 
 
 def reset_launch_counts() -> None:

@@ -41,8 +41,9 @@ SIGNATURES = {
     "rt_traverse_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _F, _I, _I, _P],
     "rt_gather_rows_t": [_P, _P, _P, _I, _I, _I, _P],
-    "rt_traverse_items": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _F, _I, _P],
+    "rt_traverse_items": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _F, _I, _P],
+    "rt_build_items": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card.
+"""The five CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device. The file
 imports neither jax nor rayito_tpu, so it also runs where JAX is not
@@ -16,7 +16,12 @@ a key tie across mask words, a short live prefix, the run_if gate clear and
 set, any-hit launches over many words, and a block listing every cluster of
 a 1,920-cluster table; for the item traversal, at the big scene's shapes
 (131,072 rays, more than 1,024 clusters), empty blocks, runs padded to a
-multiple of w, keys tied with the initial key, a short group count; and
+multiple of w, keys tied with the initial key, a short group count, chunks
+that cross a ray-block boundary, a block whose run spans several chunks, a
+key tie across chunks, NaN tmax, pads and cluster ids past the tri table;
+for the item list, random masks over a grid of budgets, all-zero masks, a
+total of exactly maxitems and one past it, a block of exactly cap clusters
+and one above it, a block that lists all 1,920 clusters, w = 1 and 8; and
 traverse() on both routes, which must not wait on the device.
 Every comparison is exact: kernel and plain version run the same IEEE
 float32 operations in the same order, without contraction.
@@ -411,17 +416,33 @@ def _equal(got, ref):
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
 
 
+CHUNK = 32  # items per chunk of the item kernel, at most
+
+
+def _crosses_blocks(items, n_items):
+    """Some chunk of the list holds items of two ray blocks."""
+    bids = (items[:n_items] >> tv.CID_BITS).cpu()
+    firsts = bids[::CHUNK]
+    lasts = bids[torch.clamp_max(torch.arange(CHUNK - 1, n_items + CHUNK - 1,
+                                              CHUNK), n_items - 1)]
+    return bool((firsts != lasts).any())
+
+
 @pytest.mark.parametrize("mt", ["bw", "vpu"])
 @pytest.mark.parametrize("w", [1, 4, 8])
 def test_traverse_items_kernel_matches_plain(dev, big_items, mt, w):
-    """Every block's run, its w pads and its empty blocks; the result is
-    also the scan kernel's, bit for bit."""
+    """Every block's run, its w pads and its empty blocks, with chunks that
+    cross ray-block boundaries; the result is also the scan kernel's, bit
+    for bit."""
     got, ref, overflow, used = _items_both(big_items, mt, w)
     assert not bool(overflow) and not bool(used.all()) and bool(used.any())
     counts = torch.stack([(big_items["masks"] >> k) & 1
                           for k in range(32)]).sum(dim=(0, 2))
     if w > 1:
         assert bool((counts % w != 0).any())  # pads exist
+    items = tv.build_items(big_items["masks"], w, N_BIG // 128 *
+                           big_items["c_pad"], big_items["c_pad"])[0]
+    assert _crosses_blocks(items, int((items >= 0).sum()))
     _equal(got, ref)
     assert int((ref[1] >= 0).sum()) > N_BIG // 8
     scan = tv.traverse_blocks(big_items["masks"], big_items["soat"],
@@ -465,7 +486,8 @@ def test_traverse_items_short_n_steps(dev, big_items, mt):
 def test_traverse_items_route_does_not_wait_on_the_device(dev, big_items,
                                                           budget):
     """traverse(items=True) with a list that overflows (the scan runs) and
-    one that fits (the item kernel runs), and the scan route itself
+    one that fits (the item kernel runs), both built by the build_items
+    kernel, and the scan route itself
     (items=False), under the sync debug mode 'error': any host
     synchronisation in the route raises. All equal the plain scan."""
     c_pad = big_items["c_pad"]
@@ -487,13 +509,151 @@ def test_traverse_items_route_does_not_wait_on_the_device(dev, big_items,
         tv.cluster_masks, tv.traverse_blocks = _swap
     tv.traverse(*args, mt_mode="bw", **kw)  # warm-up
     torch.cuda.synchronize()
-    kernel = tv.traverse_blocks if budget == "scan" else tv.traverse_items
-    before = kernel.launches
+    kernels = ((tv.traverse_blocks,) if budget == "scan"
+               else (tv.traverse_items, tv.build_items))
+    before = [k.launches for k in kernels]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = tv.traverse(*args, mt_mode="bw", **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert [k.launches for k in kernels] == [n + 1 for n in before]
     _equal(got, scan)
+
+
+def _items_case(masks, soat, tri, mt, w, maxitems=None, cap=None):
+    """The item kernel against its plain version on the list that the
+    build_items kernel makes from ``masks`` (checked against its plain
+    version first); by default a budget that never overflows."""
+    n_words = masks.shape[1]
+    maxitems = masks.shape[0] * n_words * 32 if maxitems is None else maxitems
+    cap = n_words * 32 if cap is None else cap
+    lst = tv.build_items(masks, w, maxitems, cap)
+    _check_build(lst, tv.build_items_plain(masks, w, maxitems, cap))
+    items, steps, overflow, _ = lst
+    soab = soat.view(masks.shape[0], -1, 8)
+    got = tv.traverse_items(items, steps, soab, tri, 1e-4, mt, w)
+    ref = tv.traverse_items_plain(items, steps, soab, tri, 1e-4, mt, w)
+    torch.cuda.synchronize()
+    _equal(got, ref)
+    return got, items, int(steps) * w, bool(overflow)
+
+
+@pytest.mark.parametrize("mt", ["bw", "vpu"])
+def test_traverse_items_block_spans_chunks(dev, all_words, mt):
+    """Block 0 lists all 1,920 clusters: its run spans 60 chunks, each
+    merged into its rays' bests; the result is the scan's."""
+    s = all_words
+    got, items, n_items, _ = _items_case(s["masks"], s["soat"], s["tri"][mt],
+                                         mt, 4)
+    assert int((items[:1920] >> tv.CID_BITS == 0).sum()) == 1920
+    scan = tv.traverse_blocks(s["masks"], s["soat"], s["tri"][mt], 1e-4, mt)
+    torch.cuda.synchronize()
+    _equal((got[0].view(scan[0].shape), got[1].view(scan[1].shape)), scan)
+    assert int((got[1][0] >= 0).sum()) > 64
+
+
+@pytest.mark.parametrize("mt", ["bw", "vpu"])
+def test_traverse_items_key_tie_across_chunks(dev, mt):
+    """Block 0 lists clusters 0-39, so clusters 5 and 37, whose triangles
+    tie, fall in two chunks (items 0-31 and 32-39): the lower cluster
+    wins. Rays 4-7 carry NaN tmax of either sign and a payload."""
+    soat, _, tri = _tie_case(dev)
+    rows = soat.view(-1, 8)
+    nans = torch.tensor([0x7FC00000, -0x00400000, 0x7F800001, -0x007FFFFF],
+                        dtype=torch.int32).view(torch.float32)
+    rows[4:8] = rows[0:4]
+    rows[4:8, 6] = nans.to(dev)
+    masks = torch.zeros((SB // 128, 2), dtype=torch.int32, device=dev)
+    masks[0, 0], masks[0, 1] = -1, 0xFF
+    got, _, n_items, _ = _items_case(masks, soat, tri[mt], mt, 4)
+    assert n_items == 40
+    want = torch.tensor([5 * 128 + j for j in TIE_LANES], dtype=torch.int32)
+    assert torch.equal(got[1].view(-1)[:len(TIE_LANES)].cpu(), want)
+
+
+@pytest.mark.parametrize("w", [4, 8])
+def test_traverse_items_pads_and_clusters_past_the_table(dev, big_items, w):
+    """Runs padded to w (w = 8: a block of one cluster gets seven pads)
+    over a tri table 100 clusters shorter than the masks: ids past it read
+    its last cluster and keep their own id in prim, as in the plain
+    version."""
+    s = big_items
+    masks = s["masks"].clone()
+    masks[1] = 0
+    masks[1, 3] = 1 << 7
+    tri = s["tri"]["bw"][:s["c_pad"] - 100].contiguous()
+    got, items, n_items, _ = _items_case(masks, s["soat"], tri, "bw", w)
+    cids = items[:n_items] & ((1 << tv.CID_BITS) - 1)
+    assert bool((cids >= tri.shape[0]).any())
+    assert bool((items[1:n_items] == items[:n_items - 1]).any())  # pads
+
+
+# ------------------------------------------------------------- item list
+
+
+def _check_build(got, ref):
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g, r)
+
+
+def _random_masks(rs, nblk=24, nw=4):
+    bits = rs.random((nblk, nw, 32)) < rs.uniform(0.05, 0.6, (nblk, 1, 1))
+    bits[rs.random(nblk) < 0.25] = False
+    bits[3] = True
+    words = (bits.astype(np.int64) << np.arange(32)).sum(-1)
+    return np.where(words >= 2**31, words - 2**32, words).astype(np.int32)
+
+
+# tests/test_torch_items.py's grid: fits, tight fit, overflow by total,
+# overflow by cap, w = 1 and w = 8
+BUDGETS = [(4, 3072, 128), (3, 1400, 100), (4, 300, 128), (4, 3072, 20),
+           (1, 3072, 128), (8, 3072, 128)]
+EDGES = ["zero", "total_is_max", "total_past_max", "count_is_cap",
+         "count_past_cap"]
+
+
+@pytest.mark.parametrize("budget", BUDGETS)
+def test_build_items_kernel_matches_plain(dev, budget):
+    w, maxitems, cap = budget
+    rs = np.random.default_rng(100 + w + maxitems + cap)
+    masks = torch.from_numpy(_random_masks(rs)).to(dev)
+    got = tv.build_items(masks, w, maxitems, cap)
+    _check_build(got, tv.build_items_plain(masks, w, maxitems, cap))
+
+
+@pytest.mark.parametrize("w", [1, 4, 8])
+@pytest.mark.parametrize("case", EDGES)
+def test_build_items_edge_budgets(dev, case, w):
+    """All-zero masks (n_steps 0), a total of exactly maxitems and one
+    past it, a block of exactly cap clusters and one above it; 40 blocks
+    of 60 words, more than one warp's worth of words per block."""
+    masks = _random_masks(np.random.default_rng(w), nblk=40, nw=60)
+    if case == "zero":
+        masks[:] = 0
+    counts = np.unpackbits(masks.view(np.uint8)).reshape(40, -1).sum(1)
+    total = int((-(-counts // w) * w).sum())
+    maxitems, cap = max(total, 1), int(max(counts.max(), 1))
+    maxitems -= case == "total_past_max"
+    cap -= case == "count_past_cap"
+    masks = torch.from_numpy(masks).to(dev)
+    got = tv.build_items(masks, w, maxitems, cap)
+    _check_build(got, tv.build_items_plain(masks, w, maxitems, cap))
+    assert bool(got[2]) == (case in ("total_past_max", "count_past_cap"))
+    assert int(got[1]) == min(total, maxitems) // w
+    if case == "zero":
+        assert int(got[1]) == 0 and bool((got[0] == -1).all())
+
+
+@pytest.mark.parametrize("budget", ["fits", "reference"])
+def test_build_items_block_lists_every_cluster(dev, all_words, budget):
+    """Block 0 lists all 1,920 clusters: at a budget that never overflows,
+    and at the reference's 24,576 / 64, which overflows by cap."""
+    masks = all_words["masks"]
+    maxitems, cap = ((masks.shape[0] * 1920, 1920) if budget == "fits"
+                     else (24576, 64))
+    got = tv.build_items(masks, 4, maxitems, cap)
+    _check_build(got, tv.build_items_plain(masks, 4, maxitems, cap))
+    assert bool(got[2]) == (budget == "reference")

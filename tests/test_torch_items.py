@@ -3,9 +3,12 @@
 the lane-packed winner rows, against rayito_tpu run in Pallas interpret
 mode on the CPU.
 
-  * build_items: bit for bit against ``_build_items`` (the hand case of
-    test_pallas_traverse.py, seeded random masks, overflow by total and by
-    cap);
+  * build_items (the wrapper, which takes the plain version for CPU
+    tensors, and build_items_plain): bit for bit against ``_build_items``
+    (the hand case of test_pallas_traverse.py, seeded random masks,
+    overflow by total and by cap, all-zero masks, a total of exactly
+    maxitems and one past it, a block of exactly cap clusters and one
+    above it);
   * traverse(items=True): identical to the reference's item route (budgets
     monkeypatched to ITEMS_MAX 2048 / ITEMS_CAP 16 as its own test does) and
     to the port's scan route, bit for bit; an 8/4 budget overflows and
@@ -71,13 +74,16 @@ def _one_torch_thread():
 
 
 def _build_both(masks, w, maxitems, cap):
+    """The wrapper (on CPU tensors: the plain version) and the plain version
+    against the reference, bit for bit on all four outputs."""
     ref = [np.asarray(x) for x in jpt._build_items(jnp.asarray(masks), w,
                                                     maxitems, cap)]
-    got = [x.numpy() for x in tv.build_items(torch.from_numpy(masks), w,
-                                             maxitems, cap)]
-    for r, g in zip(ref, got):
-        assert g.dtype == r.dtype and g.shape == r.shape
-        np.testing.assert_array_equal(g, r)
+    for build in (tv.build_items, tv.build_items_plain):
+        got = [x.numpy() for x in build(torch.from_numpy(masks), w,
+                                        maxitems, cap)]
+        for r, g in zip(ref, got):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            np.testing.assert_array_equal(g, r)
     return got
 
 
@@ -102,6 +108,19 @@ def test_build_items_hand_case():
     assert bool(overflow)
 
 
+def _random_masks(seed):
+    """Seeded random [24, 4] mask words with empty blocks, dense blocks and
+    -1 words (bit 31; block 3 lists every cluster), and each block's
+    count."""
+    rs = np.random.default_rng(seed)
+    bits = rs.random((24, 4, 32)) < rs.uniform(0.05, 0.6, (24, 1, 1))
+    bits[rs.random(24) < 0.25] = False
+    bits[3] = True
+    words = (bits.astype(np.int64) << np.arange(32)).sum(-1)
+    masks = np.where(words >= 2**31, words - 2**32, words).astype(np.int32)
+    return masks, bits.sum((1, 2))
+
+
 # (w, maxitems, cap) over one [24, 4] mask shape: fits, tight fit, overflow
 # by total, overflow by cap, w = 1 and w = 8
 BUDGETS = [(4, 3072, 128), (3, 1400, 100), (4, 300, 128), (4, 3072, 20),
@@ -112,18 +131,51 @@ BUDGETS = [(4, 3072, 128), (3, 1400, 100), (4, 300, 128), (4, 3072, 20),
 def test_build_items_random_masks(w, maxitems, cap):
     """Seeded random masks with empty blocks, dense blocks and -1 words
     (bit 31), under budgets that fit or overflow by total or by cap."""
-    rs = np.random.default_rng(100 + w + maxitems + cap)
-    bits = rs.random((24, 4, 32)) < rs.uniform(0.05, 0.6, (24, 1, 1))
-    bits[rs.random(24) < 0.25] = False
-    bits[3] = True
-    words = (bits.astype(np.int64) << np.arange(32)).sum(-1)
-    masks = np.where(words >= 2**31, words - 2**32, words).astype(np.int32)
-    counts = bits.sum((1, 2))
+    masks, counts = _random_masks(100 + w + maxitems + cap)
     total = int((-(-counts // w) * w).sum())
     overflow = total > maxitems or counts.max() > cap
     _, n_steps, flag, _ = _build_both(masks, w, maxitems, cap)
     assert bool(flag) == overflow
     assert int(n_steps) == min(total, maxitems) // w
+
+
+# (case, w): budgets at the edges of the overflow test, set from the masks
+EDGES = [("zero", 4), ("total_is_max", 4), ("total_past_max", 4),
+         ("count_is_cap", 4), ("count_past_cap", 4), ("total_is_max", 1),
+         ("count_is_cap", 8)]
+
+
+@pytest.mark.parametrize("case,w", EDGES)
+def test_build_items_edge_budgets(case, w):
+    """All-zero masks (no group), a total of exactly maxitems and one past
+    it, a block of exactly cap clusters and one above it, w = 1 and 8."""
+    masks, counts = _random_masks(7 + w)
+    if case == "zero":
+        masks[:] = 0
+        counts[:] = 0
+    total = int((-(-counts // w) * w).sum())
+    maxitems, cap = max(total, 1), int(max(counts.max(), 1))
+    if case == "total_past_max":
+        maxitems = total - 1
+    if case == "count_past_cap":
+        cap -= 1
+    items, n_steps, flag, used = _build_both(masks, w, maxitems, cap)
+    assert bool(flag) == (case in ("total_past_max", "count_past_cap"))
+    assert int(n_steps) == min(total, maxitems) // w
+    assert int(used.sum()) == int((counts > 0).sum())
+    if case == "zero":
+        assert int(n_steps) == 0 and (items == -1).all()
+
+
+def test_build_items_on_the_cpu_is_the_plain_version():
+    """CPU tensors take the plain version: the same outputs, no launch."""
+    masks = torch.from_numpy(_random_masks(3)[0])
+    before = tv.build_items.launches
+    got = tv.build_items(masks, 4, 3072, 128)
+    ref = tv.build_items_plain(masks, 4, 3072, 128)
+    assert tv.build_items.launches == before
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
 
 
 # ---------------------------------------------------------------- traverse

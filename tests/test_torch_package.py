@@ -90,11 +90,13 @@ def _kernel_calls(dev):
         "gather_rows_t": lambda: tv.gather_rows_t(table, idx),
         "traverse_items": lambda: tv.traverse_items(
             items, n_steps, soat.view(16, 128, 8), tri, 1e-4),
+        "build_items": lambda: tv.build_items(masks, 4, 64, 8),
     }
 
 
 @pytest.mark.parametrize("name", ["cluster_masks", "traverse_blocks",
-                                  "gather_rows_t", "traverse_items"])
+                                  "gather_rows_t", "traverse_items",
+                                  "build_items"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
     tv.reset_launch_counts()
     _kernel_calls("cpu")[name]()  # plain version: no launch counted

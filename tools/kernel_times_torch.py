@@ -3,10 +3,12 @@
 Builds the tree's kernels and, on chip_smoke.py's six populations (camera,
 bounce and shadow rays of one 131,072-ray band of the stage-6 frame and of
 the big-scene frame), times ``cluster_masks`` and ``traverse_blocks`` (and,
-on the big scene, ``traverse_items`` at the list budget that never
-overflows) two ways: on the device (20 calls captured in a CUDA graph and
-replayed between two events, median of 5 replays, per call) and around one
-call with CUDA events (median of 20 calls, the host's enqueue included).
+on the big scene, ``traverse_items`` and ``build_items`` at the list budget
+that never overflows, and ``build_items`` at the reference's 24,576 / 64)
+two ways: on the device (20 calls captured in a CUDA graph and replayed
+between two events, median of 5 replays, per call) and, for the first two,
+around one call with CUDA events (median of 20 calls, the host's enqueue
+included).
 Prints one JSON line per population, with the card's name and power limit.
 
 ``--root`` names the tree whose ``chip_smoke.py`` and ``rayito_tpu_torch``
@@ -82,7 +84,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     scene6, cfg6, cam6, _ = cs.stage6_setup(dev)
-    scan, items, _, cfg_b, cam_b, _ = cs.big_setup(dev)
+    scan, items, defaults, cfg_b, cam_b, _ = cs.big_setup(dev)
     runs = (("stage6", scene6, cfg6, cam6, (-1.5, 4.0, -1.5), (3.0, 3.0)),
             ("big_scene", scan, cfg_b, cam_b, (-4.0, 10.0, -4.0),
              (8.0, 8.0)))
@@ -115,6 +117,10 @@ def main() -> int:
                 soab = soat.view(masks.shape[0], scene.traverse_b, 8)
                 rec["items_ms"] = _device_ms(lambda: tv.traverse_items(
                     il, steps, soab, tri, tmin, mt, w))
+                for key, sd in (("build_items_ms", items),
+                                ("build_items_ref_ms", defaults)):
+                    rec[key] = _device_ms(lambda: tv.build_items(
+                        masks, w, sd.items_max, sd.items_cap))
             rec["card"] = card
             print(json.dumps(rec), flush=True)
     return 0
