@@ -35,11 +35,24 @@ JAX. Phases, each printed, each fatal on failure:
      that never overflows, counting every kernel's launches, checked
      against the plain versions, the scan route and the reference's budget
      (both bit-identical; that budget's overflow share is printed); then 3
-     timed frames of the item route and of the scan route.
+     timed frames of the item route and of the scan route;
+  7. stage-7 kernels: stage7_scene1 on the n=64 stand-in, whose mesh is a
+     traversal domain of its own under a three-key rotation; camera,
+     bounce and shadow populations of one band at seeded lane times, moved
+     into the domain's local space at those times, through cluster_masks,
+     traverse_blocks and gather_rows_t against their plain versions (bit
+     for bit, timed and bounded as in phase 3);
+  8. stage-7 frame: 512x512, 1 spp, depth 3, shutter 0..1, counted and
+     checked against the plain versions as in phase 4, then 3 timed frames;
+  9. stage-7b frame: bench.py's stage-7b config (stage7_scene2, 512x256,
+     1 spp, depth 3, shutter 0..1): no traversal launch (no domain), the
+     tiny meshes' meta-row gather against its plain version on the frame's
+     own inputs, a second frame bit-identical, 3 timed frames.
 
 Prints a JSON line of per-kernel results (camera-ray times; launches in
-the frame of the path each kernel serves first, and per frame), then, last,
-one JSON line ``{"ok": true, "device": {...}}``.
+the frame of the path each kernel serves first, and per frame; per
+stage-7 population), then, last, one JSON line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -124,24 +137,31 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     stage6 = run(dev, card)
     big = run_big(dev, card)
+    stage7 = run_stage7(dev, card)
+    stage7b = run_stage7b(dev, card)
 
-    print(json.dumps({"kernels": kernel_records(stage6, big)}))
+    print(json.dumps({"kernels": kernel_records(stage6, big, stage7,
+                                                stage7b)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
-def kernel_records(stage6: dict, big: dict) -> list:
+def kernel_records(stage6: dict, big: dict, stage7: dict,
+                   stage7b: dict) -> list:
     """The five kernels' records: launches in the frame of the path each
     serves first (stage 6; the big scene for the item route) and per frame
     of each path; errors over every population; camera-ray times with
-    their bounds (big_* for the big scene)."""
+    their bounds (big_* for the big scene); per stage-7 population (rays in
+    the moving domain's local space) the times, bounds and shares of the
+    stage-6 kernels, and the stage-7b frame's meta-row gather."""
     src = "rayito_tpu_torch/csrc/"
     ref = "rayito_tpu/render/pallas_traverse.py:"
     cam_r, big_cam = stage6["results"]["camera"], big["results"]["camera"]
     launches, big_launches = stage6["launches"], big["launches"]
     big_res = big["results"].values()
+    s6_res = [*stage6["results"].values(), *stage7["results"].values()]
 
     def timed(r, key, big_key=None):
         """ms, plain_ms, bound_ms, bound_by, library_ms of ``key`` in r,
@@ -156,25 +176,37 @@ def kernel_records(stage6: dict, big: dict) -> list:
                        big_bound_ms=big_cam[big_key + "_bound_ms"])
         return out
 
+    def per_population(key):
+        return {name: {k: r[f"{key}_{k}"] for k in
+                       ("ms", "plain_ms", "bound_ms", "share")
+                       if f"{key}_{k}" in r}
+                for name, r in stage7["results"].items()
+                if f"{key}_ms" in r}
+
     kernels = [
         {"name": "cluster_masks", "route": "cuda",
          "source": src + "cluster_masks.cu", "replaces": ref + "1184",
          "launches": launches["cluster_masks"],
-         "max_abs_err": max(r["mask_err"] for r in
-                            [*stage6["results"].values(), *big_res]),
-         **timed(cam_r, "mask", "mask")},
+         "max_abs_err": max(r["mask_err"] for r in [*s6_res, *big_res]),
+         **timed(cam_r, "mask", "mask"), "stage7": per_population("mask")},
         {"name": "traverse_blocks", "route": "cuda",
          "source": src + "traverse_blocks.cu", "replaces": ref + "488",
          "launches": launches["traverse_blocks"],
-         "max_abs_err": max(r["t_err"] for r in stage6["results"].values()),
-         **timed(cam_r, "trav", "scan")},
+         "max_abs_err": max(r["t_err"] for r in s6_res),
+         **timed(cam_r, "trav", "scan"), "stage7": per_population("trav")},
         {"name": "gather_rows_t", "route": "cuda",
          "source": src + "gather_rows_t.cu", "replaces": ref + "1141",
          "launches": launches["gather_rows_t"],
          "max_abs_err": max(
-             r[k] for r in [*stage6["results"].values(), *big_res] for k in r
-             if k.startswith("gather") and k.endswith("_err")),
-         **timed(cam_r, "gather32", "gather32")},
+             r[k] for r in [*s6_res, *big_res,
+                            *stage7b["results"].values()]
+             for k in r if k.endswith("_err") and
+             (k.startswith("gather") or k.startswith("meta"))),
+         **timed(cam_r, "gather32", "gather32"),
+         "stage7": per_population("gather32"),
+         "stage7b": {k: stage7b["results"]["meta"]["meta_" + k]
+                     for k in ("ms", "plain_ms", "bound_ms", "share",
+                               "library_ms")}},
         {"name": "traverse_items", "route": "cuda",
          "source": src + "traverse_items.cu", "replaces": ref + "314",
          "launches": big_launches["traverse_items"],
@@ -187,8 +219,11 @@ def kernel_records(stage6: dict, big: dict) -> list:
          **timed(big_cam, "build_items")},
     ]
     for k in kernels:
-        k["launches_frame"] = {"stage6": launches[k["name"]],
-                               "big_scene": big_launches[k["name"]]}
+        k["launches_frame"] = {
+            "stage6": launches[k["name"]],
+            "big_scene": big_launches[k["name"]],
+            "stage7": stage7["launches"][k["name"]],
+            "stage7b": stage7b["launches"][k["name"]]}
     return kernels
 
 
@@ -338,11 +373,48 @@ def big_setup(dev):
     return scan, items, defaults, cfg, cam, _frame_fn(items, cfg, cam)
 
 
-def _populations(scene, cfg, cam, light_corner, light_sides):
-    """Camera rays of the first band (pixel centres), their closest hits,
-    cosine-ish bounce rays from the hits and shadow rays to points of the
-    rect light: [(name, o, d, tmax, mt_mode, any_hit)] and the camera
-    rays' closest-hit prims. Stage 6's phase 3 builds its cases so."""
+def stage7_setup(dev):
+    """(scene, config, camera, frame) of the stage-7 frame: stage7_scene1
+    on the n=64 stand-in (its mesh a traversal domain of its own under a
+    three-key rotation), 512x512, 1 spp, depth 3, shutter 0..1."""
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.models.demo import STAGE7_CAMERA, stage7_scene1
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    scene = stage7_scene1(_standin_obj()).compile(dev)
+    cfg = RenderConfig(width=WIDTH, height=WIDTH, pixel_samples=1,
+                       light_samples=1, max_depth=3, aspect_correction=True,
+                       max_rays_per_pass=RAYS_PER_PASS)
+    cam = PerspectiveCamera.make(30.0, *STAGE7_CAMERA, focal_distance=16.0,
+                                 lens_radius=0.0, shutter_open=0.0,
+                                 shutter_close=1.0)
+    return scene, cfg, cam, _frame_fn(scene, cfg, cam)
+
+
+def stage7b_setup(dev):
+    """(scene, config, camera, frame) of bench.py's stage-7b frame:
+    stage7_scene2 (ten spheres and ten cubes, every cube a tiny moving
+    mesh, no traversal domain), 512x256, 1 spp, depth 3, shutter 0..1."""
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.models.demo import (STAGE7_SCENE2_CAMERA,
+                                              stage7_scene2)
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    scene = stage7_scene2().compile(dev)
+    cfg = RenderConfig(width=WIDTH, height=WIDTH // 2, pixel_samples=1,
+                       light_samples=1, max_depth=3, aspect_correction=True,
+                       max_rays_per_pass=RAYS_PER_PASS)
+    cam = PerspectiveCamera.make(30.0, *STAGE7_SCENE2_CAMERA,
+                                 focal_distance=16.0, lens_radius=0.0,
+                                 shutter_open=0.0, shutter_close=1.0)
+    return scene, cfg, cam, _frame_fn(scene, cfg, cam)
+
+
+def _populations(scene, cfg, cam, light_corner, light_sides, time=None):
+    """Camera rays of the first band (pixel centres), their closest hits
+    (at the lanes' ``time`` where the scene moves), cosine-ish bounce rays
+    from the hits and shadow rays to points of the rect light, in world
+    space: [(name, o, d, tmax, mt_mode, any_hit)]."""
     import numpy as np
     import torch
 
@@ -357,7 +429,7 @@ def _populations(scene, cfg, cam, light_corner, light_sides):
     xu, yu = screen_uv(cfg, px, py, half, half)
     o, d, _ = cam.make_rays(xu, yu, half, half, half)
     n = px.shape[0]
-    hit = tr.scene_intersect(scene, o, d, None, cfg.ray_tmin, 1e30)
+    hit = tr.scene_intersect(scene, o, d, time, cfg.ray_tmin, 1e30)
     rng = np.random.default_rng(0)
     rnd = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(dev)
     nrm = hit.normal
@@ -380,8 +452,9 @@ def _populations(scene, cfg, cam, light_corner, light_sides):
     ]
 
 
-def _winner_rows(scene, p):
-    """Global triangle ids of the kernel winners (0 for misses)."""
+def _winner_rows(scene, di, p):
+    """Global triangle ids of domain ``di``'s kernel winners (0 for
+    misses)."""
     import torch
 
     from rayito_tpu_torch.accel.kernel_tables import KTRI
@@ -390,40 +463,48 @@ def _winner_rows(scene, p):
     p_safe = torch.clamp_min(p.view(-1), 0)
     cl = p_safe // KTRI
     return torch.where(
-        found, scene.ktab_base[0][cl.long()] + p_safe - cl * KTRI, 0
+        found, scene.ktab_base[di][cl.long()] + p_safe - cl * KTRI, 0
     ).to(torch.int32)
 
 
-def _check_gather(name, scene, p, r):
+def _check_gather(name, scene, di, p, r):
+    idx = _winner_rows(scene, di, p)
+    for k, table in ((32, scene.tri_vm_rows), (16, scene.tri_vert_rows)):
+        _check_gather_rows(name, table, idx, r, f"gather{k}")
+
+
+def _check_gather_rows(name, table, idx, r, key):
+    """gather_rows_t on (table, idx) against its plain version, bit for
+    bit; device times of both and of the index_select yardstick; the
+    bound (bytes: the indices, each distinct row once, the output)."""
     import torch
 
     from rayito_tpu_torch.render import traverse as tv
 
-    idx = _winner_rows(scene, p)
-    for k, table in ((32, scene.tri_vm_rows), (16, scene.tri_vert_rows)):
-        g_k = tv.gather_rows_t(table, idx)
-        g_p = tv.gather_rows_t_plain(table, idx)
-        torch.cuda.synchronize()
-        bad_g = int((g_k.view(torch.int32) != g_p.view(torch.int32)).sum())
-        r[f"gather{k}_err"] = float((g_k - g_p).abs().max())
-        print(f"{name}: gather_rows_t [T, {k}] elements differing {bad_g}")
-        if bad_g:
-            raise AssertionError(f"{name}: gather_rows_t disagrees")
-        r[f"gather{k}_ms"] = _device_ms(lambda: tv.gather_rows_t(table, idx))
-        r[f"gather{k}_plain_ms"] = _median_ms(
-            lambda: tv.gather_rows_t_plain(table, idx), 50)
-        # the one PyTorch call that gives the same [K, N] result, on a
-        # table transposed once beforehand (the port never calls it)
-        table_t = table.t().contiguous()
-        lib = torch.index_select(table_t, 1, idx)
-        torch.cuda.synchronize()
-        if not torch.equal(lib.view(torch.int32), g_p.view(torch.int32)):
-            raise AssertionError(f"{name}: index_select yardstick differs")
-        r[f"gather{k}_library_ms"] = _device_ms(
-            lambda: torch.index_select(table_t, 1, idx))
-        # bytes: the indices, each distinct table row once, the output
-        n, rows = idx.shape[0], int(torch.unique(idx).numel())
-        _put_bound(r, f"gather{k}", 0, n * 4 + rows * k * 4 + n * k * 4)
+    k = table.shape[1]
+    g_k = tv.gather_rows_t(table, idx)
+    g_p = tv.gather_rows_t_plain(table, idx)
+    torch.cuda.synchronize()
+    bad_g = int((g_k.view(torch.int32) != g_p.view(torch.int32)).sum())
+    r[f"{key}_err"] = float((g_k - g_p).abs().max())
+    print(f"{name}: gather_rows_t [T, {k}] elements differing {bad_g}")
+    if bad_g:
+        raise AssertionError(f"{name}: gather_rows_t disagrees")
+    r[f"{key}_ms"] = _device_ms(lambda: tv.gather_rows_t(table, idx))
+    r[f"{key}_plain_ms"] = _median_ms(
+        lambda: tv.gather_rows_t_plain(table, idx), 50)
+    # the one PyTorch call that gives the same [K, N] result, on a
+    # table transposed once beforehand (the port never calls it)
+    table_t = table.t().contiguous()
+    lib = torch.index_select(table_t, 1, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(lib.view(torch.int32), g_p.view(torch.int32)):
+        raise AssertionError(f"{name}: index_select yardstick differs")
+    r[f"{key}_library_ms"] = _device_ms(
+        lambda: torch.index_select(table_t, 1, idx))
+    # bytes: the indices, each distinct table row once, the output
+    n, rows = idx.shape[0], int(torch.unique(idx).numel())
+    _put_bound(r, key, 0, n * 4 + rows * k * 4 + n * k * 4)
 
 
 def _check_masks(name, soat, box, tmin, n_live, r):
@@ -500,70 +581,67 @@ def _time_frames(frame, n_frames: int = 3):
             sum(int(q) for q in qs) / n_frames)
 
 
-def run(dev, card: str) -> dict:
-    """Phases 3-4 on ``dev``: {"results": per-population kernel numbers,
-    "launches": per-kernel launches in one stage-6 frame}."""
+def _check_population(name, scene, di, co, cd, ctmax, mt, any_hit, tmin):
+    """One ray population through domain ``di``'s kernels (rays in the
+    domain's space): cluster_masks, traverse_blocks and, on closest-hit
+    launches, gather_rows_t of the winners' rows, each against its plain
+    version bit for bit, with device times, bounds and shares."""
     import torch
 
     from rayito_tpu_torch.render import traverse as tv
 
-    _phase("scene")
-    t0 = time.perf_counter()
-    scene, cfg, cam, frame = stage6_setup(dev)
-    n_cl = scene.ktab_tri[0].shape[0]
-    print(f"stage-6 scene with the n={MESH_N} stand-in: "
-          f"{scene.tri_vm_rows.shape[0]} triangle rows, {n_cl} kernel "
-          f"clusters (padded), box table {tuple(scene.ktab_box[0].shape)}; "
-          f"{time.perf_counter() - t0:.1f} s")
+    box = scene.ktab_box[di]
+    tri = scene.ktab_tri[di] if mt == "vpu" else scene.ktab_mxu[di]
+    n = co.x.shape[0]
+    soat, _, n_live = tv.prepare_rays(co, cd, ctmax, box, tmin)
+    r = {}
+    m_k = _check_masks(name, soat, box, tmin, n_live, r)
+    t_k, p_k = tv.traverse_blocks(m_k, soat, tri, tmin, mt, any_hit, n_live)
+    t_p, p_p = tv.traverse_blocks_plain(m_k, soat, tri, tmin, mt, any_hit,
+                                        n_live)
+    torch.cuda.synchronize()
+    if any_hit:
+        bad_p = int(((p_k >= 0) != (p_p >= 0)).sum())
+        bad_t = 0
+        t_err = 0.0
+    else:
+        bad_p = int((p_k != p_p).sum())
+        bad_t = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+        fin = torch.isfinite(t_p)
+        t_err = float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
+    hits = int((p_p >= 0).sum())
+    print(f"{name}: {n} rays, {int(n_live)} live steps of {soat.shape[0]}, "
+          f"prim differing {bad_p}, t bits differing {bad_t}, hits {hits}")
+    if bad_p or bad_t:
+        raise AssertionError(f"{name}: kernel disagrees with plain")
+    r["trav_ms"] = _device_ms(lambda: tv.traverse_blocks(
+        m_k, soat, tri, tmin, mt, any_hit, n_live))
+    r["trav_call_ms"] = _median_ms(lambda: tv.traverse_blocks(
+        m_k, soat, tri, tmin, mt, any_hit, n_live), 20)
+    r["trav_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
+        m_k, soat, tri, tmin, mt, any_hit, n_live), 3)
+    r["t_err"] = t_err
+    r["hits"] = hits
+    _mask_bound(r, soat, box, tmin, n_live, m_k)
+    _traverse_bound(r, "trav", m_k, soat, tri, mt)
+    if not any_hit:
+        _check_gather(name, scene, di, p_k, r)
+    print(f"{name}: " + _fmt(r), flush=True)
+    return r
+
+
+def _frame_phase(label: str, cfg, frame, card: str,
+                 kernels=STAGE6_KERNELS) -> dict:
+    """One main-path frame with the launch counts set to 0 just before it
+    and read just after (each of ``kernels`` must have run), its image
+    checked; the same frame through the plain versions (relative RMSE at
+    most 0.5%); then 3 timed frames. Returns the launches, frame ms and
+    Mrays/s."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
     band = cfg.max_rays_per_pass // cfg.width
-
-    _phase("kernels")
-    cases = _populations(scene, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0))
-    box = scene.ktab_box[0]
-    results = {}
-    tmin = cfg.ray_tmin
-    for name, co, cd, ctmax, mt, any_hit in cases:
-        tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
-        n = co.x.shape[0]
-        soat, perm, n_live = tv.prepare_rays(co, cd, ctmax, box, tmin)
-        live = int(n_live)
-        r = {}
-        m_k = _check_masks(name, soat, box, tmin, n_live, r)
-        t_k, p_k = tv.traverse_blocks(m_k, soat, tri, tmin, mt, any_hit,
-                                      n_live)
-        t_p, p_p = tv.traverse_blocks_plain(m_k, soat, tri, tmin, mt,
-                                            any_hit, n_live)
-        torch.cuda.synchronize()
-        if any_hit:
-            bad_p = int(((p_k >= 0) != (p_p >= 0)).sum())
-            bad_t = 0
-            t_err = 0.0
-        else:
-            bad_p = int((p_k != p_p).sum())
-            bad_t = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
-            fin = torch.isfinite(t_p)
-            t_err = float((t_k[fin] - t_p[fin]).abs().max()) if fin.any() else 0.0
-        hits = int((p_p >= 0).sum())
-        print(f"{name}: {n} rays, {live} live steps of {soat.shape[0]}, "
-              f"prim differing {bad_p}, t bits differing {bad_t}, "
-              f"hits {hits}")
-        if bad_p or bad_t:
-            raise AssertionError(f"{name}: kernel disagrees with plain")
-        r["trav_ms"] = _device_ms(lambda: tv.traverse_blocks(
-            m_k, soat, tri, tmin, mt, any_hit, n_live))
-        r["trav_call_ms"] = _median_ms(lambda: tv.traverse_blocks(
-            m_k, soat, tri, tmin, mt, any_hit, n_live), 20)
-        r["trav_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
-            m_k, soat, tri, tmin, mt, any_hit, n_live), 3)
-        r["t_err"] = t_err
-        _mask_bound(r, soat, box, tmin, n_live, m_k)
-        _traverse_bound(r, "trav", m_k, soat, tri, mt)
-        if not any_hit:
-            _check_gather(name, scene, p_k, r)
-        results[name] = r
-        print(f"{name}: " + _fmt(r), flush=True)
-
-    _phase("frame")
     frame()  # warm-up
     torch.cuda.synchronize()
     tv.reset_launch_counts()
@@ -572,12 +650,11 @@ def run(dev, card: str) -> dict:
     launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
     print(f"launches in one frame: {launches}")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
-    diag = _check_image(img, "stage-6 frame")
+    diag = _check_image(img, label)
     print(f"frame {img.shape}: queries {int(queries)}, {diag}")
-    if min(launches[k] for k in STAGE6_KERNELS) <= 0:
+    if min(launches[k] for k in kernels) <= 0:
         raise AssertionError("a kernel of the path was never launched")
 
-    # the same frame through the plain versions on the card
     undo = _swap_plain()
     try:
         t0 = time.perf_counter()
@@ -592,15 +669,39 @@ def run(dev, card: str) -> dict:
           f"relative RMSE vs kernels {rel:.3e}; max abs diff "
           f"{float(abs(img - img_p).max()):.3e}")
     if rel > 0.005:
-        raise AssertionError(f"frame relative RMSE {rel} > 0.5%")
+        raise AssertionError(f"{label}: relative RMSE {rel} > 0.5%")
 
     frame_s, q_frame = _time_frames(frame)
     mrays = q_frame / frame_s / 1e6
-    print(f"stage-6 frame (n={MESH_N} stand-in, {WIDTH}x{WIDTH}, sample 0, "
-          f"{cfg.height // band} bands): "
-          f"{frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} issued queries, "
-          f"{mrays:.3f} Mrays/s on {card}")
-    return {"results": results, "launches": launches}
+    print(f"{label}, {cfg.height // band} bands): {frame_s * 1e3:.1f} "
+          f"ms/frame, {q_frame:.0f} issued queries, {mrays:.3f} Mrays/s on "
+          f"{card}", flush=True)
+    return {"launches": launches, "frame_ms": frame_s * 1e3,
+            "mrays": mrays, "queries": q_frame}
+
+
+def run(dev, card: str) -> dict:
+    """Phases 3-4 on ``dev``: {"results": per-population kernel numbers,
+    "launches": per-kernel launches in one stage-6 frame}."""
+    _phase("scene")
+    t0 = time.perf_counter()
+    scene, cfg, cam, frame = stage6_setup(dev)
+    n_cl = scene.ktab_tri[0].shape[0]
+    print(f"stage-6 scene with the n={MESH_N} stand-in: "
+          f"{scene.tri_vm_rows.shape[0]} triangle rows, {n_cl} kernel "
+          f"clusters (padded), box table {tuple(scene.ktab_box[0].shape)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    _phase("kernels")
+    cases = _populations(scene, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0))
+    results = {name: _check_population(name, scene, 0, co, cd, ctmax, mt,
+                                       any_hit, cfg.ray_tmin)
+               for name, co, cd, ctmax, mt, any_hit in cases}
+
+    _phase("frame")
+    fr = _frame_phase(f"stage-6 frame (n={MESH_N} stand-in, {WIDTH}x{WIDTH},"
+                      " sample 0", cfg, frame, card)
+    return {"results": results, "launches": fr["launches"]}
 
 
 def _item_counts(masks, w: int = 4):
@@ -756,7 +857,7 @@ def run_big(dev, card: str) -> dict:
               f"build_items {r['build_items_ms']:.6g} (reference budget "
               f"{r['build_items_ref_ms']:.6g}); {n_items} items")
         if not any_hit:
-            _check_gather(name, scan, p_k, r)
+            _check_gather(name, scan, 0, p_k, r)
         results[name] = r
         print(f"{name}: " + _fmt(r), flush=True)
 
@@ -829,6 +930,112 @@ def run_big(dev, card: str) -> dict:
               f"{frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} issued queries, "
               f"{mrays:.3f} Mrays/s on {card}", flush=True)
     return {"results": results, "launches": launches}
+
+
+def run_stage7(dev, card: str) -> dict:
+    """Phases 7-8 on ``dev``: the stage-7 scene's camera, bounce and
+    shadow populations at seeded lane times, moved into the bumpy
+    domain's local space, through the kernels; then the stage-7 frame.
+    Returns {"results", "launches", "frame"}."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.render import trace as tr
+
+    _phase("stage-7 scene")
+    t0 = time.perf_counter()
+    scene, cfg, cam, frame = stage7_setup(dev)
+    print(f"stage-7 scene with the n={MESH_N} stand-in: domains (transform "
+          f"slots) {scene.ktab_xf}, {scene.ktab_tri[0].shape[0]} kernel "
+          f"clusters (padded), tiny meshes {scene.ktab_small}, "
+          f"{scene.xf_times.shape[0]} transform slots of "
+          f"{scene.xf_times.shape[1]} keys; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if scene.ktab_xf != (scene.mesh_xf_host[1],):
+        raise AssertionError("the bumpy mesh is not a transformed domain")
+
+    _phase("stage-7 kernels")
+    n = RAYS_PER_PASS
+    lane_time = torch.from_numpy(
+        np.random.default_rng(7).uniform(0.0, 1.0, n).astype(np.float32)
+    ).to(dev)
+    cases = _populations(scene, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0),
+                         lane_time)
+    results = {}
+    for name, co, cd, ctmax, mt, any_hit in cases:
+        # the domain's local space at each lane's time; t, and so tmax,
+        # is the same there
+        o_l, d_l, _ = tr._domain_local_ray(scene, 0, co, cd, lane_time)
+        results[name] = _check_population(name, scene, 0, o_l, d_l, ctmax,
+                                          mt, any_hit, cfg.ray_tmin)
+
+    _phase("stage-7 frame")
+    fr = _frame_phase(f"stage-7 frame (n={MESH_N} stand-in, {WIDTH}x{WIDTH},"
+                      " 1 spp, depth 3, shutter 0..1", cfg, frame, card)
+    return {"results": results, "launches": fr["launches"], "frame": fr}
+
+
+def run_stage7b(dev, card: str) -> dict:
+    """Phase 9 on ``dev``: bench.py's stage-7b frame with the launch counts
+    set to 0 just before it and read just after (no traversal kernel: the
+    scene has no domain; gather_rows_t fetches the tiny meshes' winners'
+    meta rows); the gather's inputs of that frame against its plain
+    version; a second frame bit-identical; 3 timed frames."""
+    import torch
+
+    from rayito_tpu_torch.render import trace as tr
+    from rayito_tpu_torch.render import traverse as tv
+
+    _phase("stage-7b frame")
+    scene, cfg, cam, frame = stage7b_setup(dev)
+    print(f"stage-7b scene: {scene.n_spheres} spheres, {scene.n_meshes} "
+          f"meshes ({scene.tri_meta_rows.shape[0]} triangle rows), domains "
+          f"{scene.ktab_xf}, tiny meshes {scene.ktab_small}")
+    frame()  # warm-up
+    torch.cuda.synchronize()
+    calls = []
+    gather = tr.gather_rows_t
+
+    def spy(table, idx):
+        if not calls:
+            calls.append((table, idx.clone()))
+        return gather(table, idx)
+
+    tr.gather_rows_t = spy
+    tv.reset_launch_counts()
+    try:
+        imgs, queries = frame()
+        torch.cuda.synchronize()
+    finally:
+        tr.gather_rows_t = gather
+    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    print(f"launches in one stage-7b frame: {launches}")
+    if launches["gather_rows_t"] <= 0 or any(
+            launches[k] for k in launches if k != "gather_rows_t"):
+        raise AssertionError("stage-7b: expected gather_rows_t launches "
+                             "and no traversal launch")
+    img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
+    diag = _check_image(img, "stage-7b frame")
+    print(f"frame {img.shape}: queries {int(queries)}, {diag}")
+    r = {}
+    table, idx = calls[0]
+    _check_gather_rows("stage-7b meta rows", table, idx, r, "meta")
+    print("stage-7b meta rows: " + _fmt(r))
+    imgs2, q2 = frame()
+    torch.cuda.synchronize()
+    same = torch.equal(imgs.view(torch.int32), imgs2.view(torch.int32))
+    print(f"second stage-7b frame bit-identical {same}, queries "
+          f"{int(queries)} / {int(q2)}")
+    if not same or int(q2) != int(queries):
+        raise AssertionError("stage-7b frame is not deterministic")
+    frame_s, q_frame = _time_frames(frame)
+    mrays = q_frame / frame_s / 1e6
+    print(f"stage-7b frame ({cfg.width}x{cfg.height}, 1 spp, depth 3, "
+          f"shutter 0..1): {frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} issued "
+          f"queries, {mrays:.3f} Mrays/s on {card}", flush=True)
+    return {"results": {"meta": r}, "launches": launches,
+            "frame": {"frame_ms": frame_s * 1e3, "mrays": mrays,
+                      "queries": q_frame}}
 
 
 if __name__ == "__main__":

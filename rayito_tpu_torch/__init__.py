@@ -14,6 +14,7 @@ from .models.scene import (  # noqa: F401
     DiffuseMaterial,
     EmitterMaterial,
     GlossyMaterial,
+    Group,
     Plane,
     RectangleLight,
     ReflectionMaterial,

@@ -1,13 +1,17 @@
-"""The stage-6 demo scene, the big five-instance scene, and a procedural
-stand-in for their mesh asset (counterpart of ``rayito_tpu/models/demo.py``).
+"""The stage-6 and stage-7 demo scenes, the big five-instance scene, and a
+procedural stand-in for their mesh asset (counterpart of
+``rayito_tpu/models/demo.py``).
 
 ``write_bumpy_standin`` writes an OBJ file with the published topology of
 the reference's ``bumpy.obj`` (24,578 vertices, 24,576 quads at n=64): a
 cube-sphere with n x n quads per face and a deterministic sinusoidal bump.
-Both packages load it through their own ``stage6_scene(obj_path)``.
+Both packages load it through their own ``stage6_scene(obj_path)`` and
+``stage7_scene1(obj_path)``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -16,9 +20,11 @@ from .scene import (
     GlossyMaterial,
     Plane,
     RectangleLight,
+    ReflectionMaterial,
     Scene,
     ShapeLight,
     Sphere,
+    Transform,
     TriangleMesh,
 )
 
@@ -108,6 +114,167 @@ def big_streamed_scene(obj_path: str) -> Scene:
     s.add(RectangleLight((-4, 10, -4), (8, 0, 0), (0, 0, 8),
                          (1.0, 1.0, 1.0), 3.0))
     return s
+
+
+# ---------------------------------------------------------------------------
+# Stage 7: keyed transforms, motion blur
+# ---------------------------------------------------------------------------
+
+
+def _axis_angle(axis, angle):
+    """Host-side axis-angle quaternion (w, x, y, z) about the normalised
+    ``axis``."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    h = angle * 0.5
+    s = math.sin(h)
+    return (math.cos(h), a[0] * s, a[1] * s, a[2] * s)
+
+
+def make_cube(material) -> TriangleMesh:
+    """The unit cube of the stage-7 scenes: 8 vertices at [0, 1]^3, 6 quad
+    faces with the last duplicated, as in the reference renderer."""
+    verts = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                      [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float32)
+    quads = [(0, 1, 2, 3), (1, 5, 6, 2), (5, 4, 7, 6), (4, 0, 3, 7),
+             (3, 2, 6, 7), (3, 2, 6, 7)]
+    tris, fids = [], []
+    for fid, (a, b, c, d) in enumerate(quads):
+        tris += [(a, b, c), (a, c, d)]
+        fids += [fid, fid]
+    return TriangleMesh(
+        vertices=verts, indices=np.array(tris, np.int32), material=material,
+        face_ids=np.array(fids, np.int32),
+    )
+
+
+def _keys(times, translations, rotations=None) -> Transform:
+    n = len(times)
+    return Transform(times=list(times), translations=list(translations),
+                     scales=[(1.0, 1.0, 1.0)] * n,
+                     rotations=list(rotations or [(1.0, 0.0, 0.0, 0.0)] * n))
+
+
+def stage7_scene1(obj_path: str) -> Scene:
+    """Stage-7 demo scene 1: a keyed transform on every shape, a
+    translating sphere (motion blur), a cube rotating 45 degrees about Y
+    over the shutter, the OBJ mesh at ``obj_path`` under a three-key
+    rotation, and a four-key animated sphere light of power 100. The
+    rotation keys are the correct products (the reference renderer's
+    concatenating rotate() chains through an aliasing-bugged product;
+    ``ops.quaternion.multiply_buggy`` reproduces it)."""
+    from .obj import load_obj
+
+    s = Scene()
+    blueish = DiffuseMaterial((0.6, 0.6, 0.9))
+    purplish = DiffuseMaterial((0.8, 0.3, 0.7))
+    reddish = DiffuseMaterial((0.8, 0.3, 0.1))
+    bluish_glossy = GlossyMaterial((0.5, 0.3, 0.8), 0.3)
+    greenish_glossy = GlossyMaterial((0.3, 0.9, 0.3), 0.1)
+    reddish_glossy = GlossyMaterial((0.8, 0.1, 0.1), 0.3)
+    reflective = ReflectionMaterial((0.7, 0.7, 0.2))
+    origin = (0.0, 0.0, 0.0)
+
+    s.add(Plane(origin, (0.0, 1.0, 0.0), blueish, bullseye=True,
+                transform=Transform(times=[0.0],
+                                    translations=[(0.0, -2.0, 0.0)])))
+    s.add(Sphere(origin, 1.0, purplish, transform=_keys(
+        [0.0, 1.0], [(2.0, -1.0, 0.0), (3.0, -1.0, 0.0)])))
+    for radius, mat, pos in ((2.0, greenish_glossy, (-3.0, 0.0, -2.0)),
+                             (0.5, bluish_glossy, (1.5, -1.5, 2.5)),
+                             (0.5, reflective, (-2.0, -1.5, 1.0))):
+        s.add(Sphere(origin, radius, mat,
+                     transform=Transform(times=[0.0], translations=[pos])))
+    cube = make_cube(reddish)
+    cube.transform = _keys([0.0, 1.0], [(0.0, -2.0, -2.0)] * 2,
+                           [(1.0, 0.0, 0.0, 0.0),
+                            _axis_angle((0, 1, 0), math.pi / 4)])
+    s.add(cube)
+    obj = load_obj(obj_path, reddish_glossy)
+    if obj is not None:
+        obj.transform = _keys([0.0, 0.5, 1.0], [(0.2, 0.0, 0.0)] * 3,
+                              [(1.0, 0.0, 0.0, 0.0),
+                               _axis_angle((0, 1, 0), math.pi / 4),
+                               _axis_angle((0, 1, 0), 3 * math.pi / 4)])
+        s.add(obj)
+    s.add(RectangleLight(origin, (3.0, 0.0, 0.0), (0.0, 0.0, 3.0),
+                         (1.0, 1.0, 1.0), 5.0,
+                         transform=Transform(times=[0.0],
+                                             translations=[(-1.5, 4.0, -1.5)])))
+    s.add(ShapeLight(
+        Sphere(origin, 0.1, blueish, transform=_keys(
+            [0.0, 0.33, 0.67, 1.0],
+            [(0.0, 0.5, 4.0), (0.0, 1.5, 4.0), (1.0, 1.5, 4.0),
+             (1.0, 0.5, 4.0)])),
+        color=(1.0, 1.0, 0.3), power=100.0,
+    ))
+    return s
+
+
+STAGE7_CAMERA = ((-4.0, 5.0, 15.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+
+
+def kinematic_position(start, velocity, time, gravity=(0.0, -9.8, 0.0),
+                       ground_height: float = 0.0):
+    """Closed-form gravity with one bounce off the ground plane."""
+    start = np.asarray(start, np.float64)
+    velocity = np.asarray(velocity, np.float64)
+    gravity = np.asarray(gravity, np.float64)
+    up = -gravity / np.linalg.norm(gravity)
+    v_up = velocity @ up
+    p_up = start @ up
+    a_up = -np.linalg.norm(gravity)
+    disc = v_up * v_up - 2.0 * a_up * p_up
+    if disc > 0.0:
+        t_hit = (-v_up - np.sqrt(disc)) / a_up
+        if t_hit < time:
+            isect = start + velocity * t_hit + gravity * (t_hit * t_hit * 0.5)
+            v_hit = velocity + gravity * t_hit
+            v_reb = v_hit - 2.0 * up * (v_hit @ up)
+            t_reb = time - t_hit
+            return tuple(isect + v_reb * t_reb + gravity * (t_reb * t_reb * 0.5))
+    return tuple(start + velocity * time + gravity * (time * time * 0.5))
+
+
+def stage7_scene2() -> Scene:
+    """Stage-7 demo scene 2: ten bouncing spheres and ten tumbling cubes,
+    all motion-blurred by two-key transforms, under a rect light of power
+    50 (the reference's bench.py stage-7b frame)."""
+    s = Scene()
+    blueish = DiffuseMaterial((0.6, 0.6, 0.9))
+    yellowish_glossy = GlossyMaterial((0.9, 0.9, 0.3), 0.3)
+    red = DiffuseMaterial((1.0, 0.2, 0.2))
+    s.add(Plane((0.0, 0.0, 0.0), (0.0, 1.0, 0.0), red, bullseye=True))
+    dt = 0.2
+    t_off = 0.0  # accumulated, as the reference does: its bits matter
+    for _ in range(10):
+        p = [kinematic_position((-10.0, 10.0, 0.0), (4.5, 0.0, 0.0), t)
+             for t in (t_off, t_off + dt)]
+        s.add(Sphere((0.0, 0.0, 0.0), 1.0, blueish,
+                     transform=_keys([0.0, 1.0], p)))
+        t_off += dt * 2.0
+    t_off = 0.0
+    for _ in range(10):
+        p = [kinematic_position((10.0, 10.0, 2.0), (-4.5, 0.0, 0.0), t)
+             for t in (t_off, t_off + dt)]
+        rot0 = t_off * math.pi * 0.5
+        if rot0 > math.pi * 2.0:
+            rot0 -= math.pi * 2.0
+        rot1 = rot0 + dt * math.pi * 0.5
+        cube = make_cube(yellowish_glossy)
+        cube.transform = _keys([0.0, 1.0], p,
+                               [_axis_angle((1.0, 0.0, 1.0), rot0),
+                                _axis_angle((1.0, 0.0, 1.0), rot1)])
+        s.add(cube)
+        t_off += dt * 2.0
+    s.add(RectangleLight((0.0, 0.0, 0.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0),
+                         (1.0, 1.0, 1.0), 50.0,
+                         transform=Transform(times=[0.0],
+                                             translations=[(-1.0, 15.0, 1.0)])))
+    return s
+
+
+STAGE7_SCENE2_CAMERA = ((-4.0, 10.0, 30.0), (0.0, 5.0, 0.0), (0.0, 1.0, 0.0))
 
 
 def write_bumpy_standin(path: str, n: int = 64, radius: float = 1.5) -> None:

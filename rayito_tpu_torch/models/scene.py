@@ -12,13 +12,18 @@ meshes in that order); every light records the shape id of its geometry.
 Material kinds: 0 lambert, 1 glossy, 2 perfect reflection, 3 emitter,
 4 phong.
 
-This slice covers static scenes. Keyed transforms, groups and tiny
-transformed meshes raise ``NotImplementedError``; the reference's TPU-only
+Every shape has a keyed transform slot (``*_xf``; slot 0 is the identity)
+and nested ``Group``s compile to per-slot parent pointers. Meshes with the
+identity transform merge into one world-space traversal domain; each
+transformed mesh above 192 triangles gets a domain of its own, entered in
+mesh-local space; smaller transformed meshes are folded densely
+(``ktab_small``, ``render/mesh_intersect.py``). The reference's TPU-only
 scheduling options raise ``ValueError`` (see ``UNPORTED_KNOBS``).
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import List, Optional, Sequence
 
@@ -66,8 +71,8 @@ def EmitterMaterial(color, power):
 
 @dataclasses.dataclass
 class Transform:
-    """Keyed Scale->Rotate->Translate track. Only the identity (static)
-    transform compiles in this slice."""
+    """Keyed Scale->Rotate->Translate track: parallel key lists; a static
+    shape has one key with the identity."""
 
     times: List[float] = dataclasses.field(default_factory=lambda: [0.0])
     translations: List[Sequence[float]] = dataclasses.field(
@@ -80,13 +85,98 @@ class Transform:
         default_factory=lambda: [(1.0, 0.0, 0.0, 0.0)]  # (w, x, y, z)
     )
 
+    @property
+    def num_keys(self) -> int:
+        return len(self.times)
+
     def is_identity(self) -> bool:
         return (
-            len(self.times) == 1
+            self.num_keys == 1
             and tuple(self.translations[0]) == (0.0, 0.0, 0.0)
             and tuple(self.scales[0]) == (1.0, 1.0, 1.0)
             and tuple(self.rotations[0]) == (1.0, 0.0, 0.0, 0.0)
         )
+
+    # Key management of the reference renderer's mutators: a key at the
+    # exact time is reused; a time outside the range duplicates the end
+    # key; a time between keys inserts an interpolated key (lerp, nlerp in
+    # float64). ``rotate`` concatenates with the correct Hamilton product,
+    # not the reference's aliasing-bugged operator*=.
+
+    def _interp_key(self, i, frac):
+        t0 = np.asarray(self.translations[i], np.float64)
+        t1 = np.asarray(self.translations[i + 1], np.float64)
+        s0 = np.asarray(self.scales[i], np.float64)
+        s1 = np.asarray(self.scales[i + 1], np.float64)
+        q0 = np.asarray(self.rotations[i], np.float64)
+        q1 = np.asarray(self.rotations[i + 1], np.float64)
+        q = q0 * (1.0 - frac) + q1 * frac
+        q = q / max(np.linalg.norm(q), 1e-37)
+        return (tuple(t0 * (1.0 - frac) + t1 * frac),
+                tuple(s0 * (1.0 - frac) + s1 * frac), tuple(q))
+
+    def find_or_insert_key(self, time: float) -> int:
+        if time in self.times:
+            return self.times.index(time)
+        if not self.times or time > self.times[-1]:
+            self.times.append(time)
+            self.translations.append(tuple(self.translations[-1]))
+            self.scales.append(tuple(self.scales[-1]))
+            self.rotations.append(tuple(self.rotations[-1]))
+            return len(self.times) - 1
+        if time < self.times[0]:
+            self.times.insert(0, time)
+            self.translations.insert(0, tuple(self.translations[0]))
+            self.scales.insert(0, tuple(self.scales[0]))
+            self.rotations.insert(0, tuple(self.rotations[0]))
+            return 0
+        i = bisect.bisect_right(self.times, time) - 1
+        frac = (time - self.times[i]) / (self.times[i + 1] - self.times[i])
+        tr, sc, ro = self._interp_key(i, frac)
+        self.times.insert(i + 1, time)
+        self.translations.insert(i + 1, tr)
+        self.scales.insert(i + 1, sc)
+        self.rotations.insert(i + 1, ro)
+        return i + 1
+
+    def set_translation(self, time, translation) -> "Transform":
+        k = self.find_or_insert_key(float(time))
+        self.translations[k] = tuple(translation)
+        return self
+
+    def set_scaling(self, time, scale) -> "Transform":
+        k = self.find_or_insert_key(float(time))
+        self.scales[k] = tuple(scale)
+        return self
+
+    def set_rotation(self, time, quaternion_wxyz) -> "Transform":
+        k = self.find_or_insert_key(float(time))
+        self.rotations[k] = tuple(quaternion_wxyz)
+        return self
+
+    def translate(self, time, delta) -> "Transform":
+        k = self.find_or_insert_key(float(time))
+        self.translations[k] = tuple(
+            a + b for a, b in zip(self.translations[k], delta))
+        return self
+
+    def scale(self, time, factors) -> "Transform":
+        k = self.find_or_insert_key(float(time))
+        self.scales[k] = tuple(a * b for a, b in zip(self.scales[k], factors))
+        return self
+
+    def rotate(self, time, quaternion_wxyz) -> "Transform":
+        """R_k = R_k * q at the key of ``time``."""
+        k = self.find_or_insert_key(float(time))
+        w1, x1, y1, z1 = self.rotations[k]
+        w2, x2, y2, z2 = quaternion_wxyz
+        self.rotations[k] = (
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + w2 * x1 + (y1 * z2 - z1 * y2),
+            w1 * y2 + w2 * y1 + (z1 * x2 - x1 * z2),
+            w1 * z2 + w2 * z1 + (x1 * y2 - y1 * x2),
+        )
+        return self
 
 
 @dataclasses.dataclass
@@ -143,13 +233,18 @@ class ShapeLight:
     power: float
 
 
+@dataclasses.dataclass
 class Group:
-    """Placeholder for the reference's nested transform groups."""
+    """A set of child shapes (or nested Groups) with its own keyed
+    Transform, applied to rays before the children's. ``Scene.add``
+    flattens the tree: each leaf records its chain of enclosing group
+    transforms, which compile to per-slot parent pointers."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Group (nested transforms) is not ported yet"
-        )
+    transform: Transform = dataclasses.field(default_factory=Transform)
+    children: List[object] = dataclasses.field(default_factory=list)
+
+    def add(self, shape) -> None:
+        self.children.append(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -171,26 +266,37 @@ UNPORTED_KNOBS = {
     "traverse_wide": "lane-carried ILP width of the TPU kernel",
     "mask_gate": "unit-root mask gate (a pure skip)",
     "tri_chunk": "VMEM table streaming chunk",
+    # a [N, 48] minor dimension pads to 128 lanes on the TPU, so the
+    # reference folds tiny meshes triangle by triangle there (and only
+    # there); in eager PyTorch its 12 folds per cube would cost about 12x
+    # the launches of the dense test
+    "tiny_fold": "per-triangle fold of tiny meshes",
 }
 
 # tensor fields, named as in the reference's SceneData (tuples hold one
 # tensor per traversal domain)
 ARRAY_FIELDS = (
     "mat_kind", "mat_color", "mat_param", "mat_rows",
-    "pln_pos", "pln_normal", "pln_mat", "pln_bullseye",
-    "sph_center", "sph_radius", "sph_mat",
-    "rect_corner", "rect_side1", "rect_side2", "rect_mat",
-    "mesh_mat",
+    "pln_pos", "pln_normal", "pln_mat", "pln_bullseye", "pln_xf",
+    "sph_center", "sph_radius", "sph_mat", "sph_xf",
+    "rect_corner", "rect_side1", "rect_side2", "rect_mat", "rect_xf",
+    "mesh_mat", "mesh_xf",
     "tri_meta_rows", "tri_vert_rows", "tri_vm_rows",
     "light_kind", "light_index", "light_shape_id", "light_color",
     "light_power",
+    "xf_times", "xf_translate", "xf_scale", "xf_rotate", "xf_nkeys",
+    "xf_parent",
 )
 DOMAIN_FIELDS = ("ktab_tri", "ktab_mxu", "ktab_box", "ktab_base")
 STATIC_FIELDS = (
-    "ktab_xf", "ktab_seg", "light_kinds_host", "light_indices_host",
+    "ktab_xf", "ktab_seg", "ktab_small", "mesh_tri_ranges",
+    "light_kinds_host", "light_indices_host", "has_motion", "xf_depth",
     "traversal", "traverse_mt", "traverse_b", "traverse_sb", "live_prefix",
     "sort_occl", "traverse_items", "items_w", "items_max", "items_cap",
 )
+# transform slots the host reads (shape ids and parent pointers), kept as
+# host tuples beside their tensors so no query waits on the device
+HOST_XF_FIELDS = ("pln_xf", "sph_xf", "rect_xf", "mesh_xf", "xf_parent")
 # optional array of the reference's SceneData: the lane-packed winner rows
 # [ceil(T / 4), 128] it ships instead of tri_vm_rows above 96k triangles
 PACKED_ROWS_FIELD = "tri_vm_packed"
@@ -209,14 +315,18 @@ class SceneData:
     pln_normal: torch.Tensor
     pln_mat: torch.Tensor
     pln_bullseye: torch.Tensor
+    pln_xf: torch.Tensor  # [n] i32 transform slot per shape (0 = identity)
     sph_center: torch.Tensor
     sph_radius: torch.Tensor
     sph_mat: torch.Tensor
+    sph_xf: torch.Tensor
     rect_corner: torch.Tensor
     rect_side1: torch.Tensor
     rect_side2: torch.Tensor
     rect_mat: torch.Tensor
+    rect_xf: torch.Tensor
     mesh_mat: torch.Tensor
+    mesh_xf: torch.Tensor
     tri_meta_rows: torch.Tensor  # [T, 16] shading normals | flags | ids
     tri_vert_rows: torch.Tensor  # [T, 16] v0 v1 v2 (winner re-test rows)
     tri_vm_rows: torch.Tensor  # [T, 32] vert | meta fused rows
@@ -225,6 +335,13 @@ class SceneData:
     light_shape_id: torch.Tensor
     light_color: torch.Tensor
     light_power: torch.Tensor
+    # keyed TRS tables [X, K(, 3|4)], keys padded with the last key
+    xf_times: torch.Tensor
+    xf_translate: torch.Tensor
+    xf_scale: torch.Tensor
+    xf_rotate: torch.Tensor
+    xf_nkeys: torch.Tensor
+    xf_parent: torch.Tensor  # [X] i32 enclosing group's slot, -1 = root
     # per traversal domain: MT rows [C, 16, 128], BW rows (or empty),
     # cluster boxes [8, C_pad], per-cluster global triangle base [C]
     ktab_tri: tuple = ()
@@ -233,8 +350,21 @@ class SceneData:
     ktab_base: tuple = ()
     ktab_xf: tuple = ()  # domain transform ids (0 = world space)
     ktab_seg: tuple = ()  # per domain ((cl_start, tri0), ...)
+    # transformed meshes of at most 192 triangles: folded densely
+    # (render/mesh_intersect.py) instead of a launch domain of their own
+    ktab_small: tuple = ()
+    mesh_tri_ranges: tuple = ()  # per mesh (first global triangle, count)
     light_kinds_host: tuple = ()
     light_indices_host: tuple = ()
+    # any non-identity transform: static scenes skip every transform step
+    has_motion: bool = False
+    xf_depth: int = 1  # longest transform chain (1 = no nested groups)
+    # host copies of HOST_XF_FIELDS, filled by scene_data_from_arrays
+    pln_xf_host: tuple = ()
+    sph_xf_host: tuple = ()
+    rect_xf_host: tuple = ()
+    mesh_xf_host: tuple = ()
+    xf_parent_host: tuple = ()
     # 'pallas' = the hand-kernel traversal (the only one ported so far)
     traversal: str = "pallas"
     # per-cluster triangle test: 'vpu' Möller-Trumbore | 'bw'
@@ -272,10 +402,6 @@ class SceneData:
                              f"got {self.traverse_mt!r}")
         validate_blocks(self.traverse_b, self.traverse_sb)
         validate_items(self.items_w, self.items_max, self.items_cap)
-        if any(x != 0 for x in self.ktab_xf):
-            raise NotImplementedError(
-                "transformed traversal domains are not ported yet"
-            )
 
     @property
     def n_planes(self) -> int:
@@ -361,6 +487,8 @@ def scene_data_from_arrays(arrays: dict, static: dict, device) -> SceneData:
     kw = {k: dev(arrays[k]) for k in ARRAY_FIELDS}
     for k in DOMAIN_FIELDS:
         kw[k] = tuple(dev(a) for a in arrays.get(k, ()))
+    for k in HOST_XF_FIELDS:
+        kw[k + "_host"] = tuple(int(x) for x in np.asarray(arrays[k]))
     return SceneData(device=device, **kw, **static)
 
 
@@ -373,31 +501,42 @@ class Scene:
         self.rect_lights: List[RectangleLight] = []
         self.meshes: List[TriangleMesh] = []
         self._lights: List[tuple] = []  # (kind, index-within-kind, color, power)
+        # per shape, the enclosing Group transforms (outermost first),
+        # parallel to the kind lists above
+        self._chains = {"pln": [], "sph": [], "rect": [], "mesh": []}
 
-    def add(self, shape) -> None:
+    def add(self, shape, _enclosing: tuple = ()) -> None:
+        if isinstance(shape, Group):
+            for child in shape.children:
+                self.add(child, _enclosing + (shape.transform,))
+            return
+        if isinstance(shape, ShapeLight):
+            inner = shape.shape
+            inner.material = EmitterMaterial(shape.color, shape.power)
+            if isinstance(inner, Sphere):
+                kind = LIGHT_SPHERE
+            elif isinstance(inner, TriangleMesh):
+                kind = LIGHT_MESH
+            else:
+                raise TypeError(f"ShapeLight cannot wrap {type(inner)}")
+            self.add(inner, _enclosing)
+            idx = len(self.spheres if kind == LIGHT_SPHERE else self.meshes)
+            self._lights.append((kind, idx - 1, shape.color, shape.power))
+            return
         if isinstance(shape, Plane):
             self.planes.append(shape)
+            self._chains["pln"].append(_enclosing)
         elif isinstance(shape, Sphere):
             self.spheres.append(shape)
+            self._chains["sph"].append(_enclosing)
         elif isinstance(shape, RectangleLight):
             self.rect_lights.append(shape)
+            self._chains["rect"].append(_enclosing)
             self._lights.append((LIGHT_RECT, len(self.rect_lights) - 1,
                                  shape.color, shape.power))
         elif isinstance(shape, TriangleMesh):
             self.meshes.append(shape)
-        elif isinstance(shape, ShapeLight):
-            inner = shape.shape
-            inner.material = EmitterMaterial(shape.color, shape.power)
-            if isinstance(inner, Sphere):
-                self.spheres.append(inner)
-                self._lights.append((LIGHT_SPHERE, len(self.spheres) - 1,
-                                     shape.color, shape.power))
-            elif isinstance(inner, TriangleMesh):
-                self.meshes.append(inner)
-                self._lights.append((LIGHT_MESH, len(self.meshes) - 1,
-                                     shape.color, shape.power))
-            else:
-                raise TypeError(f"ShapeLight cannot wrap {type(inner)}")
+            self._chains["mesh"].append(_enclosing)
         else:
             raise TypeError(f"unknown shape type {type(shape)}")
 
@@ -410,11 +549,6 @@ class Scene:
         from ..accel.clusters import build_clusters
         from ..accel.kernel_tables import build_bw_rows, build_kernel_tables_multi
 
-        shapes = self.planes + self.spheres + self.rect_lights + self.meshes
-        if not all(s.transform.is_identity() for s in shapes):
-            raise NotImplementedError(
-                "keyed transforms (motion blur) are not ported yet"
-            )
         f32, i32 = np.float32, np.int32
         materials: List[Material] = []
 
@@ -425,8 +559,39 @@ class Scene:
             materials.append(m)
             return len(materials) - 1
 
+        # transform slots: slot 0 is the identity; a shape inside groups
+        # gets a slot whose parent chain is its (deduplicated) group slots;
+        # identity links collapse onto the parent slot (the root: slot 0)
+        transforms: List[Transform] = [Transform()]
+        parents: List[int] = [-1]
+        slot_of = {}
+
+        def alloc_slot(t: Transform, parent: int) -> int:
+            if t.is_identity():
+                return parent
+            key = (id(t), parent)
+            if key not in slot_of:
+                transforms.append(t)
+                parents.append(parent)
+                slot_of[key] = len(transforms) - 1
+            return slot_of[key]
+
+        def xf_ids(shapes, chains):
+            out = []
+            for s, chain in zip(shapes, chains):
+                parent = -1
+                for g in chain:  # outermost group first
+                    parent = alloc_slot(g, parent)
+                out.append(max(alloc_slot(s.transform, parent), 0))
+            return np.array(out, i32)
+
         n_p, n_s, n_r = len(self.planes), len(self.spheres), len(self.rect_lights)
         sphere_id0, rect_id0, mesh_id0 = n_p, n_p + n_s, n_p + n_s + n_r
+        ch = self._chains
+        pln_xf = xf_ids(self.planes, ch["pln"])
+        sph_xf = xf_ids(self.spheres, ch["sph"])
+        rect_xf = xf_ids(self.rect_lights, ch["rect"])
+        mesh_xf = xf_ids(self.meshes, ch["mesh"])
 
         pln_normal_raw = np.array([p.normal for p in self.planes], f32)
         pln_normal_raw = pln_normal_raw.reshape(n_p, 3)
@@ -437,6 +602,7 @@ class Scene:
             ),
             pln_mat=np.array([mat_id(p.material) for p in self.planes], i32),
             pln_bullseye=np.array([p.bullseye for p in self.planes], bool),
+            pln_xf=pln_xf, sph_xf=sph_xf, rect_xf=rect_xf, mesh_xf=mesh_xf,
             sph_center=np.array([s.position for s in self.spheres], f32).reshape(n_s, 3),
             sph_radius=np.array([s.radius for s in self.spheres], f32),
             sph_mat=np.array([mat_id(s.material) for s in self.spheres], i32),
@@ -450,7 +616,7 @@ class Scene:
         )
 
         # --- meshes: BVH-ordered, 48-padded triangle runs (global ids)
-        segs, vm_parts, mesh_mat = [], [], []
+        segs, vm_parts, mesh_mat, tri_ranges = [], [], [], []
         t_off = 0
         for mi, m in enumerate(self.meshes):
             verts = np.asarray(m.vertices, f32)
@@ -489,6 +655,7 @@ class Scene:
             vm_parts.append(np.concatenate([vert, meta], axis=1))
             segs.append((cl.v0, cl.v1, cl.v2, np.arange(tp) < t, t_off))
             mesh_mat.append(mat_id(m.material))
+            tri_ranges.append((t_off, t))
             t_off += tp
         tri_vm = (np.concatenate(vm_parts, 0) if vm_parts
                   else np.zeros((0, 32), f32))
@@ -497,18 +664,35 @@ class Scene:
         a["tri_meta_rows"] = np.ascontiguousarray(tri_vm[:, 16:])
         a["mesh_mat"] = np.array(mesh_mat, i32)
 
-        # --- the one merged world-space traversal domain
-        static = dict(traversal=traversal, traverse_mt=traverse_mt, **knobs)
-        dom = {k: [] for k in ("ktab_tri", "ktab_mxu", "ktab_box", "ktab_base")}
-        if segs:
-            kt = build_kernel_tables_multi(segs)
+        # --- traversal domains: the identity-transform meshes merge into
+        # one world-space domain (first); each transformed mesh above 192
+        # triangles gets its own, entered in mesh-local space; the smaller
+        # transformed meshes are folded densely (ktab_small)
+        static_segs, domain_specs, small = [], [], []
+        for mi, seg in enumerate(segs):
+            if mesh_xf[mi] == 0:
+                static_segs.append(seg)
+            elif tri_ranges[mi][1] > 192:
+                domain_specs.append(([seg], int(mesh_xf[mi])))
+            else:
+                small.append(mi)
+        if static_segs:
+            domain_specs.insert(0, (static_segs, 0))
+        dom = {k: [] for k in DOMAIN_FIELDS}
+        seg_tables = []
+        for dsegs, _ in domain_specs:
+            kt = build_kernel_tables_multi(dsegs)
             dom["ktab_tri"].append(kt.tri)
             dom["ktab_box"].append(kt.cl_box)
             dom["ktab_base"].append(kt.tri_base)
             if traverse_mt in ("bw", "bw_closest"):
                 dom["ktab_mxu"].append(build_bw_rows(kt.tri))
-            static["ktab_xf"] = (0,)
-            static["ktab_seg"] = (kt.seg,)
+            seg_tables.append(kt.seg)
+        static = dict(traversal=traversal, traverse_mt=traverse_mt, **knobs)
+        static["ktab_xf"] = tuple(x for _, x in domain_specs)
+        static["ktab_seg"] = tuple(seg_tables)
+        static["ktab_small"] = tuple(small)
+        static["mesh_tri_ranges"] = tuple(tri_ranges)
         a.update(dom)
 
         # --- lights
@@ -532,6 +716,42 @@ class Scene:
         )
         static["light_kinds_host"] = tuple(kinds)
         static["light_indices_host"] = tuple(indices)
+
+        # --- transform tables, padded to the most keys with the last key;
+        # rotation keys normalised
+        n_x, n_k = len(transforms), max(t.num_keys for t in transforms)
+        xf_times = np.zeros((n_x, n_k), f32)
+        xf_trans = np.zeros((n_x, n_k, 3), f32)
+        xf_scale = np.ones((n_x, n_k, 3), f32)
+        xf_rot = np.zeros((n_x, n_k, 4), f32)
+        xf_rot[:, :, 0] = 1.0
+        xf_nkeys = np.zeros(n_x, i32)
+        for ti, t in enumerate(transforms):
+            k = t.num_keys
+            xf_nkeys[ti] = k
+            xf_times[ti, :k] = np.asarray(t.times, f32)
+            xf_times[ti, k:] = xf_times[ti, k - 1]
+            xf_trans[ti, :k] = np.asarray(t.translations, f32).reshape(k, 3)
+            xf_trans[ti, k:] = xf_trans[ti, k - 1]
+            xf_scale[ti, :k] = np.asarray(t.scales, f32).reshape(k, 3)
+            xf_scale[ti, k:] = xf_scale[ti, k - 1]
+            rot = np.asarray(t.rotations, f32).reshape(k, 4)
+            rot = rot / np.maximum(
+                np.linalg.norm(rot, axis=-1, keepdims=True), 1e-37)
+            xf_rot[ti, :k] = rot
+            xf_rot[ti, k:] = xf_rot[ti, k - 1]
+        a.update(xf_times=xf_times, xf_translate=xf_trans, xf_scale=xf_scale,
+                 xf_rotate=xf_rot, xf_nkeys=xf_nkeys,
+                 xf_parent=np.array(parents, i32))
+
+        def depth(s: int) -> int:
+            d = 0
+            while s >= 0:
+                d, s = d + 1, parents[s]
+            return d
+
+        static["has_motion"] = n_x > 1  # every slot past 0 is non-identity
+        static["xf_depth"] = max(depth(s) for s in range(n_x))
 
         if not materials:
             materials.append(DiffuseMaterial((0.0, 0.0, 0.0)))

@@ -3,12 +3,19 @@
 
 The few analytic shapes (planes, spheres, rects) fold shape by shape over
 the whole wavefront; triangle meshes go through the kernel traversal
-(``render/traverse.py``), whose winner is re-tested exactly and shaded from
-one gathered, transposed 32-column row (``gather_rows_t``).
+(``render/traverse.py``), one launch per traversal domain, whose winner is
+re-tested exactly and shaded from one gathered, transposed 32-column row
+(``gather_rows_t``). Tiny transformed meshes fold densely
+(``render/mesh_intersect.py``) and their winners shade from a gathered
+meta row.
 
-Static scenes with at most ``ROLL_SHAPES`` spheres and rects each; the
-rolled folds, transformed meshes and tiny-mesh folds come with later
-slices.
+Keyed transforms (motion blur): every shape and every transformed domain
+sees the ray in its local space at the lane's time; local t is world t.
+Normals leave through the winner's world-from-local rotation. Scenes
+without motion skip every transform step.
+
+At most ``ROLL_SHAPES`` spheres and rects each; the rolled folds come with
+a later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 
 from ..accel.kernel_tables import KTRI
 from ..models.scene import SceneData
+from ..ops import transform as xf
 from ..ops.brdf import KIND_EMITTER
 from ..ops.intersect import (
     INF,
@@ -27,12 +35,17 @@ from ..ops.intersect import (
     sphere_intersect,
     triangle_intersect,
 )
+from ..ops.quaternion import Quat, rotate_vector
 from ..ops.vec3 import V3, from_aos, normalize, where as vwhere
+from .mesh_intersect import mesh_intersect_clusters
 from .traverse import gather_rows_t, traverse
 
 # above this many shapes of one kind the reference rolls its fold into a
 # loop over packed rows (not ported yet)
 ROLL_SHAPES = 24
+
+# the identity rotation, as scalars that broadcast in torch.where
+_IDENTITY = Quat(1.0, V3(0.0, 0.0, 0.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,72 +72,140 @@ def _full(n, value, dtype, device):
     return torch.full((n,), value, dtype=dtype, device=device)
 
 
-def _planes_candidate(scene: SceneData, o: V3, d: V3, tmin, tmax):
+def _lane_time(scene: SceneData, time, n, device):
+    """Per-lane times [N] f32 when the scene moves, else None."""
+    if not scene.has_motion:
+        return None
+    return torch.as_tensor(time, dtype=torch.float32, device=device).expand(n)
+
+
+def lane_links(scene: SceneData, xf_id: int, time):
+    """The transform chain of slot ``xf_id`` at per-lane ``time``, child
+    first, or None where nothing moves (a static scene, or slot 0: the
+    identity)."""
+    if not scene.has_motion or xf_id == 0:
+        return None
+    time = torch.as_tensor(time, dtype=torch.float32, device=scene.device)
+    return xf.eval_chain(scene.xf_times, scene.xf_translate, scene.xf_scale,
+                         scene.xf_rotate, scene.xf_nkeys, scene.xf_parent_host,
+                         xf_id, time)
+
+
+def _shape_local_ray(scene: SceneData, xf_id: int, o: V3, d: V3, time):
+    """The ray in the local space of transform slot ``xf_id``: (o, d,
+    world-from-local rotation, None for the identity)."""
+    links = lane_links(scene, xf_id, time)
+    if links is None:
+        return o, d, None
+    return xf.ray_to_local_chain(links, o, d)
+
+
+def _where_quat(mask, a: Quat, b: Quat) -> Quat:
+    return Quat(torch.where(mask, a.w, b.w), vwhere(mask, a.v, b.v))
+
+
+def _rotate_out(rot, n_local: V3) -> V3:
+    return n_local if rot is None else rotate_vector(rot, n_local)
+
+
+class _WinnerFold:
+    """Per-shape closest-hit fold that selects the winner's attributes as
+    it goes; with motion it also keeps the winner's local ray and
+    rotation."""
+
+    def __init__(self, scene: SceneData, o: V3, d: V3, **v3s):
+        self.n, dev = o.x.shape[0], o.x.device
+        self.t = _full(self.n, INF, torch.float32, dev)
+        self.idx = _full(self.n, 0, torch.int32, dev)
+        self.mat = _full(self.n, 0, torch.int32, dev)
+        self.v3s = v3s
+        self.motion = scene.has_motion
+        self.o_w, self.d_w = o, d
+        self.rot = _identity_rot(self.n, dev) if self.motion else None
+
+    def update(self, closer, i, t_i, mat_i, o_l, d_l, rot, **v3_vals):
+        n = self.n
+        self.t = torch.where(closer, t_i, self.t)
+        self.idx = torch.where(closer, i, self.idx)
+        self.mat = torch.where(closer, mat_i, self.mat)
+        for name, val in v3_vals.items():
+            self.v3s[name] = vwhere(closer, val.broadcast_to((n,)),
+                                    self.v3s[name])
+        if self.motion:
+            self.o_w = vwhere(closer, o_l, self.o_w)
+            self.d_w = vwhere(closer, d_l, self.d_w)
+            self.rot = _where_quat(closer, rot or _IDENTITY, self.rot)
+
+
+def _identity_rot(n, dev) -> Quat:
+    """Per-lane identity rotations (the fold's starting winner)."""
+    one = torch.ones((n,), dtype=torch.float32, device=dev)
+    return Quat(one, _zeros3(n, dev))
+
+
+def _zeros3(n, dev) -> V3:
+    z = torch.zeros((n,), dtype=torch.float32, device=dev)
+    return V3(z, z, z)
+
+
+def _planes_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     pos, nrm = from_aos(scene.pln_pos), from_aos(scene.pln_normal)
     n, dev = o.x.shape[0], o.x.device
-    t = _full(n, INF, torch.float32, dev)
-    idx = _full(n, 0, torch.int32, dev)
-    mat = _full(n, 0, torch.int32, dev)
-    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
-    pos_b, nrm_b = V3(zero, zero, zero), V3(zero, zero, zero)
+    f = _WinnerFold(scene, o, d, pos=_zeros3(n, dev), nrm=_zeros3(n, dev))
     bulls = torch.zeros((n,), dtype=torch.bool, device=dev)
     for i in range(scene.n_planes):
-        t_i, _ = plane_intersect(o, d, tmin, torch.minimum(t, tmax), pos[i],
-                                 nrm[i])
-        closer = t_i < t
-        t = torch.where(closer, t_i, t)
-        idx = torch.where(closer, i, idx)
-        mat = torch.where(closer, scene.pln_mat[i], mat)
-        pos_b = vwhere(closer, pos[i].broadcast_to((n,)), pos_b)
-        nrm_b = vwhere(closer, nrm[i].broadcast_to((n,)), nrm_b)
+        o_l, d_l, rot = _shape_local_ray(scene, scene.pln_xf_host[i], o, d,
+                                         time)
+        t_i, _ = plane_intersect(o_l, d_l, tmin, torch.minimum(f.t, tmax),
+                                 pos[i], nrm[i])
+        closer = t_i < f.t
+        f.update(closer, i, t_i, scene.pln_mat[i], o_l, d_l, rot,
+                 pos=pos[i], nrm=nrm[i])
         bulls = torch.where(closer, scene.pln_bullseye[i], bulls)
+    t = f.t
     valid = torch.isfinite(t)
-    rel = o + d * torch.where(valid, t, 0.0) - pos_b
+    # the bullseye rings are measured at the local hit position
+    rel = f.o_w + f.d_w * torch.where(valid, t, 0.0) - f.v3s["pos"]
     dist = torch.sqrt(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z)
     ring = torch.remainder(dist * 0.25, 1.0) > 0.5
     color_mod = torch.where(bulls & ring & valid, 0.2, 1.0).to(torch.float32)
-    return t, idx, mat, nrm_b, color_mod
+    return t, f.idx, f.mat, _rotate_out(f.rot, f.v3s["nrm"]), color_mod
 
 
-def _spheres_candidate(scene: SceneData, o: V3, d: V3, tmin, tmax):
+def _spheres_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     center = from_aos(scene.sph_center)
     n, dev = o.x.shape[0], o.x.device
-    t = _full(n, INF, torch.float32, dev)
-    idx = _full(n, 0, torch.int32, dev)
-    mat = _full(n, 0, torch.int32, dev)
-    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
-    c_b = V3(zero, zero, zero)
+    f = _WinnerFold(scene, o, d, center=_zeros3(n, dev))
     for i in range(scene.n_spheres):
-        t_i, _ = sphere_intersect(o, d, tmin, torch.minimum(t, tmax),
+        o_l, d_l, rot = _shape_local_ray(scene, scene.sph_xf_host[i], o, d,
+                                         time)
+        t_i, _ = sphere_intersect(o_l, d_l, tmin, torch.minimum(f.t, tmax),
                                   center[i], scene.sph_radius[i])
-        closer = t_i < t
-        t = torch.where(closer, t_i, t)
-        idx = torch.where(closer, i, idx)
-        mat = torch.where(closer, scene.sph_mat[i], mat)
-        c_b = vwhere(closer, center[i].broadcast_to((n,)), c_b)
+        closer = t_i < f.t
+        f.update(closer, i, t_i, scene.sph_mat[i], o_l, d_l, rot,
+                 center=center[i])
+    t = f.t
     t_safe = torch.where(torch.isfinite(t), t, 0.0)
-    normal = normalize(o + d * t_safe - c_b)
-    return t, scene.sphere_id0 + idx, mat, normal, torch.ones_like(t)
+    normal = normalize(f.o_w + f.d_w * t_safe - f.v3s["center"])
+    return (t, scene.sphere_id0 + f.idx, f.mat, _rotate_out(f.rot, normal),
+            torch.ones_like(t))
 
 
-def _rects_candidate(scene: SceneData, o: V3, d: V3, tmin, tmax):
+def _rects_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     corner = from_aos(scene.rect_corner)
     s1, s2 = from_aos(scene.rect_side1), from_aos(scene.rect_side2)
     n, dev = o.x.shape[0], o.x.device
-    t = _full(n, INF, torch.float32, dev)
-    idx = _full(n, 0, torch.int32, dev)
-    mat = _full(n, 0, torch.int32, dev)
-    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
-    nrm_b = V3(zero, zero, zero)
+    f = _WinnerFold(scene, o, d, nrm=_zeros3(n, dev))
     for i in range(scene.n_rects):
-        t_i, _, nrm_i = rect_intersect(o, d, tmin, torch.minimum(t, tmax),
-                                       corner[i], s1[i], s2[i])
-        closer = t_i < t
-        t = torch.where(closer, t_i, t)
-        idx = torch.where(closer, i, idx)
-        mat = torch.where(closer, scene.rect_mat[i], mat)
-        nrm_b = vwhere(closer, nrm_i, nrm_b)
-    return t, scene.rect_id0 + idx, mat, nrm_b, torch.ones_like(t)
+        o_l, d_l, rot = _shape_local_ray(scene, scene.rect_xf_host[i], o, d,
+                                         time)
+        t_i, _, nrm_i = rect_intersect(o_l, d_l, tmin,
+                                       torch.minimum(f.t, tmax), corner[i],
+                                       s1[i], s2[i])
+        closer = t_i < f.t
+        f.update(closer, i, t_i, scene.rect_mat[i], o_l, d_l, rot, nrm=nrm_i)
+    return (f.t, scene.rect_id0 + f.idx, f.mat,
+            _rotate_out(f.rot, f.v3s["nrm"]), torch.ones_like(f.t))
 
 
 def _mt_for(scene: SceneData, occlusion: bool) -> str:
@@ -138,6 +219,12 @@ def _mt_for(scene: SceneData, occlusion: bool) -> str:
 
 def _domain_tri(scene: SceneData, di: int, mt: str):
     return scene.ktab_tri[di] if mt == "vpu" else scene.ktab_mxu[di]
+
+
+def _domain_local_ray(scene: SceneData, di: int, o: V3, d: V3, time):
+    """The ray in traversal domain ``di``'s space (world space for the
+    merged static domain)."""
+    return _shape_local_ray(scene, scene.ktab_xf[di], o, d, time)
 
 
 def _launch(scene: SceneData, di: int, o: V3, d: V3, tmax, tmin, mt: str,
@@ -155,7 +242,8 @@ def _launch(scene: SceneData, di: int, o: V3, d: V3, tmax, tmin, mt: str,
 def _winner_retest(scene: SceneData, di: int, o: V3, d: V3, p_d, tmin, tmax,
                    want_meta: bool = False):
     """Exact Möller-Trumbore re-test of the kernel's winner from one
-    gathered, transposed row. Returns (t, ok, beta, gamma, g_d[, meta])."""
+    gathered, transposed row (o, d in the domain's space). Returns (t, ok,
+    beta, gamma, g_d[, meta])."""
     found = p_d >= 0
     p_safe = torch.clamp_min(p_d, 0)
     cl = p_safe // KTRI
@@ -183,10 +271,15 @@ def _winner_retest(scene: SceneData, di: int, o: V3, d: V3, p_d, tmin, tmax,
     return t_fin, found & h_fin, beta, gamma, g_d
 
 
-def _mesh_shading(scene: SceneData, t_best, prim_best, beta, gamma, meta):
-    """Winner shading from its transposed [16, N] meta rows: interpolated
-    vertex normals when present, else the unit geometric normal."""
+def _mesh_shading(scene: SceneData, t_best, prim_best, beta, gamma, meta,
+                  rot_best):
+    """Winner shading from its transposed [16, N] meta rows (gathered here
+    when ``meta`` is None): interpolated vertex normals when present, else
+    the unit geometric normal, rotated out of the mesh's local space."""
     valid = prim_best >= 0
+    if meta is None:
+        meta = gather_rows_t(scene.tri_meta_rows,
+                             torch.clamp_min(prim_best, 0).to(torch.int32))
     alpha = 1.0 - beta - gamma
     n0 = V3(meta[0], meta[1], meta[2])
     n1 = V3(meta[3], meta[4], meta[5])
@@ -195,7 +288,7 @@ def _mesh_shading(scene: SceneData, t_best, prim_best, beta, gamma, meta):
     mesh_idx = meta[11].to(torch.int32)
     gnormal = V3(meta[12], meta[13], meta[14])
     n_interp = n0 * alpha + n1 * beta + n2 * gamma
-    normal = vwhere(has_n, normalize(n_interp), gnormal)
+    normal = _rotate_out(rot_best, vwhere(has_n, normalize(n_interp), gnormal))
     mesh_mat = scene.mesh_mat[mesh_idx.long()]
     return (
         torch.where(valid, t_best, INF),
@@ -206,21 +299,24 @@ def _mesh_shading(scene: SceneData, t_best, prim_best, beta, gamma, meta):
     )
 
 
-def _mesh_candidate_pallas(scene: SceneData, o: V3, d: V3, tmin, tmax):
-    """Mesh intersection through the kernels: one launch per traversal
-    domain, then the exact winner re-test and shading."""
+def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
+    """Mesh intersection: one kernel launch per traversal domain, in the
+    domain's space, then the exact winner re-test; then the dense fold of
+    each tiny transformed mesh (ktab_small); then the shading."""
     n, dev = o.x.shape[0], o.x.device
     t_best = _full(n, INF, torch.float32, dev)
     prim_best = _full(n, -1, torch.int32, dev)
     beta_best = torch.zeros((n,), dtype=torch.float32, device=dev)
     gamma_best = torch.zeros_like(beta_best)
     meta_best = None
+    rot_best = _identity_rot(n, dev) if scene.has_motion else None
     mt = _mt_for(scene, occlusion=False)
     for di in range(len(scene.ktab_xf)):
-        p_d = _launch(scene, di, o, d, torch.minimum(t_best, tmax), tmin, mt,
-                      sort_rays=True, any_hit=False)
+        o_l, d_l, rot = _domain_local_ray(scene, di, o, d, time)
+        p_d = _launch(scene, di, o_l, d_l, torch.minimum(t_best, tmax), tmin,
+                      mt, sort_rays=True, any_hit=False)
         t_fin, ok_fin, beta, gamma, g_d, meta = _winner_retest(
-            scene, di, o, d, p_d, tmin, INF, want_meta=True
+            scene, di, o_l, d_l, p_d, tmin, INF, want_meta=True
         )
         closer = ok_fin & (t_fin < torch.minimum(t_best, tmax))
         t_best = torch.where(closer, t_fin, t_best)
@@ -229,23 +325,41 @@ def _mesh_candidate_pallas(scene: SceneData, o: V3, d: V3, tmin, tmax):
         gamma_best = torch.where(closer, gamma, gamma_best)
         meta_best = (meta if meta_best is None
                      else torch.where(closer[None, :], meta, meta_best))
+        if rot_best is not None:
+            rot_best = _where_quat(closer, rot or _IDENTITY, rot_best)
+    # the tiny meshes' winners carry no meta rows: with any such mesh the
+    # shading gathers the meta rows of every winner
+    if scene.ktab_small:
+        meta_best = None
+    for mi in scene.ktab_small:
+        o_l, d_l, rot = _shape_local_ray(scene, scene.mesh_xf_host[mi], o, d,
+                                         time)
+        t_m, prim_m, beta_m, gamma_m, _ = mesh_intersect_clusters(
+            scene, mi, o_l, d_l, tmin, torch.minimum(t_best, tmax))
+        closer = prim_m >= 0
+        t_best = torch.where(closer, t_m, t_best)
+        prim_best = torch.where(closer, prim_m, prim_best)
+        beta_best = torch.where(closer, beta_m, beta_best)
+        gamma_best = torch.where(closer, gamma_m, gamma_best)
+        rot_best = _where_quat(closer, rot, rot_best)
     return _mesh_shading(scene, t_best, prim_best, beta_best, gamma_best,
-                         meta_best)
+                         meta_best, rot_best)
 
 
 def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
                     tmax) -> Hit:
-    """Closest hit for a wavefront. o, d: V3 of [N]; tmin: scalar; tmax:
-    [N] or scalar. ``time`` only matters for motion (not ported yet)."""
+    """Closest hit for a wavefront. o, d: V3 of [N]; time: [N] or scalar
+    (read only when the scene moves); tmin: scalar; tmax: [N] or
+    scalar."""
     _check_unrolled(scene)
     n, dev = o.x.shape[0], o.x.device
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
-    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    time = _lane_time(scene, time, n, dev)
     best = (
         _full(n, INF, torch.float32, dev),
         _full(n, -1, torch.int32, dev),
         _full(n, -1, torch.int32, dev),
-        V3(zero, zero, zero),
+        _zeros3(n, dev),
         torch.ones((n,), dtype=torch.float32, device=dev),
     )
 
@@ -262,16 +376,15 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
         )
 
     if scene.n_planes:
-        best = fold(best, _planes_candidate(scene, o, d, tmin, tmax))
+        best = fold(best, _planes_candidate(scene, o, d, time, tmin, tmax))
     if scene.n_spheres:
-        best = fold(best, _spheres_candidate(scene, o, d, tmin, tmax))
+        best = fold(best, _spheres_candidate(scene, o, d, time, tmin, tmax))
     if scene.n_rects:
-        best = fold(best, _rects_candidate(scene, o, d, tmin, tmax))
+        best = fold(best, _rects_candidate(scene, o, d, time, tmin, tmax))
     if scene.n_meshes:
         # cap the mesh query at the analytic winner: it prunes clusters
         tmax_mesh = torch.minimum(tmax, best[0])
-        best = fold(best,
-                    _mesh_candidate_pallas(scene, o, d, tmin, tmax_mesh))
+        best = fold(best, _mesh_candidate(scene, o, d, time, tmin, tmax_mesh))
 
     t, shape_id, mat, normal, color_mod = best
     valid = torch.isfinite(t) & (t < tmax)
@@ -285,21 +398,29 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
     )
 
 
-def _analytic_occluded(scene: SceneData, o: V3, d: V3, tmin, tmax):
-    """Any-hit against the analytic shapes (planes, spheres, rects)."""
+def _analytic_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
+    """Any-hit against the analytic shapes (planes, spheres, rects), each
+    in its local space."""
     occluded = torch.zeros((o.x.shape[0],), dtype=torch.bool,
                            device=o.x.device)
+
+    def local(xf_id):
+        return _shape_local_ray(scene, xf_id, o, d, time)[:2]
+
     pos, nrm = from_aos(scene.pln_pos), from_aos(scene.pln_normal)
     for i in range(scene.n_planes):
-        occluded |= plane_intersect(o, d, tmin, tmax, pos[i], nrm[i])[1]
+        o_l, d_l = local(scene.pln_xf_host[i])
+        occluded |= plane_intersect(o_l, d_l, tmin, tmax, pos[i], nrm[i])[1]
     center = from_aos(scene.sph_center)
     for i in range(scene.n_spheres):
-        occluded |= sphere_intersect(o, d, tmin, tmax, center[i],
+        o_l, d_l = local(scene.sph_xf_host[i])
+        occluded |= sphere_intersect(o_l, d_l, tmin, tmax, center[i],
                                      scene.sph_radius[i])[1]
     corner = from_aos(scene.rect_corner)
     s1, s2 = from_aos(scene.rect_side1), from_aos(scene.rect_side2)
     for i in range(scene.n_rects):
-        occluded |= rect_intersect(o, d, tmin, tmax, corner[i], s1[i],
+        o_l, d_l = local(scene.rect_xf_host[i])
+        occluded |= rect_intersect(o_l, d_l, tmin, tmax, corner[i], s1[i],
                                    s2[i])[1]
     return occluded
 
@@ -308,7 +429,8 @@ def _occl_tmax_down(occluded, tmax):
     """Shadow-launch tmax: zero already-occluded lanes and round the rest
     DOWN one full 128-ulp key bucket, so every hit the kernel reports
     satisfies t < tmax exactly (the packed key would otherwise accept hits
-    up to 127 ulps beyond tmax)."""
+    up to 127 ulps beyond tmax). Local t is world t, so the world value
+    serves every domain."""
     tq = torch.where(occluded, 0.0, tmax)
     bits = tq.view(torch.int32)
     bits_dn = torch.clamp_min((bits & ~(KTRI - 1)) - KTRI, 0)
@@ -317,26 +439,35 @@ def _occl_tmax_down(occluded, tmax):
 
 def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     """Any-hit shadow query. Returns (occluded bool [N], overflow 0 — the
-    kernel traversal never truncates)."""
+    kernel traversal and the dense fold never truncate)."""
     _check_unrolled(scene)
     n, dev = o.x.shape[0], o.x.device
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
-    occluded = _analytic_occluded(scene, o, d, tmin, tmax)
+    time = _lane_time(scene, time, n, dev)
+    occluded = _analytic_occluded(scene, o, d, time, tmin, tmax)
     if scene.n_meshes:
         tq_dn = _occl_tmax_down(occluded, tmax)
         mt = _mt_for(scene, occlusion=True)
         for di in range(len(scene.ktab_xf)):
-            p_d = _launch(scene, di, o, d, torch.where(occluded, 0.0, tq_dn),
-                          tmin, mt, sort_rays=scene.sort_occl,
-                          any_hit=mt == "vpu")
+            o_l, d_l, _ = _domain_local_ray(scene, di, o, d, time)
+            p_d = _launch(scene, di, o_l, d_l,
+                          torch.where(occluded, 0.0, tq_dn), tmin, mt,
+                          sort_rays=scene.sort_occl, any_hit=mt == "vpu")
             if mt != "vpu":
                 # approximate-t (BW) winners are re-tested exactly
                 occluded = occluded | _winner_retest(
-                    scene, di, o, d, p_d, tmin,
+                    scene, di, o_l, d_l, p_d, tmin,
                     torch.where(occluded, 0.0, tmax),
                 )[1]
             else:
                 occluded = occluded | (p_d >= 0)
+        for mi in scene.ktab_small:
+            o_l, d_l, _ = _shape_local_ray(scene, scene.mesh_xf_host[mi], o,
+                                           d, time)
+            prim_m = mesh_intersect_clusters(
+                scene, mi, o_l, d_l, tmin, torch.where(occluded, 0.0, tmax),
+                any_hit=True)[1]
+            occluded = occluded | (prim_m >= 0)
     return occluded, 0
 
 

@@ -22,8 +22,10 @@ key tie across chunks, NaN tmax, pads and cluster ids past the tri table;
 for the item list, random masks over a grid of budgets, all-zero masks, a
 total of exactly maxitems and one past it, a block of exactly cap clusters
 and one above it, a block that lists all 1,920 clusters, w = 1 and 8; and
-traverse() on both routes, which must not wait on the device.
-Every comparison is exact: kernel and plain version run the same IEEE
+traverse() on both routes, which must not wait on the device; and, on
+stage 7's rotating mesh, rays in the mesh's local space at several times
+through masks, block traversal and gathers, and the stage-7 scene_intersect
+on the card against the CPU. Every kernel comparison is exact: kernel and plain version run the same IEEE
 float32 operations in the same order, without contraction.
 """
 
@@ -657,3 +659,101 @@ def test_build_items_block_lists_every_cluster(dev, all_words, budget):
     got = tv.build_items(masks, 4, maxitems, cap)
     _check_build(got, tv.build_items_plain(masks, 4, maxitems, cap))
     assert bool(got[2]) == (budget == "reference")
+
+
+# ------------------------------------------------- stage 7: moving domain
+
+
+@pytest.fixture(scope="module")
+def stage7(dev, tmp_path_factory):
+    """stage7_scene1 on the n=8 stand-in, compiled on the card and on the
+    CPU, with camera rays at it from around its camera."""
+    from rayito_tpu_torch.models import demo
+
+    path = str(tmp_path_factory.mktemp("obj") / "bumpy8.obj")
+    demo.write_bumpy_standin(path, n=8)
+    rs = np.random.default_rng(11)
+    n = 2 * SB
+    o = (np.asarray(demo.STAGE7_CAMERA[0])
+         + rs.uniform(-1.0, 1.0, (n, 3))).astype(np.float32)
+    tgt = np.asarray([0.2, -0.5, 0.0]) + rs.normal(0.0, 1.8, (n, 3))
+    d = (tgt - o) / np.linalg.norm(tgt - o, axis=1, keepdims=True)
+    return dict(card=demo.stage7_scene1(path).compile(dev),
+                cpu=demo.stage7_scene1(path).compile("cpu"),
+                o=o, d=d.astype(np.float32),
+                time=rs.uniform(0.0, 1.0, n).astype(np.float32))
+
+
+def _v3_on(a, device):
+    return V3(*(torch.from_numpy(a[:, i].copy()).to(device) for i in range(3)))
+
+
+@pytest.mark.parametrize("when", ["start", "middle_key", "end", "lanes"])
+@pytest.mark.parametrize("mt,any_hit", MODES)
+def test_moving_domain_kernels_match_plain(dev, stage7, when, mt, any_hit):
+    """Rays in the rotating mesh's local space at the shutter's start, its
+    middle key, its end and at each lane's own time: the masks, the block
+    traversal and the winners' row gathers equal their plain versions."""
+    from rayito_tpu_torch.render import trace as tr
+
+    scene = stage7["card"]
+    n = stage7["o"].shape[0]
+    time = {"start": np.zeros(n, np.float32),
+            "middle_key": np.full(n, 0.5, np.float32),
+            "end": np.ones(n, np.float32),
+            "lanes": stage7["time"]}[when]
+    time = torch.from_numpy(time).to(dev)
+    o_l, d_l, _ = tr._domain_local_ray(scene, 0, _v3_on(stage7["o"], dev),
+                                       _v3_on(stage7["d"], dev), time)
+    box = scene.ktab_box[0]
+    tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
+    tmax = torch.full((n,), float("inf"), device=dev)
+    soat, _, n_live = tv.prepare_rays(o_l, d_l, tmax, box, 1e-4)
+    masks = tv.cluster_masks(soat, box, 1e-4, n_live)
+    assert torch.equal(masks, tv.cluster_masks_plain(soat, box, 1e-4, n_live))
+    got = tv.traverse_blocks(masks, soat, tri, 1e-4, mt, any_hit, n_live)
+    ref = tv.traverse_blocks_plain(masks, soat, tri, 1e-4, mt, any_hit,
+                                   n_live)
+    torch.cuda.synchronize()
+    assert int((ref[1] >= 0).sum()) > n // 32
+    _check_blocks(got, ref, any_hit)
+    if not any_hit:
+        p = ref[1].view(-1)
+        idx = torch.where(p >= 0, scene.ktab_base[0][
+            (torch.clamp_min(p, 0) // tkt.KTRI).long()]
+            + torch.clamp_min(p, 0) % tkt.KTRI, 0).to(torch.int32)
+        for table in (scene.tri_vm_rows, scene.tri_meta_rows):
+            g = tv.gather_rows_t(table, idx)
+            assert torch.equal(g.view(torch.int32),
+                               tv.gather_rows_t_plain(table, idx)
+                               .view(torch.int32))
+
+
+def test_stage7_scene_intersect_on_the_card_matches_the_cpu(dev, stage7):
+    """scene_intersect of the stage-7 scene at the lanes' times on the card
+    equals the port on the CPU: identical hit, shape and material; t to
+    1e-5 relative and normals to 1e-5 (elementwise float32 on both; the
+    kernels are bit-identical to the plain versions the CPU runs)."""
+    from rayito_tpu_torch.render import trace as tr
+
+    n = stage7["o"].shape[0]
+    hits = []
+    for device, scene in ((dev, stage7["card"]),
+                          (torch.device("cpu"), stage7["cpu"])):
+        h = tr.scene_intersect(
+            scene, _v3_on(stage7["o"], device), _v3_on(stage7["d"], device),
+            torch.from_numpy(stage7["time"]).to(device), 1e-4,
+            torch.full((n,), 1e30, device=device))
+        hits.append(h)
+    g, c = hits
+    valid = c.valid
+    assert torch.equal(g.valid.cpu(), valid)
+    assert torch.equal(g.shape_id.cpu(), c.shape_id)
+    assert torch.equal(g.mat.cpu(), c.mat)
+    assert int((c.shape_id >= stage7["cpu"].mesh_id0).sum()) > n // 32
+    torch.testing.assert_close(g.t.cpu()[valid], c.t[valid], rtol=1e-5,
+                               atol=0.0)
+    for comp in "xyz":
+        torch.testing.assert_close(getattr(g.normal, comp).cpu()[valid],
+                                   getattr(c.normal, comp)[valid],
+                                   rtol=0.0, atol=1e-5)

@@ -1,6 +1,7 @@
 """Package-level contracts of rayito_tpu_torch.
 
-  * the port runs its CPU slice without importing jax or rayito_tpu;
+  * the port runs its CPU slice (a stage-6 and a moving stage-7 render)
+    without importing jax or rayito_tpu;
   * the reference's TPU-only scheduling options are rejected loudly;
   * a kernel wrapper runs its plain version only for CPU tensors: other
     devices raise, and a library that cannot be built raises.
@@ -24,18 +25,24 @@ _SLICE = r"""
 import sys
 import numpy as np
 from rayito_tpu_torch.models.camera import PerspectiveCamera
-from rayito_tpu_torch.models.demo import (STAGE6_CAMERA, stage6_scene,
+from rayito_tpu_torch.models.demo import (STAGE6_CAMERA, STAGE7_CAMERA,
+                                          stage6_scene, stage7_scene1,
                                           write_bumpy_standin)
+from rayito_tpu_torch.ops import quaternion, transform
+from rayito_tpu_torch.render import mesh_intersect
 from rayito_tpu_torch.render.pathtracer import render_path_with_stats
 from rayito_tpu_torch.utils.config import RenderConfig
 write_bumpy_standin(sys.argv[1], n=4)
-scene = stage6_scene(sys.argv[1]).compile("cpu")
 cfg = RenderConfig(width=16, height=16, pixel_samples=1, light_samples=1,
                    max_depth=2, aspect_correction=True)
-cam = PerspectiveCamera.make(30.0, *STAGE6_CAMERA, focal_distance=16.0,
-                             lens_radius=0.0)
-img, _, q = render_path_with_stats(scene, cfg, cam)
-assert img.shape == (16, 16, 3) and np.isfinite(img).all() and q > 256
+for build, spec, shutter in ((stage6_scene, STAGE6_CAMERA, 0.0),
+                             (stage7_scene1, STAGE7_CAMERA, 1.0)):
+    scene = build(sys.argv[1]).compile("cpu")
+    cam = PerspectiveCamera.make(30.0, *spec, focal_distance=16.0,
+                                 lens_radius=0.0, shutter_close=shutter)
+    img, _, q = render_path_with_stats(scene, cfg, cam)
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all() and q > 256
+assert scene.has_motion and scene.ktab_small
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "rayito_tpu"))
 print("FOREIGN", bad)

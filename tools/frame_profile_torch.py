@@ -3,7 +3,9 @@
 Renders chip_smoke.py's stage-6 frame (n=64 bumpy stand-in, 512x512,
 sample 0 over both 256-row bands), or with ``--scene big`` its big-scene
 frame (five stand-ins, 1 spp, depth 3; ``--route items`` at the list
-budget that never overflows, or ``--route scan``), once to warm up, times
+budget that never overflows, or ``--route scan``), or with ``--scene
+stage7`` / ``stage7b`` its stage-7 frames (the moving n=64 stand-in at
+512x512; bench.py's stage-7b config at 512x256), once to warm up, times
 three frames on the host clock, then profiles one frame with
 torch.profiler and prints:
 
@@ -13,7 +15,8 @@ torch.profiler and prints:
   * the twelve kernels that take the most device time.
 
 Run from the repo root on a machine with a GPU:
-``python3 tools/frame_profile_torch.py [--scene big --route scan]``.
+``python3 tools/frame_profile_torch.py [--scene big --route scan]``
+(``--scene stage7``, ``--scene stage7b``).
 """
 
 from __future__ import annotations
@@ -32,10 +35,11 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import big_setup, stage6_setup
+    from chip_smoke import big_setup, stage6_setup, stage7_setup, stage7b_setup
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("stage6", "big"), default="stage6")
+    ap.add_argument("--scene", choices=("stage6", "big", "stage7", "stage7b"),
+                    default="stage6")
     ap.add_argument("--route", choices=("items", "scan"), default="items")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -46,8 +50,10 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    if args.scene == "stage6":
-        frame = stage6_setup(dev)[3]
+    setups = {"stage6": stage6_setup, "stage7": stage7_setup,
+              "stage7b": stage7b_setup}
+    if args.scene in setups:
+        frame = setups[args.scene](dev)[3]
     else:
         scan, _, _, _, _, big_frame = big_setup(dev)
         frame = (big_frame if args.route == "items"

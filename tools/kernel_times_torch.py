@@ -9,7 +9,13 @@ two ways: on the device (20 calls captured in a CUDA graph and replayed
 between two events, median of 5 replays, per call) and, for the first two,
 around one call with CUDA events (median of 20 calls, the host's enqueue
 included).
-Prints one JSON line per population, with the card's name and power limit.
+Prints one JSON line per population, with the card's name and power limit
+and the (ray block, cluster) pairs its masks list.
+
+``--scenes`` picks the scenes (default ``stage6,big_scene``); ``stage7`` is
+chip_smoke.py's stage-7 populations in the rotating mesh's local space at
+seeded lane times, ``stage7_shared`` the same rays with every lane at time
+0.5, which shows what the spread of lane times costs the traversal.
 
 ``--root`` names the tree whose ``chip_smoke.py`` and ``rayito_tpu_torch``
 are imported (default: this checkout), so two commits can be compared in
@@ -64,6 +70,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="change")
+    ap.add_argument("--scenes", default="stage6,big_scene")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -74,6 +81,7 @@ def main() -> int:
         print("no CUDA device: nothing to time", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from rayito_tpu_torch.render import trace as tr
     from rayito_tpu_torch.render import traverse as tv
 
     if not os.path.abspath(tv.__file__).startswith(root + os.sep):
@@ -83,16 +91,32 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    scene6, cfg6, cam6, _ = cs.stage6_setup(dev)
-    scan, items, defaults, cfg_b, cam_b, _ = cs.big_setup(dev)
-    runs = (("stage6", scene6, cfg6, cam6, (-1.5, 4.0, -1.5), (3.0, 3.0)),
-            ("big_scene", scan, cfg_b, cam_b, (-4.0, 10.0, -4.0),
-             (8.0, 8.0)))
-    for scene_name, scene, cfg, cam, corner, sides in runs:
+    runs = []
+    for scene_name in args.scenes.split(","):
+        if scene_name == "stage6":
+            scene, cfg, cam, _ = cs.stage6_setup(dev)
+            runs.append((scene_name, scene, cfg, cam, None))
+        elif scene_name == "big_scene":
+            scan, items, defaults, cfg, cam, _ = cs.big_setup(dev)
+            runs.append((scene_name, scan, cfg, cam, None))
+        else:
+            import numpy as np
+
+            scene, cfg, cam, _ = cs.stage7_setup(dev)
+            n = cfg.max_rays_per_pass
+            lane_time = (np.random.default_rng(7).uniform(0.0, 1.0, n)
+                         if scene_name == "stage7" else np.full(n, 0.5))
+            runs.append((scene_name, scene, cfg, cam, torch.from_numpy(
+                lane_time.astype(np.float32)).to(dev)))
+    lights = {"big_scene": ((-4.0, 10.0, -4.0), (8.0, 8.0))}
+    for scene_name, scene, cfg, cam, lane_time in runs:
         box = scene.ktab_box[0]
         tmin = cfg.ray_tmin
+        corner, sides = lights.get(scene_name, ((-1.5, 4.0, -1.5), (3.0, 3.0)))
         for name, o, d, tmax, mt, any_hit in cs._populations(
-                scene, cfg, cam, corner, sides):
+                scene, cfg, cam, corner, sides, lane_time):
+            if lane_time is not None:  # the moving domain's local space
+                o, d, _ = tr._domain_local_ray(scene, 0, o, d, lane_time)
             tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
             soat, _, n_live = tv.prepare_rays(o, d, tmax, box, tmin)
             masks = tv.cluster_masks(soat, box, tmin, n_live)
@@ -109,7 +133,8 @@ def main() -> int:
                    "mask_ms": _device_ms(mask_fn),
                    "mask_call_ms": _median_ms(mask_fn, 20),
                    "trav_ms": _device_ms(trav_fn),
-                   "trav_call_ms": _median_ms(trav_fn, 20)}
+                   "trav_call_ms": _median_ms(trav_fn, 20),
+                   "pairs": cs._listed(masks, tri.shape[0])[0]}
             if scene_name == "big_scene":
                 w = items.items_w
                 il, steps, _, _ = tv.build_items(masks, w, items.items_max,
