@@ -47,11 +47,33 @@ JAX. Phases, each printed, each fatal on failure:
   9. stage-7b frame: bench.py's stage-7b config (stage7_scene2, 512x256,
      1 spp, depth 3, shutter 0..1): no traversal launch (no domain), the
      tiny meshes' meta-row gather against its plain version on the frame's
-     own inputs, a second frame bit-identical, 3 timed frames.
+     own inputs, a second frame bit-identical, 3 timed frames;
+ 10. stage-5 frame: stage5_scene (no mesh) at 512x512, 1 spp, depth 3: no
+     kernel launch at all, no NaN or negative pixel, a second frame
+     bit-identical, host launches counted, 3 timed frames;
+ 11. mesh-light kernels: the stage-6 geometry with the n=64 stand-in
+     wrapped as a ShapeLight in place of the sphere light (49,152 light
+     triangles behind one area CDF). sample_light of the mesh light on the
+     card against the same call on the CPU (identical triangle picks, pdf
+     to 1e-5 relative). Then three populations of one band through
+     cluster_masks, traverse_blocks and gather_rows_t against their plain
+     versions (bit for bit, timed and bounded as in phase 3): camera rays;
+     the BRDF-side closest-hit rays NEE sends when a mesh light is present,
+     whose dead lanes carry tmax = tmin; the light-side shadow rays, which
+     end on a triangle of the traversed mesh. Each population once more
+     through the item route (traverse_items, build_items) against the scan;
+ 12. mesh-light frame: 512x512, 1 spp, depth 3, counted (closest-hit and
+     any-hit launches apart) and checked against the plain versions as in
+     phase 4, then 3 timed frames;
+ 13. many-shape frames: 40 spheres (above ROLL_SHAPES: the batched fold)
+     and 16 lights (above ROLL_LIGHTS: each lane's chosen light only) at
+     512x512, 1 spp, depth 3, each against the same frame with its
+     threshold raised (the per-shape fold, the per-light loop): bit for
+     bit, with the host launches of both.
 
 Prints a JSON line of per-kernel results (camera-ray times; launches in
 the frame of the path each kernel serves first, and per frame; per
-stage-7 population), then, last, one JSON line
+stage-7 and mesh-light population), then, last, one JSON line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -139,29 +161,35 @@ def main() -> int:
     big = run_big(dev, card)
     stage7 = run_stage7(dev, card)
     stage7b = run_stage7b(dev, card)
+    stage5 = run_stage5(dev, card)
+    mesh_light = run_mesh_light(dev, card)
+    run_many(dev, card)
 
     print(json.dumps({"kernels": kernel_records(stage6, big, stage7,
-                                                stage7b)}))
+                                                stage7b, stage5,
+                                                mesh_light)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
-def kernel_records(stage6: dict, big: dict, stage7: dict,
-                   stage7b: dict) -> list:
+def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
+                   stage5: dict, mesh_light: dict) -> list:
     """The five kernels' records: launches in the frame of the path each
     serves first (stage 6; the big scene for the item route) and per frame
     of each path; errors over every population; camera-ray times with
     their bounds (big_* for the big scene); per stage-7 population (rays in
-    the moving domain's local space) the times, bounds and shares of the
-    stage-6 kernels, and the stage-7b frame's meta-row gather."""
+    the moving domain's local space) and per mesh-light population the
+    times, bounds and shares of the stage-6 kernels, and the stage-7b
+    frame's meta-row gather."""
     src = "rayito_tpu_torch/csrc/"
     ref = "rayito_tpu/render/pallas_traverse.py:"
     cam_r, big_cam = stage6["results"]["camera"], big["results"]["camera"]
     launches, big_launches = stage6["launches"], big["launches"]
     big_res = big["results"].values()
-    s6_res = [*stage6["results"].values(), *stage7["results"].values()]
+    s6_res = [*stage6["results"].values(), *stage7["results"].values(),
+              *mesh_light["results"].values()]
 
     def timed(r, key, big_key=None):
         """ms, plain_ms, bound_ms, bound_by, library_ms of ``key`` in r,
@@ -176,11 +204,11 @@ def kernel_records(stage6: dict, big: dict, stage7: dict,
                        big_bound_ms=big_cam[big_key + "_bound_ms"])
         return out
 
-    def per_population(key):
+    def per_population(key, path=stage7):
         return {name: {k: r[f"{key}_{k}"] for k in
-                       ("ms", "plain_ms", "bound_ms", "share")
+                       ("ms", "plain_ms", "bound_ms", "share", "library_ms")
                        if f"{key}_{k}" in r}
-                for name, r in stage7["results"].items()
+                for name, r in path["results"].items()
                 if f"{key}_ms" in r}
 
     kernels = [
@@ -188,12 +216,14 @@ def kernel_records(stage6: dict, big: dict, stage7: dict,
          "source": src + "cluster_masks.cu", "replaces": ref + "1184",
          "launches": launches["cluster_masks"],
          "max_abs_err": max(r["mask_err"] for r in [*s6_res, *big_res]),
-         **timed(cam_r, "mask", "mask"), "stage7": per_population("mask")},
+         **timed(cam_r, "mask", "mask"), "stage7": per_population("mask"),
+         "mesh_light": per_population("mask", mesh_light)},
         {"name": "traverse_blocks", "route": "cuda",
          "source": src + "traverse_blocks.cu", "replaces": ref + "488",
          "launches": launches["traverse_blocks"],
          "max_abs_err": max(r["t_err"] for r in s6_res),
-         **timed(cam_r, "trav", "scan"), "stage7": per_population("trav")},
+         **timed(cam_r, "trav", "scan"), "stage7": per_population("trav"),
+         "mesh_light": per_population("trav", mesh_light)},
         {"name": "gather_rows_t", "route": "cuda",
          "source": src + "gather_rows_t.cu", "replaces": ref + "1141",
          "launches": launches["gather_rows_t"],
@@ -204,6 +234,7 @@ def kernel_records(stage6: dict, big: dict, stage7: dict,
              (k.startswith("gather") or k.startswith("meta"))),
          **timed(cam_r, "gather32", "gather32"),
          "stage7": per_population("gather32"),
+         "mesh_light": per_population("gather32", mesh_light),
          "stage7b": {k: stage7b["results"]["meta"]["meta_" + k]
                      for k in ("ms", "plain_ms", "bound_ms", "share",
                                "library_ms")}},
@@ -211,6 +242,7 @@ def kernel_records(stage6: dict, big: dict, stage7: dict,
          "source": src + "traverse_items.cu", "replaces": ref + "314",
          "launches": big_launches["traverse_items"],
          "max_abs_err": max(r["items_t_err"] for r in big_res),
+         "mesh_light_lanes_differing": mesh_light["items_route_differing"],
          **timed(big_cam, "items")},
         {"name": "build_items", "route": "cuda",
          "source": src + "build_items.cu", "replaces": ref + "262",
@@ -223,7 +255,9 @@ def kernel_records(stage6: dict, big: dict, stage7: dict,
             "stage6": launches[k["name"]],
             "big_scene": big_launches[k["name"]],
             "stage7": stage7["launches"][k["name"]],
-            "stage7b": stage7b["launches"][k["name"]]}
+            "stage7b": stage7b["launches"][k["name"]],
+            "stage5": stage5["launches"][k["name"]],
+            "mesh_light": mesh_light["launches"][k["name"]]}
     return kernels
 
 
@@ -408,6 +442,132 @@ def stage7b_setup(dev):
                                  focal_distance=16.0, lens_radius=0.0,
                                  shutter_open=0.0, shutter_close=1.0)
     return scene, cfg, cam, _frame_fn(scene, cfg, cam)
+
+
+def _still_setup(dev, make_scene, fov, spec, **cfg_kw):
+    """(scene, config, camera, frame) of a static 512x512 frame, 1 spp,
+    depth 3, in 131,072-ray bands."""
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    scene = make_scene().compile(dev)
+    cfg = RenderConfig(width=WIDTH, height=WIDTH, pixel_samples=1,
+                       light_samples=1, max_depth=3,
+                       max_rays_per_pass=RAYS_PER_PASS, **cfg_kw)
+    cam = PerspectiveCamera.make(fov, *spec, focal_distance=16.0,
+                                 lens_radius=0.0)
+    return scene, cfg, cam, _frame_fn(scene, cfg, cam)
+
+
+def stage5_setup(dev):
+    """(scene, config, camera, frame) of the stage-5 frame: bullseye plane,
+    four spheres, a rect light and a sphere light; no mesh, no domain."""
+    from rayito_tpu_torch.models.demo import STAGE5_CAMERA, stage5_scene
+
+    return _still_setup(dev, stage5_scene, 30.0, STAGE5_CAMERA,
+                        aspect_correction=True)
+
+
+def mesh_light_scene(obj_path: str):
+    """The stage-6 geometry with the OBJ mesh wrapped as a ShapeLight and
+    the sphere light dropped (the upstream demo's mesh-light switch): the
+    light's triangles are the ones the kernels traverse."""
+    import rayito_tpu_torch as tt
+    from rayito_tpu_torch.models.demo import inline_box_mesh
+    from rayito_tpu_torch.models.obj import load_obj
+
+    s = tt.Scene()
+    s.add(tt.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                   tt.DiffuseMaterial((0.7, 0.7, 0.9)), bullseye=True))
+    s.add(tt.Sphere((3.0, -1.0, 0.0), 1.0, tt.DiffuseMaterial((0.8, 0.3, 0.7))))
+    s.add(tt.Sphere((-3.0, 0.0, -2.0), 2.0,
+                    tt.GlossyMaterial((0.3, 0.9, 0.3), 0.1)))
+    s.add(tt.Sphere((1.5, -1.5, 2.5), 0.5,
+                    tt.GlossyMaterial((0.5, 0.3, 0.8), 0.3)))
+    s.add(tt.Sphere((-2.0, -1.5, 1.0), 0.5,
+                    tt.DiffuseMaterial((0.7, 0.7, 0.2))))
+    s.add(inline_box_mesh(tt.DiffuseMaterial((0.8, 0.3, 0.1))))
+    s.add(tt.RectangleLight((-1.5, 4.0, -1.5), (3.0, 0.0, 0.0),
+                            (0.0, 0.0, 3.0), (1.0, 1.0, 1.0), 5.0))
+    s.add(tt.ShapeLight(
+        load_obj(obj_path, tt.GlossyMaterial((0.8, 0.1, 0.1), 0.3)),
+        color=(1.0, 1.0, 0.3), power=10.0))
+    return s
+
+
+def mesh_light_setup(dev):
+    """(scene, the same scene on the CPU, config, camera, frame) of the
+    mesh-light frame: stage 6's camera and config at 1 spp."""
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.models.demo import STAGE6_CAMERA
+    from rayito_tpu_torch.models.scene import scene_data_from_arrays
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    arrays, static = mesh_light_scene(_standin_obj()).compile_arrays()
+    scene = scene_data_from_arrays(arrays, static, dev)
+    on_cpu = scene_data_from_arrays(arrays, static, "cpu")
+    cfg = RenderConfig(width=WIDTH, height=WIDTH, pixel_samples=1,
+                       light_samples=1, max_depth=3, aspect_correction=True,
+                       max_rays_per_pass=RAYS_PER_PASS)
+    cam = PerspectiveCamera.make(30.0, *STAGE6_CAMERA, focal_distance=16.0,
+                                 lens_radius=0.0)
+    return scene, on_cpu, cfg, cam, _frame_fn(scene, cfg, cam)
+
+
+def many_spheres_scene():
+    """A plane, 40 seeded spheres (above ROLL_SHAPES) and a rect light:
+    the many-sphere scene of the parity tests."""
+    import numpy as np
+
+    import rayito_tpu_torch as tt
+
+    rs = np.random.default_rng(5)
+    b = tt.Scene()
+    b.add(tt.Plane((0, -2, 0), (0, 1, 0), tt.DiffuseMaterial((0.7, 0.7, 0.7))))
+    mats = [tt.DiffuseMaterial((0.8, 0.3, 0.2)),
+            tt.GlossyMaterial((0.2, 0.6, 0.8), 0.25)]
+    for i in range(40):
+        b.add(tt.Sphere(tuple(rs.uniform(-6, 6, 3)),
+                        float(rs.uniform(0.2, 0.5)), mats[i % 2]))
+    b.add(tt.RectangleLight((-3, 9, -3), (6, 0, 0), (0, 0, 6),
+                            (1.0, 1.0, 1.0), 3.0))
+    return b
+
+
+def sixteen_lights_scene():
+    """A plane, a glossy sphere, 8 rect and 8 sphere lights (above
+    ROLL_LIGHTS): the many-light scene of the parity tests."""
+    import numpy as np
+
+    import rayito_tpu_torch as tt
+
+    rs = np.random.default_rng(9)
+    b = tt.Scene()
+    b.add(tt.Plane((0, -1, 0), (0, 1, 0), tt.DiffuseMaterial((0.7, 0.7, 0.7))))
+    b.add(tt.Sphere((0.0, 0.5, 0.0), 1.0,
+                    tt.GlossyMaterial((0.8, 0.7, 0.2), 0.3)))
+    for i in range(16):
+        if i % 2 == 0:
+            b.add(tt.RectangleLight(
+                tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 6, 0])),
+                (1.5, 0, 0), (0, 0, 1.5), tuple(rs.uniform(0.5, 1.0, 3)),
+                2.0))
+        else:
+            b.add(tt.ShapeLight(
+                tt.Sphere(tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 5, 0])),
+                          0.4, None),
+                tuple(rs.uniform(0.5, 1.0, 3)), 3.0))
+    return b
+
+
+def many_spheres_setup(dev):
+    return _still_setup(dev, many_spheres_scene, 40.0,
+                        ((0, 3, 18), (0, 0, 0), (0, 1, 0)))
+
+
+def sixteen_lights_setup(dev):
+    return _still_setup(dev, sixteen_lights_scene, 40.0,
+                        ((0, 3, 10), (0, 0, 0), (0, 1, 0)))
 
 
 def _populations(scene, cfg, cam, light_corner, light_sides, time=None):
@@ -1036,6 +1196,303 @@ def run_stage7b(dev, card: str) -> dict:
     return {"results": {"meta": r}, "launches": launches,
             "frame": {"frame_ms": frame_s * 1e3, "mrays": mrays,
                       "queries": q_frame}}
+
+
+def _host_launches(frame) -> int:
+    """Kernel launches the host makes for one frame (torch.profiler's
+    count of cudaLaunchKernel calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cudaLaunchKernelExC"))
+
+
+def _same_frame(label, a, b):
+    """Two (images, queries) results must agree bit for bit."""
+    import torch
+
+    same = torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    print(f"{label}: bit-identical {same}, queries {int(a[1])} / {int(b[1])}")
+    if not same or int(a[1]) != int(b[1]):
+        raise AssertionError(f"{label}: the frames differ")
+
+
+def run_stage5(dev, card: str) -> dict:
+    """Phase 10 on ``dev``: the stage-5 frame with the launch counts set to
+    0 just before it and read just after (no mesh: no kernel of the port
+    may launch); a second frame bit-identical; host launches; 3 timed
+    frames."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    _phase("stage-5 frame")
+    scene, cfg, cam, frame = stage5_setup(dev)
+    print(f"stage-5 scene: {scene.n_planes} plane, {scene.n_spheres} spheres, "
+          f"{scene.n_rects} rect, {scene.n_meshes} meshes, {scene.n_lights} "
+          f"lights (kinds {scene.light_kinds_host})")
+    frame()  # warm-up
+    torch.cuda.synchronize()
+    tv.reset_launch_counts()
+    first = frame()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    print(f"launches in one stage-5 frame: {launches}")
+    if any(launches.values()):
+        raise AssertionError("stage 5 has no mesh, yet a kernel launched")
+    img = first[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
+    diag = _check_image(img, "stage-5 frame")
+    print(f"frame {img.shape}: queries {int(first[1])}, {diag}")
+    _same_frame("second stage-5 frame", first, frame())
+    host = _host_launches(frame)
+    frame_s, q_frame = _time_frames(frame)
+    mrays = q_frame / frame_s / 1e6
+    print(f"stage-5 frame ({cfg.width}x{cfg.height}, 1 spp, depth 3): "
+          f"{host} host launches, {frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} "
+          f"queries, {mrays:.3f} Mrays/s on {card}", flush=True)
+    return {"launches": launches, "host_launches": host,
+            "frame": {"frame_ms": frame_s * 1e3, "mrays": mrays,
+                      "queries": q_frame}}
+
+
+def _captured_launches(fn):
+    """Run ``fn`` and return what it handed to the traversal: [(domain, o,
+    d, tmax, mt_mode, any_hit)], rays in the domain's space."""
+    from rayito_tpu_torch.render import trace as tr
+
+    seen = []
+    launch = tr._launch
+
+    def spy(scene, di, o, d, tmax, tmin, mt, sort_rays, any_hit):
+        seen.append((di, o, d, tmax.clone(), mt, any_hit))
+        return launch(scene, di, o, d, tmax, tmin, mt, sort_rays, any_hit)
+
+    tr._launch = spy
+    try:
+        fn()
+    finally:
+        tr._launch = launch
+    return seen
+
+
+def _mesh_light_populations(scene, cfg, cam, li):
+    """The three traversal launches of one band's first bounce when light
+    ``li`` is a mesh light, exactly as the path tracer makes them
+    (captured at the launch): camera rays; the BRDF-side closest-hit rays
+    (BRDF-sampled directions from the camera hits, dead lanes at
+    tmax = tmin, capped at the analytic winner); the light-side shadow rays
+    toward sampled points of the mesh light (tmax = dist - tmin, rounded
+    down one key bucket). Returns ([(name, o, d, tmax, mt, any_hit)], the
+    shading points V3, the sample's u1 u2 u3)."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.ops.brdf import KIND_EMITTER, KIND_REFLECTION, sample_sa
+    from rayito_tpu_torch.ops.vec3 import RAY_TMAX, dot
+    from rayito_tpu_torch.render import lights as L
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import trace as tr
+    from rayito_tpu_torch.render.integrator import _pixel_grid, screen_uv
+
+    dev, tmin = scene.device, cfg.ray_tmin
+    band = cfg.max_rays_per_pass // cfg.width
+    px, py = _pixel_grid(cfg.width, band, dev)
+    half = torch.full(px.shape, 0.5, device=dev)
+    xu, yu = screen_uv(cfg, px, py, half, half)
+    o, d, _ = cam.make_rays(xu, yu, half, half, half)
+    n = px.shape[0]
+    out = {}
+    hits = []
+    out["camera"] = _captured_launches(lambda: hits.append(
+        tr.scene_intersect(scene, o, d, None, tmin, 1e30)))
+    hit = hits[0]
+    kind, _, exponent = pt._mat_lookup(scene, hit.mat)
+    nee = hit.valid & (kind != KIND_EMITTER) & (kind != KIND_REFLECTION)
+    pos = o + d * hit.t
+    u = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.0, 1.0, (5, n)).astype(np.float32)).to(dev)
+    # light side
+    lp, _, lpdf = L.sample_light(scene, li, pos, hit.normal, None, u[0],
+                                 u[1], u[2], tmin)
+    inc = pos - lp
+    dist = torch.sqrt(torch.clamp_min(dot(inc, inc), 1e-37))
+    ok_l = nee & (lpdf > 0.0)
+    out["shadow"] = _captured_launches(lambda: tr.scene_occluded(
+        scene, pos, -(inc / dist), None, tmin,
+        torch.where(ok_l, dist - tmin, 0.0)))
+    # BRDF side
+    b_in, f_b, pdf_b = sample_sa(kind, exponent, -d, hit.normal, u[3], u[4])
+    ok_b = nee & (pdf_b > 0.0) & (f_b > 0.0)
+    tmax_b = torch.where(ok_b, RAY_TMAX, tmin)
+    out["brdf"] = _captured_launches(lambda: tr.scene_intersect(
+        scene, pos, -b_in, None, tmin, tmax_b))
+    cases = []
+    for name in ("camera", "brdf", "shadow"):
+        (di, co, cd, ctmax, mt, any_hit), = out[name]
+        dead = int((ctmax <= tmin).sum())
+        print(f"{name}: {n} lanes, {dead} dead (tmax <= tmin: "
+              f"{int((ctmax == tmin).sum())} at tmin, "
+              f"{int((ctmax == 0).sum())} at 0), mt {mt}, any_hit {any_hit}")
+        cases.append((name, co, cd, ctmax, mt, any_hit))
+    return cases, pos, u[:3]
+
+
+def _check_mesh_light_sampling(scene, on_cpu, li, pos, u, tmin):
+    """sample_light of mesh light ``li`` on the card against the same call
+    on the CPU, on the same inputs: identical triangle picks, positions to
+    1e-5, the same rejected samples away from the facing edge, pdf to 1e-5
+    relative."""
+    import torch
+
+    from rayito_tpu_torch.ops.vec3 import V3, dot
+    from rayito_tpu_torch.render import lights as L
+
+    mi = scene.light_indices_host[li]
+    tri0 = scene.mesh_tri_ranges[mi][0]
+    n_padded = scene.mesh_cl_ranges[mi][1] * 48
+    picks = [torch.searchsorted(
+        sd.tri_area_cdf[tri0:tri0 + n_padded],
+        u3 * sd.mesh_total_area[mi], right=True).cpu()
+        for sd, u3 in ((scene, u[2]), (on_cpu, u[2].cpu()))]
+    bad_picks = int((picks[0] != picks[1]).sum())
+    cpu = lambda v: V3(v.x.cpu(), v.y.cpu(), v.z.cpu())
+    fin = (torch.isfinite(pos.x) & torch.isfinite(pos.y)
+           & torch.isfinite(pos.z)).cpu()
+    g_pos, g_nrm, g_pdf = L.sample_light(scene, li, pos, None, None, u[0],
+                                         u[1], u[2], tmin)
+    r_pos, r_nrm, r_pdf = L.sample_light(on_cpu, li, cpu(pos), None, None,
+                                         u[0].cpu(), u[1].cpu(), u[2].cpu(),
+                                         tmin)
+    g_pos, g_pdf = cpu(g_pos), g_pdf.cpu()
+    pos_err = max(float((a - b).abs()[fin].max()) for a, b in
+                  zip((g_pos.x, g_pos.y, g_pos.z), (r_pos.x, r_pos.y, r_pos.z)))
+    clear = fin & (dot(r_nrm, cpu(pos) - r_pos).abs() > 1e-4)
+    bad_zero = int(((g_pdf == 0) != (r_pdf == 0))[clear].sum())
+    lit = clear & (r_pdf > 0) & (g_pdf > 0)
+    pdf_err = float(((g_pdf - r_pdf).abs() / r_pdf)[lit].max())
+    print(f"sample_light of the mesh light, card vs CPU on {int(fin.sum())} "
+          f"shading points: CDF of {n_padded} triangles, "
+          f"{int(picks[1].unique().numel())} distinct picks, picks differing "
+          f"{bad_picks}, position max abs diff {pos_err:.3e}, rejected-sample "
+          f"masks differing {bad_zero} (of {int(clear.sum())} lanes off the "
+          f"facing edge), pdf max relative diff {pdf_err:.3e} over "
+          f"{int(lit.sum())} lit lanes")
+    if bad_picks or bad_zero or pos_err > 1e-5 or pdf_err > 1e-5:
+        raise AssertionError("mesh-light sampling on the card differs from "
+                             "the CPU's")
+
+
+def run_mesh_light(dev, card: str) -> dict:
+    """Phases 11-12 on ``dev``: mesh-light sampling against the CPU; the
+    camera, BRDF-side and light-side populations through the stage-6
+    kernels, and once through the item route; the mesh-light frame.
+    Returns {"results", "launches", "frame", "items_route_differing"}."""
+    import torch
+
+    from rayito_tpu_torch.models.scene import LIGHT_MESH
+    from rayito_tpu_torch.render import trace as tr
+    from rayito_tpu_torch.render import traverse as tv
+
+    _phase("mesh-light scene")
+    t0 = time.perf_counter()
+    scene, on_cpu, cfg, cam, frame = mesh_light_setup(dev)
+    li = scene.light_kinds_host.index(LIGHT_MESH)
+    mi = scene.light_indices_host[li]
+    print(f"mesh-light scene (stage-6 geometry, the n={MESH_N} stand-in as a "
+          f"ShapeLight): lights {scene.light_kinds_host}, mesh {mi} of "
+          f"{scene.n_meshes} is the light: {scene.mesh_tri_ranges[mi][1]} "
+          f"triangles, cluster range {scene.mesh_cl_ranges[mi]}, area CDF of "
+          f"{scene.tri_area_cdf.shape[0]} entries, local area "
+          f"{float(scene.mesh_total_area[mi]):.6g}; domains {scene.ktab_xf}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    _phase("mesh-light kernels")
+    tmin = cfg.ray_tmin
+    cases, pos, u = _mesh_light_populations(scene, cfg, cam, li)
+    _check_mesh_light_sampling(scene, on_cpu, li, pos, u, tmin)
+    results, differing = {}, 0
+    box = scene.ktab_box[0]
+    c_pad = box.shape[1]
+    n_blocks = RAYS_PER_PASS // scene.traverse_b
+    for name, co, cd, ctmax, mt, any_hit in cases:
+        results[name] = _check_population(f"mesh-light {name}", scene, 0, co,
+                                          cd, ctmax, mt, any_hit, tmin)
+        # once through the item route, at the budget that never overflows
+        tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
+        kw = dict(want_t=not any_hit, mt_mode=mt, any_hit=any_hit)
+        t_r, p_r = tv.traverse(co, cd, ctmax, box, tri, tmin, **kw)
+        t_i, p_i = tv.traverse(co, cd, ctmax, box, tri, tmin, items=True,
+                               items_w=4, items_max=n_blocks * c_pad,
+                               items_cap=c_pad, **kw)
+        torch.cuda.synchronize()
+        bad = int((p_i != p_r).sum())
+        if not any_hit:
+            bad += int((t_i.view(torch.int32) != t_r.view(torch.int32)).sum())
+        print(f"mesh-light {name}: traverse(items=True) vs the scan route: "
+              f"{bad} lanes differ")
+        differing += bad
+    if differing:
+        raise AssertionError("mesh-light: item route != scan route")
+    cam_pairs = results["camera"]["pairs"]
+    for name in ("brdf", "shadow"):
+        print(f"mesh-light {name}: {results[name]['pairs']} (block, cluster) "
+              f"pairs listed, {results[name]['pairs'] / cam_pairs:.3f}x the "
+              f"camera population's {cam_pairs}")
+
+    _phase("mesh-light frame")
+    modes = [mt for _, _, _, _, mt, _ in _captured_launches(frame)]
+    tally = {mt: modes.count(mt) for mt in sorted(set(modes))}
+    print(f"traversal launches of one mesh-light frame by triangle test: "
+          f"{tally} (closest-hit launches are 'bw', any-hit 'vpu')")
+    fr = _frame_phase(f"mesh-light frame (n={MESH_N} stand-in as the light, "
+                      f"{WIDTH}x{WIDTH}, 1 spp, depth 3", cfg, frame, card)
+    if fr["launches"]["gather_rows_t"] != tally.get("bw", 0):
+        raise AssertionError("mesh-light frame: one winner-row gather per "
+                             "closest-hit launch expected")
+    fr["by_test"] = tally
+    return {"results": results, "launches": fr["launches"], "frame": fr,
+            "items_route_differing": differing}
+
+
+def run_many(dev, card: str) -> None:
+    """Phase 13 on ``dev``: the 40-sphere and 16-light frames above their
+    thresholds against the same frames with the threshold raised, bit for
+    bit, with the host launches and one timed frame of each."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import trace as tr
+
+    _phase("many-shape frames")
+    for label, setup, module, knob in (
+            ("40 spheres", many_spheres_setup, tr, "ROLL_SHAPES"),
+            ("16 lights", sixteen_lights_setup, pt, "ROLL_LIGHTS")):
+        scene, cfg, cam, frame = setup(dev)
+        print(f"{label}: {scene.n_spheres} spheres, {scene.n_rects} rects, "
+              f"{scene.n_lights} lights; {knob} = {getattr(module, knob)}")
+        frame()  # warm-up
+        above = frame()
+        img = above[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
+        diag = _check_image(img, label)
+        print(f"{label} frame {img.shape}: queries {int(above[1])}, {diag}")
+        stats = {"batched": (_host_launches(frame), *_time_frames(frame, 1))}
+        threshold = getattr(module, knob)
+        setattr(module, knob, 10_000)
+        try:
+            below = frame()
+            stats["per-row"] = (_host_launches(frame),
+                                *_time_frames(frame, 1))
+        finally:
+            setattr(module, knob, threshold)
+        _same_frame(f"{label}, above {knob} vs the threshold raised", above,
+                    below)
+        for form, (host, frame_s, q) in stats.items():
+            print(f"{label}, {form} form: {host} host launches, "
+                  f"{frame_s * 1e3:.1f} ms/frame, {q:.0f} queries, "
+                  f"{q / frame_s / 1e6:.3f} Mrays/s on {card}", flush=True)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,11 @@ The reference lays every mesh's BVH-ordered triangles out in runs padded to
 a multiple of TRI_PER_CLUSTER = 48 (the cluster width of its XLA traversal
 pipeline). Global triangle ids count that padding, and the kernel tables,
 winner rows and prim ids all index that order, so the port keeps the same
-padding to keep prim ids directly comparable. The 48-wide cluster boxes and
-row tables of the XLA pipeline belong to ``render/mesh_intersect.py`` and
-are not ported with this slice.
+padding to keep prim ids directly comparable. The reference also counts a
+mesh's clusters padded to a multiple of CLUSTERS_PER_SUPER = 16
+(``padded_cluster_count``): mesh-light sampling slices the area CDF by that
+count. The 48-wide cluster boxes and row tables of the XLA pipeline belong
+to ``render/mesh_intersect.py`` and are not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +19,14 @@ import dataclasses
 import numpy as np
 
 TRI_PER_CLUSTER = 48
+CLUSTERS_PER_SUPER = 16
+
+
+def padded_cluster_count(n_padded_tris: int) -> int:
+    """The reference's cluster count of a padded triangle run: whole
+    superclusters of 16 (the pad clusters hold all-zero triangles)."""
+    c = n_padded_tris // TRI_PER_CLUSTER
+    return -(-c // CLUSTERS_PER_SUPER) * CLUSTERS_PER_SUPER
 
 
 @dataclasses.dataclass

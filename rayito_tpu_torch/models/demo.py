@@ -1,5 +1,5 @@
-"""The stage-6 and stage-7 demo scenes, the big five-instance scene, and a
-procedural stand-in for their mesh asset (counterpart of
+"""The stage-5, stage-6 and stage-7 demo scenes, the big five-instance scene,
+and a procedural stand-in for their mesh asset (counterpart of
 ``rayito_tpu/models/demo.py``).
 
 ``write_bumpy_standin`` writes an OBJ file with the published topology of
@@ -27,6 +27,35 @@ from .scene import (
     Transform,
     TriangleMesh,
 )
+
+
+def stage5_scene() -> Scene:
+    """Stage-5 demo scene: bullseye plane, 4 spheres (2 diffuse, 2 glossy), a
+    3 x 3 rect light of power 5 and a sphere ShapeLight of power 10."""
+    s = Scene()
+    blueish = DiffuseMaterial((0.7, 0.7, 0.9))
+    purplish = DiffuseMaterial((0.8, 0.3, 0.7))
+    yellowish = DiffuseMaterial((0.7, 0.7, 0.2))
+    bluish_glossy = GlossyMaterial((0.5, 0.3, 0.8), 0.3)
+    greenish_glossy = GlossyMaterial((0.3, 0.9, 0.3), 0.1)
+    s.add(Plane(position=(0.0, -2.0, 0.0), normal=(0.0, 1.0, 0.0),
+                material=blueish, bullseye=True))
+    s.add(Sphere(position=(3.0, -1.0, 0.0), radius=1.0, material=purplish))
+    s.add(Sphere(position=(-3.0, 0.0, -2.0), radius=2.0,
+                 material=greenish_glossy))
+    s.add(Sphere(position=(1.5, -1.5, 2.5), radius=0.5,
+                 material=bluish_glossy))
+    s.add(Sphere(position=(-2.0, -1.5, 1.0), radius=0.5, material=yellowish))
+    s.add(RectangleLight(corner=(-1.5, 4.0, -1.5), side1=(3.0, 0.0, 0.0),
+                         side2=(0.0, 0.0, 3.0), color=(1.0, 1.0, 1.0),
+                         power=5.0))
+    s.add(ShapeLight(
+        Sphere(position=(0.0, 0.5, 2.0), radius=0.5, material=blueish),
+        color=(1.0, 1.0, 0.3), power=10.0))
+    return s
+
+
+STAGE5_CAMERA = ((0.0, 5.0, 15.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
 
 STAGE6_CAMERA = ((-2.0, 5.0, 15.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
 

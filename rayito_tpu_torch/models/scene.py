@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import sys
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -280,7 +281,7 @@ ARRAY_FIELDS = (
     "pln_pos", "pln_normal", "pln_mat", "pln_bullseye", "pln_xf",
     "sph_center", "sph_radius", "sph_mat", "sph_xf",
     "rect_corner", "rect_side1", "rect_side2", "rect_mat", "rect_xf",
-    "mesh_mat", "mesh_xf",
+    "mesh_mat", "mesh_xf", "tri_area_cdf", "mesh_total_area",
     "tri_meta_rows", "tri_vert_rows", "tri_vm_rows",
     "light_kind", "light_index", "light_shape_id", "light_color",
     "light_power",
@@ -289,7 +290,7 @@ ARRAY_FIELDS = (
 )
 DOMAIN_FIELDS = ("ktab_tri", "ktab_mxu", "ktab_box", "ktab_base")
 STATIC_FIELDS = (
-    "ktab_xf", "ktab_seg", "ktab_small", "mesh_tri_ranges",
+    "ktab_xf", "ktab_seg", "ktab_small", "mesh_tri_ranges", "mesh_cl_ranges",
     "light_kinds_host", "light_indices_host", "has_motion", "xf_depth",
     "traversal", "traverse_mt", "traverse_b", "traverse_sb", "live_prefix",
     "sort_occl", "traverse_items", "items_w", "items_max", "items_cap",
@@ -327,6 +328,10 @@ class SceneData:
     rect_xf: torch.Tensor
     mesh_mat: torch.Tensor
     mesh_xf: torch.Tensor
+    # mesh-light sampling: per-mesh cumulative triangle areas over the
+    # padded global triangle order, and each mesh's local-space area
+    tri_area_cdf: torch.Tensor  # [T] f32
+    mesh_total_area: torch.Tensor  # [n_mesh] f32
     tri_meta_rows: torch.Tensor  # [T, 16] shading normals | flags | ids
     tri_vert_rows: torch.Tensor  # [T, 16] v0 v1 v2 (winner re-test rows)
     tri_vm_rows: torch.Tensor  # [T, 32] vert | meta fused rows
@@ -354,6 +359,9 @@ class SceneData:
     # (render/mesh_intersect.py) instead of a launch domain of their own
     ktab_small: tuple = ()
     mesh_tri_ranges: tuple = ()  # per mesh (first global triangle, count)
+    # per mesh (first cluster, cluster count) in the reference's 48-wide
+    # cluster order, the count padded to a multiple of 16
+    mesh_cl_ranges: tuple = ()
     light_kinds_host: tuple = ()
     light_indices_host: tuple = ()
     # any non-identity transform: static scenes skip every transform step
@@ -546,7 +554,7 @@ class Scene:
         :func:`scene_data_from_arrays`. Same table construction as the
         reference's ``Scene.compile``."""
         from ..accel.bvh import bvh_prim_order
-        from ..accel.clusters import build_clusters
+        from ..accel.clusters import build_clusters, padded_cluster_count
         from ..accel.kernel_tables import build_bw_rows, build_kernel_tables_multi
 
         f32, i32 = np.float32, np.int32
@@ -617,7 +625,8 @@ class Scene:
 
         # --- meshes: BVH-ordered, 48-padded triangle runs (global ids)
         segs, vm_parts, mesh_mat, tri_ranges = [], [], [], []
-        t_off = 0
+        cl_ranges, cdf_parts, total_area = [], [], []
+        t_off = cl_off = 0
         for mi, m in enumerate(self.meshes):
             verts = np.asarray(m.vertices, f32)
             idx = np.asarray(m.indices, i32)
@@ -656,13 +665,26 @@ class Scene:
             segs.append((cl.v0, cl.v1, cl.v2, np.arange(tp) < t, t_off))
             mesh_mat.append(mat_id(m.material))
             tri_ranges.append((t_off, t))
+            n_cl = padded_cluster_count(tp)
+            cl_ranges.append((cl_off, n_cl))
+            # triangle-area CDF for mesh-light sampling: local-space areas
+            # (a scaled light keeps them: a quirk of the reference
+            # renderer); the zero-area padding can never be selected
+            areas = 0.5 * np.linalg.norm(gn, axis=-1)
+            cdf = np.cumsum(areas.astype(np.float64)).astype(f32)
+            cdf_parts.append(cdf)
+            total_area.append(cdf[-1])
             t_off += tp
+            cl_off += n_cl
         tri_vm = (np.concatenate(vm_parts, 0) if vm_parts
                   else np.zeros((0, 32), f32))
         a["tri_vm_rows"] = tri_vm
         a["tri_vert_rows"] = np.ascontiguousarray(tri_vm[:, :16])
         a["tri_meta_rows"] = np.ascontiguousarray(tri_vm[:, 16:])
         a["mesh_mat"] = np.array(mesh_mat, i32)
+        a["tri_area_cdf"] = (np.concatenate(cdf_parts, 0) if cdf_parts
+                             else np.zeros(0, f32))
+        a["mesh_total_area"] = np.array(total_area, f32)
 
         # --- traversal domains: the identity-transform meshes merge into
         # one world-space domain (first); each transformed mesh above 192
@@ -693,6 +715,7 @@ class Scene:
         static["ktab_seg"] = tuple(seg_tables)
         static["ktab_small"] = tuple(small)
         static["mesh_tri_ranges"] = tuple(tri_ranges)
+        static["mesh_cl_ranges"] = tuple(cl_ranges)
         a.update(dom)
 
         # --- lights
@@ -714,6 +737,18 @@ class Scene:
             light_color=np.array(colors, f32).reshape(n_l, 3),
             light_power=np.array(powers, f32).reshape(n_l),
         )
+        # many-light NEE batches its per-light work only for all-analytic
+        # (rect / sphere) sets: a mesh light slices its CDF per light
+        from ..render.pathtracer import ROLL_LIGHTS
+
+        if n_l > ROLL_LIGHTS and LIGHT_MESH in kinds:
+            print(
+                f"rayito_tpu_torch: scene has {n_l} lights including mesh "
+                "lights: path-mode NEE runs the O(n_lights) UNROLLED light "
+                "loop (rolled NEE requires an all-rect/sphere light set; "
+                "expect more launches per frame, not wrong results)",
+                file=sys.stderr,
+            )
         static["light_kinds_host"] = tuple(kinds)
         static["light_indices_host"] = tuple(indices)
 

@@ -138,19 +138,18 @@ def cmj_sample_2d(index: torch.Tensor, nx: int, ny: int,
 def hash_combine(*vals) -> torch.Tensor:
     """Mix a tuple of uint32 tensors/ints into one uint32 seed (the
     reference's Wang-hash style finalizer over an FNV-ish accumulator)."""
-    device = next(
-        (v.device for v in vals if isinstance(v, torch.Tensor)), None
-    )
-    h = u32(0x9E3779B9, device)
+    # Python ints stay Python ints (scalar operands of the tensor ops): a
+    # tensor made from one would be a host-to-device copy, which waits
+    h = 0x9E3779B9
     for v in vals:
-        v = u32(v, device)
+        v = u32(v) if isinstance(v, torch.Tensor) else int(v) & MASK32
         h = h ^ ((v + 0x9E3779B9 + ((h << 6) & MASK32) + (h >> 2)) & MASK32)
         h = (h ^ 61) ^ (h >> 16)
         h = (h + ((h << 3) & MASK32)) & MASK32
         h = h ^ (h >> 4)
         h = _mul32(h, 0x27D4EB2D)
         h = h ^ (h >> 15)
-    return h
+    return h if isinstance(h, torch.Tensor) else u32(h)
 
 
 # Purpose salts (same values and meaning as the reference's table).

@@ -81,3 +81,9 @@ def uniform_cone_pdf(cos_theta_max):
         0.0,
         1.0 / (2.0 * PI * torch.clamp_min(1.0 - cos_theta_max, 1e-37)),
     )
+
+
+def uniform_to_barycentric_triangle(u1, u2):
+    """Uniform barycentrics: (1 - sqrt(u1), u2 * sqrt(u1))."""
+    s = torch.sqrt(u1)
+    return 1.0 - s, u2 * s

@@ -1,18 +1,26 @@
 """Area-light sampling with pdfs for NEE/MIS (counterpart of
-``rayito_tpu/render/lights.py``) for the rectangle light and the sphere
-ShapeLight. Light indices are host-static; per-lane light choice is made
-by the caller.
+``rayito_tpu/render/lights.py``): the rectangle light, the sphere
+ShapeLight and the mesh ShapeLight (triangle by area through the mesh's
+CDF, then a uniform barycentric point).
+
+The per-light functions take a host-static light index; the caller
+evaluates every light and keeps each lane's chosen one. Above
+``ROLL_LIGHTS`` all-analytic lights the ``*_rolled`` functions evaluate
+each lane's chosen light only, from per-lane gathers of its table row: one
+evaluation per kind whatever the light count (the reference rolls a loop
+over the light table there, to keep its compile time flat).
 
 Each light's keyed transform is evaluated per lane at the ray's time
 (motion-blurred lights); lights of a static scene, and lights with the
-identity slot, skip it. Mesh-light sampling raises NotImplementedError.
+identity slot, skip it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.scene import LIGHT_RECT, LIGHT_SPHERE, SceneData
+from ..accel.clusters import TRI_PER_CLUSTER
+from ..models.scene import LIGHT_MESH, LIGHT_RECT, LIGHT_SPHERE, SceneData
 from ..ops import transform as xfm
 from ..ops.intersect import rect_intersect, sphere_intersect
 from ..ops.vec3 import (
@@ -25,21 +33,34 @@ from ..ops.vec3 import (
     normalize,
     where as vwhere,
 )
-from ..ops.warps import uniform_cone_pdf, uniform_to_cone, uniform_to_sphere
+from ..ops.warps import (
+    uniform_cone_pdf,
+    uniform_to_barycentric_triangle,
+    uniform_to_cone,
+    uniform_to_sphere,
+)
 from .trace import lane_links
 
 PDF_CLAMP = 1.0e10  # "really big PDFs blow up power-heuristic MIS"
 
 
 def _row3(table, idx) -> V3:
+    """Row ``idx`` of a [K, 3] table: a host int (0-dim components) or a
+    long [N] of per-lane rows."""
     return V3(table[idx, 0], table[idx, 1], table[idx, 2])
 
 
-def _kind_index(scene: SceneData, li: int):
-    kind = scene.light_kinds_host[li]
-    if kind not in (LIGHT_RECT, LIGHT_SPHERE):
-        raise NotImplementedError("mesh lights are not ported yet")
-    return kind, scene.light_indices_host[li]
+def _xf_host(scene: SceneData, kind: int):
+    return {LIGHT_RECT: scene.rect_xf_host, LIGHT_SPHERE: scene.sph_xf_host,
+            LIGHT_MESH: scene.mesh_xf_host}[kind]
+
+
+def _kind_index_links(scene: SceneData, li: int, time):
+    """(kind, index within the kind, transform links) of light ``li``."""
+    kind, idx = scene.light_kinds_host[li], scene.light_indices_host[li]
+    if kind not in (LIGHT_RECT, LIGHT_SPHERE, LIGHT_MESH):
+        raise NotImplementedError(f"unknown light kind {kind}")
+    return kind, idx, lane_links(scene, _xf_host(scene, kind)[idx], time)
 
 
 def _chain(fn, links, x: V3) -> V3:
@@ -47,8 +68,8 @@ def _chain(fn, links, x: V3) -> V3:
     return x if links is None else fn(links, x)
 
 
-def _sample_rect(scene: SceneData, idx, ref_pos: V3, time, u1, u2):
-    links = lane_links(scene, scene.rect_xf_host[idx], time)
+def _sample_rect(scene: SceneData, idx, links, ref_pos: V3, u1, u2):
+    """``idx``: a host int, or per-lane rows (long [N])."""
     corner = _row3(scene.rect_corner, idx)
     s1 = _row3(scene.rect_side1, idx)
     s2 = _row3(scene.rect_side2, idx)
@@ -68,9 +89,8 @@ def _sample_rect(scene: SceneData, idx, ref_pos: V3, time, u1, u2):
     return pos, nrm, torch.where(pdf > PDF_CLAMP, 0.0, pdf)
 
 
-def _sample_sphere(scene: SceneData, idx, ref_pos: V3, time, u1, u2,
+def _sample_sphere(scene: SceneData, idx, links, ref_pos: V3, u1, u2,
                    tmin: float):
-    links = lane_links(scene, scene.sph_xf_host[idx], time)
     center = _row3(scene.sph_center, idx)
     radius = scene.sph_radius[idx]
     local_ref = _chain(xfm.to_local_point_chain, links, ref_pos)
@@ -114,34 +134,80 @@ def _sample_sphere(scene: SceneData, idx, ref_pos: V3, time, u1, u2,
     return pos, nrm, torch.where(facing, pdf, 0.0)
 
 
+def _sample_mesh_light(scene: SceneData, mi: int, links, ref_pos: V3, u1, u2,
+                       u3):
+    """Mesh ShapeLight sampling: triangle by area through the mesh's CDF
+    (the first cumulative area above u3 * total), a uniform barycentric
+    point, pdf = dist^2 / (total area * |cos|) with the LOCAL-space area (a
+    scaled light keeps it: a quirk of the reference renderer). Samples
+    that face away from the reference point are rejected.
+
+    The CDF slice has the reference's length, the mesh's cluster count
+    padded to a multiple of 16 times 48 (cut at the table's end); a pick
+    past the mesh's own run is one of the reference's all-zero pad
+    triangles: position at the local origin, zero normal."""
+    tri0, count = scene.mesh_tri_ranges[mi]
+    n_padded = scene.mesh_cl_ranges[mi][1] * TRI_PER_CLUSTER
+    own = max(1, -(-count // TRI_PER_CLUSTER)) * TRI_PER_CLUSTER
+    cdf = scene.tri_area_cdf[tri0:tri0 + n_padded]
+    total = scene.mesh_total_area[mi]
+    tri_rel = torch.clamp_max(
+        torch.searchsorted(cdf, u3 * total, right=True), n_padded - 1)
+    if n_padded > own:
+        in_run = tri_rel < own
+        rows = scene.tri_vert_rows[tri0 + torch.where(in_run, tri_rel, 0)]
+        rows = torch.where(in_run[:, None], rows, 0.0)
+    else:
+        rows = scene.tri_vert_rows[tri0 + tri_rel]
+    # columns 0-8 of a vertex row are v0 v1 v2: the floats of the
+    # reference's 48-wide cluster rows
+    p0, p1, p2 = (V3(rows[:, k], rows[:, k + 1], rows[:, k + 2])
+                  for k in (0, 3, 6))
+    alpha, beta = uniform_to_barycentric_triangle(u1, u2)
+    gamma = 1.0 - alpha - beta
+    pos = _chain(xfm.from_local_point_chain, links,
+                 p0 * alpha + p1 * beta + p2 * gamma)
+    nrm = normalize(_chain(xfm.from_local_normal_chain, links,
+                           cross(p1 - p0, p2 - p0)))
+    to_surf = ref_pos - pos
+    pdf = (dot(to_surf, to_surf) * (1.0 / torch.clamp_min(total, 1e-37))
+           / torch.clamp_min(torch.abs(dot(normalize(to_surf), nrm)), 1e-37))
+    return pos, nrm, torch.where(dot(nrm, to_surf) >= 0.0, pdf, 0.0)
+
+
+def _sample_kind(scene: SceneData, kind, idx, links, ref_pos: V3, u1, u2, u3,
+                 tmin: float):
+    if kind == LIGHT_RECT:
+        return _sample_rect(scene, idx, links, ref_pos, u1, u2)
+    if kind == LIGHT_SPHERE:
+        return _sample_sphere(scene, idx, links, ref_pos, u1, u2, tmin)
+    return _sample_mesh_light(scene, idx, links, ref_pos, u1, u2, u3)
+
+
 def sample_light(scene: SceneData, li: int, ref_pos: V3, ref_normal: V3,
                  time, u1, u2, u3, tmin: float):
     """sampleSurface for light ``li``. Returns (position V3, normal V3,
     pdf [N]); pdf == 0 marks a rejected sample."""
-    kind, idx = _kind_index(scene, li)
-    if kind == LIGHT_RECT:
-        return _sample_rect(scene, idx, ref_pos, time, u1, u2)
-    return _sample_sphere(scene, idx, ref_pos, time, u1, u2, tmin)
+    kind, idx, links = _kind_index_links(scene, li, time)
+    return _sample_kind(scene, kind, idx, links, ref_pos, u1, u2, u3, tmin)
 
 
-def light_intersect_pdf(scene: SceneData, li: int, ray_o: V3, ray_d: V3, t,
-                        hit_normal: V3, time):
-    """MIS pdf of reaching light ``li`` by BRDF sampling (the caller has
-    verified the hit is this light)."""
-    kind, idx = _kind_index(scene, li)
-    if kind == LIGHT_RECT:
-        links = lane_links(scene, scene.rect_xf_host[idx], time)
-        s1, s2 = _row3(scene.rect_side1, idx), _row3(scene.rect_side2, idx)
-        if links is not None:
-            s1 = xfm.from_local_vector_chain(links, s1.broadcast_to(t.shape))
-            s2 = xfm.from_local_vector_chain(links, s2.broadcast_to(t.shape))
-        c = cross(s1, s2)
-        area = torch.sqrt(torch.clamp_min(dot(c, c), 1e-37))
-        pdf = t * t / torch.clamp_min(
-            torch.abs(dot(hit_normal, -ray_d)) * area, 1e-37
-        )
-        return torch.where(pdf > PDF_CLAMP, 0.0, pdf)
-    links = lane_links(scene, scene.sph_xf_host[idx], time)
+def _rect_intersect_pdf(scene: SceneData, idx, links, ray_d: V3, t,
+                        hit_normal: V3):
+    s1, s2 = _row3(scene.rect_side1, idx), _row3(scene.rect_side2, idx)
+    if links is not None:
+        s1 = xfm.from_local_vector_chain(links, s1.broadcast_to(t.shape))
+        s2 = xfm.from_local_vector_chain(links, s2.broadcast_to(t.shape))
+    c = cross(s1, s2)
+    area = torch.sqrt(torch.clamp_min(dot(c, c), 1e-37))
+    pdf = t * t / torch.clamp_min(
+        torch.abs(dot(hit_normal, -ray_d)) * area, 1e-37
+    )
+    return torch.where(pdf > PDF_CLAMP, 0.0, pdf)
+
+
+def _sphere_intersect_pdf(scene: SceneData, idx, links, ray_o: V3, ray_d: V3,
+                          t, hit_normal: V3):
     center = _row3(scene.sph_center, idx)
     radius = scene.sph_radius[idx]
     to_center = center - _chain(xfm.to_local_point_chain, links, ray_o)
@@ -157,6 +223,35 @@ def light_intersect_pdf(scene: SceneData, li: int, ray_o: V3, ray_d: V3, t,
     return torch.where(inside, pdf_in, uniform_cone_pdf(cos_theta_max))
 
 
+def _mesh_intersect_pdf(scene: SceneData, idx, ray_o: V3, ray_d: V3, t,
+                        hit_normal: V3):
+    """dist^2 / (total local-space area * |cos|)."""
+    to_surf = ray_o - (ray_o + ray_d * t)
+    total = scene.mesh_total_area[idx]
+    return (dot(to_surf, to_surf) / torch.clamp_min(total, 1e-37)
+            / torch.clamp_min(torch.abs(dot(normalize(to_surf), hit_normal)),
+                              1e-37))
+
+
+def _intersect_pdf_kind(scene: SceneData, kind, idx, links, ray_o: V3,
+                        ray_d: V3, t, hit_normal: V3):
+    if kind == LIGHT_RECT:
+        return _rect_intersect_pdf(scene, idx, links, ray_d, t, hit_normal)
+    if kind == LIGHT_SPHERE:
+        return _sphere_intersect_pdf(scene, idx, links, ray_o, ray_d, t,
+                                     hit_normal)
+    return _mesh_intersect_pdf(scene, idx, ray_o, ray_d, t, hit_normal)
+
+
+def light_intersect_pdf(scene: SceneData, li: int, ray_o: V3, ray_d: V3, t,
+                        hit_normal: V3, time):
+    """MIS pdf of reaching light ``li`` by BRDF sampling (the caller has
+    verified the hit is this light)."""
+    kind, idx, links = _kind_index_links(scene, li, time)
+    return _intersect_pdf_kind(scene, kind, idx, links, ray_o, ray_d, t,
+                               hit_normal)
+
+
 def light_emitted(scene: SceneData, li: int) -> V3:
     """emitted() = color * power (0-dim components)."""
     c = scene.light_color[li]
@@ -164,15 +259,10 @@ def light_emitted(scene: SceneData, li: int) -> V3:
     return V3(c[0] * p, c[1] * p, c[2] * p)
 
 
-def light_hit_analytic(scene: SceneData, li: int, o: V3, d: V3, time,
+def _hit_analytic_kind(scene: SceneData, kind, idx, links, o: V3, d: V3,
                        tmin: float):
-    """Direct ray-vs-light intersection in the light's local space at the
-    lane's time. Returns (t [N], world normal V3, hit [N])."""
-    kind, idx = _kind_index(scene, li)
     n = o.x.shape[0]
     tmax = torch.full((n,), 1.0e30, dtype=torch.float32, device=o.x.device)
-    xf_ids = scene.rect_xf_host if kind == LIGHT_RECT else scene.sph_xf_host
-    links = lane_links(scene, xf_ids[idx], time)
     o_l = _chain(xfm.to_local_point_chain, links, o)
     d_l = _chain(xfm.to_local_vector_chain, links, d)
     if kind == LIGHT_RECT:
@@ -188,3 +278,91 @@ def light_hit_analytic(scene: SceneData, li: int, o: V3, d: V3, time,
                                   scene.sph_radius[idx])
         nrm = normalize(o_l + d_l * torch.where(hit, t, 0.0) - center)
     return t, _chain(xfm.from_local_normal_chain, links, nrm), hit
+
+
+def light_hit_analytic(scene: SceneData, li: int, o: V3, d: V3, time,
+                       tmin: float):
+    """Direct ray-vs-light intersection in the light's local space at the
+    lane's time. Returns (t [N], world normal V3, hit [N]), or None for a
+    mesh light (the caller falls back to the full scene intersection)."""
+    kind, idx, links = _kind_index_links(scene, li, time)
+    if kind == LIGHT_MESH:
+        return None
+    return _hit_analytic_kind(scene, kind, idx, links, o, d, tmin)
+
+
+# ---------------------------------------------------------------------------
+# Many-light forms: each lane's chosen light only
+# ---------------------------------------------------------------------------
+
+
+def _require_analytic(scene: SceneData):
+    if LIGHT_MESH in scene.light_kinds_host:
+        raise ValueError("a mesh light keeps the per-light path "
+                         "(sample_light, light_hit_analytic)")
+
+
+def _keep(mask, a, b):
+    """Per-lane choice between two result tuples of tensors and V3s."""
+    return tuple(vwhere(mask, x, y) if isinstance(x, V3)
+                 else torch.where(mask, x, y) for x, y in zip(a, b))
+
+
+def _for_chosen_light(scene: SceneData, light_idx, time, fn):
+    """``fn(kind, idx, links)`` (a tuple of [N] results) for each lane's
+    chosen light. The lights that do not move are evaluated once per kind
+    present, ``idx`` being each lane's row of that kind's table (lanes of
+    another kind read row 0 and are discarded: an absent kind's table may be
+    empty and is never touched). A light with a keyed transform is
+    evaluated alone at the lane's time and kept by the lanes that chose
+    it."""
+    lidx = light_idx.long()
+    kind_l, idx_l = scene.light_kind[lidx], scene.light_index[lidx].long()
+    lights = list(zip(scene.light_kinds_host, scene.light_indices_host))
+    moving = [li for li, (kind, idx) in enumerate(lights)
+              if scene.has_motion and _xf_host(scene, kind)[idx]]
+    out = None
+    for kind in sorted({lights[li][0] for li in range(len(lights))
+                        if li not in moving}):
+        of_kind = kind_l == kind
+        res = fn(kind, torch.where(of_kind, idx_l, 0), None)
+        out = res if out is None else _keep(of_kind, res, out)
+    for li in moving:
+        kind, idx = lights[li]
+        res = fn(kind, idx, lane_links(scene, _xf_host(scene, kind)[idx],
+                                       time))
+        out = res if out is None else _keep(lidx == li, res, out)
+    return out
+
+
+def sample_chosen_light_rolled(scene: SceneData, light_idx, ref_pos: V3,
+                               time, u1, u2, tmin: float):
+    """sample_light of each lane's chosen light ``light_idx`` [N] for
+    many-light scenes. Every light must be a rect or a sphere: a mesh light
+    slices its CDF per light and keeps the per-light path."""
+    _require_analytic(scene)
+    return _for_chosen_light(
+        scene, light_idx, time,
+        lambda kind, idx, links: _sample_kind(scene, kind, idx, links,
+                                              ref_pos, u1, u2, None, tmin))
+
+
+def light_hit_analytic_rolled(scene: SceneData, light_idx, o: V3, d: V3,
+                              time, tmin: float):
+    """light_hit_analytic of each lane's chosen light (rects and spheres
+    only)."""
+    _require_analytic(scene)
+    return _for_chosen_light(
+        scene, light_idx, time,
+        lambda kind, idx, links: _hit_analytic_kind(scene, kind, idx, links,
+                                                    o, d, tmin))
+
+
+def light_intersect_pdf_rolled(scene: SceneData, light_idx, ray_o: V3,
+                               ray_d: V3, t, hit_normal: V3, time):
+    """light_intersect_pdf of each lane's chosen light (all three
+    kinds)."""
+    return _for_chosen_light(
+        scene, light_idx, time,
+        lambda kind, idx, links: (_intersect_pdf_kind(
+            scene, kind, idx, links, ray_o, ray_d, t, hit_normal),))[0]

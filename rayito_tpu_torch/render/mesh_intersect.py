@@ -47,8 +47,9 @@ def mesh_intersect_clusters(scene, mi: int, o: V3, d: V3, tmin, tmax,
     vert = lambda k: V3(rows[None, :, k], rows[None, :, k + 1],
                         rows[None, :, k + 2])
     n = o.x.shape[0]
-    tmax = torch.as_tensor(tmax, dtype=torch.float32,
-                           device=o.x.device).expand(n)
+    if not torch.is_tensor(tmax):  # filled on the device: no copy to wait on
+        tmax = torch.full((n,), float(tmax), device=o.x.device)
+    tmax = tmax.to(torch.float32).expand(n)
     t, _, beta, gamma, _ = triangle_intersect(
         o[:, None], d[:, None], tmin, tmax[:, None], vert(0), vert(3),
         vert(6))

@@ -9,8 +9,12 @@ Dirac bounces, uniform light selection per sample, power-heuristic MIS
 between a light sample and a BRDF sample (each with its own shadow query),
 light scale n_lights / num_light_samples, no Russian roulette.
 
-Analytic lights (rect, sphere) only, at most ``ROLL_LIGHTS`` of them; mesh
-lights and the rolled many-light loop come with later slices.
+With only analytic lights (rect, sphere) the BRDF-side sample is an
+analytic light hit plus an any-hit query; one mesh light in the scene turns
+it, for every light, into a full closest-hit query whose hit must be the
+chosen light's shape. Above ``ROLL_LIGHTS`` all-analytic lights each lane
+evaluates its chosen light only (``lights.*_rolled``); a larger set that
+holds a mesh light keeps the per-light loop.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from .trace import (
     material_emittance,
     material_row,
     scene_intersect,
+    scene_occluded,
     scene_occluded_pair,
 )
 
@@ -77,13 +82,9 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     defines it. ``active`` (bool [N]) marks launch-padding lanes dead from
     bounce 0."""
     n_lights = scene.n_lights
-    if n_lights > ROLL_LIGHTS:
-        raise NotImplementedError(
-            f"more than {ROLL_LIGHTS} lights (rolled NEE) is not ported yet"
-        )
-    if any(k not in (LIGHT_RECT, LIGHT_SPHERE)
-           for k in scene.light_kinds_host):
-        raise NotImplementedError("mesh lights are not ported yet")
+    analytic_lights = all(k in (LIGHT_RECT, LIGHT_SPHERE)
+                          for k in scene.light_kinds_host)
+    roll_lights = n_lights > ROLL_LIGHTS and analytic_lights
     n = o.x.shape[0]
     dev = o.x.device
     f32 = torch.float32
@@ -101,7 +102,8 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     ls = config.light_samples
     seed = config.seed
     tmin = config.ray_tmin
-    emitted_const = [L.light_emitted(scene, li) for li in range(n_lights)]
+    emitted_const = ([] if roll_lights else
+                     [L.light_emitted(scene, li) for li in range(n_lights)])
 
     for bounce in range(config.max_depth):
         hit = scene_intersect(scene, o, d, time, tmin,
@@ -144,15 +146,27 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                                               perm_light)
                 leu = rngo.cmj_sample_1d(fsi, (ps * ls) ** 2, perm_elem)
 
-                # sample every light, keep each lane's chosen one
-                cand = [L.sample_light(scene, li, position, normal, time,
-                                       lsu, lsv, leu, tmin)
-                        for li in range(n_lights)]
-                lp = _select_v3([c[0] for c in cand], light_idx)
-                lpdf = _select(torch.stack([c[2] for c in cand]), light_idx)
-                emitted = _select_v3(
-                    [e.broadcast_to((n,)) for e in emitted_const], light_idx
-                )
+                if roll_lights:
+                    # each lane's chosen light only; its emitted colour
+                    # by per-lane gather from the light table
+                    lp, _, lpdf = L.sample_chosen_light_rolled(
+                        scene, light_idx, position, time, lsu, lsv, tmin)
+                    li_l = light_idx.long()
+                    pw = scene.light_power[li_l]
+                    emitted = V3(scene.light_color[li_l, 0] * pw,
+                                 scene.light_color[li_l, 1] * pw,
+                                 scene.light_color[li_l, 2] * pw)
+                else:
+                    # sample every light, keep each lane's chosen one
+                    cand = [L.sample_light(scene, li, position, normal, time,
+                                           lsu, lsv, leu, tmin)
+                            for li in range(n_lights)]
+                    lp = _select_v3([c[0] for c in cand], light_idx)
+                    lpdf = _select(torch.stack([c[2] for c in cand]),
+                                   light_idx)
+                    emitted = _select_v3(
+                        [e.broadcast_to((n,)) for e in emitted_const],
+                        light_idx)
 
                 # light-sampled direction
                 light_incoming = position - lp
@@ -166,28 +180,51 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                 queries = queries + ok_l.sum()
                 tmax_l = torch.where(ok_l, dist - tmin, 0.0)
 
-                # BRDF-sampled direction toward the same light: analytic
-                # light hit + one any-hit occlusion query
+                # BRDF-sampled direction toward the same light
                 bsu, bsv = rngo.cmj_sample_2d(fsi, ps * ls, ps * ls,
                                               perm_brdf)
                 b_in, f_b, pdf_b = sample_sa(kind, exponent, outgoing,
                                              normal, bsu, bsv)
                 ok_b = nee_lane & (pdf_b > 0.0) & (f_b > 0.0)
-                hits = [L.light_hit_analytic(scene, li, position, -b_in,
-                                             time, tmin)
-                        for li in range(n_lights)]
-                t_l = _select(torch.stack([h[0] for h in hits]), light_idx)
-                n_l = _select_v3([h[1] for h in hits], light_idx)
-                l_hit = _select(torch.stack([h[2] for h in hits]), light_idx)
-                ok_b = ok_b & l_hit
-                queries = queries + ok_b.sum()
-                occluded, blocked, _ = scene_occluded_pair(
-                    scene, position, -light_incoming, tmax_l, -b_in,
-                    torch.where(ok_b, torch.where(l_hit, t_l, 0.0) - tmin,
-                                0.0),
-                    time, tmin, live=ok_l | ok_b,
-                )
-                hit_light = ok_b & ~blocked
+                if analytic_lights:
+                    # "full intersect, hit shape == the chosen light" is:
+                    # the light is hit analytically and nothing is nearer,
+                    # so one analytic hit + one any-hit query replace it
+                    if roll_lights:
+                        t_l, n_l, l_hit = L.light_hit_analytic_rolled(
+                            scene, light_idx, position, -b_in, time, tmin)
+                    else:
+                        hits = [L.light_hit_analytic(scene, li, position,
+                                                     -b_in, time, tmin)
+                                for li in range(n_lights)]
+                        t_l = _select(torch.stack([h[0] for h in hits]),
+                                      light_idx)
+                        n_l = _select_v3([h[1] for h in hits], light_idx)
+                        l_hit = _select(torch.stack([h[2] for h in hits]),
+                                        light_idx)
+                    ok_b = ok_b & l_hit
+                    queries = queries + ok_b.sum()
+                    occluded, blocked, _ = scene_occluded_pair(
+                        scene, position, -light_incoming, tmax_l, -b_in,
+                        torch.where(ok_b,
+                                    torch.where(l_hit, t_l, 0.0) - tmin,
+                                    0.0),
+                        time, tmin, live=ok_l | ok_b,
+                    )
+                    hit_light = ok_b & ~blocked
+                else:
+                    # a mesh light has no analytic hit: the full closest
+                    # hit, for every light of the scene (dead lanes carry
+                    # tmax = tmin)
+                    occluded, _ = scene_occluded(
+                        scene, position, -light_incoming, time, tmin, tmax_l)
+                    queries = queries + ok_b.sum()
+                    sh = scene_intersect(
+                        scene, position, -b_in, time, tmin,
+                        torch.where(ok_b, RAY_TMAX, tmin))
+                    chosen_sid = scene.light_shape_id[light_idx.long()]
+                    hit_light = ok_b & sh.valid & (sh.shape_id == chosen_sid)
+                    t_l, n_l = sh.t, sh.normal
 
                 ok_l = ok_l & ~occluded
                 w_l = power_heuristic(1.0, lpdf, 1.0, brdf_pdf_l)
@@ -198,11 +235,15 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                     0.0,
                 )
                 acc = acc + emitted * cmod_color * gain_l
-                lpdf_b = _select(torch.stack([
-                    L.light_intersect_pdf(scene, li, position, -b_in, t_l,
-                                          n_l, time)
-                    for li in range(n_lights)
-                ]), light_idx)
+                if roll_lights:
+                    lpdf_b = L.light_intersect_pdf_rolled(
+                        scene, light_idx, position, -b_in, t_l, n_l, time)
+                else:
+                    lpdf_b = _select(torch.stack([
+                        L.light_intersect_pdf(scene, li, position, -b_in,
+                                              t_l, n_l, time)
+                        for li in range(n_lights)
+                    ]), light_idx)
                 ok_b = hit_light & (lpdf_b > 0.0)
                 w_b = power_heuristic(1.0, pdf_b, 1.0, lpdf_b)
                 gain_b = torch.where(

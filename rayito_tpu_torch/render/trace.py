@@ -14,8 +14,14 @@ sees the ray in its local space at the lane's time; local t is world t.
 Normals leave through the winner's world-from-local rotation. Scenes
 without motion skip every transform step.
 
-At most ``ROLL_SHAPES`` spheres and rects each; the rolled folds come with
-a later slice.
+Above ``ROLL_SHAPES`` spheres or rects the reference rolls its per-shape
+fold into a loop over packed rows, to keep its compile time flat. Nothing
+is compiled here; what a shape costs is host launches, so above the
+threshold the rows of a kind are tested in one batched [rows, N] evaluation
+(``ROLL_CHUNK`` rows at a time) and the winner is the ``argmin`` over rows:
+the nearest hit, ties to the lowest row, as the fold's strict ``<`` in
+ascending order. Rows with a keyed transform keep the per-shape test, one
+transform evaluation per distinct slot.
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ from ..ops.vec3 import V3, from_aos, normalize, where as vwhere
 from .mesh_intersect import mesh_intersect_clusters
 from .traverse import gather_rows_t, traverse
 
-# above this many shapes of one kind the reference rolls its fold into a
-# loop over packed rows (not ported yet)
+# above this many shapes of one kind the fold is batched over rows
 ROLL_SHAPES = 24
+# rows per batched [rows, N] evaluation (bounds the temporaries: 32 MB
+# each at 131,072 lanes)
+ROLL_CHUNK = 64
 
 # the identity rotation, as scalars that broadcast in torch.where
 _IDENTITY = Quat(1.0, V3(0.0, 0.0, 0.0))
@@ -60,23 +68,24 @@ class Hit:
     color_mod: torch.Tensor  # [N] scalar modifier (bullseye texture)
 
 
-def _check_unrolled(scene: SceneData):
-    if scene.n_spheres > ROLL_SHAPES or scene.n_rects > ROLL_SHAPES:
-        raise NotImplementedError(
-            f"more than {ROLL_SHAPES} spheres or rects (the rolled folds) "
-            "are not ported yet"
-        )
-
-
 def _full(n, value, dtype, device):
     return torch.full((n,), value, dtype=dtype, device=device)
+
+
+def _lanes(value, n, device):
+    """``value`` as [N] f32 on ``device``: a tensor is expanded; a Python
+    number fills a new tensor (a tensor made from one would be a
+    host-to-device copy, which waits on the device)."""
+    if torch.is_tensor(value):
+        return value.to(dtype=torch.float32, device=device).expand(n)
+    return _full(n, float(value), torch.float32, device)
 
 
 def _lane_time(scene: SceneData, time, n, device):
     """Per-lane times [N] f32 when the scene moves, else None."""
     if not scene.has_motion:
         return None
-    return torch.as_tensor(time, dtype=torch.float32, device=device).expand(n)
+    return _lanes(time, n, device)
 
 
 def lane_links(scene: SceneData, xf_id: int, time):
@@ -85,7 +94,8 @@ def lane_links(scene: SceneData, xf_id: int, time):
     identity)."""
     if not scene.has_motion or xf_id == 0:
         return None
-    time = torch.as_tensor(time, dtype=torch.float32, device=scene.device)
+    if not torch.is_tensor(time):
+        time = _lanes(time, 1, scene.device)
     return xf.eval_chain(scene.xf_times, scene.xf_translate, scene.xf_scale,
                          scene.xf_rotate, scene.xf_nkeys, scene.xf_parent_host,
                          xf_id, time)
@@ -208,6 +218,130 @@ def _rects_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
             _rotate_out(f.rot, f.v3s["nrm"]), torch.ones_like(f.t))
 
 
+def _col(a) -> V3:
+    """[R, 3] table rows -> V3 of [R, 1] columns (broadcast over lanes)."""
+    return V3(a[:, 0:1], a[:, 1:2], a[:, 2:3])
+
+
+def _row_batches(scene: SceneData, xf, xf_host, o: V3, d: V3, time):
+    """The rows of one kind as batches (r0, r1, o_l, d_l, rot, keep): first
+    the whole table against the world ray, ``ROLL_CHUNK`` rows at a time
+    (``keep`` [rows, 1] masks out the keyed rows of a moving scene, None
+    where nothing moves); then each keyed row alone in its local space,
+    one transform evaluation per distinct slot."""
+    n_rows = len(xf_host)
+    for r0 in range(0, n_rows, ROLL_CHUNK):
+        r1 = min(r0 + ROLL_CHUNK, n_rows)
+        keep = (xf[r0:r1] == 0)[:, None] if scene.has_motion else None
+        yield r0, r1, o, d, None, keep
+    by_slot = {}
+    if scene.has_motion:
+        for i, slot in enumerate(xf_host):
+            if slot:
+                by_slot.setdefault(slot, []).append(i)
+    for slot, rows in by_slot.items():
+        o_l, d_l, rot = _shape_local_ray(scene, slot, o, d, time)
+        for i in rows:
+            yield i, i + 1, o_l, d_l, rot, None
+
+
+def _sphere_rows(scene: SceneData, r0, r1, o: V3, d: V3, tmin, tcur):
+    """t [rows, N] of spheres r0..r1 (inf = miss)."""
+    return sphere_intersect(o, d, tmin, tcur, _col(scene.sph_center[r0:r1]),
+                            scene.sph_radius[r0:r1, None])[0]
+
+
+def _rect_rows(scene: SceneData, r0, r1, o: V3, d: V3, tmin, tcur):
+    """(t [rows, N], viewer-flipped local normal V3 of [rows, N])."""
+    t, _, nrm = rect_intersect(
+        o, d, tmin, tcur, _col(scene.rect_corner[r0:r1]),
+        _col(scene.rect_side1[r0:r1]), _col(scene.rect_side2[r0:r1]))
+    return t, nrm
+
+
+class _RowFold:
+    """Closest-hit fold over row batches of one kind. A batch's winner is
+    its ``argmin`` over rows (the first of tied minima); it replaces the
+    running winner when nearer, or on an exact tie when its row is the
+    lower (keyed rows come after the world-space batches, out of row
+    order). Keeps the winner's row and, with motion, its local ray and
+    rotation; ``extra`` V3s (the rect's flipped normal) travel with it."""
+
+    def __init__(self, scene: SceneData, o: V3, d: V3, **extra):
+        self.n, dev = o.x.shape[0], o.x.device
+        self.t = _full(self.n, INF, torch.float32, dev)
+        self.idx = torch.zeros((self.n,), dtype=torch.int64, device=dev)
+        self.extra = extra
+        self.motion = scene.has_motion
+        self.o_w, self.d_w = o, d
+        self.rot = _identity_rot(self.n, dev) if self.motion else None
+
+    def take(self, r0, t_rows, keep, o_l, d_l, rot, **extra_rows):
+        if keep is not None:
+            t_rows = torch.where(keep, t_rows, INF)
+        j = torch.argmin(t_rows, dim=0, keepdim=True)
+        t_c, row = t_rows.gather(0, j)[0], j[0] + r0
+        closer = (t_c < self.t) | ((t_c == self.t) & (row < self.idx)
+                                   & torch.isfinite(t_c))
+        self.t = torch.where(closer, t_c, self.t)
+        self.idx = torch.where(closer, row, self.idx)
+        for name, rows in extra_rows.items():
+            win = V3(*(c.gather(0, j)[0] for c in (rows.x, rows.y, rows.z)))
+            self.extra[name] = vwhere(closer, win, self.extra[name])
+        if self.motion:
+            self.o_w = vwhere(closer, o_l, self.o_w)
+            self.d_w = vwhere(closer, d_l, self.d_w)
+            self.rot = _where_quat(closer, rot or _IDENTITY, self.rot)
+
+
+def _spheres_candidate_rolled(scene: SceneData, o: V3, d: V3, time, tmin,
+                              tmax):
+    """Batched sphere fold (same contract as _spheres_candidate): the
+    winner's centre and material are gathered from its row afterwards.
+    Every batch is tested below ``tmax``, not below the running t, so that
+    a hit AT the running t is seen and the tie rule can settle it."""
+    f = _RowFold(scene, o, d)
+    for r0, r1, o_l, d_l, rot, keep in _row_batches(
+            scene, scene.sph_xf, scene.sph_xf_host, o, d, time):
+        f.take(r0, _sphere_rows(scene, r0, r1, o_l, d_l, tmin, tmax), keep,
+               o_l, d_l, rot)
+    t = f.t
+    t_safe = torch.where(torch.isfinite(t), t, 0.0)
+    normal = normalize(f.o_w + f.d_w * t_safe
+                       - from_aos(scene.sph_center[f.idx]))
+    return (t, scene.sphere_id0 + f.idx.to(torch.int32), scene.sph_mat[f.idx],
+            _rotate_out(f.rot, normal), torch.ones_like(t))
+
+
+def _rects_candidate_rolled(scene: SceneData, o: V3, d: V3, time, tmin,
+                            tmax):
+    """Batched rect fold (same contract as _rects_candidate): the
+    viewer-flipped local normal is the winner's own."""
+    f = _RowFold(scene, o, d, nrm=_zeros3(o.x.shape[0], o.x.device))
+    for r0, r1, o_l, d_l, rot, keep in _row_batches(
+            scene, scene.rect_xf, scene.rect_xf_host, o, d, time):
+        t_rows, nrm_rows = _rect_rows(scene, r0, r1, o_l, d_l, tmin, tmax)
+        f.take(r0, t_rows, keep, o_l, d_l, rot, nrm=nrm_rows)
+    return (f.t, scene.rect_id0 + f.idx.to(torch.int32),
+            scene.rect_mat[f.idx], _rotate_out(f.rot, f.extra["nrm"]),
+            torch.ones_like(f.t))
+
+
+def _rows_occluded(scene: SceneData, xf, xf_host, o: V3, d: V3, time,
+                   rows_t):
+    """Any-hit over the row batches of one kind; ``rows_t(r0, r1, o, d)``
+    gives t [rows, N]."""
+    occluded = torch.zeros((o.x.shape[0],), dtype=torch.bool,
+                           device=o.x.device)
+    for r0, r1, o_l, d_l, _, keep in _row_batches(scene, xf, xf_host, o, d,
+                                                  time):
+        hit = torch.isfinite(rows_t(r0, r1, o_l, d_l))
+        if keep is not None:
+            hit = hit & keep
+        occluded |= hit.any(dim=0)
+    return occluded
+
+
 def _mt_for(scene: SceneData, occlusion: bool) -> str:
     """Per-query triangle test: 'bw_closest' is Baldwin-Weber on closest
     hit (winners are re-tested exactly) and exact MT on occlusion."""
@@ -261,7 +395,7 @@ def _winner_retest(scene: SceneData, di: int, o: V3, d: V3, p_d, tmin, tmax,
         vrow, meta = gather_rows_t(scene.tri_vert_rows, idx), None
     n = p_d.shape[0]
     t_fin, h_fin, beta, gamma, _ = triangle_intersect(
-        o, d, tmin, torch.as_tensor(tmax, device=o.x.device).expand(n),
+        o, d, tmin, _lanes(tmax, n, o.x.device),
         V3(vrow[0], vrow[1], vrow[2]),
         V3(vrow[3], vrow[4], vrow[5]),
         V3(vrow[6], vrow[7], vrow[8]),
@@ -351,9 +485,8 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
     """Closest hit for a wavefront. o, d: V3 of [N]; time: [N] or scalar
     (read only when the scene moves); tmin: scalar; tmax: [N] or
     scalar."""
-    _check_unrolled(scene)
     n, dev = o.x.shape[0], o.x.device
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
+    tmax = _lanes(tmax, n, dev)
     time = _lane_time(scene, time, n, dev)
     best = (
         _full(n, INF, torch.float32, dev),
@@ -378,9 +511,13 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
     if scene.n_planes:
         best = fold(best, _planes_candidate(scene, o, d, time, tmin, tmax))
     if scene.n_spheres:
-        best = fold(best, _spheres_candidate(scene, o, d, time, tmin, tmax))
+        sph_fn = (_spheres_candidate_rolled if scene.n_spheres > ROLL_SHAPES
+                  else _spheres_candidate)
+        best = fold(best, sph_fn(scene, o, d, time, tmin, tmax))
     if scene.n_rects:
-        best = fold(best, _rects_candidate(scene, o, d, time, tmin, tmax))
+        rect_fn = (_rects_candidate_rolled if scene.n_rects > ROLL_SHAPES
+                   else _rects_candidate)
+        best = fold(best, rect_fn(scene, o, d, time, tmin, tmax))
     if scene.n_meshes:
         # cap the mesh query at the analytic winner: it prunes clusters
         tmax_mesh = torch.minimum(tmax, best[0])
@@ -411,17 +548,29 @@ def _analytic_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     for i in range(scene.n_planes):
         o_l, d_l = local(scene.pln_xf_host[i])
         occluded |= plane_intersect(o_l, d_l, tmin, tmax, pos[i], nrm[i])[1]
-    center = from_aos(scene.sph_center)
-    for i in range(scene.n_spheres):
-        o_l, d_l = local(scene.sph_xf_host[i])
-        occluded |= sphere_intersect(o_l, d_l, tmin, tmax, center[i],
-                                     scene.sph_radius[i])[1]
-    corner = from_aos(scene.rect_corner)
-    s1, s2 = from_aos(scene.rect_side1), from_aos(scene.rect_side2)
-    for i in range(scene.n_rects):
-        o_l, d_l = local(scene.rect_xf_host[i])
-        occluded |= rect_intersect(o_l, d_l, tmin, tmax, corner[i], s1[i],
-                                   s2[i])[1]
+    if scene.n_spheres > ROLL_SHAPES:
+        occluded |= _rows_occluded(
+            scene, scene.sph_xf, scene.sph_xf_host, o, d, time,
+            lambda r0, r1, o_l, d_l: _sphere_rows(scene, r0, r1, o_l, d_l,
+                                                  tmin, tmax))
+    else:
+        center = from_aos(scene.sph_center)
+        for i in range(scene.n_spheres):
+            o_l, d_l = local(scene.sph_xf_host[i])
+            occluded |= sphere_intersect(o_l, d_l, tmin, tmax, center[i],
+                                         scene.sph_radius[i])[1]
+    if scene.n_rects > ROLL_SHAPES:
+        occluded |= _rows_occluded(
+            scene, scene.rect_xf, scene.rect_xf_host, o, d, time,
+            lambda r0, r1, o_l, d_l: _rect_rows(scene, r0, r1, o_l, d_l,
+                                                tmin, tmax)[0])
+    else:
+        corner = from_aos(scene.rect_corner)
+        s1, s2 = from_aos(scene.rect_side1), from_aos(scene.rect_side2)
+        for i in range(scene.n_rects):
+            o_l, d_l = local(scene.rect_xf_host[i])
+            occluded |= rect_intersect(o_l, d_l, tmin, tmax, corner[i],
+                                       s1[i], s2[i])[1]
     return occluded
 
 
@@ -440,9 +589,8 @@ def _occl_tmax_down(occluded, tmax):
 def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     """Any-hit shadow query. Returns (occluded bool [N], overflow 0 — the
     kernel traversal and the dense fold never truncate)."""
-    _check_unrolled(scene)
     n, dev = o.x.shape[0], o.x.device
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
+    tmax = _lanes(tmax, n, dev)
     time = _lane_time(scene, time, n, dev)
     occluded = _analytic_occluded(scene, o, d, time, tmin, tmax)
     if scene.n_meshes:

@@ -22,6 +22,19 @@ def quantize_ppm(img) -> np.ndarray:
     return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
+def read_pfm(path: str) -> np.ndarray:
+    """A colour PFM (binary floats, rows bottom-up; a negative scale means
+    little-endian) as [H, W, 3] float32, top row first."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"PF":
+            raise ValueError(f"{path}: not a colour PFM")
+        w, h = (int(v) for v in f.readline().split())
+        scale = float(f.readline())
+        data = np.frombuffer(f.read(w * h * 3 * 4),
+                             dtype="<f4" if scale < 0 else ">f4")
+    return data.reshape(h, w, 3)[::-1].astype(np.float32)
+
+
 def diagnose(img) -> dict:
     """NaN / negative pixel counts and the value range."""
     img = np.asarray(img)

@@ -25,7 +25,11 @@ and one above it, a block that lists all 1,920 clusters, w = 1 and 8; and
 traverse() on both routes, which must not wait on the device; and, on
 stage 7's rotating mesh, rays in the mesh's local space at several times
 through masks, block traversal and gathers, and the stage-7 scene_intersect
-on the card against the CPU. Every kernel comparison is exact: kernel and plain version run the same IEEE
+on the card against the CPU; and, for the mesh lights and the scenes above
+the fold thresholds: mesh-light sampling on the card against the CPU, the
+mesh-light and many-shape ``pathtrace_wave`` under the sync debug mode,
+``argmin`` ties on the card, and the 40-sphere ``scene_intersect`` on the
+card against the CPU. Every kernel comparison is exact: kernel and plain version run the same IEEE
 float32 operations in the same order, without contraction.
 """
 
@@ -757,3 +761,270 @@ def test_stage7_scene_intersect_on_the_card_matches_the_cpu(dev, stage7):
         torch.testing.assert_close(getattr(g.normal, comp).cpu()[valid],
                                    getattr(c.normal, comp)[valid],
                                    rtol=0.0, atol=1e-5)
+
+
+# ------------------------- mesh lights and scenes above the fold thresholds
+
+
+def _mesh_light_scene(path):
+    """A bullseye plane, two spheres, a rect light and the stand-in mesh
+    wrapped as a ShapeLight: one mesh light switches NEE's BRDF side to
+    the full closest-hit query."""
+    import rayito_tpu_torch as tt
+    from rayito_tpu_torch.models.obj import load_obj
+
+    s = tt.Scene()
+    s.add(tt.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                   tt.DiffuseMaterial((0.7, 0.7, 0.9)), bullseye=True))
+    s.add(tt.Sphere((3.0, -1.0, 0.0), 1.0,
+                    tt.GlossyMaterial((0.3, 0.9, 0.3), 0.1)))
+    s.add(tt.Sphere((-2.0, -1.5, 1.0), 0.5,
+                    tt.DiffuseMaterial((0.7, 0.7, 0.2))))
+    s.add(tt.RectangleLight((-1.5, 4.0, -1.5), (3.0, 0.0, 0.0),
+                            (0.0, 0.0, 3.0), (1.0, 1.0, 1.0), 5.0))
+    s.add(tt.ShapeLight(load_obj(path, tt.DiffuseMaterial((1, 1, 1))),
+                        color=(1.0, 1.0, 0.3), power=10.0))
+    return s
+
+
+def _many_spheres_scene(motion, twins=False):
+    """A plane, 40 seeded spheres (above ROLL_SHAPES) and a rect light;
+    with ``motion`` every third sphere has a two-key translation; with
+    ``twins`` sphere 30 is sphere 18 again."""
+    import rayito_tpu_torch as tt
+
+    rs = np.random.default_rng(5)
+    b = tt.Scene()
+    b.add(tt.Plane((0, -2, 0), (0, 1, 0), tt.DiffuseMaterial((0.7, 0.7, 0.7))))
+    mats = [tt.DiffuseMaterial((0.8, 0.3, 0.2)),
+            tt.GlossyMaterial((0.2, 0.6, 0.8), 0.25)]
+    spheres = []
+    for i in range(40):
+        spheres.append((tuple(rs.uniform(-6, 6, 3)),
+                        float(rs.uniform(0.2, 0.5))))
+        if twins and i == 30:
+            spheres[30] = spheres[18]
+        sph = tt.Sphere(*spheres[i], mats[i % 2])
+        if motion and i % 3 == 0:
+            tr = tt.Transform()
+            tr.set_translation(0.0, tuple(rs.uniform(-0.5, 0.5, 3)))
+            tr.set_translation(1.0, tuple(rs.uniform(-0.5, 0.5, 3)))
+            sph.transform = tr
+        b.add(sph)
+    b.add(tt.RectangleLight((-3, 9, -3), (6, 0, 0), (0, 0, 6),
+                            (1.0, 1.0, 1.0), 3.0))
+    return b
+
+
+def _sixteen_lights_scene():
+    import rayito_tpu_torch as tt
+
+    rs = np.random.default_rng(9)
+    b = tt.Scene()
+    b.add(tt.Plane((0, -1, 0), (0, 1, 0), tt.DiffuseMaterial((0.7, 0.7, 0.7))))
+    b.add(tt.Sphere((0.0, 0.5, 0.0), 1.0,
+                    tt.GlossyMaterial((0.8, 0.7, 0.2), 0.3)))
+    for i in range(16):
+        if i % 2 == 0:
+            b.add(tt.RectangleLight(
+                tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 6, 0])),
+                (1.5, 0, 0), (0, 0, 1.5), tuple(rs.uniform(0.5, 1.0, 3)),
+                2.0))
+        else:
+            b.add(tt.ShapeLight(
+                tt.Sphere(tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 5, 0])),
+                          0.4, None),
+                tuple(rs.uniform(0.5, 1.0, 3)), 3.0))
+    return b
+
+
+@pytest.fixture(scope="module")
+def lit(dev, tmp_path_factory):
+    """{name: (scene on the card, scene on the CPU)}."""
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.models.scene import scene_data_from_arrays
+
+    path = str(tmp_path_factory.mktemp("obj") / "bumpy8.obj")
+    demo.write_bumpy_standin(path, n=8)
+    out = {}
+    for name, scene in (
+            ("mesh_light", _mesh_light_scene(path)),
+            ("spheres40", _many_spheres_scene(False)),
+            ("spheres40_motion", _many_spheres_scene(True)),
+            ("spheres40_twins", _many_spheres_scene(False, twins=True)),
+            ("lights16", _sixteen_lights_scene())):
+        arrays, static = scene.compile_arrays()
+        out[name] = (scene_data_from_arrays(arrays, static, dev),
+                     scene_data_from_arrays(arrays, static, "cpu"))
+    return out
+
+
+def test_mesh_light_sampling_on_the_card_matches_the_cpu(dev, lit):
+    """sample_light and light_intersect_pdf of the mesh light: the same
+    triangle picks (searchsorted over the same f32 CDF), positions to
+    1e-5, the same rejected samples off the facing edge, pdfs to 1e-5
+    relative."""
+    from rayito_tpu_torch.models.scene import LIGHT_MESH
+    from rayito_tpu_torch.render import lights as L
+
+    card, cpu = lit["mesh_light"]
+    li = cpu.light_kinds_host.index(LIGHT_MESH)
+    mi = cpu.light_indices_host[li]
+    n = 4 * SB
+    rs = np.random.default_rng(41)
+    ref_pos = np.stack([rs.uniform(-4, 4, n), rs.uniform(-2, 4, n),
+                        rs.uniform(-4, 4, n)], 1).astype(np.float32)
+    u = rs.uniform(0, 1, (3, n)).astype(np.float32)
+    u[2, :2] = 0.0, np.nextafter(np.float32(1.0), np.float32(0.0))
+    out = {}
+    for device, scene in ((dev, card), (torch.device("cpu"), cpu)):
+        uu = [torch.from_numpy(x).to(device) for x in u]
+        tri0 = scene.mesh_tri_ranges[mi][0]
+        cdf = scene.tri_area_cdf[tri0:tri0 + scene.mesh_cl_ranges[mi][1] * 48]
+        pick = torch.searchsorted(cdf, uu[2] * scene.mesh_total_area[mi],
+                                  right=True)
+        pos, nrm, pdf = L.sample_light(scene, li, _v3_on(ref_pos, device),
+                                       None, None, *uu, 1e-4)
+        ipdf = L.light_intersect_pdf(
+            scene, li, _v3_on(ref_pos, device), nrm, uu[0] * 8.0 + 0.5, nrm,
+            None)
+        out[device.type] = [x.cpu() for x in
+                            (pick, pos.x, pos.y, pos.z, nrm.x, nrm.y, nrm.z,
+                             pdf, ipdf)]
+    g, c = out["cuda"], out["cpu"]
+    assert torch.equal(g[0], c[0]) and c[0].unique().numel() > n // 16
+    for a, b in zip(g[1:7], c[1:7]):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5)
+    facing = sum(c[4 + k] * (torch.from_numpy(ref_pos[:, k]) - c[1 + k])
+                 for k in range(3))
+    clear = facing.abs() > 1e-4
+    assert torch.equal((g[7] == 0)[clear], (c[7] == 0)[clear])
+    litl = clear & (c[7] > 0) & (g[7] > 0)
+    assert litl.sum() > n // 16
+    torch.testing.assert_close(g[7][litl], c[7][litl], rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(g[8], c[8], rtol=1e-5, atol=0.0)
+
+
+def _wave_inputs(n, device, eye=(0.0, 3.0, 12.0)):
+    rs = np.random.default_rng(13)
+    o = (np.asarray(eye) + rs.uniform(-0.5, 0.5, (n, 3))).astype(np.float32)
+    tgt = rs.normal(0.0, 2.0, (n, 3)) + np.asarray([0.0, -0.5, 0.0])
+    d = ((tgt - o) / np.linalg.norm(tgt - o, axis=1, keepdims=True))
+    px = torch.arange(n, dtype=torch.int32, device=device) % 64
+    py = torch.arange(n, dtype=torch.int32, device=device) // 64
+    return (_v3_on(o, device), _v3_on(d.astype(np.float32), device),
+            torch.from_numpy(rs.uniform(0, 1, n).astype(np.float32)).to(device),
+            px, py, px % 4)
+
+
+@pytest.mark.parametrize("name", ["mesh_light", "spheres40",
+                                  "spheres40_motion", "lights16"])
+def test_pathtrace_wave_does_not_wait_on_the_device(dev, lit, name):
+    """One wavefront to depth 3 at power-of-two sample counts (2x2 pixel
+    samples, one light sample) under the sync debug mode 'error': the
+    mesh-light branch (CDF search, triangle-row gather, the full BRDF-side
+    query), the batched folds and the chosen-light NEE read nothing back.
+    The result equals the same call outside the debug mode, and is close
+    to the CPU's."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    card, cpu = lit[name]
+    cfg = RenderConfig(width=64, height=64, pixel_samples=2, light_samples=1,
+                       max_depth=3)
+    n = 2 * SB
+    args = _wave_inputs(n, dev)
+    ref, _, q_ref = pt.pathtrace_wave(card, cfg, *args)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _, q = pt.pathtrace_wave(card, cfg, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for comp in "xyz":
+        assert torch.equal(getattr(got, comp), getattr(ref, comp))
+    assert int(q) == int(q_ref) > n
+    assert bool(torch.isfinite(got.x).all()) and float(got.x.max()) > 0.0
+    on_cpu, _, q_cpu = pt.pathtrace_wave(cpu, cfg,
+                                         *_wave_inputs(n, torch.device("cpu")))
+    assert abs(int(q) - int(q_cpu)) <= 0.001 * int(q_cpu)
+    err = float(torch.sqrt(((got.x.cpu() - on_cpu.x) ** 2).mean())
+                / torch.sqrt((on_cpu.x ** 2).mean()))
+    assert err <= 0.02, err  # knife-edge lanes only; see the CPU parity tests
+
+
+def test_argmin_tie_on_the_card_takes_the_first_row(dev):
+    """torch.argmin over rows, as the batched fold uses it: among tied
+    minima the first row, for every lane, also with inf rows around."""
+    rows, n = 64, 4 * SB
+    rs = np.random.default_rng(3)
+    t = rs.uniform(1.0, 9.0, (rows, n)).astype(np.float32)
+    t[rs.uniform(0, 1, (rows, n)) < 0.5] = np.inf
+    first = rs.integers(0, rows - 1, n)
+    second = np.minimum(first + rs.integers(1, 40, n), rows - 1)
+    t[first, np.arange(n)] = 0.5
+    t[second, np.arange(n)] = 0.5
+    got = torch.argmin(torch.from_numpy(t).to(dev), dim=0)
+    assert torch.equal(got.cpu(), torch.from_numpy(first))
+    assert torch.equal(torch.argmin(torch.from_numpy(t), dim=0),
+                       torch.from_numpy(first))
+
+
+@pytest.mark.parametrize("name", ["spheres40", "spheres40_motion",
+                                  "spheres40_twins"])
+def test_many_spheres_scene_intersect_on_the_card_matches_the_cpu(dev, lit,
+                                                                  name):
+    """The batched fold on the card against the CPU, and against the
+    per-shape fold on the card (threshold raised): identical hits, shapes
+    and materials, t to 1e-5 relative, normals to 1e-5; of two identical
+    spheres the lower row wins on both."""
+    from rayito_tpu_torch.render import trace as tr
+
+    card, cpu = lit[name]
+    n = 2 * SB
+    rs = np.random.default_rng(3)
+    o = rs.uniform(-8, 8, (n, 3)).astype(np.float32)
+    o[:, 2] += 14.0
+    d = (rs.uniform(-6, 6, (n, 3)) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    time = rs.uniform(0, 1, n).astype(np.float32)
+
+    def query(scene, device):
+        hit = tr.scene_intersect(
+            scene, _v3_on(o, device), _v3_on(d, device),
+            torch.from_numpy(time).to(device), 1e-4,
+            torch.full((n,), 1e30, device=device))
+        occ, _ = tr.scene_occluded(
+            scene, _v3_on(o, device), _v3_on(d, device),
+            torch.from_numpy(time).to(device), 1e-4,
+            torch.full((n,), 10.0, device=device))
+        return hit, occ
+
+    g, g_occ = query(card, dev)
+    c, c_occ = query(cpu, torch.device("cpu"))
+    threshold = tr.ROLL_SHAPES
+    tr.ROLL_SHAPES = 10_000
+    try:
+        p, p_occ = query(card, dev)
+    finally:
+        tr.ROLL_SHAPES = threshold
+    valid = c.valid
+    assert valid.sum() > n // 8
+    for other, other_occ in ((c, c_occ), (p, p_occ)):
+        assert torch.equal(g.valid.cpu(), other.valid.cpu())
+        assert torch.equal(g.shape_id.cpu(), other.shape_id.cpu())
+        assert torch.equal(g.mat.cpu(), other.mat.cpu())
+        assert torch.equal(g_occ.cpu(), other_occ.cpu())
+        torch.testing.assert_close(g.t.cpu()[valid], other.t.cpu()[valid],
+                                   rtol=1e-5, atol=0.0)
+        for comp in "xyz":
+            torch.testing.assert_close(
+                getattr(g.normal, comp).cpu()[valid],
+                getattr(other.normal, comp).cpu()[valid], rtol=0.0,
+                atol=1e-5)
+    assert torch.equal(g.t, p.t)  # the same float32 operations per element
+    if name == "spheres40_twins":
+        sid = g.shape_id.cpu()
+        assert (sid == cpu.sphere_id0 + 18).sum() > 16
+        assert (sid == cpu.sphere_id0 + 30).sum() == 0

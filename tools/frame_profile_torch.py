@@ -5,7 +5,9 @@ sample 0 over both 256-row bands), or with ``--scene big`` its big-scene
 frame (five stand-ins, 1 spp, depth 3; ``--route items`` at the list
 budget that never overflows, or ``--route scan``), or with ``--scene
 stage7`` / ``stage7b`` its stage-7 frames (the moving n=64 stand-in at
-512x512; bench.py's stage-7b config at 512x256), once to warm up, times
+512x512; bench.py's stage-7b config at 512x256), or with ``--scene stage5``
+/ ``mesh_light`` / ``spheres40`` / ``lights16`` its stage-5, mesh-light and
+many-shape frames, once to warm up, times
 three frames on the host clock, then profiles one frame with
 torch.profiler and prints:
 
@@ -16,7 +18,7 @@ torch.profiler and prints:
 
 Run from the repo root on a machine with a GPU:
 ``python3 tools/frame_profile_torch.py [--scene big --route scan]``
-(``--scene stage7``, ``--scene stage7b``).
+(``--scene stage7``, ``--scene stage7b``, ``--scene mesh_light``, ...).
 """
 
 from __future__ import annotations
@@ -35,11 +37,15 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import big_setup, stage6_setup, stage7_setup, stage7b_setup
+    import chip_smoke as cs
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("stage6", "big", "stage7", "stage7b"),
-                    default="stage6")
+    setups = {"stage6": cs.stage6_setup, "stage7": cs.stage7_setup,
+              "stage7b": cs.stage7b_setup, "stage5": cs.stage5_setup,
+              "mesh_light": cs.mesh_light_setup,
+              "spheres40": cs.many_spheres_setup,
+              "lights16": cs.sixteen_lights_setup}
+    ap.add_argument("--scene", choices=("big", *setups), default="stage6")
     ap.add_argument("--route", choices=("items", "scan"), default="items")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -50,12 +56,10 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    setups = {"stage6": stage6_setup, "stage7": stage7_setup,
-              "stage7b": stage7b_setup}
     if args.scene in setups:
-        frame = setups[args.scene](dev)[3]
+        frame = setups[args.scene](dev)[-1]
     else:
-        scan, _, _, _, _, big_frame = big_setup(dev)
+        scan, _, _, _, _, big_frame = cs.big_setup(dev)
         frame = (big_frame if args.route == "items"
                  else lambda: big_frame(scan))
     frame()
