@@ -65,11 +65,11 @@ JAX. Phases, each printed, each fatal on failure:
  12. mesh-light frame: 512x512, 1 spp, depth 3, counted (closest-hit and
      any-hit launches apart) and checked against the plain versions as in
      phase 4, then 3 timed frames;
- 13. many-shape frames: 40 spheres (above ROLL_SHAPES: the batched fold)
-     and 16 lights (above ROLL_LIGHTS: each lane's chosen light only) at
-     512x512, 1 spp, depth 3, each against the same frame with its
-     threshold raised (the per-shape fold, the per-light loop): bit for
-     bit, with the host launches of both.
+ 13. many-shape frames: 40 spheres and 16 lights at 512x512, 1 spp,
+     depth 3, each in batches of ROLL_CHUNK rows against the same frame
+     with one row per batch (the fold shape by shape): bit for bit, with
+     the host launches of both; and each lane's chosen light against the
+     per-light functions evaluated for all 16 lights, bit for bit.
 
 Prints a JSON line of per-kernel results (camera-ray times; launches in
 the frame of the path each kernel serves first, and per frame; per
@@ -514,58 +514,16 @@ def mesh_light_setup(dev):
     return scene, on_cpu, cfg, cam, _frame_fn(scene, cfg, cam)
 
 
-def many_spheres_scene():
-    """A plane, 40 seeded spheres (above ROLL_SHAPES) and a rect light:
-    the many-sphere scene of the parity tests."""
-    import numpy as np
-
-    import rayito_tpu_torch as tt
-
-    rs = np.random.default_rng(5)
-    b = tt.Scene()
-    b.add(tt.Plane((0, -2, 0), (0, 1, 0), tt.DiffuseMaterial((0.7, 0.7, 0.7))))
-    mats = [tt.DiffuseMaterial((0.8, 0.3, 0.2)),
-            tt.GlossyMaterial((0.2, 0.6, 0.8), 0.25)]
-    for i in range(40):
-        b.add(tt.Sphere(tuple(rs.uniform(-6, 6, 3)),
-                        float(rs.uniform(0.2, 0.5)), mats[i % 2]))
-    b.add(tt.RectangleLight((-3, 9, -3), (6, 0, 0), (0, 0, 6),
-                            (1.0, 1.0, 1.0), 3.0))
-    return b
-
-
-def sixteen_lights_scene():
-    """A plane, a glossy sphere, 8 rect and 8 sphere lights (above
-    ROLL_LIGHTS): the many-light scene of the parity tests."""
-    import numpy as np
-
-    import rayito_tpu_torch as tt
-
-    rs = np.random.default_rng(9)
-    b = tt.Scene()
-    b.add(tt.Plane((0, -1, 0), (0, 1, 0), tt.DiffuseMaterial((0.7, 0.7, 0.7))))
-    b.add(tt.Sphere((0.0, 0.5, 0.0), 1.0,
-                    tt.GlossyMaterial((0.8, 0.7, 0.2), 0.3)))
-    for i in range(16):
-        if i % 2 == 0:
-            b.add(tt.RectangleLight(
-                tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 6, 0])),
-                (1.5, 0, 0), (0, 0, 1.5), tuple(rs.uniform(0.5, 1.0, 3)),
-                2.0))
-        else:
-            b.add(tt.ShapeLight(
-                tt.Sphere(tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 5, 0])),
-                          0.4, None),
-                tuple(rs.uniform(0.5, 1.0, 3)), 3.0))
-    return b
-
-
 def many_spheres_setup(dev):
+    from rayito_tpu_torch.models.demo import many_spheres_scene
+
     return _still_setup(dev, many_spheres_scene, 40.0,
                         ((0, 3, 18), (0, 0, 0), (0, 1, 0)))
 
 
 def sixteen_lights_setup(dev):
+    from rayito_tpu_torch.models.demo import sixteen_lights_scene
+
     return _still_setup(dev, sixteen_lights_scene, 40.0,
                         ((0, 3, 10), (0, 0, 0), (0, 1, 0)))
 
@@ -1459,40 +1417,91 @@ def run_mesh_light(dev, card: str) -> dict:
             "items_route_differing": differing}
 
 
+def _check_chosen_light(scene, label: str) -> None:
+    """Each lane's chosen light (``lights.*_rolled``) against the per-light
+    functions evaluated for every light and selected, on seeded inputs on
+    the scene's device: bit for bit."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.ops.vec3 import V3
+    from rayito_tpu_torch.render import lights as L
+
+    n, dev = RAYS_PER_PASS, scene.device
+    rs = np.random.default_rng(17)
+
+    def lanes(lo, hi, cols=None):
+        a = rs.uniform(lo, hi, (n,) if cols is None else (cols, n))
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    pos = V3(*lanes(-6.0, 6.0, 3))
+    d = V3(*lanes(-1.0, 1.0, 3))
+    d = d / torch.sqrt(d.x * d.x + d.y * d.y + d.z * d.z)
+    u1, u2, u3, time = lanes(0.0, 1.0, 4)
+    t = lanes(0.5, 9.0)
+    light_idx = torch.from_numpy(
+        rs.integers(0, scene.n_lights, n).astype(np.int32)).to(dev)
+    tmin = 1e-4
+    chosen = (*L.sample_chosen_light_rolled(scene, light_idx, pos, time, u1,
+                                            u2, u3, tmin),
+              *L.light_hit_analytic_rolled(scene, light_idx, pos, d, time,
+                                           tmin),
+              L.light_intersect_pdf_rolled(scene, light_idx, pos, d, t, d,
+                                           time))
+    bad = 0
+    for li in range(scene.n_lights):
+        per = (*L.sample_light(scene, li, pos, None, time, u1, u2, u3, tmin),
+               *L.light_hit_analytic(scene, li, pos, d, time, tmin),
+               L.light_intersect_pdf(scene, li, pos, d, t, d, time))
+        mine = light_idx == li
+        for got, want in zip(chosen, per):
+            for g, w in (((got.x, want.x), (got.y, want.y), (got.z, want.z))
+                         if isinstance(got, V3) else ((got, want),)):
+                # the same bits; a NaN (an unhit light's normal) equals a NaN
+                same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+                bad += int((mine & ~same).sum())
+    print(f"{label}: each lane's chosen light vs all {scene.n_lights} "
+          f"per-light evaluations over {n} lanes (sample, analytic hit, "
+          f"hit pdf): {bad} values differ")
+    if bad:
+        raise AssertionError(f"{label}: chosen-light form != per-light form")
+
+
 def run_many(dev, card: str) -> None:
-    """Phase 13 on ``dev``: the 40-sphere and 16-light frames above their
-    thresholds against the same frames with the threshold raised, bit for
-    bit, with the host launches and one timed frame of each."""
-    from rayito_tpu_torch.render import pathtracer as pt
+    """Phase 13 on ``dev``: the 40-sphere and 16-light frames in batches of
+    ``ROLL_CHUNK`` rows against the same frames with one row per batch (the
+    fold shape by shape), bit for bit, with the host launches and one timed
+    frame of each; and the 16-light scene's chosen-light forms against its
+    per-light functions."""
     from rayito_tpu_torch.render import trace as tr
 
     _phase("many-shape frames")
-    for label, setup, module, knob in (
-            ("40 spheres", many_spheres_setup, tr, "ROLL_SHAPES"),
-            ("16 lights", sixteen_lights_setup, pt, "ROLL_LIGHTS")):
+    for label, setup in (("40 spheres", many_spheres_setup),
+                         ("16 lights", sixteen_lights_setup)):
         scene, cfg, cam, frame = setup(dev)
         print(f"{label}: {scene.n_spheres} spheres, {scene.n_rects} rects, "
-              f"{scene.n_lights} lights; {knob} = {getattr(module, knob)}")
+              f"{scene.n_lights} lights; ROLL_CHUNK = {tr.ROLL_CHUNK}")
         frame()  # warm-up
-        above = frame()
-        img = above[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
+        batched = frame()
+        img = batched[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
         diag = _check_image(img, label)
-        print(f"{label} frame {img.shape}: queries {int(above[1])}, {diag}")
+        print(f"{label} frame {img.shape}: queries {int(batched[1])}, {diag}")
         stats = {"batched": (_host_launches(frame), *_time_frames(frame, 1))}
-        threshold = getattr(module, knob)
-        setattr(module, knob, 10_000)
+        chunk = tr.ROLL_CHUNK
+        tr.ROLL_CHUNK = 1
         try:
-            below = frame()
-            stats["per-row"] = (_host_launches(frame),
-                                *_time_frames(frame, 1))
+            by_row = frame()
+            stats["row-by-row"] = (_host_launches(frame),
+                                   *_time_frames(frame, 1))
         finally:
-            setattr(module, knob, threshold)
-        _same_frame(f"{label}, above {knob} vs the threshold raised", above,
-                    below)
+            tr.ROLL_CHUNK = chunk
+        _same_frame(f"{label}, batched vs one row per batch", batched, by_row)
         for form, (host, frame_s, q) in stats.items():
             print(f"{label}, {form} form: {host} host launches, "
                   f"{frame_s * 1e3:.1f} ms/frame, {q:.0f} queries, "
                   f"{q / frame_s / 1e6:.3f} Mrays/s on {card}", flush=True)
+        if scene.n_lights > 1:
+            _check_chosen_light(scene, label)
 
 
 if __name__ == "__main__":

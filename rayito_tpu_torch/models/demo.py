@@ -1,6 +1,6 @@
 """The stage-5, stage-6 and stage-7 demo scenes, the big five-instance scene,
-and a procedural stand-in for their mesh asset (counterpart of
-``rayito_tpu/models/demo.py``).
+the seeded many-shape and many-light scenes, and a procedural stand-in for
+the demos' mesh asset (counterpart of ``rayito_tpu/models/demo.py``).
 
 ``write_bumpy_standin`` writes an OBJ file with the published topology of
 the reference's ``bumpy.obj`` (24,578 vertices, 24,576 quads at n=64): a
@@ -15,6 +15,7 @@ import math
 
 import numpy as np
 
+from . import scene as _own
 from .scene import (
     DiffuseMaterial,
     GlossyMaterial,
@@ -304,6 +305,89 @@ def stage7_scene2() -> Scene:
 
 
 STAGE7_SCENE2_CAMERA = ((-4.0, 10.0, 30.0), (0.0, 5.0, 0.0), (0.0, 1.0, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# Seeded many-shape and many-light scenes (those of the reference's scale
+# tests, tests/test_rolled_scale.py). ``pkg`` is the package whose classes
+# build the scene: this one by default; the parity tests pass the reference
+# package, so that both build the same scene from one definition.
+# ---------------------------------------------------------------------------
+
+
+def _two_key_translation(pkg, rs):
+    tr = pkg.Transform()
+    tr.set_translation(0.0, tuple(rs.uniform(-0.5, 0.5, 3)))
+    tr.set_translation(1.0, tuple(rs.uniform(-0.5, 0.5, 3)))
+    return tr
+
+
+def many_spheres_scene(motion: bool = False, twins: bool = False, pkg=None):
+    """A plane, 40 seeded spheres and a rect light. With ``motion`` every
+    third sphere has a two-key translation; with ``twins`` sphere 30 is
+    sphere 18 again."""
+    pkg = pkg or _own
+    rs = np.random.default_rng(5)
+    b = pkg.Scene()
+    b.add(pkg.Plane((0, -2, 0), (0, 1, 0),
+                    pkg.DiffuseMaterial((0.7, 0.7, 0.7))))
+    mats = [pkg.DiffuseMaterial((0.8, 0.3, 0.2)),
+            pkg.GlossyMaterial((0.2, 0.6, 0.8), 0.25)]
+    spheres = []
+    for i in range(40):
+        spheres.append((tuple(rs.uniform(-6, 6, 3)),
+                        float(rs.uniform(0.2, 0.5))))
+        if twins and i == 30:
+            spheres[30] = spheres[18]
+        sph = pkg.Sphere(*spheres[i], mats[i % 2])
+        if motion and i % 3 == 0:
+            sph.transform = _two_key_translation(pkg, rs)
+        b.add(sph)
+    b.add(pkg.RectangleLight((-3, 9, -3), (6, 0, 0), (0, 0, 6),
+                             (1.0, 1.0, 1.0), 3.0))
+    return b
+
+
+def many_rects_scene(motion: bool = False, pkg=None):
+    """A plane and 40 seeded rect lights (no sphere: the sphere tables are
+    empty). With ``motion`` every third rect has a two-key translation."""
+    pkg = pkg or _own
+    rs = np.random.default_rng(7)
+    b = pkg.Scene()
+    b.add(pkg.Plane((0, -2, 0), (0, 1, 0),
+                    pkg.DiffuseMaterial((0.7, 0.7, 0.7))))
+    for i in range(40):
+        r = pkg.RectangleLight(
+            tuple(rs.uniform(-6, 6, 3)), tuple(rs.uniform(-1.5, 1.5, 3)),
+            tuple(rs.uniform(-1.5, 1.5, 3)), tuple(rs.uniform(0.5, 1.0, 3)),
+            2.0)
+        if motion and i % 3 == 0:
+            r.transform = _two_key_translation(pkg, rs)
+        b.add(r)
+    return b
+
+
+def sixteen_lights_scene(pkg=None):
+    """A plane, a glossy sphere, 8 rect and 8 sphere lights."""
+    pkg = pkg or _own
+    rs = np.random.default_rng(9)
+    b = pkg.Scene()
+    b.add(pkg.Plane((0, -1, 0), (0, 1, 0),
+                    pkg.DiffuseMaterial((0.7, 0.7, 0.7))))
+    b.add(pkg.Sphere((0.0, 0.5, 0.0), 1.0,
+                     pkg.GlossyMaterial((0.8, 0.7, 0.2), 0.3)))
+    for i in range(16):
+        if i % 2 == 0:
+            b.add(pkg.RectangleLight(
+                tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 6, 0])),
+                (1.5, 0, 0), (0, 0, 1.5), tuple(rs.uniform(0.5, 1.0, 3)),
+                2.0))
+        else:
+            b.add(pkg.ShapeLight(
+                pkg.Sphere(tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 5, 0])),
+                           0.4, None),
+                tuple(rs.uniform(0.5, 1.0, 3)), 3.0))
+    return b
 
 
 def write_bumpy_standin(path: str, n: int = 64, radius: float = 1.5) -> None:

@@ -737,15 +737,17 @@ class Scene:
             light_color=np.array(colors, f32).reshape(n_l, 3),
             light_power=np.array(powers, f32).reshape(n_l),
         )
-        # many-light NEE batches its per-light work only for all-analytic
-        # (rect / sphere) sets: a mesh light slices its CDF per light
+        # the reference warns here that a mesh light keeps a large light
+        # set on its unrolled loop; here each mesh light is evaluated alone
+        # while the rect and sphere lights share one evaluation per kind
         from ..render.pathtracer import ROLL_LIGHTS
 
         if n_l > ROLL_LIGHTS and LIGHT_MESH in kinds:
             print(
-                f"rayito_tpu_torch: scene has {n_l} lights including mesh "
-                "lights: path-mode NEE runs the O(n_lights) UNROLLED light "
-                "loop (rolled NEE requires an all-rect/sphere light set; "
+                f"rayito_tpu_torch: scene has {n_l} lights including "
+                f"{kinds.count(LIGHT_MESH)} mesh light(s): path-mode NEE "
+                "evaluates every mesh light on its own for each light sample "
+                "(only rect and sphere lights share one evaluation per kind; "
                 "expect more launches per frame, not wrong results)",
                 file=sys.stderr,
             )

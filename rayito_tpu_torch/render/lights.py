@@ -3,12 +3,13 @@
 ShapeLight and the mesh ShapeLight (triangle by area through the mesh's
 CDF, then a uniform barycentric point).
 
-The per-light functions take a host-static light index; the caller
-evaluates every light and keeps each lane's chosen one. Above
-``ROLL_LIGHTS`` all-analytic lights the ``*_rolled`` functions evaluate
-each lane's chosen light only, from per-lane gathers of its table row: one
-evaluation per kind whatever the light count (the reference rolls a loop
-over the light table there, to keep its compile time flat).
+The per-light functions take a host-static light index. The path tracer
+uses the ``*_rolled`` functions, which evaluate each lane's chosen light
+only, from per-lane gathers of its table row: one evaluation per kind
+whatever the light count. (The reference evaluates every light and selects,
+and above ``ROLL_LIGHTS`` = 8 all-analytic lights rolls a loop over the
+light table to keep its compile time flat; what a light costs here is host
+launches.)
 
 Each light's keyed transform is evaluated per lane at the ray's time
 (motion-blurred lights); lights of a static scene, and lights with the
@@ -142,17 +143,23 @@ def _sample_mesh_light(scene: SceneData, mi: int, links, ref_pos: V3, u1, u2,
     scaled light keeps it: a quirk of the reference renderer). Samples
     that face away from the reference point are rejected.
 
-    The CDF slice has the reference's length, the mesh's cluster count
-    padded to a multiple of 16 times 48 (cut at the table's end); a pick
-    past the mesh's own run is one of the reference's all-zero pad
-    triangles: position at the local origin, zero normal."""
+    The search runs over the mesh's own 48-padded run of the CDF, which is
+    sorted. The reference slices ``n_padded`` entries, its cluster count
+    padded to a multiple of 16 times 48: that runs into the next mesh's
+    CDF unless the light is the scene's last mesh, and a binary search of
+    the unsorted slice is undefined. Wherever the reference's pick is
+    defined this one equals it: u3 * total below the total picks a triangle
+    of the mesh; a product that rounds up to the total passes the whole run
+    and, as the reference's clamp to ``n_padded - 1`` does, lands on the
+    run's last triangle when the run fills the padded count, else on an
+    all-zero pad triangle (position at the local origin, zero normal)."""
     tri0, count = scene.mesh_tri_ranges[mi]
     n_padded = scene.mesh_cl_ranges[mi][1] * TRI_PER_CLUSTER
     own = max(1, -(-count // TRI_PER_CLUSTER)) * TRI_PER_CLUSTER
-    cdf = scene.tri_area_cdf[tri0:tri0 + n_padded]
     total = scene.mesh_total_area[mi]
     tri_rel = torch.clamp_max(
-        torch.searchsorted(cdf, u3 * total, right=True), n_padded - 1)
+        torch.searchsorted(scene.tri_area_cdf[tri0:tri0 + own], u3 * total,
+                           right=True), n_padded - 1)
     if n_padded > own:
         in_run = tri_rel < own
         rows = scene.tri_vert_rows[tri0 + torch.where(in_run, tri_rel, 0)]
@@ -292,14 +299,8 @@ def light_hit_analytic(scene: SceneData, li: int, o: V3, d: V3, time,
 
 
 # ---------------------------------------------------------------------------
-# Many-light forms: each lane's chosen light only
+# Each lane's chosen light
 # ---------------------------------------------------------------------------
-
-
-def _require_analytic(scene: SceneData):
-    if LIGHT_MESH in scene.light_kinds_host:
-        raise ValueError("a mesh light keeps the per-light path "
-                         "(sample_light, light_hit_analytic)")
 
 
 def _keep(mask, a, b):
@@ -310,25 +311,33 @@ def _keep(mask, a, b):
 
 def _for_chosen_light(scene: SceneData, light_idx, time, fn):
     """``fn(kind, idx, links)`` (a tuple of [N] results) for each lane's
-    chosen light. The lights that do not move are evaluated once per kind
-    present, ``idx`` being each lane's row of that kind's table (lanes of
-    another kind read row 0 and are discarded: an absent kind's table may be
-    empty and is never touched). A light with a keyed transform is
-    evaluated alone at the lane's time and kept by the lanes that chose
-    it."""
+    chosen light. The rect lights that do not move share one evaluation,
+    ``idx`` being each lane's row of the rect table (lanes of another kind
+    read row 0 and are discarded), and so do the sphere lights: an absent
+    kind's table may be empty and is never touched. Evaluated alone, with a
+    host index, and kept by the lanes that chose it: a mesh light (it
+    slices its own CDF), a light with a keyed transform (evaluated at the
+    lane's time), and the only light of its kind (a host index costs no
+    gather)."""
     lidx = light_idx.long()
-    kind_l, idx_l = scene.light_kind[lidx], scene.light_index[lidx].long()
     lights = list(zip(scene.light_kinds_host, scene.light_indices_host))
-    moving = [li for li, (kind, idx) in enumerate(lights)
-              if scene.has_motion and _xf_host(scene, kind)[idx]]
+    shared = {}
+    for li, (kind, idx) in enumerate(lights):
+        if kind != LIGHT_MESH and not (scene.has_motion
+                                       and _xf_host(scene, kind)[idx]):
+            shared.setdefault(kind, []).append(li)
+    shared = {kind: lis for kind, lis in shared.items() if len(lis) > 1}
     out = None
-    for kind in sorted({lights[li][0] for li in range(len(lights))
-                        if li not in moving}):
+    if shared:
+        kind_l = scene.light_kind[lidx]
+        idx_l = scene.light_index[lidx].long()
+    for kind in sorted(shared):
         of_kind = kind_l == kind
         res = fn(kind, torch.where(of_kind, idx_l, 0), None)
         out = res if out is None else _keep(of_kind, res, out)
-    for li in moving:
-        kind, idx = lights[li]
+    for li, (kind, idx) in enumerate(lights):
+        if li in shared.get(kind, ()):
+            continue
         res = fn(kind, idx, lane_links(scene, _xf_host(scene, kind)[idx],
                                        time))
         out = res if out is None else _keep(lidx == li, res, out)
@@ -336,22 +345,21 @@ def _for_chosen_light(scene: SceneData, light_idx, time, fn):
 
 
 def sample_chosen_light_rolled(scene: SceneData, light_idx, ref_pos: V3,
-                               time, u1, u2, tmin: float):
-    """sample_light of each lane's chosen light ``light_idx`` [N] for
-    many-light scenes. Every light must be a rect or a sphere: a mesh light
-    slices its CDF per light and keeps the per-light path."""
-    _require_analytic(scene)
+                               time, u1, u2, u3, tmin: float):
+    """sample_light of each lane's chosen light ``light_idx`` [N]."""
     return _for_chosen_light(
         scene, light_idx, time,
         lambda kind, idx, links: _sample_kind(scene, kind, idx, links,
-                                              ref_pos, u1, u2, None, tmin))
+                                              ref_pos, u1, u2, u3, tmin))
 
 
 def light_hit_analytic_rolled(scene: SceneData, light_idx, o: V3, d: V3,
                               time, tmin: float):
     """light_hit_analytic of each lane's chosen light (rects and spheres
     only)."""
-    _require_analytic(scene)
+    if LIGHT_MESH in scene.light_kinds_host:
+        raise ValueError("a mesh light has no analytic hit: the caller "
+                         "intersects the whole scene")
     return _for_chosen_light(
         scene, light_idx, time,
         lambda kind, idx, links: _hit_analytic_kind(scene, kind, idx, links,
@@ -360,9 +368,17 @@ def light_hit_analytic_rolled(scene: SceneData, light_idx, o: V3, d: V3,
 
 def light_intersect_pdf_rolled(scene: SceneData, light_idx, ray_o: V3,
                                ray_d: V3, t, hit_normal: V3, time):
-    """light_intersect_pdf of each lane's chosen light (all three
-    kinds)."""
+    """light_intersect_pdf of each lane's chosen light."""
     return _for_chosen_light(
         scene, light_idx, time,
         lambda kind, idx, links: (_intersect_pdf_kind(
             scene, kind, idx, links, ray_o, ray_d, t, hit_normal),))[0]
+
+
+def light_emitted_rolled(scene: SceneData, light_idx) -> V3:
+    """emitted() of each lane's chosen light, gathered from the light
+    table."""
+    lidx = light_idx.long()
+    pw = scene.light_power[lidx]
+    return V3(scene.light_color[lidx, 0] * pw, scene.light_color[lidx, 1] * pw,
+              scene.light_color[lidx, 2] * pw)

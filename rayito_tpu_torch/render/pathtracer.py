@@ -12,9 +12,8 @@ light scale n_lights / num_light_samples, no Russian roulette.
 With only analytic lights (rect, sphere) the BRDF-side sample is an
 analytic light hit plus an any-hit query; one mesh light in the scene turns
 it, for every light, into a full closest-hit query whose hit must be the
-chosen light's shape. Above ``ROLL_LIGHTS`` all-analytic lights each lane
-evaluates its chosen light only (``lights.*_rolled``); a larger set that
-holds a mesh light keeps the per-light loop.
+chosen light's shape. Each lane evaluates its chosen light only
+(``lights.*_rolled``), at every light count.
 """
 
 from __future__ import annotations
@@ -45,6 +44,8 @@ from .trace import (
     scene_occluded_pair,
 )
 
+# the reference's threshold for its rolled light loop; here it only times
+# the compile-time warning about a mesh light in a larger set
 ROLL_LIGHTS = 8
 
 
@@ -55,19 +56,6 @@ def _mat_lookup(scene: SceneData, mat_ids):
         kind == KIND_GLOSSY, 1.0 / torch.clamp_min(param * param, 1e-12), 1.0
     )
     return kind, color, exponent
-
-
-def _select(stacked, light_idx):
-    """stacked [L, N] -> per-lane row light_idx [N]."""
-    return stacked.gather(0, light_idx.long()[None, :])[0]
-
-
-def _select_v3(vs, light_idx) -> V3:
-    return V3(
-        _select(torch.stack([v.x for v in vs]), light_idx),
-        _select(torch.stack([v.y for v in vs]), light_idx),
-        _select(torch.stack([v.z for v in vs]), light_idx),
-    )
 
 
 def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
@@ -84,7 +72,6 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     n_lights = scene.n_lights
     analytic_lights = all(k in (LIGHT_RECT, LIGHT_SPHERE)
                           for k in scene.light_kinds_host)
-    roll_lights = n_lights > ROLL_LIGHTS and analytic_lights
     n = o.x.shape[0]
     dev = o.x.device
     f32 = torch.float32
@@ -102,8 +89,6 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     ls = config.light_samples
     seed = config.seed
     tmin = config.ray_tmin
-    emitted_const = ([] if roll_lights else
-                     [L.light_emitted(scene, li) for li in range(n_lights)])
 
     for bounce in range(config.max_depth):
         hit = scene_intersect(scene, o, d, time, tmin,
@@ -146,27 +131,10 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                                               perm_light)
                 leu = rngo.cmj_sample_1d(fsi, (ps * ls) ** 2, perm_elem)
 
-                if roll_lights:
-                    # each lane's chosen light only; its emitted colour
-                    # by per-lane gather from the light table
-                    lp, _, lpdf = L.sample_chosen_light_rolled(
-                        scene, light_idx, position, time, lsu, lsv, tmin)
-                    li_l = light_idx.long()
-                    pw = scene.light_power[li_l]
-                    emitted = V3(scene.light_color[li_l, 0] * pw,
-                                 scene.light_color[li_l, 1] * pw,
-                                 scene.light_color[li_l, 2] * pw)
-                else:
-                    # sample every light, keep each lane's chosen one
-                    cand = [L.sample_light(scene, li, position, normal, time,
-                                           lsu, lsv, leu, tmin)
-                            for li in range(n_lights)]
-                    lp = _select_v3([c[0] for c in cand], light_idx)
-                    lpdf = _select(torch.stack([c[2] for c in cand]),
-                                   light_idx)
-                    emitted = _select_v3(
-                        [e.broadcast_to((n,)) for e in emitted_const],
-                        light_idx)
+                # each lane's chosen light only
+                lp, _, lpdf = L.sample_chosen_light_rolled(
+                    scene, light_idx, position, time, lsu, lsv, leu, tmin)
+                emitted = L.light_emitted_rolled(scene, light_idx)
 
                 # light-sampled direction
                 light_incoming = position - lp
@@ -190,18 +158,8 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                     # "full intersect, hit shape == the chosen light" is:
                     # the light is hit analytically and nothing is nearer,
                     # so one analytic hit + one any-hit query replace it
-                    if roll_lights:
-                        t_l, n_l, l_hit = L.light_hit_analytic_rolled(
-                            scene, light_idx, position, -b_in, time, tmin)
-                    else:
-                        hits = [L.light_hit_analytic(scene, li, position,
-                                                     -b_in, time, tmin)
-                                for li in range(n_lights)]
-                        t_l = _select(torch.stack([h[0] for h in hits]),
-                                      light_idx)
-                        n_l = _select_v3([h[1] for h in hits], light_idx)
-                        l_hit = _select(torch.stack([h[2] for h in hits]),
-                                        light_idx)
+                    t_l, n_l, l_hit = L.light_hit_analytic_rolled(
+                        scene, light_idx, position, -b_in, time, tmin)
                     ok_b = ok_b & l_hit
                     queries = queries + ok_b.sum()
                     occluded, blocked, _ = scene_occluded_pair(
@@ -235,15 +193,8 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                     0.0,
                 )
                 acc = acc + emitted * cmod_color * gain_l
-                if roll_lights:
-                    lpdf_b = L.light_intersect_pdf_rolled(
-                        scene, light_idx, position, -b_in, t_l, n_l, time)
-                else:
-                    lpdf_b = _select(torch.stack([
-                        L.light_intersect_pdf(scene, li, position, -b_in,
-                                              t_l, n_l, time)
-                        for li in range(n_lights)
-                    ]), light_idx)
+                lpdf_b = L.light_intersect_pdf_rolled(
+                    scene, light_idx, position, -b_in, t_l, n_l, time)
                 ok_b = hit_light & (lpdf_b > 0.0)
                 w_b = power_heuristic(1.0, pdf_b, 1.0, lpdf_b)
                 gain_b = torch.where(

@@ -1,8 +1,8 @@
 """Wavefront scene intersection (counterpart of
 ``rayito_tpu/render/trace.py``).
 
-The few analytic shapes (planes, spheres, rects) fold shape by shape over
-the whole wavefront; triangle meshes go through the kernel traversal
+The analytic shapes (planes, spheres, rects) fold kind by kind over the
+whole wavefront; triangle meshes go through the kernel traversal
 (``render/traverse.py``), one launch per traversal domain, whose winner is
 re-tested exactly and shaded from one gathered, transposed 32-column row
 (``gather_rows_t``). Tiny transformed meshes fold densely
@@ -14,14 +14,15 @@ sees the ray in its local space at the lane's time; local t is world t.
 Normals leave through the winner's world-from-local rotation. Scenes
 without motion skip every transform step.
 
-Above ``ROLL_SHAPES`` spheres or rects the reference rolls its per-shape
-fold into a loop over packed rows, to keep its compile time flat. Nothing
-is compiled here; what a shape costs is host launches, so above the
-threshold the rows of a kind are tested in one batched [rows, N] evaluation
-(``ROLL_CHUNK`` rows at a time) and the winner is the ``argmin`` over rows:
-the nearest hit, ties to the lowest row, as the fold's strict ``<`` in
-ascending order. Rows with a keyed transform keep the per-shape test, one
-transform evaluation per distinct slot.
+The reference unrolls its fold shape by shape, and above 24 shapes of a
+kind rolls it into a loop over packed rows to keep its compile time flat.
+Nothing is compiled here; what a shape costs is host launches. So at every
+count the rows of a kind that do not move are tested in one batched
+[rows, N] evaluation (``ROLL_CHUNK`` rows at a time) and a batch's winner is
+the ``argmin`` over its rows: the nearest hit, ties to the lowest row, as
+the unrolled fold's strict ``<`` in ascending order. A row with a keyed
+transform is a batch of its own in its local space, in its place in the
+row order.
 """
 
 from __future__ import annotations
@@ -46,8 +47,6 @@ from ..ops.vec3 import V3, from_aos, normalize, where as vwhere
 from .mesh_intersect import mesh_intersect_clusters
 from .traverse import gather_rows_t, traverse
 
-# above this many shapes of one kind the fold is batched over rows
-ROLL_SHAPES = 24
 # rows per batched [rows, N] evaluation (bounds the temporaries: 32 MB
 # each at 131,072 lanes)
 ROLL_CHUNK = 64
@@ -118,35 +117,6 @@ def _rotate_out(rot, n_local: V3) -> V3:
     return n_local if rot is None else rotate_vector(rot, n_local)
 
 
-class _WinnerFold:
-    """Per-shape closest-hit fold that selects the winner's attributes as
-    it goes; with motion it also keeps the winner's local ray and
-    rotation."""
-
-    def __init__(self, scene: SceneData, o: V3, d: V3, **v3s):
-        self.n, dev = o.x.shape[0], o.x.device
-        self.t = _full(self.n, INF, torch.float32, dev)
-        self.idx = _full(self.n, 0, torch.int32, dev)
-        self.mat = _full(self.n, 0, torch.int32, dev)
-        self.v3s = v3s
-        self.motion = scene.has_motion
-        self.o_w, self.d_w = o, d
-        self.rot = _identity_rot(self.n, dev) if self.motion else None
-
-    def update(self, closer, i, t_i, mat_i, o_l, d_l, rot, **v3_vals):
-        n = self.n
-        self.t = torch.where(closer, t_i, self.t)
-        self.idx = torch.where(closer, i, self.idx)
-        self.mat = torch.where(closer, mat_i, self.mat)
-        for name, val in v3_vals.items():
-            self.v3s[name] = vwhere(closer, val.broadcast_to((n,)),
-                                    self.v3s[name])
-        if self.motion:
-            self.o_w = vwhere(closer, o_l, self.o_w)
-            self.d_w = vwhere(closer, d_l, self.d_w)
-            self.rot = _where_quat(closer, rot or _IDENTITY, self.rot)
-
-
 def _identity_rot(n, dev) -> Quat:
     """Per-lane identity rotations (the fold's starting winner)."""
     one = torch.ones((n,), dtype=torch.float32, device=dev)
@@ -158,91 +128,33 @@ def _zeros3(n, dev) -> V3:
     return V3(z, z, z)
 
 
-def _planes_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
-    pos, nrm = from_aos(scene.pln_pos), from_aos(scene.pln_normal)
-    n, dev = o.x.shape[0], o.x.device
-    f = _WinnerFold(scene, o, d, pos=_zeros3(n, dev), nrm=_zeros3(n, dev))
-    bulls = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for i in range(scene.n_planes):
-        o_l, d_l, rot = _shape_local_ray(scene, scene.pln_xf_host[i], o, d,
-                                         time)
-        t_i, _ = plane_intersect(o_l, d_l, tmin, torch.minimum(f.t, tmax),
-                                 pos[i], nrm[i])
-        closer = t_i < f.t
-        f.update(closer, i, t_i, scene.pln_mat[i], o_l, d_l, rot,
-                 pos=pos[i], nrm=nrm[i])
-        bulls = torch.where(closer, scene.pln_bullseye[i], bulls)
-    t = f.t
-    valid = torch.isfinite(t)
-    # the bullseye rings are measured at the local hit position
-    rel = f.o_w + f.d_w * torch.where(valid, t, 0.0) - f.v3s["pos"]
-    dist = torch.sqrt(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z)
-    ring = torch.remainder(dist * 0.25, 1.0) > 0.5
-    color_mod = torch.where(bulls & ring & valid, 0.2, 1.0).to(torch.float32)
-    return t, f.idx, f.mat, _rotate_out(f.rot, f.v3s["nrm"]), color_mod
-
-
-def _spheres_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
-    center = from_aos(scene.sph_center)
-    n, dev = o.x.shape[0], o.x.device
-    f = _WinnerFold(scene, o, d, center=_zeros3(n, dev))
-    for i in range(scene.n_spheres):
-        o_l, d_l, rot = _shape_local_ray(scene, scene.sph_xf_host[i], o, d,
-                                         time)
-        t_i, _ = sphere_intersect(o_l, d_l, tmin, torch.minimum(f.t, tmax),
-                                  center[i], scene.sph_radius[i])
-        closer = t_i < f.t
-        f.update(closer, i, t_i, scene.sph_mat[i], o_l, d_l, rot,
-                 center=center[i])
-    t = f.t
-    t_safe = torch.where(torch.isfinite(t), t, 0.0)
-    normal = normalize(f.o_w + f.d_w * t_safe - f.v3s["center"])
-    return (t, scene.sphere_id0 + f.idx, f.mat, _rotate_out(f.rot, normal),
-            torch.ones_like(t))
-
-
-def _rects_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
-    corner = from_aos(scene.rect_corner)
-    s1, s2 = from_aos(scene.rect_side1), from_aos(scene.rect_side2)
-    n, dev = o.x.shape[0], o.x.device
-    f = _WinnerFold(scene, o, d, nrm=_zeros3(n, dev))
-    for i in range(scene.n_rects):
-        o_l, d_l, rot = _shape_local_ray(scene, scene.rect_xf_host[i], o, d,
-                                         time)
-        t_i, _, nrm_i = rect_intersect(o_l, d_l, tmin,
-                                       torch.minimum(f.t, tmax), corner[i],
-                                       s1[i], s2[i])
-        closer = t_i < f.t
-        f.update(closer, i, t_i, scene.rect_mat[i], o_l, d_l, rot, nrm=nrm_i)
-    return (f.t, scene.rect_id0 + f.idx, f.mat,
-            _rotate_out(f.rot, f.v3s["nrm"]), torch.ones_like(f.t))
-
-
 def _col(a) -> V3:
     """[R, 3] table rows -> V3 of [R, 1] columns (broadcast over lanes)."""
     return V3(a[:, 0:1], a[:, 1:2], a[:, 2:3])
 
 
-def _row_batches(scene: SceneData, xf, xf_host, o: V3, d: V3, time):
-    """The rows of one kind as batches (r0, r1, o_l, d_l, rot, keep): first
-    the whole table against the world ray, ``ROLL_CHUNK`` rows at a time
-    (``keep`` [rows, 1] masks out the keyed rows of a moving scene, None
-    where nothing moves); then each keyed row alone in its local space,
-    one transform evaluation per distinct slot."""
-    n_rows = len(xf_host)
-    for r0 in range(0, n_rows, ROLL_CHUNK):
-        r1 = min(r0 + ROLL_CHUNK, n_rows)
-        keep = (xf[r0:r1] == 0)[:, None] if scene.has_motion else None
-        yield r0, r1, o, d, None, keep
-    by_slot = {}
-    if scene.has_motion:
-        for i, slot in enumerate(xf_host):
-            if slot:
-                by_slot.setdefault(slot, []).append(i)
-    for slot, rows in by_slot.items():
-        o_l, d_l, rot = _shape_local_ray(scene, slot, o, d, time)
-        for i in rows:
-            yield i, i + 1, o_l, d_l, rot, None
+def _row_batches(scene: SceneData, xf_host, o: V3, d: V3, time):
+    """The rows of one kind as batches (r0, r1, o_l, d_l, rot) in ascending
+    row order: each run of consecutive rows that do not move against the
+    world ray, ``ROLL_CHUNK`` rows at a time; each row with a keyed
+    transform alone in its local space (one transform evaluation per
+    distinct slot)."""
+    moving = [bool(slot) and scene.has_motion for slot in xf_host]
+    local = {}
+    r0, n_rows = 0, len(xf_host)
+    while r0 < n_rows:
+        if moving[r0]:
+            slot = xf_host[r0]
+            if slot not in local:
+                local[slot] = _shape_local_ray(scene, slot, o, d, time)
+            yield (r0, r0 + 1, *local[slot])
+            r0 += 1
+            continue
+        r1 = r0 + 1
+        while r1 < min(n_rows, r0 + ROLL_CHUNK) and not moving[r1]:
+            r1 += 1
+        yield r0, r1, o, d, None
+        r0 = r1
 
 
 def _sphere_rows(scene: SceneData, r0, r1, o: V3, d: V3, tmin, tcur):
@@ -260,12 +172,12 @@ def _rect_rows(scene: SceneData, r0, r1, o: V3, d: V3, tmin, tcur):
 
 
 class _RowFold:
-    """Closest-hit fold over row batches of one kind. A batch's winner is
-    its ``argmin`` over rows (the first of tied minima); it replaces the
-    running winner when nearer, or on an exact tie when its row is the
-    lower (keyed rows come after the world-space batches, out of row
-    order). Keeps the winner's row and, with motion, its local ray and
-    rotation; ``extra`` V3s (the rect's flipped normal) travel with it."""
+    """Closest-hit fold over the row batches of one kind, in ascending row
+    order. A batch's winner is its ``argmin`` over rows (the first of tied
+    minima) and replaces the running winner only when strictly nearer, so
+    ties go to the lowest row. Keeps the winner's row and, with motion, its
+    local ray and rotation; ``extra`` V3s (the rect's flipped normal)
+    travel with it."""
 
     def __init__(self, scene: SceneData, o: V3, d: V3, **extra):
         self.n, dev = o.x.shape[0], o.x.device
@@ -276,17 +188,25 @@ class _RowFold:
         self.o_w, self.d_w = o, d
         self.rot = _identity_rot(self.n, dev) if self.motion else None
 
-    def take(self, r0, t_rows, keep, o_l, d_l, rot, **extra_rows):
-        if keep is not None:
-            t_rows = torch.where(keep, t_rows, INF)
-        j = torch.argmin(t_rows, dim=0, keepdim=True)
-        t_c, row = t_rows.gather(0, j)[0], j[0] + r0
-        closer = (t_c < self.t) | ((t_c == self.t) & (row < self.idx)
-                                   & torch.isfinite(t_c))
+    def take(self, r0, t_rows, o_l, d_l, rot, **extra_rows):
+        if t_rows.shape[0] == 1:
+            row = r0
+
+            def pick(c):
+                return c[0]
+        else:
+            j = torch.argmin(t_rows, dim=0, keepdim=True)
+            row = j[0] + r0
+
+            def pick(c):
+                return c.gather(0, j)[0]
+
+        t_c = pick(t_rows)
+        closer = t_c < self.t
         self.t = torch.where(closer, t_c, self.t)
         self.idx = torch.where(closer, row, self.idx)
         for name, rows in extra_rows.items():
-            win = V3(*(c.gather(0, j)[0] for c in (rows.x, rows.y, rows.z)))
+            win = V3(pick(rows.x), pick(rows.y), pick(rows.z))
             self.extra[name] = vwhere(closer, win, self.extra[name])
         if self.motion:
             self.o_w = vwhere(closer, o_l, self.o_w)
@@ -294,17 +214,39 @@ class _RowFold:
             self.rot = _where_quat(closer, rot or _IDENTITY, self.rot)
 
 
-def _spheres_candidate_rolled(scene: SceneData, o: V3, d: V3, time, tmin,
-                              tmax):
-    """Batched sphere fold (same contract as _spheres_candidate): the
-    winner's centre and material are gathered from its row afterwards.
-    Every batch is tested below ``tmax``, not below the running t, so that
-    a hit AT the running t is seen and the tie rule can settle it."""
+def _plane_rows(scene: SceneData, r0, r1, o: V3, d: V3, tmin, tcur):
+    """t [rows, N] of planes r0..r1 (inf = miss)."""
+    return plane_intersect(o, d, tmin, tcur, _col(scene.pln_pos[r0:r1]),
+                           _col(scene.pln_normal[r0:r1]))[0]
+
+
+def _planes_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     f = _RowFold(scene, o, d)
-    for r0, r1, o_l, d_l, rot, keep in _row_batches(
-            scene, scene.sph_xf, scene.sph_xf_host, o, d, time):
-        f.take(r0, _sphere_rows(scene, r0, r1, o_l, d_l, tmin, tmax), keep,
-               o_l, d_l, rot)
+    for r0, r1, o_l, d_l, rot in _row_batches(scene, scene.pln_xf_host, o, d,
+                                              time):
+        f.take(r0, _plane_rows(scene, r0, r1, o_l, d_l, tmin, tmax), o_l,
+               d_l, rot)
+    t = f.t
+    valid = torch.isfinite(t)
+    # the bullseye rings are measured at the local hit position
+    rel = (f.o_w + f.d_w * torch.where(valid, t, 0.0)
+           - from_aos(scene.pln_pos[f.idx]))
+    dist = torch.sqrt(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z)
+    ring = torch.remainder(dist * 0.25, 1.0) > 0.5
+    color_mod = torch.where(scene.pln_bullseye[f.idx] & ring & valid, 0.2,
+                            1.0).to(torch.float32)
+    return (t, f.idx.to(torch.int32), scene.pln_mat[f.idx],
+            _rotate_out(f.rot, from_aos(scene.pln_normal[f.idx])), color_mod)
+
+
+def _spheres_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
+    """The nearest sphere: its centre and material are gathered from the
+    winner's row afterwards, and the normal is rebuilt from the centre."""
+    f = _RowFold(scene, o, d)
+    for r0, r1, o_l, d_l, rot in _row_batches(scene, scene.sph_xf_host, o, d,
+                                              time):
+        f.take(r0, _sphere_rows(scene, r0, r1, o_l, d_l, tmin, tmax), o_l,
+               d_l, rot)
     t = f.t
     t_safe = torch.where(torch.isfinite(t), t, 0.0)
     normal = normalize(f.o_w + f.d_w * t_safe
@@ -313,32 +255,26 @@ def _spheres_candidate_rolled(scene: SceneData, o: V3, d: V3, time, tmin,
             _rotate_out(f.rot, normal), torch.ones_like(t))
 
 
-def _rects_candidate_rolled(scene: SceneData, o: V3, d: V3, time, tmin,
-                            tmax):
-    """Batched rect fold (same contract as _rects_candidate): the
-    viewer-flipped local normal is the winner's own."""
+def _rects_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
+    """The nearest rect: the viewer-flipped local normal is the winner's
+    own."""
     f = _RowFold(scene, o, d, nrm=_zeros3(o.x.shape[0], o.x.device))
-    for r0, r1, o_l, d_l, rot, keep in _row_batches(
-            scene, scene.rect_xf, scene.rect_xf_host, o, d, time):
+    for r0, r1, o_l, d_l, rot in _row_batches(scene, scene.rect_xf_host, o, d,
+                                              time):
         t_rows, nrm_rows = _rect_rows(scene, r0, r1, o_l, d_l, tmin, tmax)
-        f.take(r0, t_rows, keep, o_l, d_l, rot, nrm=nrm_rows)
+        f.take(r0, t_rows, o_l, d_l, rot, nrm=nrm_rows)
     return (f.t, scene.rect_id0 + f.idx.to(torch.int32),
             scene.rect_mat[f.idx], _rotate_out(f.rot, f.extra["nrm"]),
             torch.ones_like(f.t))
 
 
-def _rows_occluded(scene: SceneData, xf, xf_host, o: V3, d: V3, time,
-                   rows_t):
+def _rows_occluded(scene: SceneData, xf_host, o: V3, d: V3, time, rows_t):
     """Any-hit over the row batches of one kind; ``rows_t(r0, r1, o, d)``
     gives t [rows, N]."""
     occluded = torch.zeros((o.x.shape[0],), dtype=torch.bool,
                            device=o.x.device)
-    for r0, r1, o_l, d_l, _, keep in _row_batches(scene, xf, xf_host, o, d,
-                                                  time):
-        hit = torch.isfinite(rows_t(r0, r1, o_l, d_l))
-        if keep is not None:
-            hit = hit & keep
-        occluded |= hit.any(dim=0)
+    for r0, r1, o_l, d_l, _ in _row_batches(scene, xf_host, o, d, time):
+        occluded |= torch.isfinite(rows_t(r0, r1, o_l, d_l)).any(dim=0)
     return occluded
 
 
@@ -511,13 +447,9 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
     if scene.n_planes:
         best = fold(best, _planes_candidate(scene, o, d, time, tmin, tmax))
     if scene.n_spheres:
-        sph_fn = (_spheres_candidate_rolled if scene.n_spheres > ROLL_SHAPES
-                  else _spheres_candidate)
-        best = fold(best, sph_fn(scene, o, d, time, tmin, tmax))
+        best = fold(best, _spheres_candidate(scene, o, d, time, tmin, tmax))
     if scene.n_rects:
-        rect_fn = (_rects_candidate_rolled if scene.n_rects > ROLL_SHAPES
-                   else _rects_candidate)
-        best = fold(best, rect_fn(scene, o, d, time, tmin, tmax))
+        best = fold(best, _rects_candidate(scene, o, d, time, tmin, tmax))
     if scene.n_meshes:
         # cap the mesh query at the analytic winner: it prunes clusters
         tmax_mesh = torch.minimum(tmax, best[0])
@@ -541,36 +473,21 @@ def _analytic_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     occluded = torch.zeros((o.x.shape[0],), dtype=torch.bool,
                            device=o.x.device)
 
-    def local(xf_id):
-        return _shape_local_ray(scene, xf_id, o, d, time)[:2]
-
-    pos, nrm = from_aos(scene.pln_pos), from_aos(scene.pln_normal)
-    for i in range(scene.n_planes):
-        o_l, d_l = local(scene.pln_xf_host[i])
-        occluded |= plane_intersect(o_l, d_l, tmin, tmax, pos[i], nrm[i])[1]
-    if scene.n_spheres > ROLL_SHAPES:
+    if scene.n_planes:
         occluded |= _rows_occluded(
-            scene, scene.sph_xf, scene.sph_xf_host, o, d, time,
+            scene, scene.pln_xf_host, o, d, time,
+            lambda r0, r1, o_l, d_l: _plane_rows(scene, r0, r1, o_l, d_l,
+                                                 tmin, tmax))
+    if scene.n_spheres:
+        occluded |= _rows_occluded(
+            scene, scene.sph_xf_host, o, d, time,
             lambda r0, r1, o_l, d_l: _sphere_rows(scene, r0, r1, o_l, d_l,
                                                   tmin, tmax))
-    else:
-        center = from_aos(scene.sph_center)
-        for i in range(scene.n_spheres):
-            o_l, d_l = local(scene.sph_xf_host[i])
-            occluded |= sphere_intersect(o_l, d_l, tmin, tmax, center[i],
-                                         scene.sph_radius[i])[1]
-    if scene.n_rects > ROLL_SHAPES:
+    if scene.n_rects:
         occluded |= _rows_occluded(
-            scene, scene.rect_xf, scene.rect_xf_host, o, d, time,
+            scene, scene.rect_xf_host, o, d, time,
             lambda r0, r1, o_l, d_l: _rect_rows(scene, r0, r1, o_l, d_l,
                                                 tmin, tmax)[0])
-    else:
-        corner = from_aos(scene.rect_corner)
-        s1, s2 = from_aos(scene.rect_side1), from_aos(scene.rect_side2)
-        for i in range(scene.n_rects):
-            o_l, d_l = local(scene.rect_xf_host[i])
-            occluded |= rect_intersect(o_l, d_l, tmin, tmax, corner[i],
-                                       s1[i], s2[i])[1]
     return occluded
 
 

@@ -22,7 +22,9 @@ picks and rejected-sample masks away from the facing edge, position to
 1e-5 absolute, pdf to 1e-5 relative), with the two ends of u3 apart; the
 two queries of the BRDF-side branch on the same inputs; a 32x32 render of
 ``box_light`` within 0.5% relative RMSE with query counts within 0.1%;
-and a nine-light set with one mesh light, which warns and renders.
+a nine-light set with one mesh light, which warns and renders; and a mesh
+light that is not the scene's last mesh, where the reference's CDF slice is
+not sorted and the port searches the light's own run.
 """
 
 import jax.numpy as jnp
@@ -218,22 +220,85 @@ def _sample_both(compiled, scene, ref_pos, u, time):
 
 @pytest.mark.parametrize("scene", SCENES)
 def test_triangle_picks_identical(compiled, scene):
-    """searchsorted over the same f32 CDF slice: the same index lane for
-    lane, the ends of u3 included."""
+    """The port searches the mesh's own run of the f32 CDF, the reference
+    its padded slice (here cut at the table's end, or the run itself): the
+    same index lane for lane, the ends of u3 included."""
     jsd, _, _, tsd = compiled[scene]
     mi = _mesh_light(tsd)[1]
-    tri0 = tsd.mesh_tri_ranges[mi][0]
+    tri0, count = tsd.mesh_tri_ranges[mi]
     n_padded = tsd.mesh_cl_ranges[mi][1] * 48
+    own = -(-count // 48) * 48
     u3 = np.random.default_rng(2).uniform(0, 1, N).astype(np.float32)
     u3[:2] = 0.0, np.nextafter(np.float32(1.0), np.float32(0.0))
     jcdf = jsd.tri_area_cdf[tri0:tri0 + n_padded]
+    assert len(jcdf) == own
     ref = np.asarray(jnp.searchsorted(
         jcdf, jnp.asarray(u3) * jsd.mesh_total_area[mi], side="right"))
     got = torch.searchsorted(
-        tsd.tri_area_cdf[tri0:tri0 + n_padded],
+        tsd.tri_area_cdf[tri0:tri0 + own],
         torch.from_numpy(u3) * tsd.mesh_total_area[mi], right=True).numpy()
     np.testing.assert_array_equal(got, ref)
     assert len(np.unique(ref)) > 1
+
+
+def _box_light_first(pkg, demo, objmod, path):
+    """box_light's light mesh as the FIRST mesh, the n=8 stand-in (768
+    triangles) after it: the reference's padded CDF slice of the light,
+    16 x 48 entries, runs through the stand-in's CDF."""
+    b = pkg.Scene()
+    b.add(pkg.Plane((0.0, -1.5, 0.0), (0.0, 1.0, 0.0),
+                    pkg.DiffuseMaterial((0.7, 0.7, 0.8))))
+    lm = demo.inline_box_mesh(pkg.DiffuseMaterial((0.9, 0.9, 0.9)))
+    lm.vertices = (np.asarray(lm.vertices, np.float32) * np.float32(0.5)
+                   + np.float32([0.0, 3.0, 0.0]))
+    b.add(pkg.ShapeLight(lm, color=(1.0, 1.0, 1.0), power=8.0))
+    b.add(objmod.load_obj(path, pkg.DiffuseMaterial((0.8, 0.3, 0.1))))
+    return b
+
+
+def test_mesh_light_before_another_mesh(compiled, standin8):
+    """A mesh light that is not the scene's last mesh. The reference's
+    binary search runs over a slice that is not sorted (its own run, then
+    the next mesh's CDF from 0 up) and leaves the light's run on most
+    lanes: those picks are pad triangles of zero area (ROADMAP Queue 3).
+    The port searches the light's own sorted run: every pick is a triangle
+    of the light, the one the same light gives as the scene's last mesh,
+    and wherever the reference's pick is the CDF's answer (the first
+    cumulative area above u3 * total) the two agree."""
+    jsd = _box_light_first(rt, jdemo, jobj, standin8).compile(**JAX_COMPILE)
+    tsd = _box_light_first(tt, tdemo, tobj, standin8).compile("cpu")
+    last = compiled["box_light"][3]
+    li, mi = _mesh_light(tsd)
+    assert mi == 0 and tsd.n_meshes == 2
+    tri0, count = tsd.mesh_tri_ranges[mi]
+    assert (tri0, count) == (0, 12) and tsd.mesh_cl_ranges == jsd.mesh_cl_ranges
+    np.testing.assert_array_equal(tsd.tri_area_cdf.numpy(),
+                                  np.asarray(jsd.tri_area_cdf))
+    n_padded = tsd.mesh_cl_ranges[mi][1] * 48
+    ref_pos, u, time = _sample_inputs("box_light", 61)
+    x = u[2] * np.float32(tsd.mesh_total_area[mi])
+    cdf = tsd.tri_area_cdf.numpy()
+    ref = np.asarray(jnp.searchsorted(jsd.tri_area_cdf[:n_padded],
+                                      jnp.asarray(x), side="right"))
+    got = torch.searchsorted(tsd.tri_area_cdf[:48], torch.from_numpy(x),
+                             right=True).numpy()
+    assert (got < count).all()
+    defined = (ref < 48) & (cdf[np.minimum(ref, 47)] > x) & (
+        (ref == 0) | (cdf[np.maximum(ref, 1) - 1] <= x))
+    np.testing.assert_array_equal(got[defined], ref[defined])
+    assert (ref >= 48).mean() > 0.5  # the reference's search left the run
+
+    pos = _both_v3(ref_pos)[1]
+    u1, u2, u3, tt_ = (torch.from_numpy(a) for a in (*u, time))
+    first = tlights.sample_light(tsd, li, pos, None, tt_, u1, u2, u3, TMIN)
+    as_last = tlights.sample_light(last, _mesh_light(last)[0], pos, None, tt_,
+                                   u1, u2, u3, TMIN)
+    for g, w in zip(first[:2], as_last[:2]):
+        np.testing.assert_array_equal(_np3(g), _np3(w))
+    np.testing.assert_array_equal(first[2].numpy(), as_last[2].numpy())
+    assert (first[2] > 0).sum() > N // 16
+    nrm = _np3(first[1])
+    assert (np.abs(np.linalg.norm(nrm, axis=1) - 1.0) < 1e-5).all()
 
 
 @pytest.mark.parametrize("scene", SCENES)
@@ -383,7 +448,8 @@ def test_box_light_render_matches_reference(compiled):
 
 def _nine_lights(pkg):
     """Eight rect lights and one single-triangle mesh light: above
-    ROLL_LIGHTS, but a mesh light keeps the per-light loop."""
+    ROLL_LIGHTS (the reference keeps such a set on its unrolled loop and
+    warns; the port warns that the mesh light is evaluated alone)."""
     rs = np.random.default_rng(11)
     b = pkg.Scene()
     b.add(pkg.Plane((0, -1, 0), (0, 1, 0),
@@ -402,7 +468,7 @@ def _nine_lights(pkg):
 def test_nine_light_mixed_set_warns_and_renders(capsys):
     tsd = _nine_lights(tt).compile("cpu")
     err = capsys.readouterr().err
-    assert "UNROLLED" in err and "9 lights" in err
+    assert "mesh light" in err and "9 lights" in err
     assert tsd.n_lights == 9 > tpath.ROLL_LIGHTS
     jsd = _nine_lights(rt).compile(**JAX_COMPILE)
     kw = dict(width=12, height=8, pixel_samples=1, light_samples=1,
@@ -418,11 +484,24 @@ def test_nine_light_mixed_set_warns_and_renders(capsys):
 
 
 def test_rolled_light_forms_refuse_a_mesh_light(compiled):
+    """A mesh light has no analytic hit, so that form refuses it; the
+    sampling and pdf forms evaluate it alone, as the per-light functions
+    do."""
     _, _, _, tsd = compiled["box_light"]
     z = torch.zeros(4)
     v = TV3(z, z, z + 1.0)
     idx = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="mesh light"):
-        tlights.sample_chosen_light_rolled(tsd, idx, v, z, z, z, TMIN)
-    with pytest.raises(ValueError, match="mesh light"):
         tlights.light_hit_analytic_rolled(tsd, idx, v, v, z, TMIN)
+    ref_pos, u, time = _sample_inputs("box_light", 59)
+    pos = _both_v3(ref_pos)[1]
+    u1, u2, u3, tt_ = (torch.from_numpy(x) for x in (*u, time))
+    li = _mesh_light(tsd)[0]
+    idx = torch.full((N,), li, dtype=torch.int32)
+    got = tlights.sample_chosen_light_rolled(tsd, idx, pos, tt_, u1, u2, u3,
+                                             TMIN)
+    want = tlights.sample_light(tsd, li, pos, None, tt_, u1, u2, u3, TMIN)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(_np3(g), _np3(w))
+    np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+    assert (got[2] > 0).sum() > N // 16

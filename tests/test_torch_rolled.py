@@ -1,25 +1,27 @@
-"""Port parity: scenes above the fold thresholds (more than ROLL_SHAPES = 24
-spheres or rects, more than ROLL_LIGHTS = 8 lights) against the JAX
-package on the CPU.
+"""Port parity: many shapes of one kind (40 spheres, 40 rects) and many
+lights (16) against the JAX package on the CPU.
 
 The scenes are those of the reference's own scale tests, rebuilt from
-their seeds by each package (the reference compiled with
+their seeds by each package from one definition
+(``rayito_tpu_torch/models/demo.py``; the reference compiled with
 traversal='pallas'): 40 spheres and 40 rect lights, with and without a
 two-key translation on every third shape, and 8 rect + 8 sphere lights.
 
-Above a threshold the reference rolls a loop over rows; the port batches
-the rows of a kind into [rows, N] evaluations and takes the ``argmin``,
-and evaluates each lane's chosen light from per-lane gathers. Checks:
+Above 24 shapes or 8 lights the reference rolls a loop over rows; the port
+batches the rows of a kind into [rows, N] evaluations and takes the
+``argmin``, and evaluates each lane's chosen light from per-lane gathers,
+at every count. Checks:
 
   * against the reference: identical hits, shape ids, materials and
     occlusion bits; t to 2e-4 relative and normals to 6e-3 absolute, the
     reference's own budget between its rolled and unrolled forms;
-  * against the port with the threshold raised (the per-shape fold, the
-    per-light loop): everything bit for bit, since each element goes
-    through the same float32 operations in both forms;
+  * batches of 64 and 16 rows against one row per batch (the fold shape by
+    shape), and each lane's chosen light against the per-light functions
+    evaluated for every light: everything bit for bit, since each element
+    goes through the same float32 operations in both forms;
   * the 16-light render within 0.5% relative RMSE of the reference's;
   * two planted identical shapes resolve to the lower row, also when one
-    of the two has a keyed transform and is tested out of row order.
+    of the two has a keyed transform and is a batch of its own.
 """
 
 import jax.numpy as jnp
@@ -34,8 +36,10 @@ from rayito_tpu.render import pathtracer as jpath
 from rayito_tpu.render import trace as jtrace
 from rayito_tpu.utils.config import RenderConfig as JConfig
 import rayito_tpu_torch as tt
+from rayito_tpu_torch.models import demo as tdemo
 from rayito_tpu_torch.models.camera import PerspectiveCamera as TCam
 from rayito_tpu_torch.ops.vec3 import V3 as TV3
+from rayito_tpu_torch.render import lights as tlights
 from rayito_tpu_torch.render import pathtracer as tpath
 from rayito_tpu_torch.render import trace as ttrace
 from rayito_tpu_torch.utils.config import RenderConfig as TConfig
@@ -53,66 +57,16 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _two_key_translation(pkg, rs):
-    tr = pkg.Transform()
-    tr.set_translation(0.0, tuple(rs.uniform(-0.5, 0.5, 3)))
-    tr.set_translation(1.0, tuple(rs.uniform(-0.5, 0.5, 3)))
-    return tr
+def _many_spheres(pkg, motion):
+    return tdemo.many_spheres_scene(motion, pkg=pkg)
 
 
-def _many_spheres(pkg, motion, n_spheres=40):
-    rs = np.random.default_rng(5)
-    b = pkg.Scene()
-    b.add(pkg.Plane((0, -2, 0), (0, 1, 0),
-                    pkg.DiffuseMaterial((0.7, 0.7, 0.7))))
-    mats = [pkg.DiffuseMaterial((0.8, 0.3, 0.2)),
-            pkg.GlossyMaterial((0.2, 0.6, 0.8), 0.25)]
-    for i in range(n_spheres):
-        sph = pkg.Sphere(tuple(rs.uniform(-6, 6, 3)),
-                         float(rs.uniform(0.2, 0.5)), mats[i % 2])
-        if motion and i % 3 == 0:
-            sph.transform = _two_key_translation(pkg, rs)
-        b.add(sph)
-    b.add(pkg.RectangleLight((-3, 9, -3), (6, 0, 0), (0, 0, 6),
-                             (1.0, 1.0, 1.0), 3.0))
-    return b
-
-
-def _many_rects(pkg, motion, n_rects=40):
-    rs = np.random.default_rng(7)
-    b = pkg.Scene()
-    b.add(pkg.Plane((0, -2, 0), (0, 1, 0),
-                    pkg.DiffuseMaterial((0.7, 0.7, 0.7))))
-    for i in range(n_rects):
-        r = pkg.RectangleLight(
-            tuple(rs.uniform(-6, 6, 3)), tuple(rs.uniform(-1.5, 1.5, 3)),
-            tuple(rs.uniform(-1.5, 1.5, 3)), tuple(rs.uniform(0.5, 1.0, 3)),
-            2.0)
-        if motion and i % 3 == 0:
-            r.transform = _two_key_translation(pkg, rs)
-        b.add(r)
-    return b
+def _many_rects(pkg, motion):
+    return tdemo.many_rects_scene(motion, pkg=pkg)
 
 
 def _sixteen_lights(pkg):
-    rs = np.random.default_rng(9)
-    b = pkg.Scene()
-    b.add(pkg.Plane((0, -1, 0), (0, 1, 0),
-                    pkg.DiffuseMaterial((0.7, 0.7, 0.7))))
-    b.add(pkg.Sphere((0.0, 0.5, 0.0), 1.0,
-                     pkg.GlossyMaterial((0.8, 0.7, 0.2), 0.3)))
-    for i in range(16):  # 8 rect + 8 sphere lights
-        if i % 2 == 0:
-            b.add(pkg.RectangleLight(
-                tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 6, 0])),
-                (1.5, 0, 0), (0, 0, 1.5), tuple(rs.uniform(0.5, 1.0, 3)),
-                2.0))
-        else:
-            b.add(pkg.ShapeLight(
-                pkg.Sphere(tuple(rs.uniform(-6, 6, 3) + np.asarray([0, 5, 0])),
-                           0.4, None),
-                tuple(rs.uniform(0.5, 1.0, 3)), 3.0))
-    return b
+    return tdemo.sixteen_lights_scene(pkg=pkg)
 
 
 SCENES = {"spheres": _many_spheres, "rects": _many_rects}
@@ -156,7 +110,7 @@ def _assert_hits_equal(a, b):
 def test_many_shapes_match_reference(kind, motion):
     jsd = SCENES[kind](rt, motion).compile(traversal="pallas")
     tsd = SCENES[kind](tt, motion).compile("cpu")
-    assert max(tsd.n_spheres, tsd.n_rects) == 40 > ttrace.ROLL_SHAPES
+    assert max(tsd.n_spheres, tsd.n_rects) == 40
     assert tsd.has_motion == motion
     o, d = _rays()
     jtime = jnp.full((N,), 0.4, jnp.float32)
@@ -183,16 +137,17 @@ def test_many_shapes_match_reference(kind, motion):
 @pytest.mark.parametrize("motion", [False, True], ids=["static", "motion"])
 @pytest.mark.parametrize("kind", sorted(SCENES))
 def test_batched_fold_equals_per_shape_fold(kind, motion, monkeypatch):
-    """Above the threshold against the threshold raised, and against a
-    chunk size that splits the table: bit for bit."""
+    """Batches of 64 rows and of 16 (which splits the table) against one
+    row per batch, the fold shape by shape: bit for bit."""
     tsd = SCENES[kind](tt, motion).compile("cpu")
     o, d = _rays(seed=4)
     time = torch.from_numpy(
         np.random.default_rng(6).uniform(0, 1, N).astype(np.float32))
+    assert ttrace.ROLL_CHUNK == 64
     rolled, rolled_occ = _port_queries(tsd, o, d, time)
     monkeypatch.setattr(ttrace, "ROLL_CHUNK", 16)
     chunked, chunked_occ = _port_queries(tsd, o, d, time)
-    monkeypatch.setattr(ttrace, "ROLL_SHAPES", 10_000)
+    monkeypatch.setattr(ttrace, "ROLL_CHUNK", 1)
     plain, plain_occ = _port_queries(tsd, o, d, time)
     assert plain.valid.sum() > N // 8
     assert N // 16 < plain_occ.sum() < N
@@ -203,7 +158,8 @@ def test_batched_fold_equals_per_shape_fold(kind, motion, monkeypatch):
 
 def _tied_scene(kind):
     """40 shapes; shape X stands twice (row 3 keyed, row 30 in world
-    space) and shape Y twice (row 10 in world space, row 35 keyed). The
+    space) and shape Y twice (row 10 in world space, row 35 keyed; a keyed
+    row is a batch of its own between two world-space runs). The
     keyed copies carry a constant translation of (1, 0, 0), their local
     geometry shifted back by it; with ray origins and centres on a grid of
     eighths every subtraction is exact, so the copies tie bit for bit."""
@@ -258,7 +214,7 @@ def test_identical_shapes_resolve_to_the_lower_row(kind, monkeypatch):
     want = torch.where(torch.arange(n) % 2 == 0, id0 + 3, id0 + 10)
     assert hit.valid.all()
     assert torch.equal(hit.shape_id, want.to(torch.int32))
-    monkeypatch.setattr(ttrace, "ROLL_SHAPES", 10_000)
+    monkeypatch.setattr(ttrace, "ROLL_CHUNK", 1)
     plain, _ = _port_queries(tsd, o, d, time)
     _assert_hits_equal(hit, plain)
 
@@ -277,10 +233,10 @@ def test_sixteen_light_render_matches_reference():
     """32x32, depth 2. The pixels that differ are far plane points lit by
     a sphere light: the shadow ray ends on the light's own sphere, and at
     20 to 3000 units the sphere quadratic decides lit or self-shadowed by
-    the last bits of t (tools/light_knife_edge.py)."""
+    the last bits of t (ROADMAP Queue 3)."""
     jsd = _sixteen_lights(rt).compile(traversal="pallas")
     tsd = _sixteen_lights(tt).compile("cpu")
-    assert tsd.n_lights == 16 > tpath.ROLL_LIGHTS
+    assert tsd.n_lights == 16
     cfg = dict(LIGHT_CFG, width=32, height=32)
     j_img, _, j_q = jpath.render_path_with_stats(jsd, JConfig(**cfg),
                                                  JCam.make(*LIGHT_CAM))
@@ -295,23 +251,49 @@ def test_sixteen_light_render_matches_reference():
 
 @pytest.mark.parametrize("scene", ["sixteen_lights", "forty_rect_lights",
                                    "forty_moving_rect_lights"])
-def test_chosen_light_nee_equals_per_light_loop(scene, monkeypatch):
+def test_chosen_light_nee_equals_per_light_loop(scene):
     """Each lane's chosen light from per-lane gathers against every light
-    evaluated and selected: the same image bit for bit and the same query
-    count. The 40-rect scenes have no sphere light (the absent kind's
-    empty table is never touched), and in the moving one every third light
-    has a keyed transform and is evaluated apart."""
+    evaluated by the per-light functions and selected: sample, analytic
+    hit, hit pdf and emitted colour bit for bit. The 40-rect scenes have no
+    sphere light (the absent kind's empty table is never touched), and in
+    the moving one every third light has a keyed transform and is evaluated
+    apart."""
     tsd = {"sixteen_lights": lambda: _sixteen_lights(tt),
            "forty_rect_lights": lambda: _many_rects(tt, False),
            "forty_moving_rect_lights": lambda: _many_rects(tt, True),
            }[scene]().compile("cpu")
-    assert tsd.n_lights > tpath.ROLL_LIGHTS
-    cam = TCam.make(*LIGHT_CAM, shutter_open=0.0, shutter_close=1.0)
-    rolled, _, q_r = tpath.render_path_with_stats(tsd, TConfig(**LIGHT_CFG),
-                                                  cam)
-    monkeypatch.setattr(tpath, "ROLL_LIGHTS", 10_000)
-    plain, _, q_p = tpath.render_path_with_stats(tsd, TConfig(**LIGHT_CFG),
-                                                 cam)
-    assert plain.max() > 1e-3 and np.isfinite(plain).all()
-    np.testing.assert_array_equal(rolled, plain)
-    assert q_r == q_p
+    rs = np.random.default_rng(17)
+    pos = _tv3(rs.uniform(-6, 6, (N, 3)).astype(np.float32))
+    _, d = _rays(seed=18)
+    d = _tv3(-d)
+    u1, u2, u3, time = (torch.from_numpy(rs.uniform(0, 1, N).astype(np.float32))
+                        for _ in range(4))
+    t = torch.from_numpy(rs.uniform(0.5, 9.0, N).astype(np.float32))
+    light_idx = torch.from_numpy(
+        rs.integers(0, tsd.n_lights, N).astype(np.int32))
+    emitted = tlights.light_emitted_rolled(tsd, light_idx)
+    chosen = (*tlights.sample_chosen_light_rolled(tsd, light_idx, pos, time,
+                                                  u1, u2, u3, TMIN),
+              *tlights.light_hit_analytic_rolled(tsd, light_idx, pos, d, time,
+                                                 TMIN),
+              tlights.light_intersect_pdf_rolled(tsd, light_idx, pos, d, t, d,
+                                                 time),
+              emitted)
+    hits = 0
+    for li in range(tsd.n_lights):
+        per = (*tlights.sample_light(tsd, li, pos, None, time, u1, u2, u3,
+                                     TMIN),
+               *tlights.light_hit_analytic(tsd, li, pos, d, time, TMIN),
+               tlights.light_intersect_pdf(tsd, li, pos, d, t, d, time),
+               tlights.light_emitted(tsd, li))
+        mine = light_idx == li
+        assert mine.any()
+        hits += int((per[5] & mine).sum())
+        for k, (got, want) in enumerate(zip(chosen, per)):
+            pairs = ([(getattr(got, c), getattr(want, c)) for c in "xyz"]
+                     if isinstance(got, TV3) else [(got, want)])
+            for g, w in pairs:
+                np.testing.assert_array_equal(
+                    g[mine].numpy(), w.expand(N)[mine].numpy(),
+                    err_msg=f"light {li}, result {k}")
+    assert hits > 0
