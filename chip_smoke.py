@@ -69,7 +69,27 @@ JAX. Phases, each printed, each fatal on failure:
      depth 3, each in batches of ROLL_CHUNK rows against the same frame
      with one row per batch (the fold shape by shape): bit for bit, with
      the host launches of both; and each lane's chosen light against the
-     per-light functions evaluated for all 16 lights, bit for bit.
+     per-light functions evaluated for all 16 lights, bit for bit;
+ 14. stages 1-4: the direct integrators at CONFIG_STAGE123, 512x512, on the
+     card (no kernel launch): stage 1's quantised PPM byte-equal to the
+     CPU's; stage 2 (64 unstratified samples) and stage 3 (4x4 pixel x 4x4
+     light samples, the golden configuration; stage 4 renders the same)
+     timed at 512x512 and held against the CPU at 256x256 and 128x128
+     (the CPU's time cuts the size): stage 2 within 0.5%; stage 3, a
+     float32 knife edge (a sphere light's shadow ray ends on the light),
+     by its channel means and its share of agreeing pixels, and its
+     geometry and shading without the sphere light (1e-2 epsilon) within
+     0.5%;
+ 15. the CLI in process: ``cli.main`` on stage 6 at its defaults (640x480,
+     2x2 samples, depth 3, the n=64 stand-in, --pfm) with the launch
+     counts set to 0 just before it and read just after (masks, traversal
+     and gather must launch); its PFM bit-identical to
+     render_path_with_stats on the same inputs, to --sharded over the one
+     card, and to a run stopped after its first sample and resumed from
+     --checkpoint; the stats line (queries, seconds, Mrays/s);
+ 16. ``python -m rayito_tpu_torch.cli --scene stage1`` in a subprocess with
+     no --device: it must render on cuda;
+ 17. utils/profiling.phase_table of one 512x512 stage-6 frame.
 
 Prints a JSON line of per-kernel results (camera-ray times; launches in
 the frame of the path each kernel serves first, and per frame; per
@@ -132,6 +152,7 @@ def _phase(name: str) -> None:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     _phase("device")
     if not torch.cuda.is_available():
         print("CUDA is not available: this smoke test needs a GPU",
@@ -164,10 +185,18 @@ def main() -> int:
     stage5 = run_stage5(dev, card)
     mesh_light = run_mesh_light(dev, card)
     run_many(dev, card)
+    direct = run_direct(dev, card)
+    cli = run_cli(dev, card)
+    run_cli_subprocess()
+    run_phase_table(dev)
 
-    print(json.dumps({"kernels": kernel_records(stage6, big, stage7,
-                                                stage7b, stage5,
-                                                mesh_light)}))
+    records = kernel_records(stage6, big, stage7, stage7b, stage5,
+                             mesh_light)
+    for k in records:
+        k["launches_frame"]["stages1_4"] = direct["launches"][k["name"]]
+        k["launches_frame"]["cli_stage6"] = cli["launches"][k["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1502,6 +1531,290 @@ def run_many(dev, card: str) -> None:
                   f"{q / frame_s / 1e6:.3f} Mrays/s on {card}", flush=True)
         if scene.n_lights > 1:
             _check_chosen_light(scene, label)
+
+
+def _stage3_no_sphere_light(pkg):
+    """Stage 3 with its sphere light as a plain diffuse sphere: every
+    shading path of the direct integrator but the knife-edged light."""
+    s = pkg.Scene()
+    blueish = pkg.DiffuseMaterial((0.9, 0.9, 1.0))
+    s.add(pkg.Plane(position=(0.0, -2.0, 0.0), normal=(0.0, 1.0, 0.0),
+                    material=blueish, bullseye=True))
+    s.add(pkg.Sphere(position=(3.0, -1.0, 0.0), radius=1.0,
+                     material=pkg.DiffuseMaterial((0.9, 0.7, 0.8))))
+    s.add(pkg.Sphere(position=(-3.0, 0.0, -2.0), radius=2.0,
+                     material=pkg.PhongMaterial((0.7, 0.9, 0.7), 16.0)))
+    s.add(pkg.Sphere(position=(0.0, 0.0, 2.0), radius=1.0, material=blueish))
+    s.add(pkg.RectangleLight(corner=(-2.5, 4.0, -2.5), side1=(5.0, 0.0, 0.0),
+                             side2=(0.0, 0.0, 5.0), color=(1.0, 1.0, 1.0),
+                             power=1.0))
+    return s
+
+
+def direct_setup(dev, stage: str):
+    """(scene, config, camera spec, frame) of a stage-1, 2 or 3 frame at
+    CONFIG_STAGE123, 512x512 (stage 2: 64 unstratified samples; stage 3:
+    4x4 pixel x 4x4 light samples); ``frame()`` returns (image, 0)."""
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.render import integrator as ig
+    from rayito_tpu_torch.utils.config import CONFIG_STAGE123
+
+    if stage == "stage1":
+        scene = demo.stage1_scene().compile(dev)
+        return scene, CONFIG_STAGE123, demo.STAGE1_CAMERA, lambda: (
+            ig.render_color(scene, CONFIG_STAGE123, fov=demo.STAGE1_FOV,
+                            camera=demo.STAGE1_CAMERA), 0)
+    cfg, spp = CONFIG_STAGE123, 64
+    if stage == "stage3":
+        cfg = dataclasses.replace(cfg, pixel_samples=4, light_samples=4)
+        spp = None
+    scene = getattr(demo, stage + "_scene")().compile(dev)
+    return scene, cfg, demo.STAGE23_CAMERA, lambda: (ig.render_direct(
+        scene, cfg, fov=demo.STAGE23_FOV, camera=demo.STAGE23_CAMERA,
+        spp=spp), 0)
+
+
+def cli_setup(dev):
+    """(scene, config, camera, frame) of the CLI's stage-6 render at its
+    defaults (640x480, 2x2 samples, depth 3, the n=64 stand-in);
+    ``frame()`` is render_path_with_stats: (image, queries)."""
+    from rayito_tpu_torch.render import pathtracer as pt
+
+    scene, cfg, cam = _cli_inputs(dev, _standin_obj())
+
+    def frame():
+        img, _, q = pt.render_path_with_stats(scene, cfg, cam)
+        return img, q
+
+    return scene, cfg, cam, frame
+
+
+def run_direct(dev, card: str) -> dict:
+    """Phase 14 on ``dev``: stages 1-4 through render_color and
+    render_direct at CONFIG_STAGE123, the launch counts set to 0 just
+    before the 512x512 frames and read just after (none may launch), each
+    frame timed; stage 4 (the stage-3 render again) bit-identical; the CPU
+    comparisons."""
+    import numpy as np
+    import torch
+
+    import rayito_tpu_torch as rt
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.render import integrator as ig
+    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils.config import CONFIG_STAGE123
+    from rayito_tpu_torch.utils.image import quantize_ppm
+
+    _phase("stages 1-4")
+    cpu = torch.device("cpu")
+    golden3 = dataclasses.replace(CONFIG_STAGE123, pixel_samples=4,
+                                  light_samples=4)
+    cam23 = dict(fov=demo.STAGE23_FOV, camera=demo.STAGE23_CAMERA)
+    setups = {k: direct_setup(dev, k) for k in ("stage1", "stage2",
+                                                "stage3")}
+    for _, _, _, frame in setups.values():
+        frame()  # warm-up
+    torch.cuda.synchronize()
+    tv.reset_launch_counts()
+    imgs, frame_ms = {}, {}
+    for k, (_, _, _, frame) in setups.items():
+        t0 = time.perf_counter()  # each frame ends in its image's readback
+        imgs[k] = frame()[0]
+        frame_ms[k] = (time.perf_counter() - t0) * 1e3
+    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    print(f"launches in the stage 1-3 frames: {launches}")
+    if any(launches.values()):
+        raise AssertionError("stages 1-4 have no mesh, yet a kernel launched")
+    out = {"launches": launches}
+    for k, img in imgs.items():
+        diag = _check_image(img, k)
+        cfg = setups[k][1]
+        spp = 64 if k == "stage2" else cfg.pixel_samples ** 2
+        print(f"{k} frame ({cfg.width}x{cfg.height}, {spp} spp, "
+              f"{cfg.light_samples ** 2} light samples): {frame_ms[k]:.1f} "
+              f"ms/frame on {card}; {diag}", flush=True)
+        out[k + "_frame_ms"] = frame_ms[k]
+    render2 = lambda sd, cfg: ig.render_direct(sd, cfg, spp=64, **cam23)
+    render3 = lambda sd, cfg: ig.render_direct(sd, cfg, **cam23)
+    stage4 = ig.render_direct(demo.stage3_scene().compile(dev), golden3,
+                              **cam23)
+    if not np.array_equal(stage4, imgs["stage3"]):
+        raise AssertionError("stage 4 (the stage-3 scene) differs from "
+                             "stage 3")
+
+    ppm_card = quantize_ppm(imgs["stage1"])
+    ppm_cpu = quantize_ppm(ig.render_color(
+        demo.stage1_scene().compile(cpu), CONFIG_STAGE123,
+        fov=demo.STAGE1_FOV, camera=demo.STAGE1_CAMERA))
+    same = np.array_equal(ppm_card, ppm_cpu)
+    print(f"stage 1, 512x512: quantised PPM byte-equal to the CPU's {same}")
+    if not same:
+        raise AssertionError("stage 1 on the card differs from the CPU")
+
+    def against_cpu(label, make, cfg, render):
+        card_img = render(make().compile(dev), cfg)
+        t0 = time.perf_counter()
+        cpu_img = render(make().compile(cpu), cfg)
+        cpu_s = time.perf_counter() - t0
+        rel = _rel_rmse(card_img, cpu_img)
+        close = np.abs(card_img - cpu_img).max(axis=2) <= 1e-3
+        means = card_img.mean(axis=(0, 1)) / cpu_img.mean(axis=(0, 1))
+        print(f"{label} ({cfg.width}x{cfg.height}), card vs CPU: relative "
+              f"RMSE {rel:.3e}, {close.mean():.2%} of pixels within 1e-3 "
+              f"({int((~close).sum())} differ), channel means / CPU's "
+              f"{np.round(means, 5).tolist()}; CPU {cpu_s:.1f} s",
+              flush=True)
+        return rel, close.mean(), means
+
+    cfg2 = dataclasses.replace(CONFIG_STAGE123, width=256, height=256)
+    rel2, _, _ = against_cpu("stage 2", demo.stage2_scene, cfg2, render2)
+    cfg3 = dataclasses.replace(golden3, width=128, height=128)
+    _, close3, means3 = against_cpu("stage 3", demo.stage3_scene, cfg3,
+                                    render3)
+    rel3v, _, _ = against_cpu(
+        "stage 3 without the sphere light, epsilon 1e-2",
+        lambda: _stage3_no_sphere_light(rt),
+        dataclasses.replace(cfg3, ray_tmin=1e-2), render3)
+    if rel2 > 0.005 or rel3v > 0.005:
+        raise AssertionError("a direct-lighting render on the card is more "
+                             "than 0.5% from the CPU's")
+    if np.any(np.abs(means3 - 1.0) > 0.01) or close3 < 0.25:
+        raise AssertionError("stage 3 on the card: channel means beyond 1% "
+                             "or under 25% of pixels agree with the CPU")
+    return out
+
+
+def _cli_inputs(dev, obj):
+    """The scene, config and camera cli.main builds for ``--scene stage6``
+    at its defaults."""
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.models.demo import STAGE6_CAMERA, stage6_scene
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    scene = stage6_scene(obj).compile(dev)
+    cfg = RenderConfig(width=640, height=480, pixel_samples=2,
+                       light_samples=1, max_depth=3, gamma=2.2, exposure=0.0,
+                       seed=1)
+    cam = PerspectiveCamera.make(30.0, *STAGE6_CAMERA, focal_distance=16.0,
+                                 lens_radius=0.0, shutter_open=0.0,
+                                 shutter_close=1.0)
+    return scene, cfg, cam
+
+
+def run_cli(dev, card: str) -> dict:
+    """Phase 15 on ``dev``: the CLI's stage-6 render, counted and checked
+    bit for bit against render_path_with_stats, --sharded and a resumed
+    run."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch import cli
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import progressive
+    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import cuda_lib
+    from rayito_tpu_torch.utils.image import read_pfm
+
+    _phase("cli")
+    obj = _standin_obj()
+    outdir = os.path.join(cuda_lib.BUILD_DIR, "cli")
+    os.makedirs(outdir, exist_ok=True)
+    args = ["--scene", "stage6", "--obj", obj, "--pfm"]
+    pfm = {k: os.path.join(outdir, k + ".pfm")
+           for k in ("cli", "sharded", "resumed")}
+    torch.cuda.synchronize()
+    tv.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(args + ["-o", pfm["cli"]])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    print(f"launches in cli.main (640x480, 4 spp, depth 3, 2 bands per "
+          f"sample): {launches}; {cli_s:.2f} s with the scene build")
+    if min(launches[k] for k in STAGE6_KERNELS) <= 0:
+        raise AssertionError("the CLI's render never launched a kernel of "
+                             "its path")
+
+    scene, cfg, cam = _cli_inputs(dev, obj)
+    pt.render_path_with_stats(scene, cfg, cam)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, _, queries = pt.render_path_with_stats(scene, cfg, cam)
+    render_s = time.perf_counter() - t0
+    _check_image(ref, "CLI stage-6 frame")
+    print(f"render_path_with_stats, CLI inputs: {queries} queries, "
+          f"{render_s:.3f} s, {queries / render_s / 1e6:.3f} Mrays/s on "
+          f"{card}", flush=True)
+
+    cli.main(args + ["--sharded", "-o", pfm["sharded"]])
+    ck = os.path.join(outdir, "ck.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    real = progressive.render_progressive
+
+    def stop(st):
+        raise KeyboardInterrupt
+
+    progressive.render_progressive = (
+        lambda *a, **kw: real(*a, **dict(kw, on_progress=stop)))
+    try:
+        cli.main(args + ["-o", pfm["resumed"], "--checkpoint", ck])
+        raise AssertionError("the interrupted CLI run did not stop")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        progressive.render_progressive = real
+    with np.load(ck) as saved:
+        done = int(saved["samples_done"])
+    cli.main(args + ["-o", pfm["resumed"], "--checkpoint", ck])
+    for k, path in pfm.items():
+        same = np.array_equal(read_pfm(path).view(np.int32),
+                              ref.view(np.int32))
+        print(f"{k} PFM bit-identical to render_path_with_stats: {same}"
+              + (f" (resumed after {done} of 4 samples)"
+                 if k == "resumed" else ""))
+        if not same:
+            raise AssertionError(f"the {k} run's image differs")
+    return {"launches": launches, "queries": queries,
+            "render_ms": render_s * 1e3}
+
+
+def run_cli_subprocess() -> None:
+    """Phase 16: ``python -m rayito_tpu_torch.cli --scene stage1`` with no
+    --device, in a subprocess: it renders on cuda."""
+    from rayito_tpu_torch.utils import cuda_lib
+
+    _phase("cli subprocess")
+    out = os.path.join(cuda_lib.BUILD_DIR, "cli", "stage1.ppm")
+    proc = subprocess.run(
+        [sys.executable, "-m", "rayito_tpu_torch.cli", "--scene", "stage1",
+         "-o", out], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    print(proc.stderr.strip())
+    if proc.returncode != 0 or "device=cuda" not in proc.stderr:
+        raise AssertionError("the CLI subprocess did not render on cuda")
+
+
+def run_phase_table(dev) -> None:
+    """Phase 17: utils/profiling.phase_table of one stage-6 frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rayito_tpu_torch.utils.profiling import phase_table
+
+    _phase("phase table")
+    frame = stage6_setup(dev)[-1]
+    frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    rows = phase_table(prof)
+    for label, ms, count in rows:
+        print(f"  {ms:9.3f} ms {count:6d}x  {label}")
+    if not rows:
+        raise AssertionError("the profiler recorded no device kernel")
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ from .models.scene import (  # noqa: F401
     EmitterMaterial,
     GlossyMaterial,
     Group,
+    PhongMaterial,
     Plane,
     RectangleLight,
     ReflectionMaterial,

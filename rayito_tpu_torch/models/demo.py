@@ -1,4 +1,4 @@
-"""The stage-5, stage-6 and stage-7 demo scenes, the big five-instance scene,
+"""The stage 1-7 demo scenes, the big five-instance scene,
 the seeded many-shape and many-light scenes, and a procedural stand-in for
 the demos' mesh asset (counterpart of ``rayito_tpu/models/demo.py``).
 
@@ -19,6 +19,7 @@ from . import scene as _own
 from .scene import (
     DiffuseMaterial,
     GlossyMaterial,
+    PhongMaterial,
     Plane,
     RectangleLight,
     ReflectionMaterial,
@@ -28,6 +29,56 @@ from .scene import (
     Transform,
     TriangleMesh,
 )
+
+
+def stage1_scene() -> Scene:
+    """Stage 1: one pink plane at y = -2, no bullseye."""
+    s = Scene()
+    s.add(Plane(position=(0.0, -2.0, 0.0), normal=(0.0, 1.0, 0.0),
+                material=DiffuseMaterial((1.0, 0.5, 0.8))))
+    return s
+
+
+STAGE1_CAMERA = ((0.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.0, 1.0, 0.0))
+STAGE1_FOV = 30.0
+
+
+def stage2_scene() -> Scene:
+    """Stage 2: a white bullseye plane and two rect lights."""
+    s = Scene()
+    s.add(Plane(position=(0.0, -2.0, 0.0), normal=(0.0, 1.0, 0.0),
+                material=DiffuseMaterial((1.0, 1.0, 1.0)), bullseye=True))
+    s.add(RectangleLight(corner=(-2.5, 2.0, -2.5), side1=(5.0, 0.0, 0.0),
+                         side2=(0.0, 0.0, 5.0), color=(1.0, 0.5, 1.0),
+                         power=3.0))
+    s.add(RectangleLight(corner=(-2.0, -1.0, -2.0), side1=(4.0, 0.0, 0.0),
+                         side2=(0.0, 0.0, 4.0), color=(1.0, 1.0, 0.5),
+                         power=0.75))
+    return s
+
+
+STAGE23_CAMERA = ((0.0, 5.0, 15.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+STAGE23_FOV = 45.0
+
+
+def stage3_scene() -> Scene:
+    """Stages 3 and 4 (the same scene): a bullseye plane, a diffuse and a
+    phong sphere, a rect light and a sphere ShapeLight."""
+    s = Scene()
+    blueish = DiffuseMaterial((0.9, 0.9, 1.0))
+    purplish = DiffuseMaterial((0.9, 0.7, 0.8))
+    greenish = PhongMaterial((0.7, 0.9, 0.7), 16.0)
+    s.add(Plane(position=(0.0, -2.0, 0.0), normal=(0.0, 1.0, 0.0),
+                material=blueish, bullseye=True))
+    s.add(Sphere(position=(3.0, -1.0, 0.0), radius=1.0, material=purplish))
+    s.add(Sphere(position=(-3.0, 0.0, -2.0), radius=2.0, material=greenish))
+    s.add(RectangleLight(corner=(-2.5, 4.0, -2.5), side1=(5.0, 0.0, 0.0),
+                         side2=(0.0, 0.0, 5.0), color=(1.0, 1.0, 1.0),
+                         power=1.0))
+    s.add(ShapeLight(
+        Sphere(position=(0.0, 0.0, 2.0), radius=1.0, material=blueish),
+        color=(1.0, 1.0, 0.1), power=4.0))
+    return s
 
 
 def stage5_scene() -> Scene:

@@ -70,6 +70,10 @@ def EmitterMaterial(color, power):
     return Material(MAT_EMITTER, color, power)
 
 
+def PhongMaterial(color, exponent):
+    return Material(MAT_PHONG, color, exponent)
+
+
 @dataclasses.dataclass
 class Transform:
     """Keyed Scale->Rotate->Translate track: parallel key lists; a static
@@ -410,6 +414,17 @@ class SceneData:
                              f"got {self.traverse_mt!r}")
         validate_blocks(self.traverse_b, self.traverse_sb)
         validate_items(self.items_w, self.items_max, self.items_cap)
+
+    def to(self, device) -> "SceneData":
+        """This scene with every tensor on ``device`` (itself if it is
+        there already)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        kw = {k: getattr(self, k).to(device) for k in ARRAY_FIELDS}
+        for k in DOMAIN_FIELDS:
+            kw[k] = tuple(t.to(device) for t in getattr(self, k))
+        return dataclasses.replace(self, device=device, **kw)
 
     @property
     def n_planes(self) -> int:

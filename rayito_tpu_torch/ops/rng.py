@@ -7,7 +7,8 @@ arithmetic, so every uint32 value is held in an int64 tensor in
 wrapping multiplies are split into two 16-bit halves so no int64 product
 can overflow. The streams are bit-identical to the JAX package's.
 
-The Marsaglia MWC generator (the reference's oracle mode) is not ported yet.
+The Marsaglia MWC generator is the reference's oracle mode only: no
+integrator draws from it.
 """
 
 from __future__ import annotations
@@ -46,6 +47,31 @@ def _mul32_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def u32_to_float01(i: torch.Tensor) -> torch.Tensor:
     """Canonical [0,1) float from raw 32 bits, reference-style."""
     return i.to(torch.float32) * _CANONICAL
+
+
+MWC_Z0 = 362436069
+MWC_W0 = 521288629
+
+
+def mwc_init(z=MWC_Z0, w=MWC_W0, device=None):
+    """Fresh Marsaglia multiply-with-carry state; z, w may be sequences for
+    a batch of streams."""
+    return u32(z, device), u32(w, device)
+
+
+def mwc_next_u32(state):
+    """Advance MWC; returns (new_state, u32). The reference's recurrence
+    z = 36969 (z & 65535) + (z >> 16), w likewise with 18000; both products
+    stay below 2**32, so no int64 term can overflow."""
+    z, w = state
+    z = (36969 * (z & 0xFFFF) + (z >> 16)) & MASK32
+    w = (18000 * (w & 0xFFFF) + (w >> 16)) & MASK32
+    return (z, w), (((z << 16) & MASK32) + w) & MASK32
+
+
+def mwc_next_float(state):
+    state, i = mwc_next_u32(state)
+    return state, u32_to_float01(i)
 
 
 def cmj_permute(i: torch.Tensor, num: int, permutation: torch.Tensor):

@@ -35,7 +35,7 @@ from ..ops.mis import power_heuristic
 from ..ops.vec3 import RAY_TMAX, V3, dot, where as vwhere
 from ..utils.config import RenderConfig
 from . import lights as L
-from .integrator import _pixel_grid, _subpixel_jitter, screen_uv
+from .integrator import _image, _pixel_grid, _subpixel_jitter, screen_uv
 from .trace import (
     material_emittance,
     material_row,
@@ -229,6 +229,20 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     return result, 0, queries
 
 
+def _camera_rays(config: RenderConfig, camera: PerspectiveCamera, px, py,
+                 si):
+    """Camera rays (origin V3, direction V3, time) of the lanes (px, py,
+    si): subpixel jitter, lens and shutter-time samples per lane."""
+    ps = config.pixel_samples
+    jx, jy = _subpixel_jitter(config, px, py, si, ps, ps)
+    xu, yu = screen_uv(config, px, py, jx, jy)
+    perm_lens = rngo.hash_combine(px, py, rngo.PURPOSE_LENS, config.seed)
+    lens_u, lens_v = rngo.cmj_sample_2d(si, ps, ps, perm_lens)
+    perm_time = rngo.hash_combine(px, py, rngo.PURPOSE_TIME, config.seed)
+    time_u = rngo.cmj_sample_1d(si, ps * ps, perm_time)
+    return camera.make_rays(xu, yu, lens_u, lens_v, time_u)
+
+
 def _render_path_pass(scene: SceneData, config: RenderConfig,
                       camera: PerspectiveCamera, si_chunk, row0=0,
                       rows: int = 0):
@@ -244,24 +258,10 @@ def _render_path_pass(scene: SceneData, config: RenderConfig,
     px = px.repeat(n_si)
     py = py.repeat(n_si)
     si = si_chunk.repeat_interleave(w * rows)
-    ps = config.pixel_samples
-
-    jx, jy = _subpixel_jitter(config, px, py, si, ps, ps)
-    xu, yu = screen_uv(config, px, py, jx, jy)
-    perm_lens = rngo.hash_combine(px, py, rngo.PURPOSE_LENS, config.seed)
-    lens_u, lens_v = rngo.cmj_sample_2d(si, ps, ps, perm_lens)
-    perm_time = rngo.hash_combine(px, py, rngo.PURPOSE_TIME, config.seed)
-    time_u = rngo.cmj_sample_1d(si, ps * ps, perm_time)
-
-    o, d, t = camera.make_rays(xu, yu, lens_u, lens_v, time_u)
+    o, d, t = _camera_rays(config, camera, px, py, si)
     radiance, overflow, queries = pathtrace_wave(scene, config, o, d, t, px,
                                                  py, si)
-    img = torch.stack(
-        [c.reshape(n_si, rows, w).sum(dim=0)
-         for c in (radiance.x, radiance.y, radiance.z)],
-        dim=-1,
-    )
-    return img, overflow, queries
+    return _image(radiance, n_si, rows, w), overflow, queries
 
 
 def _render_path_frame(scene: SceneData, config: RenderConfig,

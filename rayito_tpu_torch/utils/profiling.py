@@ -1,0 +1,48 @@
+"""Device-time profiling helpers (counterpart of
+``rayito_tpu/utils/profiling.py``): digest a finished ``torch.profiler``
+trace into per-kernel and per-phase device time, so the tools can answer
+"where does the frame go" without reading thousands of trace events.
+"""
+
+from __future__ import annotations
+
+# Kernel-name substrings (matched in lower case) -> renderer phase, first
+# match wins. The port's
+# CUDA kernels are named by their __global__ symbols in csrc/; PyTorch's
+# own kernels are bucketed by family.
+_PHASES = (
+    ("cluster_masks_kernel", "cluster-mask kernel (slab tests)"),
+    ("blocks_", "block traversal kernels (traverse_blocks)"),
+    ("items_count_kernel", "item-list kernels (build_items)"),
+    ("items_scan_kernel", "item-list kernels (build_items)"),
+    ("items_write_kernel", "item-list kernels (build_items)"),
+    ("items_", "item traversal kernels (traverse_items)"),
+    ("gather_rows_t_kernel", "winner-row gather kernel"),
+    ("sort", "coherence sort / unsort"),
+    ("elementwise", "PyTorch elementwise kernels"),
+    ("reduce", "PyTorch reductions"),
+)
+
+
+def collect_device_ops(prof):
+    """{kernel name: (total µs, count)} over the device-side events of a
+    finished ``torch.profiler.profile``."""
+    from torch.autograd import DeviceType
+
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def phase_table(prof, divisor: float = 1.0):
+    """[(phase, ms, kernel count)] sorted by cost. ``divisor`` scales the
+    totals (e.g. the number of profiled frames)."""
+    rows = {}
+    for name, (us, count) in collect_device_ops(prof).items():
+        label = next((lab for key, lab in _PHASES if key in name.lower()),
+                     "other device kernels")
+        row = rows.setdefault(label, [0.0, 0])
+        row[0] += us
+        row[1] += count
+    return sorted(((label, us / 1e3 / divisor, count)
+                   for label, (us, count) in rows.items() if count),
+                  key=lambda r: -r[1])

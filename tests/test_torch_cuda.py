@@ -29,7 +29,10 @@ on the card against the CPU; and, for the mesh lights and the scenes above
 the fold thresholds: mesh-light sampling on the card against the CPU, the
 mesh-light and many-shape ``pathtrace_wave`` under the sync debug mode,
 ``argmin`` ties on the card, and the 40-sphere ``scene_intersect`` on the
-card against the CPU. Every kernel comparison is exact: kernel and plain version run the same IEEE
+card against the CPU; and, for the CLI's surface: render_color and
+render_direct on the card against the CPU, one render_direct pass under
+the sync debug mode, a progressive render resumed from its checkpoint, and
+cli.main on stage 6 through the three kernels. Every kernel comparison is exact: kernel and plain version run the same IEEE
 float32 operations in the same order, without contraction.
 """
 
@@ -1001,3 +1004,122 @@ def test_many_spheres_scene_intersect_on_the_card_matches_the_cpu(dev, lit,
         sid = g.shape_id.cpu()
         assert (sid == cpu.sphere_id0 + 18).sum() > 16
         assert (sid == cpu.sphere_id0 + 30).sum() == 0
+
+
+def test_render_color_and_direct_on_the_card_match_the_cpu(dev):
+    """Stage 1 bit for bit; stage 2 (16 unstratified samples) within 0.5%;
+    stage 3 without its sphere light at a 1e-2 epsilon within 0.5% (with
+    the light, a float32 knife edge: see test_torch_direct.py)."""
+    import dataclasses
+
+    import rayito_tpu_torch as rt
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.render import integrator as ig
+    from rayito_tpu_torch.utils.config import CONFIG_STAGE123
+
+    cfg = dataclasses.replace(CONFIG_STAGE123, width=96, height=64)
+    cpu = torch.device("cpu")
+    s1 = [ig.render_color(demo.stage1_scene().compile(d), cfg,
+                          fov=demo.STAGE1_FOV, camera=demo.STAGE1_CAMERA)
+          for d in (dev, cpu)]
+    np.testing.assert_array_equal(s1[0], s1[1])
+
+    def no_sphere_light():
+        s = rt.Scene()
+        blueish = rt.DiffuseMaterial((0.9, 0.9, 1.0))
+        s.add(rt.Plane(position=(0.0, -2.0, 0.0), normal=(0.0, 1.0, 0.0),
+                       material=blueish, bullseye=True))
+        s.add(rt.Sphere(position=(3.0, -1.0, 0.0), radius=1.0,
+                        material=rt.DiffuseMaterial((0.9, 0.7, 0.8))))
+        s.add(rt.Sphere(position=(-3.0, 0.0, -2.0), radius=2.0,
+                        material=rt.PhongMaterial((0.7, 0.9, 0.7), 16.0)))
+        s.add(rt.Sphere(position=(0.0, 0.0, 2.0), radius=1.0,
+                        material=blueish))
+        s.add(rt.RectangleLight(corner=(-2.5, 4.0, -2.5),
+                                side1=(5.0, 0.0, 0.0), side2=(0.0, 0.0, 5.0),
+                                color=(1.0, 1.0, 1.0), power=1.0))
+        return s
+
+    for make, kw, spp in ((demo.stage2_scene, {}, 16),
+                          (no_sphere_light, dict(pixel_samples=2,
+                                                 light_samples=2,
+                                                 ray_tmin=1e-2), None)):
+        c = dataclasses.replace(cfg, **kw)
+        imgs = [ig.render_direct(make().compile(d), c, fov=demo.STAGE23_FOV,
+                                 camera=demo.STAGE23_CAMERA, spp=spp)
+                for d in (dev, cpu)]
+        err = float(np.sqrt(np.mean((imgs[0] - imgs[1]) ** 2))
+                    / np.sqrt(np.mean(imgs[1] ** 2)))
+        assert err <= 0.005, err
+        assert np.isfinite(imgs[0]).all() and imgs[0].max() > 0.0
+
+
+def test_render_direct_pass_does_not_wait_on_the_device(dev):
+    """One stage-3 direct pass at power-of-two counts (2x2 pixel samples,
+    2x2 light samples) under the sync debug mode 'error': nothing is read
+    back; the result equals the same call outside the mode."""
+    import dataclasses
+
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.render import integrator as ig
+    from rayito_tpu_torch.utils.config import CONFIG_STAGE123
+
+    cfg = dataclasses.replace(CONFIG_STAGE123, width=64, height=64,
+                              pixel_samples=2, light_samples=2)
+    scene = demo.stage3_scene().compile(dev)
+    cam = tuple(tuple(float(x) for x in v) for v in demo.STAGE23_CAMERA)
+    args = (scene, cfg, 45.0, cam, 2, 2, 0, 4)
+    ref = ig._render_direct_pass(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ig._render_direct_pass(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and float(got.max()) > 0.0
+
+
+def test_progressive_resume_on_the_card(dev, tmp_path):
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.render import progressive as pg
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    scene = demo.stage5_scene().compile(dev)
+    cam = PerspectiveCamera.make(30.0, *demo.STAGE5_CAMERA)
+    cfg = RenderConfig(width=32, height=24, pixel_samples=4, light_samples=1,
+                       max_depth=2, max_rays_per_pass=32 * 24 * 4)
+    full, _ = pg.render_progressive(scene, cfg, cam)
+    ck = str(tmp_path / "ck.npz")
+
+    def interrupt(st):
+        if st.samples_done >= 8:
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        pg.render_progressive(scene, cfg, cam, checkpoint_path=ck,
+                              on_progress=interrupt)
+    resumed, st = pg.render_progressive(scene, cfg, cam, checkpoint_path=ck)
+    np.testing.assert_array_equal(full, resumed)
+    assert st.samples_done == 16 and full.max() > 0.0
+
+
+def test_cli_stage6_launches_the_three_kernels(dev, tmp_path):
+    """cli.main with no --device renders on the card through
+    cluster_masks, traverse_blocks and gather_rows_t."""
+    from rayito_tpu_torch import cli
+    from rayito_tpu_torch.models.demo import write_bumpy_standin
+    from rayito_tpu_torch.utils.image import read_pfm
+
+    obj = str(tmp_path / "b8.obj")
+    write_bumpy_standin(obj, n=8)
+    out = str(tmp_path / "s6.pfm")
+    tv.reset_launch_counts()
+    assert cli.main(["--scene", "stage6", "--obj", obj, "--width", "64",
+                     "--height", "48", "--pfm", "-o", out]) == 0
+    counts = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    for name in ("cluster_masks", "traverse_blocks", "gather_rows_t"):
+        assert counts[name] > 0, counts
+    img = read_pfm(out)
+    assert img.shape == (48, 64, 3) and np.isfinite(img).all()

@@ -7,14 +7,17 @@ budget that never overflows, or ``--route scan``), or with ``--scene
 stage7`` / ``stage7b`` its stage-7 frames (the moving n=64 stand-in at
 512x512; bench.py's stage-7b config at 512x256), or with ``--scene stage5``
 / ``mesh_light`` / ``spheres40`` / ``lights16`` its stage-5, mesh-light and
-many-shape frames, once to warm up, times
+many-shape frames, with ``--scene stage1`` / ``stage2`` / ``stage3`` its
+512x512 direct-lighting frames, or with ``--scene cli_stage6`` the CLI's
+640x480 stage-6 render (2x2 samples, depth 3), once to warm up, times
 three frames on the host clock, then profiles one frame with
 torch.profiler and prints:
 
   * the card (nvidia-smi name and power limit) and the frame time;
   * device time summed over kernels, and the busy share of the frame;
   * the number of kernel launches per frame;
-  * the twelve kernels that take the most device time.
+  * the twelve kernels that take the most device time;
+  * utils/profiling.phase_table: device time by renderer phase.
 
 Run from the repo root on a machine with a GPU:
 ``python3 tools/frame_profile_torch.py [--scene big --route scan]``
@@ -34,17 +37,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
+    from rayito_tpu_torch.utils.profiling import collect_device_ops, phase_table
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     setups = {"stage6": cs.stage6_setup, "stage7": cs.stage7_setup,
               "stage7b": cs.stage7b_setup, "stage5": cs.stage5_setup,
               "mesh_light": cs.mesh_light_setup,
               "spheres40": cs.many_spheres_setup,
-              "lights16": cs.sixteen_lights_setup}
+              "lights16": cs.sixteen_lights_setup,
+              "cli_stage6": cs.cli_setup,
+              **{k: (lambda dev, k=k: cs.direct_setup(dev, k))
+                 for k in ("stage1", "stage2", "stage3")}}
     ap.add_argument("--scene", choices=("big", *setups), default="stage6")
     ap.add_argument("--route", choices=("items", "scan"), default="items")
     args = ap.parse_args()
@@ -76,9 +82,8 @@ def main() -> int:
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an operator row repeats its kernels' device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernels = collect_device_ops(prof)
+    device_ms = sum(us for us, _ in kernels.values()) / 1e3
     launches = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
@@ -90,10 +95,12 @@ def main() -> int:
           f"{100 * device_ms / frame_ms:.1f}% of the unprofiled frame, "
           f"{100 * device_ms / prof_ms:.1f}% of the profiled one")
     print(f"kernel launches per frame: {launches}")
-    events.sort(key=lambda e: -e.self_device_time_total)
-    for e in events[:12]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
-              f"{e.key[:90]}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    for name, (us, count) in top[:12]:
+        print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}")
+    print("by phase:")
+    for label, ms, count in phase_table(prof):
+        print(f"  {ms:9.3f} ms {count:6d}x  {label}")
     return 0
 
 
