@@ -87,14 +87,34 @@ JAX. Phases, each printed, each fatal on failure:
      render_path_with_stats on the same inputs, to --sharded over the one
      card, and to a run stopped after its first sample and resumed from
      --checkpoint; the stats line (queries, seconds, Mrays/s);
- 16. ``python -m rayito_tpu_torch.cli --scene stage1`` in a subprocess with
+ 16. traversal='xla' (the two-level cluster pipeline), stage 6: one band's
+     camera, bounce and shadow populations (every 8th ray: 16,384)
+     through mesh_intersect_clusters for every mesh, on the card against
+     the CPU (t, beta and gamma bits, prim and overflow equal); the [T, 16]
+     vertex and meta rows the route gathers for the camera rays through
+     gather_rows_t against its plain version, timed and bounded;
+ 17. the stage-6 frame of phase 4 under 'xla': gather_rows_t launched and
+     no traversal kernel, the same frame through the plain gather bit for
+     bit, the kernel route's frame within 0.5% when nothing overflowed
+     (printed beside it otherwise), host launches, device busy share and 3
+     timed frames;
+ 18. the big-scene frame of phase 6 under 'xla' (its five meshes one by
+     one): overflow and its share of the queries, the relative RMSE
+     against the scan route, checked and timed as in phase 17;
+ 19. the stage-7 frame under 'xla', checked and timed as in phase 17;
+ 20. cli.main at its defaults under RAYITO_TRAVERSAL=xla: the launch
+     counts as in phase 17, the stats line naming the traversal and the
+     pipeline's cluster count, its PFM bit-identical to
+     render_path_with_stats under 'xla';
+ 21. ``python -m rayito_tpu_torch.cli --scene stage1`` in a subprocess with
      no --device: it must render on cuda;
- 17. utils/profiling.phase_table of one 512x512 stage-6 frame.
+ 22. utils/profiling.phase_table of one 512x512 stage-6 frame on each
+     route (under 'xla' with the pipeline's rollup).
 
 Prints a JSON line of per-kernel results (camera-ray times; launches in
-the frame of the path each kernel serves first, and per frame; per
-stage-7 and mesh-light population), then, last, one JSON line
-``{"ok": true, "device": {...}}``.
+the frame of the path each kernel serves first, and per frame, the 'xla'
+frames included; per stage-7, mesh-light and 'xla' population), then,
+last, one JSON line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -187,14 +207,18 @@ def main() -> int:
     run_many(dev, card)
     direct = run_direct(dev, card)
     cli = run_cli(dev, card)
+    xla = run_xla(dev, card)
     run_cli_subprocess()
     run_phase_table(dev)
 
     records = kernel_records(stage6, big, stage7, stage7b, stage5,
-                             mesh_light)
+                             mesh_light, xla)
     for k in records:
         k["launches_frame"]["stages1_4"] = direct["launches"][k["name"]]
         k["launches_frame"]["cli_stage6"] = cli["launches"][k["name"]]
+        for path in ("stage6", "big", "stage7", "cli"):
+            k["launches_frame"][path + "_xla"] = \
+                xla[path]["launches"][k["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -204,14 +228,14 @@ def main() -> int:
 
 
 def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
-                   stage5: dict, mesh_light: dict) -> list:
+                   stage5: dict, mesh_light: dict, xla: dict) -> list:
     """The five kernels' records: launches in the frame of the path each
     serves first (stage 6; the big scene for the item route) and per frame
     of each path; errors over every population; camera-ray times with
     their bounds (big_* for the big scene); per stage-7 population (rays in
     the moving domain's local space) and per mesh-light population the
     times, bounds and shares of the stage-6 kernels, and the stage-7b
-    frame's meta-row gather."""
+    frame's meta-row gather, and the 'xla' route's vertex and meta rows."""
     src = "rayito_tpu_torch/csrc/"
     ref = "rayito_tpu/render/pallas_traverse.py:"
     cam_r, big_cam = stage6["results"]["camera"], big["results"]["camera"]
@@ -258,15 +282,20 @@ def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
          "launches": launches["gather_rows_t"],
          "max_abs_err": max(
              r[k] for r in [*s6_res, *big_res,
-                            *stage7b["results"].values()]
+                            *stage7b["results"].values(), xla["gathers"]]
              for k in r if k.endswith("_err") and
-             (k.startswith("gather") or k.startswith("meta"))),
+             (k.startswith("gather") or k.startswith("meta")
+              or k.startswith("xla"))),
          **timed(cam_r, "gather32", "gather32"),
          "stage7": per_population("gather32"),
          "mesh_light": per_population("gather32", mesh_light),
          "stage7b": {k: stage7b["results"]["meta"]["meta_" + k]
                      for k in ("ms", "plain_ms", "bound_ms", "share",
-                               "library_ms")}},
+                               "library_ms")},
+         "xla": {rows: {k: xla["gathers"][f"{rows}_{k}"]
+                        for k in ("ms", "plain_ms", "bound_ms", "share",
+                                  "library_ms")}
+                 for rows in ("xla_vert", "xla_meta")}},
         {"name": "traverse_items", "route": "cuda",
          "source": src + "traverse_items.cu", "replaces": ref + "314",
          "launches": big_launches["traverse_items"],
@@ -380,7 +409,9 @@ def _standin_obj() -> str:
 
 def _frame_fn(scene, cfg, cam):
     """``frame(scene=scene)`` renders sample 0 over every row band through
-    ``_render_path_frame`` and returns (images, issued queries)."""
+    ``_render_path_frame`` and returns (images, issued queries); the
+    frame's overflow (the 'xla' route's truncations) is left in
+    ``frame.overflow``."""
     from rayito_tpu_torch.render import pathtracer as pt
 
     band = cfg.max_rays_per_pass // cfg.width
@@ -389,8 +420,8 @@ def _frame_fn(scene, cfg, cam):
     row0s = list(range(0, cfg.height, band))
 
     def frame(scene=scene):
-        imgs, _, q = pt._render_path_frame(scene, cfg, cam,
-                                           [[0]] * len(row0s), row0s, band)
+        imgs, frame.overflow, q = pt._render_path_frame(
+            scene, cfg, cam, [[0]] * len(row0s), row0s, band)
         return imgs, q
 
     return frame
@@ -677,21 +708,24 @@ def _check_masks(name, soat, box, tmin, n_live, r):
 
 
 def _swap_plain():
-    """Point the path at the plain versions; returns the undo."""
+    """Point the path at the plain versions (the 'xla' route's winner-row
+    gather too); returns the undo."""
+    from rayito_tpu_torch.render import mesh_intersect as mi
     from rayito_tpu_torch.render import trace as tr
     from rayito_tpu_torch.render import traverse as tv
 
     saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
-             tv.build_items, tr.gather_rows_t)
+             tv.build_items, tr.gather_rows_t, mi.gather_rows_t)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
     tv.traverse_items = tv.traverse_items_plain
     tv.build_items = tv.build_items_plain
     tr.gather_rows_t = tv.gather_rows_t_plain
+    mi.gather_rows_t = tv.gather_rows_t_plain
 
     def undo():
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
-         tv.build_items, tr.gather_rows_t) = saved
+         tv.build_items, tr.gather_rows_t, mi.gather_rows_t) = saved
 
     return undo
 
@@ -1185,18 +1219,26 @@ def run_stage7b(dev, card: str) -> dict:
                       "queries": q_frame}}
 
 
-def _host_launches(frame) -> int:
-    """Kernel launches the host makes for one frame (torch.profiler's
-    count of cudaLaunchKernel calls)."""
+def _profile_frame(frame):
+    """(kernel launches the host makes for one frame: torch.profiler's
+    count of cudaLaunchKernel calls, device ms summed over its kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from rayito_tpu_torch.utils.profiling import collect_device_ops
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         frame()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                            "cudaLaunchKernelExC"))
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    return launches, sum(us for us, _ in
+                         collect_device_ops(prof).values()) / 1e3
+
+
+def _host_launches(frame) -> int:
+    return _profile_frame(frame)[0]
 
 
 def _same_frame(label, a, b):
@@ -1778,9 +1820,253 @@ def run_cli(dev, card: str) -> dict:
     return {"launches": launches, "queries": queries,
             "render_ms": render_s * 1e3}
 
+# ---------------------------------------------------------------------------
+# traversal='xla': the two-level cluster pipeline
+# ---------------------------------------------------------------------------
+
+XLA_SUBSET = 16384  # rays per population held card against CPU
+XLA_KERNELS_OFF = ("cluster_masks", "traverse_blocks", "traverse_items",
+                   "build_items")
+
+
+def _xla_launches(label):
+    """The launch counts of the run just made: gather_rows_t must have
+    launched and no traversal kernel."""
+    from rayito_tpu_torch.render import traverse as tv
+
+    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    print(f"launches in {label}: {launches}")
+    if launches["gather_rows_t"] <= 0 or any(
+            launches[k] for k in XLA_KERNELS_OFF):
+        raise AssertionError(f"{label}: expected gather_rows_t launches and "
+                             "no traversal kernel")
+    return launches
+
+
+def _check_xla_populations(scene, cases, tmin):
+    """Every k-th ray of each population, XLA_SUBSET in all (the band's
+    first rows miss the meshes), through mesh_intersect_clusters for every
+    mesh, on the card and on the CPU: t, beta and gamma bits, prim and
+    overflow must agree."""
+    import torch
+
+    from rayito_tpu_torch.ops.vec3 import V3
+    from rayito_tpu_torch.render import mesh_intersect as mi
+
+    on_cpu = scene.to("cpu")
+    out = {}
+    for name, co, cd, ctmax, _, any_hit in cases:
+        k = slice(0, None, co.x.shape[0] // XLA_SUBSET)
+        o, d, tmax = co[k], cd[k], ctmax[k]
+        cpu = lambda v: V3(v.x.cpu(), v.y.cpu(), v.z.cpu())
+        r = {"overflow": 0, "hits": 0}
+        for m in range(scene.n_meshes):
+            t0 = time.perf_counter()
+            got = mi.mesh_intersect_clusters(scene, m, o, d, tmin, tmax,
+                                             any_hit)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            ref = mi.mesh_intersect_clusters(on_cpu, m, cpu(o), cpu(d), tmin,
+                                             tmax.cpu(), any_hit)
+            bad = {key: int((g.cpu().view(torch.int32)
+                             != c.view(torch.int32)).sum())
+                   for key, g, c in zip(("t", "prim", "beta", "gamma"),
+                                        got[:4], ref[:4])}
+            ovf = (int(got[4]), int(ref[4]))
+            hits = int((ref[1] >= 0).sum())
+            print(f"xla {name}, mesh {m}: {XLA_SUBSET} rays, {hits} hits, "
+                  f"overflow card/CPU {ovf[0]}/{ovf[1]}, lanes differing "
+                  f"{bad}; card call {card_s * 1e3:.2f} ms")
+            if any(bad.values()) or ovf[0] != ovf[1]:
+                raise AssertionError(f"xla {name}: the card differs from the "
+                                     "CPU")
+            r["overflow"] += ovf[0]
+            r["hits"] += hits
+        out[name] = r
+    return out
+
+
+def _xla_gathers(scene, cfg, cam, r):
+    """The [T, 16] vertex and meta rows the route gathers for one band's
+    camera rays (the winner re-test and the shading), through
+    gather_rows_t against its plain version, timed and bounded."""
+    import torch
+
+    from rayito_tpu_torch.render import mesh_intersect as mi
+    from rayito_tpu_torch.render import trace as tr
+    from rayito_tpu_torch.render.integrator import _pixel_grid, screen_uv
+
+    band = cfg.max_rays_per_pass // cfg.width
+    px, py = _pixel_grid(cfg.width, band, scene.device)
+    half = torch.full(px.shape, 0.5, device=scene.device)
+    o, d, _ = cam.make_rays(*screen_uv(cfg, px, py, half, half), half, half,
+                            half)
+    calls = {}
+    saved = (mi.gather_rows_t, tr.gather_rows_t)
+
+    def spy(key, fn):
+        def gather(table, idx):
+            calls.setdefault(key, []).append((table, idx.clone()))
+            return fn(table, idx)
+        return gather
+
+    mi.gather_rows_t = spy("xla_vert", saved[0])
+    tr.gather_rows_t = spy("xla_meta", saved[1])
+    try:
+        tr.scene_intersect(scene, o, d, None, cfg.ray_tmin, 1e30)
+        torch.cuda.synchronize()
+    finally:
+        mi.gather_rows_t, tr.gather_rows_t = saved
+    # the bumpy mesh's re-test (the largest), the shading's one gather
+    table, idx = max(calls["xla_vert"], key=lambda c: int((c[1] > 0).sum()))
+    _check_gather_rows("xla camera, vertex rows", table, idx, r, "xla_vert")
+    table, idx = calls["xla_meta"][0]
+    _check_gather_rows("xla camera, meta rows", table, idx, r, "xla_meta")
+
+
+def _xla_frame(label, frame, scene, cfg, card, other=None, timed=3):
+    """One 'xla' frame with the launch counts set to 0 just before it and
+    read just after; the same frame through the plain gather, bit for bit;
+    ``other`` (a frame function of the kernel route), the relative RMSE
+    against it (at most 0.5% when nothing overflowed); then host launches,
+    device busy share and ``timed`` timed frames."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    frame(scene)  # warm-up
+    torch.cuda.synchronize()
+    tv.reset_launch_counts()
+    imgs, q = frame(scene)
+    torch.cuda.synchronize()
+    ovf = int(frame.overflow)
+    launches = _xla_launches(label)
+    img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
+    diag = _check_image(img, label)
+    print(f"{label}: queries {int(q)}, overflow {ovf} ({ovf / int(q):.3e} "
+          f"of the queries), {diag}")
+    undo = _swap_plain()
+    try:
+        plain = frame(scene)
+    finally:
+        undo()
+    _same_frame(f"{label} vs its plain-gather twin", (imgs, q), plain)
+    out = {"launches": launches, "queries": int(q), "overflow": ovf}
+    if other is not None:
+        imgs_o, _ = other()
+        rel = _rel_rmse(img, imgs_o.reshape(cfg.height, cfg.width,
+                                            3).cpu().numpy())
+        print(f"{label} vs the kernel route: relative RMSE {rel:.3e} "
+              f"(overflow {ovf})")
+        out["rel_rmse_vs_kernels"] = rel
+        if ovf == 0 and rel > 0.005:
+            raise AssertionError(f"{label}: {rel} from the kernel route")
+    host, device_ms = _profile_frame(lambda: frame(scene))
+    frame_s, q_frame = _time_frames(lambda: frame(scene), timed)
+    busy = device_ms / (frame_s * 1e3)
+    print(f"{label}: {frame_s * 1e3:.1f} ms/frame (mean of {timed}), {host} "
+          f"host launches, {device_ms:.1f} ms of kernels (busy {busy:.1%}), "
+          f"{q_frame / frame_s / 1e6:.3f} Mrays/s on {card}", flush=True)
+    out.update(frame_ms=frame_s * 1e3, host_launches=host,
+               device_ms=device_ms, busy=busy)
+    return out
+
+
+def run_xla(dev, card: str) -> dict:
+    """Phases 16-20 on ``dev``: the 'xla' route on stage 6 (populations
+    card against CPU, the route's row gathers, the frame), the big scene,
+    stage 7 and the CLI under RAYITO_TRAVERSAL=xla."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch import cli
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import cuda_lib
+    from rayito_tpu_torch.utils.image import read_pfm
+
+    _phase("xla stage-6 populations")
+    scene, cfg, cam, kernel_frame = stage6_setup(dev)
+    xla = dataclasses.replace(scene, traversal="xla")
+    print(f"stage-6 scene under 'xla': {xla.cl_min.shape[0]} clusters of "
+          f"48, {xla.sc_min.shape[0]} superclusters, per mesh "
+          f"{xla.mesh_sc_ranges}")
+    cases = _populations(xla, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0))
+    pops = _check_xla_populations(xla, cases, cfg.ray_tmin)
+    gathers = {}
+    _xla_gathers(xla, cfg, cam, gathers)
+    print("xla row gathers: " + _fmt(gathers))
+
+    _phase("xla stage-6 frame")
+    frame = _frame_fn(xla, cfg, cam)
+    s6 = _xla_frame(f"stage-6 frame under 'xla' (n={MESH_N} stand-in, "
+                    f"{WIDTH}x{WIDTH}, sample 0, depth 3)", frame, xla, cfg,
+                    card, other=kernel_frame)
+
+    _phase("xla big-scene frame")
+    big_scan, _, _, bcfg, bcam, _ = big_setup(dev)
+    big_xla = dataclasses.replace(big_scan, traversal="xla")
+    bframe = _frame_fn(big_xla, bcfg, bcam)
+    big = _xla_frame(f"big-scene frame under 'xla' (five n={MESH_N} "
+                     f"stand-ins, {WIDTH}x{WIDTH}, 1 spp, depth 3)", bframe,
+                     big_xla, bcfg, card, other=lambda: bframe(big_scan),
+                     timed=1)
+
+    _phase("xla stage-7 frame")
+    s7_scene, s7_cfg, s7_cam, _ = stage7_setup(dev)
+    s7_xla = dataclasses.replace(s7_scene, traversal="xla")
+    s7 = _xla_frame(f"stage-7 frame under 'xla' (n={MESH_N} stand-in, "
+                    f"{WIDTH}x{WIDTH}, 1 spp, depth 3, shutter 0..1)",
+                    _frame_fn(s7_xla, s7_cfg, s7_cam), s7_xla, s7_cfg, card,
+                    other=_frame_fn(s7_scene, s7_cfg, s7_cam), timed=1)
+
+    _phase("xla cli")
+    obj = _standin_obj()
+    out = os.path.join(cuda_lib.BUILD_DIR, "cli", "xla.pfm")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    saved_env = os.environ.get("RAYITO_TRAVERSAL")
+    os.environ["RAYITO_TRAVERSAL"] = "xla"
+    err = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        tv.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            cli.main(["--scene", "stage6", "--obj", obj, "--pfm", "-o", out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        if saved_env is None:
+            del os.environ["RAYITO_TRAVERSAL"]
+        else:
+            os.environ["RAYITO_TRAVERSAL"] = saved_env
+    print(err.getvalue().strip())
+    cli_launches = _xla_launches("cli.main under RAYITO_TRAVERSAL=xla")
+    c_scene, c_cfg, c_cam = _cli_inputs(dev, obj)
+    c_xla = dataclasses.replace(c_scene, traversal="xla")
+    stats = [ln for ln in err.getvalue().splitlines() if "clusters=" in ln]
+    want = (f"clusters={c_xla.cl_min.shape[0]} ", "traversal=xla")
+    if not stats or not all(w in stats[0] for w in want):
+        raise AssertionError("the CLI's stats line does not name the 'xla' "
+                             "route and its cluster count")
+    ref, ovf, queries = pt.render_path_with_stats(c_xla, c_cfg, c_cam)
+    same = np.array_equal(read_pfm(out).view(np.int32), ref.view(np.int32))
+    print(f"cli.main under RAYITO_TRAVERSAL=xla: {cli_s:.2f} s with the scene "
+          f"build; its PFM bit-identical to render_path_with_stats under "
+          f"'xla' {same} ({queries} queries, overflow {ovf})")
+    if not same:
+        raise AssertionError("the CLI's 'xla' render differs")
+    return {"populations": pops, "gathers": gathers, "stage6": s6,
+            "big": big, "stage7": s7,
+            "cli": {"launches": cli_launches, "seconds": cli_s,
+                    "overflow": ovf, "queries": queries}}
+
 
 def run_cli_subprocess() -> None:
-    """Phase 16: ``python -m rayito_tpu_torch.cli --scene stage1`` with no
+    """Phase 21: ``python -m rayito_tpu_torch.cli --scene stage1`` with no
     --device, in a subprocess: it renders on cuda."""
     from rayito_tpu_torch.utils import cuda_lib
 
@@ -1796,25 +2082,38 @@ def run_cli_subprocess() -> None:
 
 
 def run_phase_table(dev) -> None:
-    """Phase 17: utils/profiling.phase_table of one stage-6 frame."""
+    """Phase 22: utils/profiling.phase_table of one stage-6 frame on each
+    route (the 'xla' frame's pipeline rollup must be there)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from rayito_tpu_torch.utils.profiling import collect_device_ops as \
+        collect_ops
     from rayito_tpu_torch.utils.profiling import phase_table
 
     _phase("phase table")
-    frame = stage6_setup(dev)[-1]
-    frame()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        frame()
+    scene, _, _, frame = stage6_setup(dev)
+    for traversal in ("pallas", "xla"):
+        sd = dataclasses.replace(scene, traversal=traversal)
+        frame(sd)
         torch.cuda.synchronize()
-    rows = phase_table(prof)
-    for label, ms, count in rows:
-        print(f"  {ms:9.3f} ms {count:6d}x  {label}")
-    if not rows:
-        raise AssertionError("the profiler recorded no device kernel")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            frame(sd)
+            torch.cuda.synchronize()
+        rows = phase_table(prof)
+        print(f"stage-6 frame, traversal={traversal!r}:")
+        for label, ms, count in rows:
+            print(f"  {ms:9.3f} ms {count:6d}x  {label}")
+        if not rows:
+            raise AssertionError("the profiler recorded no device kernel")
+        if traversal == "xla" and not any(
+                "rollup" in label and ms > 0 for label, ms, _ in rows):
+            raise AssertionError("no device time under the 'xla' rollup")
+    # the 'xla' frame's costliest kernels by name
+    ops = sorted(collect_ops(prof).items(), key=lambda kv: -kv[1][0])
+    for name, (us, count) in ops[:12]:
+        print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:110]}")
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ tone-mapped like the GUI) or PFM (HDR).
         --width 640 --height 480 --pixel-samples 2 --depth 3 -o out.ppm
 
 It renders on the CUDA card unless given ``--device cpu``; with no card
-and no ``--device cpu`` it exits with an error. Beyond the reference's
-GUI: --checkpoint (progressive accumulation, resumable), --sharded (the
+and no ``--device cpu`` it exits with an error. The mesh traversal comes
+from RAYITO_TRAVERSAL at the scene's compile: unset or ``auto`` is the
+kernel route (``pallas``), ``xla`` the two-level cluster pipeline. Beyond
+the reference's GUI: --checkpoint (progressive accumulation, resumable), --sharded (the
 frame's lanes over every CUDA card), --view (a live preview in a browser),
 scene and render stats on stderr, NaN / negative-pixel counts.
 """
@@ -125,13 +127,19 @@ def main(argv=None):
     t0 = time.perf_counter()
     scene = scene_desc.compile(device)
     fov = args.fov if args.fov is not None else default_fov
-    n_clusters = sum(t.shape[0] for t in scene.ktab_tri)
+    # clusters of the structure in use: the kernel tables' (the 128-wide
+    # clusters of every domain) or the two-level pipeline's 48-wide ones
+    if scene.traversal == "pallas" and scene.ktab_tri:
+        n_clusters = sum(t.shape[0] for t in scene.ktab_tri)
+    else:
+        n_clusters = scene.cl_min.shape[0]
     print(
         f"[rayito_tpu_torch] scene={args.scene} device={scene.device} "
         f"planes={scene.n_planes} spheres={scene.n_spheres} "
         f"rects={scene.n_rects} meshes={scene.n_meshes} "
         f"tris={scene.tri_vm_rows.shape[0]} lights={scene.n_lights} "
-        f"clusters={n_clusters} motion={scene.has_motion} "
+        f"clusters={n_clusters} traversal={scene.traversal} "
+        f"motion={scene.has_motion} "
         f"native={'c++' if native_available() else 'python'} "
         f"compile={time.perf_counter() - t0:.1f}s",
         file=sys.stderr,
@@ -202,6 +210,7 @@ def main(argv=None):
             (f" (sharded x{len(mesh)})" if mesh is not None else "")
             + f" rays={stats.rays_traced / 1e6:.1f}M"
             f" throughput={stats.mrays_per_sec:.2f} Mrays/s"
+            + (f" OVERFLOW={stats.overflow}" if stats.overflow else "")
         )
 
     dt = time.perf_counter() - t1

@@ -13,11 +13,21 @@ Material kinds: 0 lambert, 1 glossy, 2 perfect reflection, 3 emitter,
 4 phong.
 
 Every shape has a keyed transform slot (``*_xf``; slot 0 is the identity)
-and nested ``Group``s compile to per-slot parent pointers. Meshes with the
-identity transform merge into one world-space traversal domain; each
-transformed mesh above 192 triangles gets a domain of its own, entered in
-mesh-local space; smaller transformed meshes are folded densely
-(``ktab_small``, ``render/mesh_intersect.py``). The reference's TPU-only
+and nested ``Group``s compile to per-slot parent pointers. Two mesh
+traversals, chosen once at compile (``SceneData.traversal``):
+
+  * ``'pallas'``, the port's native route: the CUDA kernels. Meshes with
+    the identity transform merge into one world-space traversal domain;
+    each transformed mesh above 192 triangles gets a domain of its own,
+    entered in mesh-local space; smaller transformed meshes are folded
+    densely (``ktab_small``, ``render/mesh_intersect.py``);
+  * ``'xla'``: the reference's two-level cluster pipeline, mesh by mesh in
+    its local space, truncated at K1 superclusters and K2 clusters per ray
+    (``render/mesh_intersect.py``), over the cluster tables ``cl_*``,
+    ``sc_*``, ``sc_rows`` and ``tri_rows``.
+
+Both routes' tables are always built, so ``dataclasses.replace(scene,
+traversal=...)`` switches a compiled scene. The reference's TPU-only
 scheduling options raise ``ValueError`` (see ``UNPORTED_KNOBS``).
 """
 
@@ -25,6 +35,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import os
 import sys
 from typing import List, Optional, Sequence
 
@@ -291,11 +302,13 @@ ARRAY_FIELDS = (
     "light_power",
     "xf_times", "xf_translate", "xf_scale", "xf_rotate", "xf_nkeys",
     "xf_parent",
+    "cl_min", "cl_max", "sc_min", "sc_max", "sc_rows", "tri_rows",
 )
 DOMAIN_FIELDS = ("ktab_tri", "ktab_mxu", "ktab_box", "ktab_base")
 STATIC_FIELDS = (
     "ktab_xf", "ktab_seg", "ktab_small", "mesh_tri_ranges", "mesh_cl_ranges",
-    "light_kinds_host", "light_indices_host", "has_motion", "xf_depth",
+    "mesh_sc_ranges", "light_kinds_host", "light_indices_host", "has_motion",
+    "xf_depth",
     "traversal", "traverse_mt", "traverse_b", "traverse_sb", "live_prefix",
     "sort_occl", "traverse_items", "items_w", "items_max", "items_cap",
 )
@@ -351,6 +364,16 @@ class SceneData:
     xf_rotate: torch.Tensor
     xf_nkeys: torch.Tensor
     xf_parent: torch.Tensor  # [X] i32 enclosing group's slot, -1 = root
+    # the 'xla' route's cluster tables (accel/clusters.py), meshes in order:
+    # 48-triangle cluster boxes [C, 3] (pad boxes +inf / -inf), 16-cluster
+    # supercluster boxes [S, 3], packed children boxes [S, 128] and
+    # triangle rows [C, 512]
+    cl_min: torch.Tensor
+    cl_max: torch.Tensor
+    sc_min: torch.Tensor
+    sc_max: torch.Tensor
+    sc_rows: torch.Tensor
+    tri_rows: torch.Tensor
     # per traversal domain: MT rows [C, 16, 128], BW rows (or empty),
     # cluster boxes [8, C_pad], per-cluster global triangle base [C]
     ktab_tri: tuple = ()
@@ -363,9 +386,10 @@ class SceneData:
     # (render/mesh_intersect.py) instead of a launch domain of their own
     ktab_small: tuple = ()
     mesh_tri_ranges: tuple = ()  # per mesh (first global triangle, count)
-    # per mesh (first cluster, cluster count) in the reference's 48-wide
-    # cluster order, the count padded to a multiple of 16
+    # per mesh (first cluster, cluster count) in the 48-wide cluster order,
+    # the count a multiple of 16; (first supercluster, count)
     mesh_cl_ranges: tuple = ()
+    mesh_sc_ranges: tuple = ()
     light_kinds_host: tuple = ()
     light_indices_host: tuple = ()
     # any non-identity transform: static scenes skip every transform step
@@ -377,7 +401,8 @@ class SceneData:
     rect_xf_host: tuple = ()
     mesh_xf_host: tuple = ()
     xf_parent_host: tuple = ()
-    # 'pallas' = the hand-kernel traversal (the only one ported so far)
+    # mesh traversal: 'pallas' (the CUDA kernels) or 'xla' (the two-level
+    # cluster pipeline); Scene.compile resolves it from RAYITO_TRAVERSAL
     traversal: str = "pallas"
     # per-cluster triangle test: 'vpu' Möller-Trumbore | 'bw'
     # Baldwin-Weber | 'bw_closest' (BW on closest hit, MT on occlusion)
@@ -396,13 +421,8 @@ class SceneData:
     items_cap: int = 64  # items per ray block
 
     def __post_init__(self):
-        if self.traversal == "xla":
-            raise NotImplementedError(
-                "traversal='xla' (render/mesh_intersect.py) is not ported "
-                "yet; the port traverses through its CUDA kernels"
-            )
-        if self.traversal != "pallas":
-            raise ValueError(f"traversal must be 'pallas', got "
+        if self.traversal not in ("pallas", "xla"):
+            raise ValueError(f"traversal must be 'pallas'|'xla', got "
                              f"{self.traversal!r}")
         if self.traverse_mt == "mxu":
             raise ValueError(
@@ -476,6 +496,21 @@ def validate_items(w: int, maxitems: int, cap: int) -> None:
     if maxitems <= 0 or cap <= 0:
         raise ValueError(f"items_max={maxitems!r}, items_cap={cap!r}: must "
                          "be positive")
+
+
+def resolve_traversal(traversal: Optional[str] = None) -> str:
+    """The mesh traversal of a compile: ``traversal`` if given, else the
+    RAYITO_TRAVERSAL environment variable, where unset or 'auto' gives
+    'pallas' (the card's kernels are the port's native route; the
+    reference's auto picks its kernels only on a TPU)."""
+    if traversal is None:
+        traversal = os.environ.get("RAYITO_TRAVERSAL", "auto").lower()
+        if traversal == "auto":
+            traversal = "pallas"
+    if traversal not in ("pallas", "xla"):
+        raise ValueError(f"traversal must be 'pallas'|'xla' (or "
+                         f"RAYITO_TRAVERSAL 'auto'), got {traversal!r}")
+    return traversal
 
 
 def scene_data_from_arrays(arrays: dict, static: dict, device) -> SceneData:
@@ -563,13 +598,15 @@ class Scene:
         else:
             raise TypeError(f"unknown shape type {type(shape)}")
 
-    def compile_arrays(self, traversal: str = "pallas",
+    def compile_arrays(self, traversal: Optional[str] = None,
                        traverse_mt: str = "bw_closest", **knobs):
         """Lower to (arrays, static) — the inputs of
         :func:`scene_data_from_arrays`. Same table construction as the
-        reference's ``Scene.compile``."""
+        reference's ``Scene.compile``; ``traversal`` as in
+        :func:`resolve_traversal`."""
         from ..accel.bvh import bvh_prim_order
-        from ..accel.clusters import build_clusters, padded_cluster_count
+        from ..accel.clusters import (SC_ROW_WIDTH, TRI_ROW_WIDTH,
+                                      build_clusters)
         from ..accel.kernel_tables import build_bw_rows, build_kernel_tables_multi
 
         f32, i32 = np.float32, np.int32
@@ -640,8 +677,10 @@ class Scene:
 
         # --- meshes: BVH-ordered, 48-padded triangle runs (global ids)
         segs, vm_parts, mesh_mat, tri_ranges = [], [], [], []
-        cl_ranges, cdf_parts, total_area = [], [], []
-        t_off = cl_off = 0
+        cl_ranges, sc_ranges, cdf_parts, total_area = [], [], [], []
+        tables = {k: [] for k in ("cl_min", "cl_max", "sc_min", "sc_max",
+                                  "sc_rows", "tri_rows")}
+        t_off = cl_off = sc_off = 0
         for mi, m in enumerate(self.meshes):
             verts = np.asarray(m.vertices, f32)
             idx = np.asarray(m.indices, i32)
@@ -680,8 +719,10 @@ class Scene:
             segs.append((cl.v0, cl.v1, cl.v2, np.arange(tp) < t, t_off))
             mesh_mat.append(mat_id(m.material))
             tri_ranges.append((t_off, t))
-            n_cl = padded_cluster_count(tp)
-            cl_ranges.append((cl_off, n_cl))
+            for k, parts in tables.items():
+                parts.append(getattr(cl, k))
+            cl_ranges.append((cl_off, cl.n_clusters))
+            sc_ranges.append((sc_off, cl.n_supers))
             # triangle-area CDF for mesh-light sampling: local-space areas
             # (a scaled light keeps them: a quirk of the reference
             # renderer); the zero-area padding can never be selected
@@ -690,7 +731,8 @@ class Scene:
             cdf_parts.append(cdf)
             total_area.append(cdf[-1])
             t_off += tp
-            cl_off += n_cl
+            cl_off += cl.n_clusters
+            sc_off += cl.n_supers
         tri_vm = (np.concatenate(vm_parts, 0) if vm_parts
                   else np.zeros((0, 32), f32))
         a["tri_vm_rows"] = tri_vm
@@ -700,6 +742,11 @@ class Scene:
         a["tri_area_cdf"] = (np.concatenate(cdf_parts, 0) if cdf_parts
                              else np.zeros(0, f32))
         a["mesh_total_area"] = np.array(total_area, f32)
+        for k, parts in tables.items():
+            width = {"sc_rows": SC_ROW_WIDTH,
+                     "tri_rows": TRI_ROW_WIDTH}.get(k, 3)
+            a[k] = (np.concatenate(parts, 0) if parts
+                    else np.zeros((0, width), f32))
 
         # --- traversal domains: the identity-transform meshes merge into
         # one world-space domain (first); each transformed mesh above 192
@@ -725,12 +772,14 @@ class Scene:
             if traverse_mt in ("bw", "bw_closest"):
                 dom["ktab_mxu"].append(build_bw_rows(kt.tri))
             seg_tables.append(kt.seg)
-        static = dict(traversal=traversal, traverse_mt=traverse_mt, **knobs)
+        static = dict(traversal=resolve_traversal(traversal),
+                      traverse_mt=traverse_mt, **knobs)
         static["ktab_xf"] = tuple(x for _, x in domain_specs)
         static["ktab_seg"] = tuple(seg_tables)
         static["ktab_small"] = tuple(small)
         static["mesh_tri_ranges"] = tuple(tri_ranges)
         static["mesh_cl_ranges"] = tuple(cl_ranges)
+        static["mesh_sc_ranges"] = tuple(sc_ranges)
         a.update(dom)
 
         # --- lights
@@ -817,10 +866,13 @@ class Scene:
         a["mat_rows"] = rows
         return a, static
 
-    def compile(self, device, traversal: str = "pallas",
+    def compile(self, device, traversal: Optional[str] = None,
                 traverse_mt: str = "bw_closest", **knobs) -> SceneData:
-        """Lower to a SceneData on ``device``. ``knobs`` are further
-        SceneData static fields; the reference's TPU-only options raise
+        """Lower to a SceneData on ``device``. ``traversal`` is 'pallas'
+        (the CUDA kernels) or 'xla' (the two-level cluster pipeline); None
+        reads RAYITO_TRAVERSAL here, once, where unset or 'auto' gives
+        'pallas', the port's native route. ``knobs`` are further SceneData
+        static fields; the reference's TPU-only options raise
         ValueError."""
         arrays, static = self.compile_arrays(traversal, traverse_mt, **knobs)
         return scene_data_from_arrays(arrays, static, device)

@@ -116,6 +116,22 @@ def reflection_sample_sa(outgoing: V3, normal: V3):
     return incoming, torch.ones_like(pdf), pdf
 
 
+def phong_shade(normal: V3, in_direction: V3, light_direction: V3, exponent):
+    """Stage-3/4 Phong lobe: max(0, h.n)^exponent, h the unit half vector
+    between the light and the reversed view direction."""
+    half = normalize(light_direction - in_direction)
+    return torch.pow(torch.clamp_min(dot(half, normal), 0.0), exponent)
+
+
+def lambert_shade(normal: V3, light_direction: V3):
+    """Stage-3/4 Lambert term max(0, l.n)."""
+    return torch.clamp_min(dot(light_direction, normal), 0.0)
+
+
+def is_dirac(kind):
+    return kind == KIND_REFLECTION
+
+
 def evaluate_sa(kind, exponent, incoming: V3, outgoing: V3, normal: V3):
     """Mask-blended BRDF evaluation; emitters and mirrors give (0, 0)."""
     f_l, pdf_l = lambert_evaluate_sa(incoming, outgoing, normal)
@@ -145,3 +161,30 @@ def sample_sa(kind, exponent, outgoing: V3, normal: V3, u1, u2):
 def pdf_sa(kind, exponent, incoming: V3, outgoing: V3, normal: V3):
     """Solid-angle pdf of the in/out/normal configuration."""
     return evaluate_sa(kind, exponent, incoming, outgoing, normal)[1]
+
+
+# Projected-solid-angle forms: the solid-angle pdf over |n.i| (the mirror's
+# sampled pdf becomes exactly 1); reflectance is unchanged. The renderer
+# calls only the solid-angle forms.
+
+
+def _to_psa(pdf, incoming: V3, normal: V3):
+    return pdf / torch.clamp_min(torch.abs(dot(incoming, normal)), 1e-37)
+
+
+def evaluate_psa(kind, exponent, incoming: V3, outgoing: V3, normal: V3):
+    """(f, pdf with respect to projected solid angle)."""
+    f, pdf = evaluate_sa(kind, exponent, incoming, outgoing, normal)
+    return f, _to_psa(pdf, incoming, normal)
+
+
+def sample_psa(kind, exponent, outgoing: V3, normal: V3, u1, u2):
+    """(incoming, f, pdf with respect to projected solid angle)."""
+    incoming, f, pdf = sample_sa(kind, exponent, outgoing, normal, u1, u2)
+    return incoming, f, _to_psa(pdf, incoming, normal)
+
+
+def pdf_psa(kind, exponent, incoming: V3, outgoing: V3, normal: V3):
+    """The solid-angle pdf over |n.i|."""
+    return _to_psa(pdf_sa(kind, exponent, incoming, outgoing, normal),
+                   incoming, normal)

@@ -102,3 +102,31 @@ def triangle_intersect(o: V3, d: V3, tmin, tcur, v0: V3, v1: V3, v2: V3):
         & (t < tcur)
     )
     return torch.where(hit, t, INF), hit, beta, gamma, gnormal
+
+
+def aabb_intersect(o: V3, inv_d: V3, t0, t1, bmin: V3, bmax: V3):
+    """Slab test clipping (t0, t1) to the box (NaN from 0 * inf fails the
+    test). Returns (hit, new_t0, new_t1)."""
+    tx0 = (bmin.x - o.x) * inv_d.x
+    tx1 = (bmax.x - o.x) * inv_d.x
+    ty0 = (bmin.y - o.y) * inv_d.y
+    ty1 = (bmax.y - o.y) * inv_d.y
+    tz0 = (bmin.z - o.z) * inv_d.z
+    tz1 = (bmax.z - o.z) * inv_d.z
+    near = torch.maximum(
+        torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
+        torch.minimum(tz0, tz1))
+    far = torch.minimum(
+        torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
+        torch.maximum(tz0, tz1))
+    lanes = lambda v: v if torch.is_tensor(v) else torch.full_like(near, v)
+    nt0 = torch.maximum(lanes(t0), near)
+    nt1 = torch.minimum(lanes(t1), far)
+    return nt0 <= nt1, nt0, nt1
+
+
+def bullseye_ring(hit_pos: V3, plane_pos: V3):
+    """The bullseye texture's dark rings: fmod(dist * 0.25, 1) > 0.5 of the
+    distance from the plane's position."""
+    rel = hit_pos - plane_pos
+    return torch.remainder(torch.sqrt(dot(rel, rel)) * 0.25, 1.0) > 0.5

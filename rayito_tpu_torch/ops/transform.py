@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import quaternion as quat
-from .vec3 import V3
+from .vec3 import V3, lerp
 
 
 def eval_transform(xf_times, xf_translate, xf_scale, xf_rotate, xf_nkeys,
@@ -58,8 +58,8 @@ def eval_transform(xf_times, xf_translate, xf_scale, xf_rotate, xf_nkeys,
     frac = _frac(tk[0, 0], tk[0, 1], time)
     v3 = lambda a, j: V3(a[0, j], a[1, j], a[2, j])
     q = lambda j: quat.Quat(r2[0, j], v3(r2[1:], j))
-    return (lerp_v3(v3(t2, 0), v3(t2, 1), frac),
-            lerp_v3(v3(s2, 0), v3(s2, 1), frac),
+    return (lerp(v3(t2, 0), v3(t2, 1), frac),
+            lerp(v3(s2, 0), v3(s2, 1), frac),
             quat.nlerp(q(0), q(1), frac))
 
 
@@ -105,14 +105,10 @@ def _eval_transform_lanes(xf_times, xf_translate, xf_scale, xf_rotate,
     idx, idx_next = _key_pair(times, xf_nkeys[xid], time)
     frac = _frac(times.gather(-1, idx[..., None])[..., 0],
                  times.gather(-1, idx_next[..., None])[..., 0], time)
-    return (lerp_v3(key_v3(xf_translate, idx), key_v3(xf_translate, idx_next),
+    return (lerp(key_v3(xf_translate, idx), key_v3(xf_translate, idx_next),
                     frac),
-            lerp_v3(key_v3(xf_scale, idx), key_v3(xf_scale, idx_next), frac),
+            lerp(key_v3(xf_scale, idx), key_v3(xf_scale, idx_next), frac),
             quat.nlerp(key_quat(idx), key_quat(idx_next), frac))
-
-
-def lerp_v3(a: V3, b: V3, t) -> V3:
-    return a + (b - a) * t
 
 
 # ---------------------------------------------------------------------------

@@ -101,9 +101,17 @@ def cross(a: V3, b: V3) -> V3:
     )
 
 
+def length2(v: V3):
+    return dot(v, v)
+
+
+def length(v: V3):
+    return torch.sqrt(length2(v))
+
+
 def normalize(v: V3) -> V3:
     """Guards len > 0 like the reference."""
-    len2 = dot(v, v)
+    len2 = length2(v)
     inv = torch.where(
         len2 > 0.0, 1.0 / torch.sqrt(torch.clamp_min(len2, 1e-37)), 1.0
     )
@@ -116,6 +124,24 @@ def where(mask, a: V3, b: V3) -> V3:
         torch.where(mask, a.y, b.y),
         torch.where(mask, a.z, b.z),
     )
+
+
+def reflect(v: V3, n: V3) -> V3:
+    return n * (2.0 * dot(v, n)) - v
+
+
+def lerp(a: V3, b: V3, t) -> V3:
+    return a + (b - a) * t
+
+
+def min_components(a: V3, b: V3) -> V3:
+    return V3(torch.minimum(a.x, b.x), torch.minimum(a.y, b.y),
+              torch.minimum(a.z, b.z))
+
+
+def max_components(a: V3, b: V3) -> V3:
+    return V3(torch.maximum(a.x, b.x), torch.maximum(a.y, b.y),
+              torch.maximum(a.z, b.z))
 
 
 def make_coordinate_space(normal: V3):
@@ -134,5 +160,17 @@ def make_coordinate_space(normal: V3):
     return x, y, z
 
 
+def make_coordinate_space_tangent(normal: V3, tangent: V3):
+    """Two-direction frame: Z = the unit normal, Y = normalize(tangent x
+    Z), X = Z x Y (X as close to the tangent as the normal allows)."""
+    z = normalize(normal)
+    y = normalize(cross(tangent, z))
+    return cross(z, y), y, z
+
+
 def from_local_frame(v: V3, x: V3, y: V3, z: V3) -> V3:
     return x * v.x + y * v.y + z * v.z
+
+
+def to_local_frame(v: V3, x: V3, y: V3, z: V3) -> V3:
+    return V3(dot(v, x), dot(v, y), dot(v, z))

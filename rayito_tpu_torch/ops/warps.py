@@ -58,6 +58,13 @@ def uniform_to_uniform_disk(u1, u2):
     return radius * torch.cos(theta), radius * torch.sin(theta)
 
 
+def uniform_to_hemisphere(u1, u2) -> V3:
+    """Uniform hemisphere, +Z up."""
+    radius = torch.sqrt(torch.clamp_min(1.0 - u1 * u1, 0.0))
+    phi = 2.0 * PI * u2
+    return V3(radius * torch.cos(phi), radius * torch.sin(phi), u1)
+
+
 def uniform_to_cosine_hemisphere(u1, u2) -> V3:
     """Cosine-weighted hemisphere via concentric disk projection."""
     dx, dy = concentric_sample_disk(u1, u2)

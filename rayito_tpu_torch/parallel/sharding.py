@@ -9,7 +9,9 @@ of the launch; a ragged tail pads to a multiple of the device count with
 inactive lanes, which trace nothing and count no query. The radiance comes
 back to the host and is added in ascending lane order. Per-lane
 counter-based seeding makes the image bit-identical for any device count,
-and to the unsharded render.
+and to the unsharded render. The 'xla' route's ``overflow`` is summed over
+devices; it is the unsharded render's wherever each device's share sees
+the same wave size (the count's pad-slot term depends on it).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from ..models.camera import PerspectiveCamera
 from ..models.scene import SceneData
 from ..ops.vec3 import to_aos
-from ..render.pathtracer import _camera_rays, pathtrace_wave
+from ..render.pathtracer import _camera_rays, pathtrace_wave, warn_overflow
 from ..utils.config import RenderConfig
 
 
@@ -39,14 +41,14 @@ def make_mesh(devices=None) -> list:
 def _shard_pass(scene: SceneData, config: RenderConfig,
                 camera: PerspectiveCamera, px, py, si, active):
     """One device's share of a launch, enqueued on the scene's device:
-    (radiance [n, 3], issued queries), both on that device."""
+    (radiance [n, 3], overflow, issued queries), on that device."""
     dev = scene.device
     px, py, si, active = (torch.from_numpy(a).to(dev)
                           for a in (px, py, si, active))
     o, d, t = _camera_rays(config, camera, px, py, si)
-    rad, _, queries = pathtrace_wave(scene, config, o, d, t, px, py, si,
-                                     active=active)
-    return to_aos(rad), queries
+    rad, overflow, queries = pathtrace_wave(scene, config, o, d, t, px, py,
+                                            si, active=active)
+    return to_aos(rad), overflow, queries
 
 
 def _lane_pixel_arrays(lo: int, hi: int, width: int, n_pix: int):
@@ -66,7 +68,7 @@ def sharded_lane_range(scene: SceneData, config: RenderConfig,
     over the devices ``mesh``, adding radiance SUMS into ``out`` (the
     float32 [H * W, 3] view of the frame accumulator) in ascending sample
     order, so any split of the range gives the same bits. Returns
-    (overflow 0, issued queries int)."""
+    (overflow int, issued queries int)."""
     n_dev = len(mesh)
     scenes = {}
     for dev in mesh:
@@ -75,7 +77,7 @@ def sharded_lane_range(scene: SceneData, config: RenderConfig,
     w = config.width
     n_pix = w * config.height
     budget = config.max_rays_per_pass * n_dev
-    queries = 0
+    overflow = queries = 0
     lo = lane_lo
     while lo < lane_hi:
         hi = min(lo + budget, lane_hi)
@@ -93,8 +95,9 @@ def sharded_lane_range(scene: SceneData, config: RenderConfig,
                             *(a[k * share:(k + 1) * share]
                               for a in (px, py, si, active)))
                 for k, dev in enumerate(mesh)]
-        rad = np.concatenate([r.cpu().numpy() for r, _ in outs])[:n]
-        queries += sum(int(q) for _, q in outs)
+        rad = np.concatenate([r.cpu().numpy() for r, _, _ in outs])[:n]
+        overflow += sum(int(ovf) for _, ovf, _ in outs)
+        queries += sum(int(q) for _, _, q in outs)
         # the launch's lanes are per-sample runs of contiguous pixels
         pos, off = lo, 0
         while pos < hi:
@@ -104,21 +107,22 @@ def sharded_lane_range(scene: SceneData, config: RenderConfig,
             pos += run
             off += run
         lo = hi
-    return 0, queries
+    return overflow, queries
 
 
 def render_path_sharded_with_stats(scene: SceneData, config: RenderConfig,
                                    camera: PerspectiveCamera, mesh=None):
     """Path-trace a frame sharded over ``mesh`` (default: every CUDA
     card), launch-chunked to the wave budget. Returns (image [H, W, 3]
-    float32, overflow 0, queries int)."""
+    float32, overflow int, queries int); warns on a positive overflow."""
     mesh = mesh or make_mesh()
     w, h = config.width, config.height
     spp = config.pixel_samples ** 2
     acc = np.zeros((h * w, 3), np.float32)
-    _, queries = sharded_lane_range(scene, config, camera, mesh, 0,
-                                    w * h * spp, acc)
-    return acc.reshape(h, w, 3) / np.float32(spp), 0, queries
+    overflow, queries = sharded_lane_range(scene, config, camera, mesh, 0,
+                                           w * h * spp, acc)
+    warn_overflow(overflow)
+    return acc.reshape(h, w, 3) / np.float32(spp), overflow, queries
 
 
 def render_path_sharded(scene: SceneData, config: RenderConfig,

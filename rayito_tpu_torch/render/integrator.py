@@ -15,7 +15,8 @@ import torch
 from ..models.camera import make_camera_ray_stage1
 from ..models.scene import LIGHT_RECT, LIGHT_SPHERE, SceneData
 from ..ops import rng as rngo
-from ..ops.brdf import KIND_EMITTER, KIND_LAMBERT, KIND_PHONG
+from ..ops.brdf import (KIND_EMITTER, KIND_LAMBERT, KIND_PHONG,
+                        lambert_shade, phong_shade)
 from ..ops.vec3 import V3, cross, dot, from_aos, normalize, where as vwhere
 from ..ops.warps import uniform_to_sphere
 from ..utils.config import RenderConfig
@@ -103,9 +104,8 @@ def _material_shade(scene: SceneData, mat_ids, normal: V3, in_dir: V3,
     """Stage-3/4 Material::shade: lambert max(0, l.n) colour, phong
     max(0, h.n)^exponent colour, emitter 0."""
     kind, color, expo = material_row(scene, mat_ids)
-    lamb = torch.clamp_min(dot(light_dir, normal), 0.0)
-    half = normalize(light_dir - in_dir)
-    phong = torch.pow(torch.clamp_min(dot(half, normal), 0.0), expo)
+    lamb = lambert_shade(normal, light_dir)
+    phong = phong_shade(normal, in_dir, light_dir, expo)
     s = torch.where(kind == KIND_LAMBERT, lamb,
                     torch.where(kind == KIND_PHONG, phong, 0.0))
     s = torch.where(kind == KIND_EMITTER, 0.0, s)

@@ -14,9 +14,17 @@ analytic light hit plus an any-hit query; one mesh light in the scene turns
 it, for every light, into a full closest-hit query whose hit must be the
 chosen light's shape. Each lane evaluates its chosen light only
 (``lights.*_rolled``), at every light count.
+
+``overflow`` sums the candidates the ``traversal='xla'`` route's K1/K2
+truncation dropped, over the closest-hit and NEE queries of every bounce
+and light sample: an int64 device scalar there, the int 0 on the kernel
+route (no truncation, no extra launch). ``render_path`` warns when it is
+positive.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -63,11 +71,11 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     """Trace one wavefront of camera rays to completion.
 
     o, d: V3 of [N]; time [N]; px, py [N] pixel coords; si [N] pixel-sample
-    index. Returns (radiance V3 of [N], overflow 0, queries [] int64 on the
-    device): ``queries`` counts the scene queries the integrator issues —
-    alive-lane traces plus NEE shadow / BRDF-side queries on lanes whose
-    masks require one — the ray-throughput denominator, as the reference
-    defines it. ``active`` (bool [N]) marks launch-padding lanes dead from
+    index. Returns (radiance V3 of [N], overflow (see the module
+    docstring), queries [] int64 on the device): ``queries`` counts the
+    scene queries the integrator issues — alive-lane traces plus NEE
+    shadow / BRDF-side queries on lanes whose masks require one — the
+    ray-throughput denominator, as the reference defines it. ``active`` (bool [N]) marks launch-padding lanes dead from
     bounce 0."""
     n_lights = scene.n_lights
     analytic_lights = all(k in (LIGHT_RECT, LIGHT_SPHERE)
@@ -83,6 +91,7 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
              if active is None else active)
     num_dirac = torch.zeros((n,), dtype=torch.int32, device=dev)
     queries = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow = 0
 
     nls = config.light_samples * config.light_samples if n_lights else 0
     ps = config.pixel_samples
@@ -93,6 +102,7 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     for bounce in range(config.max_depth):
         hit = scene_intersect(scene, o, d, time, tmin,
                               torch.where(alive, RAY_TMAX, 0.0))
+        overflow = overflow + hit.overflow
         queries = queries + alive.sum()
         lane = alive & hit.valid
         kind, mat_color, exponent = _mat_lookup(scene, hit.mat)
@@ -162,24 +172,26 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                         scene, light_idx, position, -b_in, time, tmin)
                     ok_b = ok_b & l_hit
                     queries = queries + ok_b.sum()
-                    occluded, blocked, _ = scene_occluded_pair(
+                    occluded, blocked, ovf = scene_occluded_pair(
                         scene, position, -light_incoming, tmax_l, -b_in,
                         torch.where(ok_b,
                                     torch.where(l_hit, t_l, 0.0) - tmin,
                                     0.0),
                         time, tmin, live=ok_l | ok_b,
                     )
+                    overflow = overflow + ovf
                     hit_light = ok_b & ~blocked
                 else:
                     # a mesh light has no analytic hit: the full closest
                     # hit, for every light of the scene (dead lanes carry
                     # tmax = tmin)
-                    occluded, _ = scene_occluded(
+                    occluded, ovf = scene_occluded(
                         scene, position, -light_incoming, time, tmin, tmax_l)
                     queries = queries + ok_b.sum()
                     sh = scene_intersect(
                         scene, position, -b_in, time, tmin,
                         torch.where(ok_b, RAY_TMAX, tmin))
+                    overflow = overflow + ovf + sh.overflow
                     chosen_sid = scene.light_shape_id[light_idx.long()]
                     hit_light = ok_b & sh.valid & (sh.shape_id == chosen_sid)
                     t_l, n_l = sh.t, sh.normal
@@ -226,7 +238,7 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
         o = vwhere(cont, position, o)
         d = vwhere(cont, -incoming, d)
         alive = cont
-    return result, 0, queries
+    return result, overflow, queries
 
 
 def _camera_rays(config: RenderConfig, camera: PerspectiveCamera, px, py,
@@ -247,7 +259,7 @@ def _render_path_pass(scene: SceneData, config: RenderConfig,
                       camera: PerspectiveCamera, si_chunk, row0=0,
                       rows: int = 0):
     """Pixel rows [row0, row0+rows) x the sample indices ``si_chunk``.
-    Returns (SUM image [rows, W, 3] on the device, overflow 0, queries)."""
+    Returns (SUM image [rows, W, 3] on the device, overflow, queries)."""
     dev = scene.device
     w = config.width
     rows = rows or config.height
@@ -269,22 +281,24 @@ def _render_path_frame(scene: SceneData, config: RenderConfig,
                        rows: int = 0):
     """A launch grid: one _render_path_pass per (sample chunk, row band).
     si_mat [L, k] sample indices per launch, row0s [L] first rows.
-    Returns (imgs [L, rows, W, 3], overflow 0, queries summed) on the
-    device — no host synchronisation."""
+    Returns (imgs [L, rows, W, 3], overflow and queries summed) on the
+    device — no host synchronisation on the kernel route."""
     imgs = []
+    overflow = 0
     queries = torch.zeros((), dtype=torch.int64, device=scene.device)
     for si, r0 in zip(si_mat, row0s):
-        img, _, q = _render_path_pass(scene, config, camera, si, int(r0),
-                                      rows)
+        img, ovf, q = _render_path_pass(scene, config, camera, si, int(r0),
+                                        rows)
         imgs.append(img)
+        overflow = overflow + ovf
         queries = queries + q
-    return torch.stack(imgs), 0, queries
+    return torch.stack(imgs), overflow, queries
 
 
 def render_path_with_stats(scene: SceneData, config: RenderConfig,
                            camera: PerspectiveCamera):
     """Path-traced render (box-filtered mean of pixel_samples^2 samples).
-    Returns (image np [H, W, 3], overflow 0, queries int). Launches hold at
+    Returns (image np [H, W, 3], overflow int, queries int). Launches hold at
     most config.max_rays_per_pass lanes: chunks of sample indices first,
     then pixel-row bands when one sample exceeds the budget. Each launch's
     image is added on the host in the reference's order, so memory stays
@@ -292,13 +306,14 @@ def render_path_with_stats(scene: SceneData, config: RenderConfig,
     spp_total = config.pixel_samples * config.pixel_samples
     w, h = config.width, config.height
     acc = np.zeros((h, w, 3), np.float32)
-    queries = 0
+    overflow = queries = 0
     if w * h <= config.max_rays_per_pass:
         chunk = max(1, min(spp_total, config.max_rays_per_pass // (w * h)))
         for s0 in range(0, spp_total, chunk):
             si = np.arange(s0, min(s0 + chunk, spp_total), dtype=np.int32)
-            img, _, q = _render_path_pass(scene, config, camera, si)
+            img, ovf, q = _render_path_pass(scene, config, camera, si)
             acc += img.cpu().numpy()
+            overflow += int(ovf)
             queries += int(q)
     else:
         band = max(1, config.max_rays_per_pass // w)
@@ -307,15 +322,27 @@ def render_path_with_stats(scene: SceneData, config: RenderConfig,
         r0s = [min(b * band, h - band) for b in range(n_bands)]
         for s0 in range(spp_total):
             for b, r0 in enumerate(r0s):
-                img, _, q = _render_path_pass(scene, config, camera, [s0],
-                                              r0, band)
+                img, ovf, q = _render_path_pass(scene, config, camera, [s0],
+                                                r0, band)
                 skip = max(0, b * band - r0)
                 acc[r0 + skip:r0 + band] += img.cpu().numpy()[skip:]
+                overflow += int(ovf)
                 queries += int(q)
-    return acc / np.float32(spp_total), 0, queries
+    return acc / np.float32(spp_total), overflow, queries
+
+
+def warn_overflow(overflow: int) -> None:
+    """The reference's warning when the 'xla' route truncated."""
+    if overflow:
+        print(f"[rayito_tpu_torch] WARNING: cluster-traversal candidate "
+              f"overflow x{overflow} — K1/K2 budgets exceeded; nearest hits "
+              "may have been dropped (see render/mesh_intersect.py)",
+              file=sys.stderr)
 
 
 def render_path(scene: SceneData, config: RenderConfig,
                 camera: PerspectiveCamera):
-    """render_path_with_stats, image only."""
-    return render_path_with_stats(scene, config, camera)[0]
+    """render_path_with_stats, image only; warns on a positive overflow."""
+    img, overflow, _ = render_path_with_stats(scene, config, camera)
+    warn_overflow(overflow)
+    return img

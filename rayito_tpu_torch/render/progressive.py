@@ -29,7 +29,7 @@ from ..models.camera import PerspectiveCamera
 from ..models.scene import SceneData
 from ..parallel.sharding import sharded_lane_range
 from ..utils.config import RenderConfig
-from .pathtracer import _render_path_pass
+from .pathtracer import _render_path_pass, warn_overflow
 
 
 @dataclasses.dataclass
@@ -38,7 +38,9 @@ class RenderStats:
     samples_total: int
     seconds: float
     rays_traced: int  # issued scene queries (see pathtrace_wave)
-    overflow: int = 0  # cluster-traversal truncations: always 0 here
+    # candidates the 'xla' route's K1/K2 truncation dropped (see
+    # render/mesh_intersect.py); 0 on the kernel route
+    overflow: int = 0
 
     @property
     def mrays_per_sec(self) -> float:
@@ -97,6 +99,8 @@ def render_progressive(
     chunk's lanes over those devices. Per-lane seeding keeps the image
     bit-identical to the unsharded render whatever the device count, so a
     checkpoint written sharded resumes unsharded and the other way round.
+    A positive ``overflow`` (samples rendered in this call) prints the
+    reference's warning.
     """
     spp_total = config.pixel_samples ** 2
     w, h = config.width, config.height
@@ -131,7 +135,7 @@ def render_progressive(
         os.replace(produced, checkpoint_path)
 
     t0 = time.perf_counter()
-    rays = 0
+    rays = overflow = 0
     chunks_since_save = 0
     if mesh is not None:
         # the per-device wave budget scales the chunk; a chunk below one
@@ -144,9 +148,10 @@ def render_progressive(
     while s_done < spp_total:
         hi = min(s_done + chunk, spp_total)
         if mesh is not None:
-            _, q = sharded_lane_range(scene, config, camera, mesh,
-                                      s_done * n_pix, hi * n_pix,
-                                      acc.reshape(-1, 3))
+            ovf, q = sharded_lane_range(scene, config, camera, mesh,
+                                        s_done * n_pix, hi * n_pix,
+                                        acc.reshape(-1, 3))
+            overflow += ovf
             rays += q
         elif banded:
             # render_path_with_stats's bands: a uniform height, the last
@@ -154,15 +159,17 @@ def render_progressive(
             band = max(1, config.max_rays_per_pass // w)
             for b in range(-(-h // band)):
                 r0 = min(b * band, h - band)
-                img, _, q = _render_path_pass(scene, config, camera,
-                                              [s_done], r0, band)
+                img, ovf, q = _render_path_pass(scene, config, camera,
+                                                [s_done], r0, band)
                 skip = max(0, b * band - r0)
                 acc[r0 + skip:r0 + band] += img.cpu().numpy()[skip:]
+                overflow += int(ovf)
                 rays += int(q)
         else:
-            img, _, q = _render_path_pass(
+            img, ovf, q = _render_path_pass(
                 scene, config, camera, np.arange(s_done, hi, dtype=np.int32))
             acc += img.cpu().numpy()
+            overflow += int(ovf)
             rays += int(q)
         s_done = hi
         chunks_since_save += 1
@@ -172,11 +179,13 @@ def render_progressive(
             chunks_since_save = 0
         if on_progress or on_preview:
             st = RenderStats(s_done, spp_total, time.perf_counter() - t0,
-                             rays)
+                             rays, overflow)
             if on_progress:
                 on_progress(st)
             if on_preview:
                 on_preview(acc / np.float32(max(s_done, 1)), st)
 
-    stats = RenderStats(s_done, spp_total, time.perf_counter() - t0, rays)
+    warn_overflow(overflow)
+    stats = RenderStats(s_done, spp_total, time.perf_counter() - t0, rays,
+                        overflow)
     return acc / np.float32(spp_total), stats

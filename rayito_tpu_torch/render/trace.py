@@ -2,12 +2,20 @@
 ``rayito_tpu/render/trace.py``).
 
 The analytic shapes (planes, spheres, rects) fold kind by kind over the
-whole wavefront; triangle meshes go through the kernel traversal
-(``render/traverse.py``), one launch per traversal domain, whose winner is
-re-tested exactly and shaded from one gathered, transposed 32-column row
-(``gather_rows_t``). Tiny transformed meshes fold densely
-(``render/mesh_intersect.py``) and their winners shade from a gathered
-meta row.
+whole wavefront. Triangle meshes take the scene's traversal:
+
+  * ``'pallas'``: the kernel traversal (``render/traverse.py``), one
+    launch per traversal domain, whose winner is re-tested exactly and
+    shaded from one gathered, transposed 32-column row (``gather_rows_t``).
+    Tiny transformed meshes fold densely (``render/mesh_intersect.py``)
+    and their winners shade from a gathered meta row. Nothing truncates:
+    ``overflow`` is 0;
+  * ``'xla'``: the two-level cluster pipeline
+    (``render/mesh_intersect.py``), mesh by mesh in each mesh's local space
+    at the lane's time, each capped at the nearest hit so far; the winner
+    shades from a gathered meta row. ``overflow`` counts the candidates its
+    K1/K2 truncation dropped; shadow rays take tmax as it is (the kernel
+    route rounds it down one 128-ulp key bucket).
 
 Keyed transforms (motion blur): every shape and every transformed domain
 sees the ray in its local space at the lane's time; local t is world t.
@@ -37,6 +45,7 @@ from ..ops import transform as xf
 from ..ops.brdf import KIND_EMITTER
 from ..ops.intersect import (
     INF,
+    bullseye_ring,
     plane_intersect,
     rect_intersect,
     sphere_intersect,
@@ -44,7 +53,7 @@ from ..ops.intersect import (
 )
 from ..ops.quaternion import Quat, rotate_vector
 from ..ops.vec3 import V3, from_aos, normalize, where as vwhere
-from .mesh_intersect import mesh_intersect_clusters
+from .mesh_intersect import mesh_fold_small, mesh_intersect_clusters
 from .traverse import gather_rows_t, traverse
 
 # rows per batched [rows, N] evaluation (bounds the temporaries: 32 MB
@@ -65,6 +74,10 @@ class Hit:
     mat: torch.Tensor  # [N] i32 material id; -1 = miss
     normal: V3
     color_mod: torch.Tensor  # [N] scalar modifier (bullseye texture)
+    # candidates the 'xla' route's K1/K2 truncation dropped (an int64
+    # device scalar there, the int 0 on the kernel route); nonzero means
+    # a nearest hit MAY have been lost
+    overflow: object = 0
 
 
 def _full(n, value, dtype, device):
@@ -229,10 +242,8 @@ def _planes_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     t = f.t
     valid = torch.isfinite(t)
     # the bullseye rings are measured at the local hit position
-    rel = (f.o_w + f.d_w * torch.where(valid, t, 0.0)
-           - from_aos(scene.pln_pos[f.idx]))
-    dist = torch.sqrt(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z)
-    ring = torch.remainder(dist * 0.25, 1.0) > 0.5
+    ring = bullseye_ring(f.o_w + f.d_w * torch.where(valid, t, 0.0),
+                         from_aos(scene.pln_pos[f.idx]))
     color_mod = torch.where(scene.pln_bullseye[f.idx] & ring & valid, 0.2,
                             1.0).to(torch.float32)
     return (t, f.idx.to(torch.int32), scene.pln_mat[f.idx],
@@ -370,10 +381,14 @@ def _mesh_shading(scene: SceneData, t_best, prim_best, beta, gamma, meta,
 
 
 def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
-    """Mesh intersection: one kernel launch per traversal domain, in the
-    domain's space, then the exact winner re-test; then the dense fold of
-    each tiny transformed mesh (ktab_small); then the shading."""
+    """Mesh intersection, then the shading; returns (candidate, overflow).
+    The kernel route launches once per traversal domain, in the domain's
+    space, and re-tests the winner exactly, then folds each tiny
+    transformed mesh (ktab_small) densely; 'xla' runs every mesh through
+    the two-level pipeline. Each mesh alone is queried in its local space
+    at the lane's time, capped at the nearest hit so far."""
     n, dev = o.x.shape[0], o.x.device
+    xla = scene.traversal == "xla"
     t_best = _full(n, INF, torch.float32, dev)
     prim_best = _full(n, -1, torch.int32, dev)
     beta_best = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -381,7 +396,7 @@ def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     meta_best = None
     rot_best = _identity_rot(n, dev) if scene.has_motion else None
     mt = _mt_for(scene, occlusion=False)
-    for di in range(len(scene.ktab_xf)):
+    for di in range(0 if xla else len(scene.ktab_xf)):
         o_l, d_l, rot = _domain_local_ray(scene, di, o, d, time)
         p_d = _launch(scene, di, o_l, d_l, torch.minimum(t_best, tmax), tmin,
                       mt, sort_rays=True, any_hit=False)
@@ -397,23 +412,32 @@ def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
                      else torch.where(closer[None, :], meta, meta_best))
         if rot_best is not None:
             rot_best = _where_quat(closer, rot or _IDENTITY, rot_best)
-    # the tiny meshes' winners carry no meta rows: with any such mesh the
-    # shading gathers the meta rows of every winner
-    if scene.ktab_small:
+    # these winners carry no meta rows: with any such mesh the shading
+    # gathers the meta rows of every winner
+    singles = range(scene.n_meshes) if xla else scene.ktab_small
+    if singles:
         meta_best = None
-    for mi in scene.ktab_small:
+    overflow = 0
+    for mi in singles:
         o_l, d_l, rot = _shape_local_ray(scene, scene.mesh_xf_host[mi], o, d,
                                          time)
-        t_m, prim_m, beta_m, gamma_m, _ = mesh_intersect_clusters(
-            scene, mi, o_l, d_l, tmin, torch.minimum(t_best, tmax))
+        cap = torch.minimum(t_best, tmax)
+        if xla:
+            t_m, prim_m, beta_m, gamma_m, ovf = mesh_intersect_clusters(
+                scene, mi, o_l, d_l, tmin, cap)
+            overflow = overflow + ovf
+        else:
+            t_m, prim_m, beta_m, gamma_m = mesh_fold_small(
+                scene, mi, o_l, d_l, tmin, cap)
         closer = prim_m >= 0
         t_best = torch.where(closer, t_m, t_best)
         prim_best = torch.where(closer, prim_m, prim_best)
         beta_best = torch.where(closer, beta_m, beta_best)
         gamma_best = torch.where(closer, gamma_m, gamma_best)
-        rot_best = _where_quat(closer, rot, rot_best)
+        if rot_best is not None:
+            rot_best = _where_quat(closer, rot or _IDENTITY, rot_best)
     return _mesh_shading(scene, t_best, prim_best, beta_best, gamma_best,
-                         meta_best, rot_best)
+                         meta_best, rot_best), overflow
 
 
 def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
@@ -450,10 +474,12 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
         best = fold(best, _spheres_candidate(scene, o, d, time, tmin, tmax))
     if scene.n_rects:
         best = fold(best, _rects_candidate(scene, o, d, time, tmin, tmax))
+    overflow = 0
     if scene.n_meshes:
         # cap the mesh query at the analytic winner: it prunes clusters
         tmax_mesh = torch.minimum(tmax, best[0])
-        best = fold(best, _mesh_candidate(scene, o, d, time, tmin, tmax_mesh))
+        cand, overflow = _mesh_candidate(scene, o, d, time, tmin, tmax_mesh)
+        best = fold(best, cand)
 
     t, shape_id, mat, normal, color_mod = best
     valid = torch.isfinite(t) & (t < tmax)
@@ -464,6 +490,7 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
         mat=torch.where(valid, mat, -1),
         normal=normal,
         color_mod=torch.where(valid, color_mod, 1.0),
+        overflow=overflow,
     )
 
 
@@ -504,36 +531,46 @@ def _occl_tmax_down(occluded, tmax):
 
 
 def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
-    """Any-hit shadow query. Returns (occluded bool [N], overflow 0 — the
-    kernel traversal and the dense fold never truncate)."""
+    """Any-hit shadow query. Returns (occluded bool [N], overflow: see
+    ``Hit.overflow``)."""
     n, dev = o.x.shape[0], o.x.device
     tmax = _lanes(tmax, n, dev)
     time = _lane_time(scene, time, n, dev)
     occluded = _analytic_occluded(scene, o, d, time, tmin, tmax)
-    if scene.n_meshes:
+    if not scene.n_meshes:
+        return occluded, 0
+    xla = scene.traversal == "xla"
+    if not xla:
         tq_dn = _occl_tmax_down(occluded, tmax)
         mt = _mt_for(scene, occlusion=True)
-        for di in range(len(scene.ktab_xf)):
-            o_l, d_l, _ = _domain_local_ray(scene, di, o, d, time)
-            p_d = _launch(scene, di, o_l, d_l,
-                          torch.where(occluded, 0.0, tq_dn), tmin, mt,
-                          sort_rays=scene.sort_occl, any_hit=mt == "vpu")
-            if mt != "vpu":
-                # approximate-t (BW) winners are re-tested exactly
-                occluded = occluded | _winner_retest(
-                    scene, di, o_l, d_l, p_d, tmin,
-                    torch.where(occluded, 0.0, tmax),
-                )[1]
-            else:
-                occluded = occluded | (p_d >= 0)
-        for mi in scene.ktab_small:
-            o_l, d_l, _ = _shape_local_ray(scene, scene.mesh_xf_host[mi], o,
-                                           d, time)
-            prim_m = mesh_intersect_clusters(
-                scene, mi, o_l, d_l, tmin, torch.where(occluded, 0.0, tmax),
-                any_hit=True)[1]
-            occluded = occluded | (prim_m >= 0)
-    return occluded, 0
+    for di in range(0 if xla else len(scene.ktab_xf)):
+        o_l, d_l, _ = _domain_local_ray(scene, di, o, d, time)
+        p_d = _launch(scene, di, o_l, d_l,
+                      torch.where(occluded, 0.0, tq_dn), tmin, mt,
+                      sort_rays=scene.sort_occl, any_hit=mt == "vpu")
+        if mt != "vpu":
+            # approximate-t (BW) winners are re-tested exactly
+            occluded = occluded | _winner_retest(
+                scene, di, o_l, d_l, p_d, tmin,
+                torch.where(occluded, 0.0, tmax),
+            )[1]
+        else:
+            occluded = occluded | (p_d >= 0)
+    # mesh by mesh, tmax as it is (no launch key to round for); lanes
+    # already occluded query with tmax 0
+    overflow = 0
+    for mi in range(scene.n_meshes) if xla else scene.ktab_small:
+        o_l, d_l, _ = _shape_local_ray(scene, scene.mesh_xf_host[mi], o, d,
+                                       time)
+        tq = torch.where(occluded, 0.0, tmax)
+        if xla:
+            _, prim_m, _, _, ovf = mesh_intersect_clusters(
+                scene, mi, o_l, d_l, tmin, tq, any_hit=True)
+            overflow = overflow + ovf
+        else:
+            prim_m = mesh_fold_small(scene, mi, o_l, d_l, tmin, tq)[1]
+        occluded = occluded | (prim_m >= 0)
+    return occluded, overflow
 
 
 def scene_occluded_pair(scene: SceneData, o: V3, d1: V3, tmax1, d2: V3,
@@ -542,11 +579,11 @@ def scene_occluded_pair(scene: SceneData, o: V3, d1: V3, tmax1, d2: V3,
     independent scene_occluded calls (the reference's default branch; its
     shared-sort and fused-pair options are TPU schedules, not ported).
     ``live`` is accepted for the reference's signature. Returns (occ1,
-    occ2, overflow)."""
+    occ2, overflow summed over both)."""
     del live
-    occ1, _ = scene_occluded(scene, o, d1, time, tmin, tmax1)
-    occ2, _ = scene_occluded(scene, o, d2, time, tmin, tmax2)
-    return occ1, occ2, 0
+    occ1, ovf1 = scene_occluded(scene, o, d1, time, tmin, tmax1)
+    occ2, ovf2 = scene_occluded(scene, o, d2, time, tmin, tmax2)
+    return occ1, occ2, ovf1 + ovf2
 
 
 def material_row(scene: SceneData, mat_ids):

@@ -23,6 +23,18 @@ _PHASES = (
     ("reduce", "PyTorch reductions"),
 )
 
+# Host-side ranges (``torch.profiler.record_function`` labels) whose
+# kernels are PyTorch's own, so no kernel name tells them apart: each is
+# reported as a rollup of the device time of every kernel launched inside
+# it, beside the phases above and not summed with them (the reference's
+# bounce-loop "while" rollup is reported the same way). On the card a range
+# also leaves a device-side annotation of its name spanning its kernels,
+# idle gaps included: that row is not a kernel and is dropped.
+_ROLLUPS = {
+    "mesh_intersect_clusters":
+        "two-level cluster pipeline, traversal='xla' (rollup)",
+}
+
 
 def collect_device_ops(prof):
     """{kernel name: (total µs, count)} over the device-side events of a
@@ -30,12 +42,16 @@ def collect_device_ops(prof):
     from torch.autograd import DeviceType
 
     return {e.key: (e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in _ROLLUPS}
 
 
 def phase_table(prof, divisor: float = 1.0):
-    """[(phase, ms, kernel count)] sorted by cost. ``divisor`` scales the
-    totals (e.g. the number of profiled frames)."""
+    """[(phase, ms, kernel or range count)] sorted by cost, the rollups of
+    ``_ROLLUPS`` included (their kernels also count in the phases).
+    ``divisor`` scales the totals (e.g. the number of profiled frames)."""
+    from torch.autograd import DeviceType
+
     rows = {}
     for name, (us, count) in collect_device_ops(prof).items():
         label = next((lab for key, lab in _PHASES if key in name.lower()),
@@ -43,6 +59,9 @@ def phase_table(prof, divisor: float = 1.0):
         row = rows.setdefault(label, [0.0, 0])
         row[0] += us
         row[1] += count
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key in _ROLLUPS:
+            rows[_ROLLUPS[e.key]] = [e.device_time_total, e.count]
     return sorted(((label, us / 1e3 / divisor, count)
                    for label, (us, count) in rows.items() if count),
                   key=lambda r: -r[1])

@@ -32,8 +32,12 @@ mesh-light and many-shape ``pathtrace_wave`` under the sync debug mode,
 card against the CPU; and, for the CLI's surface: render_color and
 render_direct on the card against the CPU, one render_direct pass under
 the sync debug mode, a progressive render resumed from its checkpoint, and
-cli.main on stage 6 through the three kernels. Every kernel comparison is exact: kernel and plain version run the same IEEE
-float32 operations in the same order, without contraction.
+cli.main on stage 6 through the three kernels; and, for the
+traversal='xla' route, the two-level pipeline on the card against the CPU
+(t, beta and gamma bits, prim and overflow, on a mesh that truncates),
+its nearest-k on tied rows, and its winner rows through gather_rows_t.
+Every kernel comparison is exact: kernel and plain version run the same
+IEEE float32 operations in the same order, without contraction.
 """
 
 import numpy as np
@@ -1123,3 +1127,125 @@ def test_cli_stage6_launches_the_three_kernels(dev, tmp_path):
         assert counts[name] > 0, counts
     img = read_pfm(out)
     assert img.shape == (48, 64, 3) and np.isfinite(img).all()
+
+
+# ------------------------------------------------ traversal='xla' route
+
+
+def _layered_scene(n_layers=420, g=4, dz=0.05):
+    """A stack of thin square layers along z (18 superclusters): rays that
+    cross it end-on truncate at both levels of the pipeline."""
+    import rayito_tpu_torch as tt
+
+    rs = np.random.default_rng(5)
+    verts, idx = [], []
+    for k in range(n_layers):
+        z = k * dz + rs.uniform(-0.001, 0.001)
+        base = len(verts)
+        verts += [(i / g * 2 - 1, j / g * 2 - 1, z) for j in range(g + 1)
+                  for i in range(g + 1)]
+        for j in range(g):
+            for i in range(g):
+                a = base + j * (g + 1) + i
+                idx += [(a, a + 1, a + g + 2), (a, a + g + 2, a + g + 1)]
+    s = tt.Scene()
+    s.add(tt.TriangleMesh(np.asarray(verts, np.float32),
+                          np.asarray(idx, np.int32),
+                          tt.DiffuseMaterial((0.6, 0.5, 0.4))))
+    return s
+
+
+@pytest.fixture(scope="module")
+def xla_scenes(tmp_path_factory):
+    from rayito_tpu_torch.models.demo import stage6_scene, write_bumpy_standin
+
+    obj = str(tmp_path_factory.mktemp("obj") / "b8.obj")
+    write_bumpy_standin(obj, n=8)
+    return {"layers": _layered_scene().compile("cpu", traversal="xla"),
+            "stage6": stage6_scene(obj).compile("cpu", traversal="xla")}
+
+
+def _xla_rays(case, n):
+    rs = np.random.default_rng(7)
+    if case == "layers":
+        o = np.stack([rs.uniform(-0.9, 0.9, n), rs.uniform(-0.9, 0.9, n),
+                      np.full(n, -3.0)], 1)
+        d = rs.normal(0.0, 0.05, (n, 3))
+        d[:, 2] = 1.0
+    else:
+        o = rs.uniform(-3.0, 3.0, (n, 3)) + np.asarray([0.0, 0.0, 8.0])
+        d = rs.normal(0.0, 0.08, (n, 3)) - o / np.linalg.norm(
+            o, axis=1, keepdims=True)
+    d[::10], d[5::10] = (0.0, 0.0, 1.0), (0.0, 1.0, 0.0)  # axis-parallel
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 1e30, np.float32)
+    tmax[3::7] = 5.0
+    return o.astype(np.float32), d.astype(np.float32), tmax
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["layers", "stage6"])
+def test_xla_route_on_the_card_matches_the_cpu(dev, xla_scenes, case,
+                                                any_hit):
+    """mesh_intersect_clusters on 5,003 rays (the reference's blocks of
+    1,250 leave 1,247 pad slots): t, beta and gamma bits, prim and
+    overflow equal on the card and the CPU."""
+    from rayito_tpu_torch.render import mesh_intersect as mi
+
+    sd = xla_scenes[case]
+    on_card = sd.to(dev)
+    o, d, tmax = _xla_rays(case, 5003)
+    m = 0 if case == "layers" else 1
+    v3 = lambda a, where: V3(*(torch.from_numpy(a[:, k].copy()).to(where)
+                               for k in range(3)))
+    got = mi.mesh_intersect_clusters(on_card, m, v3(o, dev), v3(d, dev),
+                                     1e-4, torch.from_numpy(tmax).to(dev),
+                                     any_hit)
+    ref = mi.mesh_intersect_clusters(sd, m, v3(o, "cpu"), v3(d, "cpu"), 1e-4,
+                                     torch.from_numpy(tmax), any_hit)
+    for g, r in zip(got[:4], ref[:4]):
+        assert torch.equal(g.cpu().view(torch.int32), r.view(torch.int32))
+    assert int(got[4]) == int(ref[4])
+    assert (ref[1] >= 0).sum() > 500
+    if case == "layers":
+        assert int(ref[4]) > 5003
+
+
+def test_nearest_k_ties_on_the_card(dev):
+    """The route's nearest-k (a stable sort cut after k) keeps tied
+    entries in index order on the card, as jax.lax.top_k does."""
+    from rayito_tpu_torch.render.mesh_intersect import nearest_k
+
+    rs = np.random.default_rng(9)
+    for width, k in ((64, 16), (256, 24), (16, 16)):
+        t = rs.choice(np.asarray([0.5, 1.0, 2.0, np.inf], np.float32),
+                      (4 * SB, width))
+        want = np.argsort(t, axis=1, kind="stable")[:, :k]
+        got_t, got_i = nearest_k(torch.from_numpy(t).to(dev), k)
+        assert torch.equal(got_i.cpu(), torch.from_numpy(want))
+        np.testing.assert_array_equal(got_t.cpu().numpy(),
+                                      np.take_along_axis(t, want, axis=1))
+
+
+def test_xla_route_launches_gather_rows_t(dev, xla_scenes):
+    """A closest-hit query under 'xla' on the card gathers its winners'
+    rows through the gather_rows_t kernel and launches no traversal
+    kernel; its hits equal the CPU's."""
+    from rayito_tpu_torch.render import trace as tr
+
+    sd = xla_scenes["stage6"]
+    on_card = sd.to(dev)
+    o, d, _ = _xla_rays("stage6", 4096)
+    v3 = lambda a, where: V3(*(torch.from_numpy(a[:, k].copy()).to(where)
+                               for k in range(3)))
+    tv.reset_launch_counts()
+    got = tr.scene_intersect(on_card, v3(o, dev), v3(d, dev), None, 1e-4,
+                             1e30)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    assert counts.pop("gather_rows_t") >= 2 and not any(counts.values())
+    ref = tr.scene_intersect(sd, v3(o, "cpu"), v3(d, "cpu"), None, 1e-4,
+                             1e30)
+    for k in ("t", "shape_id", "mat"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(ref, k)), k
+    assert int(got.overflow) == int(ref.overflow) == 0

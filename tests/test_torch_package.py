@@ -77,8 +77,13 @@ def test_tpu_only_options_raise(box_scene, knob, value):
 
 
 def test_traversal_xla_is_not_ported(box_scene):
-    with pytest.raises(NotImplementedError, match="xla"):
-        box_scene.compile("cpu", traversal="xla")
+    """traversal='xla' is ported now (tests/test_torch_xla.py holds it to
+    the reference): it compiles with the pipeline's tables; a traversal
+    neither package has raises."""
+    xla = box_scene.compile("cpu", traversal="xla")
+    assert xla.traversal == "xla" and xla.sc_rows.shape[1] == 128
+    with pytest.raises(ValueError, match="xla"):
+        box_scene.compile("cpu", traversal="cuda")
     assert isinstance(box_scene.compile("cpu"), SceneData)
 
 

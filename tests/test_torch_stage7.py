@@ -315,8 +315,7 @@ def test_tiny_mesh_fold_matches_reference_brute_force(compiled):
     tri0 = jsd.mesh_tri_ranges[3][0]
     ref = jmi._brute_force_mesh(jsd, cl0, n_cl, tri0, jo, jd, 1e-4,
                                 jnp.asarray(tmax))
-    got = tmi.mesh_intersect_clusters(tsd, 3, to, td, 1e-4,
-                                      torch.from_numpy(tmax))
+    got = tmi.mesh_fold_small(tsd, 3, to, td, 1e-4, torch.from_numpy(tmax))
     prim = np.asarray(ref[1])
     np.testing.assert_array_equal(got[1].numpy(), prim)
     hit = prim >= 0
@@ -411,15 +410,20 @@ def test_tiny_fold_is_not_ported():
 
 
 def test_xla_traversal_still_raises():
-    with pytest.raises(NotImplementedError):
-        tdemo.stage7_scene2().compile("cpu", traversal="xla")
+    """traversal='xla' compiles (tests/test_torch_xla.py holds the route);
+    a traversal that neither package has still raises."""
+    assert tdemo.stage7_scene2().compile("cpu", traversal="xla").traversal \
+        == "xla"
+    with pytest.raises(ValueError, match="traversal"):
+        tdemo.stage7_scene2().compile("cpu", traversal="cuda")
 
 
 def test_mesh_above_brute_force_size_raises(compiled):
-    """A transformed mesh above 192 triangles folds only through the
-    traversal='xla' pipeline, which is not ported."""
+    """A transformed mesh above 192 triangles is a traversal domain of its
+    own (or, under traversal='xla', goes through the two-level pipeline);
+    the dense fold refuses it."""
     _, _, _, tsd = compiled["stage7_scene1"]
     _, to = _both_v3(np.zeros((4, 3), np.float32))
     _, td = _both_v3(np.ones((4, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="192"):
-        tmi.mesh_intersect_clusters(tsd, 1, to, td, 1e-4, 1e30)
+    with pytest.raises(ValueError, match="192"):
+        tmi.mesh_fold_small(tsd, 1, to, td, 1e-4, 1e30)
