@@ -17,8 +17,10 @@ JAX. Phases, each printed, each fatal on failure:
      run's masks) and its share of it, and for gather_rows_t the time of
      the one PyTorch call that computes the same result (library_ms);
   4. frame: one full-size stage-6 frame (512x512, bench.py's config) through
-     the entry point, counting every kernel's launches, checked against the
-     same frame rendered with the plain versions; then 3 timed frames;
+     the dispatch (``_render_path_frame``: one replay of the pass graph per
+     launch), counting every kernel's launches, checked against the same
+     frame rendered with the plain versions through the eager pass body;
+     then one timed frame;
   5. big-scene kernels: the big scene (five n=64 stand-ins, 245,760
      triangles, 1,920 clusters) and its camera, bounce and shadow
      populations of one 131,072-ray band: each of the five kernels against
@@ -34,8 +36,8 @@ JAX. Phases, each printed, each fatal on failure:
      depth 3, 131,072-ray bands) with traverse_items=True at the budget
      that never overflows, counting every kernel's launches, checked
      against the plain versions, the scan route and the reference's budget
-     (both bit-identical; that budget's overflow share is printed); then 3
-     timed frames of the item route and of the scan route;
+     (both bit-identical; that budget's overflow share is printed); then
+     one timed frame of the item route and one of the scan route;
   7. stage-7 kernels: stage7_scene1 on the n=64 stand-in, whose mesh is a
      traversal domain of its own under a three-key rotation; camera,
      bounce and shadow populations of one band at seeded lane times, moved
@@ -43,14 +45,16 @@ JAX. Phases, each printed, each fatal on failure:
      traverse_blocks and gather_rows_t against their plain versions (bit
      for bit, timed and bounded as in phase 3);
   8. stage-7 frame: 512x512, 1 spp, depth 3, shutter 0..1, counted and
-     checked against the plain versions as in phase 4, then 3 timed frames;
+     checked against the plain versions as in phase 4, then one timed
+     frame;
   9. stage-7b frame: bench.py's stage-7b config (stage7_scene2, 512x256,
      1 spp, depth 3, shutter 0..1): no traversal launch (no domain), the
-     tiny meshes' meta-row gather against its plain version on the frame's
-     own inputs, a second frame bit-identical, 3 timed frames;
+     tiny meshes' meta-row gather against its plain version on the eager
+     frame's own inputs, that eager frame bit-identical to the replayed
+     one, one timed frame;
  10. stage-5 frame: stage5_scene (no mesh) at 512x512, 1 spp, depth 3: no
-     kernel launch at all, no NaN or negative pixel, a second frame
-     bit-identical, host launches counted, 3 timed frames;
+     kernel launch at all, no NaN or negative pixel, the eager frame
+     bit-identical, host launches counted, one timed frame;
  11. mesh-light kernels: the stage-6 geometry with the n=64 stand-in
      wrapped as a ShapeLight in place of the sphere light (49,152 light
      triangles behind one area CDF). sample_light of the mesh light on the
@@ -64,17 +68,18 @@ JAX. Phases, each printed, each fatal on failure:
      through the item route (traverse_items, build_items) against the scan;
  12. mesh-light frame: 512x512, 1 spp, depth 3, counted (closest-hit and
      any-hit launches apart) and checked against the plain versions as in
-     phase 4, then 3 timed frames;
+     phase 4, then one timed frame;
  13. many-shape frames: 40 spheres and 16 lights at 512x512, 1 spp,
      depth 3, each in batches of ROLL_CHUNK rows against the same frame
-     with one row per batch (the fold shape by shape): bit for bit, with
-     the host launches of both; and each lane's chosen light against the
+     with one row per batch (the fold shape by shape, through the eager
+     body, since a captured graph holds its batches): bit for bit, with
+     the batched form's host launches; and each lane's chosen light against the
      per-light functions evaluated for all 16 lights, bit for bit;
  14. stages 1-4: the direct integrators at CONFIG_STAGE123, 512x512, on the
      card (no kernel launch): stage 1's quantised PPM byte-equal to the
      CPU's; stage 2 (64 unstratified samples) and stage 3 (4x4 pixel x 4x4
      light samples, the golden configuration; stage 4 renders the same)
-     timed at 512x512 and held against the CPU at 256x256 and 128x128
+     timed at 512x512 and held against the CPU at 128x128
      (the CPU's time cuts the size): stage 2 within 0.5%; stage 3, a
      float32 knife edge (a sphere light's shadow ray ends on the light),
      by its channel means and its share of agreeing pixels, and its
@@ -83,7 +88,10 @@ JAX. Phases, each printed, each fatal on failure:
  15. the CLI in process: ``cli.main`` on stage 6 at its defaults (640x480,
      2x2 samples, depth 3, the n=64 stand-in, --pfm) with the launch
      counts set to 0 just before it and read just after (masks, traversal
-     and gather must launch); its PFM bit-identical to
+     and gather must launch; the run captures its graph, so its counts
+     hold the capture's eager warm-up pass beside the replays), and once
+     more in one replayed render_path_with_stats frame; its PFM
+     bit-identical to
      render_path_with_stats on the same inputs, to --sharded over the one
      card, and to a run stopped after its first sample and resumed from
      --checkpoint; the stats line (queries, seconds, Mrays/s);
@@ -95,9 +103,8 @@ JAX. Phases, each printed, each fatal on failure:
      gather_rows_t against its plain version, timed and bounded;
  17. the stage-6 frame of phase 4 under 'xla': gather_rows_t launched and
      no traversal kernel, the same frame through the plain gather bit for
-     bit, the kernel route's frame within 0.5% when nothing overflowed
-     (printed beside it otherwise), host launches, device busy share and 3
-     timed frames;
+     bit, the kernel route's replayed frame within 0.5% when nothing
+     overflowed (printed beside it otherwise), and one timed frame;
  18. the big-scene frame of phase 6 under 'xla' (its five meshes one by
      one): overflow and its share of the queries, the relative RMSE
      against the scan route, checked and timed as in phase 17;
@@ -108,18 +115,42 @@ JAX. Phases, each printed, each fatal on failure:
      render_path_with_stats under 'xla';
  21. ``python -m rayito_tpu_torch.cli --scene stage1`` in a subprocess with
      no --device: it must render on cuda;
- 22. utils/profiling.phase_table of one 512x512 stage-6 frame on each
-     route (under 'xla' with the pipeline's rollup).
+ 22. one profiled 512x512 stage-6 frame on each route (the kernel route's
+     replayed): host kernel and graph launches, kernel ms, the share of
+     that frame's wall ms they fill, and utils/profiling.phase_table ('xla'
+     with the pipeline's rollup);
+ 23. graphs, the reference's dispatch (each pass a CUDA graph captured once
+     and replayed): the frames of phases 4, 6 (item and scan route), 8-10,
+     12, 13 and 14 (stage 3 at its golden configuration) and the CLI's
+     render, each replayed frame against the same frame through the eager
+     pass body, bit for bit with its queries; per frame the capture ms
+     (warm-up run included), pool MB, frame ms (mean of 3 on the host
+     clock, and by CUDA events), the kernel launches of one replayed frame,
+     and of one profiled replayed frame its device ops, kernel ms, wall ms
+     and busy share (their ratio), host kernel and graph launches, and
+     each kernel's launches from the device records, which must equal its
+     counter (stage 3 not profiled: 16 replays of 26,574 device ops).
 
-Prints a JSON line of per-kernel results (camera-ray times; launches in
-the frame of the path each kernel serves first, and per frame, the 'xla'
-frames included; per stage-7, mesh-light and 'xla' population), then,
-last, one JSON line ``{"ok": true, "device": {...}}``.
+Launches are counted on the device: each kernel wrapper adds one to a
+device counter beside its launch, so a captured graph holds the add and
+every replay counts (``render/traverse.launch_counts``); the counts are
+set to 0 after a frame that captured its graphs, so a counted frame is
+replays only unless said otherwise. The 'xla' route runs eagerly. Host
+launches are counted as kernel and graph launches (cudaLaunchKernel,
+cudaGraphLaunch). Every phase's graphs are freed
+(``utils/graphs.clear()``) before the next phase.
+
+Prints a JSON line of phase 23's numbers per frame, a JSON line of
+per-kernel results (camera-ray times; launches in the frame of the path
+each kernel serves first, and per frame, the 'xla' frames and the
+replayed frames included; per stage-7, mesh-light and 'xla' population),
+then, last, one JSON line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -197,29 +228,41 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     cuda_lib.library()
+    from rayito_tpu_torch.utils import graphs
+
     dev = torch.device("cuda", 0)
-    stage6 = run(dev, card)
-    big = run_big(dev, card)
-    stage7 = run_stage7(dev, card)
-    stage7b = run_stage7b(dev, card)
-    stage5 = run_stage5(dev, card)
-    mesh_light = run_mesh_light(dev, card)
-    run_many(dev, card)
-    direct = run_direct(dev, card)
-    cli = run_cli(dev, card)
-    xla = run_xla(dev, card)
-    run_cli_subprocess()
-    run_phase_table(dev)
+    phases = [lambda: run(dev, card), lambda: run_big(dev, card),
+              lambda: run_stage7(dev, card), lambda: run_stage7b(dev, card),
+              lambda: run_stage5(dev, card),
+              lambda: run_mesh_light(dev, card), lambda: run_many(dev, card),
+              lambda: run_direct(dev, card), lambda: run_cli(dev, card),
+              lambda: run_xla(dev, card), run_cli_subprocess,
+              lambda: run_phase_table(dev), lambda: run_graphs(dev, card)]
+    outs = []
+    for phase in phases:
+        t0 = time.perf_counter()
+        outs.append(phase())
+        graphs.clear()  # the pools of one phase's graphs go with it
+        print(f"-- phase done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    (stage6, big, stage7, stage7b, stage5, mesh_light, _, direct, cli, xla,
+     _, _, by_graph) = outs
 
     records = kernel_records(stage6, big, stage7, stage7b, stage5,
                              mesh_light, xla)
     for k in records:
         k["launches_frame"]["stages1_4"] = direct["launches"][k["name"]]
         k["launches_frame"]["cli_stage6"] = cli["launches"][k["name"]]
+        k["launches_frame"]["cli_main"] = cli["main_launches"][k["name"]]
         for path in ("stage6", "big", "stage7", "cli"):
             k["launches_frame"][path + "_xla"] = \
                 xla[path]["launches"][k["name"]]
+        for path, r in by_graph.items():
+            k["launches_frame"][path + "_graph"] = r["launches"][k["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"graphs": {k: {m: v for m, v in r.items()
+                                     if m != "launches"}
+                                 for k, r in by_graph.items()}}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -229,9 +272,10 @@ def main() -> int:
 
 def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
                    stage5: dict, mesh_light: dict, xla: dict) -> list:
-    """The five kernels' records: launches in the frame of the path each
-    serves first (stage 6; the big scene for the item route) and per frame
-    of each path; errors over every population; camera-ray times with
+    """The five kernels' records: launches (device-counted, replays
+    included) in the replayed frame of the path each serves first (stage 6;
+    the big scene for the item route) and per frame of each path; errors
+    over every population; camera-ray times with
     their bounds (big_* for the big scene); per stage-7 population (rays in
     the moving domain's local space) and per mesh-light population the
     times, bounds and shares of the stage-6 kernels, and the stage-7b
@@ -409,9 +453,15 @@ def _standin_obj() -> str:
 
 def _frame_fn(scene, cfg, cam):
     """``frame(scene=scene)`` renders sample 0 over every row band through
-    ``_render_path_frame`` and returns (images, issued queries); the
+    ``_render_path_frame``, the card's main path: one replay of the pass
+    graph per launch (captured on the first call). It returns (images,
+    issued queries). ``frame(scene, graph=False)`` renders the same grid
+    through the eager pass body (``_path_pass_body``), as the CPU does: the
+    plain-version frames run there, with the kernel wrappers swapped. The
     frame's overflow (the 'xla' route's truncations) is left in
     ``frame.overflow``."""
+    import torch
+
     from rayito_tpu_torch.render import pathtracer as pt
 
     band = cfg.max_rays_per_pass // cfg.width
@@ -419,14 +469,36 @@ def _frame_fn(scene, cfg, cam):
         raise ValueError("the frame must be a whole number of bands")
     row0s = list(range(0, cfg.height, band))
 
-    def frame(scene=scene):
-        imgs, frame.overflow, q = pt._render_path_frame(
-            scene, cfg, cam, [[0]] * len(row0s), row0s, band)
-        return imgs, q
+    def frame(scene=scene, graph=True):
+        dev = scene.device
+        if graph:
+            imgs, frame.overflow, q = pt._render_path_frame(
+                scene, cfg, cam, torch.zeros((len(row0s), 1),
+                                             dtype=torch.int32, device=dev),
+                torch.tensor(row0s, dtype=torch.int32).to(dev), band)
+            return imgs, q
+        cam_d = cam.to(dev)
+        si = torch.zeros((1,), dtype=torch.int32, device=dev)
+        imgs, frame.overflow = [], 0
+        q = torch.zeros((), dtype=torch.int64, device=dev)
+        for r0 in row0s:
+            img, ovf, q1 = pt._path_pass_body(
+                scene, cfg, cam_d, si,
+                torch.full((), r0, dtype=torch.int32, device=dev), band)
+            imgs.append(img)
+            frame.overflow = frame.overflow + ovf
+            q = q + q1
+        return torch.stack(imgs), q
 
     return frame
 
 
+def _once(setup):
+    """A setup built once per device and kept (phase 23 reuses it)."""
+    return functools.lru_cache(maxsize=None)(setup)
+
+
+@_once
 def stage6_setup(dev):
     """(scene, config, camera, frame) of the stage-6 frame on ``dev``;
     ``frame()`` renders sample 0 over every row band through
@@ -444,6 +516,7 @@ def stage6_setup(dev):
     return scene, cfg, cam, _frame_fn(scene, cfg, cam)
 
 
+@_once
 def big_setup(dev):
     """(scan scene, items scene, defaults scene, config, camera, frame) of
     the big-scene frame: tools/bench_big_scene.py's config. The items scene
@@ -467,6 +540,7 @@ def big_setup(dev):
     return scan, items, defaults, cfg, cam, _frame_fn(items, cfg, cam)
 
 
+@_once
 def stage7_setup(dev):
     """(scene, config, camera, frame) of the stage-7 frame: stage7_scene1
     on the n=64 stand-in (its mesh a traversal domain of its own under a
@@ -485,6 +559,7 @@ def stage7_setup(dev):
     return scene, cfg, cam, _frame_fn(scene, cfg, cam)
 
 
+@_once
 def stage7b_setup(dev):
     """(scene, config, camera, frame) of bench.py's stage-7b frame:
     stage7_scene2 (ten spheres and ten cubes, every cube a tiny moving
@@ -519,6 +594,7 @@ def _still_setup(dev, make_scene, fov, spec, **cfg_kw):
     return scene, cfg, cam, _frame_fn(scene, cfg, cam)
 
 
+@_once
 def stage5_setup(dev):
     """(scene, config, camera, frame) of the stage-5 frame: bullseye plane,
     four spheres, a rect light and a sphere light; no mesh, no domain."""
@@ -555,6 +631,7 @@ def mesh_light_scene(obj_path: str):
     return s
 
 
+@_once
 def mesh_light_setup(dev):
     """(scene, the same scene on the CPU, config, camera, frame) of the
     mesh-light frame: stage 6's camera and config at 1 spp."""
@@ -574,6 +651,7 @@ def mesh_light_setup(dev):
     return scene, on_cpu, cfg, cam, _frame_fn(scene, cfg, cam)
 
 
+@_once
 def many_spheres_setup(dev):
     from rayito_tpu_torch.models.demo import many_spheres_scene
 
@@ -581,6 +659,7 @@ def many_spheres_setup(dev):
                         ((0, 3, 18), (0, 0, 0), (0, 1, 0)))
 
 
+@_once
 def sixteen_lights_setup(dev):
     from rayito_tpu_torch.models.demo import sixteen_lights_scene
 
@@ -605,7 +684,7 @@ def _populations(scene, cfg, cam, light_corner, light_sides, time=None):
     px, py = _pixel_grid(cfg.width, band, dev)
     half = torch.full(px.shape, 0.5, device=dev)
     xu, yu = screen_uv(cfg, px, py, half, half)
-    o, d, _ = cam.make_rays(xu, yu, half, half, half)
+    o, d, _ = cam.to(xu.device).make_rays(xu, yu, half, half, half)
     n = px.shape[0]
     hit = tr.scene_intersect(scene, o, d, time, cfg.ray_tmin, 1e30)
     rng = np.random.default_rng(0)
@@ -800,7 +879,7 @@ def _check_population(name, scene, di, co, cd, ctmax, mt, any_hit, tmin):
     r["trav_call_ms"] = _median_ms(lambda: tv.traverse_blocks(
         m_k, soat, tri, tmin, mt, any_hit, n_live), 20)
     r["trav_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
-        m_k, soat, tri, tmin, mt, any_hit, n_live), 3)
+        m_k, soat, tri, tmin, mt, any_hit, n_live), 1)
     r["t_err"] = t_err
     r["hits"] = hits
     _mask_bound(r, soat, box, tmin, n_live, m_k)
@@ -813,22 +892,22 @@ def _check_population(name, scene, di, co, cd, ctmax, mt, any_hit, tmin):
 
 def _frame_phase(label: str, cfg, frame, card: str,
                  kernels=STAGE6_KERNELS) -> dict:
-    """One main-path frame with the launch counts set to 0 just before it
-    and read just after (each of ``kernels`` must have run), its image
-    checked; the same frame through the plain versions (relative RMSE at
-    most 0.5%); then 3 timed frames. Returns the launches, frame ms and
-    Mrays/s."""
+    """One main-path frame (replayed graphs, captured by a first frame)
+    with the launch counts set to 0 just before it and read just after
+    (each of ``kernels`` must have run), its image checked; the same frame
+    through the plain versions (relative RMSE at most 0.5%); then one timed
+    frame. Returns the launches, frame ms and Mrays/s."""
     import torch
 
     from rayito_tpu_torch.render import traverse as tv
 
     band = cfg.max_rays_per_pass // cfg.width
-    frame()  # warm-up
+    frame()  # warm-up: captures the pass graph
     torch.cuda.synchronize()
     tv.reset_launch_counts()
     imgs, queries = frame()
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    launches = tv.launch_counts()
     print(f"launches in one frame: {launches}")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, label)
@@ -839,7 +918,7 @@ def _frame_phase(label: str, cfg, frame, card: str,
     undo = _swap_plain()
     try:
         t0 = time.perf_counter()
-        imgs_p, q_p = frame()
+        imgs_p, q_p = frame(graph=False)
         torch.cuda.synchronize()
         plain_frame_s = time.perf_counter() - t0
     finally:
@@ -852,7 +931,7 @@ def _frame_phase(label: str, cfg, frame, card: str,
     if rel > 0.005:
         raise AssertionError(f"{label}: relative RMSE {rel} > 0.5%")
 
-    frame_s, q_frame = _time_frames(frame)
+    frame_s, q_frame = _time_frames(frame, 1)
     mrays = q_frame / frame_s / 1e6
     print(f"{label}, {cfg.height // band} bands): {frame_s * 1e3:.1f} "
           f"ms/frame, {q_frame:.0f} issued queries, {mrays:.3f} Mrays/s on "
@@ -1005,13 +1084,13 @@ def run_big(dev, card: str) -> dict:
         r["items_ms"] = _device_ms(lambda: tv.traverse_items(
             il, steps, soab, tri, tmin, mt, w))
         r["items_plain_ms"] = _median_ms(lambda: tv.traverse_items_plain(
-            il, steps, soab, tri, tmin, mt, w), 3)
+            il, steps, soab, tri, tmin, mt, w), 1)
         r["scan_ms"] = _device_ms(lambda: tv.traverse_blocks(
             masks, soat, tri, tmin, mt, any_hit, n_live))
         r["scan_call_ms"] = _median_ms(lambda: tv.traverse_blocks(
             masks, soat, tri, tmin, mt, any_hit, n_live), 20)
         r["scan_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
-            masks, soat, tri, tmin, mt, any_hit, n_live), 3)
+            masks, soat, tri, tmin, mt, any_hit, n_live), 1)
         for label, sd in (("build_items", items),
                           ("build_items_ref", defaults)):
             r[label + "_ms"] = _device_ms(lambda: tv.build_items(
@@ -1044,12 +1123,12 @@ def run_big(dev, card: str) -> dict:
 
     _phase("big-scene frame")
     band = cfg.max_rays_per_pass // cfg.width
-    frame()  # warm-up
+    frame()  # warm-up: captures the pass graph
     torch.cuda.synchronize()
     tv.reset_launch_counts()
     imgs, queries = frame()
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    launches = tv.launch_counts()
     print(f"launches in one big-scene frame (traverse_items=True): "
           f"{launches}")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
@@ -1061,7 +1140,7 @@ def run_big(dev, card: str) -> dict:
     undo = _swap_plain()
     try:
         t0 = time.perf_counter()
-        imgs_p, q_p = frame()
+        imgs_p, q_p = frame(graph=False)
         torch.cuda.synchronize()
         plain_frame_s = time.perf_counter() - t0
     finally:
@@ -1082,11 +1161,12 @@ def run_big(dev, card: str) -> dict:
         flags.append(res[2])
         return res
 
-    # the wrapper counts its launches on the name it is called by
-    spy.launches = build.launches
+    # the eager body, so the spy sees every launch's flag; the wrapper
+    # counts its launches on the name it is called by
+    spy.launches, spy.device_launches = build.launches, build.device_launches
     tv.build_items = spy
     try:
-        imgs_d, q_d = frame(defaults)
+        imgs_d, q_d = frame(defaults, graph=False)
     finally:
         tv.build_items = build
         build.launches = spy.launches
@@ -1104,7 +1184,7 @@ def run_big(dev, card: str) -> dict:
           f"overflowed to the scan (share {share:.3f})")
 
     for label, sd in (("items", items), ("scan", scan)):
-        frame_s, q_frame = _time_frames(lambda: frame(sd))
+        frame_s, q_frame = _time_frames(lambda: frame(sd), 1)
         mrays = q_frame / frame_s / 1e6
         print(f"big-scene frame, {label} route ({WIDTH}x{WIDTH}, 1 spp, "
               f"depth 3, {cfg.height // band} bands): "
@@ -1161,7 +1241,7 @@ def run_stage7b(dev, card: str) -> dict:
     set to 0 just before it and read just after (no traversal kernel: the
     scene has no domain; gather_rows_t fetches the tiny meshes' winners'
     meta rows); the gather's inputs of that frame against its plain
-    version; a second frame bit-identical; 3 timed frames."""
+    version; a second frame bit-identical; one timed frame."""
     import torch
 
     from rayito_tpu_torch.render import trace as tr
@@ -1172,8 +1252,22 @@ def run_stage7b(dev, card: str) -> dict:
     print(f"stage-7b scene: {scene.n_spheres} spheres, {scene.n_meshes} "
           f"meshes ({scene.tri_meta_rows.shape[0]} triangle rows), domains "
           f"{scene.ktab_xf}, tiny meshes {scene.ktab_small}")
-    frame()  # warm-up
+    frame()  # warm-up: captures the pass graph
     torch.cuda.synchronize()
+    tv.reset_launch_counts()
+    imgs, queries = frame()
+    torch.cuda.synchronize()
+    launches = tv.launch_counts()
+    print(f"launches in one stage-7b frame: {launches}")
+    if launches["gather_rows_t"] <= 0 or any(
+            launches[k] for k in launches if k != "gather_rows_t"):
+        raise AssertionError("stage-7b: expected gather_rows_t launches "
+                             "and no traversal launch")
+    img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
+    diag = _check_image(img, "stage-7b frame")
+    print(f"frame {img.shape}: queries {int(queries)}, {diag}")
+    # the same frame through the eager body, its first gather's inputs
+    # kept for the kernel-against-plain check
     calls = []
     gather = tr.gather_rows_t
 
@@ -1183,33 +1277,22 @@ def run_stage7b(dev, card: str) -> dict:
         return gather(table, idx)
 
     tr.gather_rows_t = spy
-    tv.reset_launch_counts()
     try:
-        imgs, queries = frame()
+        imgs2, q2 = frame(graph=False)
         torch.cuda.synchronize()
     finally:
         tr.gather_rows_t = gather
-    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
-    print(f"launches in one stage-7b frame: {launches}")
-    if launches["gather_rows_t"] <= 0 or any(
-            launches[k] for k in launches if k != "gather_rows_t"):
-        raise AssertionError("stage-7b: expected gather_rows_t launches "
-                             "and no traversal launch")
-    img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
-    diag = _check_image(img, "stage-7b frame")
-    print(f"frame {img.shape}: queries {int(queries)}, {diag}")
     r = {}
     table, idx = calls[0]
     _check_gather_rows("stage-7b meta rows", table, idx, r, "meta")
     print("stage-7b meta rows: " + _fmt(r))
-    imgs2, q2 = frame()
-    torch.cuda.synchronize()
     same = torch.equal(imgs.view(torch.int32), imgs2.view(torch.int32))
-    print(f"second stage-7b frame bit-identical {same}, queries "
-          f"{int(queries)} / {int(q2)}")
+    print(f"stage-7b eager frame bit-identical to the replayed {same}, "
+          f"queries {int(queries)} / {int(q2)}")
     if not same or int(q2) != int(queries):
-        raise AssertionError("stage-7b frame is not deterministic")
-    frame_s, q_frame = _time_frames(frame)
+        raise AssertionError("stage-7b frame differs between eager and "
+                             "replayed")
+    frame_s, q_frame = _time_frames(frame, 1)
     mrays = q_frame / frame_s / 1e6
     print(f"stage-7b frame ({cfg.width}x{cfg.height}, 1 spp, depth 3, "
           f"shutter 0..1): {frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} issued "
@@ -1219,26 +1302,51 @@ def run_stage7b(dev, card: str) -> dict:
                       "queries": q_frame}}
 
 
-def _profile_frame(frame):
-    """(kernel launches the host makes for one frame: torch.profiler's
-    count of cudaLaunchKernel calls, device ms summed over its kernels)."""
+# the kernel each wrapper launches exactly once per call, by its symbol
+MARKERS = {"cluster_masks": "cluster_masks_kernel",
+           "traverse_blocks": "blocks_init_kernel",
+           "gather_rows_t": "gather_rows_t_kernel",
+           "traverse_items": "items_init_kernel",
+           "build_items": "items_count_kernel"}
+
+
+def _profile_frame(frame) -> dict:
+    """One frame under torch.profiler: the host's kernel launches (its
+    count of cudaLaunchKernel calls) and CUDA-graph launches
+    (cudaGraphLaunch), and from the device's records, those inside graph
+    replays included: the device ops, the kernel ms summed, each wrapper's
+    launches (its ``MARKERS`` kernel), the frame's wall ms under the
+    profiler, and the profile itself."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from rayito_tpu_torch.utils.profiling import collect_device_ops
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         frame()
         torch.cuda.synchronize()
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC"))
-    return launches, sum(us for us, _ in
-                         collect_device_ops(prof).values()) / 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {e.key: e.count for e in prof.key_averages()}
+    ops = collect_device_ops(prof)
+    return {
+        "host_kernel_launches": sum(counts.get(k, 0) for k in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+        "graph_launches": sum(counts.get(k, 0) for k in (
+            "cudaGraphLaunch", "cuGraphLaunch")),
+        "device_ops": sum(n for _, n in ops.values()),
+        "kernel_ms": sum(us for us, _ in ops.values()) / 1e3,
+        "wall_ms": wall_ms,
+        "by_kernel": {k: sum(n for name, (_, n) in ops.items() if sym in name)
+                      for k, sym in MARKERS.items()},
+        "prof": prof}
 
 
-def _host_launches(frame) -> int:
-    return _profile_frame(frame)[0]
+def _host_launches(frame) -> str:
+    """The host's launches of one frame: kernels, and graphs beside."""
+    p = _profile_frame(frame)
+    return (f"{p['host_kernel_launches']} kernel / {p['graph_launches']} "
+            "graph")
 
 
 def _same_frame(label, a, b):
@@ -1254,8 +1362,8 @@ def _same_frame(label, a, b):
 def run_stage5(dev, card: str) -> dict:
     """Phase 10 on ``dev``: the stage-5 frame with the launch counts set to
     0 just before it and read just after (no mesh: no kernel of the port
-    may launch); a second frame bit-identical; host launches; 3 timed
-    frames."""
+    may launch); the eager frame bit-identical; host launches; one timed
+    frame."""
     import torch
 
     from rayito_tpu_torch.render import traverse as tv
@@ -1265,21 +1373,22 @@ def run_stage5(dev, card: str) -> dict:
     print(f"stage-5 scene: {scene.n_planes} plane, {scene.n_spheres} spheres, "
           f"{scene.n_rects} rect, {scene.n_meshes} meshes, {scene.n_lights} "
           f"lights (kinds {scene.light_kinds_host})")
-    frame()  # warm-up
+    frame()  # warm-up: captures the pass graph
     torch.cuda.synchronize()
     tv.reset_launch_counts()
     first = frame()
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    launches = tv.launch_counts()
     print(f"launches in one stage-5 frame: {launches}")
     if any(launches.values()):
         raise AssertionError("stage 5 has no mesh, yet a kernel launched")
     img = first[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, "stage-5 frame")
     print(f"frame {img.shape}: queries {int(first[1])}, {diag}")
-    _same_frame("second stage-5 frame", first, frame())
+    _same_frame("stage-5 eager frame against the replayed", first,
+                frame(graph=False))
     host = _host_launches(frame)
-    frame_s, q_frame = _time_frames(frame)
+    frame_s, q_frame = _time_frames(frame, 1)
     mrays = q_frame / frame_s / 1e6
     print(f"stage-5 frame ({cfg.width}x{cfg.height}, 1 spp, depth 3): "
           f"{host} host launches, {frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} "
@@ -1333,7 +1442,7 @@ def _mesh_light_populations(scene, cfg, cam, li):
     px, py = _pixel_grid(cfg.width, band, dev)
     half = torch.full(px.shape, 0.5, device=dev)
     xu, yu = screen_uv(cfg, px, py, half, half)
-    o, d, _ = cam.make_rays(xu, yu, half, half, half)
+    o, d, _ = cam.to(xu.device).make_rays(xu, yu, half, half, half)
     n = px.shape[0]
     out = {}
     hits = []
@@ -1474,7 +1583,8 @@ def run_mesh_light(dev, card: str) -> dict:
               f"camera population's {cam_pairs}")
 
     _phase("mesh-light frame")
-    modes = [mt for _, _, _, _, mt, _ in _captured_launches(frame)]
+    modes = [mt for _, _, _, _, mt, _ in _captured_launches(
+        lambda: frame(graph=False))]
     tally = {mt: modes.count(mt) for mt in sorted(set(modes))}
     print(f"traversal launches of one mesh-light frame by triangle test: "
           f"{tally} (closest-hit launches are 'bw', any-hit 'vpu')")
@@ -1560,10 +1670,10 @@ def run_many(dev, card: str) -> None:
         stats = {"batched": (_host_launches(frame), *_time_frames(frame, 1))}
         chunk = tr.ROLL_CHUNK
         tr.ROLL_CHUNK = 1
-        try:
-            by_row = frame()
-            stats["row-by-row"] = (_host_launches(frame),
-                                   *_time_frames(frame, 1))
+        try:  # the eager body: the captured graph holds ROLL_CHUNK's rows
+            by_row = frame(graph=False)
+            stats["row-by-row"] = ("not counted", *_time_frames(
+                lambda: frame(graph=False), 1))
         finally:
             tr.ROLL_CHUNK = chunk
         _same_frame(f"{label}, batched vs one row per batch", batched, by_row)
@@ -1593,6 +1703,7 @@ def _stage3_no_sphere_light(pkg):
     return s
 
 
+@_once
 def direct_setup(dev, stage: str):
     """(scene, config, camera spec, frame) of a stage-1, 2 or 3 frame at
     CONFIG_STAGE123, 512x512 (stage 2: 64 unstratified samples; stage 3:
@@ -1616,6 +1727,7 @@ def direct_setup(dev, stage: str):
         spp=spp), 0)
 
 
+@_once
 def cli_setup(dev):
     """(scene, config, camera, frame) of the CLI's stage-6 render at its
     defaults (640x480, 2x2 samples, depth 3, the n=64 stand-in);
@@ -1663,7 +1775,7 @@ def run_direct(dev, card: str) -> dict:
         t0 = time.perf_counter()  # each frame ends in its image's readback
         imgs[k] = frame()[0]
         frame_ms[k] = (time.perf_counter() - t0) * 1e3
-    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    launches = tv.launch_counts()
     print(f"launches in the stage 1-3 frames: {launches}")
     if any(launches.values()):
         raise AssertionError("stages 1-4 have no mesh, yet a kernel launched")
@@ -1708,7 +1820,7 @@ def run_direct(dev, card: str) -> dict:
               flush=True)
         return rel, close.mean(), means
 
-    cfg2 = dataclasses.replace(CONFIG_STAGE123, width=256, height=256)
+    cfg2 = dataclasses.replace(CONFIG_STAGE123, width=128, height=128)
     rel2, _, _ = against_cpu("stage 2", demo.stage2_scene, cfg2, render2)
     cfg3 = dataclasses.replace(golden3, width=128, height=128)
     _, close3, means3 = against_cpu("stage 3", demo.stage3_scene, cfg3,
@@ -1770,19 +1882,27 @@ def run_cli(dev, card: str) -> dict:
     cli.main(args + ["-o", pfm["cli"]])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    main_launches = tv.launch_counts()
     print(f"launches in cli.main (640x480, 4 spp, depth 3, 2 bands per "
-          f"sample): {launches}; {cli_s:.2f} s with the scene build")
-    if min(launches[k] for k in STAGE6_KERNELS) <= 0:
+          f"sample; the capture's warm-up pass included): {main_launches}; "
+          f"{cli_s:.2f} s with the scene build")
+    if min(main_launches[k] for k in STAGE6_KERNELS) <= 0:
         raise AssertionError("the CLI's render never launched a kernel of "
                              "its path")
 
     scene, cfg, cam = _cli_inputs(dev, obj)
-    pt.render_path_with_stats(scene, cfg, cam)  # warm-up
+    pt.render_path_with_stats(scene, cfg, cam)  # warm-up: captures
     torch.cuda.synchronize()
+    tv.reset_launch_counts()
     t0 = time.perf_counter()
     ref, _, queries = pt.render_path_with_stats(scene, cfg, cam)
     render_s = time.perf_counter() - t0
+    launches = tv.launch_counts()
+    print(f"launches in one replayed render_path_with_stats frame at the "
+          f"CLI's inputs: {launches}")
+    if min(launches[k] for k in STAGE6_KERNELS) <= 0:
+        raise AssertionError("the CLI's frame never launched a kernel of "
+                             "its path")
     _check_image(ref, "CLI stage-6 frame")
     print(f"render_path_with_stats, CLI inputs: {queries} queries, "
           f"{render_s:.3f} s, {queries / render_s / 1e6:.3f} Mrays/s on "
@@ -1817,8 +1937,8 @@ def run_cli(dev, card: str) -> dict:
                  if k == "resumed" else ""))
         if not same:
             raise AssertionError(f"the {k} run's image differs")
-    return {"launches": launches, "queries": queries,
-            "render_ms": render_s * 1e3}
+    return {"launches": launches, "main_launches": main_launches,
+            "queries": queries, "render_ms": render_s * 1e3}
 
 # ---------------------------------------------------------------------------
 # traversal='xla': the two-level cluster pipeline
@@ -1834,7 +1954,7 @@ def _xla_launches(label):
     launched and no traversal kernel."""
     from rayito_tpu_torch.render import traverse as tv
 
-    launches = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    launches = tv.launch_counts()
     print(f"launches in {label}: {launches}")
     if launches["gather_rows_t"] <= 0 or any(
             launches[k] for k in XLA_KERNELS_OFF):
@@ -1899,8 +2019,8 @@ def _xla_gathers(scene, cfg, cam, r):
     band = cfg.max_rays_per_pass // cfg.width
     px, py = _pixel_grid(cfg.width, band, scene.device)
     half = torch.full(px.shape, 0.5, device=scene.device)
-    o, d, _ = cam.make_rays(*screen_uv(cfg, px, py, half, half), half, half,
-                            half)
+    o, d, _ = cam.to(scene.device).make_rays(
+        *screen_uv(cfg, px, py, half, half), half, half, half)
     calls = {}
     saved = (mi.gather_rows_t, tr.gather_rows_t)
 
@@ -1924,12 +2044,12 @@ def _xla_gathers(scene, cfg, cam, r):
     _check_gather_rows("xla camera, meta rows", table, idx, r, "xla_meta")
 
 
-def _xla_frame(label, frame, scene, cfg, card, other=None, timed=3):
+def _xla_frame(label, frame, scene, cfg, card, other=None, timed=1):
     """One 'xla' frame with the launch counts set to 0 just before it and
     read just after; the same frame through the plain gather, bit for bit;
     ``other`` (a frame function of the kernel route), the relative RMSE
-    against it (at most 0.5% when nothing overflowed); then host launches,
-    device busy share and ``timed`` timed frames."""
+    against it (at most 0.5% when nothing overflowed); then ``timed``
+    timed frames (phase 22 profiles the stage-6 frame)."""
     import torch
 
     from rayito_tpu_torch.render import traverse as tv
@@ -1961,14 +2081,10 @@ def _xla_frame(label, frame, scene, cfg, card, other=None, timed=3):
         out["rel_rmse_vs_kernels"] = rel
         if ovf == 0 and rel > 0.005:
             raise AssertionError(f"{label}: {rel} from the kernel route")
-    host, device_ms = _profile_frame(lambda: frame(scene))
     frame_s, q_frame = _time_frames(lambda: frame(scene), timed)
-    busy = device_ms / (frame_s * 1e3)
-    print(f"{label}: {frame_s * 1e3:.1f} ms/frame (mean of {timed}), {host} "
-          f"host launches, {device_ms:.1f} ms of kernels (busy {busy:.1%}), "
+    out.update(frame_ms=frame_s * 1e3)
+    print(f"{label}: {frame_s * 1e3:.1f} ms/frame (mean of {timed}), "
           f"{q_frame / frame_s / 1e6:.3f} Mrays/s on {card}", flush=True)
-    out.update(frame_ms=frame_s * 1e3, host_launches=host,
-               device_ms=device_ms, busy=busy)
     return out
 
 
@@ -2012,8 +2128,7 @@ def run_xla(dev, card: str) -> dict:
     bframe = _frame_fn(big_xla, bcfg, bcam)
     big = _xla_frame(f"big-scene frame under 'xla' (five n={MESH_N} "
                      f"stand-ins, {WIDTH}x{WIDTH}, 1 spp, depth 3)", bframe,
-                     big_xla, bcfg, card, other=lambda: bframe(big_scan),
-                     timed=1)
+                     big_xla, bcfg, card, other=lambda: bframe(big_scan))
 
     _phase("xla stage-7 frame")
     s7_scene, s7_cfg, s7_cam, _ = stage7_setup(dev)
@@ -2021,7 +2136,7 @@ def run_xla(dev, card: str) -> dict:
     s7 = _xla_frame(f"stage-7 frame under 'xla' (n={MESH_N} stand-in, "
                     f"{WIDTH}x{WIDTH}, 1 spp, depth 3, shutter 0..1)",
                     _frame_fn(s7_xla, s7_cfg, s7_cam), s7_xla, s7_cfg, card,
-                    other=_frame_fn(s7_scene, s7_cfg, s7_cam), timed=1)
+                    other=_frame_fn(s7_scene, s7_cfg, s7_cam))
 
     _phase("xla cli")
     obj = _standin_obj()
@@ -2081,11 +2196,224 @@ def run_cli_subprocess() -> None:
         raise AssertionError("the CLI subprocess did not render on cuda")
 
 
-def run_phase_table(dev) -> None:
-    """Phase 22: utils/profiling.phase_table of one stage-6 frame on each
-    route (the 'xla' frame's pipeline rollup must be there)."""
+def _bits(img):
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    if isinstance(img, torch.Tensor):
+        img = img.cpu().numpy()
+    return np.ascontiguousarray(img, np.float32).view(np.int32)
+
+
+def _pool_mb(gs) -> float:
+    """Device memory the caching allocator holds for the pools of the
+    graphs ``gs``."""
+    import torch
+
+    pools = {tuple(g.graph.pool()) for g in gs}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools) / 2**20
+
+
+def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
+                 profiled: bool = True) -> dict:
+    """One frame through the dispatch. ``eager()`` and ``replayed()``
+    return (images, issued queries): the eager pass body per launch, and
+    the entry point whose passes replay CUDA graphs. With the graphs
+    cleared, the first replayed frame captures its graphs (capture ms:
+    each capture with its warm-up run, timed on the host around
+    ``graphs.capture``) and must equal the eager frame bit for bit,
+    queries included. Then: pool MB; one frame with the launch counts set
+    to 0 just before it and read just after (each of ``kernels`` must have
+    run: the wrappers' device counters move with every replay); 3 timed
+    frames (host clock, and CUDA events around each); and, if
+    ``profiled``, one frame under the profiler: host kernel and graph
+    launches, device ops, kernel ms and wall ms of that same frame (busy
+    share = their ratio; the profiler lengthens the frame, so the share
+    reads low rather than high), and each wrapper's launches counted again
+    from the device records, which must equal its counter."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import graphs
+
+    graphs.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = eager()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    capture_ms = []
+    real = graphs.capture
+
+    def timed_capture(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = real(*a, **kw)
+        torch.cuda.synchronize()
+        capture_ms.append((time.perf_counter() - t1) * 1e3)
+        return g
+
+    graphs.capture = timed_capture
+    try:
+        got = replayed()
+        torch.cuda.synchronize()
+    finally:
+        graphs.capture = real
+    same = np.array_equal(_bits(got[0]), _bits(ref[0]))
+    print(f"{label}: replayed frame bit-identical to the eager frame {same}, "
+          f"queries {int(got[1])} / {int(ref[1])}")
+    if not same or int(got[1]) != int(ref[1]):
+        raise AssertionError(f"{label}: the replayed frame differs")
+    gs = graphs.graphs()
+    before = [g.replays for g in gs]
+    tv.reset_launch_counts()
+    replayed()
+    torch.cuda.synchronize()
+    launches = tv.launch_counts()
+    if any(launches[k] <= 0 for k in kernels):
+        raise AssertionError(f"{label}: a kernel of the path never launched "
+                             f"in the replayed frame: {launches}")
+    per_frame = sum(g.replays - b for g, b in zip(gs, before))
+    frame_s, _ = _time_frames(replayed)
+    ev = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replayed()
+        end.record()
+        torch.cuda.synchronize()
+        ev.append(start.elapsed_time(end))
+    r = {"eager_ms": eager_ms, "frame_ms": frame_s * 1e3,
+         "event_ms": sum(ev) / len(ev), "graphs": len(gs),
+         "replays_per_frame": per_frame, "capture_ms": sum(capture_ms),
+         "pool_mb": _pool_mb(gs), "queries": int(got[1])}
+    if profiled:
+        tv.reset_launch_counts()
+        p = _profile_frame(replayed)
+        counted = tv.launch_counts()
+        if p["by_kernel"] != counted:
+            raise AssertionError(f"{label}: device records {p['by_kernel']} "
+                                 f"!= launch counters {counted}")
+        r.update(kernel_ms=p["kernel_ms"], profiled_ms=p["wall_ms"],
+                 busy=p["kernel_ms"] / p["wall_ms"],
+                 device_ops=p["device_ops"],
+                 host_kernel_launches=p["host_kernel_launches"],
+                 graph_launches=p["graph_launches"])
+    print(f"{label}: " + _fmt(r))
+    print(f"{label}: kernel launches in one replayed frame {launches} on "
+          f"{card}", flush=True)
+    r["launches"] = launches
+    graphs.clear()
+    return r
+
+
+def _stage3_frames(dev):
+    """(eager, replayed) frames of stage 3 at its golden configuration:
+    render_direct, and its chunks through the eager pass body added in the
+    same order."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.render import integrator as ig
+
+    scene, cfg, spec, frame = direct_setup(dev, "stage3")
+    spp = cfg.pixel_samples ** 2
+    chunk = max(1, min(spp, cfg.max_rays_per_pass
+                       // (cfg.width * cfg.height)))
+
+    def eager():
+        acc = np.zeros((cfg.height, cfg.width, 3), np.float32)
+        for s0 in range(0, spp, chunk):
+            si = torch.arange(s0, min(s0 + chunk, spp), dtype=torch.int32,
+                              device=dev)
+            acc += ig._direct_pass_body(
+                scene, cfg, float(demo.STAGE23_FOV), ig._camera_spec(spec),
+                cfg.pixel_samples, cfg.pixel_samples, si).cpu().numpy()
+        return acc / np.float32(spp), 0
+
+    return eager, frame
+
+
+def _cli_frames(dev):
+    """(eager, replayed) frames of the CLI's render: render_path_with_stats
+    at its inputs, and its bands (the last shifted up and cropped) through
+    the eager pass body added in the same order."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.render import pathtracer as pt
+
+    scene, cfg, cam, frame = cli_setup(dev)
+    w, h, spp = cfg.width, cfg.height, cfg.pixel_samples ** 2
+    band = cfg.max_rays_per_pass // w
+    r0s = [min(b * band, h - band) for b in range(-(-h // band))]
+
+    def eager():
+        acc = np.zeros((h, w, 3), np.float32)
+        q = 0
+        cam_d = cam.to(dev)
+        for s0 in range(spp):
+            si = torch.full((1,), s0, dtype=torch.int32, device=dev)
+            for b, r0 in enumerate(r0s):
+                img, _, q1 = pt._path_pass_body(
+                    scene, cfg, cam_d, si,
+                    torch.full((), r0, dtype=torch.int32, device=dev), band)
+                skip = max(0, b * band - r0)
+                acc[r0 + skip:r0 + band] += img.cpu().numpy()[skip:]
+                q += int(q1)
+        return acc / np.float32(spp), q
+
+    return eager, frame
+
+
+def run_graphs(dev, card: str) -> dict:
+    """Phase 23: the reference's dispatch, each pass a replayed CUDA graph,
+    on every frame above: stage 6, the big scene on the item and the scan
+    route, stage 7, stage 7b, stage 5, the mesh light, 40 spheres, 16
+    lights, stage 3 at its golden configuration and the CLI's render
+    (``_graph_phase``)."""
+    _phase("graphs")
+    s6 = stage6_setup(dev)
+    scan, items, _, _, _, bframe = big_setup(dev)
+    frames = [
+        ("stage6", s6[3], STAGE6_KERNELS),
+        ("big_items", bframe, ("cluster_masks", "build_items",
+                               "traverse_items", "gather_rows_t")),
+        ("big_scan", lambda scene=scan, graph=True: bframe(scan, graph),
+         STAGE6_KERNELS),
+        ("stage7", stage7_setup(dev)[3], STAGE6_KERNELS),
+        ("stage7b", stage7b_setup(dev)[3], ("gather_rows_t",)),
+        ("stage5", stage5_setup(dev)[3], ()),
+        ("mesh_light", mesh_light_setup(dev)[4], STAGE6_KERNELS),
+        ("spheres40", many_spheres_setup(dev)[3], ()),
+        ("lights16", sixteen_lights_setup(dev)[3], ()),
+    ]
+    out = {}
+    for name, frame, kernels in frames:
+        t0 = time.perf_counter()
+        out[name] = _graph_phase(f"graph {name}",
+                                 functools.partial(frame, graph=False),
+                                 frame, card, kernels)
+        print(f"-- graph {name} done in {time.perf_counter() - t0:.1f} s")
+    # its 16 replays of 26,574 device ops each take minutes to profile
+    out["stage3"] = _graph_phase("graph stage3 (golden config)",
+                                 *_stage3_frames(dev), card, profiled=False)
+    out["cli_stage6"] = _graph_phase("graph cli_stage6 (640x480, 4 spp)",
+                                     *_cli_frames(dev), card, STAGE6_KERNELS)
+    return out
+
+
+def run_phase_table(dev) -> None:
+    """Phase 22: one profiled stage-6 frame on each route, the kernel
+    route's replayed: host kernel and graph launches, kernel ms and the
+    share of that frame's wall ms they fill, and
+    utils/profiling.phase_table (the 'xla' frame's pipeline rollup must be
+    there)."""
+    import torch
 
     from rayito_tpu_torch.utils.profiling import collect_device_ops as \
         collect_ops
@@ -2095,14 +2423,16 @@ def run_phase_table(dev) -> None:
     scene, _, _, frame = stage6_setup(dev)
     for traversal in ("pallas", "xla"):
         sd = dataclasses.replace(scene, traversal=traversal)
-        frame(sd)
+        frame(sd)  # replayed graphs; 'xla' runs eagerly
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            frame(sd)
-            torch.cuda.synchronize()
+        p = _profile_frame(lambda: frame(sd))
+        prof = p["prof"]
         rows = phase_table(prof)
-        print(f"stage-6 frame, traversal={traversal!r}:")
+        print(f"stage-6 frame, traversal={traversal!r}: "
+              f"{p['host_kernel_launches']} host kernel launches "
+              f"({p['graph_launches']} graph launches), {p['kernel_ms']:.1f} "
+              f"ms of kernels in a {p['wall_ms']:.1f} ms profiled frame "
+              f"(busy {p['kernel_ms'] / p['wall_ms']:.1%})")
         for label, ms, count in rows:
             print(f"  {ms:9.3f} ms {count:6d}x  {label}")
         if not rows:

@@ -292,9 +292,11 @@ def _interactive_loop(args, scene, cam_spec, viewer, write_out, mesh=None):
     change start fresh instead of blending."""
     from .models.camera import PerspectiveCamera
     from .render.progressive import render_progressive
+    from .utils import graphs
     from .utils.config import RenderConfig
 
     fov = float(viewer.knobs["fov"])
+    last_cfg = None
     viewer.set_state("idle")
     print("[rayito_tpu_torch] interactive: edit knobs on the page and "
           "press Render (Ctrl-C to exit)", file=sys.stderr)
@@ -319,6 +321,11 @@ def _interactive_loop(args, scene, cam_spec, viewer, write_out, mesh=None):
             lens_radius=args.lens_radius, shutter_open=args.shutter[0],
             shutter_close=args.shutter[1],
         )
+        if cfg != last_cfg:
+            # a new config captures new pass graphs: free the old ones
+            # and their pools (a camera change replays the same graphs)
+            graphs.clear()
+            last_cfg = cfg
         viewer.set_state("rendering")
         t0 = time.perf_counter()
         img, stats = render_progressive(

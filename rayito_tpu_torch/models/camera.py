@@ -14,6 +14,7 @@ import math
 import torch
 
 from ..ops.vec3 import PI, V3, cross, normalize, splat
+from ..ops.vec3 import where as vwhere
 from ..ops.warps import uniform_to_uniform_disk
 
 
@@ -30,29 +31,32 @@ def _look_basis(origin, target, up, normalize_all: bool):
     return o, fwd, right, cam_up
 
 
-def _to(v: V3, device) -> V3:
-    return V3(v.x.to(device), v.y.to(device), v.z.to(device))
-
-
 def _f32(v: float) -> float:
     """A Python float rounded to float32."""
     return float(torch.tensor(v, dtype=torch.float32))
 
 
+_SCALARS = ("tan_fov", "focal_distance", "lens_radius", "shutter_open",
+            "shutter_close")
+_VECTORS = ("origin", "forward", "right", "up")
+
+
 @dataclasses.dataclass(frozen=True)
 class PerspectiveCamera:
-    """Precomputed camera basis (0-dim float32 tensors on the CPU; they
-    broadcast against wavefronts on any device)."""
+    """Precomputed camera basis and lens, as the reference's pytree: every
+    field a 0-dim float32 tensor, on the CPU after ``make`` and on one
+    device after ``to``. Rays are made on the camera's device; the render
+    entry points move the camera once, so a pass copies nothing."""
 
     origin: V3
     forward: V3
     right: V3
     up: V3
-    tan_fov: float
-    focal_distance: float
-    lens_radius: float
-    shutter_open: float
-    shutter_close: float
+    tan_fov: torch.Tensor
+    focal_distance: torch.Tensor
+    lens_radius: torch.Tensor
+    shutter_open: torch.Tensor
+    shutter_close: torch.Tensor
 
     @staticmethod
     def make(fov_degrees: float, origin, target, up,
@@ -60,21 +64,42 @@ class PerspectiveCamera:
              shutter_open: float = 0.0,
              shutter_close: float = 0.0) -> "PerspectiveCamera":
         o, fwd, right, cam_up = _look_basis(origin, target, up, False)
+        f = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
         return PerspectiveCamera(
             origin=o, forward=fwd, right=right, up=cam_up,
-            tan_fov=_f32(math.tan(fov_degrees * PI / 180.0)),
-            focal_distance=_f32(focal_distance),
-            lens_radius=_f32(lens_radius),
-            shutter_open=_f32(shutter_open),
-            shutter_close=_f32(shutter_close),
+            tan_fov=f(math.tan(fov_degrees * PI / 180.0)),
+            focal_distance=f(focal_distance), lens_radius=f(lens_radius),
+            shutter_open=f(shutter_open), shutter_close=f(shutter_close),
         )
 
+    def flat(self) -> torch.Tensor:
+        """The 17 fields as one float32 [17] tensor on the camera's device
+        (the order of ``from_flat``)."""
+        vals = [c for k in _VECTORS
+                for c in (getattr(self, k).x, getattr(self, k).y,
+                          getattr(self, k).z)]
+        return torch.stack(vals + [getattr(self, k) for k in _SCALARS])
+
+    @staticmethod
+    def from_flat(flat: torch.Tensor) -> "PerspectiveCamera":
+        """The camera whose fields are views of ``flat`` [17]: writing
+        ``flat`` moves the camera (the static input of a CUDA graph)."""
+        vec = {k: V3(flat[3 * i], flat[3 * i + 1], flat[3 * i + 2])
+               for i, k in enumerate(_VECTORS)}
+        sca = {k: flat[12 + i] for i, k in enumerate(_SCALARS)}
+        return PerspectiveCamera(**vec, **sca)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tan_fov.device
+
     def to(self, device) -> "PerspectiveCamera":
-        return dataclasses.replace(
-            self, origin=_to(self.origin, device),
-            forward=_to(self.forward, device), right=_to(self.right, device),
-            up=_to(self.up, device),
-        )
+        """This camera on ``device`` (itself if it is there already), moved
+        in one copy."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return PerspectiveCamera.from_flat(self.flat().to(device))
 
     def time(self, time_u):
         return self.shutter_open + (
@@ -83,22 +108,25 @@ class PerspectiveCamera:
 
     def make_rays(self, x_screen, y_screen, lens_u, lens_v, time_u):
         """Rays for screen positions in [0,1]^2. Returns (origin V3 [N],
-        direction V3 [N], time [N]) on the device of ``x_screen``."""
-        cam = self.to(x_screen.device)
-        sx = (x_screen - 0.5) * cam.tan_fov
-        sy = (y_screen - 0.5) * cam.tan_fov
-        direction = normalize(cam.forward + cam.right * sx + cam.up * sy)
-        origin = cam.origin.broadcast_to(sx.shape)
-        t = cam.time(time_u).expand(sx.shape)
-        if cam.lens_radius > 0.0:  # depth of field: uniform-disk lens
-            hshift, vshift = uniform_to_uniform_disk(lens_u, lens_v)
-            hshift = hshift * cam.lens_radius
-            vshift = vshift * cam.lens_radius
-            local_len = torch.sqrt(sx * sx + sy * sy + 1.0)
-            focus = origin + direction * (cam.focal_distance * local_len)
-            origin = origin + cam.right * hshift + cam.up * vshift
-            direction = normalize(focus - origin)
-        return origin, direction, t
+        direction V3 [N], time [N]). Depth of field is computed for every
+        lane and blended in where ``lens_radius > 0``, as the reference
+        does, so no Python branch reads the lens."""
+        sx = (x_screen - 0.5) * self.tan_fov
+        sy = (y_screen - 0.5) * self.tan_fov
+        direction = normalize(self.forward + self.right * sx + self.up * sy)
+        origin = self.origin.broadcast_to(sx.shape)
+        t = self.time(time_u).expand(sx.shape)
+        # depth of field: uniform-disk lens
+        hshift, vshift = uniform_to_uniform_disk(lens_u, lens_v)
+        hshift = hshift * self.lens_radius
+        vshift = vshift * self.lens_radius
+        local_len = torch.sqrt(sx * sx + sy * sy + 1.0)
+        focus = origin + direction * (self.focal_distance * local_len)
+        lens_origin = origin + self.right * hshift + self.up * vshift
+        lens_dir = normalize(focus - lens_origin)
+        use_dof = self.lens_radius > 0.0
+        return (vwhere(use_dof, lens_origin, origin),
+                vwhere(use_dof, lens_dir, direction), t)
 
 
 def make_camera_ray_stage1(fov_degrees, origin, target, up, xu, yu):

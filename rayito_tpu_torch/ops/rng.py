@@ -74,12 +74,19 @@ def mwc_next_float(state):
     return state, u32_to_float01(i)
 
 
-def cmj_permute(i: torch.Tensor, num: int, permutation: torch.Tensor):
+def cmj_permute(i: torch.Tensor, num: int, permutation: torch.Tensor,
+                fixed_rounds: bool | None = None):
     """Hash-based cycle-walking permutation of ``i`` in [0, num).
 
-    The reference's do/while cycle walk becomes a masked loop that runs
-    until every lane is inside [0, num). A power-of-two ``num`` can never
-    leave the range, so no loop (and no host read) happens for it."""
+    The reference's do/while cycle walk becomes masked rounds. On a CUDA
+    tensor (or with ``fixed_rounds=True``) it runs exactly ``(w + 1) -
+    num`` of them, decided on the host, with no read of the device (a CUDA
+    graph can hold it): the round function is a bijection on [0, w], so the
+    out-of-range values one walk visits are distinct, at most
+    ``(w + 1) - num`` of them, and a lane already in range does not move in
+    the rounds after it arrives. On the CPU the loop stops once every lane
+    is in range, as the reference's does, with the same result. A power of
+    two runs no extra round."""
     i = u32(i)
     permutation = u32(permutation)
     w = (num - 1) & MASK32
@@ -111,12 +118,12 @@ def cmj_permute(i: torch.Tensor, num: int, permutation: torch.Tensor):
         return x
 
     i = round_fn(i)
-    if num & (num - 1):
-        while True:
-            out = i >= num
-            if not bool(out.any()):
-                break
-            i = torch.where(out, round_fn(i), i)
+    fixed = i.is_cuda if fixed_rounds is None else fixed_rounds
+    for _ in range((w + 1) - num):
+        out = i >= num
+        if not fixed and not bool(out.any()):
+            break
+        i = torch.where(out, round_fn(i), i)
     return ((i + permutation) & MASK32) % num
 
 

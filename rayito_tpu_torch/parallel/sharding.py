@@ -1,8 +1,11 @@
 """Multi-device rendering: the frame's lanes split over an ordered list of
 devices (counterpart of ``rayito_tpu/parallel/sharding.py``).
 
-The scene is copied once to each distinct device; paths are independent,
-so nothing is exchanged while they bounce. Each launch takes at most
+The scene is copied once to each distinct device (on the card, once per
+device graph: each device's share of a launch replays that device's CUDA
+graph, captured on first use, and the CPU runs it eagerly, as
+``render/pathtracer.py`` does); paths are independent, so nothing is
+exchanged while they bounce. Each launch takes at most
 ``len(mesh) * config.max_rays_per_pass`` lanes of the spp-major frame grid
 (lane = si * W * H + py * W + px); each device takes its contiguous share
 of the launch; a ragged tail pads to a multiple of the device count with
@@ -23,6 +26,7 @@ from ..models.camera import PerspectiveCamera
 from ..models.scene import SceneData
 from ..ops.vec3 import to_aos
 from ..render.pathtracer import _camera_rays, pathtrace_wave, warn_overflow
+from ..utils import graphs
 from ..utils.config import RenderConfig
 
 
@@ -38,27 +42,56 @@ def make_mesh(devices=None) -> list:
     return devices
 
 
-def _shard_pass(scene: SceneData, config: RenderConfig,
-                camera: PerspectiveCamera, px, py, si, active):
-    """One device's share of a launch, enqueued on the scene's device:
-    (radiance [n, 3], overflow, issued queries), on that device."""
+def _lane_pixel_arrays(lane0, lane_hi, width: int, n_pix: int,
+                       share: int, device=None):
+    """(px, py, si) int32 and the active mask of the ``share`` flat lanes
+    from ``lane0`` (an int or an int64 device scalar) of the spp-major
+    frame grid, computed on ``device``; lanes at or past ``lane_hi`` are
+    inactive padding with pixel and sample 0."""
+    lanes = lane0 + torch.arange(share, dtype=torch.int64, device=device)
+    active = lanes < lane_hi
+    p = lanes % n_pix
+    px, py, si = (torch.where(active, v, 0).to(torch.int32)
+                  for v in (p % width, p // width, lanes // n_pix))
+    return px, py, si, active
+
+
+def _shard_body(scene: SceneData, config: RenderConfig,
+                camera: PerspectiveCamera, lane0, lane_hi, share: int):
+    """One device's share of a launch, eagerly, on the scene's device
+    (lanes as ``_lane_pixel_arrays``). Returns (radiance [share, 3],
+    overflow, issued queries) on that device."""
     dev = scene.device
-    px, py, si, active = (torch.from_numpy(a).to(dev)
-                          for a in (px, py, si, active))
-    o, d, t = _camera_rays(config, camera, px, py, si)
+    px, py, si, active = _lane_pixel_arrays(
+        lane0, lane_hi, config.width, config.width * config.height, share,
+        dev)
+    o, d, t = _camera_rays(config, camera.to(dev), px, py, si)
     rad, overflow, queries = pathtrace_wave(scene, config, o, d, t, px, py,
                                             si, active=active)
     return to_aos(rad), overflow, queries
 
 
-def _lane_pixel_arrays(lo: int, hi: int, width: int, n_pix: int):
-    """(px, py, si) int32 for flat lane indices [lo, hi) of the spp-major
-    frame grid, made per launch so a large frame never holds its whole
-    grid on the host."""
-    lanes = np.arange(lo, hi, dtype=np.int64)
-    si = (lanes // n_pix).astype(np.int32)
-    p = (lanes % n_pix).astype(np.int32)
-    return (p % width).astype(np.int32), (p // width).astype(np.int32), si
+def _shard_pass(scene: SceneData, scene_on, config: RenderConfig,
+                camera: PerspectiveCamera, dev, lane0: int, lane_hi: int,
+                share: int):
+    """Enqueue one device's share of a launch on ``dev`` through
+    ``utils/graphs.run``: a replay of that device's graph of (scene, config,
+    share) on the card, the eager body on the CPU and on the 'xla' route.
+    ``scene_on(dev)`` is the scene on ``dev``. (radiance [share, 3],
+    overflow, issued queries), on ``dev``."""
+    i64 = dict(dtype=torch.int64, device=dev)
+    sd = scene_on(dev)
+
+    def body(lane0, lane_hi, camera):
+        return _shard_body(sd, config, PerspectiveCamera.from_flat(camera),
+                           lane0, lane_hi, share)
+
+    return graphs.run(
+        ("shard", config, share), scene, dev, body,
+        {"lane0": torch.full((), lane0, **i64),
+         "lane_hi": torch.full((), lane_hi, **i64),
+         "camera": camera.to(dev).flat()},
+        label=f"sharded pass on {dev}, {share} lanes", keep=(sd,))
 
 
 def sharded_lane_range(scene: SceneData, config: RenderConfig,
@@ -70,10 +103,14 @@ def sharded_lane_range(scene: SceneData, config: RenderConfig,
     order, so any split of the range gives the same bits. Returns
     (overflow int, issued queries int)."""
     n_dev = len(mesh)
+    cams = {dev: camera.to(dev) for dev in mesh}
     scenes = {}
-    for dev in mesh:
+
+    def scene_on(dev):
         if dev not in scenes:
             scenes[dev] = scene.to(dev)
+        return scenes[dev]
+
     w = config.width
     n_pix = w * config.height
     budget = config.max_rays_per_pass * n_dev
@@ -82,18 +119,10 @@ def sharded_lane_range(scene: SceneData, config: RenderConfig,
     while lo < lane_hi:
         hi = min(lo + budget, lane_hi)
         n = hi - lo
-        n_pad = (-n) % n_dev
-        px, py, si = _lane_pixel_arrays(lo, hi, w, n_pix)
-        active = np.ones(n + n_pad, bool)
-        if n_pad:
-            pad = np.zeros(n_pad, np.int32)
-            px, py, si = (np.concatenate([a, pad]) for a in (px, py, si))
-            active[n:] = False
-        share = (n + n_pad) // n_dev
+        share = (n + (-n) % n_dev) // n_dev
         # enqueue every device's share, then read the results back
-        outs = [_shard_pass(scenes[dev], config, camera,
-                            *(a[k * share:(k + 1) * share]
-                              for a in (px, py, si, active)))
+        outs = [_shard_pass(scene, scene_on, config, cams[dev], dev,
+                            lo + k * share, hi, share)
                 for k, dev in enumerate(mesh)]
         rad = np.concatenate([r.cpu().numpy() for r, _, _ in outs])[:n]
         overflow += sum(int(ovf) for _, ovf, _ in outs)

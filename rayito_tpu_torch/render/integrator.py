@@ -3,8 +3,10 @@
 generation every integrator shares.
 
 One wavefront covers all pixels x a chunk of sample indices; the
-reference's rolled loop over light samples is a Python loop here. The
-full path tracer with NEE and MIS is ``render/pathtracer.py``.
+reference's rolled loop over light samples is a Python loop here. Each
+jitted pass of the reference is a CUDA graph on the card, captured once per
+key and replayed (``utils/graphs.py``); the CPU runs it eagerly. The full
+path tracer with NEE and MIS is ``render/pathtracer.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..ops.brdf import (KIND_EMITTER, KIND_LAMBERT, KIND_PHONG,
                         lambert_shade, phong_shade)
 from ..ops.vec3 import V3, cross, dot, from_aos, normalize, where as vwhere
 from ..ops.warps import uniform_to_sphere
+from ..utils import graphs
 from ..utils.config import RenderConfig
 from .trace import material_emittance, material_row, scene_intersect
 
@@ -72,8 +75,8 @@ def _camera_spec(camera):
 # ---------------------------------------------------------------------------
 
 
-def _render_color_pass(scene: SceneData, config: RenderConfig, fov: float,
-                       camera):
+def _color_pass_body(scene: SceneData, config: RenderConfig, fov: float,
+                     camera):
     """[H, W, 3] on the scene's device: the hit material's colour, black
     on a miss."""
     px, py = _pixel_grid(config.width, config.height, scene.device)
@@ -84,6 +87,18 @@ def _render_color_pass(scene: SceneData, config: RenderConfig, fov: float,
     zero = torch.zeros_like(color.x)
     color = vwhere(hit.valid, color, V3(zero, zero, zero))
     return _image(color, 1, config.height, config.width)
+
+
+def _render_color_pass(scene: SceneData, config: RenderConfig, fov: float,
+                       camera):
+    """The stage-1 pass through ``utils/graphs.run``: on the card one
+    replay of its graph (key: the reference's static arguments config,
+    fov, camera, and the scene), the eager body on the CPU and on the 'xla'
+    route. [H, W, 3] on the scene's device."""
+    return graphs.run(
+        ("color", config, fov, camera), scene, scene.device,
+        lambda: (_color_pass_body(scene, config, fov, camera),), {},
+        label="color pass")[0]
 
 
 def render_color(scene: SceneData, config: RenderConfig, fov=30.0,
@@ -143,20 +158,18 @@ def _sample_light_surface_direct(scene: SceneData, li: int, ref_pos: V3, u1,
     raise NotImplementedError("a mesh ShapeLight has no direct-stage sampler")
 
 
-def _render_direct_pass(scene: SceneData, config: RenderConfig, fov: float,
-                        camera, spp_x: int, spp_y: int, si_lo: int,
-                        si_hi: int):
-    """One wavefront over all pixels x sample indices [si_lo, si_hi).
-    Returns the SUM image over those samples, [H, W, 3] on the scene's
-    device."""
+def _direct_pass_body(scene: SceneData, config: RenderConfig, fov: float,
+                      camera, spp_x: int, spp_y: int, si_chunk):
+    """One wavefront over all pixels x the sample indices ``si_chunk``
+    (int32 [n_si] on the scene's device), eagerly. Returns the SUM image
+    over those samples, [H, W, 3] on the scene's device."""
     w, h = config.width, config.height
     dev = scene.device
-    n_si = si_hi - si_lo
+    n_si = si_chunk.shape[0]
     px, py = _pixel_grid(w, h, dev)
     px = px.repeat(n_si)
     py = py.repeat(n_si)
-    si = torch.arange(si_lo, si_hi, dtype=torch.int32, device=dev)
-    si = si[:, None].expand(n_si, w * h).reshape(-1)
+    si = si_chunk[:, None].expand(n_si, w * h).reshape(-1)
     jx, jy = _subpixel_jitter(config, px, py, si, spp_x, spp_y)
     xu, yu = screen_uv(config, px, py, jx, jy)
     o, d = make_camera_ray_stage1(fov, *camera, xu, yu)
@@ -203,6 +216,27 @@ def _render_direct_pass(scene: SceneData, config: RenderConfig, fov: float,
 
     result = vwhere(hit.valid, result, V3(zero, zero, zero))
     return _image(result, n_si, h, w)
+
+
+def _render_direct_pass(scene: SceneData, config: RenderConfig, fov: float,
+                        camera, spp_x: int, spp_y: int, si_lo: int,
+                        si_hi: int):
+    """Sample indices [si_lo, si_hi) over all pixels through
+    ``utils/graphs.run``: on the card one replay of the pass graph (key:
+    the reference's static arguments config, fov, camera, spp_x, spp_y,
+    and the scene and chunk size; the chunk's indices in a static buffer),
+    the eager body on the CPU and on the 'xla' route. The SUM image,
+    [H, W, 3] on the scene's device."""
+    def body(si):
+        return (_direct_pass_body(scene, config, fov, camera, spp_x, spp_y,
+                                  si),)
+
+    return graphs.run(
+        ("direct", config, fov, camera, spp_x, spp_y, si_hi - si_lo), scene,
+        scene.device, body,
+        {"si": torch.arange(si_lo, si_hi, dtype=torch.int32,
+                            device=scene.device)},
+        label=f"direct pass, {si_hi - si_lo} samples")[0]
 
 
 def render_direct(scene: SceneData, config: RenderConfig, fov=45.0,

@@ -1,13 +1,20 @@
 """Wavefront path tracer with next-event estimation and two-way MIS
 (counterpart of ``rayito_tpu/render/pathtracer.py``).
 
-The reference's rolled ``lax.fori_loop`` over bounces and light samples,
-and its ``lax.scan`` over launches, are Python loops here; everything
-inside runs as tensor ops on the scene's device. Semantics are the
-reference's: emission only at bounce 0 or through an unbroken chain of
-Dirac bounces, uniform light selection per sample, power-heuristic MIS
-between a light sample and a BRDF sample (each with its own shadow query),
-light scale n_lights / num_light_samples, no Russian roulette.
+The reference's rolled ``lax.fori_loop`` over bounces and light samples
+is a Python loop here; everything inside runs as tensor ops on the scene's
+device. The reference's dispatch is ported whole: a jitted pass is a CUDA
+graph captured once per (scene, config, rows, samples per launch) and
+replayed (``utils/graphs.py``), ``_render_path_frame`` replays it over a
+launch grid without reading anything back, and ``_dispatch_grid`` splits a
+grid into the reference's bounded groups. The CPU and the
+``traversal='xla'`` route run the same pass eagerly (``utils/graphs.run``).
+
+Semantics are the reference's: emission only at bounce 0 or through an
+unbroken chain of Dirac bounces, uniform light selection per sample,
+power-heuristic MIS between a light sample and a BRDF sample (each with
+its own shadow query), light scale n_lights / num_light_samples, no
+Russian roulette.
 
 With only analytic lights (rect, sphere) the BRDF-side sample is an
 analytic light hit plus an any-hit query; one mesh light in the scene turns
@@ -41,6 +48,7 @@ from ..ops.brdf import (
 )
 from ..ops.mis import power_heuristic
 from ..ops.vec3 import RAY_TMAX, V3, dot, where as vwhere
+from ..utils import graphs
 from ..utils.config import RenderConfig
 from . import lights as L
 from .integrator import _image, _pixel_grid, _subpixel_jitter, screen_uv
@@ -255,44 +263,121 @@ def _camera_rays(config: RenderConfig, camera: PerspectiveCamera, px, py,
     return camera.make_rays(xu, yu, lens_u, lens_v, time_u)
 
 
-def _render_path_pass(scene: SceneData, config: RenderConfig,
-                      camera: PerspectiveCamera, si_chunk, row0=0,
-                      rows: int = 0):
-    """Pixel rows [row0, row0+rows) x the sample indices ``si_chunk``.
-    Returns (SUM image [rows, W, 3] on the device, overflow, queries)."""
+def _path_pass_body(scene: SceneData, config: RenderConfig,
+                    camera: PerspectiveCamera, si, row0, rows: int):
+    """The pass itself, eagerly: pixel rows [row0, row0 + rows) x the
+    sample indices ``si`` (int32 [n_si] on the scene's device; ``row0`` an
+    int32 device scalar, as the reference traces it). Returns (SUM image
+    [rows, W, 3], overflow, queries) on the device; reads nothing back on
+    the kernel route."""
     dev = scene.device
     w = config.width
-    rows = rows or config.height
-    si_chunk = torch.as_tensor(si_chunk, dtype=torch.int32, device=dev)
-    n_si = si_chunk.shape[0]
+    n_si = si.shape[0]
     px, py = _pixel_grid(w, rows, dev)
-    py = py + int(row0)
+    py = py + row0
     px = px.repeat(n_si)
     py = py.repeat(n_si)
-    si = si_chunk.repeat_interleave(w * rows)
-    o, d, t = _camera_rays(config, camera, px, py, si)
+    si = si.repeat_interleave(w * rows)
+    o, d, t = _camera_rays(config, camera.to(dev), px, py, si)
     radiance, overflow, queries = pathtrace_wave(scene, config, o, d, t, px,
                                                  py, si)
     return _image(radiance, n_si, rows, w), overflow, queries
 
 
+def _path_pass(scene: SceneData, config: RenderConfig, si, row0,
+               camera_flat, rows: int):
+    """One pass through ``utils/graphs.run``: on the card a replay of the
+    pass graph of (scene, config, rows, n_si), captured on its first use,
+    the counterpart of the reference's jitted ``_render_path_pass``
+    (static: config, rows; traced: si, row0, the camera); the eager body
+    on the CPU and on the 'xla' route. (SUM image, overflow, queries) on
+    the scene's device."""
+    def body(si, row0, camera):
+        return _path_pass_body(scene, config,
+                               PerspectiveCamera.from_flat(camera), si, row0,
+                               rows)
+
+    return graphs.run(
+        ("path", config, rows, si.shape[0]), scene, scene.device, body,
+        {"si": si, "row0": row0, "camera": camera_flat},
+        label=f"path pass {config.width}x{rows}, {si.shape[0]} samples")
+
+
+def _int32_on(x, dev):
+    """``x`` as an int32 tensor on ``dev``; a Python or numpy int becomes a
+    fill on the device, not a copy that waits for it."""
+    if isinstance(x, (int, np.integer)):
+        return torch.full((), int(x), dtype=torch.int32, device=dev)
+    return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+
+def _render_path_pass(scene: SceneData, config: RenderConfig,
+                      camera: PerspectiveCamera, si_chunk, row0=0,
+                      rows: int = 0):
+    """Pixel rows [row0, row0+rows) x the sample indices ``si_chunk``.
+    Returns (SUM image [rows, W, 3] on the device, overflow, queries): one
+    replay of the pass graph on the card, the eager body on the CPU and on
+    the 'xla' route (``_path_pass``)."""
+    dev = scene.device
+    return _path_pass(scene, config, _int32_on(si_chunk, dev),
+                      _int32_on(row0, dev), camera.to(dev).flat(),
+                      rows or config.height)
+
+
 def _render_path_frame(scene: SceneData, config: RenderConfig,
                        camera: PerspectiveCamera, si_mat, row0s,
                        rows: int = 0):
-    """A launch grid: one _render_path_pass per (sample chunk, row band).
-    si_mat [L, k] sample indices per launch, row0s [L] first rows.
-    Returns (imgs [L, rows, W, 3], overflow and queries summed) on the
-    device — no host synchronisation on the kernel route."""
+    """A launch grid, the reference's one dispatch per frame: one pass per
+    (sample chunk, row band) launch. si_mat [L, k] sample indices per
+    launch, row0s [L] first rows (best given as device tensors). On the
+    card each launch is one replay of the pass graph, its image copied out
+    of the graph's output buffer before the next replay; overflow and
+    queries are summed on the device and nothing is read back. Returns
+    (imgs [L, rows, W, 3], overflow, queries) on the device, each image
+    bit-identical to that launch's ``_render_path_pass``."""
+    dev = scene.device
+    rows = rows or config.height
+    si_mat = _int32_on(si_mat, dev)
+    row0s = _int32_on(row0s, dev)
+    cam = camera.to(dev).flat()
     imgs = []
     overflow = 0
-    queries = torch.zeros((), dtype=torch.int64, device=scene.device)
-    for si, r0 in zip(si_mat, row0s):
-        img, ovf, q = _render_path_pass(scene, config, camera, si, int(r0),
-                                        rows)
+    queries = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(si_mat.shape[0]):
+        img, ovf, q = _path_pass(scene, config, si_mat[k], row0s[k], cam,
+                                 rows)
         imgs.append(img)
         overflow = overflow + ovf
         queries = queries + q
     return torch.stack(imgs), overflow, queries
+
+
+def _dispatch_grid(scene: SceneData, config: RenderConfig,
+                   camera: PerspectiveCamera, si_mat, row0s, rows: int,
+                   out_rows: int, group=None):
+    """A launch grid through ``_render_path_frame`` in the reference's
+    bounded groups: at most ~64 MB of launch images and ~2^30 worst-case
+    counted queries per group (every lane alive every bounce, one trace
+    and two NEE-side queries per light sample), one host read per group,
+    totals in Python ints. Returns (imgs np [L, out_rows, W, 3], overflow,
+    queries)."""
+    n_launch = si_mat.shape[0]
+    launch_bytes = max(1, out_rows * config.width * 3 * 4)
+    q_est = max(1, config.max_rays_per_pass * config.max_depth
+                * (1 + 2 * config.light_samples * config.light_samples))
+    g = group or int(max(1, min(n_launch, (64 << 20) // launch_bytes,
+                                (1 << 30) // q_est)))
+    imgs = []
+    overflow = queries = 0
+    for i0 in range(0, n_launch, g):
+        im, ovf, q = _render_path_frame(scene, config, camera,
+                                        si_mat[i0:i0 + g],
+                                        row0s[i0:i0 + g], rows)
+        imgs.append(im.cpu().numpy())
+        overflow += int(ovf)
+        queries += int(q)
+    return (np.concatenate(imgs, axis=0) if len(imgs) > 1 else imgs[0],
+            overflow, queries)
 
 
 def render_path_with_stats(scene: SceneData, config: RenderConfig,
@@ -300,18 +385,34 @@ def render_path_with_stats(scene: SceneData, config: RenderConfig,
     """Path-traced render (box-filtered mean of pixel_samples^2 samples).
     Returns (image np [H, W, 3], overflow int, queries int). Launches hold at
     most config.max_rays_per_pass lanes: chunks of sample indices first,
-    then pixel-row bands when one sample exceeds the budget. Each launch's
-    image is added on the host in the reference's order, so memory stays
-    bounded by one launch."""
+    then pixel-row bands of one height when one sample exceeds the budget
+    (the last band shifted up, its overlap traced, counted and cropped on
+    the host), as the reference does. Full chunks and bands go through
+    ``_dispatch_grid``, the ragged tail chunk runs as one pass; each
+    launch's image is added on the host in the reference's order."""
+    dev = scene.device
+    camera = camera.to(dev)
     spp_total = config.pixel_samples * config.pixel_samples
     w, h = config.width, config.height
+    i32 = dict(dtype=torch.int32, device=dev)
     acc = np.zeros((h, w, 3), np.float32)
     overflow = queries = 0
     if w * h <= config.max_rays_per_pass:
         chunk = max(1, min(spp_total, config.max_rays_per_pass // (w * h)))
-        for s0 in range(0, spp_total, chunk):
-            si = np.arange(s0, min(s0 + chunk, spp_total), dtype=np.int32)
-            img, ovf, q = _render_path_pass(scene, config, camera, si)
+        n_full = spp_total // chunk
+        if n_full:
+            imgs, ovf, q = _dispatch_grid(
+                scene, config, camera,
+                torch.arange(n_full * chunk, **i32).reshape(n_full, chunk),
+                torch.zeros((n_full,), **i32), 0, h)
+            for img in imgs:
+                acc += img
+            overflow += ovf
+            queries += q
+        if n_full * chunk < spp_total:  # the ragged tail chunk, one launch
+            img, ovf, q = _render_path_pass(
+                scene, config, camera,
+                torch.arange(n_full * chunk, spp_total, **i32))
             acc += img.cpu().numpy()
             overflow += int(ovf)
             queries += int(q)
@@ -320,14 +421,16 @@ def render_path_with_stats(scene: SceneData, config: RenderConfig,
         n_bands = -(-h // band)
         # uniform band height; the last band is shifted up and cropped
         r0s = [min(b * band, h - band) for b in range(n_bands)]
+        si_mat = torch.arange(spp_total, **i32).repeat_interleave(
+            n_bands)[:, None]  # sample-major, as the reference's grid
+        row0s = torch.clamp_max(torch.arange(n_bands, **i32) * band,
+                                h - band).repeat(spp_total)
+        imgs, overflow, queries = _dispatch_grid(
+            scene, config, camera, si_mat, row0s, band, band)
         for s0 in range(spp_total):
             for b, r0 in enumerate(r0s):
-                img, ovf, q = _render_path_pass(scene, config, camera, [s0],
-                                                r0, band)
                 skip = max(0, b * band - r0)
-                acc[r0 + skip:r0 + band] += img.cpu().numpy()[skip:]
-                overflow += int(ovf)
-                queries += int(q)
+                acc[r0 + skip:r0 + band] += imgs[s0 * n_bands + b][skip:]
     return acc / np.float32(spp_total), overflow, queries
 
 

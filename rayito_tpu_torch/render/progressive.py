@@ -95,6 +95,9 @@ def render_progressive(
     as render_path_with_stats does, and checkpoints per whole sample; the
     image equals render_path_with_stats's bit for bit.
 
+    Each launch is one ``_render_path_pass``: one replay of the pass graph
+    on the card, as the reference dispatches one jitted pass per launch.
+
     ``mesh`` (devices from parallel/sharding.make_mesh) shards every
     chunk's lanes over those devices. Per-lane seeding keeps the image
     bit-identical to the unsharded render whatever the device count, so a
@@ -145,8 +148,10 @@ def render_progressive(
     else:
         chunk = 1 if banded else max(
             1, min(spp_total, config.max_rays_per_pass // n_pix))
+    camera = camera.to(scene.device)
     while s_done < spp_total:
         hi = min(s_done + chunk, spp_total)
+        si = torch.arange(s_done, hi, dtype=torch.int32, device=scene.device)
         if mesh is not None:
             ovf, q = sharded_lane_range(scene, config, camera, mesh,
                                         s_done * n_pix, hi * n_pix,
@@ -155,19 +160,19 @@ def render_progressive(
             rays += q
         elif banded:
             # render_path_with_stats's bands: a uniform height, the last
-            # band shifted up and cropped; host adds in the same order
+            # band shifted up and cropped; every band is dispatched (one
+            # replay each on the card) before the host adds them in order
             band = max(1, config.max_rays_per_pass // w)
-            for b in range(-(-h // band)):
-                r0 = min(b * band, h - band)
-                img, ovf, q = _render_path_pass(scene, config, camera,
-                                                [s_done], r0, band)
-                skip = max(0, b * band - r0)
-                acc[r0 + skip:r0 + band] += img.cpu().numpy()[skip:]
+            r0s = [min(b * band, h - band) for b in range(-(-h // band))]
+            outs = [_render_path_pass(scene, config, camera, si, r0, band)
+                    for r0 in r0s]
+            for b, (img, ovf, q) in enumerate(outs):
+                skip = max(0, b * band - r0s[b])
+                acc[r0s[b] + skip:r0s[b] + band] += img.cpu().numpy()[skip:]
                 overflow += int(ovf)
                 rays += int(q)
         else:
-            img, ovf, q = _render_path_pass(
-                scene, config, camera, np.arange(s_done, hi, dtype=np.int32))
+            img, ovf, q = _render_path_pass(scene, config, camera, si)
             acc += img.cpu().numpy()
             overflow += int(ovf)
             rays += int(q)

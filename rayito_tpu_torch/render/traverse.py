@@ -27,7 +27,10 @@ plain torch here.
 Every kernel has its plain PyTorch version beside it (``*_plain``), with
 the same contract. A wrapper runs the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel or raises. Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+kernel launches twice: ``launches`` counts its calls that launched, on the
+host, and ``device_launches`` (one int64 counter per device, read by
+``launch_counts``) is a device add enqueued beside the launch, so a CUDA
+graph that holds the launch holds the add too and every replay counts.
 
 t carries the key's ~2^-17 relative slack; exact t comes from the winner
 re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
@@ -77,6 +80,20 @@ def _check_dtype(name, t, dtype, ndim):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _count(fn, device) -> None:
+    """One launch of ``fn``'s kernel on ``device``: its host count, and one
+    added on the device in the launch's stream (captured with it)."""
+    fn.launches += 1
+    c = fn.device_launches.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{fn.__name__}: the first launch on {device} "
+                               "was made under a capture")
+        c = fn.device_launches[device] = torch.zeros(
+            (), dtype=torch.int64, device=device)
+    c.add_(1)
 
 
 def _live_floor(n_live, n_steps: int) -> int:
@@ -158,11 +175,12 @@ def cluster_masks(soat, cl_box, tmin: float, n_live=None, b: int = 128):
         soat.data_ptr(), cl_box.data_ptr(), alive.data_ptr(), _ptr(n_live),
         out.data_ptr(), n_blocks, c_pad, b, sb, n_steps, float(tmin), stream,
     ), "cluster_masks")
-    cluster_masks.launches += 1
+    _count(cluster_masks, soat.device)
     return out
 
 
 cluster_masks.launches = 0
+cluster_masks.device_launches = {}
 
 
 def word_roots_plain(cl_box):
@@ -364,11 +382,12 @@ def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
         tri.shape[0], sb, n_steps, float(tmin), int(mt_mode == "bw"),
         int(bool(any_hit)), stream,
     ), "traverse_blocks")
-    traverse_blocks.launches += 1
+    _count(traverse_blocks, soat.device)
     return t, p
 
 
 traverse_blocks.launches = 0
+traverse_blocks.device_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -402,11 +421,12 @@ def gather_rows_t(table, idx):
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, table.shape[0],
         k, stream,
     ), "gather_rows_t")
-    gather_rows_t.launches += 1
+    _count(gather_rows_t, table.device)
     return out
 
 
 gather_rows_t.launches = 0
+gather_rows_t.device_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -496,11 +516,12 @@ def build_items(masks, w: int, maxitems: int, cap: int):
         ints.data_ptr() + 4 * (maxitems + w + 1), nblk, nw, w, maxitems, cap,
         stream,
     ), "build_items")
-    build_items.launches += 1
+    _count(build_items, dev)
     return ints[:maxitems + w], ints[maxitems + w], flags[0], flags[1:]
 
 
 build_items.launches = 0
+build_items.device_launches = {}
 
 
 def traverse_items_plain(items, n_steps, soab, tri, tmin: float,
@@ -584,19 +605,30 @@ def traverse_items(items, n_steps, soab, tri, tmin: float,
         (items.shape[0] - w) // w, w, float(tmin), int(mt_mode == "bw"),
         stream,
     ), "traverse_items")
-    traverse_items.launches += 1
+    _count(traverse_items, soab.device)
     return t, p
 
 
 traverse_items.launches = 0
+traverse_items.device_launches = {}
 
 KERNELS = (cluster_masks, traverse_blocks, gather_rows_t, traverse_items,
            build_items)
 
 
 def reset_launch_counts() -> None:
+    """Set every kernel's host and device launch counts to 0."""
     for fn in KERNELS:
         fn.launches = 0
+        for c in fn.device_launches.values():
+            c.zero_()
+
+
+def launch_counts() -> dict:
+    """{kernel: launches the devices ran since the last reset}, graph
+    replays included (reads the devices back)."""
+    return {fn.__name__: sum(int(c) for c in fn.device_launches.values())
+            for fn in KERNELS}
 
 
 # ---------------------------------------------------------------------------

@@ -1059,9 +1059,10 @@ def test_render_color_and_direct_on_the_card_match_the_cpu(dev):
 
 
 def test_render_direct_pass_does_not_wait_on_the_device(dev):
-    """One stage-3 direct pass at power-of-two counts (2x2 pixel samples,
-    2x2 light samples) under the sync debug mode 'error': nothing is read
-    back; the result equals the same call outside the mode."""
+    """One stage-3 direct pass body (the eager pass a graph captures) at
+    power-of-two counts (2x2 pixel samples, 2x2 light samples) under the
+    sync debug mode 'error': nothing is read back; the result equals the
+    same call outside the mode."""
     import dataclasses
 
     from rayito_tpu_torch.models import demo
@@ -1072,12 +1073,13 @@ def test_render_direct_pass_does_not_wait_on_the_device(dev):
                               pixel_samples=2, light_samples=2)
     scene = demo.stage3_scene().compile(dev)
     cam = tuple(tuple(float(x) for x in v) for v in demo.STAGE23_CAMERA)
-    args = (scene, cfg, 45.0, cam, 2, 2, 0, 4)
-    ref = ig._render_direct_pass(*args)
+    si = torch.arange(0, 4, dtype=torch.int32, device=dev)
+    args = (scene, cfg, 45.0, cam, 2, 2, si)
+    ref = ig._direct_pass_body(*args)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = ig._render_direct_pass(*args)
+        got = ig._direct_pass_body(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1249,3 +1251,238 @@ def test_xla_route_launches_gather_rows_t(dev, xla_scenes):
     for k in ("t", "shape_id", "mat"):
         assert torch.equal(getattr(got, k).cpu(), getattr(ref, k)), k
     assert int(got.overflow) == int(ref.overflow) == 0
+
+
+# ------------------------------------------ the dispatch: passes as graphs
+
+
+@pytest.fixture(scope="module")
+def graph_scenes(dev, tmp_path_factory):
+    """{name: (scene on the card, config, camera)}: stage 6, stage 7 (keyed
+    transforms, a moving domain, shutter 0..1), the mesh-light scene and
+    the big scene on its item route, on the n=8 stand-in, 64x48 in
+    16-row bands, 2x2 pixel samples."""
+    import dataclasses
+
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.models.scene import scene_data_from_arrays
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    path = str(tmp_path_factory.mktemp("obj") / "bumpy8.obj")
+    demo.write_bumpy_standin(path, n=8)
+    cfg = RenderConfig(width=64, height=48, pixel_samples=2,
+                       light_samples=1, max_depth=3, aspect_correction=True,
+                       max_rays_per_pass=64 * 16)
+    arrays, static = _mesh_light_scene(path).compile_arrays()
+    big = demo.big_streamed_scene(path).compile(dev)
+    still = PerspectiveCamera.make(30.0, *demo.STAGE6_CAMERA)
+    return {
+        "stage6": (demo.stage6_scene(path).compile(dev), cfg, still),
+        "stage7": (demo.stage7_scene1(path).compile(dev), cfg,
+                   PerspectiveCamera.make(30.0, *demo.STAGE7_CAMERA,
+                                          shutter_close=1.0)),
+        "mesh_light": (scene_data_from_arrays(arrays, static, dev), cfg,
+                       still),
+        "big_items": (dataclasses.replace(big, traverse_items=True), cfg,
+                      PerspectiveCamera.make(40.0, *demo.STAGE6_CAMERA)),
+    }
+
+
+def _same_pass(a, b):
+    """Two (image, overflow, queries) passes agree bit for bit."""
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    assert int(a[2]) == int(b[2]) > 0 and int(a[1]) == int(b[1]) == 0
+
+
+@pytest.mark.parametrize("name", ["stage6", "stage7", "mesh_light",
+                                  "big_items"])
+def test_replayed_pass_equals_the_eager_body(dev, graph_scenes, name):
+    """The first call of a pass captures its graph (the warm-up under the
+    sync debug mode 'error', so nothing in the pass reads the card back),
+    then replays it; a second call only replays. Both equal the eager body
+    bit for bit, queries included. The replay launches every kernel of the
+    path: the wrappers' device counters move with it, their host counts
+    (Python calls) do not."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes[name]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    row0 = torch.full((), 16, dtype=torch.int32, device=dev)
+    eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
+    first = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+    torch.cuda.synchronize()
+    tv.reset_launch_counts()
+    again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+    counts = tv.launch_counts()
+    (g,) = graphs.graphs()
+    assert g.replays == 2
+    kernels = ("build_items", "traverse_items") if name == "big_items" else \
+        ("cluster_masks", "traverse_blocks")
+    for k in kernels + ("gather_rows_t",):
+        assert counts[k] > 0, counts
+    assert all(fn.launches == 0 for fn in tv.KERNELS)
+    _same_pass(first, eager)
+    _same_pass(again, eager)
+    graphs.clear()
+
+
+def test_graphs_go_with_their_scene(dev, graph_scenes):
+    """Two scenes rendered in turn: when the first is collected its graph
+    and pool are freed (the cache holds a scene weakly), so the memory the
+    caching allocator holds drops and only the second scene's graph
+    stays."""
+    import dataclasses
+    import gc
+
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    base_scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(dev)
+    first = dataclasses.replace(base_scene)  # the same tensors, a new scene
+    pt._render_path_pass(first, cfg, cam, [0, 1], 0, 16)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved(dev) - before
+    assert held > 0 and len(graphs.graphs()) == 1
+    del first
+    gc.collect()
+    assert not graphs.graphs()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(dev) - before < held
+    second = dataclasses.replace(base_scene)
+    img, _, q = pt._render_path_pass(second, cfg, cam, [0, 1], 0, 16)
+    assert len(graphs.graphs()) == 1 and int(q) > 0
+    del second, img, q
+    gc.collect()
+    assert not graphs.graphs()
+
+
+def test_one_graph_takes_a_new_camera_and_row0(dev, graph_scenes):
+    """A pass captured with one camera and row 0 replays with another
+    camera (moved, depth of field on, a shutter) and row 32: equal to a
+    fresh eager pass of the new inputs, through the same graph."""
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    pt._render_path_pass(scene, cfg, cam, si, 0, 16)
+    other = PerspectiveCamera.make(35.0, (1.0, 4.0, 14.0), (0.0, -0.5, 0.0),
+                                   (0.0, 1.0, 0.0), focal_distance=12.0,
+                                   lens_radius=0.2, shutter_close=1.0)
+    got = pt._render_path_pass(scene, cfg, other, si, 32, 16)
+    eager = pt._path_pass_body(
+        scene, cfg, other.to(dev), si,
+        torch.full((), 32, dtype=torch.int32, device=dev), 16)
+    torch.cuda.synchronize()
+    assert len(graphs.graphs()) == 1 and graphs.graphs()[0].replays == 2
+    _same_pass(got, eager)
+    graphs.clear()
+
+
+def test_capture_of_an_xla_pass_raises(dev, graph_scenes):
+    """The 'xla' route reads the host once per mesh query: its pass forced
+    through utils/graphs.py raises (no eager fallback), and the dispatch
+    runs it eagerly without capturing anything."""
+    import dataclasses
+
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    xla = dataclasses.replace(scene, traversal="xla")
+    graphs.clear()
+
+    def body(si, row0, camera):
+        return pt._path_pass_body(xla, cfg,
+                                  PerspectiveCamera.from_flat(camera), si,
+                                  row0, 16)
+
+    inputs = {"si": torch.arange(2, dtype=torch.int32, device=dev),
+              "row0": torch.zeros((), dtype=torch.int32, device=dev),
+              "camera": cam.to(dev).flat()}
+    with pytest.raises(RuntimeError):
+        graphs.capture("xla pass", body, inputs, dev)
+    img, ovf, q = pt._render_path_pass(xla, cfg, cam, [0, 1], 0, 16)
+    torch.cuda.synchronize()
+    assert not graphs.graphs() and int(q) > 0 and float(img.max()) > 0.0
+
+
+def test_frame_replays_do_not_alias(dev, graph_scenes):
+    """One frame of three launches through one graph: each launch's image
+    is copied out before the next replay, so every image equals its own
+    eager pass, the rows differ, and none shares storage with the graph's
+    output buffer (which holds the last launch only)."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    si_mat = torch.tensor([[0, 1], [0, 1], [2, 3]], dtype=torch.int32,
+                          device=dev)
+    row0s = torch.tensor([0, 32, 16], dtype=torch.int32, device=dev)
+    imgs, ovf, q = pt._render_path_frame(scene, cfg, cam, si_mat, row0s, 16)
+    torch.cuda.synchronize()
+    (g,) = graphs.graphs()
+    out = g.outputs[0]
+    assert g.replays == 3
+    assert imgs.untyped_storage().data_ptr() != out.untyped_storage(
+        ).data_ptr()
+    q_sum = 0
+    for k in range(3):
+        eager = pt._path_pass_body(scene, cfg, cam.to(dev), si_mat[k],
+                                   row0s[k], 16)
+        assert torch.equal(imgs[k].view(torch.int32),
+                           eager[0].view(torch.int32)), k
+        q_sum += int(eager[2])
+    assert int(q) == q_sum and ovf == 0
+    assert not torch.equal(imgs[0], imgs[1])
+    assert torch.equal(out, imgs[2])
+    graphs.clear()
+
+
+def test_entry_points_replay_graphs(dev, graph_scenes, tmp_path):
+    """render_path_with_stats, render_progressive (with a checkpoint), the
+    sharded render over the one card, render_color and render_direct run
+    their passes as replayed graphs, and the sharded and progressive
+    renders keep render_path_with_stats's bits."""
+    import dataclasses
+
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.parallel import sharding as sh
+    from rayito_tpu_torch.render import integrator as ig
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import progressive as pg
+    from rayito_tpu_torch.utils import graphs
+    from rayito_tpu_torch.utils.config import CONFIG_STAGE123
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    img, ovf, q = pt.render_path_with_stats(scene, cfg, cam)
+    assert [g.replays for g in graphs.graphs()] == [12]  # 4 spp x 3 bands
+    p_img, st = pg.render_progressive(scene, cfg, cam,
+                                      checkpoint_path=str(tmp_path / "c.npz"))
+    np.testing.assert_array_equal(p_img, img)
+    assert st.rays_traced == q and graphs.graphs()[0].replays == 24
+    s_img, _, s_q = sh.render_path_sharded_with_stats(scene, cfg, cam,
+                                                      [dev])
+    np.testing.assert_array_equal(s_img, img)
+    labels = [g.label for g in graphs.graphs()]
+    assert any(lab.startswith("sharded") for lab in labels), labels
+    c3 = dataclasses.replace(CONFIG_STAGE123, width=64, height=48,
+                             pixel_samples=2, light_samples=2)
+    s3 = demo.stage3_scene().compile(dev)
+    ig.render_color(s3, c3, fov=45.0, camera=demo.STAGE23_CAMERA)
+    ig.render_direct(s3, c3, fov=45.0, camera=demo.STAGE23_CAMERA)
+    labels = [g.label for g in graphs.graphs()]
+    assert "color pass" in labels and any(
+        lab.startswith("direct") for lab in labels), labels
+    graphs.clear()

@@ -214,10 +214,13 @@ def test_sharded_equals_unsharded(boxed, n_dev):
 
 
 def test_sharded_lane_layout():
-    px, py, si = tshard._lane_pixel_arrays(5, 14, 4, 12)
-    assert px.tolist() == [1, 2, 3, 0, 1, 2, 3, 0, 1]
-    assert py.tolist() == [1, 1, 1, 2, 2, 2, 2, 0, 0]
-    assert si.tolist() == [0, 0, 0, 0, 0, 0, 0, 1, 1]
+    """Lanes 5-13 of a 4x3 frame, then two padding lanes: pixel and
+    sample 0, inactive."""
+    px, py, si, active = tshard._lane_pixel_arrays(5, 14, 4, 12, 11)
+    assert px.tolist() == [1, 2, 3, 0, 1, 2, 3, 0, 1, 0, 0]
+    assert py.tolist() == [1, 1, 1, 2, 2, 2, 2, 0, 0, 0, 0]
+    assert si.tolist() == [0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0]
+    assert active.tolist() == [True] * 9 + [False] * 2
     assert tshard.make_mesh(["cpu", "cpu"]) == [CPU, CPU]
 
 

@@ -11,16 +11,19 @@ many-shape frames, with ``--scene stage1`` / ``stage2`` / ``stage3`` its
 512x512 direct-lighting frames, or with ``--scene cli_stage6`` the CLI's
 640x480 stage-6 render (2x2 samples, depth 3), once to warm up, times
 three frames on the host clock, then profiles one frame with
-torch.profiler and prints:
+torch.profiler and prints what follows. The path frames run each launch
+as one replay of its pass graph, as the entry points do on the card, or
+with ``--eager`` through the eager pass body (the stage 1-3 and CLI
+frames call the entry points themselves):
 
   * the card (nvidia-smi name and power limit) and the frame time;
   * device time summed over kernels, and the busy share of the frame;
-  * the number of kernel launches per frame;
+  * the number of kernel and CUDA-graph launches per frame;
   * the twelve kernels that take the most device time;
   * utils/profiling.phase_table: device time by renderer phase.
 
 Run from the repo root on a machine with a GPU:
-``python3 tools/frame_profile_torch.py [--scene big --route scan]``
+``python3 tools/frame_profile_torch.py [--scene big --route scan] [--eager]``
 (``--scene stage7``, ``--scene stage7b``, ``--scene mesh_light``, ...).
 """
 
@@ -53,7 +56,12 @@ def main() -> int:
                  for k in ("stage1", "stage2", "stage3")}}
     ap.add_argument("--scene", choices=("big", *setups), default="stage6")
     ap.add_argument("--route", choices=("items", "scan"), default="items")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager pass body (path frames)")
     args = ap.parse_args()
+    if args.eager and args.scene in ("stage1", "stage2", "stage3",
+                                     "cli_stage6"):
+        ap.error(f"--scene {args.scene} calls an entry point")
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to profile", file=sys.stderr)
         return 1
@@ -65,9 +73,12 @@ def main() -> int:
     if args.scene in setups:
         frame = setups[args.scene](dev)[-1]
     else:
-        scan, _, _, _, _, big_frame = cs.big_setup(dev)
-        frame = (big_frame if args.route == "items"
-                 else lambda: big_frame(scan))
+        scan, items, _, _, _, big_frame = cs.big_setup(dev)
+        scene = items if args.route == "items" else scan
+        frame = lambda graph=True: big_frame(scene, graph)  # noqa: E731
+    if args.eager:
+        path_frame = frame
+        frame = lambda: path_frame(graph=False)  # noqa: E731
     frame()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -84,17 +95,21 @@ def main() -> int:
     # kernel rows only: an operator row repeats its kernels' device time
     kernels = collect_device_ops(prof)
     device_ms = sum(us for us, _ in kernels.values()) / 1e3
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC"))
+    counts = {e.key: e.count for e in prof.key_averages()}
+    launches = sum(counts.get(k, 0) for k in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    graph_launches = sum(counts.get(k, 0)
+                         for k in ("cudaGraphLaunch", "cuGraphLaunch"))
     print(f"card: {card}; scene {args.scene}"
-          + (f", {args.route} route" if args.scene == "big" else ""))
+          + (f", {args.route} route" if args.scene == "big" else "")
+          + (", eager pass body" if args.eager else ""))
     print(f"frame: {frame_ms:.1f} ms (host clock, mean of 3); "
           f"{prof_ms:.1f} ms under the profiler")
     print(f"device time: {device_ms:.1f} ms over kernels: "
           f"{100 * device_ms / frame_ms:.1f}% of the unprofiled frame, "
           f"{100 * device_ms / prof_ms:.1f}% of the profiled one")
-    print(f"kernel launches per frame: {launches}")
+    print(f"kernel launches per frame: {launches}; graph launches "
+          f"{graph_launches}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     for name, (us, count) in top[:12]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}")
