@@ -96,34 +96,45 @@ JAX. Phases, each printed, each fatal on failure:
      card, and to a run stopped after its first sample and resumed from
      --checkpoint; the stats line (queries, seconds, Mrays/s);
  16. traversal='xla' (the two-level cluster pipeline), stage 6: one band's
-     camera, bounce and shadow populations (every 8th ray: 16,384)
-     through mesh_intersect_clusters for every mesh, on the card against
-     the CPU (t, beta and gamma bits, prim and overflow equal); the [T, 16]
-     vertex and meta rows the route gathers for the camera rays through
-     gather_rows_t against its plain version, timed and bounded;
- 17. the stage-6 frame of phase 4 under 'xla': gather_rows_t launched and
-     no traversal kernel, the same frame through the plain gather bit for
-     bit, the kernel route's replayed frame within 0.5% when nothing
-     overflowed (printed beside it otherwise), and one timed frame;
+     camera, bounce and shadow populations (131,072 rays each) and the
+     420-layer stack crossed end-on (which truncates at both levels),
+     through the cluster_pipeline kernel for every mesh against its plain
+     version on the card, bit for bit (t, prim, per-slot overflow), with
+     device times (CUDA-graph replays of 20 calls), the plain version's
+     time and the bound of this run's work (24 flops per slab test and 46
+     per Möller-Trumbore test of the kept superclusters' children and the
+     kept clusters' triangles); every 8th ray (16,384) through
+     mesh_intersect_clusters on the card against the CPU (t, beta and
+     gamma bits, prim and overflow equal); the [T, 16] vertex and meta
+     rows the route gathers for the camera rays through gather_rows_t
+     against its plain version, timed and bounded;
+ 17. the stage-6 frame of phase 4 under 'xla', its passes replayed graphs:
+     cluster_pipeline and gather_rows_t launched and no kernel of the
+     other route, the same frame through the eager pass body with the
+     plain versions bit for bit (overflow and queries too), the kernel
+     route's replayed frame within 0.5% when nothing overflowed (printed
+     beside it otherwise), and one timed frame;
  18. the big-scene frame of phase 6 under 'xla' (its five meshes one by
      one): overflow and its share of the queries, the relative RMSE
      against the scan route, checked and timed as in phase 17;
  19. the stage-7 frame under 'xla', checked and timed as in phase 17;
  20. cli.main at its defaults under RAYITO_TRAVERSAL=xla: the launch
-     counts as in phase 17, the stats line naming the traversal and the
-     pipeline's cluster count, its PFM bit-identical to
-     render_path_with_stats under 'xla';
+     counts as in phase 17, its passes graph replays (counted), the stats
+     line naming the traversal and the pipeline's cluster count, its PFM
+     bit-identical to render_path_with_stats under 'xla';
  21. ``python -m rayito_tpu_torch.cli --scene stage1`` in a subprocess with
      no --device: it must render on cuda;
- 22. one profiled 512x512 stage-6 frame on each route (the kernel route's
-     replayed): host kernel and graph launches, kernel ms, the share of
-     that frame's wall ms they fill, and utils/profiling.phase_table ('xla'
-     with the pipeline's rollup);
+ 22. one profiled, replayed 512x512 stage-6 frame on each route: host
+     kernel and graph launches, kernel ms, the share of that frame's wall
+     ms they fill, and utils/profiling.phase_table ('xla' with the
+     cluster_pipeline kernel's row);
  23. graphs, the reference's dispatch (each pass a CUDA graph captured once
      and replayed): the frames of phases 4, 6 (item and scan route), 8-10,
-     12, 13 and 14 (stage 3 at its golden configuration) and the CLI's
+     12, 13 and 14 (stage 3 at its golden configuration), the CLI's
+     render, and under 'xla' the frames of phases 17-19 and the CLI's
      render, each replayed frame against the same frame through the eager
-     pass body, bit for bit with its queries; per frame the capture ms
+     pass body, bit for bit with its queries (and overflow under 'xla');
+     per frame the capture ms
      (warm-up run included), pool MB, frame ms (mean of 3 on the host
      clock, and by CUDA events), the kernel launches of one replayed frame,
      and of one profiled replayed frame its device ops, kernel ms, wall ms
@@ -135,8 +146,7 @@ Launches are counted on the device: each kernel wrapper adds one to a
 device counter beside its launch, so a captured graph holds the add and
 every replay counts (``render/traverse.launch_counts``); the counts are
 set to 0 after a frame that captured its graphs, so a counted frame is
-replays only unless said otherwise. The 'xla' route runs eagerly. Host
-launches are counted as kernel and graph launches (cudaLaunchKernel,
+replays only unless said otherwise. Host launches are counted as kernel and graph launches (cudaLaunchKernel,
 cudaGraphLaunch). Every phase's graphs are freed
 (``utils/graphs.clear()``) before the next phase.
 
@@ -272,9 +282,10 @@ def main() -> int:
 
 def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
                    stage5: dict, mesh_light: dict, xla: dict) -> list:
-    """The five kernels' records: launches (device-counted, replays
+    """The six kernels' records: launches (device-counted, replays
     included) in the replayed frame of the path each serves first (stage 6;
-    the big scene for the item route) and per frame of each path; errors
+    the big scene for the item route; the 'xla' stage-6 frame for
+    cluster_pipeline) and per frame of each path; errors
     over every population; camera-ray times with
     their bounds (big_* for the big scene); per stage-7 population (rays in
     the moving domain's local space) and per mesh-light population the
@@ -287,6 +298,10 @@ def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
     big_res = big["results"].values()
     s6_res = [*stage6["results"].values(), *stage7["results"].values(),
               *mesh_light["results"].values()]
+    pipe = xla["pipeline"]
+    # the stage-6 mesh with the most camera-ray work (the bumpy stand-in)
+    main_mesh = max(pipe["camera"],
+                    key=lambda m: pipe["camera"][m]["tri_tests"])
 
     def timed(r, key, big_key=None):
         """ms, plain_ms, bound_ms, bound_by, library_ms of ``key`` in r,
@@ -351,6 +366,19 @@ def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
          "launches": big_launches["build_items"],
          "max_abs_err": max(r["build_err"] for r in big_res),
          **timed(big_cam, "build_items")},
+        {"name": "cluster_pipeline", "route": "cuda",
+         "source": src + "cluster_pipeline.cu",
+         "replaces": "rayito_tpu/render/mesh_intersect.py:186",
+         "note": "port-only: the body of the reference's XLA while_loop "
+                 "(mesh_intersect.py:283), no pallas_call",
+         "launches": xla["stage6"]["launches"]["cluster_pipeline"],
+         "max_abs_err": max(r["pipe_err"] for pop in pipe.values()
+                            for r in pop.values()),
+         **timed(pipe["camera"][main_mesh], "pipe"),
+         "populations": {f"{name}_mesh{m}": {
+             k: r[f"pipe_{k}"] for k in ("ms", "plain_ms", "bound_ms",
+                                         "share")}
+             for name, pop in pipe.items() for m, r in pop.items()}},
     ]
     for k in kernels:
         k["launches_frame"] = {
@@ -439,6 +467,8 @@ MESH_N = 64
 WIDTH = 512
 RAYS_PER_PASS = 1 << 17  # 256-row bands of 131,072 rays
 STAGE6_KERNELS = ("cluster_masks", "traverse_blocks", "gather_rows_t")
+# the big scene's item route: the scan stands by for lists that overflow
+BIG_ITEM_KERNELS = STAGE6_KERNELS + ("traverse_items", "build_items")
 
 
 def _standin_obj() -> str:
@@ -787,24 +817,27 @@ def _check_masks(name, soat, box, tmin, n_live, r):
 
 
 def _swap_plain():
-    """Point the path at the plain versions (the 'xla' route's winner-row
-    gather too); returns the undo."""
+    """Point the path at the plain versions (the 'xla' route's pipeline and
+    winner-row gather too); returns the undo."""
     from rayito_tpu_torch.render import mesh_intersect as mi
     from rayito_tpu_torch.render import trace as tr
     from rayito_tpu_torch.render import traverse as tv
 
     saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
-             tv.build_items, tr.gather_rows_t, mi.gather_rows_t)
+             tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
+             mi.cluster_pipeline)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
     tv.traverse_items = tv.traverse_items_plain
     tv.build_items = tv.build_items_plain
     tr.gather_rows_t = tv.gather_rows_t_plain
     mi.gather_rows_t = tv.gather_rows_t_plain
+    mi.cluster_pipeline = tv.cluster_pipeline_plain
 
     def undo():
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
-         tv.build_items, tr.gather_rows_t, mi.gather_rows_t) = saved
+         tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
+         mi.cluster_pipeline) = saved
 
     return undo
 
@@ -1134,7 +1167,7 @@ def run_big(dev, card: str) -> dict:
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, "big-scene frame")
     print(f"frame {img.shape}: queries {int(queries)}, {diag}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in BIG_ITEM_KERNELS) <= 0:
         raise AssertionError("a kernel of the path was never launched")
 
     undo = _swap_plain()
@@ -1307,7 +1340,8 @@ MARKERS = {"cluster_masks": "cluster_masks_kernel",
            "traverse_blocks": "blocks_init_kernel",
            "gather_rows_t": "gather_rows_t_kernel",
            "traverse_items": "items_init_kernel",
-           "build_items": "items_count_kernel"}
+           "build_items": "items_count_kernel",
+           "cluster_pipeline": "cluster_pipeline_kernel"}
 
 
 def _profile_frame(frame) -> dict:
@@ -1949,18 +1983,148 @@ XLA_KERNELS_OFF = ("cluster_masks", "traverse_blocks", "traverse_items",
                    "build_items")
 
 
+XLA_KERNELS = ("cluster_pipeline", "gather_rows_t")
+
+
 def _xla_launches(label):
-    """The launch counts of the run just made: gather_rows_t must have
-    launched and no traversal kernel."""
+    """The launch counts of the run just made: cluster_pipeline and
+    gather_rows_t must have launched and no kernel of the other route."""
     from rayito_tpu_torch.render import traverse as tv
 
     launches = tv.launch_counts()
     print(f"launches in {label}: {launches}")
-    if launches["gather_rows_t"] <= 0 or any(
+    if min(launches[k] for k in XLA_KERNELS) <= 0 or any(
             launches[k] for k in XLA_KERNELS_OFF):
-        raise AssertionError(f"{label}: expected gather_rows_t launches and "
-                             "no traversal kernel")
+        raise AssertionError(f"{label}: expected cluster_pipeline and "
+                             "gather_rows_t launches and no kernel of the "
+                             "other route")
     return launches
+
+
+def _pipeline_work(args):
+    """(slab tests, triangle tests) of a cluster_pipeline call on this
+    run's data: 16 per kept supercluster and 48 per kept cluster of each
+    active slot (phase 2 recounted in plain torch)."""
+    import torch
+
+    from rayito_tpu_torch.ops.vec3 import V3
+    from rayito_tpu_torch.render import traverse as tv
+
+    n_act = int(args["n_active"])
+    lanes = args["ray_of_slot"][:n_act].long()
+    t1, sc_idx = tv.nearest_k(args["t_sc"][lanes], args["k1"])
+    kept = t1 < float("inf")
+    o, d = args["o"][lanes], args["d"][lanes]
+    slabs = tests = 0
+    for c0 in range(0, n_act, 16384):  # [chunk, k1, 128] row gathers
+        c = slice(c0, c0 + 16384)
+        rows = args["sc_rows"][sc_idx[c]]
+        col = lambda k: rows[:, :, k * 16:(k + 1) * 16]
+        dc = d[c]
+        t_cl = tv.box_slab(o[c], V3(1.0 / dc.x, 1.0 / dc.y, 1.0 / dc.z),
+                           args["tmin"], args["tmax"][lanes[c]],
+                           V3(col(0), col(1), col(2)),
+                           V3(col(3), col(4), col(5)))
+        entered = ((t_cl < float("inf")) & kept[c, :, None]).sum((1, 2))
+        slabs += 16 * int(kept[c].sum())
+        tests += 48 * int(entered.clamp_max(args["k2"]).sum())
+    return slabs, tests
+
+
+def _check_pipeline(name, scene, m, o, d, tmax, tmin):
+    """cluster_pipeline on mesh ``m``'s query of one population against
+    its plain version on the card, bit for bit (t, prim, per-slot
+    overflow); device times of both; the bound of this run's work
+    (operations: 24 flops per slab test, 46 per Möller-Trumbore test;
+    bytes: the slot order, the active lanes' rays and phase-1 rows, both
+    tables and the outputs, once each)."""
+    import torch
+
+    from rayito_tpu_torch.render import mesh_intersect as mi
+    from rayito_tpu_torch.render import traverse as tv
+
+    args, _ = mi.pipeline_inputs(scene, m, o, d, tmin, tmax)
+    got = tv.cluster_pipeline(**args)
+    ref = tv.cluster_pipeline_plain(**args)
+    torch.cuda.synchronize()
+    bad = {k: int((g.view(torch.int32) != p.view(torch.int32)).sum())
+           for k, g, p in zip(("t", "prim", "overflow"), got, ref)}
+    n, s = args["t_sc"].shape
+    n_act = int(args["n_active"])
+    print(f"{name}, mesh {m}: cluster_pipeline on {n} slots, {n_act} "
+          f"active, k1 {args['k1']}, k2 {args['k2']}, overflow "
+          f"{int(ref[2].sum())}, hits {int((ref[1][:n_act] >= 0).sum())}; "
+          f"differing from its plain version {bad}")
+    if any(bad.values()):
+        raise AssertionError(f"{name}: cluster_pipeline disagrees")
+    fin = torch.isfinite(ref[0])
+    r = {"pipe_err": float((got[0][fin] - ref[0][fin]).abs().max())
+         if bool(fin.any()) else 0.0, "active": n_act,
+         "overflow": int(ref[2].sum())}
+    r["pipe_ms"] = _device_ms(lambda: tv.cluster_pipeline(**args))
+    r["pipe_call_ms"] = _median_ms(lambda: tv.cluster_pipeline(**args), 20)
+    r["pipe_plain_ms"] = _median_ms(
+        lambda: tv.cluster_pipeline_plain(**args), 3)
+    r["pipe_library_ms"] = None  # no PyTorch call computes it
+    slabs, tests = _pipeline_work(args)
+    r["slab_tests"], r["tri_tests"] = slabs, tests
+    nbytes = (n * 4 + 4 + n_act * (7 + s) * 4 + args["sc_rows"].numel() * 4
+              + args["tri_rows"].numel() * 4 + n * 12)
+    _put_bound(r, "pipe", slabs * SLAB_OPS + tests * TEST_OPS["vpu"],
+               nbytes)
+    print(f"{name}, mesh {m}: " + _fmt(r), flush=True)
+    return r
+
+
+def _layers_scene(pkg, n_layers=420, g=4, dz=0.05):
+    """n_layers square layers of g x g quads stacked along z with seeded
+    jitter (13,440 triangles, 18 superclusters), a floor, a sphere and a
+    rect light: rays that cross the stack end-on truncate at both levels
+    of the 'xla' pipeline."""
+    import numpy as np
+
+    rs = np.random.default_rng(5)
+    verts, idx = [], []
+    for k in range(n_layers):
+        z = k * dz + rs.uniform(-0.001, 0.001)
+        base = len(verts)
+        verts += [(i / g * 2 - 1, j / g * 2 - 1, z) for j in range(g + 1)
+                  for i in range(g + 1)]
+        for j in range(g):
+            for i in range(g):
+                a = base + j * (g + 1) + i
+                idx += [(a, a + 1, a + g + 2), (a, a + g + 2, a + g + 1)]
+    s = pkg.Scene()
+    s.add(pkg.TriangleMesh(np.asarray(verts, np.float32),
+                           np.asarray(idx, np.int32),
+                           pkg.DiffuseMaterial((0.6, 0.5, 0.4))))
+    s.add(pkg.Plane((0.0, -1.5, 0.0), (0.0, 1.0, 0.0),
+                    pkg.DiffuseMaterial((0.7, 0.7, 0.9))))
+    s.add(pkg.Sphere((2.0, 0.0, 10.0), 0.8,
+                     pkg.DiffuseMaterial((0.8, 0.3, 0.7))))
+    s.add(pkg.RectangleLight((-2.0, 4.0, 0.0), (4.0, 0.0, 0.0),
+                             (0.0, 0.0, 4.0), (1.0, 1.0, 1.0), 6.0))
+    return s
+
+
+def _layers_rays(dev, n=RAYS_PER_PASS):
+    """n seeded rays from below the stack crossing it end-on, every 10th
+    straight up the z axis (o, d, tmax)."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.ops.vec3 import V3
+
+    rs = np.random.default_rng(7)
+    o = np.stack([rs.uniform(-0.9, 0.9, n), rs.uniform(-0.9, 0.9, n),
+                  np.full(n, -3.0)], 1)
+    d = rs.normal(0.0, 0.05, (n, 3))
+    d[:, 2] = 1.0
+    d[::10] = (0.0, 0.0, 1.0)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v3 = lambda a: V3(*(torch.from_numpy(a[:, k].astype(np.float32)).to(dev)
+                        for k in range(3)))
+    return v3(o), v3(d), torch.full((n,), 1e30, device=dev)
 
 
 def _check_xla_populations(scene, cases, tmin):
@@ -2045,16 +2209,18 @@ def _xla_gathers(scene, cfg, cam, r):
 
 
 def _xla_frame(label, frame, scene, cfg, card, other=None, timed=1):
-    """One 'xla' frame with the launch counts set to 0 just before it and
-    read just after; the same frame through the plain gather, bit for bit;
-    ``other`` (a frame function of the kernel route), the relative RMSE
-    against it (at most 0.5% when nothing overflowed); then ``timed``
-    timed frames (phase 22 profiles the stage-6 frame)."""
+    """One 'xla' frame, its passes replayed graphs, with the launch counts
+    set to 0 just before it and read just after; the same frame through
+    the eager pass body with the plain versions (cluster_pipeline_plain,
+    the plain gather), bit for bit with its overflow and queries; ``other``
+    (a frame function of the kernel route), the relative RMSE against it
+    (at most 0.5% when nothing overflowed); then ``timed`` timed frames
+    (phase 22 profiles the stage-6 frame)."""
     import torch
 
     from rayito_tpu_torch.render import traverse as tv
 
-    frame(scene)  # warm-up
+    frame(scene)  # warm-up: captures the pass graph
     torch.cuda.synchronize()
     tv.reset_launch_counts()
     imgs, q = frame(scene)
@@ -2067,10 +2233,14 @@ def _xla_frame(label, frame, scene, cfg, card, other=None, timed=1):
           f"of the queries), {diag}")
     undo = _swap_plain()
     try:
-        plain = frame(scene)
+        plain = frame(scene, graph=False)
+        plain_ovf = int(frame.overflow)
     finally:
         undo()
-    _same_frame(f"{label} vs its plain-gather twin", (imgs, q), plain)
+    _same_frame(f"{label} vs its plain-version eager twin", (imgs, q), plain)
+    print(f"{label}: overflow replayed / plain eager {ovf} / {plain_ovf}")
+    if plain_ovf != ovf:
+        raise AssertionError(f"{label}: the overflow differs")
     out = {"launches": launches, "queries": int(q), "overflow": ovf}
     if other is not None:
         imgs_o, _ = other()
@@ -2089,19 +2259,22 @@ def _xla_frame(label, frame, scene, cfg, card, other=None, timed=1):
 
 
 def run_xla(dev, card: str) -> dict:
-    """Phases 16-20 on ``dev``: the 'xla' route on stage 6 (populations
-    card against CPU, the route's row gathers, the frame), the big scene,
-    stage 7 and the CLI under RAYITO_TRAVERSAL=xla."""
+    """Phases 16-20 on ``dev``: the 'xla' route on stage 6 (the
+    cluster_pipeline kernel against its plain version on full-band
+    populations and the layered stack, populations card against CPU, the
+    route's row gathers, the frame), the big scene, stage 7 and the CLI
+    under RAYITO_TRAVERSAL=xla."""
     import contextlib
     import io
 
     import numpy as np
     import torch
 
+    import rayito_tpu_torch as rt
     from rayito_tpu_torch import cli
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.render import traverse as tv
-    from rayito_tpu_torch.utils import cuda_lib
+    from rayito_tpu_torch.utils import cuda_lib, graphs
     from rayito_tpu_torch.utils.image import read_pfm
 
     _phase("xla stage-6 populations")
@@ -2111,6 +2284,14 @@ def run_xla(dev, card: str) -> dict:
           f"48, {xla.sc_min.shape[0]} superclusters, per mesh "
           f"{xla.mesh_sc_ranges}")
     cases = _populations(xla, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0))
+    pipeline = {}
+    for name, co, cd, ctmax, _, _ in cases:
+        pipeline[name] = {m: _check_pipeline(f"xla {name}", xla, m, co, cd,
+                                             ctmax, cfg.ray_tmin)
+                          for m in range(xla.n_meshes)}
+    layers = _layers_scene(rt).compile(dev, traversal="xla")
+    pipeline["layers"] = {0: _check_pipeline(
+        "xla layers (end-on)", layers, 0, *_layers_rays(dev), cfg.ray_tmin)}
     pops = _check_xla_populations(xla, cases, cfg.ray_tmin)
     gathers = {}
     _xla_gathers(xla, cfg, cam, gathers)
@@ -2145,6 +2326,13 @@ def run_xla(dev, card: str) -> dict:
     saved_env = os.environ.get("RAYITO_TRAVERSAL")
     os.environ["RAYITO_TRAVERSAL"] = "xla"
     err = io.StringIO()
+    captured, real_capture = [], graphs.capture
+
+    def spy(*a, **kw):
+        captured.append(real_capture(*a, **kw))
+        return captured[-1]
+
+    graphs.capture = spy
     try:
         torch.cuda.synchronize()
         tv.reset_launch_counts()
@@ -2154,12 +2342,18 @@ def run_xla(dev, card: str) -> dict:
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
     finally:
+        graphs.capture = real_capture
         if saved_env is None:
             del os.environ["RAYITO_TRAVERSAL"]
         else:
             os.environ["RAYITO_TRAVERSAL"] = saved_env
     print(err.getvalue().strip())
     cli_launches = _xla_launches("cli.main under RAYITO_TRAVERSAL=xla")
+    replays = sum(g.replays for g in captured)
+    print(f"cli.main under RAYITO_TRAVERSAL=xla: {len(captured)} graph(s) "
+          f"captured, {replays} replays")
+    if not captured or replays <= 0:
+        raise AssertionError("the CLI's 'xla' passes were not replayed")
     c_scene, c_cfg, c_cam = _cli_inputs(dev, obj)
     c_xla = dataclasses.replace(c_scene, traversal="xla")
     stats = [ln for ln in err.getvalue().splitlines() if "clusters=" in ln]
@@ -2174,10 +2368,11 @@ def run_xla(dev, card: str) -> dict:
           f"'xla' {same} ({queries} queries, overflow {ovf})")
     if not same:
         raise AssertionError("the CLI's 'xla' render differs")
-    return {"populations": pops, "gathers": gathers, "stage6": s6,
-            "big": big, "stage7": s7,
+    return {"populations": pops, "gathers": gathers, "pipeline": pipeline,
+            "stage6": s6, "big": big, "stage7": s7,
             "cli": {"launches": cli_launches, "seconds": cli_s,
-                    "overflow": ovf, "queries": queries}}
+                    "overflow": ovf, "queries": queries,
+                    "replays": replays}}
 
 
 def run_cli_subprocess() -> None:
@@ -2223,7 +2418,8 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
     cleared, the first replayed frame captures its graphs (capture ms:
     each capture with its warm-up run, timed on the host around
     ``graphs.capture``) and must equal the eager frame bit for bit,
-    queries included. Then: pool MB; one frame with the launch counts set
+    queries included (and, where they return a third element, the 'xla'
+    route's overflow). Then: pool MB; one frame with the launch counts set
     to 0 just before it and read just after (each of ``kernels`` must have
     run: the wrappers' device counters move with every replay); 3 timed
     frames (host clock, and CUDA events around each); and, if
@@ -2266,6 +2462,11 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
           f"queries {int(got[1])} / {int(ref[1])}")
     if not same or int(got[1]) != int(ref[1]):
         raise AssertionError(f"{label}: the replayed frame differs")
+    if len(got) > 2:  # an 'xla' frame: its overflow too
+        ovf = (int(got[2]), int(ref[2]))
+        print(f"{label}: overflow replayed / eager {ovf[0]} / {ovf[1]}")
+        if ovf[0] != ovf[1]:
+            raise AssertionError(f"{label}: the overflow differs")
     gs = graphs.graphs()
     before = [g.replays for g in gs]
     tv.reset_launch_counts()
@@ -2290,6 +2491,8 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
          "event_ms": sum(ev) / len(ev), "graphs": len(gs),
          "replays_per_frame": per_frame, "capture_ms": sum(capture_ms),
          "pool_mb": _pool_mb(gs), "queries": int(got[1])}
+    if len(got) > 2:
+        r["overflow"] = int(got[2])
     if profiled:
         tv.reset_launch_counts()
         p = _profile_frame(replayed)
@@ -2338,10 +2541,11 @@ def _stage3_frames(dev):
     return eager, frame
 
 
-def _cli_frames(dev):
+def _cli_frames(dev, xla: bool = False):
     """(eager, replayed) frames of the CLI's render: render_path_with_stats
     at its inputs, and its bands (the last shifted up and cropped) through
-    the eager pass body added in the same order."""
+    the eager pass body added in the same order. With ``xla`` on the
+    'xla' route, each returning its overflow as a third element."""
     import numpy as np
     import torch
 
@@ -2351,30 +2555,53 @@ def _cli_frames(dev):
     w, h, spp = cfg.width, cfg.height, cfg.pixel_samples ** 2
     band = cfg.max_rays_per_pass // w
     r0s = [min(b * band, h - band) for b in range(-(-h // band))]
+    if xla:
+        scene = dataclasses.replace(scene, traversal="xla")
+
+        def frame():
+            img, ovf, q = pt.render_path_with_stats(scene, cfg, cam)
+            return img, q, ovf
 
     def eager():
         acc = np.zeros((h, w, 3), np.float32)
-        q = 0
+        q = ovf = 0
         cam_d = cam.to(dev)
         for s0 in range(spp):
             si = torch.full((1,), s0, dtype=torch.int32, device=dev)
             for b, r0 in enumerate(r0s):
-                img, _, q1 = pt._path_pass_body(
+                img, ovf1, q1 = pt._path_pass_body(
                     scene, cfg, cam_d, si,
                     torch.full((), r0, dtype=torch.int32, device=dev), band)
                 skip = max(0, b * band - r0)
                 acc[r0 + skip:r0 + band] += img.cpu().numpy()[skip:]
                 q += int(q1)
-        return acc / np.float32(spp), q
+                ovf += int(ovf1)
+        return (acc / np.float32(spp), q) + ((ovf,) if xla else ())
 
     return eager, frame
+
+
+def _xla_frames(setup):
+    """(eager, replayed) 'xla' frames of a setup's scene (the traversal
+    switched, the same config and camera), each returning (images,
+    queries, overflow)."""
+    scene, cfg, cam = setup[0], setup[-3], setup[-2]
+    xla = dataclasses.replace(scene, traversal="xla")
+    frame = _frame_fn(xla, cfg, cam)
+
+    def run(graph):
+        imgs, q = frame(xla, graph)
+        return imgs, q, frame.overflow
+
+    return functools.partial(run, False), functools.partial(run, True)
 
 
 def run_graphs(dev, card: str) -> dict:
     """Phase 23: the reference's dispatch, each pass a replayed CUDA graph,
     on every frame above: stage 6, the big scene on the item and the scan
     route, stage 7, stage 7b, stage 5, the mesh light, 40 spheres, 16
-    lights, stage 3 at its golden configuration and the CLI's render
+    lights, stage 3 at its golden configuration, the CLI's render, and
+    under 'xla' stage 6, the big scene, stage 7 and the CLI's render
     (``_graph_phase``)."""
     _phase("graphs")
     s6 = stage6_setup(dev)
@@ -2404,15 +2631,21 @@ def run_graphs(dev, card: str) -> dict:
                                  *_stage3_frames(dev), card, profiled=False)
     out["cli_stage6"] = _graph_phase("graph cli_stage6 (640x480, 4 spp)",
                                      *_cli_frames(dev), card, STAGE6_KERNELS)
+    for name, frames in (("stage6_xla", _xla_frames(s6)),
+                         ("big_xla", _xla_frames(big_setup(dev))),
+                         ("stage7_xla", _xla_frames(stage7_setup(dev))),
+                         ("cli_stage6_xla", _cli_frames(dev, xla=True))):
+        t0 = time.perf_counter()
+        out[name] = _graph_phase(f"graph {name}", *frames, card, XLA_KERNELS)
+        print(f"-- graph {name} done in {time.perf_counter() - t0:.1f} s")
     return out
 
 
 def run_phase_table(dev) -> None:
-    """Phase 22: one profiled stage-6 frame on each route, the kernel
-    route's replayed: host kernel and graph launches, kernel ms and the
-    share of that frame's wall ms they fill, and
-    utils/profiling.phase_table (the 'xla' frame's pipeline rollup must be
-    there)."""
+    """Phase 22: one profiled, replayed stage-6 frame on each route: host
+    kernel and graph launches, kernel ms and the share of that frame's
+    wall ms they fill, and utils/profiling.phase_table (the 'xla' frame's
+    cluster_pipeline kernel must be there)."""
     import torch
 
     from rayito_tpu_torch.utils.profiling import collect_device_ops as \
@@ -2423,7 +2656,7 @@ def run_phase_table(dev) -> None:
     scene, _, _, frame = stage6_setup(dev)
     for traversal in ("pallas", "xla"):
         sd = dataclasses.replace(scene, traversal=traversal)
-        frame(sd)  # replayed graphs; 'xla' runs eagerly
+        frame(sd)  # captures the pass graph
         torch.cuda.synchronize()
         p = _profile_frame(lambda: frame(sd))
         prof = p["prof"]
@@ -2438,8 +2671,10 @@ def run_phase_table(dev) -> None:
         if not rows:
             raise AssertionError("the profiler recorded no device kernel")
         if traversal == "xla" and not any(
-                "rollup" in label and ms > 0 for label, ms, _ in rows):
-            raise AssertionError("no device time under the 'xla' rollup")
+                label == "two-level cluster pipeline kernel" and ms > 0
+                for label, ms, _ in rows):
+            raise AssertionError("no device time in the 'xla' frame's "
+                                 "cluster_pipeline kernel")
     # the 'xla' frame's costliest kernels by name
     ops = sorted(collect_ops(prof).items(), key=lambda kv: -kv[1][0])
     for name, (us, count) in ops[:12]:

@@ -76,7 +76,7 @@ def _shard_pass(scene: SceneData, scene_on, config: RenderConfig,
                 share: int):
     """Enqueue one device's share of a launch on ``dev`` through
     ``utils/graphs.run``: a replay of that device's graph of (scene, config,
-    share) on the card, the eager body on the CPU and on the 'xla' route.
+    share) on the card, the eager body on the CPU.
     ``scene_on(dev)`` is the scene on ``dev``. (radiance [share, 3],
     overflow, issued queries), on ``dev``."""
     i64 = dict(dtype=torch.int64, device=dev)

@@ -93,8 +93,8 @@ def _render_color_pass(scene: SceneData, config: RenderConfig, fov: float,
                        camera):
     """The stage-1 pass through ``utils/graphs.run``: on the card one
     replay of its graph (key: the reference's static arguments config,
-    fov, camera, and the scene), the eager body on the CPU and on the 'xla'
-    route. [H, W, 3] on the scene's device."""
+    fov, camera, and the scene), the eager body on the CPU. [H, W, 3] on
+    the scene's device."""
     return graphs.run(
         ("color", config, fov, camera), scene, scene.device,
         lambda: (_color_pass_body(scene, config, fov, camera),), {},
@@ -225,8 +225,8 @@ def _render_direct_pass(scene: SceneData, config: RenderConfig, fov: float,
     ``utils/graphs.run``: on the card one replay of the pass graph (key:
     the reference's static arguments config, fov, camera, spp_x, spp_y,
     and the scene and chunk size; the chunk's indices in a static buffer),
-    the eager body on the CPU and on the 'xla' route. The SUM image,
-    [H, W, 3] on the scene's device."""
+    the eager body on the CPU. The SUM image, [H, W, 3] on the scene's
+    device."""
     def body(si):
         return (_direct_pass_body(scene, config, fov, camera, spp_x, spp_y,
                                   si),)

@@ -7,8 +7,8 @@ device. The reference's dispatch is ported whole: a jitted pass is a CUDA
 graph captured once per (scene, config, rows, samples per launch) and
 replayed (``utils/graphs.py``), ``_render_path_frame`` replays it over a
 launch grid without reading anything back, and ``_dispatch_grid`` splits a
-grid into the reference's bounded groups. The CPU and the
-``traversal='xla'`` route run the same pass eagerly (``utils/graphs.run``).
+grid into the reference's bounded groups, on either mesh route. The CPU
+runs the same pass eagerly (``utils/graphs.run``).
 
 Semantics are the reference's: emission only at bounce 0 or through an
 unbroken chain of Dirac bounces, uniform light selection per sample,
@@ -290,8 +290,7 @@ def _path_pass(scene: SceneData, config: RenderConfig, si, row0,
     pass graph of (scene, config, rows, n_si), captured on its first use,
     the counterpart of the reference's jitted ``_render_path_pass``
     (static: config, rows; traced: si, row0, the camera); the eager body
-    on the CPU and on the 'xla' route. (SUM image, overflow, queries) on
-    the scene's device."""
+    on the CPU. (SUM image, overflow, queries) on the scene's device."""
     def body(si, row0, camera):
         return _path_pass_body(scene, config,
                                PerspectiveCamera.from_flat(camera), si, row0,
@@ -316,8 +315,8 @@ def _render_path_pass(scene: SceneData, config: RenderConfig,
                       rows: int = 0):
     """Pixel rows [row0, row0+rows) x the sample indices ``si_chunk``.
     Returns (SUM image [rows, W, 3] on the device, overflow, queries): one
-    replay of the pass graph on the card, the eager body on the CPU and on
-    the 'xla' route (``_path_pass``)."""
+    replay of the pass graph on the card, the eager body on the CPU
+    (``_path_pass``)."""
     dev = scene.device
     return _path_pass(scene, config, _int32_on(si_chunk, dev),
                       _int32_on(row0, dev), camera.to(dev).flat(),

@@ -1,4 +1,4 @@
-"""Mesh traversal through the five hand-written CUDA kernels.
+"""Mesh traversal through the hand-written CUDA kernels.
 
 Counterpart of ``rayito_tpu/render/pallas_traverse.py``'s ``traverse()``.
 One launch domain's nearest (or any) triangle hit for a wavefront:
@@ -22,7 +22,10 @@ One launch domain's nearest (or any) triangle hit for a wavefront:
 
 ``gather_rows_t`` (kernel) serves the exact winner re-test in
 ``render/trace.py``. Steps 1, 2 and 5 were XLA in the reference and are
-plain torch here.
+plain torch here. ``cluster_pipeline`` (kernel) is phases 2-3 of the
+``traversal='xla'`` route's two-level pipeline
+(``render/mesh_intersect.py``), the body of the reference's device-side
+block loop.
 
 Every kernel has its plain PyTorch version beside it (``*_plain``), with
 the same contract. A wrapper runs the plain version only for CPU tensors;
@@ -40,8 +43,11 @@ from __future__ import annotations
 
 import torch
 
+from ..accel.clusters import (CLUSTERS_PER_SUPER, SC_ROW_WIDTH,
+                              TRI_PER_CLUSTER, TRI_ROW_WIDTH)
 from ..accel.kernel_tables import KTRI, NEVER_HIT
 from ..models.scene import validate_blocks, validate_items
+from ..ops.vec3 import V3
 from ..utils import cuda_lib
 
 _INF = float("inf")
@@ -612,8 +618,202 @@ def traverse_items(items, n_steps, soab, tri, tmin: float,
 traverse_items.launches = 0
 traverse_items.device_launches = {}
 
+# ---------------------------------------------------------------------------
+# Kernel 6: the 'xla' route's cluster pipeline (the body of the reference's
+# XLA while_loop, rayito_tpu/render/mesh_intersect.py:186-281; no
+# pallas_call)
+# ---------------------------------------------------------------------------
+
+# superclusters and clusters a ray keeps, nearest first (the reference's
+# K1 and K2; the kernel holds at most these)
+K1_SUPERS = 16
+K2_CLUSTERS = 24
+# compacted slots per batch of the plain version: its [chunk, 24, 512] f32
+# triangle gather is 805 MB on the card
+PIPELINE_CHUNK = 16384
+
+
+def _slab6(ox, oy, oz, ix, iy, iz, tmin, tmax, bx0, by0, bz0, bx1, by1, bz1):
+    """Component-wise slab test; entry t or INF. torch.maximum / minimum
+    propagate the NaN of 0 * inf (an axis-parallel ray on a box plane),
+    which then fails ``t0 <= t1`` as in the reference. ``tmin`` is a
+    number or a 0-dim tensor."""
+    tx0 = (bx0 - ox) * ix
+    tx1 = (bx1 - ox) * ix
+    ty0 = (by0 - oy) * iy
+    ty1 = (by1 - oy) * iy
+    tz0 = (bz0 - oz) * iz
+    tz1 = (bz1 - oz) * iz
+    near = torch.maximum(
+        torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
+        torch.minimum(tz0, tz1))
+    far = torch.minimum(
+        torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
+        torch.maximum(tz0, tz1))
+    t0 = torch.maximum(near, tmin)
+    t1 = torch.minimum(far, tmax)
+    return torch.where(t0 <= t1, t0, _INF)
+
+
+def box_slab(o, inv, tmin, tmax, lo, hi):
+    """_slab6 of rays [R] (o, inv: V3 of [R]) against boxes whose
+    components are trailing dims of ``lo`` / ``hi`` V3s."""
+    ex = (slice(None),) + (None,) * (lo.x.dim() - 1)
+    if not torch.is_tensor(tmin):  # a CPU scalar: no copy to the card
+        tmin = torch.tensor(tmin, dtype=torch.float32)
+    return _slab6(o.x[ex], o.y[ex], o.z[ex], inv.x[ex], inv.y[ex], inv.z[ex],
+                  tmin, tmax[ex], lo.x, lo.y, lo.z, hi.x, hi.y, hi.z)
+
+
+def nearest_k(t, k: int):
+    """(t, index) of the k smallest entries of each row of t, ascending,
+    ties to the lower index (``jax.lax.top_k(-t, k)``'s order)."""
+    t_sorted, order = torch.sort(t, dim=1, stable=True)
+    return t_sorted[:, :k], order[:, :k]
+
+
+def _pipeline_chunk(t_sc, o, d, tmin, tmax, sc_rows, tri_rows, k1: int,
+                    k2: int, tri0: int):
+    """Phases 2-3 for the rays o, d (V3 of [R]) with their phase-1 rows
+    t_sc [R, S]: (t [R], global prim [R] i32, overflow per ray [R] i32)."""
+    n_r = t_sc.shape[0]
+    inv = V3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+    T = TRI_PER_CLUSTER
+
+    # phase 2: the nearest k1 superclusters' children, from packed rows
+    t1, sc_idx = nearest_k(t_sc, k1)
+    ovf = torch.clamp_min(torch.isfinite(t_sc).sum(1) - k1, 0)
+    rows = sc_rows[sc_idx]  # [R, k1, 128]
+    col = lambda c: rows[:, :, c * 16:(c + 1) * 16]
+    t_cl = box_slab(o, inv, tmin, tmax, V3(col(0), col(1), col(2)),
+                    V3(col(3), col(4), col(5)))
+    t_cl = torch.where((t1 < _INF)[:, :, None], t_cl, _INF).reshape(
+        n_r, k1 * CLUSTERS_PER_SUPER)
+    ovf = ovf + torch.clamp_min((t_cl < _INF).sum(1) - k2, 0)
+    t2, cand = nearest_k(t_cl, k2)  # slots into k1 * 16
+    sc_sel = sc_idx.gather(1, cand >> 4)
+    cl_sel = sc_sel * CLUSTERS_PER_SUPER + (cand & 15)
+
+    # phase 3: Möller-Trumbore over the candidates' 48-triangle rows, in
+    # the reference's formulation
+    trows = tri_rows[cl_sel]  # [R, k2, 512]
+    comp = lambda b: trows[:, :, b * T:(b + 1) * T]  # [R, k2, 48]
+    v0x, v0y, v0z = comp(0), comp(1), comp(2)
+    v1x, v1y, v1z = comp(3), comp(4), comp(5)
+    v2x, v2y, v2z = comp(6), comp(7), comp(8)
+    ex = (slice(None), None, None)
+    dx, dy, dz = d.x[ex], d.y[ex], d.z[ex]
+    ox, oy, oz = o.x[ex], o.y[ex], o.z[ex]
+    e1x, e1y, e1z = v1x - v0x, v1y - v0y, v1z - v0z
+    e2x, e2y, e2z = v2x - v0x, v2y - v0y, v2z - v0z
+    gnx = e1y * e2z - e1z * e2y
+    gny = e1z * e2x - e1x * e2z
+    gnz = e1x * e2y - e1y * e2x
+    det = -(dx * gnx + dy * gny + dz * gnz)
+    inv_det = 1.0 / torch.where(det == 0.0, 1.0, det)
+    t0x, t0y, t0z = v0x - ox, v0y - oy, v0z - oz
+    rcx = dy * t0z - dz * t0y
+    rcy = dz * t0x - dx * t0z
+    rcz = dx * t0y - dy * t0x
+    t1x, t1y, t1z = v1x - ox, v1y - oy, v1z - oz
+    gamma = -(t1x * rcx + t1y * rcy + t1z * rcz) * inv_det
+    t2x, t2y, t2z = v2x - ox, v2y - oy, v2z - oz
+    beta = (t2x * rcx + t2y * rcy + t2z * rcz) * inv_det
+    t = -(t0x * gnx + t0y * gny + t0z * gnz) * inv_det
+    hit = ((det != 0.0) & (gamma >= 0.0) & (gamma <= 1.0) & (beta >= 0.0)
+           & (beta + gamma <= 1.0) & (t >= tmin) & (t < tmax[ex])
+           & (t2 < _INF)[:, :, None])
+    t_tri = torch.where(hit, t, _INF).reshape(n_r, k2 * T)
+    arg = torch.argmin(t_tri, dim=1, keepdim=True)  # all-INF rows: 0
+    cl_win = cl_sel.gather(1, arg // T)[:, 0]
+    prim = (tri0 + cl_win * T + arg[:, 0] % T).to(torch.int32)
+    return t_tri.gather(1, arg)[:, 0], prim, ovf.to(torch.int32)
+
+
+def cluster_pipeline_plain(ray_of_slot, n_active, o, d, tmax, tmin: float,
+                           t_sc, sc_rows, tri_rows, k1: int, k2: int,
+                           tri0: int):
+    """Phases 2-3 of the two-level pipeline for one mesh, per compacted
+    slot. ray_of_slot [N] i32 (the lanes with a candidate first, ascending),
+    n_active [] i32 (how many), o, d (V3 of [N] f32), tmax [N] f32, t_sc
+    [N, S] f32 (phase 1, by lane), sc_rows [S, 128] and tri_rows [C, 512]
+    (the mesh's rows) -> (t, prim, overflow) per slot, [N] f32 / i32 / i32:
+    for slot s < n_active, lane ray_of_slot[s]'s nearest hit among the
+    triangles of its k2 nearest clusters, themselves children of its k1
+    nearest superclusters (ties to the lower index), the global triangle
+    id tri0 + cluster * 48 + triangle (an all-miss slot: the first
+    candidate's first triangle), and max(#superclusters entered - k1, 0) +
+    max(#clusters entered - k2, 0). Slots at or past n_active are INF / -1
+    / 0. Reads n_active on the host."""
+    n = ray_of_slot.shape[0]
+    dev = t_sc.device
+    t_slot = torch.full((n,), _INF, device=dev)
+    prim_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    ovf_slot = torch.zeros((n,), dtype=torch.int32, device=dev)
+    n_act = int(n_active)
+    for c0 in range(0, n_act, PIPELINE_CHUNK):
+        c1 = min(c0 + PIPELINE_CHUNK, n_act)
+        lanes = ray_of_slot[c0:c1].long()
+        t_slot[c0:c1], prim_slot[c0:c1], ovf_slot[c0:c1] = _pipeline_chunk(
+            t_sc[lanes], o[lanes], d[lanes], tmin, tmax[lanes], sc_rows,
+            tri_rows, k1, k2, tri0)
+    return t_slot, prim_slot, ovf_slot
+
+
+def cluster_pipeline(ray_of_slot, n_active, o, d, tmax, tmin: float, t_sc,
+                     sc_rows, tri_rows, k1: int, k2: int, tri0: int):
+    """Kernel wrapper of :func:`cluster_pipeline_plain` (same contract):
+    one launch over every slot; the kernel reads n_active on the device,
+    so the host never waits."""
+    name = "cluster_pipeline"
+    comps = (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
+    _check_dtype(name, ray_of_slot, torch.int32, 1)
+    _check_dtype(name, n_active, torch.int32, 0)
+    _check_dtype(name, t_sc, torch.float32, 2)
+    _check_dtype(name, sc_rows, torch.float32, 2)
+    _check_dtype(name, tri_rows, torch.float32, 2)
+    for c in comps:
+        _check_dtype(name, c, torch.float32, 1)
+    n, s = t_sc.shape
+    if (ray_of_slot.shape[0] != n or any(c.shape[0] != n for c in comps)
+            or tuple(sc_rows.shape) != (s, SC_ROW_WIDTH)
+            or tri_rows.shape[1] != TRI_ROW_WIDTH
+            or tri_rows.shape[0] < s * CLUSTERS_PER_SUPER
+            or not 1 <= k1 <= min(s, K1_SUPERS)
+            or not 1 <= k2 <= min(k1 * CLUSTERS_PER_SUPER, K2_CLUSTERS)):
+        raise ValueError(f"{name}: ray_of_slot [N], rays [N], t_sc [N, S], "
+                         "sc_rows [S, 128], tri_rows [>= 16 S, 512], 1 <= k1 "
+                         "<= min(S, 16) and 1 <= k2 <= min(16 k1, 24) "
+                         "expected")
+    if _on_cpu(name, ray_of_slot, n_active, *comps, t_sc, sc_rows, tri_rows):
+        return cluster_pipeline_plain(ray_of_slot, n_active, o, d, tmax, tmin,
+                                      t_sc, sc_rows, tri_rows, k1, k2, tri0)
+    lib, stream = _cuda_args(name, ray_of_slot, n_active, *comps, t_sc,
+                             sc_rows, tri_rows)
+    if n * s >= 2**31 or tri_rows.shape[0] * TRI_ROW_WIDTH >= 2**31:
+        raise ValueError(f"{name}: t_sc and tri_rows must hold < 2^31 "
+                         "entries")
+    dev = t_sc.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    ovf = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, prim, ovf
+    cuda_lib.check(lib.rt_cluster_pipeline(
+        ray_of_slot.data_ptr(), n_active.data_ptr(),
+        *(c.data_ptr() for c in comps), t_sc.data_ptr(), sc_rows.data_ptr(),
+        tri_rows.data_ptr(), t.data_ptr(), prim.data_ptr(), ovf.data_ptr(),
+        n, s, k1, k2, tri0, float(tmin), stream,
+    ), name)
+    _count(cluster_pipeline, dev)
+    return t, prim, ovf
+
+
+cluster_pipeline.launches = 0
+cluster_pipeline.device_launches = {}
+
 KERNELS = (cluster_masks, traverse_blocks, gather_rows_t, traverse_items,
-           build_items)
+           build_items, cluster_pipeline)
 
 
 def reset_launch_counts() -> None:

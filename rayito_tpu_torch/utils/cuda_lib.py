@@ -44,6 +44,7 @@ SIGNATURES = {
     "rt_traverse_items": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _F, _I, _P],
     "rt_build_items": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rt_cluster_pipeline": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _P],
 }
 
 

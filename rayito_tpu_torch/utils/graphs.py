@@ -22,10 +22,9 @@ as a CUDA graph and replays it (``run``):
     pool.
 
 A capture failure raises: nothing falls back to eager on the card. ``run``
-runs the body eagerly on the CPU, because the caller asked for the CPU,
-and for a scene on the ``traversal='xla'`` route, whose compaction reads
-the host once per mesh query: a route chosen up front from
-``scene.traversal``, never after a failed capture.
+runs the body eagerly on the CPU only, because the caller asked for the
+CPU. Both mesh routes are captured: the kernel route and
+``traversal='xla'``, whose compaction keeps its count on the device.
 """
 
 from __future__ import annotations
@@ -102,15 +101,14 @@ def _drop(scene_id: int) -> None:
 def run(key, scene, device, body: Callable, inputs: dict,
         label: str = "pass", keep: tuple = ()) -> tuple:
     """``body(**inputs)`` for a pass of ``scene`` on ``device``: on a CUDA
-    device and the kernel route, a replay of the graph of ``key`` (the
-    pass's static arguments), captured on the key's first use with buffers
-    holding these inputs, its outputs copied; on the CPU, or with
-    ``scene.traversal == 'xla'``, the body itself, eagerly. ``keep``: other
-    objects whose tensors the body reads (held while the graph lives; the
-    scene itself is held weakly). Returns a tuple of tensors on
-    ``device``."""
+    device, a replay of the graph of ``key`` (the pass's static
+    arguments), captured on the key's first use with buffers holding these
+    inputs, its outputs copied; on the CPU, the body itself, eagerly.
+    ``keep``: other objects whose tensors the body reads (held while the
+    graph lives; the scene itself is held weakly). Returns a tuple of
+    tensors on ``device``."""
     device = torch.device(device)
-    if device.type != "cuda" or scene.traversal == "xla":
+    if device.type != "cuda":
         return tuple(body(**inputs))
     full = (id(scene), device, key)
     g = _GRAPHS.get(full)

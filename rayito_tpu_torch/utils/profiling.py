@@ -18,13 +18,15 @@ _PHASES = (
     ("items_write_kernel", "item-list kernels (build_items)"),
     ("items_", "item traversal kernels (traverse_items)"),
     ("gather_rows_t_kernel", "winner-row gather kernel"),
+    ("cluster_pipeline_kernel", "two-level cluster pipeline kernel"),
     ("sort", "coherence sort / unsort"),
     ("elementwise", "PyTorch elementwise kernels"),
     ("reduce", "PyTorch reductions"),
 )
 
 # Host-side ranges (``torch.profiler.record_function`` labels) whose
-# kernels are PyTorch's own, so no kernel name tells them apart: each is
+# kernels are mostly PyTorch's own, so no kernel name tells them apart
+# (an eager pass records them; a graph replay does not): each is
 # reported as a rollup of the device time of every kernel launched inside
 # it, beside the phases above and not summed with them (the reference's
 # bounce-loop "while" rollup is reported the same way). On the card a range

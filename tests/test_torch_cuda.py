@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``: each test skips where torch finds no CUDA device. The file
 imports neither jax nor rayito_tpu, so it also runs where JAX is not
@@ -35,7 +35,11 @@ the sync debug mode, a progressive render resumed from its checkpoint, and
 cli.main on stage 6 through the three kernels; and, for the
 traversal='xla' route, the two-level pipeline on the card against the CPU
 (t, beta and gamma bits, prim and overflow, on a mesh that truncates),
-its nearest-k on tied rows, and its winner rows through gather_rows_t.
+its nearest-k on tied rows, its winner rows through gather_rows_t, the
+cluster_pipeline kernel against its plain version on the truncating mesh
+and stage 6's camera, bounce and shadow rays, and its passes captured as
+graphs (stage 6 and the overflowing stack) and replayed through
+render_path_with_stats, render_progressive and the sharded render.
 Every kernel comparison is exact: kernel and plain version run the same
 IEEE float32 operations in the same order, without contraction.
 """
@@ -1134,9 +1138,10 @@ def test_cli_stage6_launches_the_three_kernels(dev, tmp_path):
 # ------------------------------------------------ traversal='xla' route
 
 
-def _layered_scene(n_layers=420, g=4, dz=0.05):
+def _layered_scene(n_layers=420, g=4, dz=0.05, light=False):
     """A stack of thin square layers along z (18 superclusters): rays that
-    cross it end-on truncate at both levels of the pipeline."""
+    cross it end-on truncate at both levels of the pipeline; with
+    ``light`` a floor, a sphere and a rect light beside it."""
     import rayito_tpu_torch as tt
 
     rs = np.random.default_rng(5)
@@ -1154,6 +1159,13 @@ def _layered_scene(n_layers=420, g=4, dz=0.05):
     s.add(tt.TriangleMesh(np.asarray(verts, np.float32),
                           np.asarray(idx, np.int32),
                           tt.DiffuseMaterial((0.6, 0.5, 0.4))))
+    if light:
+        s.add(tt.Plane((0.0, -1.5, 0.0), (0.0, 1.0, 0.0),
+                       tt.DiffuseMaterial((0.7, 0.7, 0.9))))
+        s.add(tt.Sphere((2.0, 0.0, 10.0), 0.8,
+                        tt.DiffuseMaterial((0.8, 0.3, 0.7))))
+        s.add(tt.RectangleLight((-2.0, 4.0, 0.0), (4.0, 0.0, 0.0),
+                                (0.0, 0.0, 4.0), (1.0, 1.0, 1.0), 6.0))
     return s
 
 
@@ -1216,7 +1228,7 @@ def test_xla_route_on_the_card_matches_the_cpu(dev, xla_scenes, case,
 def test_nearest_k_ties_on_the_card(dev):
     """The route's nearest-k (a stable sort cut after k) keeps tied
     entries in index order on the card, as jax.lax.top_k does."""
-    from rayito_tpu_torch.render.mesh_intersect import nearest_k
+    from rayito_tpu_torch.render.traverse import nearest_k
 
     rs = np.random.default_rng(9)
     for width, k in ((64, 16), (256, 24), (16, 16)):
@@ -1230,9 +1242,10 @@ def test_nearest_k_ties_on_the_card(dev):
 
 
 def test_xla_route_launches_gather_rows_t(dev, xla_scenes):
-    """A closest-hit query under 'xla' on the card gathers its winners'
-    rows through the gather_rows_t kernel and launches no traversal
-    kernel; its hits equal the CPU's."""
+    """A closest-hit query under 'xla' on the card runs cluster_pipeline
+    once per mesh, gathers its winners' rows through the gather_rows_t
+    kernel and launches no kernel of the other route; its hits equal the
+    CPU's."""
     from rayito_tpu_torch.render import trace as tr
 
     sd = xla_scenes["stage6"]
@@ -1245,12 +1258,86 @@ def test_xla_route_launches_gather_rows_t(dev, xla_scenes):
                              1e30)
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in tv.KERNELS}
-    assert counts.pop("gather_rows_t") >= 2 and not any(counts.values())
+    assert counts.pop("gather_rows_t") >= 2
+    assert counts.pop("cluster_pipeline") == sd.n_meshes
+    assert not any(counts.values())
     ref = tr.scene_intersect(sd, v3(o, "cpu"), v3(d, "cpu"), None, 1e-4,
                              1e30)
     for k in ("t", "shape_id", "mat"):
         assert torch.equal(getattr(got, k).cpu(), getattr(ref, k)), k
     assert int(got.overflow) == int(ref.overflow) == 0
+
+
+def _stage6_population(sd, kind, dev, n=16384):
+    """(o, d, tmax) on the card: the stage-6 camera's rays at seeded screen
+    positions; from their hits, seeded bounce directions about the normal
+    (tmax 1e30), or shadow rays to seeded points of the rect light (tmax
+    the distance less 1e-4); lanes without a hit keep the camera ray."""
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.render import trace as tr
+
+    rs = np.random.default_rng(17)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    cam = PerspectiveCamera.make(30.0, *demo.STAGE6_CAMERA).to(dev)
+    u = f(rs.uniform(0.0, 1.0, (5, n)))
+    o, d, _ = cam.make_rays(u[0], u[1], u[2], u[3], u[4])
+    tmax = torch.full((n,), 1e30, device=dev)
+    if kind == "camera":
+        return o, d, tmax
+    hit = tr.scene_intersect(sd, o, d, None, 1e-4, 1e30)
+    t = torch.where(hit.valid, hit.t, 0.0)
+    p = V3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t)
+    if kind == "bounce":
+        g = f(rs.normal(0.0, 1.0, (3, n)))
+        nd = V3(hit.normal.x + g[0], hit.normal.y + g[1], hit.normal.z + g[2])
+        ln = torch.sqrt(nd.x * nd.x + nd.y * nd.y + nd.z * nd.z)
+        nd = V3(nd.x / ln, nd.y / ln, nd.z / ln)
+    else:
+        s = f(rs.uniform(0.0, 1.0, (2, n)))
+        q = V3(-1.5 + 3.0 * s[0], torch.full_like(s[0], 4.0),
+               -1.5 + 3.0 * s[1])
+        nd = V3(q.x - p.x, q.y - p.y, q.z - p.z)
+        ln = torch.sqrt(nd.x * nd.x + nd.y * nd.y + nd.z * nd.z)
+        nd = V3(nd.x / ln, nd.y / ln, nd.z / ln)
+        tmax = torch.where(hit.valid, ln - 1e-4, tmax)
+    keep = lambda a, b: torch.where(hit.valid, a, b)
+    return (V3(keep(p.x, o.x), keep(p.y, o.y), keep(p.z, o.z)),
+            V3(keep(nd.x, d.x), keep(nd.y, d.y), keep(nd.z, d.z)), tmax)
+
+
+@pytest.mark.parametrize("case", ["layers", "stage6_camera",
+                                  "stage6_bounce", "stage6_shadow"])
+def test_cluster_pipeline_kernel_matches_plain(dev, xla_scenes, case):
+    """cluster_pipeline against cluster_pipeline_plain on the card, t,
+    prim and per-slot overflow bit for bit, for every mesh: the layered
+    stack crossed end-on (5,003 rays; it truncates at both levels) and
+    stage 6's camera, bounce and shadow populations (16,384 rays); the
+    kernel reads n_active on the device, and slots past it are misses."""
+    from rayito_tpu_torch.render import mesh_intersect as mi
+
+    sd = xla_scenes["layers" if case == "layers" else "stage6"].to(dev)
+    if case == "layers":
+        o, d, tmax = (torch.from_numpy(a).to(dev) for a in _xla_rays(
+            "layers", 5003))
+        o, d = (V3(a[:, 0].contiguous(), a[:, 1].contiguous(),
+                   a[:, 2].contiguous()) for a in (o, d))
+    else:
+        o, d, tmax = _stage6_population(sd, case.split("_")[1], dev)
+    total = 0
+    for m in range(sd.n_meshes):
+        args, _ = mi.pipeline_inputs(sd, m, o, d, 1e-4, tmax)
+        got = tv.cluster_pipeline(**args)
+        ref = tv.cluster_pipeline_plain(**args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32)), m
+        n_act = int(args["n_active"])
+        assert (got[1][n_act:] == -1).all() and not got[2][n_act:].any()
+        total += int((got[1][:n_act] >= 0).sum())
+        if case == "layers":
+            assert int(got[2].sum()) > 5003
+    assert total > 1000
 
 
 # ------------------------------------------ the dispatch: passes as graphs
@@ -1387,33 +1474,81 @@ def test_one_graph_takes_a_new_camera_and_row0(dev, graph_scenes):
     graphs.clear()
 
 
-def test_capture_of_an_xla_pass_raises(dev, graph_scenes):
-    """The 'xla' route reads the host once per mesh query: its pass forced
-    through utils/graphs.py raises (no eager fallback), and the dispatch
-    runs it eagerly without capturing anything."""
+def _xla_pass_scenes(graph_scenes):
+    """{name: (scene, config, camera)} under 'xla' on the card: stage 6 and
+    the layered stack seen end-on (which overflows)."""
     import dataclasses
 
     from rayito_tpu_torch.models.camera import PerspectiveCamera
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    layers = _layered_scene(light=True).compile(scene.device,
+                                                traversal="xla")
+    end_on = PerspectiveCamera.make(25.0, (0.0, 0.3, -6.0), (0.0, 0.0, 10.0),
+                                    (0.0, 1.0, 0.0))
+    return {"stage6": (dataclasses.replace(scene, traversal="xla"), cfg, cam),
+            "layers": (layers, cfg, end_on)}
+
+
+@pytest.mark.parametrize("name", ["stage6", "layers"])
+def test_xla_pass_is_captured_and_replayed(dev, graph_scenes, name):
+    """An 'xla' pass is captured like any other: the warm-up under the
+    sync debug mode 'error' reads nothing back, a second call only
+    replays, and both equal the eager body bit for bit, overflow and
+    queries included. The replay launches cluster_pipeline once per mesh
+    query and gather_rows_t, and no kernel of the other route."""
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import graphs
 
-    scene, cfg, cam = graph_scenes["stage6"]
-    xla = dataclasses.replace(scene, traversal="xla")
+    scene, cfg, cam = _xla_pass_scenes(graph_scenes)[name]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    row0 = torch.full((), 16, dtype=torch.int32, device=dev)
+    eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
+    first = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+    torch.cuda.synchronize()
+    tv.reset_launch_counts()
+    again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+    counts = tv.launch_counts()
+    (g,) = graphs.graphs()
+    assert g.replays == 2 and all(fn.launches == 0 for fn in tv.KERNELS)
+    assert counts.pop("cluster_pipeline") > 0
+    assert counts.pop("gather_rows_t") > 0 and not any(counts.values())
+    for got in (first, again):
+        assert torch.equal(got[0].view(torch.int32),
+                           eager[0].view(torch.int32))
+        assert int(got[1]) == int(eager[1]) and int(got[2]) == int(eager[2])
+    assert int(eager[2]) > 0
+    assert (int(eager[1]) > 0) == (name == "layers")
     graphs.clear()
 
-    def body(si, row0, camera):
-        return pt._path_pass_body(xla, cfg,
-                                  PerspectiveCamera.from_flat(camera), si,
-                                  row0, 16)
 
-    inputs = {"si": torch.arange(2, dtype=torch.int32, device=dev),
-              "row0": torch.zeros((), dtype=torch.int32, device=dev),
-              "camera": cam.to(dev).flat()}
-    with pytest.raises(RuntimeError):
-        graphs.capture("xla pass", body, inputs, dev)
-    img, ovf, q = pt._render_path_pass(xla, cfg, cam, [0, 1], 0, 16)
-    torch.cuda.synchronize()
-    assert not graphs.graphs() and int(q) > 0 and float(img.max()) > 0.0
+def test_xla_entry_points_replay_graphs(dev, graph_scenes, tmp_path):
+    """Under 'xla', render_path_with_stats, render_progressive (with a
+    checkpoint) and the sharded render over the one card run their passes
+    as replayed graphs with the same image, overflow and queries."""
+    from rayito_tpu_torch.parallel import sharding as sh
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import progressive as pg
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = _xla_pass_scenes(graph_scenes)["layers"]
+    graphs.clear()
+    img, ovf, q = pt.render_path_with_stats(scene, cfg, cam)
+    assert [g.replays for g in graphs.graphs()] == [12]  # 4 spp x 3 bands
+    assert ovf > 0 and q > 0
+    p_img, st = pg.render_progressive(scene, cfg, cam,
+                                      checkpoint_path=str(tmp_path / "c.npz"))
+    np.testing.assert_array_equal(p_img, img)
+    assert (st.rays_traced, st.overflow) == (q, ovf)
+    assert graphs.graphs()[0].replays == 24
+    s_img, s_ovf, s_q = sh.render_path_sharded_with_stats(scene, cfg, cam,
+                                                          [dev])
+    np.testing.assert_array_equal(s_img, img)
+    assert (s_ovf, s_q) == (ovf, q)
+    labels = [g.label for g in graphs.graphs()]
+    assert any(lab.startswith("sharded") for lab in labels), labels
+    graphs.clear()
 
 
 def test_frame_replays_do_not_alias(dev, graph_scenes):

@@ -16,6 +16,7 @@ import torch
 
 from rayito_tpu_torch.models import demo as tdemo
 from rayito_tpu_torch.models.scene import UNPORTED_KNOBS, SceneData
+from rayito_tpu_torch.ops.vec3 import V3
 from rayito_tpu_torch.render import traverse as tv
 from rayito_tpu_torch.utils import cuda_lib
 
@@ -103,12 +104,17 @@ def _kernel_calls(dev):
         "traverse_items": lambda: tv.traverse_items(
             items, n_steps, soat.view(16, 128, 8), tri, 1e-4),
         "build_items": lambda: tv.build_items(masks, 4, 64, 8),
+        "cluster_pipeline": lambda: tv.cluster_pipeline(
+            idx, n_steps, V3(*soat[0, :4, :3].t()), V3(*soat[0, :4, 3:6].t()),
+            soat[0, :4, 6], 1e-4, soat[0, :4, :1], torch.zeros(
+                (1, 128), device=dev), torch.zeros((16, 512), device=dev),
+            1, 16, 0),
     }
 
 
 @pytest.mark.parametrize("name", ["cluster_masks", "traverse_blocks",
                                   "gather_rows_t", "traverse_items",
-                                  "build_items"])
+                                  "build_items", "cluster_pipeline"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
     tv.reset_launch_counts()
     _kernel_calls("cpu")[name]()  # plain version: no launch counted

@@ -21,7 +21,7 @@ device time of their kernels under torch.profiler. In a tree whose
 ``cmj_permute`` takes ``fixed_rounds``, also the same two with the walk
 stopping early (``cam_early_ms``, ``cam_early_kernel_ms``), the card read
 back each round. A replayed graph runs the fixed rounds at about their
-kernel time; the eager 'xla' route pays their event time.
+kernel time; an eager pass pays their event time.
 
 ``--root`` names the tree whose ``rayito_tpu_torch`` is imported (default:
 this checkout), so two commits can be compared in one call:
