@@ -6,7 +6,8 @@ JAX. Phases, each printed, each fatal on failure:
 
   1. device: CUDA must be available; prints the card's name and power limit;
   2. build: nvcc compiles rayito_tpu_torch/csrc into a shared library, one
-     process per source, all started together;
+     process per source, all started together; then phase 24 (the sample
+     streams), so a wrong sample kernel stops the run early;
   3. kernels: each CUDA kernel of the stage-6 path against its plain
      PyTorch version on the card, at stage-6 shapes (131,072 camera, bounce
      and shadow rays on the n=64 bumpy stand-in, 392 clusters), with median
@@ -48,13 +49,18 @@ JAX. Phases, each printed, each fatal on failure:
      checked against the plain versions as in phase 4, then one timed
      frame;
   9. stage-7b frame: bench.py's stage-7b config (stage7_scene2, 512x256,
-     1 spp, depth 3, shutter 0..1): no traversal launch (no domain), the
-     tiny meshes' meta-row gather against its plain version on the eager
-     frame's own inputs, that eager frame bit-identical to the replayed
-     one, one timed frame;
+     1 spp, depth 3, shutter 0..1): no traversal launch (no domain), and
+     gather_rows_t, cmj and fold_small launched; the tiny meshes'
+     meta-row gather against its plain version on the eager frame's own
+     inputs, and fold_small against its plain version on each cube's
+     first call of that frame (t and prim bit for bit, beta and gamma
+     where prim >= 0; timed and bounded: 46 flops per test at 67 TFLOP/s
+     or the bytes), that eager frame bit-identical to the replayed one,
+     one timed frame;
  10. stage-5 frame: stage5_scene (no mesh) at 512x512, 1 spp, depth 3: no
-     kernel launch at all, no NaN or negative pixel, the eager frame
-     bit-identical, host launches counted, one timed frame;
+     kernel launch but the sample streams' (which must launch), no NaN or
+     negative pixel, the eager frame bit-identical, host launches
+     counted, one timed frame;
  11. mesh-light kernels: the stage-6 geometry with the n=64 stand-in
      wrapped as a ShapeLight in place of the sphere light (49,152 light
      triangles behind one area CDF). sample_light of the mesh light on the
@@ -80,7 +86,8 @@ JAX. Phases, each printed, each fatal on failure:
      CPU's; stage 2 (64 unstratified samples) and stage 3 (4x4 pixel x 4x4
      light samples, the golden configuration; stage 4 renders the same)
      timed at 512x512 and held against the CPU at 128x128
-     (the CPU's time cuts the size): stage 2 within 0.5%; stage 3, a
+     (the CPU's time cuts the size), no kernel launch but the sample
+     streams' (stages 2-3 draw): stage 2 within 0.5%; stage 3, a
      float32 knife edge (a sphere light's shadow ray ends on the light),
      by its channel means and its share of agreeing pixels, and its
      geometry and shading without the sphere light (1e-2 epsilon) within
@@ -140,11 +147,27 @@ JAX. Phases, each printed, each fatal on failure:
      and of one profiled replayed frame its device ops, kernel ms, wall ms
      and busy share (their ratio), host kernel and graph launches, and
      each kernel's launches from the device records, which must equal its
-     counter (stage 3 not profiled: 16 replays of 26,574 device ops).
+     counter (stage 3 not profiled: 16 replays of 26,574 device ops);
+ 24. sample streams (run right after the build): hash_combine,
+     cmj_sample_1d and cmj_sample_2d (csrc/cmj.cu) against their plain
+     versions on the card (which run the fixed cycle-walk rounds), bit
+     for bit, at 131,072 lanes: 1-D samples of seeded permutations at
+     every num in 1-300, 1,000 and 4,097; every draw of the path's
+     patterns at pixel samples {1, 2, 3, 12} x light samples {1, 2}; the
+     stage-6 bounce draw and the 3x3 / 12x12 camera draws timed (CUDA-
+     graph replays of 20 draws), their plain versions' ms, bound (the
+     instructions a lane issues, from the kernel's SASS, at the SMs'
+     issue rate of 33.4 T/s, or bytes at 3.35 TB/s) and share;
+ 25. degenerate inputs: one lane (stage 6 at 1x1), a scene with no mesh
+     and no light, and the 'xla' route on 128 lanes, each pass captured,
+     replayed twice and bit-identical to its eager body.
 
+Every frame that draws samples launches cmj (all but stage 1's); the
+plain-version frames swap all eight kernels for their plain versions
+(``_swap_plain``), the sample streams and the tiny-mesh fold included.
 Launches are counted on the device: each kernel wrapper adds one to a
 device counter beside its launch, so a captured graph holds the add and
-every replay counts (``render/traverse.launch_counts``); the counts are
+every replay counts (``utils/cuda_lib.launch_counts``); the counts are
 set to 0 after a frame that captured its graphs, so a counted frame is
 replays only unless said otherwise. Host launches are counted as kernel and graph launches (cudaLaunchKernel,
 cudaGraphLaunch). Every phase's graphs are freed
@@ -241,13 +264,15 @@ def main() -> int:
     from rayito_tpu_torch.utils import graphs
 
     dev = torch.device("cuda", 0)
-    phases = [lambda: run(dev, card), lambda: run_big(dev, card),
+    phases = [lambda: run_samples(dev, card),
+              lambda: run(dev, card), lambda: run_big(dev, card),
               lambda: run_stage7(dev, card), lambda: run_stage7b(dev, card),
               lambda: run_stage5(dev, card),
               lambda: run_mesh_light(dev, card), lambda: run_many(dev, card),
               lambda: run_direct(dev, card), lambda: run_cli(dev, card),
               lambda: run_xla(dev, card), run_cli_subprocess,
-              lambda: run_phase_table(dev), lambda: run_graphs(dev, card)]
+              lambda: run_phase_table(dev), lambda: run_graphs(dev, card),
+              lambda: run_probes(dev, card)]
     outs = []
     for phase in phases:
         t0 = time.perf_counter()
@@ -255,10 +280,10 @@ def main() -> int:
         graphs.clear()  # the pools of one phase's graphs go with it
         print(f"-- phase done in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    (stage6, big, stage7, stage7b, stage5, mesh_light, _, direct, cli, xla,
-     _, _, by_graph) = outs
+    (samples, stage6, big, stage7, stage7b, stage5, mesh_light, _, direct,
+     cli, xla, _, _, by_graph, _) = outs
 
-    records = kernel_records(stage6, big, stage7, stage7b, stage5,
+    records = kernel_records(samples, stage6, big, stage7, stage7b, stage5,
                              mesh_light, xla)
     for k in records:
         k["launches_frame"]["stages1_4"] = direct["launches"][k["name"]]
@@ -280,12 +305,14 @@ def main() -> int:
     return 0
 
 
-def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
-                   stage5: dict, mesh_light: dict, xla: dict) -> list:
-    """The six kernels' records: launches (device-counted, replays
+def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
+                   stage7b: dict, stage5: dict, mesh_light: dict,
+                   xla: dict) -> list:
+    """The eight kernels' records: launches (device-counted, replays
     included) in the replayed frame of the path each serves first (stage 6;
     the big scene for the item route; the 'xla' stage-6 frame for
-    cluster_pipeline) and per frame of each path; errors
+    cluster_pipeline; stage 7b for fold_small) and per frame of each path;
+    errors
     over every population; camera-ray times with
     their bounds (big_* for the big scene); per stage-7 population (rays in
     the moving domain's local space) and per mesh-light population the
@@ -379,6 +406,28 @@ def kernel_records(stage6: dict, big: dict, stage7: dict, stage7b: dict,
              k: r[f"pipe_{k}"] for k in ("ms", "plain_ms", "bound_ms",
                                          "share")}
              for name, pop in pipe.items() for m, r in pop.items()}},
+        {"name": "cmj", "route": "cuda", "source": src + "cmj.cu",
+         "replaces": "rayito_tpu/ops/rng.py:74",
+         "note": "port-only: the reference's XLA uint32 sample streams "
+                 "(ops/rng.py:74-205, cmj_permute's while_loop at :134), no "
+                 "pallas_call; ms is the stage-6 bounce draw (hash_combine "
+                 "of 5 operands and a 2x2 cmj_sample_2d, two launches)",
+         "launches": launches["cmj"],
+         "max_abs_err": samples["max_abs_err"],
+         **timed(samples, "draw"),
+         "draws": {key: {k: samples[f"{key}_{k}"] for k in
+                         ("ms", "plain_ms", "bound_ms", "share")}
+                   for key in ("draw3x3", "draw12x12", "time144")}},
+        {"name": "fold_small", "route": "cuda",
+         "source": src + "fold_small.cu",
+         "replaces": "rayito_tpu/render/mesh_intersect.py:103",
+         "note": "port-only: the reference's XLA dense fold "
+                 "_brute_force_mesh, no pallas_call; ms per call, the mean "
+                 "over the stage-7b frame's ten cubes",
+         "launches": stage7b["launches"]["fold_small"],
+         "max_abs_err": stage7b["fold"]["err"],
+         **{k: stage7b["fold"][k] for k in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
     for k in kernels:
         k["launches_frame"] = {
@@ -466,7 +515,11 @@ def _mask_bound(r, soat, box, tmin, n_live, masks):
 MESH_N = 64
 WIDTH = 512
 RAYS_PER_PASS = 1 << 17  # 256-row bands of 131,072 rays
-STAGE6_KERNELS = ("cluster_masks", "traverse_blocks", "gather_rows_t")
+# the sample streams' kernel launches on every frame that draws samples
+STAGE6_KERNELS = ("cluster_masks", "traverse_blocks", "gather_rows_t", "cmj")
+# the traversal kernels: no frame without a traversal domain launches them
+TRAVERSAL_KERNELS = ("cluster_masks", "traverse_blocks", "traverse_items",
+                     "build_items", "cluster_pipeline")
 # the big scene's item route: the scan stands by for lists that overflow
 BIG_ITEM_KERNELS = STAGE6_KERNELS + ("traverse_items", "build_items")
 
@@ -817,15 +870,18 @@ def _check_masks(name, soat, box, tmin, n_live, r):
 
 
 def _swap_plain():
-    """Point the path at the plain versions (the 'xla' route's pipeline and
-    winner-row gather too); returns the undo."""
+    """Point the path at the plain versions of all eight kernels (the
+    'xla' route's pipeline and winner-row gather, the sample streams and
+    the tiny-mesh fold too); returns the undo."""
+    from rayito_tpu_torch.ops import rng
     from rayito_tpu_torch.render import mesh_intersect as mi
     from rayito_tpu_torch.render import trace as tr
     from rayito_tpu_torch.render import traverse as tv
 
     saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
              tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
-             mi.cluster_pipeline)
+             mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
+             rng.cmj_sample_2d, mi.fold_small)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
     tv.traverse_items = tv.traverse_items_plain
@@ -833,13 +889,284 @@ def _swap_plain():
     tr.gather_rows_t = tv.gather_rows_t_plain
     mi.gather_rows_t = tv.gather_rows_t_plain
     mi.cluster_pipeline = tv.cluster_pipeline_plain
+    rng.hash_combine = rng.hash_combine_plain
+    rng.cmj_sample_1d = rng.cmj_sample_1d_plain
+    rng.cmj_sample_2d = rng.cmj_sample_2d_plain
+    mi.fold_small = tv.fold_small_plain
 
     def undo():
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
          tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
-         mi.cluster_pipeline) = saved
+         mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
+         rng.cmj_sample_2d, mi.fold_small) = saved
 
     return undo
+
+
+# ---------------------------------------------------------------------------
+# the sample streams (csrc/cmj.cu)
+# ---------------------------------------------------------------------------
+
+SAMPLE_NUMS = list(range(1, 301)) + [1000, 4097]
+# (pixel samples, light samples) of the path's patterns
+SAMPLE_PATTERNS = [(ps, ls) for ps in (1, 2, 3, 12) for ls in (1, 2)]
+# Instructions a lane issues in csrc/cmj.cu, counted from its SASS as
+# tools/cmj_sass.py prints it (sm_90a; the basic blocks on a lane's path,
+# fast-path divisions): a hash, besides its operands, and per operand (an
+# immediate's; a tensor's loads take 1-5 more); a 1-D and a 2-D sample
+# with an int64 index and permutation (an int32 index takes 5 fewer, an
+# int32 permutation 3), each permutation's first round of the cycle walk
+# included, and its rounds after the first (the loop: its test and
+# branch included; the walk's invariants are hoisted out of it).
+HASH_INSNS = 31
+HASH_OPERAND_INSNS = 24
+SAMPLE_INSNS = {1: 145, 2: 361}
+INT32_SAVES = {"index": 5, "perm": 3}
+ROUND_INSNS = 31
+# lane instructions one H100 SXM issues per second, whatever their pipe:
+# 132 SMs x 4 schedulers x one warp instruction of 32 lanes per clock at
+# the 1,980 MHz boost clock (NVIDIA's Hopper architecture white paper)
+PEAK_ISSUE = 132 * 4 * 32 * 1.98e9
+
+
+def _walk_rounds(i, num: int, perm) -> int:
+    """Cycle-walk rounds after the first that cmj_permute(i, num, perm)
+    takes, summed over the lanes (each lane's own walk, as the kernel runs
+    it)."""
+    import torch
+
+    from rayito_tpu_torch.ops import rng
+
+    i, perm = rng.u32(i), rng.u32(perm)
+    w = rng._permute_w(num)
+    x = rng._permute_round(i, perm, w)
+    rounds = 0
+    out = x >= num
+    while bool(out.any()):
+        rounds += int(out.sum())
+        x = torch.where(out, rng._permute_round(x, perm, w), x)
+        out = x >= num
+    return rounds
+
+
+def _sample_work(index, nx: int, ny: int, perm, mul: int = 1, add: int = 0):
+    """(lane instructions, bytes) of one cmj_sample_1d (ny = 0) or
+    cmj_sample_2d call on these inputs: this run's walks; each input read
+    once, each output written once."""
+    import torch
+
+    from rayito_tpu_torch.ops import rng
+
+    n = index.numel()
+    idx, p = rng.u32(rng._index(index, mul, add)), rng.u32(perm)
+    nbytes = n * (index.element_size() + perm.element_size()
+                  + 4 * (1 + (ny > 0)))
+    insns = n * (SAMPLE_INSNS[1 + (ny > 0)]
+                 - INT32_SAVES["index"] * (index.dtype == torch.int32)
+                 - INT32_SAVES["perm"] * (perm.dtype == torch.int32))
+    if not ny:
+        rounds = _walk_rounds(idx, nx, rng._mul32(p, 0x8FF3CD11))
+        return insns + rounds * ROUND_INSNS, nbytes
+    salt = rng._mul32(p, 0xC2D3C8FB)
+    pidx = rng.cmj_permute(idx, nx * ny, salt)
+    rounds = (_walk_rounds(idx, nx * ny, salt)
+              + _walk_rounds(pidx % nx, nx, rng._mul32(p, 0xA511E9B3))
+              + _walk_rounds(pidx // nx, ny, rng._mul32(p, 0x63D83595)))
+    return insns + rounds * ROUND_INSNS, nbytes
+
+
+def _draws(m, px, py, si, ps: int, ls: int, seed: int):
+    """Every draw of the path's patterns at (ps, ls), through ``m`` (the
+    kernel wrappers, or the plain versions): the camera's subpixel and
+    time samples, one bounce's light-loop samples (flat index si * nls +
+    lsi) and continuation sample, stages 2-3's per-light draws (six hash
+    operands, a constant index) and stage 2's (64, 1) pattern."""
+    import torch
+
+    from rayito_tpu_torch.ops import rng
+
+    n, nls = px.shape[0], ls * ls
+    out = []
+    h = m.hash_combine(px, py, rng.PURPOSE_SUBPIXEL, seed)
+    out += [h, *m.cmj_sample_2d(si, ps, ps, h)]
+    h = m.hash_combine(px, py, rng.PURPOSE_TIME, seed)
+    out += [h, m.cmj_sample_1d(si, ps * ps, h)]
+    hs = m.hash_combine(px, py, rng.PURPOSE_LIGHT_SELECT, 1, seed)
+    hl = m.hash_combine(px, py, rng.PURPOSE_LIGHT, 1, seed)
+    out += [hs, hl]
+    for lsi in range(nls):
+        out += [m.cmj_sample_1d(si, (ps * ls) ** 2, hs, nls, lsi),
+                *m.cmj_sample_2d(si, ps * ls, ps * ls, hl, nls, lsi)]
+    h = m.hash_combine(px, py, rng.PURPOSE_BOUNCE, 1, seed)
+    out += [h, *m.cmj_sample_2d(si, ps, ps, h)]
+    h = m.hash_combine(px, py, si, rng.PURPOSE_LIGHT, 1, seed)
+    for k in range(nls):
+        out += m.cmj_sample_2d(torch.full((n,), k, dtype=torch.int64,
+                                          device=px.device), ls, ls, h)
+    out += m.cmj_sample_2d(si, 64, 1, h)
+    return out
+
+
+def _differing(a, b) -> int:
+    """Elements whose bits differ (float32 as int32 bits)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def _time_draw(r, key, px, py, purpose, si, nx, ny, seed):
+    """One draw at these inputs, hash_combine(px, py, purpose, 1, seed)
+    then its sample (1-D of nx when ny is 0): device ms of the kernels
+    (CUDA-graph replays of 20 draws), the plain versions' ms, the bound
+    (lane instructions at PEAK_ISSUE or bytes at 3.35 TB/s) and share."""
+    from rayito_tpu_torch.ops import rng
+
+    def draw(hash_combine, s1, s2):
+        h = hash_combine(px, py, purpose, 1, seed)
+        return s2(si, nx, ny, h) if ny else s1(si, nx, h)
+
+    r[key + "_ms"] = _device_ms(lambda: draw(
+        rng.hash_combine, rng.cmj_sample_1d, rng.cmj_sample_2d))
+    r[key + "_plain_ms"] = _median_ms(lambda: draw(
+        rng.hash_combine_plain, rng.cmj_sample_1d_plain,
+        rng.cmj_sample_2d_plain), 5)
+    h = rng.hash_combine(px, py, purpose, 1, seed)
+    ops, nbytes = _sample_work(si, nx, ny, h)
+    n = px.shape[0]
+    ops += n * (HASH_INSNS + 5 * HASH_OPERAND_INSNS)
+    nbytes += n * (px.element_size() + py.element_size() + 8)
+    t_ops, t_bytes = ops / PEAK_ISSUE * 1e3, nbytes / PEAK_BYTES * 1e3
+    r[key + "_bound_ms"], r[key + "_bound_by"] = (
+        (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
+    r[key + "_share"] = r[key + "_bound_ms"] / r[key + "_ms"]
+    r[key + "_library_ms"] = None
+
+
+def run_samples(dev, card: str) -> dict:
+    """The sample-streams phase, right after the build: hash_combine,
+    cmj_sample_1d and cmj_sample_2d on the card against their plain
+    versions (which run the fixed cycle-walk rounds on the card), bit for
+    bit, at 131,072 lanes: 1-D samples of seeded permutations at every num
+    in 1-300, 1,000 and 4,097 (int32 and int64 operands in turn); every
+    draw of the path's patterns at pixel samples {1, 2, 3, 12} x light
+    samples {1, 2}; then the draws timed at stage-6 shapes (the first
+    band's pixels, sample 0): the bounce draw at 2x2 (the kernel's row),
+    and the camera's subpixel draws at 3x3 and 12x12 and its time draw at
+    12x12, with bounds and shares."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.ops import rng
+    from rayito_tpu_torch.render.integrator import _pixel_grid
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    _phase("sample streams")
+    n = RAYS_PER_PASS
+    rs = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    bad, err = 0, 0.0
+    for num in SAMPLE_NUMS:
+        idx = torch.arange(n, dtype=torch.int64, device=dev) % num
+        perm = torch.from_numpy(rs.integers(0, 2**32, n)).to(dev)
+        if num % 2:  # odd nums through int32 operands
+            idx, perm = idx.to(torch.int32), perm.to(torch.int32)
+        got = rng.cmj_sample_1d(idx, num, perm)
+        want = rng.cmj_sample_1d_plain(idx, num, perm)
+        bad += _differing(got, want)
+        err = max(err, float((got - want).abs().max()))
+    print(f"1-D samples at every num in 1-300, 1000 and 4097 ({n} lanes "
+          f"each, seeded permutations): values differing {bad}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if bad:
+        raise AssertionError("cmj_sample_1d disagrees with its plain version")
+
+    seed = RenderConfig(width=1, height=1).seed
+    px, py = _pixel_grid(WIDTH, n // WIDTH, dev)
+    plain = types.SimpleNamespace(hash_combine=rng.hash_combine_plain,
+                                  cmj_sample_1d=rng.cmj_sample_1d_plain,
+                                  cmj_sample_2d=rng.cmj_sample_2d_plain)
+    for ps, ls in SAMPLE_PATTERNS:
+        si = torch.from_numpy(rs.integers(0, ps * ps, n).astype(np.int32))
+        si = si.to(dev)
+        got = _draws(rng, px, py, si, ps, ls, seed)
+        want = _draws(plain, px, py, si, ps, ls, seed)
+        diff = sum(_differing(a, b) for a, b in zip(got, want))
+        err = max([err] + [float((a - b).abs().max()) for a, b in
+                           zip(got, want) if a.dtype == torch.float32])
+        print(f"path patterns, {ps}x{ps} pixel x {ls}x{ls} light samples: "
+              f"{len(got)} outputs of {n} lanes, values differing {diff}")
+        bad += diff
+    if bad:
+        raise AssertionError("the sample streams disagree with their plain "
+                             "versions")
+
+    si = torch.zeros((n,), dtype=torch.int32, device=dev)
+    r = {"lanes": n, "max_abs_err": err}
+    _time_draw(r, "draw", px, py, rng.PURPOSE_BOUNCE, si, 2, 2, seed)
+    for ps in (3, 12):
+        _time_draw(r, f"draw{ps}x{ps}", px, py, rng.PURPOSE_SUBPIXEL, si,
+                   ps, ps, seed)
+    _time_draw(r, "time144", px, py, rng.PURPOSE_TIME, si, 144, 0, seed)
+    print("sample streams: " + _fmt(r), flush=True)
+    return r
+
+
+def run_probes(dev, card: str) -> None:
+    """Degenerate inputs on the card, each pass captured, replayed and held
+    bit for bit against its eager body (image, overflow, queries): one
+    lane (the stage-6 scene at 1x1), a scene with no mesh and no light (a
+    plane and a sphere at 16x16), and the 'xla' route below 256 lanes (the
+    stage-6 scene at 16x8)."""
+    import numpy as np
+    import torch
+
+    import rayito_tpu_torch as rt
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    _phase("degenerate inputs")
+    s6, _, cam, _ = stage6_setup(dev)
+    bare = rt.Scene()
+    bare.add(rt.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                      rt.DiffuseMaterial((0.9, 0.9, 1.0))))
+    bare.add(rt.Sphere((0.0, 0.0, 0.0), 1.0,
+                       rt.DiffuseMaterial((0.8, 0.3, 0.7))))
+    cases = (("one lane", s6, 1, 1),
+             ("no mesh, no light", bare.compile(dev), 16, 16),
+             ("'xla', 128 lanes", dataclasses.replace(s6, traversal="xla"),
+              16, 8))
+    si = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for label, scene, w, h in cases:
+        cfg = RenderConfig(width=w, height=h, pixel_samples=1,
+                           light_samples=1, max_depth=3)
+        graphs.clear()
+        eager = pt._path_pass_body(scene, cfg, cam.to(dev), si,
+                                   torch.zeros((), dtype=torch.int32,
+                                               device=dev), h)
+        passes = [pt._render_path_pass(scene, cfg, cam, si, 0, h)
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+        (g,) = graphs.graphs()
+        for got in passes:
+            same = (torch.equal(got[0].view(torch.int32),
+                                eager[0].view(torch.int32))
+                    and int(got[1]) == int(eager[1])
+                    and int(got[2]) == int(eager[2]))
+            if not same or g.replays != 2:
+                raise AssertionError(f"{label}: the replayed pass differs "
+                                     "from its eager body")
+        img = eager[0].cpu().numpy()
+        if not np.isfinite(img).all() or (img < 0).any():
+            raise AssertionError(f"{label}: NaN, infinite or negative pixels")
+        print(f"{label} ({w}x{h}): captured, replayed twice, bit-identical "
+              f"to the eager pass (queries {int(eager[2])}, overflow "
+              f"{int(eager[1])}, image sum {float(img.sum()):.6g}) on {card}")
+    graphs.clear()
 
 
 def _rel_rmse(img, ref) -> float:
@@ -932,15 +1259,15 @@ def _frame_phase(label: str, cfg, frame, card: str,
     frame. Returns the launches, frame ms and Mrays/s."""
     import torch
 
-    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import cuda_lib
 
     band = cfg.max_rays_per_pass // cfg.width
     frame()  # warm-up: captures the pass graph
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     imgs, queries = frame()
     torch.cuda.synchronize()
-    launches = tv.launch_counts()
+    launches = cuda_lib.launch_counts()
     print(f"launches in one frame: {launches}")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, label)
@@ -1011,6 +1338,7 @@ def run_big(dev, card: str) -> dict:
     import torch
 
     from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import cuda_lib
 
     _phase("big scene")
     t0 = time.perf_counter()
@@ -1158,10 +1486,10 @@ def run_big(dev, card: str) -> dict:
     band = cfg.max_rays_per_pass // cfg.width
     frame()  # warm-up: captures the pass graph
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     imgs, queries = frame()
     torch.cuda.synchronize()
-    launches = tv.launch_counts()
+    launches = cuda_lib.launch_counts()
     print(f"launches in one big-scene frame (traverse_items=True): "
           f"{launches}")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
@@ -1273,12 +1601,16 @@ def run_stage7b(dev, card: str) -> dict:
     """Phase 9 on ``dev``: bench.py's stage-7b frame with the launch counts
     set to 0 just before it and read just after (no traversal kernel: the
     scene has no domain; gather_rows_t fetches the tiny meshes' winners'
-    meta rows); the gather's inputs of that frame against its plain
-    version; a second frame bit-identical; one timed frame."""
+    meta rows, fold_small folds each tiny cube, cmj draws the samples);
+    the gather's and each cube's first fold's inputs of that frame against
+    their plain versions; a second frame bit-identical; one timed
+    frame."""
     import torch
 
+    from rayito_tpu_torch.ops.vec3 import V3
+    from rayito_tpu_torch.render import mesh_intersect as mi
     from rayito_tpu_torch.render import trace as tr
-    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import cuda_lib
 
     _phase("stage-7b frame")
     scene, cfg, cam, frame = stage7b_setup(dev)
@@ -1287,38 +1619,45 @@ def run_stage7b(dev, card: str) -> dict:
           f"{scene.ktab_xf}, tiny meshes {scene.ktab_small}")
     frame()  # warm-up: captures the pass graph
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     imgs, queries = frame()
     torch.cuda.synchronize()
-    launches = tv.launch_counts()
+    launches = cuda_lib.launch_counts()
     print(f"launches in one stage-7b frame: {launches}")
-    if launches["gather_rows_t"] <= 0 or any(
-            launches[k] for k in launches if k != "gather_rows_t"):
-        raise AssertionError("stage-7b: expected gather_rows_t launches "
-                             "and no traversal launch")
+    if any(launches[k] for k in TRAVERSAL_KERNELS) or min(
+            launches[k] for k in ("gather_rows_t", "cmj", "fold_small")) <= 0:
+        raise AssertionError("stage-7b: expected gather_rows_t, cmj and "
+                             "fold_small launches and no traversal launch")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, "stage-7b frame")
     print(f"frame {img.shape}: queries {int(queries)}, {diag}")
-    # the same frame through the eager body, its first gather's inputs
-    # kept for the kernel-against-plain check
-    calls = []
-    gather = tr.gather_rows_t
+    # the same frame through the eager body, its first gather's inputs and
+    # each cube's first fold's kept for the kernel-against-plain checks
+    calls, folds = [], {}
+    gather, fold = tr.gather_rows_t, mi.fold_small
+    clone = lambda v: V3(v.x.clone(), v.y.clone(), v.z.clone())  # noqa: E731
 
     def spy(table, idx):
         if not calls:
             calls.append((table, idx.clone()))
         return gather(table, idx)
 
-    tr.gather_rows_t = spy
+    def fold_spy(rows, tri0, o, d, tmin, tmax):
+        if tri0 not in folds:
+            folds[tri0] = (rows, tri0, clone(o), clone(d), tmin, tmax.clone())
+        return fold(rows, tri0, o, d, tmin, tmax)
+
+    tr.gather_rows_t, mi.fold_small = spy, fold_spy
     try:
         imgs2, q2 = frame(graph=False)
         torch.cuda.synchronize()
     finally:
-        tr.gather_rows_t = gather
+        tr.gather_rows_t, mi.fold_small = gather, fold
     r = {}
     table, idx = calls[0]
     _check_gather_rows("stage-7b meta rows", table, idx, r, "meta")
     print("stage-7b meta rows: " + _fmt(r))
+    fold_r = _check_folds(folds)
     same = torch.equal(imgs.view(torch.int32), imgs2.view(torch.int32))
     print(f"stage-7b eager frame bit-identical to the replayed {same}, "
           f"queries {int(queries)} / {int(q2)}")
@@ -1330,9 +1669,57 @@ def run_stage7b(dev, card: str) -> dict:
     print(f"stage-7b frame ({cfg.width}x{cfg.height}, 1 spp, depth 3, "
           f"shutter 0..1): {frame_s * 1e3:.1f} ms/frame, {q_frame:.0f} issued "
           f"queries, {mrays:.3f} Mrays/s on {card}", flush=True)
-    return {"results": {"meta": r}, "launches": launches,
+    return {"results": {"meta": r}, "fold": fold_r, "launches": launches,
             "frame": {"frame_ms": frame_s * 1e3, "mrays": mrays,
                       "queries": q_frame}}
+
+
+def _check_folds(folds) -> dict:
+    """fold_small against its plain version on each captured call's inputs
+    (rows, tri0, o, d, tmin, tmax): t and prim bit for bit on every lane,
+    beta and gamma where prim >= 0 (the callers read them nowhere else);
+    device times (CUDA-graph replays of 20 calls), the plain version's, and
+    the bound of each call's work (46 flops per (lane, triangle) test at
+    67 TFLOP/s, or the bytes: the rows, the lanes' rays and tmax, four
+    outputs), averaged over the calls."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    r = {"calls": len(folds), "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+         "err": 0.0}
+    for args in folds.values():
+        rows, tri0, o, d, tmin, tmax = args
+        got = tv.fold_small(*args)
+        want = tv.fold_small_plain(*args)
+        torch.cuda.synchronize()
+        hit = want[1] >= 0
+        bad = int((got[0].view(torch.int32) != want[0].view(torch.int32))
+                  .sum()) + int((got[1] != want[1]).sum())
+        for k in (2, 3):
+            bad += int((got[k][hit].view(torch.int32)
+                        != want[k][hit].view(torch.int32)).sum())
+        fin = torch.isfinite(want[0])
+        if fin.any():
+            r["err"] = max(r["err"], float((got[0][fin] - want[0][fin])
+                                           .abs().max()))
+        n, n_tri = tmax.shape[0], rows.shape[0]
+        print(f"fold_small, mesh rows {tri0}..{tri0 + n_tri}: {n} lanes, "
+              f"{int(hit.sum())} hits, values differing {bad}")
+        if bad:
+            raise AssertionError("fold_small disagrees with its plain version")
+        r["ms"] += _device_ms(lambda: tv.fold_small(*args))
+        r["plain_ms"] += _median_ms(lambda: tv.fold_small_plain(*args), 5)
+        bound_ms, r["bound_by"] = _bound(n * n_tri * TEST_OPS["vpu"],
+                                         n_tri * 16 * 4 + n * 7 * 4 + n * 16)
+        r["bound_ms"] += bound_ms
+        r["lanes"], r["tri"] = n, n_tri
+    for k in ("ms", "plain_ms", "bound_ms"):
+        r[k] /= max(len(folds), 1)
+    r["share"] = r["bound_ms"] / r["ms"]
+    r["library_ms"] = None
+    print("fold_small per call: " + _fmt(r), flush=True)
+    return r
 
 
 # the kernel each wrapper launches exactly once per call, by its symbol
@@ -1341,7 +1728,17 @@ MARKERS = {"cluster_masks": "cluster_masks_kernel",
            "gather_rows_t": "gather_rows_t_kernel",
            "traverse_items": "items_init_kernel",
            "build_items": "items_count_kernel",
-           "cluster_pipeline": "cluster_pipeline_kernel"}
+           "cluster_pipeline": "cluster_pipeline_kernel",
+           "cmj": "cmj_",  # cmj_hash_kernel, cmj_sample_kernel
+           "fold_small": "fold_small_kernel"}
+
+
+# idle time inside the profiler's window on each side of a profiled frame:
+# late in a long run the profiler has kept all but the last one to six
+# sample-kernel records of a frame whose device counters were right (the
+# kernels near the window's edge), while the same frame profiled in a
+# fresh process matched every time
+PROFILE_PAD_S = 0.1
 
 
 def _profile_frame(frame) -> dict:
@@ -1357,10 +1754,12 @@ def _profile_frame(frame) -> dict:
     from rayito_tpu_torch.utils.profiling import collect_device_ops
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         frame()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     counts = {e.key: e.count for e in prof.key_averages()}
     ops = collect_device_ops(prof)
     return {
@@ -1395,12 +1794,12 @@ def _same_frame(label, a, b):
 
 def run_stage5(dev, card: str) -> dict:
     """Phase 10 on ``dev``: the stage-5 frame with the launch counts set to
-    0 just before it and read just after (no mesh: no kernel of the port
-    may launch); the eager frame bit-identical; host launches; one timed
-    frame."""
+    0 just before it and read just after (no mesh: the sample streams'
+    kernel must launch, no other kernel of the port may); the eager frame
+    bit-identical; host launches; one timed frame."""
     import torch
 
-    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import cuda_lib
 
     _phase("stage-5 frame")
     scene, cfg, cam, frame = stage5_setup(dev)
@@ -1409,13 +1808,15 @@ def run_stage5(dev, card: str) -> dict:
           f"lights (kinds {scene.light_kinds_host})")
     frame()  # warm-up: captures the pass graph
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     first = frame()
     torch.cuda.synchronize()
-    launches = tv.launch_counts()
+    launches = cuda_lib.launch_counts()
     print(f"launches in one stage-5 frame: {launches}")
-    if any(launches.values()):
-        raise AssertionError("stage 5 has no mesh, yet a kernel launched")
+    if launches["cmj"] <= 0 or any(
+            v for k, v in launches.items() if k != "cmj"):
+        raise AssertionError("stage 5 has no mesh: expected cmj launches "
+                             "and no other kernel")
     img = first[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, "stage-5 frame")
     print(f"frame {img.shape}: queries {int(first[1])}, {diag}")
@@ -1780,7 +2181,8 @@ def cli_setup(dev):
 def run_direct(dev, card: str) -> dict:
     """Phase 14 on ``dev``: stages 1-4 through render_color and
     render_direct at CONFIG_STAGE123, the launch counts set to 0 just
-    before the 512x512 frames and read just after (none may launch), each
+    before the 512x512 frames and read just after (only the sample
+    streams' kernel may launch, and must: stages 2-3 draw samples), each
     frame timed; stage 4 (the stage-3 render again) bit-identical; the CPU
     comparisons."""
     import numpy as np
@@ -1789,7 +2191,7 @@ def run_direct(dev, card: str) -> dict:
     import rayito_tpu_torch as rt
     from rayito_tpu_torch.models import demo
     from rayito_tpu_torch.render import integrator as ig
-    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import cuda_lib
     from rayito_tpu_torch.utils.config import CONFIG_STAGE123
     from rayito_tpu_torch.utils.image import quantize_ppm
 
@@ -1803,16 +2205,18 @@ def run_direct(dev, card: str) -> dict:
     for _, _, _, frame in setups.values():
         frame()  # warm-up
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     imgs, frame_ms = {}, {}
     for k, (_, _, _, frame) in setups.items():
         t0 = time.perf_counter()  # each frame ends in its image's readback
         imgs[k] = frame()[0]
         frame_ms[k] = (time.perf_counter() - t0) * 1e3
-    launches = tv.launch_counts()
+    launches = cuda_lib.launch_counts()
     print(f"launches in the stage 1-3 frames: {launches}")
-    if any(launches.values()):
-        raise AssertionError("stages 1-4 have no mesh, yet a kernel launched")
+    if launches["cmj"] <= 0 or any(
+            v for k, v in launches.items() if k != "cmj"):
+        raise AssertionError("stages 1-4 have no mesh: expected cmj "
+                             "launches (stages 2-3) and no other kernel")
     out = {"launches": launches}
     for k, img in imgs.items():
         diag = _check_image(img, k)
@@ -1899,7 +2303,6 @@ def run_cli(dev, card: str) -> dict:
     from rayito_tpu_torch import cli
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.render import progressive
-    from rayito_tpu_torch.render import traverse as tv
     from rayito_tpu_torch.utils import cuda_lib
     from rayito_tpu_torch.utils.image import read_pfm
 
@@ -1911,12 +2314,12 @@ def run_cli(dev, card: str) -> dict:
     pfm = {k: os.path.join(outdir, k + ".pfm")
            for k in ("cli", "sharded", "resumed")}
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     cli.main(args + ["-o", pfm["cli"]])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    main_launches = tv.launch_counts()
+    main_launches = cuda_lib.launch_counts()
     print(f"launches in cli.main (640x480, 4 spp, depth 3, 2 bands per "
           f"sample; the capture's warm-up pass included): {main_launches}; "
           f"{cli_s:.2f} s with the scene build")
@@ -1927,11 +2330,11 @@ def run_cli(dev, card: str) -> dict:
     scene, cfg, cam = _cli_inputs(dev, obj)
     pt.render_path_with_stats(scene, cfg, cam)  # warm-up: captures
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     ref, _, queries = pt.render_path_with_stats(scene, cfg, cam)
     render_s = time.perf_counter() - t0
-    launches = tv.launch_counts()
+    launches = cuda_lib.launch_counts()
     print(f"launches in one replayed render_path_with_stats frame at the "
           f"CLI's inputs: {launches}")
     if min(launches[k] for k in STAGE6_KERNELS) <= 0:
@@ -1980,24 +2383,26 @@ def run_cli(dev, card: str) -> dict:
 
 XLA_SUBSET = 16384  # rays per population held card against CPU
 XLA_KERNELS_OFF = ("cluster_masks", "traverse_blocks", "traverse_items",
-                   "build_items")
+                   "build_items", "fold_small")
 
 
-XLA_KERNELS = ("cluster_pipeline", "gather_rows_t")
+XLA_KERNELS = ("cluster_pipeline", "gather_rows_t", "cmj")
 
 
 def _xla_launches(label):
-    """The launch counts of the run just made: cluster_pipeline and
-    gather_rows_t must have launched and no kernel of the other route."""
-    from rayito_tpu_torch.render import traverse as tv
+    """The launch counts of the run just made: cluster_pipeline,
+    gather_rows_t and cmj must have launched, and no kernel of the other
+    route nor fold_small (the route takes tiny meshes down the
+    pipeline)."""
+    from rayito_tpu_torch.utils import cuda_lib
 
-    launches = tv.launch_counts()
+    launches = cuda_lib.launch_counts()
     print(f"launches in {label}: {launches}")
     if min(launches[k] for k in XLA_KERNELS) <= 0 or any(
             launches[k] for k in XLA_KERNELS_OFF):
-        raise AssertionError(f"{label}: expected cluster_pipeline and "
-                             "gather_rows_t launches and no kernel of the "
-                             "other route")
+        raise AssertionError(f"{label}: expected cluster_pipeline, "
+                             "gather_rows_t and cmj launches and no kernel "
+                             "of the other route (nor fold_small)")
     return launches
 
 
@@ -2218,11 +2623,11 @@ def _xla_frame(label, frame, scene, cfg, card, other=None, timed=1):
     (phase 22 profiles the stage-6 frame)."""
     import torch
 
-    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import cuda_lib
 
     frame(scene)  # warm-up: captures the pass graph
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     imgs, q = frame(scene)
     torch.cuda.synchronize()
     ovf = int(frame.overflow)
@@ -2273,7 +2678,6 @@ def run_xla(dev, card: str) -> dict:
     import rayito_tpu_torch as rt
     from rayito_tpu_torch import cli
     from rayito_tpu_torch.render import pathtracer as pt
-    from rayito_tpu_torch.render import traverse as tv
     from rayito_tpu_torch.utils import cuda_lib, graphs
     from rayito_tpu_torch.utils.image import read_pfm
 
@@ -2335,7 +2739,7 @@ def run_xla(dev, card: str) -> dict:
     graphs.capture = spy
     try:
         torch.cuda.synchronize()
-        tv.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
             cli.main(["--scene", "stage6", "--obj", obj, "--pfm", "-o", out])
@@ -2431,8 +2835,7 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
     import numpy as np
     import torch
 
-    from rayito_tpu_torch.render import traverse as tv
-    from rayito_tpu_torch.utils import graphs
+    from rayito_tpu_torch.utils import cuda_lib, graphs
 
     graphs.clear()
     torch.cuda.synchronize()
@@ -2469,10 +2872,10 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
             raise AssertionError(f"{label}: the overflow differs")
     gs = graphs.graphs()
     before = [g.replays for g in gs]
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     replayed()
     torch.cuda.synchronize()
-    launches = tv.launch_counts()
+    launches = cuda_lib.launch_counts()
     if any(launches[k] <= 0 for k in kernels):
         raise AssertionError(f"{label}: a kernel of the path never launched "
                              f"in the replayed frame: {launches}")
@@ -2494,9 +2897,9 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
     if len(got) > 2:
         r["overflow"] = int(got[2])
     if profiled:
-        tv.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         p = _profile_frame(replayed)
-        counted = tv.launch_counts()
+        counted = cuda_lib.launch_counts()
         if p["by_kernel"] != counted:
             raise AssertionError(f"{label}: device records {p['by_kernel']} "
                                  f"!= launch counters {counted}")
@@ -2613,11 +3016,12 @@ def run_graphs(dev, card: str) -> dict:
         ("big_scan", lambda scene=scan, graph=True: bframe(scan, graph),
          STAGE6_KERNELS),
         ("stage7", stage7_setup(dev)[3], STAGE6_KERNELS),
-        ("stage7b", stage7b_setup(dev)[3], ("gather_rows_t",)),
-        ("stage5", stage5_setup(dev)[3], ()),
+        ("stage7b", stage7b_setup(dev)[3],
+         ("gather_rows_t", "cmj", "fold_small")),
+        ("stage5", stage5_setup(dev)[3], ("cmj",)),
         ("mesh_light", mesh_light_setup(dev)[4], STAGE6_KERNELS),
-        ("spheres40", many_spheres_setup(dev)[3], ()),
-        ("lights16", sixteen_lights_setup(dev)[3], ()),
+        ("spheres40", many_spheres_setup(dev)[3], ("cmj",)),
+        ("lights16", sixteen_lights_setup(dev)[3], ("cmj",)),
     ]
     out = {}
     for name, frame, kernels in frames:
@@ -2628,7 +3032,8 @@ def run_graphs(dev, card: str) -> dict:
         print(f"-- graph {name} done in {time.perf_counter() - t0:.1f} s")
     # its 16 replays of 26,574 device ops each take minutes to profile
     out["stage3"] = _graph_phase("graph stage3 (golden config)",
-                                 *_stage3_frames(dev), card, profiled=False)
+                                 *_stage3_frames(dev), card, ("cmj",),
+                                 profiled=False)
     out["cli_stage6"] = _graph_phase("graph cli_stage6 (640x480, 4 spp)",
                                      *_cli_frames(dev), card, STAGE6_KERNELS)
     for name, frames in (("stage6_xla", _xla_frames(s6)),

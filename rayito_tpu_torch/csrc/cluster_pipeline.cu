@@ -218,26 +218,9 @@ cluster_pipeline_kernel(const int32_t* __restrict__ ray_of_slot,
         const float v0x = v[0], v0y = v[kTri], v0z = v[2 * kTri];
         const float v1x = v[3 * kTri], v1y = v[4 * kTri], v1z = v[5 * kTri];
         const float v2x = v[6 * kTri], v2y = v[7 * kTri], v2z = v[8 * kTri];
-        const float e1x = v1x - v0x, e1y = v1y - v0y, e1z = v1z - v0z;
-        const float e2x = v2x - v0x, e2y = v2y - v0y, e2z = v2z - v0z;
-        const float gnx = e1y * e2z - e1z * e2y;
-        const float gny = e1z * e2x - e1x * e2z;
-        const float gnz = e1x * e2y - e1y * e2x;
-        const float det = -(dx * gnx + dy * gny + dz * gnz);
-        const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-        const float t0x = v0x - ox, t0y = v0y - oy, t0z = v0z - oz;
-        const float rcx = dy * t0z - dz * t0y;
-        const float rcy = dz * t0x - dx * t0z;
-        const float rcz = dx * t0y - dy * t0x;
-        const float t1x = v1x - ox, t1y = v1y - oy, t1z = v1z - oz;
-        const float gamma = -(t1x * rcx + t1y * rcy + t1z * rcz) * inv_det;
-        const float t2x = v2x - ox, t2y = v2y - oy, t2z = v2z - oz;
-        const float beta = (t2x * rcx + t2y * rcy + t2z * rcz) * inv_det;
-        const float t = -(t0x * gnx + t0y * gny + t0z * gnz) * inv_det;
-        const bool hit = det != 0.0f && gamma >= 0.0f && gamma <= 1.0f &&
-                         beta >= 0.0f && beta + gamma <= 1.0f && t >= tmin &&
-                         t < tmax;
-        if (hit && t < best_t) {  // f ascends per lane: the first minimum
+        const float t = mt_exact(v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z,
+                                 ox, oy, oz, dx, dy, dz, tmin, tmax).t;
+        if (t < best_t) {  // f ascends per lane: the first minimum
             best_t = t;
             best_f = f;
         }

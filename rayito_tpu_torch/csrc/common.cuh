@@ -121,3 +121,38 @@ __device__ __forceinline__ int32_t key_bw(const float (&r)[12], int j,
                     (t >= tmin);
     return ok ? pack_key(t, j) : INT32_MAX;
 }
+
+// Möller-Trumbore in the reference's formulation and operation order
+// (ops/intersect.py triangle_intersect, the form the plain versions run):
+// det = -dot(d, gnormal), barycentrics from scalar triple products. t is
+// INF when the ray misses; beta and gamma are what the test computed,
+// hit or not.
+struct MtHit {
+    float t, beta, gamma;
+};
+
+__device__ __forceinline__ MtHit mt_exact(
+    float v0x, float v0y, float v0z, float v1x, float v1y, float v1z,
+    float v2x, float v2y, float v2z, float ox, float oy, float oz, float dx,
+    float dy, float dz, float tmin, float tmax) {
+    const float e1x = v1x - v0x, e1y = v1y - v0y, e1z = v1z - v0z;
+    const float e2x = v2x - v0x, e2y = v2y - v0y, e2z = v2z - v0z;
+    const float gnx = e1y * e2z - e1z * e2y;
+    const float gny = e1z * e2x - e1x * e2z;
+    const float gnz = e1x * e2y - e1y * e2x;
+    const float det = -(dx * gnx + dy * gny + dz * gnz);
+    const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+    const float t0x = v0x - ox, t0y = v0y - oy, t0z = v0z - oz;
+    const float rcx = dy * t0z - dz * t0y;
+    const float rcy = dz * t0x - dx * t0z;
+    const float rcz = dx * t0y - dy * t0x;
+    const float t1x = v1x - ox, t1y = v1y - oy, t1z = v1z - oz;
+    const float gamma = -(t1x * rcx + t1y * rcy + t1z * rcz) * inv_det;
+    const float t2x = v2x - ox, t2y = v2y - oy, t2z = v2z - oz;
+    const float beta = (t2x * rcx + t2y * rcy + t2z * rcz) * inv_det;
+    const float t = -(t0x * gnx + t0y * gny + t0z * gnz) * inv_det;
+    const bool hit = det != 0.0f && gamma >= 0.0f && gamma <= 1.0f &&
+                     beta >= 0.0f && beta + gamma <= 1.0f && t >= tmin &&
+                     t < tmax;
+    return {hit ? t : __int_as_float(0x7f800000), beta, gamma};
+}

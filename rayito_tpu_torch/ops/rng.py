@@ -1,11 +1,17 @@
 """Counter-based CMJ sampling on torch tensors, bit-exact with the reference.
 
 Counterpart of ``rayito_tpu/ops/rng.py`` (Kensler correlated multi-jittered
-sampling and the per-purpose seed hash). torch has no full uint32
-arithmetic, so every uint32 value is held in an int64 tensor in
-``[0, 2**32)``: logical shifts are plain shifts of non-negative values, and
-wrapping multiplies are split into two 16-bit halves so no int64 product
-can overflow. The streams are bit-identical to the JAX package's.
+sampling and the per-purpose seed hash). The streams are bit-identical to
+the JAX package's.
+
+The integrators draw through ``hash_combine``, ``cmj_sample_1d`` and
+``cmj_sample_2d``: on CUDA tensors they launch the ``cmj`` kernel
+(``csrc/cmj.cu``: native uint32, one thread per lane, each lane its own
+cycle walk), on CPU tensors they run their plain versions
+(``*_plain``). torch has no full uint32 arithmetic, so the plain versions
+hold every uint32 value in an int64 tensor in ``[0, 2**32)``: logical
+shifts are plain shifts of non-negative values, and wrapping multiplies
+are split into two 16-bit halves so no int64 product can overflow.
 
 The Marsaglia MWC generator is the reference's oracle mode only: no
 integrator draws from it.
@@ -13,8 +19,12 @@ integrator draws from it.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from ..utils import cuda_lib
 
 MASK32 = 0xFFFFFFFF
 
@@ -74,6 +84,37 @@ def mwc_next_float(state):
     return state, u32_to_float01(i)
 
 
+def _permute_w(num: int) -> int:
+    """The cycle walk's mask: the least 2**k - 1 >= num - 1."""
+    w = (num - 1) & MASK32
+    for s in (1, 2, 4, 8, 16):
+        w |= w >> s
+    return w
+
+
+def _permute_round(x: torch.Tensor, permutation: torch.Tensor, w: int):
+    """One round of the cycle walk: a bijection on [0, w]."""
+    x = x ^ permutation
+    x = _mul32(x, 0xE170893D)
+    x = x ^ (permutation >> 16)
+    x = x ^ ((x & w) >> 4)
+    x = x ^ (permutation >> 8)
+    x = _mul32(x, 0x0929EB3F)
+    x = x ^ (permutation >> 23)
+    x = x ^ ((x & w) >> 1)
+    x = _mul32_t(x, 1 | (permutation >> 27))
+    x = _mul32(x, 0x6935FA69)
+    x = x ^ ((x & w) >> 11)
+    x = _mul32(x, 0x74DCB303)
+    x = x ^ ((x & w) >> 2)
+    x = _mul32(x, 0x9E501CC3)
+    x = x ^ ((x & w) >> 2)
+    x = _mul32(x, 0xC860A3DF)
+    x = x & w
+    x = x ^ (x >> 5)
+    return x
+
+
 def cmj_permute(i: torch.Tensor, num: int, permutation: torch.Tensor,
                 fixed_rounds: bool | None = None):
     """Hash-based cycle-walking permutation of ``i`` in [0, num).
@@ -89,41 +130,14 @@ def cmj_permute(i: torch.Tensor, num: int, permutation: torch.Tensor,
     two runs no extra round."""
     i = u32(i)
     permutation = u32(permutation)
-    w = (num - 1) & MASK32
-    w |= w >> 1
-    w |= w >> 2
-    w |= w >> 4
-    w |= w >> 8
-    w |= w >> 16
-
-    def round_fn(x):
-        x = x ^ permutation
-        x = _mul32(x, 0xE170893D)
-        x = x ^ (permutation >> 16)
-        x = x ^ ((x & w) >> 4)
-        x = x ^ (permutation >> 8)
-        x = _mul32(x, 0x0929EB3F)
-        x = x ^ (permutation >> 23)
-        x = x ^ ((x & w) >> 1)
-        x = _mul32_t(x, 1 | (permutation >> 27))
-        x = _mul32(x, 0x6935FA69)
-        x = x ^ ((x & w) >> 11)
-        x = _mul32(x, 0x74DCB303)
-        x = x ^ ((x & w) >> 2)
-        x = _mul32(x, 0x9E501CC3)
-        x = x ^ ((x & w) >> 2)
-        x = _mul32(x, 0xC860A3DF)
-        x = x & w
-        x = x ^ (x >> 5)
-        return x
-
-    i = round_fn(i)
+    w = _permute_w(num)
+    i = _permute_round(i, permutation, w)
     fixed = i.is_cuda if fixed_rounds is None else fixed_rounds
     for _ in range((w + 1) - num):
         out = i >= num
         if not fixed and not bool(out.any()):
             break
-        i = torch.where(out, round_fn(i), i)
+        i = torch.where(out, _permute_round(i, permutation, w), i)
     return ((i + permutation) & MASK32) % num
 
 
@@ -144,17 +158,37 @@ def cmj_rand_float(i: torch.Tensor, permutation: torch.Tensor):
     return u32_to_float01(i)
 
 
-def cmj_sample_1d(index: torch.Tensor, n: int, permutation: torch.Tensor):
-    """1-D CMJ sample for a pattern of n samples."""
+def _div(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x / n, rounded as one IEEE division on every device. On a CUDA
+    tensor PyTorch turns a division by a Python scalar into a multiply by
+    its reciprocal, which rounds twice; a 0-d divisor on x's device does
+    not (on the CPU both divide)."""
+    return x / torch.full((), float(n), dtype=torch.float32, device=x.device)
+
+
+def _index(index, index_mul: int, index_add: int):
+    """The sample index u32(index) * index_mul + index_add (mod 2**32)."""
+    if index_mul == 1 and index_add == 0:
+        return index
+    return (u32(index) * (index_mul & MASK32) + (index_add & MASK32)) & MASK32
+
+
+def cmj_sample_1d_plain(index: torch.Tensor, n: int, permutation,
+                        index_mul: int = 1, index_add: int = 0):
+    """1-D CMJ sample for a pattern of n samples, of the index
+    ``index * index_mul + index_add``."""
+    index = _index(index, index_mul, index_add)
     permutation = u32(permutation)
     pidx = cmj_permute(index, n, _mul32(permutation, 0x8FF3CD11))
     sx = cmj_rand_float(pidx, _mul32(permutation, 0xA399D265))
-    return (pidx.to(torch.float32) + sx) / float(n)
+    return _div(pidx.to(torch.float32) + sx, n)
 
 
-def cmj_sample_2d(index: torch.Tensor, nx: int, ny: int,
-                  permutation: torch.Tensor):
-    """2-D CMJ sample for an nx x ny pattern. Returns (d1, d2) in [0,1)."""
+def cmj_sample_2d_plain(index: torch.Tensor, nx: int, ny: int, permutation,
+                        index_mul: int = 1, index_add: int = 0):
+    """2-D CMJ sample for an nx x ny pattern, of the index ``index *
+    index_mul + index_add``. Returns (d1, d2) in [0,1)."""
+    index = _index(index, index_mul, index_add)
     permutation = u32(permutation)
     n = nx * ny
     pidx = cmj_permute(index, n, _mul32(permutation, 0xC2D3C8FB))
@@ -162,13 +196,12 @@ def cmj_sample_2d(index: torch.Tensor, nx: int, ny: int,
     iy = cmj_permute(pidx // nx, ny, _mul32(permutation, 0x63D83595))
     sx = cmj_rand_float(pidx, _mul32(permutation, 0xA399D265))
     sy = cmj_rand_float(pidx, _mul32(permutation, 0x711AD6A5))
-    d1 = (ix.to(torch.float32)
-          + (iy.to(torch.float32) + sx) / float(ny)) / float(nx)
-    d2 = (pidx.to(torch.float32) + sy) / float(n)
+    d1 = _div(ix.to(torch.float32) + _div(iy.to(torch.float32) + sx, ny), nx)
+    d2 = _div(pidx.to(torch.float32) + sy, n)
     return d1, d2
 
 
-def hash_combine(*vals) -> torch.Tensor:
+def hash_combine_plain(*vals) -> torch.Tensor:
     """Mix a tuple of uint32 tensors/ints into one uint32 seed (the
     reference's Wang-hash style finalizer over an FNV-ish accumulator)."""
     # Python ints stay Python ints (scalar operands of the tensor ops): a
@@ -183,6 +216,124 @@ def hash_combine(*vals) -> torch.Tensor:
         h = _mul32(h, 0x27D4EB2D)
         h = h ^ (h >> 15)
     return h if isinstance(h, torch.Tensor) else u32(h)
+
+
+# ---------------------------------------------------------------------------
+# The sample streams' kernel (csrc/cmj.cu) and its wrappers
+# ---------------------------------------------------------------------------
+
+MAX_HASH_OPERANDS = 6
+_KINDS = {torch.int32: 1, torch.int64: 2}  # cmj.cu's operand kinds (0: imm)
+
+
+class _Operand(ctypes.Structure):
+    """One uint32 operand of the kernel, as cmj.cu's ``Operand``: a tensor
+    (its low 32 bits; stride 0 for a 0-d tensor) or an immediate."""
+
+    _fields_ = [("ptr", ctypes.c_void_p), ("kind", ctypes.c_int),
+                ("stride", ctypes.c_int), ("imm", ctypes.c_uint32)]
+
+
+def _operand(name, v) -> _Operand:
+    if not isinstance(v, torch.Tensor):
+        return _Operand(None, 0, 0, int(v) & MASK32)
+    if v.dtype not in _KINDS:
+        raise ValueError(f"{name}: int32 or int64 operands expected, got "
+                         f"{v.dtype}")
+    return _Operand(v.data_ptr(), _KINDS[v.dtype], 1 if v.dim() else 0, 0)
+
+
+def _lanes(name, vals):
+    """(``vals`` with each tensor made contiguous, the lanes' shape) for a
+    launch: every tensor with a dimension has the lanes' shape, a 0-d
+    tensor serves every lane."""
+    vals = [v.contiguous() if isinstance(v, torch.Tensor) else v
+            for v in vals]
+    shapes = {tuple(v.shape) for v in vals
+              if isinstance(v, torch.Tensor) and v.dim()}
+    if len(shapes) > 1:
+        raise ValueError(f"{name}: tensor operands of different shapes "
+                         f"{sorted(shapes)}")
+    shape = shapes.pop() if shapes else ()
+    if int(np.prod(shape)) >= 2**31:
+        raise ValueError(f"{name}: at most 2^31 - 1 lanes")
+    return vals, shape
+
+
+def _plain(name, vals) -> bool:
+    """True: the plain version runs (no tensor operand, or CPU tensors)."""
+    tensors = [v for v in vals if isinstance(v, torch.Tensor)]
+    return not tensors or cuda_lib.on_cpu(name, *tensors)
+
+
+@cuda_lib.counted
+def cmj(entry: str, dev, *args) -> None:
+    """Launch ``entry`` of csrc/cmj.cu (``rt_hash_combine`` or
+    ``rt_cmj_sample``) on ``dev``'s current stream and count it: the launch
+    count of the sample streams' kernel, whichever wrapper launched."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cuda_lib.check(getattr(cuda_lib.library(), entry)(*args, stream), entry)
+    cuda_lib.count_launch(cmj, dev)
+
+
+def hash_combine(*vals) -> torch.Tensor:
+    """Kernel wrapper of :func:`hash_combine_plain` (at most
+    MAX_HASH_OPERANDS operands: int32 or int64 tensors, or ints). An
+    all-int call stays a host value."""
+    if _plain("hash_combine", vals):
+        return hash_combine_plain(*vals)
+    if len(vals) > MAX_HASH_OPERANDS:
+        raise ValueError(f"hash_combine: at most {MAX_HASH_OPERANDS} "
+                         f"operands on the card, got {len(vals)}")
+    vals, shape = _lanes("hash_combine", vals)
+    ops = (_Operand * MAX_HASH_OPERANDS)(*(
+        _operand("hash_combine", v) for v in vals))
+    dev = next(v.device for v in vals if isinstance(v, torch.Tensor))
+    out = torch.empty(shape, dtype=torch.int64, device=dev)
+    if out.numel():
+        cmj("rt_hash_combine", dev, ctypes.addressof(ops), len(vals),
+            out.numel(), out.data_ptr())
+    return out
+
+
+def _sample(name, index, nx: int, ny: int, permutation, index_mul: int,
+            index_add: int):
+    """Launch the sample kernel: (d1, d2) of the 2-D nx x ny pattern, or
+    (d1, None) of the 1-D nx pattern when ny is 0."""
+    if nx < 1 or ny < 0 or nx * max(ny, 1) > MASK32:
+        raise ValueError(f"{name}: pattern {nx} x {ny} out of range")
+    vals, shape = _lanes(name, (index, permutation))
+    idx, perm = (_operand(name, v) for v in vals)
+    dev = next(v.device for v in vals if isinstance(v, torch.Tensor))
+    d1 = torch.empty(shape, dtype=torch.float32, device=dev)
+    d2 = torch.empty(shape, dtype=torch.float32, device=dev) if ny else None
+    if d1.numel():
+        cmj("rt_cmj_sample", dev, ctypes.addressof(idx), index_mul & MASK32,
+            index_add & MASK32, ctypes.addressof(perm), nx, ny,
+            d1.data_ptr(), 0 if d2 is None else d2.data_ptr(), d1.numel())
+    return d1, d2
+
+
+def cmj_sample_1d(index, n: int, permutation, index_mul: int = 1,
+                  index_add: int = 0):
+    """Kernel wrapper of :func:`cmj_sample_1d_plain`."""
+    if _plain("cmj_sample_1d", (index, permutation)):
+        return cmj_sample_1d_plain(index, n, permutation, index_mul,
+                                   index_add)
+    return _sample("cmj_sample_1d", index, n, 0, permutation, index_mul,
+                   index_add)[0]
+
+
+def cmj_sample_2d(index, nx: int, ny: int, permutation, index_mul: int = 1,
+                  index_add: int = 0):
+    """Kernel wrapper of :func:`cmj_sample_2d_plain`."""
+    if _plain("cmj_sample_2d", (index, permutation)):
+        return cmj_sample_2d_plain(index, nx, ny, permutation, index_mul,
+                                   index_add)
+    if ny < 1:
+        raise ValueError(f"cmj_sample_2d: pattern {nx} x {ny} out of range")
+    return _sample("cmj_sample_2d", index, nx, ny, permutation, index_mul,
+                   index_add)
 
 
 # Purpose salts (same values and meaning as the reference's table).

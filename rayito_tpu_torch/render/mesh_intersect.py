@@ -37,7 +37,8 @@ other (``utils/graphs.py``).
 The dense fold (:func:`mesh_fold_small`) serves the kernel route's tiny
 transformed meshes (``SceneData.ktab_small``, at most 4 x 48 triangles),
 which would pay a whole sort, mask and traversal launch of their own: one
-[N, T] Möller-Trumbore over the mesh's rows of ``tri_vert_rows``. The
+[N, T] Möller-Trumbore over the mesh's rows of ``tri_vert_rows``
+(``fold_small`` in ``render/traverse.py``, the hand kernel on the card). The
 reference sends them down the pipeline, whose result is the fold's there:
 at most four real clusters in one supercluster never truncate.
 """
@@ -50,7 +51,7 @@ from ..accel.clusters import CLUSTERS_PER_SUPER, TRI_PER_CLUSTER
 from ..ops.intersect import INF, triangle_intersect
 from ..ops.vec3 import V3
 from .traverse import (K1_SUPERS, K2_CLUSTERS, box_slab, cluster_pipeline,
-                       gather_rows_t)
+                       fold_small, gather_rows_t)
 
 PAIR_CHUNKS = 4  # the reference's block: R = max(256, min(4096, N // 4))
 BRUTE_FORCE_CLUSTERS = 4  # ktab_small: meshes of at most 4 x 48 triangles
@@ -144,26 +145,19 @@ def _mesh_intersect_clusters(scene, mi, o: V3, d: V3, tmin, tmax, any_hit):
 def mesh_fold_small(scene, mi: int, o: V3, d: V3, tmin, tmax):
     """Nearest hit of tiny mesh ``mi`` (at most 4 x 48 triangles) for its
     local-space rays o, d (V3 of [N]) below ``tmax`` ([N] or scalar), by
-    one dense [N, T] Möller-Trumbore. Returns (t [N], prim [N] global
-    triangle id or -1, beta [N], gamma [N]); ties go to the lowest
-    triangle."""
+    the dense fold (``fold_small``, the hand kernel on the card). Returns
+    (t [N], prim [N] global triangle id or -1, beta [N], gamma [N]); ties
+    go to the lowest triangle."""
     tri0, count = scene.mesh_tri_ranges[mi]
     n_cl = max(1, -(-count // TRI_PER_CLUSTER))
     if n_cl > BRUTE_FORCE_CLUSTERS:
         raise ValueError(f"mesh {mi}: {count} triangles; the dense fold "
                          "takes at most 192")
     rows = scene.tri_vert_rows[tri0:tri0 + n_cl * TRI_PER_CLUSTER]  # [T, 16]
-    vert = lambda k: V3(rows[None, :, k], rows[None, :, k + 1],
-                        rows[None, :, k + 2])
     n = o.x.shape[0]
     if not torch.is_tensor(tmax):  # filled on the device: no copy to wait on
         tmax = torch.full((n,), float(tmax), device=o.x.device)
-    tmax = tmax.to(torch.float32).expand(n)
-    t, _, beta, gamma, _ = triangle_intersect(
-        o[:, None], d[:, None], tmin, tmax[:, None], vert(0), vert(3),
-        vert(6))
-    j = torch.argmin(t, dim=1, keepdim=True)  # the first of tied minima
-    t_best = t.gather(1, j)[:, 0]
-    prim = torch.where(torch.isfinite(t_best), tri0 + j[:, 0].to(torch.int32),
-                       -1).to(torch.int32)
-    return t_best, prim, beta.gather(1, j)[:, 0], gamma.gather(1, j)[:, 0]
+    tmax = tmax.to(torch.float32).expand(n).contiguous()
+    o, d = (V3(v.x.contiguous(), v.y.contiguous(), v.z.contiguous())
+            for v in (o, d))
+    return fold_small(rows, tri0, o, d, tmin, tmax)

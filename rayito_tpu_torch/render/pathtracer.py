@@ -140,14 +140,15 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                 px, py, rngo.PURPOSE_BRDF, bounce, seed)
             acc = V3(zeros, zeros, zeros)
             for lsi in range(nls):
-                fsi = rngo.u32(si) * nls + lsi
-                liu = rngo.cmj_sample_1d(fsi, (ps * ls) ** 2, perm_sel)
+                # the flat sample index fsi = si * nls + lsi
+                fsi = dict(index_mul=nls, index_add=lsi)
+                liu = rngo.cmj_sample_1d(si, (ps * ls) ** 2, perm_sel, **fsi)
                 light_idx = torch.clamp_max(
                     (liu * n_lights).to(torch.int32), n_lights - 1
                 )
-                lsu, lsv = rngo.cmj_sample_2d(fsi, ps * ls, ps * ls,
-                                              perm_light)
-                leu = rngo.cmj_sample_1d(fsi, (ps * ls) ** 2, perm_elem)
+                lsu, lsv = rngo.cmj_sample_2d(si, ps * ls, ps * ls,
+                                              perm_light, **fsi)
+                leu = rngo.cmj_sample_1d(si, (ps * ls) ** 2, perm_elem, **fsi)
 
                 # each lane's chosen light only
                 lp, _, lpdf = L.sample_chosen_light_rolled(
@@ -167,8 +168,8 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                 tmax_l = torch.where(ok_l, dist - tmin, 0.0)
 
                 # BRDF-sampled direction toward the same light
-                bsu, bsv = rngo.cmj_sample_2d(fsi, ps * ls, ps * ls,
-                                              perm_brdf)
+                bsu, bsv = rngo.cmj_sample_2d(si, ps * ls, ps * ls,
+                                              perm_brdf, **fsi)
                 b_in, f_b, pdf_b = sample_sa(kind, exponent, outgoing,
                                              normal, bsu, bsv)
                 ok_b = nee_lane & (pdf_b > 0.0) & (f_b > 0.0)

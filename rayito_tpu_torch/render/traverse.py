@@ -25,15 +25,13 @@ One launch domain's nearest (or any) triangle hit for a wavefront:
 plain torch here. ``cluster_pipeline`` (kernel) is phases 2-3 of the
 ``traversal='xla'`` route's two-level pipeline
 (``render/mesh_intersect.py``), the body of the reference's device-side
-block loop.
+block loop. ``fold_small`` (kernel) is the dense fold of one tiny
+transformed mesh (the reference's XLA ``_brute_force_mesh``).
 
 Every kernel has its plain PyTorch version beside it (``*_plain``), with
 the same contract. A wrapper runs the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel or raises. Each wrapper counts its
-kernel launches twice: ``launches`` counts its calls that launched, on the
-host, and ``device_launches`` (one int64 counter per device, read by
-``launch_counts``) is a device add enqueued beside the launch, so a CUDA
-graph that holds the launch holds the add too and every replay counts.
+launches on the host and on the device (``utils/cuda_lib.counted``).
 
 t carries the key's ~2^-17 relative slack; exact t comes from the winner
 re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
@@ -47,33 +45,13 @@ from ..accel.clusters import (CLUSTERS_PER_SUPER, SC_ROW_WIDTH,
                               TRI_PER_CLUSTER, TRI_ROW_WIDTH)
 from ..accel.kernel_tables import KTRI, NEVER_HIT
 from ..models.scene import validate_blocks, validate_items
+from ..ops.intersect import triangle_intersect
 from ..ops.vec3 import V3
 from ..utils import cuda_lib
 
 _INF = float("inf")
 _IMAX = 2**31 - 1
 _MISS_FLAG = 1 << 30
-
-
-def _on_cpu(name, *tensors) -> bool:
-    """True: run the plain version (CPU tensors). False: launch the CUDA
-    kernel (CUDA tensors). Anything else raises."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors
-                                  if t is not None}) == 1:
-        return False
-    raise ValueError(f"{name}: tensors must all be on the CPU or all on "
-                     f"one CUDA device, got {sorted(kinds)}")
-
-
-def _cuda_args(name, *tensors):
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-    return (cuda_lib.library(),
-            torch.cuda.current_stream(tensors[0].device).cuda_stream)
 
 
 def _check_dtype(name, t, dtype, ndim):
@@ -86,20 +64,6 @@ def _check_dtype(name, t, dtype, ndim):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def _count(fn, device) -> None:
-    """One launch of ``fn``'s kernel on ``device``: its host count, and one
-    added on the device in the launch's stream (captured with it)."""
-    fn.launches += 1
-    c = fn.device_launches.get(device)
-    if c is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"{fn.__name__}: the first launch on {device} "
-                               "was made under a capture")
-        c = fn.device_launches[device] = torch.zeros(
-            (), dtype=torch.int64, device=device)
-    c.add_(1)
 
 
 def _live_floor(n_live, n_steps: int) -> int:
@@ -158,6 +122,7 @@ def cluster_masks_plain(soat, cl_box, tmin: float, n_live=None, b: int = 128):
     return out
 
 
+@cuda_lib.counted
 def cluster_masks(soat, cl_box, tmin: float, n_live=None, b: int = 128):
     """Kernel wrapper of :func:`cluster_masks_plain` (same contract)."""
     _check_dtype("cluster_masks", soat, torch.float32, 3)
@@ -168,12 +133,12 @@ def cluster_masks(soat, cl_box, tmin: float, n_live=None, b: int = 128):
         raise ValueError("cluster_masks: soat [n_steps, sb, 8] and cl_box "
                          "[8, C_pad] with C_pad % 32 == 0 expected")
     validate_blocks(b, sb)
-    if _on_cpu("cluster_masks", soat, cl_box, n_live):
+    if cuda_lib.on_cpu("cluster_masks", soat, cl_box, n_live):
         return cluster_masks_plain(soat, cl_box, tmin, n_live, b)
     _check_live(n_live, soat.device)
     alive = _step_alive(soat).to(torch.uint8)
     args = [soat, cl_box, alive] + ([n_live] if n_live is not None else [])
-    lib, stream = _cuda_args("cluster_masks", *args)
+    lib, stream = cuda_lib.launch_args("cluster_masks", *args)
     n_blocks = n_steps * sb // b
     out = torch.empty((n_blocks, c_pad // 32), dtype=torch.int32,
                       device=soat.device)
@@ -181,12 +146,8 @@ def cluster_masks(soat, cl_box, tmin: float, n_live=None, b: int = 128):
         soat.data_ptr(), cl_box.data_ptr(), alive.data_ptr(), _ptr(n_live),
         out.data_ptr(), n_blocks, c_pad, b, sb, n_steps, float(tmin), stream,
     ), "cluster_masks")
-    _count(cluster_masks, soat.device)
+    cuda_lib.count_launch(cluster_masks, soat.device)
     return out
-
-
-cluster_masks.launches = 0
-cluster_masks.device_launches = {}
 
 
 def word_roots_plain(cl_box):
@@ -346,6 +307,7 @@ def traverse_blocks_plain(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
 _LIST_HEAD = 4  # int32 counters ahead of the kernel's unit list
 
 
+@cuda_lib.counted
 def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
                     any_hit: bool = False, n_live=None, b: int = 128,
                     run_if=None):
@@ -363,13 +325,13 @@ def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
                          " tri [C, 16, 128])")
     if mt_mode not in ("vpu", "bw"):
         raise ValueError(f"traverse_blocks: mt_mode {mt_mode!r}")
-    if _on_cpu("traverse_blocks", masks, soat, tri, n_live, run_if):
+    if cuda_lib.on_cpu("traverse_blocks", masks, soat, tri, n_live, run_if):
         return traverse_blocks_plain(masks, soat, tri, tmin, mt_mode,
                                      any_hit, n_live, b, run_if)
     _check_live(n_live, soat.device)
     _check_flag("traverse_blocks", run_if)
     args = [t for t in (masks, soat, tri, n_live, run_if) if t is not None]
-    lib, stream = _cuda_args("traverse_blocks", *args)
+    lib, stream = cuda_lib.launch_args("traverse_blocks", *args)
     n_units = masks.shape[0] * masks.shape[1]
     if n_units + _LIST_HEAD >= 2**31:
         raise ValueError("traverse_blocks: too many mask words")
@@ -388,12 +350,8 @@ def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
         tri.shape[0], sb, n_steps, float(tmin), int(mt_mode == "bw"),
         int(bool(any_hit)), stream,
     ), "traverse_blocks")
-    _count(traverse_blocks, soat.device)
+    cuda_lib.count_launch(traverse_blocks, soat.device)
     return t, p
-
-
-traverse_blocks.launches = 0
-traverse_blocks.device_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +366,7 @@ def gather_rows_t_plain(table, idx):
     return table[safe].t().contiguous()
 
 
+@cuda_lib.counted
 def gather_rows_t(table, idx):
     """Kernel wrapper of :func:`gather_rows_t_plain` (K in {16, 32})."""
     _check_dtype("gather_rows_t", table, torch.float32, 2)
@@ -416,9 +375,9 @@ def gather_rows_t(table, idx):
     if k not in (16, 32) or table.shape[0] == 0:
         raise ValueError(f"gather_rows_t: table [T>0, 16|32], got "
                          f"{tuple(table.shape)}")
-    if _on_cpu("gather_rows_t", table, idx):
+    if cuda_lib.on_cpu("gather_rows_t", table, idx):
         return gather_rows_t_plain(table, idx)
-    lib, stream = _cuda_args("gather_rows_t", table, idx)
+    lib, stream = cuda_lib.launch_args("gather_rows_t", table, idx)
     if table.data_ptr() % 16:
         raise ValueError("gather_rows_t: table must be 16-byte aligned")
     n = idx.shape[0]
@@ -427,12 +386,8 @@ def gather_rows_t(table, idx):
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, table.shape[0],
         k, stream,
     ), "gather_rows_t")
-    _count(gather_rows_t, table.device)
+    cuda_lib.count_launch(gather_rows_t, table.device)
     return out
-
-
-gather_rows_t.launches = 0
-gather_rows_t.device_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -496,6 +451,7 @@ def build_items_plain(masks, w: int, maxitems: int, cap: int):
     return items, n_steps, overflow, aligned > 0
 
 
+@cuda_lib.counted
 def build_items(masks, w: int, maxitems: int, cap: int):
     """Kernel wrapper of :func:`build_items_plain` (same contract): three
     launches from one C entry, nothing read back to the host."""
@@ -505,11 +461,11 @@ def build_items(masks, w: int, maxitems: int, cap: int):
     if nblk == 0 or nw == 0:
         raise ValueError("build_items: masks [n_blocks > 0, n_words > 0] "
                          "expected")
-    if _on_cpu("build_items", masks):
+    if cuda_lib.on_cpu("build_items", masks):
         return build_items_plain(masks, w, maxitems, cap)
     if nblk * (nw * 32 + w) >= 2**31 or maxitems + w >= 2**31:
         raise ValueError("build_items: the list's counts must fit in int32")
-    lib, stream = _cuda_args("build_items", masks)
+    lib, stream = cuda_lib.launch_args("build_items", masks)
     dev = masks.device
     # the list, the group count, then count / aligned / start / total
     ints = torch.empty((maxitems + w + 1 + 3 * nblk + 1,), dtype=torch.int32,
@@ -522,12 +478,8 @@ def build_items(masks, w: int, maxitems: int, cap: int):
         ints.data_ptr() + 4 * (maxitems + w + 1), nblk, nw, w, maxitems, cap,
         stream,
     ), "build_items")
-    _count(build_items, dev)
+    cuda_lib.count_launch(build_items, dev)
     return ints[:maxitems + w], ints[maxitems + w], flags[0], flags[1:]
-
-
-build_items.launches = 0
-build_items.device_launches = {}
 
 
 def traverse_items_plain(items, n_steps, soab, tri, tmin: float,
@@ -572,6 +524,7 @@ def traverse_items_plain(items, n_steps, soab, tri, tmin: float,
     return t.view(nblk, b, 1), prim.view(nblk, b, 1)
 
 
+@cuda_lib.counted
 def traverse_items(items, n_steps, soab, tri, tmin: float,
                    mt_mode: str = "vpu", w: int = 4, skip=None):
     """Kernel wrapper of :func:`traverse_items_plain` (same contract; a
@@ -592,12 +545,12 @@ def traverse_items(items, n_steps, soab, tri, tmin: float,
     if b > 1024 or b & (b - 1):
         raise ValueError(f"traverse_items: b={b} must be a power of two "
                          "<= 1024")
-    if _on_cpu("traverse_items", items, n_steps, soab, tri, skip):
+    if cuda_lib.on_cpu("traverse_items", items, n_steps, soab, tri, skip):
         return traverse_items_plain(items, n_steps, soab, tri, tmin,
                                     mt_mode, w, skip)
     _check_flag("traverse_items", skip)
     args = [t for t in (items, n_steps, soab, tri, skip) if t is not None]
-    lib, stream = _cuda_args("traverse_items", *args)
+    lib, stream = cuda_lib.launch_args("traverse_items", *args)
     if soab.data_ptr() % 16:
         raise ValueError("traverse_items: soab must be 16-byte aligned")
     t = torch.empty((nblk, b, 1), dtype=torch.float32, device=soab.device)
@@ -611,12 +564,9 @@ def traverse_items(items, n_steps, soab, tri, tmin: float,
         (items.shape[0] - w) // w, w, float(tmin), int(mt_mode == "bw"),
         stream,
     ), "traverse_items")
-    _count(traverse_items, soab.device)
+    cuda_lib.count_launch(traverse_items, soab.device)
     return t, p
 
-
-traverse_items.launches = 0
-traverse_items.device_launches = {}
 
 # ---------------------------------------------------------------------------
 # Kernel 6: the 'xla' route's cluster pipeline (the body of the reference's
@@ -760,6 +710,7 @@ def cluster_pipeline_plain(ray_of_slot, n_active, o, d, tmax, tmin: float,
     return t_slot, prim_slot, ovf_slot
 
 
+@cuda_lib.counted
 def cluster_pipeline(ray_of_slot, n_active, o, d, tmax, tmin: float, t_sc,
                      sc_rows, tri_rows, k1: int, k2: int, tri0: int):
     """Kernel wrapper of :func:`cluster_pipeline_plain` (same contract):
@@ -785,11 +736,11 @@ def cluster_pipeline(ray_of_slot, n_active, o, d, tmax, tmin: float, t_sc,
                          "sc_rows [S, 128], tri_rows [>= 16 S, 512], 1 <= k1 "
                          "<= min(S, 16) and 1 <= k2 <= min(16 k1, 24) "
                          "expected")
-    if _on_cpu(name, ray_of_slot, n_active, *comps, t_sc, sc_rows, tri_rows):
+    tensors = (ray_of_slot, n_active, *comps, t_sc, sc_rows, tri_rows)
+    if cuda_lib.on_cpu(name, *tensors):
         return cluster_pipeline_plain(ray_of_slot, n_active, o, d, tmax, tmin,
                                       t_sc, sc_rows, tri_rows, k1, k2, tri0)
-    lib, stream = _cuda_args(name, ray_of_slot, n_active, *comps, t_sc,
-                             sc_rows, tri_rows)
+    lib, stream = cuda_lib.launch_args(name, *tensors)
     if n * s >= 2**31 or tri_rows.shape[0] * TRI_ROW_WIDTH >= 2**31:
         raise ValueError(f"{name}: t_sc and tri_rows must hold < 2^31 "
                          "entries")
@@ -805,30 +756,69 @@ def cluster_pipeline(ray_of_slot, n_active, o, d, tmax, tmin: float, t_sc,
         tri_rows.data_ptr(), t.data_ptr(), prim.data_ptr(), ovf.data_ptr(),
         n, s, k1, k2, tri0, float(tmin), stream,
     ), name)
-    _count(cluster_pipeline, dev)
+    cuda_lib.count_launch(cluster_pipeline, dev)
     return t, prim, ovf
 
 
-cluster_pipeline.launches = 0
-cluster_pipeline.device_launches = {}
+# ---------------------------------------------------------------------------
+# Kernel 7: the dense fold of one tiny mesh (replaces the XLA
+# _brute_force_mesh of the reference's mesh_intersect.py)
+# ---------------------------------------------------------------------------
 
-KERNELS = (cluster_masks, traverse_blocks, gather_rows_t, traverse_items,
-           build_items, cluster_pipeline)
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel's host and device launch counts to 0."""
-    for fn in KERNELS:
-        fn.launches = 0
-        for c in fn.device_launches.values():
-            c.zero_()
+FOLD_SMALL_MAX_TRI = 192  # 4 clusters x 48 triangles
 
 
-def launch_counts() -> dict:
-    """{kernel: launches the devices ran since the last reset}, graph
-    replays included (reads the devices back)."""
-    return {fn.__name__: sum(int(c) for c in fn.device_launches.values())
-            for fn in KERNELS}
+def fold_small_plain(rows, tri0: int, o: V3, d: V3, tmin: float, tmax):
+    """Nearest hit of one tiny mesh for every lane: rows [T <= 192, 16] f32
+    (its ``tri_vert_rows``: v0, v1, v2 first), the lanes' o, d (V3 of [N]
+    f32), tmax [N] f32. One dense [N, T] Möller-Trumbore (t >= tmin, t <
+    tmax). Returns (t [N], INF on a miss; prim [N] i32, tri0 + the first
+    triangle of least t, -1 on a miss; beta [N], gamma [N] of that
+    triangle, of triangle 0 on a miss)."""
+    vert = lambda k: V3(rows[None, :, k], rows[None, :, k + 1],
+                        rows[None, :, k + 2])
+    t, _, beta, gamma, _ = triangle_intersect(
+        o[:, None], d[:, None], tmin, tmax[:, None], vert(0), vert(3),
+        vert(6))
+    j = torch.argmin(t, dim=1, keepdim=True)  # the first of tied minima
+    t_best = t.gather(1, j)[:, 0]
+    prim = torch.where(torch.isfinite(t_best), tri0 + j[:, 0].to(torch.int32),
+                       -1).to(torch.int32)
+    return t_best, prim, beta.gather(1, j)[:, 0], gamma.gather(1, j)[:, 0]
+
+
+@cuda_lib.counted
+def fold_small(rows, tri0: int, o: V3, d: V3, tmin: float, tmax):
+    """Kernel wrapper of :func:`fold_small_plain`."""
+    name = "fold_small"
+    comps = (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
+    _check_dtype(name, rows, torch.float32, 2)
+    for c in comps:
+        _check_dtype(name, c, torch.float32, 1)
+    n = tmax.shape[0]
+    if (not 1 <= rows.shape[0] <= FOLD_SMALL_MAX_TRI or rows.shape[1] != 16
+            or any(c.shape[0] != n for c in comps)):
+        raise ValueError(f"{name}: rows [1..{FOLD_SMALL_MAX_TRI}, 16] and "
+                         "rays [N] expected")
+    if cuda_lib.on_cpu(name, rows, *comps):
+        return fold_small_plain(rows, tri0, o, d, tmin, tmax)
+    if not isinstance(tmin, (int, float)):
+        raise ValueError(f"{name}: tmin must be a Python number")
+    lib, stream = cuda_lib.launch_args(name, rows, *comps)
+    dev = rows.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    beta = torch.empty((n,), dtype=torch.float32, device=dev)
+    gamma = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, prim, beta, gamma
+    cuda_lib.check(lib.rt_fold_small(
+        rows.data_ptr(), rows.shape[0], int(tri0),
+        *(c.data_ptr() for c in comps), float(tmin), t.data_ptr(),
+        prim.data_ptr(), beta.data_ptr(), gamma.data_ptr(), n, stream,
+    ), name)
+    cuda_lib.count_launch(fold_small, dev)
+    return t, prim, beta, gamma
 
 
 # ---------------------------------------------------------------------------

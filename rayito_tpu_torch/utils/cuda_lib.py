@@ -7,6 +7,12 @@ repo root, for ``sm_90a`` (Hopper) without FMA contraction. It is rebuilt
 when the sources' hash changes and loaded with ctypes at first use;
 nothing is built or loaded when the package is imported. A failed build
 raises.
+
+Beside the build, what every kernel wrapper shares: the dispatch on the
+tensors' device (``on_cpu``), the library and stream of a launch
+(``launch_args``) and the launch counts: ``counted`` registers a wrapper
+in ``KERNELS``, ``count_launch`` counts one launch, ``reset_launch_counts``
+and ``launch_counts`` set and read them all.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,6 +44,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 SIGNATURES = {
     "rt_cluster_masks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "rt_traverse_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -45,6 +54,10 @@ SIGNATURES = {
                           _I, _F, _I, _P],
     "rt_build_items": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rt_cluster_pipeline": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _P],
+    "rt_hash_combine": [_P, _I, _I, _P, _P],
+    "rt_cmj_sample": [_P, _U, _U, _P, _I, _I, _P, _P, _I, _P],
+    "rt_fold_small": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
+                      _P, _P, _I, _P],
 }
 
 
@@ -133,3 +146,69 @@ def check(status: int, name: str) -> None:
     """Raise if a kernel launch returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+def on_cpu(name, *tensors) -> bool:
+    """True: run the plain version (CPU tensors). False: launch the CUDA
+    kernel (CUDA tensors). Anything else raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors
+                                  if t is not None}) == 1:
+        return False
+    raise ValueError(f"{name}: tensors must all be on the CPU or all on "
+                     f"one CUDA device, got {sorted(kinds)}")
+
+
+def launch_args(name, *tensors):
+    """(the loaded library, the current stream's handle) for a launch on
+    ``tensors``, which must be contiguous."""
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return library(), torch.cuda.current_stream(tensors[0].device).cuda_stream
+
+
+KERNELS = []  # every kernel wrapper, as ``counted`` registered it
+
+
+def counted(fn):
+    """Register kernel wrapper ``fn`` for the launch counts: ``launches``
+    counts its calls that launched, on the host, and ``device_launches``
+    (one int64 counter per device) is a device add enqueued beside each
+    launch, so a CUDA graph that holds the launch holds the add too and
+    every replay counts."""
+    fn.launches = 0
+    fn.device_launches = {}
+    KERNELS.append(fn)
+    return fn
+
+
+def count_launch(fn, device) -> None:
+    """One launch of ``fn``'s kernel on ``device``: its host count, and one
+    added on the device in the launch's stream (captured with it)."""
+    fn.launches += 1
+    c = fn.device_launches.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{fn.__name__}: the first launch on {device} "
+                               "was made under a capture")
+        c = fn.device_launches[device] = torch.zeros(
+            (), dtype=torch.int64, device=device)
+    c.add_(1)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's host and device launch counts to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+        for c in fn.device_launches.values():
+            c.zero_()
+
+
+def launch_counts() -> dict:
+    """{kernel: launches the devices ran since the last reset}, graph
+    replays included (reads the devices back)."""
+    return {fn.__name__: sum(int(c) for c in fn.device_launches.values())
+            for fn in KERNELS}

@@ -19,6 +19,8 @@ _PHASES = (
     ("items_", "item traversal kernels (traverse_items)"),
     ("gather_rows_t_kernel", "winner-row gather kernel"),
     ("cluster_pipeline_kernel", "two-level cluster pipeline kernel"),
+    ("cmj_", "sample-stream kernels (cmj)"),
+    ("fold_small_kernel", "tiny-mesh fold kernel"),
     ("sort", "coherence sort / unsort"),
     ("elementwise", "PyTorch elementwise kernels"),
     ("reduce", "PyTorch reductions"),

@@ -39,7 +39,13 @@ its nearest-k on tied rows, its winner rows through gather_rows_t, the
 cluster_pipeline kernel against its plain version on the truncating mesh
 and stage 6's camera, bounce and shadow rays, and its passes captured as
 graphs (stage 6 and the overflowing stack) and replayed through
-render_path_with_stats, render_progressive and the sharded render.
+render_path_with_stats, render_progressive and the sharded render; and
+the sample streams' kernel (hash_combine, cmj_sample_1d, cmj_sample_2d)
+against its plain versions at nums that walk and nums that do not, with
+int32 and int64 operands, 0-d and immediate permutations and the
+multiplier-and-addend index, its launch count inside a captured graph,
+and fold_small against its plain version on stage 7b's cube and on a mesh
+whose every hit ties with a twin row.
 Every kernel comparison is exact: kernel and plain version run the same
 IEEE float32 operations in the same order, without contraction.
 """
@@ -312,7 +318,7 @@ def test_traverse_blocks_gates(dev, big_items, case, mt, any_hit):
         return
     t = torch.full(soat.shape[:2] + (1,), 7.0, device=dev)
     p = torch.full(soat.shape[:2] + (1,), 7, dtype=torch.int32, device=dev)
-    lib, stream = tv._cuda_args("traverse_blocks", masks, soat, tri)
+    lib, stream = cuda_lib.launch_args("traverse_blocks", masks, soat, tri)
     n = soat.shape[0] * SB
     n_units = masks.shape[0] * masks.shape[1]
     scratch = torch.zeros(n + (n_units + 5) // 2, dtype=torch.int64,
@@ -1117,7 +1123,8 @@ def test_progressive_resume_on_the_card(dev, tmp_path):
 
 def test_cli_stage6_launches_the_three_kernels(dev, tmp_path):
     """cli.main with no --device renders on the card through
-    cluster_masks, traverse_blocks and gather_rows_t."""
+    cluster_masks, traverse_blocks and gather_rows_t, drawing its samples
+    through the cmj kernel."""
     from rayito_tpu_torch import cli
     from rayito_tpu_torch.models.demo import write_bumpy_standin
     from rayito_tpu_torch.utils.image import read_pfm
@@ -1125,11 +1132,11 @@ def test_cli_stage6_launches_the_three_kernels(dev, tmp_path):
     obj = str(tmp_path / "b8.obj")
     write_bumpy_standin(obj, n=8)
     out = str(tmp_path / "s6.pfm")
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     assert cli.main(["--scene", "stage6", "--obj", obj, "--width", "64",
                      "--height", "48", "--pfm", "-o", out]) == 0
-    counts = {fn.__name__: fn.launches for fn in tv.KERNELS}
-    for name in ("cluster_masks", "traverse_blocks", "gather_rows_t"):
+    counts = {fn.__name__: fn.launches for fn in cuda_lib.KERNELS}
+    for name in ("cluster_masks", "traverse_blocks", "gather_rows_t", "cmj"):
         assert counts[name] > 0, counts
     img = read_pfm(out)
     assert img.shape == (48, 64, 3) and np.isfinite(img).all()
@@ -1253,11 +1260,11 @@ def test_xla_route_launches_gather_rows_t(dev, xla_scenes):
     o, d, _ = _xla_rays("stage6", 4096)
     v3 = lambda a, where: V3(*(torch.from_numpy(a[:, k].copy()).to(where)
                                for k in range(3)))
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     got = tr.scene_intersect(on_card, v3(o, dev), v3(d, dev), None, 1e-4,
                              1e30)
     torch.cuda.synchronize()
-    counts = {fn.__name__: fn.launches for fn in tv.KERNELS}
+    counts = {fn.__name__: fn.launches for fn in cuda_lib.KERNELS}
     assert counts.pop("gather_rows_t") >= 2
     assert counts.pop("cluster_pipeline") == sd.n_meshes
     assert not any(counts.values())
@@ -1401,16 +1408,16 @@ def test_replayed_pass_equals_the_eager_body(dev, graph_scenes, name):
     eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
     first = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
-    counts = tv.launch_counts()
+    counts = cuda_lib.launch_counts()
     (g,) = graphs.graphs()
     assert g.replays == 2
     kernels = ("build_items", "traverse_items") if name == "big_items" else \
         ("cluster_masks", "traverse_blocks")
-    for k in kernels + ("gather_rows_t",):
+    for k in kernels + ("gather_rows_t", "cmj"):
         assert counts[k] > 0, counts
-    assert all(fn.launches == 0 for fn in tv.KERNELS)
+    assert all(fn.launches == 0 for fn in cuda_lib.KERNELS)
     _same_pass(first, eager)
     _same_pass(again, eager)
     graphs.clear()
@@ -1496,7 +1503,8 @@ def test_xla_pass_is_captured_and_replayed(dev, graph_scenes, name):
     sync debug mode 'error' reads nothing back, a second call only
     replays, and both equal the eager body bit for bit, overflow and
     queries included. The replay launches cluster_pipeline once per mesh
-    query and gather_rows_t, and no kernel of the other route."""
+    query, gather_rows_t and the sample streams' kernel, and no kernel of
+    the other route."""
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import graphs
 
@@ -1507,12 +1515,12 @@ def test_xla_pass_is_captured_and_replayed(dev, graph_scenes, name):
     eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
     first = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
     torch.cuda.synchronize()
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
-    counts = tv.launch_counts()
+    counts = cuda_lib.launch_counts()
     (g,) = graphs.graphs()
-    assert g.replays == 2 and all(fn.launches == 0 for fn in tv.KERNELS)
-    assert counts.pop("cluster_pipeline") > 0
+    assert g.replays == 2 and all(fn.launches == 0 for fn in cuda_lib.KERNELS)
+    assert counts.pop("cluster_pipeline") > 0 and counts.pop("cmj") > 0
     assert counts.pop("gather_rows_t") > 0 and not any(counts.values())
     for got in (first, again):
         assert torch.equal(got[0].view(torch.int32),
@@ -1621,3 +1629,140 @@ def test_entry_points_replay_graphs(dev, graph_scenes, tmp_path):
     assert "color pass" in labels and any(
         lab.startswith("direct") for lab in labels), labels
     graphs.clear()
+
+
+# ------------------------------------- sample streams and tiny-mesh fold
+
+
+def _u32(rs, n, dev, dtype=torch.int64):
+    """n seeded uint32 values on the card (int32 bits for int32)."""
+    v = rs.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    v = v.view(np.int32) if dtype == torch.int32 else v.astype(np.int64)
+    return torch.from_numpy(v).to(dev)
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("num", [1, 2, 3, 5, 9, 17, 144, 300, 576, 4097])
+def test_cmj_samples_match_plain(dev, num, dtype):
+    """cmj_sample_1d and a num x 3 cmj_sample_2d through the kernel
+    against their plain versions (the fixed cycle-walk rounds on the
+    card), bit for bit, on 65,536 lanes of seeded permutations: the plain
+    index, a 0-d and an immediate permutation, and the flat index
+    si * 3 + 2 as a multiplier and an addend."""
+    from rayito_tpu_torch.ops import rng
+
+    rs = np.random.default_rng(num)
+    n = 65536
+    lane = torch.arange(n, device=dev)
+    idx = (lane % num).to(dtype)
+    perm = _u32(rs, n, dev, dtype)
+    cases = [((idx, num, perm), {}), ((idx, num, perm[0]), {}),
+             ((idx, num, 0xDEADBEEF), {})]
+    if num % 3 == 0:
+        cases.append((((lane % (num // 3)).to(dtype), num, perm),
+                      {"index_mul": 3, "index_add": 2}))
+    for args, kw in cases:
+        got = rng.cmj_sample_1d(*args, **kw)
+        assert _same_bits(got, rng.cmj_sample_1d_plain(*args, **kw)), kw
+    idx2 = (lane % (num * 3)).to(dtype)
+    got = rng.cmj_sample_2d(idx2, num, 3, perm)
+    want = rng.cmj_sample_2d_plain(idx2, num, 3, perm)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+
+
+def test_hash_combine_matches_plain(dev):
+    """hash_combine through the kernel against its plain version, bit for
+    bit: int32 and int64 lanes, 0-d tensors and immediates, one to six
+    operands; seven operands and tensors on two devices are refused; an
+    all-int hash stays on the host."""
+    from rayito_tpu_torch.ops import rng
+
+    rs = np.random.default_rng(2)
+    n = 100_000
+    a, b = _u32(rs, n, dev, torch.int32), _u32(rs, n, dev)
+    c = torch.tensor(-3, dtype=torch.int32, device=dev)
+    for ops in ((a,), (a, b), (a, 7, b, c),
+                (a, b, rng.PURPOSE_LIGHT, 2, c, 0xFFFFFFFF)):
+        got = rng.hash_combine(*ops)
+        assert got.dtype == torch.int64 and got.shape == (n,)
+        assert torch.equal(got, rng.hash_combine_plain(*ops))
+    with pytest.raises(ValueError, match="at most 6"):
+        rng.hash_combine(a, 1, 2, 3, 4, 5, 6)
+    assert rng.hash_combine(1, 2).device.type == "cpu"
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rng.hash_combine(a, torch.zeros(n, dtype=torch.int32))
+
+
+def test_cmj_kernel_counts_and_captures(dev):
+    """Each wrapper launch counts once, under the one name cmj, on the host
+    and on the device; inside a captured graph every replay counts, and
+    the replayed draw equals the eager one."""
+    from rayito_tpu_torch.ops import rng
+
+    px = torch.arange(4096, dtype=torch.int32, device=dev)
+    si = px % 4
+
+    def draw():
+        h = rng.hash_combine(px, px // 64, rng.PURPOSE_BOUNCE, 1, 1)
+        return rng.cmj_sample_2d(si, 2, 2, h)
+
+    want = draw()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = draw()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    assert rng.cmj.launches == 2
+    assert cuda_lib.launch_counts()["cmj"] == 4  # two replays of two launches
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("mesh", ["cube", "tied_192"])
+def test_fold_small_kernel_matches_plain(dev, mesh):
+    """fold_small through the kernel against its plain version on the
+    card: t and prim bit for bit on every lane, beta and gamma where prim
+    >= 0; on stage 7b's cube and on 96 seeded triangles twice over (every
+    hit ties with its twin and goes to the lower row), with a per-lane
+    tmax that cuts some lanes short."""
+    from rayito_tpu_torch.models.demo import stage7_scene2
+
+    rs = np.random.default_rng(4)
+    if mesh == "cube":
+        sd = stage7_scene2().compile(dev)
+        tri0 = sd.mesh_tri_ranges[3][0]
+        rows = sd.tri_vert_rows[tri0:tri0 + 48]
+        centre = (0.5, 0.5, 0.5)
+    else:
+        tris = rs.normal(0.0, 0.6, (96, 9)).astype(np.float32)
+        rows = np.zeros((192, 16), np.float32)
+        rows[:96, :9] = rows[96:, :9] = tris
+        rows = torch.from_numpy(rows).to(dev)
+        tri0, centre = 100, (0.0, 0.0, 0.0)
+    n = 131072
+    o = np.tile(np.asarray([0.3, 0.2, 6.0], np.float32), (n, 1))
+    d = rs.normal(0.0, 0.15, (n, 3)) + (np.asarray(centre) - o[0])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmax = np.full(n, 1e30, np.float32)
+    tmax[::5] = 5.0
+    v3 = lambda a: V3(*(torch.from_numpy(a[:, k].copy()).to(dev)  # noqa
+                        for k in range(3)))
+    args = (rows, tri0, v3(o), v3(d), 1e-4, torch.from_numpy(tmax).to(dev))
+    got = tv.fold_small(*args)
+    want = tv.fold_small_plain(*args)
+    hit = want[1] >= 0
+    assert 0 < int(hit.sum()) < n
+    assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+    for k in (2, 3):
+        assert _same_bits(got[k][hit], want[k][hit])
+    if mesh == "tied_192":
+        assert int((got[1][hit] - tri0).max()) < 96

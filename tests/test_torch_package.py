@@ -116,11 +116,11 @@ def _kernel_calls(dev):
                                   "gather_rows_t", "traverse_items",
                                   "build_items", "cluster_pipeline"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(name):
-    tv.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     _kernel_calls("cpu")[name]()  # plain version: no launch counted
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         _kernel_calls("meta")[name]()
-    assert all(fn.launches == 0 for fn in tv.KERNELS)
+    assert all(fn.launches == 0 for fn in cuda_lib.KERNELS)
 
 
 def test_unbuildable_library_raises(monkeypatch, tmp_path):

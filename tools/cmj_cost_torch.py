@@ -1,10 +1,12 @@
-"""What the cycle walk of ``cmj_permute`` costs a frame on the card.
+"""What the sample streams and their cycle walk cost a frame on the card.
 
 A sample count that is not a power of two makes ``ops/rng.cmj_permute``
-walk: on a CUDA tensor it runs all ``(w + 1) - num`` masked rounds (a CUDA
-graph holds them; w + 1 is the next power of two), where the port's
-earlier form stopped once every lane was in range, reading the card back
-after each round. This tool renders the stage-6 scene (the n=64 bumpy
+walk. The plain versions run all ``(w + 1) - num`` masked rounds on a CUDA
+tensor (a CUDA graph holds them; w + 1 is the next power of two), where
+the port's earliest form stopped once every lane was in range, reading the
+card back after each round; since the ``cmj`` kernel (``csrc/cmj.cu``)
+each lane walks on its own inside one launch. This tool renders the
+stage-6 scene (the n=64 bumpy
 stand-in, depth 3, 131,072-lane launches) through
 ``render_path_with_stats`` at three sample counts:
 
@@ -18,10 +20,11 @@ after a warm-up frame), its queries, and one launch's camera rays
 (``_camera_rays``, eager): ``cam_ms`` between CUDA events (median of 5;
 the host's enqueue of each small op included) and ``cam_kernel_ms``, the
 device time of their kernels under torch.profiler. In a tree whose
-``cmj_permute`` takes ``fixed_rounds``, also the same two with the walk
-stopping early (``cam_early_ms``, ``cam_early_kernel_ms``), the card read
-back each round. A replayed graph runs the fixed rounds at about their
-kernel time; an eager pass pays their event time.
+``cmj_permute`` takes ``fixed_rounds``, also the same two through the
+plain versions with the walk stopping early (``cam_early_ms``,
+``cam_early_kernel_ms``), the card read back each round. A replayed graph
+runs the fixed rounds at about their kernel time; an eager pass pays
+their event time.
 
 ``--root`` names the tree whose ``rayito_tpu_torch`` is imported (default:
 this checkout), so two commits can be compared in one call:
@@ -132,6 +135,13 @@ def main() -> int:
              "card": card}
         if early:
             walk = rng.cmj_permute
+            # a tree with the cmj kernel: its wrappers' plain versions
+            names = [k for k in ("hash_combine", "cmj_sample_1d",
+                                 "cmj_sample_2d")
+                     if hasattr(rng, k + "_plain")]
+            saved = {k: getattr(rng, k) for k in names}
+            for k in names:
+                setattr(rng, k, getattr(rng, k + "_plain"))
             rng.cmj_permute = (lambda i, num, p:  # noqa: E731
                                walk(i, num, p, fixed_rounds=False))
             try:
@@ -139,6 +149,8 @@ def main() -> int:
                 r["cam_early_kernel_ms"] = _kernel_ms(rays)
             finally:
                 rng.cmj_permute = walk
+                for k, fn in saved.items():
+                    setattr(rng, k, fn)
         print(json.dumps(r), flush=True)
     return 0
 

@@ -1,0 +1,145 @@
+"""The SASS that ``csrc/cmj.cu`` compiles to, counted for its bound.
+
+Builds the kernel library (``utils/cuda_lib.build``), disassembles it with
+``cuobjdump -sass`` and prints, for each of the two sample-stream kernels
+(``cmj_hash_kernel``, ``cmj_sample_kernel``), one JSON line: its
+instruction count by opcode, every loop (a branch back to an earlier
+address) with the instructions between its head and that branch, and its
+basic blocks. The cycle walk's loop gives the instructions one round
+after the first costs, with what the compiler hoisted out of it; the
+blocks on a lane's path give what a hash, its operands and a sample cost
+(``chip_smoke.py``'s ``HASH_INSNS``, ``SAMPLE_INSNS`` and ``ROUND_INSNS``).
+The whole listing is written to ``--out``.
+
+    python3 tools/cmj_sass.py --out build/cmj_sass.txt
+
+Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit); no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+KERNELS = ("cmj_hash_kernel", "cmj_sample_kernel")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                   r"([^;]*);")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_TARGET = re.compile(r"(0x[0-9a-f]+|\.L_x_\d+)")
+# opcodes that end a basic block
+_ENDS = ("BRA", "EXIT", "CALL", "RET", "BSSY", "BSYNC")
+
+
+def _functions(sass: str) -> dict:
+    """{function name: its lines} of a cuobjdump -sass listing."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
+
+
+def _parse(lines):
+    """[(address, opcode, operands)] and {label: address}."""
+    insns, labels, pending = [], {}, []
+    for line in lines:
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSN.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            insns.append((addr, m.group(3), m.group(4).strip()))
+    return insns, labels
+
+
+def _histogram(insns) -> dict:
+    return dict(collections.Counter(op for _, op, _ in insns).most_common())
+
+
+def _target(args, labels):
+    m = _TARGET.search(args)
+    if not m:
+        return None
+    tgt = m.group(1)
+    return labels.get(tgt) if tgt.startswith(".L") else int(tgt, 16)
+
+
+def summarize(lines) -> dict:
+    """Opcode counts of one function and of each of its loops, and its
+    basic blocks ("start: instructions, last opcode"): the instructions a
+    lane issues are the sum of the blocks on its path."""
+    insns, labels = _parse(lines)
+    insns = [i for i in insns if i[1] != "NOP"]
+    loops, starts = [], {insns[0][0]}
+    for k, (addr, op, args) in enumerate(insns):
+        if op.startswith(_ENDS) and k + 1 < len(insns):
+            starts.add(insns[k + 1][0])
+        if not op.startswith(("BRA", "CALL")):
+            continue
+        tgt = _target(args, labels)
+        if tgt is None:
+            continue
+        starts.add(tgt)
+        if op.startswith("BRA") and tgt < addr:
+            body = [i for i in insns if tgt <= i[0] <= addr]
+            loops.append({"head": hex(tgt), "branch": hex(addr),
+                          "insns": len(body), "ops": _histogram(body)})
+    blocks = []
+    for addr, op, _ in insns:
+        if addr in starts:
+            blocks.append([addr, 0, op])
+        blocks[-1][1:] = [blocks[-1][1] + 1, op]
+    return {"insns": len(insns), "ops": _histogram(insns), "loops": loops,
+            "blocks": [f"{a:#06x}: {n}, {op}" for a, n, op in blocks]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="file for the whole listing of the two kernels")
+    args = ap.parse_args()
+
+    from rayito_tpu_torch.utils import cuda_lib
+
+    cuda_lib.build()
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cuda_lib.LIB_PATH], check=True,
+                          capture_output=True, text=True).stdout
+    funcs = {name: lines for name, lines in _functions(sass).items()
+             if any(k in name for k in KERNELS)}
+    if sorted(k for k in KERNELS if any(k in n for n in funcs)) != sorted(
+            KERNELS):
+        print(f"cmj kernels not found in {cuda_lib.LIB_PATH}",
+              file=sys.stderr)
+        return 1
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            for name, lines in funcs.items():
+                f.write(f"Function : {name}\n" + "\n".join(lines) + "\n")
+    for name, lines in funcs.items():
+        kernel = next(k for k in KERNELS if k in name)
+        print(json.dumps({"kernel": kernel, **summarize(lines)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,6 +18,7 @@ frames call the entry points themselves):
 
   * the card (nvidia-smi name and power limit) and the frame time;
   * device time summed over kernels, and the busy share of the frame;
+  * the device ops (kernels run on the card) of the profiled frame;
   * the number of kernel and CUDA-graph launches per frame;
   * the twelve kernels that take the most device time;
   * utils/profiling.phase_table: device time by renderer phase.
@@ -25,6 +26,10 @@ frames call the entry points themselves):
 Run from the repo root on a machine with a GPU:
 ``python3 tools/frame_profile_torch.py [--scene big --route scan] [--eager]``
 (``--scene stage7``, ``--scene stage7b``, ``--scene mesh_light``, ...).
+``--root`` names the tree whose ``chip_smoke.py`` and ``rayito_tpu_torch``
+are imported (default: this checkout), so that two commits can be
+profiled in turns on one card:
+``python3 tools/frame_profile_torch.py --root build/parent --scene stage6``.
 """
 
 from __future__ import annotations
@@ -35,10 +40,14 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> int:
+    root = ROOT
+    if "--root" in sys.argv:  # before chip_smoke is imported
+        root = sys.argv[sys.argv.index("--root") + 1]
+    sys.path.insert(0, os.path.abspath(root))
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -46,6 +55,8 @@ def main() -> int:
     from rayito_tpu_torch.utils.profiling import collect_device_ops, phase_table
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=ROOT,
+                    help="the tree to import (default: this checkout)")
     setups = {"stage6": cs.stage6_setup, "stage7": cs.stage7_setup,
               "stage7b": cs.stage7b_setup, "stage5": cs.stage5_setup,
               "mesh_light": cs.mesh_light_setup,
@@ -109,7 +120,8 @@ def main() -> int:
           f"{100 * device_ms / frame_ms:.1f}% of the unprofiled frame, "
           f"{100 * device_ms / prof_ms:.1f}% of the profiled one")
     print(f"kernel launches per frame: {launches}; graph launches "
-          f"{graph_launches}")
+          f"{graph_launches}; device ops "
+          f"{sum(n for _, n in kernels.values())}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     for name, (us, count) in top[:12]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}")
