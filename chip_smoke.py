@@ -7,7 +7,8 @@ JAX. Phases, each printed, each fatal on failure:
   1. device: CUDA must be available; prints the card's name and power limit;
   2. build: nvcc compiles rayito_tpu_torch/csrc into a shared library, one
      process per source, all started together; then phase 24 (the sample
-     streams), so a wrong sample kernel stops the run early;
+     streams), so a wrong sample kernel stops the run early, and phase 26
+     (the scalar divisions);
   3. kernels: each CUDA kernel of the stage-6 path against its plain
      PyTorch version on the card, at stage-6 shapes (131,072 camera, bounce
      and shadow rays on the n=64 bumpy stand-in, 392 clusters), with median
@@ -46,17 +47,23 @@ JAX. Phases, each printed, each fatal on failure:
      traverse_blocks and gather_rows_t against their plain versions (bit
      for bit, timed and bounded as in phase 3);
   8. stage-7 frame: 512x512, 1 spp, depth 3, shutter 0..1, counted and
-     checked against the plain versions as in phase 4, then one timed
-     frame;
+     checked against the plain versions as in phase 4 (fold_small 18
+     times: once per query on each band), then one timed frame; the
+     cube's fold_small calls of its first band against their plain twin;
   9. stage-7b frame: bench.py's stage-7b config (stage7_scene2, 512x256,
      1 spp, depth 3, shutter 0..1): no traversal launch (no domain), and
-     gather_rows_t, cmj and fold_small launched; the tiny meshes'
-     meta-row gather against its plain version on the eager frame's own
-     inputs, and fold_small against its plain version on each cube's
-     first call of that frame (t and prim bit for bit, beta and gamma
-     where prim >= 0; timed and bounded: 46 flops per test at 67 TFLOP/s
-     or the bytes), that eager frame bit-identical to the replayed one,
-     one timed frame;
+     gather_rows_t, cmj and fold_small launched, fold_small once per query
+     for all ten cubes (9 launches); the tiny meshes' meta-row gather
+     against its plain version on the eager frame's own inputs, and
+     fold_small against its plain twin (fold_small_query_plain) on every
+     query of that frame, closest and any hit, every output bit for bit
+     (t, prim, beta, gamma, the winner's rotation; occluded), timed and
+     bounded (flops at 67 TFLOP/s, instructions at the issue limit, or
+     bytes); the same on a one-key scene (the K == 1 table), a cube in a
+     turning group (a chain of depth 2), at lane times outside the keys,
+     a 192-row mesh of twin rows (every hit to the lower twin) and stage
+     7b's cubes cut into four chained launches a query;
+     that eager frame bit-identical to the replayed one, one timed frame;
  10. stage-5 frame: stage5_scene (no mesh) at 512x512, 1 spp, depth 3: no
      kernel launch but the sample streams' (which must launch), no NaN or
      negative pixel, the eager frame bit-identical, host launches
@@ -104,13 +111,16 @@ JAX. Phases, each printed, each fatal on failure:
      --checkpoint; the stats line (queries, seconds, Mrays/s);
  16. traversal='xla' (the two-level cluster pipeline), stage 6: one band's
      camera, bounce and shadow populations (131,072 rays each) and the
-     420-layer stack crossed end-on (which truncates at both levels),
+     420-layer stack crossed end-on (which truncates at both levels) and
+     slivers whose boxes all tie (the tie rule decides every cut),
      through the cluster_pipeline kernel for every mesh against its plain
      version on the card, bit for bit (t, prim, per-slot overflow), with
      device times (CUDA-graph replays of 20 calls), the plain version's
-     time and the bound of this run's work (24 flops per slab test and 46
-     per Möller-Trumbore test of the kept superclusters' children and the
-     kept clusters' triangles); every 8th ray (16,384) through
+     time and the bound of this run's work (the larger of the warp
+     instructions counted from the SASS at the issue limit, 24 flops per
+     slab test and 46 per Möller-Trumbore test of the kept superclusters'
+     children and the kept clusters' triangles, and the bytes); every 8th
+     ray (16,384) through
      mesh_intersect_clusters on the card against the CPU (t, beta and
      gamma bits, prim and overflow equal); the [T, 16] vertex and meta
      rows the route gathers for the camera rays through gather_rows_t
@@ -160,7 +170,12 @@ JAX. Phases, each printed, each fatal on failure:
      issue rate of 33.4 T/s, or bytes at 3.35 TB/s) and share;
  25. degenerate inputs: one lane (stage 6 at 1x1), a scene with no mesh
      and no light, and the 'xla' route on 128 lanes, each pass captured,
-     replayed twice and bit-identical to its eager body.
+     replayed twice and bit-identical to its eager body;
+ 26. scalar divisions (run after phase 24): the CLI's 640x480 camera rays
+     (2x2 samples) on the card bit-identical to the CPU's, and
+     utils/div_audit.ScalarDivisions over one eager pass of every path
+     above at 64x32 (cli.main too, plain and --sharded): no division by a
+     Python or CPU scalar left on any of them.
 
 Every frame that draws samples launches cmj (all but stage 1's); the
 plain-version frames swap all eight kernels for their plain versions
@@ -182,8 +197,10 @@ then, last, one JSON line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import subprocess
@@ -265,6 +282,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     phases = [lambda: run_samples(dev, card),
+              lambda: run_divisions(dev, card),
               lambda: run(dev, card), lambda: run_big(dev, card),
               lambda: run_stage7(dev, card), lambda: run_stage7b(dev, card),
               lambda: run_stage5(dev, card),
@@ -280,7 +298,7 @@ def main() -> int:
         graphs.clear()  # the pools of one phase's graphs go with it
         print(f"-- phase done in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    (samples, stage6, big, stage7, stage7b, stage5, mesh_light, _, direct,
+    (samples, _, stage6, big, stage7, stage7b, stage5, mesh_light, _, direct,
      cli, xla, _, _, by_graph, _) = outs
 
     records = kernel_records(samples, stage6, big, stage7, stage7b, stage5,
@@ -420,10 +438,12 @@ def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
                    for key in ("draw3x3", "draw12x12", "time144")}},
         {"name": "fold_small", "route": "cuda",
          "source": src + "fold_small.cu",
-         "replaces": "rayito_tpu/render/mesh_intersect.py:103",
-         "note": "port-only: the reference's XLA dense fold "
-                 "_brute_force_mesh, no pallas_call; ms per call, the mean "
-                 "over the stage-7b frame's ten cubes",
+         "replaces": "rayito_tpu/render/trace.py:628",
+         "note": "port-only: the reference's loop over its tiny meshes "
+                 "(render/trace.py:628-650: each mesh's transform chain and "
+                 "its XLA dense fold _brute_force_mesh), no pallas_call; one "
+                 "launch per query for all ten cubes; ms per launch, the "
+                 "mean over the stage-7b frame's 9 queries",
          "launches": stage7b["launches"]["fold_small"],
          "max_abs_err": stage7b["fold"]["err"],
          **{k: stage7b["fold"][k] for k in
@@ -447,6 +467,27 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 TEST_OPS = {"bw": 31, "vpu": 46}  # flops of one (ray, triangle) test
 SLAB_OPS = 24  # flops of one (ray, box) slab test
+# flops of one link of a keyed transform in csrc/fold_small.cu: the ray's
+# point and direction to local space (36 + 33, the divisions by the scale
+# included), and with more than one key per slot the key pair's frac, the
+# lerps and the normalised nlerp (47, its square root and reciprocal
+# included); the chain's quaternion products are not counted
+XF_FLOPS = {"link": 69, "keyed": 47}
+# Instructions issued, counted from the SASS (tools/cmj_sass.py --kernels
+# cluster_pipeline_kernel,fold_small_kernel on sm_90a, each loop's
+# float_loads): the float instructions of a test (arithmetic, compares,
+# selects, the IEEE division's MUFU.RCP and FCHK) and the loads of its
+# data, the same rule for both kernels; integer, address and control work
+# is left out, so the bounds stay lower bounds. fold_small, lane
+# instructions per triangle test: its unrolled test loop's 336 for four
+# tests on a closest-hit query, 332 on an any-hit one; a link of a
+# transform chain is counted at one instruction per flop (XF_FLOPS).
+# cluster_pipeline, warp instructions: its slab-test loop's 35 per
+# iteration (two kept superclusters' 32 children), its triangle loop's 340
+# per four tests a lane (a slot's 48 x n2 candidates take ceil(48 n2 / 32)
+# tests a lane); the phase-1 row loop and the sorts are not counted.
+FOLD_INSNS = {"closest": 336 / 4, "any": 332 / 4}
+PIPE_INSNS = {"slab": 35, "test": 340 / 4}
 
 
 def _bound(ops: float, nbytes: float):
@@ -881,7 +922,7 @@ def _swap_plain():
     saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
              tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
              mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
-             rng.cmj_sample_2d, mi.fold_small)
+             rng.cmj_sample_2d, tr.fold_small)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
     tv.traverse_items = tv.traverse_items_plain
@@ -892,13 +933,13 @@ def _swap_plain():
     rng.hash_combine = rng.hash_combine_plain
     rng.cmj_sample_1d = rng.cmj_sample_1d_plain
     rng.cmj_sample_2d = rng.cmj_sample_2d_plain
-    mi.fold_small = tv.fold_small_plain
+    tr.fold_small = mi.fold_small_query_plain
 
     def undo():
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
          tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
          mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
-         rng.cmj_sample_2d, mi.fold_small) = saved
+         rng.cmj_sample_2d, tr.fold_small) = saved
 
     return undo
 
@@ -1557,8 +1598,9 @@ def run_big(dev, card: str) -> dict:
 def run_stage7(dev, card: str) -> dict:
     """Phases 7-8 on ``dev``: the stage-7 scene's camera, bounce and
     shadow populations at seeded lane times, moved into the bumpy
-    domain's local space, through the kernels; then the stage-7 frame.
-    Returns {"results", "launches", "frame"}."""
+    domain's local space, through the kernels; then the stage-7 frame, and
+    the cube's fold_small calls of its first band against their plain
+    twin. Returns {"results", "launches", "frame", "fold"}."""
     import numpy as np
     import torch
 
@@ -1594,21 +1636,27 @@ def run_stage7(dev, card: str) -> dict:
     _phase("stage-7 frame")
     fr = _frame_phase(f"stage-7 frame (n={MESH_N} stand-in, {WIDTH}x{WIDTH},"
                       " 1 spp, depth 3, shutter 0..1", cfg, frame, card)
-    return {"results": results, "launches": fr["launches"], "frame": fr}
+    if fr["launches"]["fold_small"] != 18:  # 9 queries on each of 2 bands
+        raise AssertionError("stage 7: 18 fold_small launches expected")
+    # the cube's fold on every query of the first band, kernel against twin
+    with _spy_folds() as folds:
+        frame(graph=False)
+        torch.cuda.synchronize()
+    fold = _check_folds("stage-7", folds[:9])
+    return {"results": results, "launches": fr["launches"], "frame": fr,
+            "fold": fold}
 
 
 def run_stage7b(dev, card: str) -> dict:
     """Phase 9 on ``dev``: bench.py's stage-7b frame with the launch counts
     set to 0 just before it and read just after (no traversal kernel: the
     scene has no domain; gather_rows_t fetches the tiny meshes' winners'
-    meta rows, fold_small folds each tiny cube, cmj draws the samples);
-    the gather's and each cube's first fold's inputs of that frame against
-    their plain versions; a second frame bit-identical; one timed
-    frame."""
+    meta rows, fold_small folds the ten cubes once per query, 9 launches,
+    cmj draws the samples); the gather's and every fold's inputs of that
+    frame against their plain versions; the fold on the one-key and
+    nested-chain scenes; a second frame bit-identical; one timed frame."""
     import torch
 
-    from rayito_tpu_torch.ops.vec3 import V3
-    from rayito_tpu_torch.render import mesh_intersect as mi
     from rayito_tpu_torch.render import trace as tr
     from rayito_tpu_torch.utils import cuda_lib
 
@@ -1632,32 +1680,31 @@ def run_stage7b(dev, card: str) -> dict:
     diag = _check_image(img, "stage-7b frame")
     print(f"frame {img.shape}: queries {int(queries)}, {diag}")
     # the same frame through the eager body, its first gather's inputs and
-    # each cube's first fold's kept for the kernel-against-plain checks
-    calls, folds = [], {}
-    gather, fold = tr.gather_rows_t, mi.fold_small
-    clone = lambda v: V3(v.x.clone(), v.y.clone(), v.z.clone())  # noqa: E731
+    # every fold's (one per query) kept for the kernel-against-plain checks
+    calls = []
+    gather = tr.gather_rows_t
 
     def spy(table, idx):
         if not calls:
             calls.append((table, idx.clone()))
         return gather(table, idx)
 
-    def fold_spy(rows, tri0, o, d, tmin, tmax):
-        if tri0 not in folds:
-            folds[tri0] = (rows, tri0, clone(o), clone(d), tmin, tmax.clone())
-        return fold(rows, tri0, o, d, tmin, tmax)
-
-    tr.gather_rows_t, mi.fold_small = spy, fold_spy
+    tr.gather_rows_t = spy
     try:
-        imgs2, q2 = frame(graph=False)
-        torch.cuda.synchronize()
+        with _spy_folds() as folds:
+            imgs2, q2 = frame(graph=False)
+            torch.cuda.synchronize()
     finally:
-        tr.gather_rows_t, mi.fold_small = gather, fold
+        tr.gather_rows_t = gather
+    if launches["fold_small"] != len(folds) or len(folds) != 9:
+        raise AssertionError(f"stage-7b: {launches['fold_small']} fold_small "
+                             f"launches for {len(folds)} queries; 9 expected")
     r = {}
     table, idx = calls[0]
     _check_gather_rows("stage-7b meta rows", table, idx, r, "meta")
     print("stage-7b meta rows: " + _fmt(r))
-    fold_r = _check_folds(folds)
+    fold_r = _check_folds("stage-7b", folds)
+    fold_r["scenes"] = _check_fold_scenes(dev)
     same = torch.equal(imgs.view(torch.int32), imgs2.view(torch.int32))
     print(f"stage-7b eager frame bit-identical to the replayed {same}, "
           f"queries {int(queries)} / {int(q2)}")
@@ -1674,52 +1721,221 @@ def run_stage7b(dev, card: str) -> dict:
                       "queries": q_frame}}
 
 
-def _check_folds(folds) -> dict:
-    """fold_small against its plain version on each captured call's inputs
-    (rows, tri0, o, d, tmin, tmax): t and prim bit for bit on every lane,
-    beta and gamma where prim >= 0 (the callers read them nowhere else);
-    device times (CUDA-graph replays of 20 calls), the plain version's, and
-    the bound of each call's work (46 flops per (lane, triangle) test at
-    67 TFLOP/s, or the bytes: the rows, the lanes' rays and tmax, four
-    outputs), averaged over the calls."""
+@contextlib.contextmanager
+def _spy_folds():
+    """Collect the inputs of every fold_small call the path makes (render/
+    trace.py's two call sites), cloned: a list of (args, kwargs)."""
+    from rayito_tpu_torch.ops.quaternion import Quat
+    from rayito_tpu_torch.ops.vec3 import V3
+    from rayito_tpu_torch.render import trace as tr
+
+    fold, calls = tr.fold_small, []
+    c = lambda t: t.clone() if t is not None else None  # noqa: E731
+    v3 = lambda v: V3(c(v.x), c(v.y), c(v.z))  # noqa: E731
+
+    def spy(scene, o, d, time, tmin, tmax, best=None, occluded=None):
+        kw = {"occluded": c(occluded)}
+        if best is not None:
+            t, p, b, g, rot = best
+            kw = {"best": (c(t), c(p), c(b), c(g), None if rot is None else
+                           Quat(c(rot.w), v3(rot.v)))}
+        calls.append(((scene, v3(o), v3(d), c(time), tmin, c(tmax)), kw))
+        return fold(scene, o, d, time, tmin, tmax, best, occluded)
+
+    tr.fold_small = spy
+    try:
+        yield calls
+    finally:
+        tr.fold_small = fold
+
+
+def _fold_outputs(out) -> list:
+    """fold_small's outputs as a flat list of tensors."""
+    if not isinstance(out, tuple):
+        return [out]
+    rot = out[4]
+    return list(out[:4]) + ([] if rot is None else
+                            [rot.w, rot.v.x, rot.v.y, rot.v.z])
+
+
+def _fold_work(args, kw):
+    """(flops, lane instructions, bytes) of one fold_small call on this
+    run's data: every lane walks every mesh (each link's transform, each
+    real triangle's test) on a closest-hit query; on an any-hit query a
+    lane stops at its first hit, so a mesh that hits it is counted at one
+    test (the plain twin's per-mesh hits give the lanes still open)."""
     import torch
 
-    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.ops import transform as xf
+    from rayito_tpu_torch.render import mesh_intersect as mi
 
-    r = {"calls": len(folds), "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+    scene, o, d, time, tmin, tmax = args
+    n = tmax.shape[0]
+    open_ = (torch.ones((n,), dtype=torch.bool, device=tmax.device)
+             if kw.get("occluded") is None else ~kw["occluded"])
+    flops = insns = 0
+    for mi_ in scene.ktab_small:
+        count = scene.mesh_tri_ranges[mi_][1]
+        depth = len(mi._chain(scene, mi_))
+        lanes = int(open_.sum())
+        hit_lanes = 0
+        if kw.get("occluded") is not None:
+            o_l, d_l, _ = xf.local_ray(scene, scene.mesh_xf_host[mi_], o, d,
+                                       time)
+            tq = torch.where(open_, tmax, 0.0)
+            hit = mi.mesh_fold_small(scene, mi_, o_l, d_l, tmin, tq)[1] >= 0
+            hit_lanes = int((hit & open_).sum())
+            open_ = open_ & ~hit
+        tests = (lanes - hit_lanes) * count + hit_lanes
+        link = XF_FLOPS["link"] + XF_FLOPS["keyed"] * (
+            scene.xf_times.shape[1] > 1)
+        flops += lanes * depth * link + tests * TEST_OPS["vpu"]
+        insns += lanes * depth * link + tests * FOLD_INSNS[
+            "any" if kw.get("occluded") is not None else "closest"]
+    n_state = 4 + 4 * scene.has_motion if kw.get("best") else 1
+    nbytes = (n * 4 * (7 + scene.has_motion + n_state) * 2
+              + 9 * 4 * sum(scene.mesh_tri_ranges[m][1]
+                            for m in scene.ktab_small))
+    return flops, insns, nbytes
+
+
+def _check_folds(label, calls) -> dict:
+    """fold_small against its plain twin (fold_small_query_plain) on each
+    captured call's inputs: every output bit for bit on every lane (t,
+    prim, beta, gamma and the rotation on a closest-hit query, occluded
+    on an any-hit one); device times (CUDA-graph replays of 20 calls), the
+    plain twin's, and the bound of each call's work (flops at 67 TFLOP/s,
+    lane instructions from the SASS at the issue limit, or bytes), averaged
+    over the calls."""
+    import torch
+
+    from rayito_tpu_torch.render import mesh_intersect as mi
+
+    r = {"calls": len(calls), "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
          "err": 0.0}
-    for args in folds.values():
-        rows, tri0, o, d, tmin, tmax = args
-        got = tv.fold_small(*args)
-        want = tv.fold_small_plain(*args)
+    for args, kw in calls:
+        got = _fold_outputs(mi.fold_small(*args, **kw))
+        want = _fold_outputs(mi.fold_small_query_plain(*args, **kw))
         torch.cuda.synchronize()
-        hit = want[1] >= 0
-        bad = int((got[0].view(torch.int32) != want[0].view(torch.int32))
-                  .sum()) + int((got[1] != want[1]).sum())
-        for k in (2, 3):
-            bad += int((got[k][hit].view(torch.int32)
-                        != want[k][hit].view(torch.int32)).sum())
-        fin = torch.isfinite(want[0])
-        if fin.any():
-            r["err"] = max(r["err"], float((got[0][fin] - want[0][fin])
-                                           .abs().max()))
-        n, n_tri = tmax.shape[0], rows.shape[0]
-        print(f"fold_small, mesh rows {tri0}..{tri0 + n_tri}: {n} lanes, "
-              f"{int(hit.sum())} hits, values differing {bad}")
+        bad = sum(_differing(g, w) for g, w in zip(got, want))
+        if len(got) > 1:
+            fin = torch.isfinite(want[0])
+            if bool(fin.any()):
+                r["err"] = max(r["err"], float((got[0][fin] - want[0][fin])
+                                               .abs().max()))
+        kind = "closest" if len(got) > 1 else "any"
+        hits = int((want[1] >= 0).sum()) if len(got) > 1 else int(
+            want[0].sum())
+        print(f"{label} fold_small ({kind} hit): {args[5].shape[0]} lanes, "
+              f"{len(args[0].ktab_small)} meshes, {hits} hits, values "
+              f"differing {bad}")
         if bad:
-            raise AssertionError("fold_small disagrees with its plain version")
-        r["ms"] += _device_ms(lambda: tv.fold_small(*args))
-        r["plain_ms"] += _median_ms(lambda: tv.fold_small_plain(*args), 5)
-        bound_ms, r["bound_by"] = _bound(n * n_tri * TEST_OPS["vpu"],
-                                         n_tri * 16 * 4 + n * 7 * 4 + n * 16)
-        r["bound_ms"] += bound_ms
-        r["lanes"], r["tri"] = n, n_tri
+            raise AssertionError(f"{label}: fold_small disagrees with its "
+                                 "plain twin")
+        r["ms"] += _device_ms(lambda: mi.fold_small(*args, **kw))
+        r["plain_ms"] += _median_ms(
+            lambda: mi.fold_small_query_plain(*args, **kw), 3)
+        flops, insns, nbytes = _fold_work(args, kw)
+        bounds = {"flops": flops / PEAK_F32 * 1e3,
+                  "operations": insns / PEAK_ISSUE * 1e3,
+                  "bytes": nbytes / PEAK_BYTES * 1e3}
+        by = max(bounds, key=bounds.get)
+        r["bound_ms"] += bounds[by]
+        r["bound_by"] = "bytes" if by == "bytes" else "operations"
+        r["lanes"] = args[5].shape[0]
     for k in ("ms", "plain_ms", "bound_ms"):
-        r[k] /= max(len(folds), 1)
+        r[k] /= max(len(calls), 1)
     r["share"] = r["bound_ms"] / r["ms"]
     r["library_ms"] = None
-    print("fold_small per call: " + _fmt(r), flush=True)
+    print(f"{label} fold_small per call: " + _fmt(r), flush=True)
     return r
+
+
+def _check_fold_scenes(dev) -> dict:
+    """fold_small against its plain twin on the one-key scene, the nested
+    scene, the twin-row mesh (192 rows, 96 triangles twice: every hit must
+    go to the lower twin row) and stage 7b's cubes cut into launches of at
+    most 3 meshes (four chained launches a query, each folding into the
+    last one's outputs): 131,072 seeded rays at the meshes, at seeded lane
+    times in [-0.5, 1.5] (outside the keys on either side too), a running
+    best of their own and every 9th ray cut short, closest and any hit."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.models.demo import (nested_cube_scene,
+                                              one_key_cube_scene,
+                                              stage7_scene2, twin_mesh_scene)
+    from rayito_tpu_torch.ops.quaternion import Quat
+    from rayito_tpu_torch.ops.vec3 import V3
+    from rayito_tpu_torch.render import mesh_intersect as mi
+
+    rs = np.random.default_rng(12)
+    n = RAYS_PER_PASS
+    o = np.tile(np.float32([0.3, 0.8, 6.0]), (n, 1))
+    d = rs.uniform(-1.2, 1.6, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 1e30, np.float32)
+    tmax[::9] = rs.uniform(1.0, 6.0, tmax[::9].shape)
+    time_u = rs.uniform(-0.5, 1.5, n)
+    t_run = np.where(rs.random(n) < 0.3, rs.uniform(4.0, 8.0, n), np.inf)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    v3 = lambda a: V3(f(a[:, 0]), f(a[:, 1]), f(a[:, 2]))  # noqa: E731
+    one = torch.ones((n,), device=dev)
+    zero = torch.zeros((n,), device=dev)
+    out = {}
+    max_meshes = mi.FOLD_MAX_MESHES
+    for name, make in (("one_key", one_key_cube_scene),
+                       ("nested", nested_cube_scene),
+                       ("twins", twin_mesh_scene),
+                       ("chained", stage7_scene2)):
+        scene = make().compile(dev)
+        if name == "chained":
+            o_c = np.tile(np.float32([-4.0, 10.0, 30.0]), (n, 1))
+            d_c = np.stack([rs.uniform(-10.0, 11.0, n),
+                            rs.uniform(-2.0, 11.0, n),
+                            rs.uniform(1.0, 4.0, n)], 1) - o_c
+            d_c /= np.linalg.norm(d_c, axis=1, keepdims=True)
+            rays = (v3(o_c), v3(d_c))
+            mi.FOLD_MAX_MESHES = 3
+        else:
+            rays = (v3(o), v3(d))
+        best = (f(t_run), torch.where(f(t_run) < 1e30, 5, -1).to(torch.int32),
+                zero + 0.25, zero + 0.5,
+                Quat(one, V3(zero, zero, zero)) if scene.has_motion else None)
+        calls = [((scene, *rays, f(time_u), 1e-4, f(tmax)), {"best": best}),
+                 ((scene, *rays, f(time_u), 1e-4, f(tmax)),
+                  {"occluded": torch.from_numpy(rs.random(n) < 0.2).to(dev)})]
+        print(f"{name} scene: tiny meshes {scene.ktab_small}, keys per slot "
+              f"{scene.xf_times.shape[1]}, chain depth {scene.xf_depth}, "
+              f"launches per query {len(mi._fold_specs(scene))}")
+        try:
+            out[name] = _check_folds(name, calls)
+            if name == "twins":
+                _check_twin_rows(scene, calls[0])
+        finally:
+            mi.FOLD_MAX_MESHES = max_meshes
+    return out
+
+
+def _check_twin_rows(scene, call) -> None:
+    """On the twin-row mesh, every closest hit of the kernel is the lower
+    of its two equal rows (the first minimum)."""
+    from rayito_tpu_torch.render import mesh_intersect as mi
+
+    args, kw = call
+    prim = mi.fold_small(*args, **kw)[1]
+    hit = prim != kw["best"][1]
+    row0, count = scene.mesh_tri_ranges[scene.ktab_small[0]]
+    rows = scene.tri_vert_rows[row0:row0 + count, :9].cpu().numpy()
+    first = {}
+    for i, r in enumerate(rows):
+        first.setdefault(r.tobytes(), i)
+    won = set((prim[hit] - row0).tolist())
+    late = [i for i in won if first[rows[i].tobytes()] != i]
+    print(f"twins: {int(hit.sum())} hits on {len(won)} rows of {count} "
+          f"({len(first)} distinct), won by the upper twin {len(late)}")
+    if len(first) != count // 2 or late or int(hit.sum()) < 1000:
+        raise AssertionError("twins: a hit went to the upper twin row")
 
 
 # the kernel each wrapper launches exactly once per call, by its symbol
@@ -2407,9 +2623,11 @@ def _xla_launches(label):
 
 
 def _pipeline_work(args):
-    """(slab tests, triangle tests) of a cluster_pipeline call on this
-    run's data: 16 per kept supercluster and 48 per kept cluster of each
-    active slot (phase 2 recounted in plain torch)."""
+    """This run's work in a cluster_pipeline call, phase 2 recounted in
+    plain torch: (slab tests: 16 per kept supercluster, triangle tests: 48
+    per kept cluster, warp instructions: per active slot its slab-loop
+    iterations (one per two kept superclusters) and its triangle tests per
+    warp (48 per kept cluster over 32 lanes), at PIPE_INSNS each)."""
     import torch
 
     from rayito_tpu_torch.ops.vec3 import V3
@@ -2417,32 +2635,40 @@ def _pipeline_work(args):
 
     n_act = int(args["n_active"])
     lanes = args["ray_of_slot"][:n_act].long()
-    t1, sc_idx = tv.nearest_k(args["t_sc"][lanes], args["k1"])
+    t_sc = args["t_sc"][lanes]
+    t1, sc_idx = tv.nearest_k(t_sc, args["k1"])
     kept = t1 < float("inf")
+    finite = torch.isfinite(t_sc).sum(1)
+    n1 = torch.clamp_max(finite, args["k1"])
     o, d = args["o"][lanes], args["d"][lanes]
-    slabs = tests = 0
+    entered = torch.zeros_like(finite)
     for c0 in range(0, n_act, 16384):  # [chunk, k1, 128] row gathers
         c = slice(c0, c0 + 16384)
         rows = args["sc_rows"][sc_idx[c]]
-        col = lambda k: rows[:, :, k * 16:(k + 1) * 16]
+        col = lambda k: rows[:, :, k * 16:(k + 1) * 16]  # noqa: E731
         dc = d[c]
         t_cl = tv.box_slab(o[c], V3(1.0 / dc.x, 1.0 / dc.y, 1.0 / dc.z),
                            args["tmin"], args["tmax"][lanes[c]],
                            V3(col(0), col(1), col(2)),
                            V3(col(3), col(4), col(5)))
-        entered = ((t_cl < float("inf")) & kept[c, :, None]).sum((1, 2))
-        slabs += 16 * int(kept[c].sum())
-        tests += 48 * int(entered.clamp_max(args["k2"]).sum())
-    return slabs, tests
+        entered[c] = ((t_cl < float("inf")) & kept[c, :, None]).sum((1, 2))
+    n2 = torch.clamp_max(entered, args["k2"])
+    slabs = 16 * int(n1.sum())
+    tests = 48 * int(n2.sum())
+    warp = (int(((n1 + 1) // 2).sum()) * PIPE_INSNS["slab"]
+            + int(((48 * n2 + 31) // 32).sum()) * PIPE_INSNS["test"])
+    return slabs, tests, warp
 
 
 def _check_pipeline(name, scene, m, o, d, tmax, tmin):
     """cluster_pipeline on mesh ``m``'s query of one population against
     its plain version on the card, bit for bit (t, prim, per-slot
-    overflow); device times of both; the bound of this run's work
-    (operations: 24 flops per slab test, 46 per Möller-Trumbore test;
-    bytes: the slot order, the active lanes' rays and phase-1 rows, both
-    tables and the outputs, once each)."""
+    overflow); device times of both; the bound of this run's work, the
+    largest of: the warp instructions issued (``_pipeline_work``, counted
+    from the SASS) at the issue limit; 24 flops per slab test and 46 per
+    Möller-Trumbore test at 67 TFLOP/s; the bytes (the slot order, the
+    active lanes' rays and phase-1 rows, both tables and the outputs, once
+    each) at 3.35 TB/s."""
     import torch
 
     from rayito_tpu_torch.render import mesh_intersect as mi
@@ -2471,12 +2697,19 @@ def _check_pipeline(name, scene, m, o, d, tmax, tmin):
     r["pipe_plain_ms"] = _median_ms(
         lambda: tv.cluster_pipeline_plain(**args), 3)
     r["pipe_library_ms"] = None  # no PyTorch call computes it
-    slabs, tests = _pipeline_work(args)
-    r["slab_tests"], r["tri_tests"] = slabs, tests
+    slabs, tests, warp = _pipeline_work(args)
+    r["slab_tests"], r["tri_tests"], r["warp_insns"] = slabs, tests, warp
     nbytes = (n * 4 + 4 + n_act * (7 + s) * 4 + args["sc_rows"].numel() * 4
               + args["tri_rows"].numel() * 4 + n * 12)
-    _put_bound(r, "pipe", slabs * SLAB_OPS + tests * TEST_OPS["vpu"],
-               nbytes)
+    bounds = {"flops": (slabs * SLAB_OPS + tests * TEST_OPS["vpu"])
+              / PEAK_F32 * 1e3,
+              "operations": warp * 32 / PEAK_ISSUE * 1e3,
+              "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(bounds, key=bounds.get)
+    r["pipe_flops_bound_ms"] = bounds["flops"]
+    r["pipe_bound_ms"] = bounds[by]
+    r["pipe_bound_by"] = "bytes" if by == "bytes" else "operations"
+    r["pipe_share"] = r["pipe_bound_ms"] / r["pipe_ms"]
     print(f"{name}, mesh {m}: " + _fmt(r), flush=True)
     return r
 
@@ -2527,6 +2760,24 @@ def _layers_rays(dev, n=RAYS_PER_PASS):
     d[:, 2] = 1.0
     d[::10] = (0.0, 0.0, 1.0)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v3 = lambda a: V3(*(torch.from_numpy(a[:, k].astype(np.float32)).to(dev)
+                        for k in range(3)))
+    return v3(o), v3(d), torch.full((n,), 1e30, device=dev)
+
+
+def _tied_rays(dev, n=RAYS_PER_PASS):
+    """n seeded rays from z = -2 straight up the z axis over the square
+    (o, d, tmax): every box they enter, they enter at t = 2."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.ops.vec3 import V3
+
+    rs = np.random.default_rng(8)
+    o = np.stack([rs.uniform(-0.9, 0.9, n), rs.uniform(-0.9, 0.9, n),
+                  np.full(n, -2.0)], 1)
+    d = np.zeros((n, 3))
+    d[:, 2] = 1.0
     v3 = lambda a: V3(*(torch.from_numpy(a[:, k].astype(np.float32)).to(dev)
                         for k in range(3)))
     return v3(o), v3(d), torch.full((n,), 1e30, device=dev)
@@ -2669,14 +2920,12 @@ def run_xla(dev, card: str) -> dict:
     populations and the layered stack, populations card against CPU, the
     route's row gathers, the frame), the big scene, stage 7 and the CLI
     under RAYITO_TRAVERSAL=xla."""
-    import contextlib
-    import io
-
     import numpy as np
     import torch
 
     import rayito_tpu_torch as rt
     from rayito_tpu_torch import cli
+    from rayito_tpu_torch.models.demo import tied_slivers_scene
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import cuda_lib, graphs
     from rayito_tpu_torch.utils.image import read_pfm
@@ -2696,6 +2945,9 @@ def run_xla(dev, card: str) -> dict:
     layers = _layers_scene(rt).compile(dev, traversal="xla")
     pipeline["layers"] = {0: _check_pipeline(
         "xla layers (end-on)", layers, 0, *_layers_rays(dev), cfg.ray_tmin)}
+    tied = tied_slivers_scene().compile(dev, traversal="xla")
+    pipeline["ties"] = {0: _check_pipeline(
+        "xla ties (box t tied)", tied, 0, *_tied_rays(dev), cfg.ray_tmin)}
     pops = _check_xla_populations(xla, cases, cfg.ray_tmin)
     gathers = {}
     _xla_gathers(xla, cfg, cam, gathers)
@@ -2777,6 +3029,128 @@ def run_xla(dev, card: str) -> dict:
             "cli": {"launches": cli_launches, "seconds": cli_s,
                     "overflow": ovf, "queries": queries,
                     "replays": replays}}
+
+
+@contextlib.contextmanager
+def _eager_passes():
+    """Every pass through ``utils/graphs.run`` runs its body eagerly, as on
+    the CPU, so a TorchDispatchMode sees its ops (a capture would not)."""
+    from rayito_tpu_torch.utils import graphs
+
+    run = graphs.run
+    graphs.run = lambda key, scene, device, body, inputs, label="pass", \
+        keep=(): tuple(body(**inputs))
+    try:
+        yield
+    finally:
+        graphs.run = run
+
+
+def run_divisions(dev, card: str) -> None:
+    """Phase 26: the scalar divisions on the card. The CLI's 640x480 camera
+    rays (its 2x2 samples, 1,228,800 lanes: screen coordinates divided by
+    640 and 480, the sample streams, the lens and the time) on the card
+    against the same function on the CPU, bit for bit; how many seeded
+    square roots PyTorch's sqrt takes off the IEEE root the rays use, on
+    the card and on the CPU (printed; the IEEE root must be the same on
+    both); then
+    utils/div_audit.ScalarDivisions over one eager pass of every path this
+    script drives, at 64x32 (the same code as at full size): stage 6 on
+    the kernel route and under 'xla', the big scene's item route, stages
+    7, 7b and 5, the mesh light, 40 spheres, 16 lights, stages 1-3 and
+    cli.main (plain and --sharded). No division by a Python scalar or a
+    CPU scalar may be left on any of them."""
+    import torch
+
+    import numpy as np
+
+    from rayito_tpu_torch import cli
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.ops.vec3 import sqrt_ieee
+    from rayito_tpu_torch.render import integrator as ig
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils.div_audit import ScalarDivisions
+
+    _phase("scalar divisions")
+    obj = _standin_obj()
+    scene, cfg, cam = _cli_inputs(dev, obj)
+    si = torch.arange(4, dtype=torch.int32)
+    rays = {}
+    for where in (dev, torch.device("cpu")):
+        px, py = ig._pixel_grid(cfg.width, cfg.height, where)
+        n = px.shape[0]
+        rays[where.type] = pt._camera_rays(
+            cfg, cam.to(where), px.repeat(4), py.repeat(4),
+            si.to(where).repeat_interleave(n))
+    (o_c, d_c, t_c), (o_h, d_h, t_h) = rays["cuda"], rays["cpu"]
+    bad = sum(_differing(a.cpu(), b) for a, b in zip(
+        (o_c.x, o_c.y, o_c.z, d_c.x, d_c.y, d_c.z, t_c),
+        (o_h.x, o_h.y, o_h.z, d_h.x, d_h.y, d_h.z, t_h)))
+    print(f"the CLI's camera rays ({cfg.width}x{cfg.height}, 2x2 samples, "
+          f"{t_h.shape[0]} lanes), card against CPU: values differing {bad}")
+    if bad:
+        raise AssertionError("the card's camera rays differ from the CPU's")
+    # the square root the rays take (ops/vec3.sqrt_ieee) against PyTorch's
+    # on each device
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.01, 100.0, 1 << 20).astype(np.float32))
+    ieee = sqrt_ieee(x)
+    off_card = _differing(torch.sqrt(x.to(dev)).cpu(), ieee)
+    off_cpu = _differing(torch.sqrt(x), ieee)
+    print(f"torch.sqrt against the IEEE root, {1 << 20} seeded float32 values "
+          f"in [0.01, 100]: {off_card} differ on the card, {off_cpu} on the "
+          "CPU")
+    if _differing(sqrt_ieee(x.to(dev)).cpu(), ieee):
+        raise AssertionError("sqrt_ieee on the card differs from the CPU's")
+
+    small = dict(width=64, height=32, max_rays_per_pass=2048)
+    paths = []
+    for name, setup in (("stage6", stage6_setup), ("stage7", stage7_setup),
+                        ("stage7b", stage7b_setup), ("stage5", stage5_setup),
+                        ("spheres40", many_spheres_setup),
+                        ("lights16", sixteen_lights_setup)):
+        sc, c, cm, _ = setup(dev)
+        paths.append((name, sc, dataclasses.replace(c, **small), cm))
+    sc, c, cm, _ = stage6_setup(dev)
+    paths.append(("stage6_xla", dataclasses.replace(sc, traversal="xla"),
+                  dataclasses.replace(c, **small), cm))
+    _, items, _, c, cm, _ = big_setup(dev)
+    paths.append(("big_items", items, dataclasses.replace(c, **small), cm))
+    sc, _, c, cm, _ = mesh_light_setup(dev)
+    paths.append(("mesh_light", sc, dataclasses.replace(c, **small), cm))
+    sites = {}
+    out = os.path.join(os.path.dirname(obj), "div_audit.pfm")
+    with _eager_passes():
+        for name, sc, c, cm in paths:
+            with ScalarDivisions() as audit:
+                pt.render_path_with_stats(sc, c, cm)
+                torch.cuda.synchronize()
+            sites[name] = audit
+        for stage in ("stage1", "stage2", "stage3"):
+            sc, c, spec, _ = direct_setup(dev, stage)
+            c = dataclasses.replace(c, width=64, height=32)
+            with ScalarDivisions() as audit:
+                if stage == "stage1":
+                    ig.render_color(sc, c, fov=demo.STAGE1_FOV, camera=spec)
+                else:
+                    ig.render_direct(sc, c, fov=demo.STAGE23_FOV, camera=spec,
+                                     spp=4 if stage == "stage2" else None)
+                torch.cuda.synchronize()
+            sites[stage] = audit
+        for flag in ((), ("--sharded",)):
+            argv = ["--scene", "stage6", "--obj", obj, "--width", "64",
+                    "--height", "32", "--pfm", "-o", out, *flag]
+            with ScalarDivisions() as audit, \
+                    contextlib.redirect_stderr(io.StringIO()):
+                if cli.main(argv) != 0:
+                    raise AssertionError(f"cli.main {argv} failed")
+            sites["cli" + "".join(flag)] = audit
+    for name, audit in sites.items():
+        print(f"{name}: " + audit.summary().replace("\n", "; "))
+    left = {n: dict(a.found) for n, a in sites.items() if a.found}
+    if left:
+        raise AssertionError(f"scalar divisions on the card's path: {left}")
+    print(f"scalar divisions: none on {len(sites)} paths", flush=True)
 
 
 def run_cli_subprocess() -> None:

@@ -4,45 +4,58 @@
 // Replaces no pallas_call: it is the body of the reference's XLA
 // while_loop (rayito_tpu/render/mesh_intersect.py:186-281, the loop at
 // :283), which walks the compacted rays in blocks of R slots until the
-// count of rays with a candidate, held on the device, is covered. Here one
-// launch covers every slot (the worst case); a warp whose slot is at or
-// past n_active, read from device memory, writes a miss and returns. The
-// trip count stays on the device, so a CUDA graph can hold the launch.
+// count of rays with a candidate, held on the device, is covered. Here a
+// grid sized to the card (as many blocks as fit on its SMs at once) walks
+// the slots below n_active, read from device memory, warp by warp with a
+// stride over the grid, and writes misses past it. The trip count stays on
+// the device, so a CUDA graph can hold the launch.
 //
 // Per slot s < n_active, for the lane r = ray_of_slot[s], the same values
 // as _pipeline_chunk (render/traverse.py), whose sorts and argmin it
-// replaces with warp selections:
+// replaces with warp sorts:
 //
-//   1. the k1 nearest superclusters of r's phase-1 row t_sc[r] (ascending
-//      t, ties to the lower index, as a stable sort and jax.lax.top_k order
-//      them): round j takes the warp's least (t, index) strictly above
-//      round j - 1's, over the finite entries only; overflow max(#finite -
-//      k1, 0);
+//   1. the k1 nearest superclusters of r's phase-1 row t_sc[r]: the finite
+//      entries, as 64-bit keys (t's bits, order-preserving, above the
+//      index: the order of a stable ascending sort of t and of
+//      jax.lax.top_k), are compacted into a per-warp list and bitonic
+//      sorted, 32 to 256 keys at once (one to eight per lane); a row of
+//      more than 256 finite entries is sorted in chunks, each keeping the
+//      best k1 before the next is appended. overflow max(#finite - k1, 0);
 //   2. the 16 children of each kept supercluster slab-tested from its
-//      sc_rows row (lane l takes entries l, l + 32, ... of the k1 x 16,
-//      eight in registers); the k2 nearest of the finite ones the same
-//      way; overflow += max(#finite - k2, 0);
+//      sc_rows row (lane l takes entries l, l + 32, ... of the k1 x 16);
+//      the finite ones compacted and sorted the same way, the first k2
+//      kept; overflow += max(#finite - k2, 0);
 //   3. Möller-Trumbore in the reference's formulation and operation order
-//      over the 48 triangles of each kept cluster's tri_rows row (lane l
-//      takes flat candidates l, l + 32, ... of the k2 x 48); a warp min of
-//      (t, candidate index) gives the first minimum, torch.argmin's and
-//      jnp.argmin's tie rule. prim = tri0 + cluster * 48 + index % 48; on
-//      an all-miss slot the first candidate's first triangle (the nearest
-//      cluster, or child 0 of the nearest supercluster when no child box
-//      is entered), as the plain version's argmin of an all-INF row gives.
+//      over the 48 triangles of each kept cluster's tri_rows row: lane l
+//      takes candidates l, l + 32, ... of the k2 x 48, four at a time,
+//      their 9 floats each read from L2 before any of the four is tested;
+//      a warp min of (t, candidate index) gives the first minimum,
+//      torch.argmin's and jnp.argmin's tie rule. prim = tri0 + cluster *
+//      48 + index % 48; on an all-miss slot the first candidate's first
+//      triangle (the nearest cluster, or child 0 of the nearest
+//      supercluster when no child box is entered), as the plain version's
+//      argmin of an all-INF row gives.
 //
 // Entries with t = INF are never selected: the plain version keeps them in
 // its cut of k (masked there), and their indices reach no output.
 // Slots at or past n_active are t = INF, prim = -1, overflow 0.
 //
-// What bounds it on the H100: operations, ~24 flops per slab test and ~46
-// per Möller-Trumbore test (k1 x 16 and k2 x 48 per active slot, at most
-// 256 and 1,152) at 67 TFLOP/s f32 (at most half of it without FMA). The
-// tables are small and L2-resident: stage 6's n=64 stand-in has 64 sc_rows
-// rows (32 KB) and 1,024 tri_rows rows (2 MB). The selections cost k1
-// and k2 rounds of a five-step warp reduction each. One warp per slot
-// keeps each slot's candidate lists in registers and shared memory; no
-// [R, 24, 512] gather is written to memory. Build with -fmad=false (slab
+// What bounds it on the H100: the instructions its warps issue (a warp
+// works on one slot, so a test costs an instruction issue per warp, not
+// per lane). chip_smoke.py counts, from the built SASS (tools/cmj_sass.py
+// --kernels cluster_pipeline_kernel), the float instructions and loads of
+// a slab-loop iteration and of a triangle test, with this run's work, at
+// the SMs' issue limit; integer, address and sorting work is not counted,
+// so the bound is low. The tables are small and L2-resident: stage 6's
+// n=64 stand-in has 64 sc_rows rows (32 KB) and 1,024 tri_rows rows
+// (2 MB). Design: no block is launched for a slot without a candidate
+// (86-90% of the slots on stage 6's bands); the selections take a fixed
+// network per sort, not a five-step warp reduction per kept entry (up to
+// 40 dependent rounds per slot before); each lane has four triangles'
+// rows in flight before it tests them, and a slot's ray and phase-1 row
+// load while the slot before it is tested. (Rows staged in shared memory
+// by TMA bulk copies, two clusters ahead, were no faster on stage 6's
+// bands and slower on the 420-layer stack.) Build with -fmad=false (slab
 // and triangle tests round every multiply and add on their own, as the
 // plain version does); NaN-propagating min/max as torch.maximum /
 // torch.minimum (common.cuh).
@@ -52,7 +65,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // slots per block
+constexpr int kWarps = 4;  // warps per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kK1Max = 16;
 constexpr int kK2Max = 24;
@@ -60,27 +73,24 @@ constexpr int kKids = 16;       // clusters per supercluster
 constexpr int kTri = 48;        // triangles per cluster
 constexpr int kScRow = 128;     // sc_rows row: 6 x 16 child box planes
 constexpr int kTriRow = 512;    // tri_rows row: 9 x 48 vertex components
+constexpr int kUnroll = 4;      // triangle tests in flight per lane
 constexpr int kPerLane = kK1Max * kKids / 32;  // children entries per lane
+constexpr int kSortMax = 256;   // keys one sort takes
+constexpr unsigned long long kNoKey = ~0ull;
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 
-// (t, i) < (bt, bi) in the order of a stable ascending sort.
-__device__ __forceinline__ bool before(float t, int i, float bt, int bi) {
-    return t < bt || (t == bt && i < bi);
+// (t, index) as one key whose unsigned order is the order of a stable
+// ascending sort of t: -0 as +0, then the sign-magnitude bits made
+// monotone, above the index.
+__device__ __forceinline__ unsigned long long make_key(float t, int i) {
+    unsigned u = __float_as_uint(t == 0.0f ? 0.0f : t);
+    u ^= (u & 0x80000000u) ? 0xffffffffu : 0x80000000u;
+    return ((unsigned long long)u << 32) | (unsigned)i;
 }
 
-// The warp's least (t, i); every lane gets it (the order is total: the i
-// are distinct or the pairs equal).
-__device__ __forceinline__ void warp_min(float& t, int& i) {
-#pragma unroll
-    for (int off = 16; off; off >>= 1) {
-        const float t2 = __shfl_xor_sync(kFull, t, off);
-        const int i2 = __shfl_xor_sync(kFull, i, off);
-        if (before(t2, i2, t, i)) {
-            t = t2;
-            i = i2;
-        }
-    }
+__device__ __forceinline__ int key_index(unsigned long long k) {
+    return (int)(unsigned)(k & 0xffffffffull);
 }
 
 // _slab6 of render/traverse.py for one ray and one box: entry t or INF.
@@ -104,6 +114,89 @@ __device__ __forceinline__ float slab6(float ox, float oy, float oz, float ix,
     return t0 <= t1 ? t0 : f_inf();
 }
 
+// Bitonic sort of the 32 * M keys a warp holds, M per lane in blocked
+// order (lane l holds ranks l * M .. l * M + M - 1 afterwards), ascending.
+template <int M>
+__device__ __forceinline__ void warp_sort(unsigned long long (&k)[M],
+                                          int l) {
+#pragma unroll
+    for (int size = 2; size <= 32 * M; size <<= 1) {
+#pragma unroll
+        for (int j = size >> 1; j > 0; j >>= 1) {
+            if (j >= M) {  // the partner is in lane l ^ (j / M)
+                const int lj = j / M;
+                const bool low = (l & lj) == 0;
+#pragma unroll
+                for (int r = 0; r < M; ++r) {
+                    const unsigned long long o =
+                        __shfl_xor_sync(kFull, k[r], lj);
+                    const bool up = ((l * M + r) & size) == 0;
+                    const bool take_min = low == up;
+                    k[r] = (o < k[r]) == take_min ? o : k[r];
+                }
+            } else {  // in the lane's own registers
+#pragma unroll
+                for (int r = 0; r < M; ++r) {
+                    const int p = r ^ j;
+                    if (p > r) {
+                        const bool up = ((l * M + r) & size) == 0;
+                        const unsigned long long a = k[r], b = k[p];
+                        const bool swap = up ? b < a : a < b;
+                        k[r] = swap ? b : a;
+                        k[p] = swap ? a : b;
+                    }
+                }
+            }
+        }
+    }
+}
+
+// One function per width, not inlined: the 256-key network alone is
+// thousands of instructions, and three call sites would copy each.
+template <int M>
+__device__ __noinline__ void sort_list_m(unsigned long long* list, int n,
+                                         int l) {
+    __syncwarp();  // the list was written by other lanes
+    unsigned long long k[M];
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+        k[r] = l * M + r < n ? list[l * M + r] : kNoKey;
+    warp_sort<M>(k, l);
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+        if (l * M + r < n) list[l * M + r] = k[r];
+    __syncwarp();
+}
+
+// Sorts the warp's list of n <= 256 distinct keys in place, ascending.
+__device__ __forceinline__ void sort_list(unsigned long long* list, int n,
+                                          int l) {
+    if (n <= 32)
+        sort_list_m<1>(list, n, l);
+    else if (n <= 64)
+        sort_list_m<2>(list, n, l);
+    else if (n <= 128)
+        sort_list_m<4>(list, n, l);
+    else
+        sort_list_m<8>(list, n, l);
+}
+
+// Appends the keys of the lanes with ``take`` to the list after its n
+// entries (in lane order); returns the new n, the same in every lane.
+__device__ __forceinline__ int append(unsigned long long* list, int n,
+                                      bool take, unsigned long long key,
+                                      int l) {
+    const unsigned m = __ballot_sync(kFull, take);
+    if (take) list[n + __popc(m & ((1u << l) - 1u))] = key;
+    return n + __popc(m);
+}
+
+struct WarpSmem {
+    unsigned long long list[kSortMax];
+    int sc_sel[kK1Max];  // kept superclusters, nearest first
+    int cl_sel[kK2Max];  // kept clusters, nearest first
+};
+
 __global__ void __launch_bounds__(kWarps * 32)
 cluster_pipeline_kernel(const int32_t* __restrict__ ray_of_slot,
                         const int32_t* __restrict__ n_active,
@@ -120,116 +213,142 @@ cluster_pipeline_kernel(const int32_t* __restrict__ ray_of_slot,
                         float* __restrict__ t_out, int32_t* __restrict__ p_out,
                         int32_t* __restrict__ ovf_out, int n, int s, int k1,
                         int k2, int tri0, float tmin) {
-    __shared__ int sc_sel[kWarps][kK1Max];  // kept superclusters, nearest first
-    __shared__ int cl_sel[kWarps][kK2Max];  // kept clusters, nearest first
+    __shared__ WarpSmem smem[kWarps];
     const int l = threadIdx.x & 31;
     const int w = threadIdx.x >> 5;
-    const int slot = blockIdx.x * kWarps + w;
-    if (slot >= n) return;
-    if (slot >= *n_active) {
-        if (l == 0) {
-            t_out[slot] = f_inf();
-            p_out[slot] = -1;
-            ovf_out[slot] = 0;
-        }
-        return;
-    }
-    const int r = ray_of_slot[slot];
-    const float ox = ox_[r], oy = oy_[r], oz = oz_[r];
-    const float dx = dx_[r], dy = dy_[r], dz = dz_[r];
-    const float tmax = tmax_[r];
+    WarpSmem& sm = smem[w];
+    const int n_act = min(max(*n_active, 0), n);
     const float inf = f_inf();
+    // the slots without a candidate: misses
+    for (int slot = n_act + blockIdx.x * blockDim.x + threadIdx.x; slot < n;
+         slot += gridDim.x * blockDim.x) {
+        t_out[slot] = inf;
+        p_out[slot] = -1;
+        ovf_out[slot] = 0;
+    }
+    // a slot's ray and the head of its phase-1 row, loaded while the slot
+    // before it is tested
+    const int stride = gridDim.x * kWarps;
+    int next = blockIdx.x * kWarps + w;
+    int r_next = 0;
+    float t_next = inf;
+    if (next < n_act) {
+        r_next = ray_of_slot[next];
+        t_next = l < s ? t_sc[(long long)r_next * s + l] : inf;
+    }
+    for (int slot = next; slot < n_act; slot = next) {
+        const int r = r_next;
+        const float t_head = t_next;
+        const float ox = ox_[r], oy = oy_[r], oz = oz_[r];
+        const float dx = dx_[r], dy = dy_[r], dz = dz_[r];
+        const float tmax = tmax_[r];
+        next = slot + stride;
 
-    // 1. the k1 nearest superclusters
-    const float* row = t_sc + (long long)r * s;
-    int finite = 0;
-    for (int j = l; j < s; j += 32) finite += isfinite(row[j]) ? 1 : 0;
-    finite = __reduce_add_sync(kFull, finite);
-    const int n1 = min(k1, finite);
-    int ovf = max(finite - k1, 0);
-    float last_t = -inf;
-    int last_i = -1;
-    for (int k = 0; k < n1; ++k) {
-        float bt = inf;
-        int bi = INT_MAX;
-        for (int j = l; j < s; j += 32) {
-            const float t = row[j];
-            if (isfinite(t) && before(last_t, last_i, t, j) &&
-                before(t, j, bt, bi)) {
-                bt = t;
-                bi = j;
+        // 1. the k1 nearest superclusters
+        const float* row = t_sc + (long long)r * s;
+        int have = 0, finite = 0;
+        for (int j0 = 0; j0 < s; j0 += 32) {
+            const int j = j0 + l;
+            const float t = j0 == 0 ? t_head : j < s ? row[j] : inf;
+            const bool take = isfinite(t);
+            const int cnt = __popc(__ballot_sync(kFull, take));
+            if (have + cnt > kSortMax) {  // keep the best k1 so far
+                sort_list(sm.list, have, l);
+                have = min(have, k1);
             }
+            have = append(sm.list, have, take, make_key(t, j), l);
+            finite += cnt;
         }
-        warp_min(bt, bi);
-        if (l == 0) sc_sel[w][k] = bi;
-        last_t = bt;
-        last_i = bi;
-    }
-    __syncwarp();
+        __syncwarp();
+        sort_list(sm.list, have, l);
+        const int n1 = min(k1, finite);
+        int ovf = max(finite - k1, 0);
+        if (l < n1) sm.sc_sel[l] = key_index(sm.list[l]);
+        __syncwarp();
 
-    // 2. their children, then the k2 nearest clusters
-    const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-    float t_cl[kPerLane];
-    int entered = 0;
-#pragma unroll
-    for (int m = 0; m < kPerLane; ++m) {
-        const int e = l + 32 * m;  // kept supercluster e / 16, child e % 16
-        t_cl[m] = inf;
-        if (e / kKids < n1) {
-            const float* b = sc_rows + (long long)sc_sel[w][e / kKids] * kScRow
-                             + e % kKids;
-            t_cl[m] = slab6(ox, oy, oz, ix, iy, iz, tmin, tmax, b[0],
-                            b[kKids], b[2 * kKids], b[3 * kKids],
-                            b[4 * kKids], b[5 * kKids]);
-        }
-        entered += __popc(__ballot_sync(kFull, t_cl[m] < inf));
-    }
-    const int n2 = min(k2, entered);
-    ovf += max(entered - k2, 0);
-    last_t = -inf;
-    last_i = -1;
-    for (int k = 0; k < n2; ++k) {
-        float bt = inf;
-        int bi = INT_MAX;
-#pragma unroll
+        // 2. their children, then the k2 nearest clusters
+        const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+        have = 0;
+#pragma unroll 1
         for (int m = 0; m < kPerLane; ++m) {
-            const int e = l + 32 * m;
-            const float t = t_cl[m];
-            if (t < inf && before(last_t, last_i, t, e) &&
-                before(t, e, bt, bi)) {
-                bt = t;
-                bi = e;
+            const int e = l + 32 * m;  // kept supercluster e / 16, child e % 16
+            if (m * 32 >= n1 * kKids) break;  // the same in every lane
+            float t = inf;
+            if (e / kKids < n1) {
+                const float* b = sc_rows
+                                 + (long long)sm.sc_sel[e / kKids] * kScRow
+                                 + e % kKids;
+                t = slab6(ox, oy, oz, ix, iy, iz, tmin, tmax, b[0], b[kKids],
+                          b[2 * kKids], b[3 * kKids], b[4 * kKids],
+                          b[5 * kKids]);
+            }
+            have = append(sm.list, have, t < inf, make_key(t, e), l);
+        }
+        __syncwarp();
+        sort_list(sm.list, have, l);
+        const int n2 = min(k2, have);
+        ovf += max(have - k2, 0);
+        if (l < n2) {
+            const int e = key_index(sm.list[l]);
+            sm.cl_sel[l] = sm.sc_sel[e / kKids] * kKids + e % kKids;
+        }
+        if (n2 == 0 && l == 0) sm.cl_sel[0] = sm.sc_sel[0] * kKids;
+        __syncwarp();
+
+        // 3. Möller-Trumbore over the kept clusters' triangles, each
+        // lane's four next rows read before they are tested
+        if (next < n_act) {
+            r_next = ray_of_slot[next];
+            t_next = l < s ? t_sc[(long long)r_next * s + l] : inf;
+        }
+        const int n_tri = n2 * kTri;
+        float best_t = inf;
+        int best_f = 0;
+        for (int g0 = 0; g0 < n_tri; g0 += 32 * kUnroll) {
+            float v[kUnroll][9];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int g = g0 + 32 * u + l;  // ascends per lane
+                if (g < n_tri) {
+                    const float* row =
+                        tri_rows + (long long)sm.cl_sel[g / kTri] * kTriRow
+                        + g % kTri;
+#pragma unroll
+                    for (int k = 0; k < 9; ++k)
+                        v[u][k] = __ldg(row + k * kTri);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int g = g0 + 32 * u + l;
+                if (g < n_tri) {
+                    const float t = mt_exact(
+                        v[u][0], v[u][1], v[u][2], v[u][3], v[u][4], v[u][5],
+                        v[u][6], v[u][7], v[u][8], ox, oy, oz, dx, dy, dz,
+                        tmin, tmax).t;
+                    if (t < best_t) {  // the first minimum
+                        best_t = t;
+                        best_f = g;
+                    }
+                }
             }
         }
-        warp_min(bt, bi);
-        if (l == 0) cl_sel[w][k] = sc_sel[w][bi / kKids] * kKids + bi % kKids;
-        last_t = bt;
-        last_i = bi;
-    }
-    if (n2 == 0 && l == 0) cl_sel[w][0] = sc_sel[w][0] * kKids;
-    __syncwarp();
-
-    // 3. Möller-Trumbore over the kept clusters' triangles
-    float best_t = inf;
-    int best_f = 0;
-    for (int f = l; f < n2 * kTri; f += 32) {
-        const float* v = tri_rows + (long long)cl_sel[w][f / kTri] * kTriRow
-                         + f % kTri;
-        const float v0x = v[0], v0y = v[kTri], v0z = v[2 * kTri];
-        const float v1x = v[3 * kTri], v1y = v[4 * kTri], v1z = v[5 * kTri];
-        const float v2x = v[6 * kTri], v2y = v[7 * kTri], v2z = v[8 * kTri];
-        const float t = mt_exact(v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z,
-                                 ox, oy, oz, dx, dy, dz, tmin, tmax).t;
-        if (t < best_t) {  // f ascends per lane: the first minimum
-            best_t = t;
-            best_f = f;
+#pragma unroll
+        for (int off = 16; off; off >>= 1) {
+            const float t2 = __shfl_xor_sync(kFull, best_t, off);
+            const int f2 = __shfl_xor_sync(kFull, best_f, off);
+            if (t2 < best_t || (t2 == best_t && f2 < best_f)) {
+                best_t = t2;
+                best_f = f2;
+            }
         }
-    }
-    warp_min(best_t, best_f);
-    if (l == 0) {
-        t_out[slot] = best_t;
-        p_out[slot] = tri0 + cl_sel[w][best_f / kTri] * kTri + best_f % kTri;
-        ovf_out[slot] = ovf;
+        if (l == 0) {
+            t_out[slot] = best_t;
+            p_out[slot] = tri0 + sm.cl_sel[best_f / kTri] * kTri
+                          + best_f % kTri;
+            ovf_out[slot] = ovf;
+        }
+        __syncwarp();  // sc_sel / cl_sel / list are the next slot's
     }
 }
 
@@ -245,7 +364,22 @@ extern "C" int rt_cluster_pipeline(
     if (n <= 0 || s <= 0 || k1 < 1 || k1 > kK1Max || k1 > s || k2 < 1 ||
         k2 > kK2Max || k2 > k1 * kKids)
         return (int)cudaErrorInvalidValue;
-    const int blocks = (n + kWarps - 1) / kWarps;
+    // as many blocks as fit on the card at once, no more than the slots
+    // need; the same for every call on a device, so a graph holds it
+    static int fit_blocks = 0;
+    if (fit_blocks == 0) {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, cluster_pipeline_kernel, kWarps * 32, 0);
+        if (err != cudaSuccess) return (int)err;
+        fit_blocks = max(1, sms * per_sm);
+    }
+    const int blocks = min(fit_blocks, (n + kWarps - 1) / kWarps);
     cluster_pipeline_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
         ray_of_slot, n_active, ox, oy, oz, dx, dy, dz, tmax, t_sc, sc_rows,
         tri_rows, t_out, p_out, ovf_out, n, s, k1, k2, tri0, tmin);

@@ -1,89 +1,334 @@
-// fold_small: the nearest hit of one tiny mesh (at most 4 x 48 triangles)
-// for every lane, by testing each lane against every triangle.
+// fold_small: every tiny transformed mesh of one query (SceneData.ktab_small,
+// at most 4 x 48 triangles each) in one launch, each lane evaluating each
+// mesh's keyed transform chain at its own time.
 //
-// Replaces no pallas_call: it is the reference's XLA dense fold
-// _brute_force_mesh (rayito_tpu/render/mesh_intersect.py:103-126), one
-// [N, T] Möller-Trumbore and an argmin, which the port ran as strided
-// [N, T] elementwise ops (fold_small_plain in render/traverse.py). Here
-// the [N, T] intermediates never leave registers.
+// Replaces no pallas_call: it is the reference's loop over its tiny meshes
+// (rayito_tpu/render/trace.py:628-650): per mesh the transform chain at the
+// lane's time, the ray to local space and the XLA dense fold
+// _brute_force_mesh (rayito_tpu/render/mesh_intersect.py:103-126). The
+// port's plain twin is fold_small_query_plain (render/mesh_intersect.py):
+// per mesh ops/transform.py's ~150 elementwise kernels, one [N, T]
+// Möller-Trumbore (fold_small_plain) and a dozen torch.where merges. Here
+// all of it stays in registers and the merged result is written once.
 //
-// Per lane, the same values as the plain version: the test of
-// ops/intersect.py in its operation order (mt_exact, common.cuh), t >=
-// tmin and t < tmax[lane]; the winner is the first minimum of t over the
-// triangles in row order (torch.argmin's tie rule), so a triangle replaces
-// the best only when strictly nearer. The best starts at triangle 0's own
-// test, so an all-miss lane returns t = INF, prim = -1 and triangle 0's
-// beta and gamma, as the plain version's argmin of an all-INF row does
-// (the callers read beta and gamma only where prim >= 0).
+// Per lane, in ktab_small order, the same values as the plain twin:
+//   1. each link of the mesh's chain, outermost first (eval_transform of
+//      ops/transform.py in its operation order): the key pair at the lane's
+//      time among the slot's nkeys keys, pegged to the ends; frac = (time -
+//      t0) / (t1 - t0) where t1 > t0, else 0, clamped to [0, 1] (NaN kept,
+//      as torch.clamp); lerp a + (b - a) * frac of translation and scale;
+//      nlerp of the rotation, w1 * (1 - frac) + w2 * frac per component,
+//      normalised by one IEEE reciprocal of sqrt(max(w^2 + ((x^2 + y^2) +
+//      z^2), 1e-37)). A table of one key (K == 1) takes the key as it is,
+//      unnormalised;
+//   2. the ray to local space: (~R)(o - T) / S and (~R)d / S, with ~R v =
+//      v + t w + qv x t, t = 2 (qv x v), qv = -R.v; the composed
+//      world-from-local rotation rot = rot * R (Hamilton product);
+//   3. Möller-Trumbore (mt_exact, common.cuh) over the mesh's real rows,
+//      t >= tmin and t < min(t_best, tmax); the first of the least t (a
+//      strict <, as argmin's tie rule). The rows past a mesh's count are
+//      all zero, so det = 0 and the twin's padded fold never takes them;
+//   4. where the mesh hit, t, prim = row0 + row, beta, gamma and rot
+//      replace the best.
+// Any hit: a lane stops at its first hit, since every later mesh of the
+// plain twin queries it with tmax = 0 and its occlusion is already set.
 //
-// What bounds it on the H100: operations, ~46 flops and one IEEE division
-// per (lane, triangle) test at 67 TFLOP/s f32 (at most half of it without
-// FMA); the bytes are one read of the rays and tmax and one write of four
-// outputs per lane. Design: each block stages the mesh's rows (v0, v1, v2
-// of each [16]-wide tri_vert_rows row, at most 192 x 9 floats) in shared
-// memory once, then each thread folds one lane over them; every thread of
-// a warp reads the same triangle at once (a shared-memory broadcast).
-// Build with -fmad=false -prec-div=true: every multiply and add rounds on
-// its own and 1 / det is IEEE, as in the plain version.
+// What bounds it on the H100: operations. Per (lane, mesh) ~120 flops and
+// 7 IEEE divisions and a square root of transform per link, and per
+// (lane, triangle) ~46 flops and one IEEE division at 67 TFLOP/s f32 (at
+// most half of it without FMA); chip_smoke.py counts the instructions the
+// warps issue from the built SASS. The bytes: one read of the rays, the
+// time, tmax and the running best, one write of the merged best per lane.
+// Design: one launch per query (the plain twin's loop launched ~170
+// kernels per mesh); each block stages every mesh's real rows (v0, v1, v2
+// of each [16]-wide tri_vert_rows row, at most 1,024 rows) in shared
+// memory once, SoA, so a warp's lanes read one triangle at once (a
+// broadcast); one thread per lane walks the meshes in order, each mesh's
+// tests unrolled four deep so independent tests overlap. The transform
+// tables stay in device memory (a few hundred bytes, L1-resident). The
+// mesh list (rows, counts, chains) is a by-value kernel argument, so a
+// CUDA graph holds it. Build with -fmad=false -prec-div=true
+// -prec-sqrt=true: every multiply and add rounds on its own, divisions
+// and square roots are IEEE, as in the plain twin.
+#include <math.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxTri = 192;  // 4 clusters x 48 triangles
+constexpr int kMaxMeshes = 64;
+constexpr int kMaxRows = 1024;
+constexpr int kMaxDepth = 8;
 constexpr int kRowWidth = 16;  // tri_vert_rows: v0, v1, v2, then meta
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 
+struct FoldMesh {
+    int32_t row0, count, depth;
+    int32_t slot[kMaxDepth];  // outermost first
+};
+
+struct FoldSpec {
+    int32_t n_mesh, rows, k;
+    FoldMesh mesh[kMaxMeshes];
+};
+
+struct XfTables {
+    const float* times;      // [X, K]
+    const float* translate;  // [X, K, 3]
+    const float* scale;      // [X, K, 3]
+    const float* rotate;     // [X, K, 4] (w, x, y, z)
+    const int32_t* nkeys;    // [X]
+};
+
+struct Vec {
+    float x, y, z;
+};
+
+struct Rot {
+    float w, x, y, z;
+};
+
+__device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
+
+// torch.clamp(x, 0, 1) on the card: NaN stays.
+__device__ __forceinline__ float clamp01(float x) {
+    return isnan(x) ? x : ::fminf(::fmaxf(x, 0.0f), 1.0f);
+}
+
+// eval_transform (ops/transform.py) of slot s at time tm.
+__device__ __forceinline__ void eval_link(const XfTables& tb, int k, int s,
+                                          float tm, Vec& tr, Vec& sc,
+                                          Rot& ro) {
+    if (k == 1) {
+        const float* a = tb.translate + s * 3;
+        const float* b = tb.scale + s * 3;
+        const float* q = tb.rotate + s * 4;
+        tr = {a[0], a[1], a[2]};
+        sc = {b[0], b[1], b[2]};
+        ro = {q[0], q[1], q[2], q[3]};
+        return;
+    }
+    const float* times = tb.times + s * k;
+    const int nk = tb.nkeys[s];
+    int before = 0;
+    for (int j = 0; j < k; ++j) before += (j < nk && times[j] <= tm) ? 1 : 0;
+    const int last = max(nk - 1, 0);
+    const int i0 = min(max(before - 1, 0), last);
+    const int i1 = min(i0 + 1, last);
+    const float t0 = times[i0], t1 = times[i1];
+    const float denom = t1 - t0;
+    const float q = (tm - t0) / (denom == 0.0f ? 1.0f : denom);
+    const float frac = clamp01(denom > 0.0f ? q : 0.0f);
+    const float* a = tb.translate + (s * k + i0) * 3;
+    const float* b = tb.translate + (s * k + i1) * 3;
+    tr = {a[0] + (b[0] - a[0]) * frac, a[1] + (b[1] - a[1]) * frac,
+          a[2] + (b[2] - a[2]) * frac};
+    a = tb.scale + (s * k + i0) * 3;
+    b = tb.scale + (s * k + i1) * 3;
+    sc = {a[0] + (b[0] - a[0]) * frac, a[1] + (b[1] - a[1]) * frac,
+          a[2] + (b[2] - a[2]) * frac};
+    const float* p = tb.rotate + (s * k + i0) * 4;
+    const float* r = tb.rotate + (s * k + i1) * 4;
+    const float om = 1.0f - frac;
+    const float w = p[0] * om + r[0] * frac;
+    const float x = p[1] * om + r[1] * frac;
+    const float y = p[2] * om + r[2] * frac;
+    const float z = p[3] * om + r[3] * frac;
+    const float n2 = w * w + ((x * x + y * y) + z * z);
+    // torch.clamp_min on the card: NaN stays
+    const float inv = 1.0f / sqrtf(isnan(n2) ? n2 : ::fmaxf(n2, 1e-37f));
+    ro = {w * inv, x * inv, y * inv, z * inv};
+}
+
+// rotate_vector(conjugate(ro), v) of ops/quaternion.py.
+__device__ __forceinline__ Vec unrotate(const Rot& ro, const Vec& v) {
+    const float qx = -ro.x, qy = -ro.y, qz = -ro.z;
+    const float tx = (qy * v.z - qz * v.y) * 2.0f;
+    const float ty = (qz * v.x - qx * v.z) * 2.0f;
+    const float tz = (qx * v.y - qy * v.x) * 2.0f;
+    return {(v.x + tx * ro.w) + (qy * tz - qz * ty),
+            (v.y + ty * ro.w) + (qz * tx - qx * tz),
+            (v.z + tz * ro.w) + (qx * ty - qy * tx)};
+}
+
+// multiply(a, b) of ops/quaternion.py: the Hamilton product a * b.
+__device__ __forceinline__ Rot qmul(const Rot& a, const Rot& b) {
+    return {a.w * b.w - ((a.x * b.x + a.y * b.y) + a.z * b.z),
+            (b.x * a.w + a.x * b.w) + (a.y * b.z - a.z * b.y),
+            (b.y * a.w + a.y * b.w) + (a.z * b.x - a.x * b.z),
+            (b.z * a.w + a.z * b.w) + (a.x * b.y - a.y * b.x)};
+}
+
+template <bool kAnyHit>
 __global__ void __launch_bounds__(kThreads)
-fold_small_kernel(const float* __restrict__ rows, int n_tri, int tri0,
-                  const float* __restrict__ ox_, const float* __restrict__ oy_,
-                  const float* __restrict__ oz_, const float* __restrict__ dx_,
-                  const float* __restrict__ dy_, const float* __restrict__ dz_,
-                  const float* __restrict__ tmax_, float tmin,
+fold_small_kernel(const FoldSpec spec, const float* __restrict__ rows,
+                  const XfTables tb, const float* __restrict__ ox_,
+                  const float* __restrict__ oy_, const float* __restrict__ oz_,
+                  const float* __restrict__ dx_, const float* __restrict__ dy_,
+                  const float* __restrict__ dz_,
+                  const float* __restrict__ tmax_,
+                  const float* __restrict__ time_, float tmin,
+                  const float* __restrict__ t_in,
+                  const int32_t* __restrict__ p_in,
+                  const float* __restrict__ beta_in,
+                  const float* __restrict__ gamma_in,
+                  const float* __restrict__ rw_in,
+                  const float* __restrict__ rx_in,
+                  const float* __restrict__ ry_in,
+                  const float* __restrict__ rz_in,
+                  const uint8_t* __restrict__ occ_in,
                   float* __restrict__ t_out, int32_t* __restrict__ p_out,
                   float* __restrict__ beta_out, float* __restrict__ gamma_out,
+                  float* __restrict__ rot_out, uint8_t* __restrict__ occ_out,
                   int n) {
-    __shared__ float v[9][kMaxTri];
-    for (int e = threadIdx.x; e < n_tri * 9; e += kThreads)
-        v[e % 9][e / 9] = rows[(e / 9) * kRowWidth + e % 9];
+    extern __shared__ float v[];  // [9][spec.rows]: v0, v1, v2 by component
+    const int nr = spec.rows;
+    for (int m = 0, off = 0; m < spec.n_mesh; off += spec.mesh[m].count, ++m) {
+        const int cnt = spec.mesh[m].count;
+        const float* src = rows + (long long)spec.mesh[m].row0 * kRowWidth;
+        for (int e = threadIdx.x; e < cnt * 9; e += kThreads)
+            v[(e % 9) * nr + off + e / 9] = src[(e / 9) * kRowWidth + e % 9];
+    }
     __syncthreads();
     const int i = blockIdx.x * kThreads + threadIdx.x;
     if (i >= n) return;
     const float ox = ox_[i], oy = oy_[i], oz = oz_[i];
     const float dx = dx_[i], dy = dy_[i], dz = dz_[i];
     const float tmax = tmax_[i];
-    MtHit best = mt_exact(v[0][0], v[1][0], v[2][0], v[3][0], v[4][0],
-                          v[5][0], v[6][0], v[7][0], v[8][0], ox, oy, oz, dx,
-                          dy, dz, tmin, tmax);
-    int best_j = 0;
-    for (int j = 1; j < n_tri; ++j) {
-        const MtHit h = mt_exact(v[0][j], v[1][j], v[2][j], v[3][j], v[4][j],
-                                 v[5][j], v[6][j], v[7][j], v[8][j], ox, oy,
-                                 oz, dx, dy, dz, tmin, tmax);
-        if (h.t < best.t) {
-            best = h;
-            best_j = j;
+    const float tm = time_ != nullptr ? time_[i] : 0.0f;
+    const bool motion = rot_out != nullptr;
+    bool occ = false;
+    float t_best = 0.0f, beta_best = 0.0f, gamma_best = 0.0f;
+    int32_t p_best = -1;
+    Rot rot_best = {1.0f, 0.0f, 0.0f, 0.0f};
+    if (kAnyHit) {
+        occ = occ_in[i] != 0;
+    } else {
+        t_best = t_in[i];
+        p_best = p_in[i];
+        beta_best = beta_in[i];
+        gamma_best = gamma_in[i];
+        if (motion) rot_best = {rw_in[i], rx_in[i], ry_in[i], rz_in[i]};
+    }
+    const float inf = f_inf();
+    for (int m = 0, off = 0; m < spec.n_mesh; off += spec.mesh[m].count, ++m) {
+        if (kAnyHit && occ) break;
+        const FoldMesh& mesh = spec.mesh[m];
+        float lx = ox, ly = oy, lz = oz, ex = dx, ey = dy, ez = dz;
+        Rot rot = {1.0f, 0.0f, 0.0f, 0.0f};
+        for (int c = 0; c < mesh.depth; ++c) {
+            Vec tr, sc;
+            Rot ro;
+            eval_link(tb, spec.k, mesh.slot[c], tm, tr, sc, ro);
+            const Vec po = unrotate(ro, {lx - tr.x, ly - tr.y, lz - tr.z});
+            const Vec pd = unrotate(ro, {ex, ey, ez});
+            lx = po.x / sc.x;
+            ly = po.y / sc.y;
+            lz = po.z / sc.z;
+            ex = pd.x / sc.x;
+            ey = pd.y / sc.y;
+            ez = pd.z / sc.z;
+            rot = c == 0 ? ro : qmul(rot, ro);
+        }
+        const float cap = kAnyHit ? tmax : nan_min(t_best, tmax);
+        const float* v0x = v + off;
+        float bt = inf, bb = 0.0f, bg = 0.0f;
+        int bj = -1;
+#pragma unroll 4
+        for (int j = 0; j < mesh.count; ++j) {
+            const MtHit h = mt_exact(
+                v0x[j], v0x[nr + j], v0x[2 * nr + j], v0x[3 * nr + j],
+                v0x[4 * nr + j], v0x[5 * nr + j], v0x[6 * nr + j],
+                v0x[7 * nr + j], v0x[8 * nr + j], lx, ly, lz, ex, ey, ez,
+                tmin, cap);
+            if (h.t < bt) {  // rows ascend: the first minimum
+                bt = h.t;
+                bj = j;
+                bb = h.beta;
+                bg = h.gamma;
+                if (kAnyHit) break;
+            }
+        }
+        if (bj < 0) continue;
+        if (kAnyHit) {
+            occ = true;
+        } else {
+            t_best = bt;
+            p_best = mesh.row0 + bj;
+            beta_best = bb;
+            gamma_best = bg;
+            rot_best = rot;
         }
     }
-    t_out[i] = best.t;
-    p_out[i] = best.t != __int_as_float(0x7f800000) ? tri0 + best_j : -1;
-    beta_out[i] = best.beta;
-    gamma_out[i] = best.gamma;
+    if (kAnyHit) {
+        occ_out[i] = occ ? 1 : 0;
+        return;
+    }
+    t_out[i] = t_best;
+    p_out[i] = p_best;
+    beta_out[i] = beta_best;
+    gamma_out[i] = gamma_best;
+    if (motion) {
+        rot_out[i] = rot_best.w;
+        rot_out[n + i] = rot_best.x;
+        rot_out[2 * n + i] = rot_best.y;
+        rot_out[3 * n + i] = rot_best.z;
+    }
 }
 
 }  // namespace
 
-extern "C" int rt_fold_small(const float* rows, int n_tri, int tri0,
-                             const float* ox, const float* oy,
-                             const float* oz, const float* dx,
-                             const float* dy, const float* dz,
-                             const float* tmax, float tmin, float* t,
-                             int32_t* prim, float* beta, float* gamma, int n,
-                             void* stream) {
-    if (n_tri < 1 || n_tri > kMaxTri) return (int)cudaErrorInvalidValue;
+// One launch over n lanes; spec is a FoldSpec (a type of this file's
+// own, so it is passed as void*: a C entry point keeps external linkage
+// only with parameter types that have it). Closest hit: t_in, p_in, beta_in, gamma_in (and
+// the rotation rw_in..rz_in with rot_out [4, n], both null for a static
+// scene) in, t_out, p_out, beta_out, gamma_out out. Any hit: occ_in in,
+// occ_out out (the closest-hit pointers null). time is null for a static
+// scene (every mesh's chain empty).
+extern "C" int rt_fold_small(
+    const void* spec_ptr, const float* rows, const float* xf_times,
+    const float* xf_translate, const float* xf_scale, const float* xf_rotate,
+    const int32_t* xf_nkeys, const float* ox, const float* oy,
+    const float* oz, const float* dx, const float* dy, const float* dz,
+    const float* tmax, const float* time, float tmin, const float* t_in,
+    const int32_t* p_in, const float* beta_in, const float* gamma_in,
+    const float* rw_in, const float* rx_in, const float* ry_in,
+    const float* rz_in, const uint8_t* occ_in, float* t_out, int32_t* p_out,
+    float* beta_out, float* gamma_out, float* rot_out, uint8_t* occ_out,
+    int n, void* stream) {
+    const FoldSpec* spec = static_cast<const FoldSpec*>(spec_ptr);
+    if (spec->n_mesh < 1 || spec->n_mesh > kMaxMeshes || spec->rows < 1 ||
+        spec->rows > kMaxRows || spec->k < 1 || n < 0)
+        return (int)cudaErrorInvalidValue;
+    int rows_total = 0;
+    for (int m = 0; m < spec->n_mesh; ++m) {
+        const FoldMesh& mesh = spec->mesh[m];
+        if (mesh.count < 1 || mesh.depth < 0 || mesh.depth > kMaxDepth ||
+            (mesh.depth > 0 && time == nullptr))
+            return (int)cudaErrorInvalidValue;
+        rows_total += mesh.count;
+    }
+    const bool any_hit = occ_in != nullptr;
+    if (rows_total != spec->rows || (any_hit ? occ_out == nullptr
+                                             : t_in == nullptr ||
+                                               t_out == nullptr))
+        return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
+    const XfTables tb = {xf_times, xf_translate, xf_scale, xf_rotate,
+                         xf_nkeys};
     const int blocks = (n + kThreads - 1) / kThreads;
-    fold_small_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_tri, tri0, ox, oy, oz, dx, dy, dz, tmax, tmin, t, prim, beta,
-        gamma, n);
+    const size_t smem = sizeof(float) * 9 * spec->rows;
+    if (any_hit)
+        fold_small_kernel<true><<<blocks, kThreads, smem,
+                                  (cudaStream_t)stream>>>(
+            *spec, rows, tb, ox, oy, oz, dx, dy, dz, tmax, time, tmin, t_in,
+            p_in, beta_in, gamma_in, rw_in, rx_in, ry_in, rz_in, occ_in,
+            t_out, p_out, beta_out, gamma_out, rot_out, occ_out, n);
+    else
+        fold_small_kernel<false><<<blocks, kThreads, smem,
+                                   (cudaStream_t)stream>>>(
+            *spec, rows, tb, ox, oy, oz, dx, dy, dz, tmax, time, tmin, t_in,
+            p_in, beta_in, gamma_in, rw_in, rx_in, ry_in, rz_in, occ_in,
+            t_out, p_out, beta_out, gamma_out, rot_out, occ_out, n);
     return (int)cudaGetLastError();
 }

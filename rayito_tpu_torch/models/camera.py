@@ -4,6 +4,9 @@
 Reference quirks kept: ``tan_fov`` uses the FULL stated angle, right/up are
 not normalized in the stage-5+ camera (the stage 1-4 camera,
 ``make_camera_ray_stage1``, normalizes them), and DOF is blended by mask.
+Ray directions take the correctly rounded square root on every device
+(``ops/vec3.sqrt_ieee``; PyTorch's float32 root on the CPU is not), so a
+card's camera rays equal the CPU's bit for bit.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import math
 
 import torch
 
-from ..ops.vec3 import PI, V3, cross, normalize, splat
+from ..ops.vec3 import PI, V3, cross, normalize, splat, sqrt_ieee
 from ..ops.vec3 import where as vwhere
 from ..ops.warps import uniform_to_uniform_disk
 
@@ -113,17 +116,18 @@ class PerspectiveCamera:
         does, so no Python branch reads the lens."""
         sx = (x_screen - 0.5) * self.tan_fov
         sy = (y_screen - 0.5) * self.tan_fov
-        direction = normalize(self.forward + self.right * sx + self.up * sy)
+        direction = normalize(self.forward + self.right * sx + self.up * sy,
+                              sqrt_ieee)
         origin = self.origin.broadcast_to(sx.shape)
         t = self.time(time_u).expand(sx.shape)
         # depth of field: uniform-disk lens
         hshift, vshift = uniform_to_uniform_disk(lens_u, lens_v)
         hshift = hshift * self.lens_radius
         vshift = vshift * self.lens_radius
-        local_len = torch.sqrt(sx * sx + sy * sy + 1.0)
+        local_len = sqrt_ieee(sx * sx + sy * sy + 1.0)
         focus = origin + direction * (self.focal_distance * local_len)
         lens_origin = origin + self.right * hshift + self.up * vshift
-        lens_dir = normalize(focus - lens_origin)
+        lens_dir = normalize(focus - lens_origin, sqrt_ieee)
         use_dof = self.lens_radius > 0.0
         return (vwhere(use_dof, lens_origin, origin),
                 vwhere(use_dof, lens_dir, direction), t)
@@ -140,5 +144,5 @@ def make_camera_ray_stage1(fov_degrees, origin, target, up, xu, yu):
         for v in _look_basis(origin, target, up, True))
     tan_fov = _f32(math.tan(fov_degrees * PI / 180.0))
     direction = normalize(fwd + right * ((xu - 0.5) * tan_fov)
-                          + cam_up * ((yu - 0.5) * tan_fov))
+                          + cam_up * ((yu - 0.5) * tan_fov), sqrt_ieee)
     return V3(*(torch.full_like(xu, c) for c in (o.x, o.y, o.z))), direction

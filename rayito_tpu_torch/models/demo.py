@@ -212,9 +212,10 @@ def _axis_angle(axis, angle):
     return (math.cos(h), a[0] * s, a[1] * s, a[2] * s)
 
 
-def make_cube(material) -> TriangleMesh:
-    """The unit cube of the stage-7 scenes: 8 vertices at [0, 1]^3, 6 quad
-    faces with the last duplicated, as in the reference renderer."""
+def _cube(pkg, material):
+    """The unit cube of the stage-7 scenes from ``pkg``'s TriangleMesh: 8
+    vertices at [0, 1]^3, 6 quad faces with the last duplicated, as in the
+    reference renderer."""
     verts = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
                       [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float32)
     quads = [(0, 1, 2, 3), (1, 5, 6, 2), (5, 4, 7, 6), (4, 0, 3, 7),
@@ -223,10 +224,15 @@ def make_cube(material) -> TriangleMesh:
     for fid, (a, b, c, d) in enumerate(quads):
         tris += [(a, b, c), (a, c, d)]
         fids += [fid, fid]
-    return TriangleMesh(
+    return pkg.TriangleMesh(
         vertices=verts, indices=np.array(tris, np.int32), material=material,
         face_ids=np.array(fids, np.int32),
     )
+
+
+def make_cube(material) -> TriangleMesh:
+    """The unit cube of the stage-7 scenes (``_cube``)."""
+    return _cube(_own, material)
 
 
 def _keys(times, translations, rotations=None) -> Transform:
@@ -439,6 +445,94 @@ def sixteen_lights_scene(pkg=None):
                            0.4, None),
                 tuple(rs.uniform(0.5, 1.0, 3)), 3.0))
     return b
+
+
+# ---------------------------------------------------------------------------
+# Scenes that hold the tiny-mesh fold and the 'xla' pipeline at their edges
+# (``pkg`` as above, where the reference's copy is compared)
+# ---------------------------------------------------------------------------
+
+
+def one_key_cube_scene(pkg=None):
+    """A cube under one key of translation, scale and an unnormalised
+    rotation over a plane: every transform slot has one key, so the tables
+    have K == 1 and the rotation is taken as it is (no nlerp)."""
+    pkg = pkg or _own
+    s = pkg.Scene()
+    s.add(pkg.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                    pkg.DiffuseMaterial((0.6, 0.6, 0.9))))
+    cube = _cube(pkg, pkg.DiffuseMaterial((0.8, 0.3, 0.1)))
+    cube.transform = pkg.Transform(
+        times=[0.0], translations=[(-0.4, -0.3, 0.2)],
+        scales=[(1.3, 0.9, 1.1)], rotations=[(0.9, 0.2, 0.3, 0.1)])
+    s.add(cube)
+    return s
+
+
+def nested_cube_scene(pkg=None):
+    """A cube with two keys of its own inside a group that turns about Y
+    and drifts over the shutter (a transform chain of depth 2), a cube of
+    one translated link beside it, over a plane."""
+    pkg = pkg or _own
+    s = pkg.Scene()
+    s.add(pkg.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                    pkg.DiffuseMaterial((0.6, 0.6, 0.9))))
+    group = pkg.Group()
+    group.transform.set_rotation(0.0, (1.0, 0.0, 0.0, 0.0))
+    group.transform.set_rotation(
+        1.0, (math.cos(math.pi / 5), 0.0, math.sin(math.pi / 5), 0.0))
+    group.transform.set_translation(1.0, (0.3, 0.1, 0.0))
+    cube = _cube(pkg, pkg.DiffuseMaterial((0.8, 0.3, 0.1)))
+    cube.transform.set_translation(0.0, (-0.6, -0.5, -0.4))
+    cube.transform.set_translation(1.0, (-0.2, -0.5, -0.6))
+    cube.transform.set_scaling(1.0, (1.2, 0.8, 1.0))
+    group.add(cube)
+    s.add(group)
+    still = _cube(pkg, pkg.GlossyMaterial((0.3, 0.9, 0.3), 0.2))
+    still.transform.set_translation(0.0, (1.2, 0.4, -0.8))
+    s.add(still)
+    return s
+
+
+def tied_slivers_scene():
+    """15,360 seeded slanted slivers (320 clusters, 20 superclusters), each
+    from z = 0 up to z = 1 over the square [-1, 1]^2, and a rect light:
+    every cluster and supercluster box spans z in [0, 1] and much of the
+    square, so a ray straight up the z axis enters them all at the same t,
+    and the tie rule (the lower index first) alone decides which the 'xla'
+    route's K1/K2 truncation keeps."""
+    n_tri = 15360
+    rs = np.random.default_rng(9)
+    base = rs.uniform(-1.0, 0.8, (n_tri, 2))
+    v0 = np.concatenate([base, np.zeros((n_tri, 1))], 1)
+    tris = np.stack([v0, v0 + [0.2, 0.0, 0.0], v0 + [0.1, 0.2, 1.0]], 1)
+    s = Scene()
+    s.add(TriangleMesh(tris.reshape(-1, 3).astype(np.float32),
+                       np.arange(3 * n_tri, dtype=np.int32).reshape(-1, 3),
+                       DiffuseMaterial((0.6, 0.5, 0.4))))
+    s.add(RectangleLight((-2.0, 4.0, 0.0), (4.0, 0.0, 0.0), (0.0, 0.0, 4.0),
+                         (1.0, 1.0, 1.0), 6.0))
+    return s
+
+
+def twin_mesh_scene():
+    """One tiny moving mesh of 192 triangles, 96 seeded ones twice (every
+    hit ties with its twin row, and the lower row must win), over a plane:
+    the most rows a tiny mesh may have, under two keys of translation and
+    rotation."""
+    rs = np.random.default_rng(3)
+    tris = rs.normal(0.0, 0.6, (96, 3, 3)).astype(np.float32)
+    verts = np.concatenate([tris, tris]).reshape(-1, 3)
+    s = Scene()
+    s.add(Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                DiffuseMaterial((0.6, 0.6, 0.9))))
+    mesh = TriangleMesh(verts, np.arange(576, dtype=np.int32).reshape(-1, 3),
+                        DiffuseMaterial((0.8, 0.3, 0.1)))
+    mesh.transform.set_translation(1.0, (0.2, 0.1, 0.0))
+    mesh.transform.set_rotation(
+        1.0, (math.cos(math.pi / 8), 0.0, 0.0, math.sin(math.pi / 8)))
+    s.add(mesh)
+    return s
 
 
 def write_bumpy_standin(path: str, n: int = 64, radius: float = 1.5) -> None:

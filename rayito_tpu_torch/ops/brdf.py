@@ -14,6 +14,7 @@ import torch
 from .vec3 import (
     PI,
     V3,
+    div_scalar,
     dot,
     from_local_frame,
     make_coordinate_space,
@@ -52,7 +53,7 @@ def lambert_evaluate_sa(incoming: V3, outgoing: V3, normal: V3):
     n_dot_o = dot(outgoing, normal)
     reject = _same_hemisphere(n_dot_i, n_dot_o)
     f = torch.where(reject, 0.0, 1.0 / PI).to(n_dot_i.dtype)
-    pdf = torch.where(reject, 0.0, torch.abs(n_dot_i) / PI)
+    pdf = torch.where(reject, 0.0, div_scalar(torch.abs(n_dot_i), PI))
     return f, pdf
 
 
@@ -62,7 +63,7 @@ def lambert_sample_sa(outgoing: V3, normal: V3, u1, u2):
     incoming = from_local_frame(local_incoming, x, y, z)
     flip = dot(outgoing, normal) < 0.0
     incoming = vwhere(flip, -incoming, incoming)
-    pdf = torch.abs(dot(-incoming, normal)) / PI
+    pdf = div_scalar(torch.abs(dot(-incoming, normal)), PI)
     f = torch.full_like(pdf, 1.0 / PI)
     return incoming, f, pdf
 
@@ -82,7 +83,7 @@ def glossy_evaluate_sa(incoming: V3, outgoing: V3, normal: V3, exponent):
     half = _glossy_half(incoming, outgoing, normal)
     n_dot_h = torch.abs(dot(normal, half))
     lobe = _flush(torch.pow(torch.clamp_min(n_dot_h, 0.0), exponent))
-    d = _flush((exponent + 1.0) * lobe / (2.0 * PI))
+    d = _flush(div_scalar((exponent + 1.0) * lobe, 2.0 * PI))
     denom = 4.0 * torch.abs(n_dot_o + (-n_dot_i) - n_dot_o * (-n_dot_i))
     f = _flush(d / torch.clamp_min(denom, 1e-37))
     o_dot_h = torch.abs(dot(outgoing, half))

@@ -15,13 +15,18 @@ from typing import Any
 
 import torch
 
-from .vec3 import V3, cross, dot, normalize as vnormalize, where as vwhere
+from .vec3 import V3, cross, dot, normalize as vnormalize, sqrt_ieee
+from .vec3 import where as vwhere
 
 
 @dataclasses.dataclass(frozen=True)
 class Quat:
     w: Any
     v: V3
+
+
+# the identity rotation, as scalars that broadcast in torch.where
+IDENTITY = Quat(1.0, V3(0.0, 0.0, 0.0))
 
 
 def _f32(x):
@@ -59,6 +64,10 @@ def from_euler_zyx(x_rot, y_rot, z_rot) -> Quat:
     )
 
 
+def where(mask, a: Quat, b: Quat) -> Quat:
+    return Quat(torch.where(mask, a.w, b.w), vwhere(mask, a.v, b.v))
+
+
 def conjugate(q: Quat) -> Quat:
     return Quat(q.w, -q.v)
 
@@ -68,7 +77,9 @@ def norm2(q: Quat):
 
 
 def normalize(q: Quat) -> Quat:
-    inv = 1.0 / torch.sqrt(torch.clamp_min(norm2(q), 1e-37))
+    """The correctly rounded square root (``sqrt_ieee``) on every device,
+    as csrc/fold_small.cu takes it."""
+    inv = 1.0 / sqrt_ieee(torch.clamp_min(norm2(q), 1e-37))
     return Quat(q.w * inv, q.v * inv)
 
 

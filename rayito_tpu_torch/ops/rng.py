@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..utils import cuda_lib
+from .vec3 import div_scalar as _div
 
 MASK32 = 0xFFFFFFFF
 
@@ -156,14 +157,6 @@ def cmj_rand_float(i: torch.Tensor, permutation: torch.Tensor):
     i = i ^ (i >> 17)
     i = _mul32_t(i, 1 | (permutation >> 18))
     return u32_to_float01(i)
-
-
-def _div(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x / n, rounded as one IEEE division on every device. On a CUDA
-    tensor PyTorch turns a division by a Python scalar into a multiply by
-    its reciprocal, which rounds twice; a 0-d divisor on x's device does
-    not (on the CPU both divide)."""
-    return x / torch.full((), float(n), dtype=torch.float32, device=x.device)
 
 
 def _index(index, index_mul: int, index_add: int):

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from . import rng as rngo
+from .vec3 import div_scalar
 
 
 def random_sample_1d(index, n, permutation):
@@ -27,7 +28,7 @@ def stratified_sample_1d(index, n, permutation):
     """(index + jitter) / n over a 1-D grid."""
     i = rngo.u32(index)
     jitter = rngo.cmj_rand_float(i, rngo.u32(permutation))
-    return (i.to(torch.float32) + jitter) / float(n)
+    return div_scalar(i.to(torch.float32) + jitter, n)
 
 
 def stratified_sample_2d(index, nx, ny, permutation):
@@ -38,7 +39,7 @@ def stratified_sample_2d(index, nx, ny, permutation):
     iy = (i // nx).to(torch.float32)
     jx = rngo.cmj_rand_float(i, rngo._mul32(p, 0xA399D265))
     jy = rngo.cmj_rand_float(i, rngo._mul32(p, 0x711AD6A5))
-    return (ix + jx) / float(nx), (iy + jy) / float(ny)
+    return div_scalar(ix + jx, nx), div_scalar(iy + jy, ny)
 
 
 def cmj_sample_1d(index, n, permutation):

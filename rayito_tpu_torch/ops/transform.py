@@ -132,6 +132,29 @@ def eval_chain(xf_times, xf_translate, xf_scale, xf_rotate, xf_nkeys,
     return links
 
 
+def lane_links(scene, xf_id: int, time):
+    """The transform chain of ``scene``'s slot ``xf_id`` at per-lane
+    ``time``, child first, or None where nothing moves (a static scene, or
+    slot 0: the identity)."""
+    if not scene.has_motion or xf_id == 0:
+        return None
+    if not torch.is_tensor(time):
+        time = torch.full((1,), float(time), dtype=torch.float32,
+                          device=scene.device)
+    return eval_chain(scene.xf_times, scene.xf_translate, scene.xf_scale,
+                      scene.xf_rotate, scene.xf_nkeys, scene.xf_parent_host,
+                      xf_id, time)
+
+
+def local_ray(scene, xf_id: int, o: V3, d: V3, time):
+    """The ray in the local space of ``scene``'s transform slot ``xf_id``:
+    (o, d, world-from-local rotation, None for the identity)."""
+    links = lane_links(scene, xf_id, time)
+    if links is None:
+        return o, d, None
+    return ray_to_local_chain(links, o, d)
+
+
 def ray_to_local_chain(links, o: V3, d: V3):
     """A ray through the chain, outermost link first. Returns (o_local,
     d_local, rot): ``rot`` is the composed world-from-local rotation

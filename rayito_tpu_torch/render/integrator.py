@@ -19,7 +19,8 @@ from ..models.scene import LIGHT_RECT, LIGHT_SPHERE, SceneData
 from ..ops import rng as rngo
 from ..ops.brdf import (KIND_EMITTER, KIND_LAMBERT, KIND_PHONG,
                         lambert_shade, phong_shade)
-from ..ops.vec3 import V3, cross, dot, from_aos, normalize, where as vwhere
+from ..ops.vec3 import (V3, cross, div_scalar, dot, from_aos, normalize,
+                        where as vwhere)
 from ..ops.warps import uniform_to_sphere
 from ..utils import graphs
 from ..utils.config import RenderConfig
@@ -42,8 +43,8 @@ def screen_uv(config: RenderConfig, px, py, jx, jy):
     div1 = config.pixel_div_minus_one
     w = float(config.width - 1 if div1 else config.width)
     h = float(config.height - 1 if div1 else config.height)
-    xu = (px.to(torch.float32) + jx) / w
-    yu = 1.0 - (py.to(torch.float32) + jy) / h
+    xu = div_scalar(px.to(torch.float32) + jx, w)
+    yu = 1.0 - div_scalar(py.to(torch.float32) + jy, h)
     if config.aspect_correction:
         aspect = float(torch.tensor(config.width, dtype=torch.float32)
                        / torch.tensor(config.height, dtype=torch.float32))

@@ -40,7 +40,6 @@ from ..ops.warps import (
     uniform_to_cone,
     uniform_to_sphere,
 )
-from .trace import lane_links
 
 PDF_CLAMP = 1.0e10  # "really big PDFs blow up power-heuristic MIS"
 
@@ -61,7 +60,7 @@ def _kind_index_links(scene: SceneData, li: int, time):
     kind, idx = scene.light_kinds_host[li], scene.light_indices_host[li]
     if kind not in (LIGHT_RECT, LIGHT_SPHERE, LIGHT_MESH):
         raise NotImplementedError(f"unknown light kind {kind}")
-    return kind, idx, lane_links(scene, _xf_host(scene, kind)[idx], time)
+    return kind, idx, xfm.lane_links(scene, _xf_host(scene, kind)[idx], time)
 
 
 def _chain(fn, links, x: V3) -> V3:
@@ -338,8 +337,8 @@ def _for_chosen_light(scene: SceneData, light_idx, time, fn):
     for li, (kind, idx) in enumerate(lights):
         if li in shared.get(kind, ()):
             continue
-        res = fn(kind, idx, lane_links(scene, _xf_host(scene, kind)[idx],
-                                       time))
+        links = xfm.lane_links(scene, _xf_host(scene, kind)[idx], time)
+        res = fn(kind, idx, links)
         out = res if out is None else _keep(lidx == li, res, out)
     return out
 

@@ -34,24 +34,36 @@ at once) and that count is added explicitly. Nothing in a query reads the
 device back, so a pass of the route is captured as a CUDA graph like any
 other (``utils/graphs.py``).
 
-The dense fold (:func:`mesh_fold_small`) serves the kernel route's tiny
-transformed meshes (``SceneData.ktab_small``, at most 4 x 48 triangles),
-which would pay a whole sort, mask and traversal launch of their own: one
-[N, T] Möller-Trumbore over the mesh's rows of ``tri_vert_rows``
-(``fold_small`` in ``render/traverse.py``, the hand kernel on the card). The
-reference sends them down the pipeline, whose result is the fold's there:
-at most four real clusters in one supercluster never truncate.
+The kernel route's tiny transformed meshes (``SceneData.ktab_small``, at
+most 4 x 48 triangles each), which would pay a whole sort, mask and
+traversal launch of their own, fold densely instead: :func:`fold_small`
+takes every one of them for one query in one launch (``csrc/fold_small.cu``
+on the card), each lane evaluating each mesh's keyed transform chain at
+its time, taking its ray to the mesh's local space and testing the mesh's
+triangles below the nearest hit so far. Its plain twin,
+:func:`fold_small_query_plain`, is the loop over the meshes in
+``ktab_small`` order (the reference's ``rayito_tpu/render/trace.py:628-650``):
+the chain by ``ops/transform.py``, then :func:`mesh_fold_small`, one [N, T]
+Möller-Trumbore over the mesh's rows of ``tri_vert_rows``
+(``fold_small_plain`` in ``render/traverse.py``). The reference sends these
+meshes down the pipeline, whose result is the fold's there: at most four
+real clusters in one supercluster never truncate.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..accel.clusters import CLUSTERS_PER_SUPER, TRI_PER_CLUSTER
+from ..ops import quaternion as quat
+from ..ops import transform as xf
 from ..ops.intersect import INF, triangle_intersect
 from ..ops.vec3 import V3
+from ..utils import cuda_lib
 from .traverse import (K1_SUPERS, K2_CLUSTERS, box_slab, cluster_pipeline,
-                       fold_small, gather_rows_t)
+                       fold_small_plain, gather_rows_t)
 
 PAIR_CHUNKS = 4  # the reference's block: R = max(256, min(4096, N // 4))
 BRUTE_FORCE_CLUSTERS = 4  # ktab_small: meshes of at most 4 x 48 triangles
@@ -145,7 +157,7 @@ def _mesh_intersect_clusters(scene, mi, o: V3, d: V3, tmin, tmax, any_hit):
 def mesh_fold_small(scene, mi: int, o: V3, d: V3, tmin, tmax):
     """Nearest hit of tiny mesh ``mi`` (at most 4 x 48 triangles) for its
     local-space rays o, d (V3 of [N]) below ``tmax`` ([N] or scalar), by
-    the dense fold (``fold_small``, the hand kernel on the card). Returns
+    the dense fold over its padded rows (``fold_small_plain``). Returns
     (t [N], prim [N] global triangle id or -1, beta [N], gamma [N]); ties
     go to the lowest triangle."""
     tri0, count = scene.mesh_tri_ranges[mi]
@@ -160,4 +172,185 @@ def mesh_fold_small(scene, mi: int, o: V3, d: V3, tmin, tmax):
     tmax = tmax.to(torch.float32).expand(n).contiguous()
     o, d = (V3(v.x.contiguous(), v.y.contiguous(), v.z.contiguous())
             for v in (o, d))
-    return fold_small(rows, tri0, o, d, tmin, tmax)
+    return fold_small_plain(rows, tri0, o, d, tmin, tmax)
+
+
+def fold_small_query_plain(scene, o: V3, d: V3, time, tmin, tmax,
+                           best=None, occluded=None):
+    """The tiny meshes of one query (``scene.ktab_small``), mesh by mesh in
+    that order, for the world rays o, d (V3 of [N]) at the lanes' ``time``
+    ([N], None for a static scene) below ``tmax`` ([N]).
+
+    Closest hit, ``best`` = (t [N], prim [N] i32, beta [N], gamma [N],
+    rot: the winner's world-from-local Quat of [N], or None for a static
+    scene): each mesh is queried below min(t, tmax) in its local space and
+    replaces the best where it hits (prim >= 0), the rotation with it.
+    Returns the merged ``best``. Any hit, ``occluded`` [N] bool: each mesh
+    is queried below tmax where the lane is not occluded yet (0 where it
+    is). Returns ``occluded`` or'ed with the meshes' hits."""
+    if occluded is not None:
+        for mi in scene.ktab_small:
+            o_l, d_l, _ = xf.local_ray(scene, scene.mesh_xf_host[mi], o, d,
+                                       time)
+            tq = torch.where(occluded, 0.0, tmax)
+            prim_m = mesh_fold_small(scene, mi, o_l, d_l, tmin, tq)[1]
+            occluded = occluded | (prim_m >= 0)
+        return occluded
+    t_best, prim_best, beta_best, gamma_best, rot_best = best
+    for mi in scene.ktab_small:
+        o_l, d_l, rot = xf.local_ray(scene, scene.mesh_xf_host[mi], o, d,
+                                     time)
+        cap = torch.minimum(t_best, tmax)
+        t_m, prim_m, beta_m, gamma_m = mesh_fold_small(scene, mi, o_l, d_l,
+                                                       tmin, cap)
+        closer = prim_m >= 0
+        t_best = torch.where(closer, t_m, t_best)
+        prim_best = torch.where(closer, prim_m, prim_best)
+        beta_best = torch.where(closer, beta_m, beta_best)
+        gamma_best = torch.where(closer, gamma_m, gamma_best)
+        if rot_best is not None:
+            rot_best = quat.where(closer, rot or quat.IDENTITY, rot_best)
+    return t_best, prim_best, beta_best, gamma_best, rot_best
+
+
+# csrc/fold_small.cu's limits: meshes and rows per launch (a query with
+# more launches again, each launch folding into the last one's result),
+# links per transform chain
+FOLD_MAX_MESHES = 64
+FOLD_MAX_ROWS = 1024
+FOLD_MAX_DEPTH = 8
+
+
+class _FoldMesh(ctypes.Structure):
+    """One tiny mesh of a launch: its first row of ``tri_vert_rows`` (its
+    global triangle id 0), its real triangles, and its transform chain,
+    outermost slot first (depth 0: no transform)."""
+    _fields_ = [("row0", ctypes.c_int32), ("count", ctypes.c_int32),
+                ("depth", ctypes.c_int32),
+                ("slot", ctypes.c_int32 * FOLD_MAX_DEPTH)]
+
+
+class _FoldSpec(ctypes.Structure):
+    """A launch's meshes, in fold order, passed to the kernel by value."""
+    _fields_ = [("n_mesh", ctypes.c_int32), ("rows", ctypes.c_int32),
+                ("k", ctypes.c_int32),
+                ("mesh", _FoldMesh * FOLD_MAX_MESHES)]
+
+
+def _chain(scene, mi: int) -> list:
+    """Mesh ``mi``'s transform slots, outermost first ([] where nothing
+    moves: ``xf.lane_links`` is None there)."""
+    slot = scene.mesh_xf_host[mi]
+    if not scene.has_motion or slot == 0:
+        return []
+    chain = []
+    while slot >= 0:
+        chain.append(int(slot))
+        slot = int(scene.xf_parent_host[slot])
+    return chain[::-1]
+
+
+def _fold_specs(scene) -> list:
+    """``scene.ktab_small`` cut into launches of at most FOLD_MAX_MESHES
+    meshes and FOLD_MAX_ROWS rows. Each mesh tests only its real
+    triangles: the rows past them are all zero, so det = 0 there and they
+    never hit."""
+    specs, spec = [], None
+    for mi in scene.ktab_small:
+        row0, count = scene.mesh_tri_ranges[mi]
+        chain = _chain(scene, mi)
+        if (not 1 <= count <= BRUTE_FORCE_CLUSTERS * TRI_PER_CLUSTER
+                or len(chain) > FOLD_MAX_DEPTH):
+            raise ValueError(f"fold_small: mesh {mi} has {count} triangles "
+                             f"and a chain of {len(chain)} transforms; the "
+                             f"kernel takes 1-192 and at most "
+                             f"{FOLD_MAX_DEPTH}")
+        if (spec is None or spec.n_mesh == FOLD_MAX_MESHES
+                or spec.rows + count > FOLD_MAX_ROWS):
+            spec = _FoldSpec(n_mesh=0, rows=0,
+                             k=int(scene.xf_times.shape[1]))
+            specs.append(spec)
+        m = spec.mesh[spec.n_mesh]
+        m.row0, m.count, m.depth = row0, count, len(chain)
+        for j, s in enumerate(chain):
+            m.slot[j] = s
+        spec.n_mesh += 1
+        spec.rows += count
+    return specs
+
+
+@cuda_lib.counted
+def fold_small(scene, o: V3, d: V3, time, tmin, tmax, best=None,
+               occluded=None):
+    """Kernel wrapper of :func:`fold_small_query_plain` (same contract):
+    every tiny mesh of the query in one launch (``csrc/fold_small.cu``),
+    each lane's transform chains evaluated inside it."""
+    name = "fold_small"
+    if (best is None) == (occluded is None):
+        raise ValueError(f"{name}: give best (closest hit) or occluded "
+                         "(any hit)")
+    n = o.x.shape[0]
+    motion = scene.has_motion
+    rays = (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
+    if best is not None:
+        t_b, p_b, b_b, g_b, rot = best
+        state = (t_b, p_b, b_b, g_b)
+        if (rot is None) == motion:
+            raise ValueError(f"{name}: a rotation per lane where, and only "
+                             "where, the scene moves")
+        if rot is not None:
+            state += (rot.w, rot.v.x, rot.v.y, rot.v.z)
+    else:
+        state = (occluded,)
+    lanes = rays + state + ((time,) if motion else ())
+    if any(t.shape != (n,) for t in lanes):
+        raise ValueError(f"{name}: rays, tmax, time and the state must be "
+                         "[N]")
+    tensors = lanes + (scene.tri_vert_rows,)
+    if cuda_lib.on_cpu(name, *tensors):
+        return fold_small_query_plain(scene, o, d, time, tmin, tmax, best,
+                                      occluded)
+    if not isinstance(tmin, (int, float)):
+        raise ValueError(f"{name}: tmin must be a Python number")
+    dtypes = ([torch.float32] * 7 + ([torch.float32, torch.int32]
+                                     + [torch.float32] * (len(state) - 2)
+                                     if best is not None else [torch.bool])
+              + [torch.float32] * motion)
+    if any(t.dtype != dt for t, dt in zip(lanes, dtypes)):
+        raise ValueError(f"{name}: f32 rays, tmax, time and t / beta / gamma "
+                         "/ rotation, i32 prim, bool occluded expected")
+    specs = _fold_specs(scene)
+    lanes = tuple(t.contiguous() for t in lanes)
+    tables = (scene.tri_vert_rows, scene.xf_times, scene.xf_translate,
+              scene.xf_scale, scene.xf_rotate, scene.xf_nkeys)
+    lib, stream = cuda_lib.launch_args(name, *lanes, *tables)
+    dev = o.x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    rays, state = lanes[:7], lanes[7:7 + len(state)]
+    t_lane = lanes[7 + len(state)].data_ptr() if motion else None
+    for spec in specs:
+        if best is not None:
+            rot_out = torch.empty((4, n), **f32) if motion else None
+            outs = (torch.empty((n,), **f32),
+                    torch.empty((n,), dtype=torch.int32, device=dev),
+                    torch.empty((n,), **f32), torch.empty((n,), **f32),
+                    *(rot_out if motion else ()))
+            io = (*(t.data_ptr() for t in state),
+                  *(None,) * (8 - len(state)), None,
+                  *(t.data_ptr() for t in outs[:4]),
+                  rot_out.data_ptr() if motion else None, None)
+        else:
+            outs = (torch.empty((n,), dtype=torch.bool, device=dev),)
+            io = (None,) * 8 + (state[0].data_ptr(),) + (None,) * 5 + (
+                outs[0].data_ptr(),)
+        if n:
+            cuda_lib.check(lib.rt_fold_small(
+                ctypes.byref(spec), *(t.data_ptr() for t in tables),
+                *(t.data_ptr() for t in rays), t_lane, float(tmin), *io, n,
+                stream), name)
+            cuda_lib.count_launch(fold_small, dev)
+        state = outs
+    if best is None:
+        return state[0]
+    rot = quat.Quat(state[4], V3(*state[5:8])) if motion else None
+    return (*state[:4], rot)

@@ -7,9 +7,10 @@ whole wavefront. Triangle meshes take the scene's traversal:
   * ``'pallas'``: the kernel traversal (``render/traverse.py``), one
     launch per traversal domain, whose winner is re-tested exactly and
     shaded from one gathered, transposed 32-column row (``gather_rows_t``).
-    Tiny transformed meshes fold densely (``render/mesh_intersect.py``)
-    and their winners shade from a gathered meta row. Nothing truncates:
-    ``overflow`` is 0;
+    Tiny transformed meshes fold densely, all of a query's in one
+    ``fold_small`` launch, their transforms inside it
+    (``render/mesh_intersect.py``), and their winners shade from a gathered
+    meta row. Nothing truncates: ``overflow`` is 0;
   * ``'xla'``: the two-level cluster pipeline
     (``render/mesh_intersect.py``), mesh by mesh in each mesh's local space
     at the lane's time, each capped at the nearest hit so far; the winner
@@ -51,17 +52,16 @@ from ..ops.intersect import (
     sphere_intersect,
     triangle_intersect,
 )
+from ..ops import quaternion as quat
 from ..ops.quaternion import Quat, rotate_vector
 from ..ops.vec3 import V3, from_aos, normalize, where as vwhere
-from .mesh_intersect import mesh_fold_small, mesh_intersect_clusters
+from .mesh_intersect import fold_small, mesh_intersect_clusters
 from .traverse import gather_rows_t, traverse
 
 # rows per batched [rows, N] evaluation (bounds the temporaries: 32 MB
 # each at 131,072 lanes)
 ROLL_CHUNK = 64
 
-# the identity rotation, as scalars that broadcast in torch.where
-_IDENTITY = Quat(1.0, V3(0.0, 0.0, 0.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,32 +100,6 @@ def _lane_time(scene: SceneData, time, n, device):
     return _lanes(time, n, device)
 
 
-def lane_links(scene: SceneData, xf_id: int, time):
-    """The transform chain of slot ``xf_id`` at per-lane ``time``, child
-    first, or None where nothing moves (a static scene, or slot 0: the
-    identity)."""
-    if not scene.has_motion or xf_id == 0:
-        return None
-    if not torch.is_tensor(time):
-        time = _lanes(time, 1, scene.device)
-    return xf.eval_chain(scene.xf_times, scene.xf_translate, scene.xf_scale,
-                         scene.xf_rotate, scene.xf_nkeys, scene.xf_parent_host,
-                         xf_id, time)
-
-
-def _shape_local_ray(scene: SceneData, xf_id: int, o: V3, d: V3, time):
-    """The ray in the local space of transform slot ``xf_id``: (o, d,
-    world-from-local rotation, None for the identity)."""
-    links = lane_links(scene, xf_id, time)
-    if links is None:
-        return o, d, None
-    return xf.ray_to_local_chain(links, o, d)
-
-
-def _where_quat(mask, a: Quat, b: Quat) -> Quat:
-    return Quat(torch.where(mask, a.w, b.w), vwhere(mask, a.v, b.v))
-
-
 def _rotate_out(rot, n_local: V3) -> V3:
     return n_local if rot is None else rotate_vector(rot, n_local)
 
@@ -159,7 +133,7 @@ def _row_batches(scene: SceneData, xf_host, o: V3, d: V3, time):
         if moving[r0]:
             slot = xf_host[r0]
             if slot not in local:
-                local[slot] = _shape_local_ray(scene, slot, o, d, time)
+                local[slot] = xf.local_ray(scene, slot, o, d, time)
             yield (r0, r0 + 1, *local[slot])
             r0 += 1
             continue
@@ -224,7 +198,7 @@ class _RowFold:
         if self.motion:
             self.o_w = vwhere(closer, o_l, self.o_w)
             self.d_w = vwhere(closer, d_l, self.d_w)
-            self.rot = _where_quat(closer, rot or _IDENTITY, self.rot)
+            self.rot = quat.where(closer, rot or quat.IDENTITY, self.rot)
 
 
 def _plane_rows(scene: SceneData, r0, r1, o: V3, d: V3, tmin, tcur):
@@ -305,7 +279,7 @@ def _domain_tri(scene: SceneData, di: int, mt: str):
 def _domain_local_ray(scene: SceneData, di: int, o: V3, d: V3, time):
     """The ray in traversal domain ``di``'s space (world space for the
     merged static domain)."""
-    return _shape_local_ray(scene, scene.ktab_xf[di], o, d, time)
+    return xf.local_ray(scene, scene.ktab_xf[di], o, d, time)
 
 
 def _launch(scene: SceneData, di: int, o: V3, d: V3, tmax, tmin, mt: str,
@@ -411,31 +385,28 @@ def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
         meta_best = (meta if meta_best is None
                      else torch.where(closer[None, :], meta, meta_best))
         if rot_best is not None:
-            rot_best = _where_quat(closer, rot or _IDENTITY, rot_best)
+            rot_best = quat.where(closer, rot or quat.IDENTITY, rot_best)
     # these winners carry no meta rows: with any such mesh the shading
     # gathers the meta rows of every winner
-    singles = range(scene.n_meshes) if xla else scene.ktab_small
-    if singles:
-        meta_best = None
     overflow = 0
-    for mi in singles:
-        o_l, d_l, rot = _shape_local_ray(scene, scene.mesh_xf_host[mi], o, d,
+    if not xla and scene.ktab_small:
+        meta_best = None
+        t_best, prim_best, beta_best, gamma_best, rot_best = fold_small(
+            scene, o, d, time, tmin, tmax,
+            best=(t_best, prim_best, beta_best, gamma_best, rot_best))
+    for mi in range(scene.n_meshes) if xla else ():
+        o_l, d_l, rot = xf.local_ray(scene, scene.mesh_xf_host[mi], o, d,
                                          time)
-        cap = torch.minimum(t_best, tmax)
-        if xla:
-            t_m, prim_m, beta_m, gamma_m, ovf = mesh_intersect_clusters(
-                scene, mi, o_l, d_l, tmin, cap)
-            overflow = overflow + ovf
-        else:
-            t_m, prim_m, beta_m, gamma_m = mesh_fold_small(
-                scene, mi, o_l, d_l, tmin, cap)
+        t_m, prim_m, beta_m, gamma_m, ovf = mesh_intersect_clusters(
+            scene, mi, o_l, d_l, tmin, torch.minimum(t_best, tmax))
+        overflow = overflow + ovf
         closer = prim_m >= 0
         t_best = torch.where(closer, t_m, t_best)
         prim_best = torch.where(closer, prim_m, prim_best)
         beta_best = torch.where(closer, beta_m, beta_best)
         gamma_best = torch.where(closer, gamma_m, gamma_best)
         if rot_best is not None:
-            rot_best = _where_quat(closer, rot or _IDENTITY, rot_best)
+            rot_best = quat.where(closer, rot or quat.IDENTITY, rot_best)
     return _mesh_shading(scene, t_best, prim_best, beta_best, gamma_best,
                          meta_best, rot_best), overflow
 
@@ -559,16 +530,16 @@ def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     # mesh by mesh, tmax as it is (no launch key to round for); lanes
     # already occluded query with tmax 0
     overflow = 0
-    for mi in range(scene.n_meshes) if xla else scene.ktab_small:
-        o_l, d_l, _ = _shape_local_ray(scene, scene.mesh_xf_host[mi], o, d,
+    if not xla and scene.ktab_small:
+        occluded = fold_small(scene, o, d, time, tmin, tmax,
+                              occluded=occluded)
+    for mi in range(scene.n_meshes) if xla else ():
+        o_l, d_l, _ = xf.local_ray(scene, scene.mesh_xf_host[mi], o, d,
                                        time)
-        tq = torch.where(occluded, 0.0, tmax)
-        if xla:
-            _, prim_m, _, _, ovf = mesh_intersect_clusters(
-                scene, mi, o_l, d_l, tmin, tq, any_hit=True)
-            overflow = overflow + ovf
-        else:
-            prim_m = mesh_fold_small(scene, mi, o_l, d_l, tmin, tq)[1]
+        _, prim_m, _, _, ovf = mesh_intersect_clusters(
+            scene, mi, o_l, d_l, tmin, torch.where(occluded, 0.0, tmax),
+            any_hit=True)
+        overflow = overflow + ovf
         occluded = occluded | (prim_m >= 0)
     return occluded, overflow
 

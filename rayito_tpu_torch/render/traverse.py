@@ -25,8 +25,9 @@ One launch domain's nearest (or any) triangle hit for a wavefront:
 plain torch here. ``cluster_pipeline`` (kernel) is phases 2-3 of the
 ``traversal='xla'`` route's two-level pipeline
 (``render/mesh_intersect.py``), the body of the reference's device-side
-block loop. ``fold_small`` (kernel) is the dense fold of one tiny
-transformed mesh (the reference's XLA ``_brute_force_mesh``).
+block loop. ``fold_small_plain`` is the dense fold of one tiny
+transformed mesh (the reference's XLA ``_brute_force_mesh``), a part of the
+plain twin of the ``fold_small`` kernel (``render/mesh_intersect.py``).
 
 Every kernel has its plain PyTorch version beside it (``*_plain``), with
 the same contract. A wrapper runs the plain version only for CPU tensors;
@@ -761,11 +762,9 @@ def cluster_pipeline(ray_of_slot, n_active, o, d, tmax, tmin: float, t_sc,
 
 
 # ---------------------------------------------------------------------------
-# Kernel 7: the dense fold of one tiny mesh (replaces the XLA
-# _brute_force_mesh of the reference's mesh_intersect.py)
+# The dense fold of one tiny mesh (the reference's XLA _brute_force_mesh):
+# the per-mesh part of fold_small's plain twin (render/mesh_intersect.py)
 # ---------------------------------------------------------------------------
-
-FOLD_SMALL_MAX_TRI = 192  # 4 clusters x 48 triangles
 
 
 def fold_small_plain(rows, tri0: int, o: V3, d: V3, tmin: float, tmax):
@@ -785,40 +784,6 @@ def fold_small_plain(rows, tri0: int, o: V3, d: V3, tmin: float, tmax):
     prim = torch.where(torch.isfinite(t_best), tri0 + j[:, 0].to(torch.int32),
                        -1).to(torch.int32)
     return t_best, prim, beta.gather(1, j)[:, 0], gamma.gather(1, j)[:, 0]
-
-
-@cuda_lib.counted
-def fold_small(rows, tri0: int, o: V3, d: V3, tmin: float, tmax):
-    """Kernel wrapper of :func:`fold_small_plain`."""
-    name = "fold_small"
-    comps = (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
-    _check_dtype(name, rows, torch.float32, 2)
-    for c in comps:
-        _check_dtype(name, c, torch.float32, 1)
-    n = tmax.shape[0]
-    if (not 1 <= rows.shape[0] <= FOLD_SMALL_MAX_TRI or rows.shape[1] != 16
-            or any(c.shape[0] != n for c in comps)):
-        raise ValueError(f"{name}: rows [1..{FOLD_SMALL_MAX_TRI}, 16] and "
-                         "rays [N] expected")
-    if cuda_lib.on_cpu(name, rows, *comps):
-        return fold_small_plain(rows, tri0, o, d, tmin, tmax)
-    if not isinstance(tmin, (int, float)):
-        raise ValueError(f"{name}: tmin must be a Python number")
-    lib, stream = cuda_lib.launch_args(name, rows, *comps)
-    dev = rows.device
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    prim = torch.empty((n,), dtype=torch.int32, device=dev)
-    beta = torch.empty((n,), dtype=torch.float32, device=dev)
-    gamma = torch.empty((n,), dtype=torch.float32, device=dev)
-    if n == 0:
-        return t, prim, beta, gamma
-    cuda_lib.check(lib.rt_fold_small(
-        rows.data_ptr(), rows.shape[0], int(tri0),
-        *(c.data_ptr() for c in comps), float(tmin), t.data_ptr(),
-        prim.data_ptr(), beta.data_ptr(), gamma.data_ptr(), n, stream,
-    ), name)
-    cuda_lib.count_launch(fold_small, dev)
-    return t, prim, beta, gamma
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,9 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # every multiply and add rounds on its own, as in the reference
-    "-fmad=false", "-prec-div=true", "-ftz=false",
+    # every multiply and add rounds on its own, as in the reference;
+    # divisions and square roots are IEEE
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
     "-Xcompiler", "-fPIC",
 ]
 
@@ -56,8 +57,8 @@ SIGNATURES = {
     "rt_cluster_pipeline": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _P],
     "rt_hash_combine": [_P, _I, _I, _P, _P],
     "rt_cmj_sample": [_P, _U, _U, _P, _I, _I, _P, _P, _I, _P],
-    "rt_fold_small": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
-                      _P, _P, _I, _P],
+    # spec, 6 tables, 7 rays, time, tmin, 9 inputs, 6 outputs, n, stream
+    "rt_fold_small": [_P] * 15 + [_F] + [_P] * 15 + [_I, _P],
 }
 
 

@@ -36,16 +36,19 @@ cli.main on stage 6 through the three kernels; and, for the
 traversal='xla' route, the two-level pipeline on the card against the CPU
 (t, beta and gamma bits, prim and overflow, on a mesh that truncates),
 its nearest-k on tied rows, its winner rows through gather_rows_t, the
-cluster_pipeline kernel against its plain version on the truncating mesh
-and stage 6's camera, bounce and shadow rays, and its passes captured as
-graphs (stage 6 and the overflowing stack) and replayed through
-render_path_with_stats, render_progressive and the sharded render; and
+cluster_pipeline kernel against its plain version on the truncating mesh,
+a mesh whose boxes all tie and stage 6's camera, bounce and shadow rays,
+and its passes captured as graphs (stage 6 and the overflowing stack) and
+replayed through render_path_with_stats, render_progressive and the
+sharded render; and
 the sample streams' kernel (hash_combine, cmj_sample_1d, cmj_sample_2d)
 against its plain versions at nums that walk and nums that do not, with
 int32 and int64 operands, 0-d and immediate permutations and the
 multiplier-and-addend index, its launch count inside a captured graph,
-and fold_small against its plain version on stage 7b's cube and on a mesh
-whose every hit ties with a twin row.
+and fold_small (every tiny mesh of a query in one launch) against its
+plain twin on stage 7b's ten cubes (in one launch, and cut into four
+chained launches), a one-key cube, a cube in a turning group and a
+192-row mesh whose every hit ties with a twin row, closest and any hit.
 Every kernel comparison is exact: kernel and plain version run the same
 IEEE float32 operations in the same order, without contraction.
 """
@@ -1313,18 +1316,33 @@ def _stage6_population(sd, kind, dev, n=16384):
             V3(keep(nd.x, d.x), keep(nd.y, d.y), keep(nd.z, d.z)), tmax)
 
 
-@pytest.mark.parametrize("case", ["layers", "stage6_camera",
+@pytest.mark.parametrize("case", ["layers", "ties", "stage6_camera",
                                   "stage6_bounce", "stage6_shadow"])
 def test_cluster_pipeline_kernel_matches_plain(dev, xla_scenes, case):
     """cluster_pipeline against cluster_pipeline_plain on the card, t,
     prim and per-slot overflow bit for bit, for every mesh: the layered
-    stack crossed end-on (5,003 rays; it truncates at both levels) and
-    stage 6's camera, bounce and shadow populations (16,384 rays); the
-    kernel reads n_active on the device, and slots past it are misses."""
+    stack crossed end-on (5,003 rays; it truncates at both levels),
+    demo.tied_slivers_scene, whose boxes all tie (16,384 rays straight up
+    z, truncating by the tie rule) and stage 6's camera, bounce and shadow populations
+    (16,384 rays); the kernel reads n_active on the device, and slots past
+    it are misses."""
     from rayito_tpu_torch.render import mesh_intersect as mi
 
-    sd = xla_scenes["layers" if case == "layers" else "stage6"].to(dev)
-    if case == "layers":
+    if case == "ties":
+        from rayito_tpu_torch.models.demo import tied_slivers_scene
+
+        sd = tied_slivers_scene().compile(dev, traversal="xla")
+    else:
+        sd = xla_scenes["layers" if case == "layers" else "stage6"].to(dev)
+    if case == "ties":
+        rs = np.random.default_rng(8)
+        n = 16384
+        f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa
+        o = V3(f(rs.uniform(-0.9, 0.9, n)), f(rs.uniform(-0.9, 0.9, n)),
+               f(np.full(n, -2.0)))
+        z = torch.zeros((n,), device=dev)
+        d, tmax = V3(z, z, z + 1.0), z + 1e30
+    elif case == "layers":
         o, d, tmax = (torch.from_numpy(a).to(dev) for a in _xla_rays(
             "layers", 5003))
         o, d = (V3(a[:, 0].contiguous(), a[:, 1].contiguous(),
@@ -1342,7 +1360,7 @@ def test_cluster_pipeline_kernel_matches_plain(dev, xla_scenes, case):
         n_act = int(args["n_active"])
         assert (got[1][n_act:] == -1).all() and not got[2][n_act:].any()
         total += int((got[1][:n_act] >= 0).sum())
-        if case == "layers":
+        if case in ("layers", "ties"):
             assert int(got[2].sum()) > 5003
     assert total > 1000
 
@@ -1727,42 +1745,74 @@ def test_cmj_kernel_counts_and_captures(dev):
     assert all(_same_bits(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("mesh", ["cube", "tied_192"])
-def test_fold_small_kernel_matches_plain(dev, mesh):
-    """fold_small through the kernel against its plain version on the
-    card: t and prim bit for bit on every lane, beta and gamma where prim
-    >= 0; on stage 7b's cube and on 96 seeded triangles twice over (every
-    hit ties with its twin and goes to the lower row), with a per-lane
-    tmax that cuts some lanes short."""
-    from rayito_tpu_torch.models.demo import stage7_scene2
+@pytest.mark.parametrize("mesh", ["stage7b", "one_key", "nested", "tied_192",
+                                  "chained"])
+def test_fold_small_kernel_matches_plain(dev, mesh, monkeypatch):
+    """fold_small (every tiny mesh of a query in one launch) against its
+    plain twin fold_small_query_plain on the card, 131,072 seeded rays at
+    lane times in [-0.5, 1.5], every 5th cut short by tmax: closest hit
+    from a running best of its own (t, prim, beta, gamma and the rotation
+    bit for bit on every lane) and any hit (occluded equal), one launch
+    each, counted on the host and on the device. "tied_192":
+    demo.twin_mesh_scene, 96 triangles twice in one mesh of 192 rows, where
+    every hit must go to the lower of the two twin rows. "chained": stage
+    7b's ten cubes cut into launches of at most 3 meshes (four per query),
+    each launch folding into the last one's outputs."""
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.ops.quaternion import Quat
+    from rayito_tpu_torch.render import mesh_intersect as mi
 
+    sd = {"stage7b": demo.stage7_scene2, "chained": demo.stage7_scene2,
+          "one_key": demo.one_key_cube_scene,
+          "nested": demo.nested_cube_scene,
+          "tied_192": demo.twin_mesh_scene}[mesh]().compile(dev)
+    per_query = 1
+    if mesh == "chained":
+        monkeypatch.setattr(mi, "FOLD_MAX_MESHES", 3)
+        per_query = len(mi._fold_specs(sd))
+        assert per_query == 4
     rs = np.random.default_rng(4)
-    if mesh == "cube":
-        sd = stage7_scene2().compile(dev)
-        tri0 = sd.mesh_tri_ranges[3][0]
-        rows = sd.tri_vert_rows[tri0:tri0 + 48]
-        centre = (0.5, 0.5, 0.5)
-    else:
-        tris = rs.normal(0.0, 0.6, (96, 9)).astype(np.float32)
-        rows = np.zeros((192, 16), np.float32)
-        rows[:96, :9] = rows[96:, :9] = tris
-        rows = torch.from_numpy(rows).to(dev)
-        tri0, centre = 100, (0.0, 0.0, 0.0)
     n = 131072
-    o = np.tile(np.asarray([0.3, 0.2, 6.0], np.float32), (n, 1))
-    d = rs.normal(0.0, 0.15, (n, 3)) + (np.asarray(centre) - o[0])
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    tmax = np.full(n, 1e30, np.float32)
+    if mesh in ("stage7b", "chained"):
+        o = np.tile(np.float32([-4.0, 10.0, 30.0]), (n, 1))
+        target = np.stack([rs.uniform(-10.0, 11.0, n),
+                           rs.uniform(-2.0, 11.0, n),
+                           rs.uniform(1.0, 4.0, n)], 1)
+    else:
+        o = np.tile(np.float32([0.3, 0.8, 6.0]), (n, 1))
+        target = rs.uniform(-1.2, 1.6, (n, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 1e30)
     tmax[::5] = 5.0
-    v3 = lambda a: V3(*(torch.from_numpy(a[:, k].copy()).to(dev)  # noqa
-                        for k in range(3)))
-    args = (rows, tri0, v3(o), v3(d), 1e-4, torch.from_numpy(tmax).to(dev))
-    got = tv.fold_small(*args)
-    want = tv.fold_small_plain(*args)
-    hit = want[1] >= 0
-    assert 0 < int(hit.sum()) < n
-    assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
-    for k in (2, 3):
-        assert _same_bits(got[k][hit], want[k][hit])
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    v3 = lambda a: V3(f(a[:, 0]), f(a[:, 1]), f(a[:, 2]))  # noqa: E731
+    time = f(rs.uniform(-0.5, 1.5, n))
+    t_run = f(np.where(rs.random(n) < 0.3, rs.uniform(20.0, 40.0, n),
+                       np.inf))
+    one, zero = torch.ones((n,), device=dev), torch.zeros((n,), device=dev)
+    best = (t_run, torch.where(t_run < 1e30, 5, -1).to(torch.int32),
+            zero + 0.25, zero + 0.5, Quat(one, V3(zero, zero, zero)))
+    args = (sd, v3(o), v3(d), time, 1e-4, f(tmax))
+    cuda_lib.reset_launch_counts()
+    got = mi.fold_small(*args, best=best)
+    want = mi.fold_small_query_plain(*args, best=best)
+    flat = lambda r: [*r[:4], r[4].w, r[4].v.x, r[4].v.y, r[4].v.z]  # noqa
+    assert all(_same_bits(g, w) for g, w in zip(flat(got), flat(want)))
+    hit = want[1] != best[1]
+    assert int(hit.sum()) > 1000
     if mesh == "tied_192":
-        assert int((got[1][hit] - tri0).max()) < 96
+        row0, count = sd.mesh_tri_ranges[sd.ktab_small[0]]
+        rows = sd.tri_vert_rows[row0:row0 + count, :9].cpu().numpy()
+        first = {}
+        for i, r in enumerate(rows):
+            first.setdefault(r.tobytes(), i)
+        assert len(first) == count // 2  # every row has one twin
+        won = got[1][hit].cpu().numpy() - row0
+        assert all(first[rows[i].tobytes()] == i for i in set(won))
+    occ0 = torch.from_numpy(rs.random(n) < 0.2).to(dev)
+    got = mi.fold_small(*args, occluded=occ0)
+    want = mi.fold_small_query_plain(*args, occluded=occ0)
+    assert torch.equal(got, want) and int((want & ~occ0).sum()) > 1000
+    assert mi.fold_small.launches == 2 * per_query
+    assert cuda_lib.launch_counts()["fold_small"] == 2 * per_query

@@ -44,7 +44,7 @@ from rayito_tpu.utils.config import RenderConfig as JConfig
 import rayito_tpu_torch as tt
 from rayito_tpu_torch.models.camera import PerspectiveCamera as TCam
 from rayito_tpu_torch.ops import rng as trng
-from rayito_tpu_torch.ops.vec3 import normalize
+from rayito_tpu_torch.ops.vec3 import normalize, sqrt_ieee
 from rayito_tpu_torch.ops.warps import uniform_to_uniform_disk
 from rayito_tpu_torch.render import pathtracer as tpath
 
@@ -150,18 +150,19 @@ def test_cmj_permute_matches_reference_and_walk(nums):
 
 def _branch_rays(cam, xu, yu, lu, lv, tu):
     """The camera's former form: depth of field only behind a Python test
-    of the lens radius."""
+    of the lens radius (with the camera's correctly rounded root)."""
     sx = (xu - 0.5) * cam.tan_fov
     sy = (yu - 0.5) * cam.tan_fov
-    direction = normalize(cam.forward + cam.right * sx + cam.up * sy)
+    direction = normalize(cam.forward + cam.right * sx + cam.up * sy,
+                          sqrt_ieee)
     origin = cam.origin.broadcast_to(sx.shape)
     if float(cam.lens_radius) > 0.0:
         hs, vs = uniform_to_uniform_disk(lu, lv)
         hs, vs = hs * cam.lens_radius, vs * cam.lens_radius
         focus = origin + direction * (
-            cam.focal_distance * torch.sqrt(sx * sx + sy * sy + 1.0))
+            cam.focal_distance * sqrt_ieee(sx * sx + sy * sy + 1.0))
         origin = origin + cam.right * hs + cam.up * vs
-        direction = normalize(focus - origin)
+        direction = normalize(focus - origin, sqrt_ieee)
     return origin, direction, cam.time(tu).expand(sx.shape)
 
 

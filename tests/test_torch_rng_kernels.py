@@ -2,8 +2,8 @@
 whose plain versions were the reference's XLA regions, on the CPU.
 
 On a CPU tensor ``hash_combine``, ``cmj_sample_1d``, ``cmj_sample_2d``
-(``ops/rng.py``) and ``fold_small`` (``render/traverse.py``) run their
-plain versions; the kernels themselves (``csrc/cmj.cu``,
+(``ops/rng.py``) and ``fold_small`` (``render/mesh_intersect.py``) run
+their plain versions; the kernels themselves (``csrc/cmj.cu``,
 ``csrc/fold_small.cu``) are held against those on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``). Here, against
 ``rayito_tpu`` (op by op under ``jax.disable_jit``, so XLA contracts
@@ -43,7 +43,6 @@ from rayito_tpu_torch.models import demo as tdemo
 from rayito_tpu_torch.ops import rng as trng
 from rayito_tpu_torch.ops.vec3 import V3 as TV3
 from rayito_tpu_torch.render import mesh_intersect as tmi
-from rayito_tpu_torch.render import traverse as tv
 from rayito_tpu_torch.utils import cuda_lib
 
 LANES = 256
@@ -197,9 +196,14 @@ def test_wrappers_refuse_mixed_devices_and_shapes():
     assert trng._operand("hash_combine", -1).imm == 0xFFFFFFFF
     with pytest.raises(ValueError, match="int32 or int64"):
         trng._operand("hash_combine", torch.zeros(2))
-    with pytest.raises(ValueError, match="fold_small"):
-        tv.fold_small(torch.zeros((193, 16)), 0, TV3(*[x.float()] * 3),
-                      TV3(*[x.float()] * 3), 1e-4, x.float())
+    sd = tdemo.stage7_scene2().compile("cpu")
+    f = x.float()
+    ray = TV3(f, f, f)
+    with pytest.raises(ValueError, match="fold_small"):  # best or occluded
+        tmi.fold_small(sd, ray, ray, f, 1e-4, f)
+    with pytest.raises(ValueError, match="fold_small"):  # lanes of [N]
+        tmi.fold_small(sd, ray, ray, f[:3], 1e-4, f,
+                       occluded=torch.zeros(4, dtype=torch.bool))
 
 
 def test_kernel_registry_lists_eight_kernels():
@@ -211,9 +215,10 @@ def test_kernel_registry_lists_eight_kernels():
                      "traverse_items"]
     cuda_lib.reset_launch_counts()
     trng.hash_combine(torch.arange(4), 1)
-    tmi_rows = torch.zeros((48, 16))
     z = torch.zeros(4)
-    tv.fold_small(tmi_rows, 0, TV3(z, z, z), TV3(z, z, z + 1.0), 1e-4, z)
+    tmi.fold_small(tdemo.stage7_scene2().compile("cpu"), TV3(z, z, z),
+                   TV3(z, z, z + 1.0), z, 1e-4, z,
+                   occluded=torch.zeros(4, dtype=torch.bool))
     assert all(fn.launches == 0 for fn in cuda_lib.KERNELS)  # plain on the CPU
 
 

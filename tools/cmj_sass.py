@@ -1,17 +1,25 @@
-"""The SASS that ``csrc/cmj.cu`` compiles to, counted for its bound.
+"""The SASS the port's kernels compile to, counted for their bounds.
 
 Builds the kernel library (``utils/cuda_lib.build``), disassembles it with
-``cuobjdump -sass`` and prints, for each of the two sample-stream kernels
-(``cmj_hash_kernel``, ``cmj_sample_kernel``), one JSON line: its
+``cuobjdump -sass`` and prints, for each kernel named (by default the two
+sample-stream kernels of ``csrc/cmj.cu``, ``cmj_hash_kernel`` and
+``cmj_sample_kernel``), one JSON line per compiled function: its
 instruction count by opcode, every loop (a branch back to an earlier
 address) with the instructions between its head and that branch, and its
 basic blocks. The cycle walk's loop gives the instructions one round
 after the first costs, with what the compiler hoisted out of it; the
 blocks on a lane's path give what a hash, its operands and a sample cost
 (``chip_smoke.py``'s ``HASH_INSNS``, ``SAMPLE_INSNS`` and ``ROUND_INSNS``).
+``--kernels cluster_pipeline_kernel`` gives the pipeline's slab-test and
+triangle-test loops (``chip_smoke.py``'s ``PIPE_INSNS``), ``--kernels
+fold_small_kernel`` the tiny-mesh fold's (``FOLD_INSNS``); for those two
+each loop also counts its ``float_loads``: float instructions (arithmetic,
+compares, selects, ``MUFU`` and the division's ``FCHK``) and loads from
+shared or global memory, leaving out integer, address and control work.
 The whole listing is written to ``--out``.
 
     python3 tools/cmj_sass.py --out build/cmj_sass.txt
+    python3 tools/cmj_sass.py --kernels cluster_pipeline_kernel,fold_small_kernel
 
 Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit); no card.
 """
@@ -36,6 +44,13 @@ _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"(0x[0-9a-f]+|\.L_x_\d+)")
 # opcodes that end a basic block
 _ENDS = ("BRA", "EXIT", "CALL", "RET", "BSSY", "BSYNC")
+# a test's float work and its data's loads (FENCE is not a float op)
+_FLOAT_LOADS = ("F", "MUFU", "LDS", "LDG")
+
+
+def _float_loads(ops: dict) -> int:
+    return sum(n for op, n in ops.items()
+               if op.startswith(_FLOAT_LOADS) and not op.startswith("FENCE"))
 
 
 def _functions(sass: str) -> dict:
@@ -99,8 +114,10 @@ def summarize(lines) -> dict:
         starts.add(tgt)
         if op.startswith("BRA") and tgt < addr:
             body = [i for i in insns if tgt <= i[0] <= addr]
+            ops = _histogram(body)
             loops.append({"head": hex(tgt), "branch": hex(addr),
-                          "insns": len(body), "ops": _histogram(body)})
+                          "insns": len(body), "float_loads": _float_loads(ops),
+                          "ops": ops})
     blocks = []
     for addr, op, _ in insns:
         if addr in starts:
@@ -113,8 +130,11 @@ def summarize(lines) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
-                    help="file for the whole listing of the two kernels")
+                    help="file for the whole listing of the kernels")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated kernel names (symbol substrings)")
     args = ap.parse_args()
+    kernels = tuple(args.kernels.split(","))
 
     from rayito_tpu_torch.utils import cuda_lib
 
@@ -124,11 +144,10 @@ def main() -> int:
     sass = subprocess.run([tool, "-sass", cuda_lib.LIB_PATH], check=True,
                           capture_output=True, text=True).stdout
     funcs = {name: lines for name, lines in _functions(sass).items()
-             if any(k in name for k in KERNELS)}
-    if sorted(k for k in KERNELS if any(k in n for n in funcs)) != sorted(
-            KERNELS):
-        print(f"cmj kernels not found in {cuda_lib.LIB_PATH}",
-              file=sys.stderr)
+             if any(k in name for k in kernels)}
+    missing = [k for k in kernels if not any(k in n for n in funcs)]
+    if missing:
+        print(f"{missing} not found in {cuda_lib.LIB_PATH}", file=sys.stderr)
         return 1
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -136,8 +155,9 @@ def main() -> int:
             for name, lines in funcs.items():
                 f.write(f"Function : {name}\n" + "\n".join(lines) + "\n")
     for name, lines in funcs.items():
-        kernel = next(k for k in KERNELS if k in name)
-        print(json.dumps({"kernel": kernel, **summarize(lines)}))
+        kernel = next(k for k in kernels if k in name)
+        print(json.dumps({"kernel": kernel, "symbol": name,
+                          **summarize(lines)}))
     return 0
 
 

@@ -26,15 +26,24 @@ frames call the entry points themselves):
 Run from the repo root on a machine with a GPU:
 ``python3 tools/frame_profile_torch.py [--scene big --route scan] [--eager]``
 (``--scene stage7``, ``--scene stage7b``, ``--scene mesh_light``, ...).
+``--scene`` takes a comma-separated list, profiled one after another in
+one process, and ``stage6_xla``, ``big_xla``, ``stage7_xla`` and
+``cli_stage6_xla``, the same frames under traversal='xla'; each frame also
+prints one JSON line (``--label`` names the tree in it) with its issued
+queries, its overflow where the frame reports one, and the first 16 hex
+digits of the SHA-256 of its image's bytes.
 ``--root`` names the tree whose ``chip_smoke.py`` and ``rayito_tpu_torch``
 are imported (default: this checkout), so that two commits can be
 profiled in turns on one card:
-``python3 tools/frame_profile_torch.py --root build/parent --scene stage6``.
+``python3 tools/frame_profile_torch.py --root build/parent --label parent
+--scene stage6,stage7b``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -43,55 +52,49 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> int:
-    root = ROOT
-    if "--root" in sys.argv:  # before chip_smoke is imported
-        root = sys.argv[sys.argv.index("--root") + 1]
-    sys.path.insert(0, os.path.abspath(root))
+def _xla_frame(cs, setup):
+    """The frame of ``setup`` under traversal='xla' (the path frames)."""
+    def make(dev):
+        import dataclasses
+
+        scene, cfg, cam, _ = setup(dev)[:4]
+        return cs._frame_fn(dataclasses.replace(scene, traversal="xla"), cfg,
+                            cam)
+    return make
+
+
+def _cli_xla(cs):
+    """The CLI's 640x480 stage-6 render under traversal='xla'."""
+    def make(dev):
+        import dataclasses
+
+        from rayito_tpu_torch.render import pathtracer as pt
+
+        scene, cfg, cam = cs._cli_inputs(dev, cs._standin_obj())
+        scene = dataclasses.replace(scene, traversal="xla")
+
+        def frame():
+            img, frame.overflow, q = pt.render_path_with_stats(scene, cfg,
+                                                               cam)
+            return img, q
+        return frame
+    return make
+
+
+def profile_frame(frame, card: str, label: str, tree: str) -> dict:
+    """Warm-up, three timed frames, one profiled frame; prints the report
+    and returns its numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke as cs
     from rayito_tpu_torch.utils.profiling import collect_device_ops, phase_table
 
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=ROOT,
-                    help="the tree to import (default: this checkout)")
-    setups = {"stage6": cs.stage6_setup, "stage7": cs.stage7_setup,
-              "stage7b": cs.stage7b_setup, "stage5": cs.stage5_setup,
-              "mesh_light": cs.mesh_light_setup,
-              "spheres40": cs.many_spheres_setup,
-              "lights16": cs.sixteen_lights_setup,
-              "cli_stage6": cs.cli_setup,
-              **{k: (lambda dev, k=k: cs.direct_setup(dev, k))
-                 for k in ("stage1", "stage2", "stage3")}}
-    ap.add_argument("--scene", choices=("big", *setups), default="stage6")
-    ap.add_argument("--route", choices=("items", "scan"), default="items")
-    ap.add_argument("--eager", action="store_true",
-                    help="the eager pass body (path frames)")
-    args = ap.parse_args()
-    if args.eager and args.scene in ("stage1", "stage2", "stage3",
-                                     "cli_stage6"):
-        ap.error(f"--scene {args.scene} calls an entry point")
-    if not torch.cuda.is_available():
-        print("no CUDA device: nothing to profile", file=sys.stderr)
-        return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda", 0)
-    if args.scene in setups:
-        frame = setups[args.scene](dev)[-1]
-    else:
-        scan, items, _, _, _, big_frame = cs.big_setup(dev)
-        scene = items if args.route == "items" else scan
-        frame = lambda graph=True: big_frame(scene, graph)  # noqa: E731
-    if args.eager:
-        path_frame = frame
-        frame = lambda: path_frame(graph=False)  # noqa: E731
-    frame()
+    imgs, queries = frame()
     torch.cuda.synchronize()
+    overflow = getattr(frame, "overflow", None)
+    bits = hashlib.sha256(
+        (imgs.cpu().numpy() if torch.is_tensor(imgs) else imgs).tobytes()
+    ).hexdigest()[:16]
     t0 = time.perf_counter()
     for _ in range(3):
         frame()
@@ -111,23 +114,103 @@ def main() -> int:
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     graph_launches = sum(counts.get(k, 0)
                          for k in ("cudaGraphLaunch", "cuGraphLaunch"))
-    print(f"card: {card}; scene {args.scene}"
-          + (f", {args.route} route" if args.scene == "big" else "")
-          + (", eager pass body" if args.eager else ""))
+    ops = sum(n for _, n in kernels.values())
+    print(f"card: {card}; {label}")
     print(f"frame: {frame_ms:.1f} ms (host clock, mean of 3); "
           f"{prof_ms:.1f} ms under the profiler")
     print(f"device time: {device_ms:.1f} ms over kernels: "
           f"{100 * device_ms / frame_ms:.1f}% of the unprofiled frame, "
           f"{100 * device_ms / prof_ms:.1f}% of the profiled one")
     print(f"kernel launches per frame: {launches}; graph launches "
-          f"{graph_launches}; device ops "
-          f"{sum(n for _, n in kernels.values())}")
+          f"{graph_launches}; device ops {ops}")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     for name, (us, count) in top[:12]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}")
     print("by phase:")
-    for label, ms, count in phase_table(prof):
-        print(f"  {ms:9.3f} ms {count:6d}x  {label}")
+    for row, ms, count in phase_table(prof):
+        print(f"  {ms:9.3f} ms {count:6d}x  {row}")
+    rec = {"tree": tree, "frame": label, "frame_ms": frame_ms,
+           "profiled_ms": prof_ms, "kernel_ms": device_ms,
+           "device_ops": ops, "kernel_launches": launches,
+           "graph_launches": graph_launches, "queries": int(queries),
+           "overflow": None if overflow is None else int(overflow),
+           "image_sha256": bits, "card": card}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def main() -> int:
+    root = ROOT
+    if "--root" in sys.argv:  # before chip_smoke is imported
+        root = sys.argv[sys.argv.index("--root") + 1]
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import chip_smoke as cs
+    from rayito_tpu_torch.utils import graphs
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=ROOT,
+                    help="the tree to import (default: this checkout)")
+    ap.add_argument("--label", default="change",
+                    help="the tree's name in the JSON lines")
+    setups = {"stage6": cs.stage6_setup, "stage7": cs.stage7_setup,
+              "stage7b": cs.stage7b_setup, "stage5": cs.stage5_setup,
+              "mesh_light": cs.mesh_light_setup,
+              "spheres40": cs.many_spheres_setup,
+              "lights16": cs.sixteen_lights_setup,
+              "cli_stage6": cs.cli_setup,
+              **{k: (lambda dev, k=k: cs.direct_setup(dev, k))
+                 for k in ("stage1", "stage2", "stage3")}}
+    makers = {"stage6_xla": _xla_frame(cs, cs.stage6_setup),
+              "stage7_xla": _xla_frame(cs, cs.stage7_setup),
+              "cli_stage6_xla": _cli_xla(cs)}
+    ap.add_argument("--scene", default="stage6",
+                    help="comma-separated frames: big, big_xla, "
+                    + ", ".join([*setups, *makers]))
+    ap.add_argument("--route", choices=("items", "scan"), default="items")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager pass body (path frames)")
+    args = ap.parse_args()
+    names = args.scene.split(",")
+    for name in names:
+        if name not in (*setups, *makers, "big", "big_xla"):
+            ap.error(f"unknown --scene {name}")
+        if args.eager and name in ("stage1", "stage2", "stage3",
+                                   "cli_stage6", "cli_stage6_xla"):
+            ap.error(f"--scene {name} calls an entry point")
+    if not torch.cuda.is_available():
+        print("no CUDA device: nothing to profile", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    for name in names:
+        if name in setups:
+            frame = setups[name](dev)[-1]
+        elif name in makers:
+            frame = makers[name](dev)
+        else:
+            import dataclasses
+
+            scan, items, _, _, _, big_frame = cs.big_setup(dev)
+            scene = items if args.route == "items" else scan
+            if name == "big_xla":
+                scene = dataclasses.replace(scan, traversal="xla")
+            def frame(graph=True, scene=scene, big_frame=big_frame):
+                out = big_frame(scene, graph)
+                frame.overflow = big_frame.overflow
+                return out
+        if args.eager:
+            path_frame = frame
+            frame = lambda f=path_frame: f(graph=False)  # noqa: E731
+        label = (f"scene {name}"
+                 + (f", {args.route} route" if name == "big" else "")
+                 + (", eager pass body" if args.eager else ""))
+        profile_frame(frame, card, label, args.label)
+        graphs.clear()
     return 0
 
 

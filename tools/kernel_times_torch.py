@@ -16,6 +16,14 @@ and the (ray block, cluster) pairs its masks list.
 chip_smoke.py's stage-7 populations in the rotating mesh's local space at
 seeded lane times, ``stage7_shared`` the same rays with every lane at time
 0.5, which shows what the spread of lane times costs the traversal.
+``xla`` times ``cluster_pipeline`` on the stage-6 populations under
+traversal='xla' (every mesh) and on the 420-layer stack crossed end-on
+(``pipe_ms``). ``tiny`` times the tiny-mesh part of a query on stage 7b's
+camera, bounce (closest hit) and shadow (any hit) populations at seeded
+lane times: ``query_ms`` is the whole part (each cube's transform chain,
+its fold and the merges; a tree with the per-query ``fold_small`` runs it
+as one call), ``fold_ms`` the fold kernels alone (the per-mesh tree's ten
+launches on rays already in local space; the per-query tree's one).
 
 ``--root`` names the tree whose ``chip_smoke.py`` and ``rayito_tpu_torch``
 are imported (default: this checkout), so two commits can be compared in
@@ -66,6 +74,92 @@ def _device_ms(fn, reps: int = 20) -> float:
     return _median_ms(graph.replay, 5) / reps
 
 
+def _xla_records(cs, dev):
+    """cluster_pipeline's device ms per population and mesh."""
+    import dataclasses
+
+    import rayito_tpu_torch as rt
+    from rayito_tpu_torch.render import mesh_intersect as mi
+    from rayito_tpu_torch.render import traverse as tv
+
+    scene, cfg, cam, _ = cs.stage6_setup(dev)
+    xla = dataclasses.replace(scene, traversal="xla")
+    pops = [(name, xla, m, o, d, tmax) for name, o, d, tmax, _, _ in
+            cs._populations(xla, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0))
+            for m in range(xla.n_meshes)]
+    layers = cs._layers_scene(rt).compile(dev, traversal="xla")
+    pops.append(("layers", layers, 0, *cs._layers_rays(dev)))
+    for name, sc, m, o, d, tmax in pops:
+        args, _ = mi.pipeline_inputs(sc, m, o, d, cfg.ray_tmin, tmax)
+        yield {"scene": "xla", "population": name, "mesh": m,
+               "active": int(args["n_active"]),
+               "pipe_ms": _device_ms(lambda: tv.cluster_pipeline(**args))}
+
+
+def _tiny_records(cs, dev):
+    """The tiny-mesh part of stage 7b's queries, per population."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.render import mesh_intersect as mi
+    from rayito_tpu_torch.render import trace as tr
+
+    scene, cfg, cam, _ = cs.stage7b_setup(dev)
+    n = cfg.max_rays_per_pass
+    lane_time = torch.from_numpy(np.random.default_rng(7).uniform(
+        0.0, 1.0, n).astype(np.float32)).to(dev)
+    per_query = hasattr(mi, "fold_small_query_plain")
+    tmin = cfg.ray_tmin
+    for name, o, d, tmax, _, any_hit in cs._populations(
+            scene, cfg, cam, (-1.0, 15.0, 1.0), (2.0, 2.0), lane_time):
+        tmax = tmax.contiguous()
+        occ = torch.zeros((n,), dtype=torch.bool, device=dev)
+        best = (torch.full((n,), float("inf"), device=dev),
+                torch.full((n,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((n,), device=dev), torch.zeros((n,), device=dev),
+                tr._identity_rot(n, dev))
+        kw = {"occluded": occ} if any_hit else {"best": best}
+        if per_query:
+            def query():
+                return mi.fold_small(scene, o, d, lane_time, tmin, tmax, **kw)
+            fold = query
+        else:
+            local = [tr._shape_local_ray(scene, scene.mesh_xf_host[m], o, d,
+                                         lane_time) for m in scene.ktab_small]
+
+            def query():  # render/trace.py's loop in the per-mesh tree
+                if any_hit:
+                    occluded = occ
+                    for m in scene.ktab_small:
+                        o_l, d_l, _ = tr._shape_local_ray(
+                            scene, scene.mesh_xf_host[m], o, d, lane_time)
+                        prim = mi.mesh_fold_small(
+                            scene, m, o_l, d_l, tmin,
+                            torch.where(occluded, 0.0, tmax))[1]
+                        occluded = occluded | (prim >= 0)
+                    return occluded
+                t_b, p_b, b_b, g_b, rot_b = best
+                for m in scene.ktab_small:
+                    o_l, d_l, rot = tr._shape_local_ray(
+                        scene, scene.mesh_xf_host[m], o, d, lane_time)
+                    t_m, p_m, b_m, g_m = mi.mesh_fold_small(
+                        scene, m, o_l, d_l, tmin, torch.minimum(t_b, tmax))
+                    c = p_m >= 0
+                    t_b, p_b = torch.where(c, t_m, t_b), torch.where(c, p_m,
+                                                                     p_b)
+                    b_b, g_b = torch.where(c, b_m, b_b), torch.where(c, g_m,
+                                                                     g_b)
+                    rot_b = tr._where_quat(c, rot, rot_b)
+                return t_b, p_b, b_b, g_b, rot_b
+
+            def fold():
+                return [mi.mesh_fold_small(scene, m, o_l, d_l, tmin, tmax)
+                        for m, (o_l, d_l, _) in zip(scene.ktab_small, local)]
+        yield {"scene": "tiny", "population": name, "lanes": n,
+               "meshes": len(scene.ktab_small),
+               "query_ms": _device_ms(query), "fold_ms": _device_ms(fold)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
@@ -93,6 +187,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     runs = []
     for scene_name in args.scenes.split(","):
+        if scene_name in ("xla", "tiny"):
+            timed = _xla_records if scene_name == "xla" else _tiny_records
+            for rec in timed(cs, dev):
+                rec.update(tree=args.label, card=card)
+                print(json.dumps(rec), flush=True)
+            continue
         if scene_name == "stage6":
             scene, cfg, cam, _ = cs.stage6_setup(dev)
             runs.append((scene_name, scene, cfg, cam, None))
