@@ -32,7 +32,8 @@ JAX. Phases, each printed, each fatal on failure:
      and overflow flags; traverse_items against its plain version and
      against traverse_blocks (t bits and prim); traverse_items,
      traverse_blocks and build_items timed by CUDA-graph replay in the same
-     run (scan_vs_items: the scan's time over the item kernel's); the item
+     run (scan_vs_items: the scan's time over the item kernel's;
+     build_items is one single-pass launch a call); the item
      route against the scan route through traverse();
   6. big-scene frame: the 512x512 frame of tools/bench_big_scene.py (1 spp,
      depth 3, 131,072-ray bands) with traverse_items=True at the budget
@@ -164,18 +165,27 @@ JAX. Phases, each printed, each fatal on failure:
      for bit, at 131,072 lanes: 1-D samples of seeded permutations at
      every num in 1-300, 1,000 and 4,097; every draw of the path's
      patterns at pixel samples {1, 2, 3, 12} x light samples {1, 2}; the
-     stage-6 bounce draw and the 3x3 / 12x12 camera draws timed (CUDA-
-     graph replays of 20 draws), their plain versions' ms, bound (the
-     instructions a lane issues, from the kernel's SASS, at the SMs'
-     issue rate of 33.4 T/s, or bytes at 3.35 TB/s) and share;
+     draw sets (cmj_draws, one launch of cmj_draws_kernel a set) of every
+     renderer's plan at the same patterns against cmj_draws_plain; stage
+     6's bounce and camera sets and stage 3's light loop (4x4 light
+     samples, two lights) timed (CUDA-graph replays of 20 sets), the
+     same draws through the single-draw kernels and the plain version
+     beside them, the bound (the set's own arithmetic in lane
+     instructions, counted in the kernel's SASS without its plan
+     decoding, loop control or addressing, at the SMs' issue rate of 33.4
+     T/s, or bytes at 3.35 TB/s) and share, and each set's launches read
+     from the device counter (one for stage 6's bounce and camera sets);
  25. degenerate inputs: one lane (stage 6 at 1x1), a scene with no mesh
      and no light, and the 'xla' route on 128 lanes, each pass captured,
      replayed twice and bit-identical to its eager body;
  26. scalar divisions (run after phase 24): the CLI's 640x480 camera rays
-     (2x2 samples) on the card bit-identical to the CPU's, and
-     utils/div_audit.ScalarDivisions over one eager pass of every path
-     above at 64x32 (cli.main too, plain and --sharded): no division by a
-     Python or CPU scalar left on any of them.
+     (2x2 samples) on the card bit-identical to the CPU's; one replayed
+     stage-6 pass's radiance (128x128, depth 3) bit-identical to the
+     CPU's once both take the card's sin, cos and pow (the values the
+     CPU's own library moves printed); and utils/div_audit.ScalarDivisions
+     over one eager pass of every path above at 64x32 (cli.main too,
+     plain and --sharded): no division by a Python or CPU scalar and no
+     float32 root outside sqrt_ieee left on any of them.
 
 Every frame that draws samples launches cmj (all but stage 1's); the
 plain-version frames swap all eight kernels for their plain versions
@@ -428,14 +438,18 @@ def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
          "replaces": "rayito_tpu/ops/rng.py:74",
          "note": "port-only: the reference's XLA uint32 sample streams "
                  "(ops/rng.py:74-205, cmj_permute's while_loop at :134), no "
-                 "pallas_call; ms is the stage-6 bounce draw (hash_combine "
-                 "of 5 operands and a 2x2 cmj_sample_2d, two launches)",
+                 "pallas_call; ms is stage 6's bounce draw set (every seed "
+                 "and sample of one bounce, one cmj_draws_kernel launch; "
+                 "single_ms the same draws through the single-draw "
+                 "kernels)",
          "launches": launches["cmj"],
          "max_abs_err": samples["max_abs_err"],
          **timed(samples, "draw"),
-         "draws": {key: {k: samples[f"{key}_{k}"] for k in
-                         ("ms", "plain_ms", "bound_ms", "share")}
-                   for key in ("draw3x3", "draw12x12", "time144")}},
+         "single_ms": samples["draw_single_ms"],
+         "sets": {key: {k: samples[f"{key}_{k}"] for k in
+                        ("ms", "single_ms", "plain_ms", "bound_ms", "share",
+                         "launches")}
+                  for key in ("draw", "camera_set", "direct_set")}},
         {"name": "fold_small", "route": "cuda",
          "source": src + "fold_small.cu",
          "replaces": "rayito_tpu/render/trace.py:628",
@@ -922,7 +936,7 @@ def _swap_plain():
     saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
              tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
              mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
-             rng.cmj_sample_2d, tr.fold_small)
+             rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
     tv.traverse_items = tv.traverse_items_plain
@@ -933,13 +947,14 @@ def _swap_plain():
     rng.hash_combine = rng.hash_combine_plain
     rng.cmj_sample_1d = rng.cmj_sample_1d_plain
     rng.cmj_sample_2d = rng.cmj_sample_2d_plain
+    rng.cmj_draws = rng.cmj_draws_plain
     tr.fold_small = mi.fold_small_query_plain
 
     def undo():
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
          tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
          mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
-         rng.cmj_sample_2d, tr.fold_small) = saved
+         rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small) = saved
 
     return undo
 
@@ -951,19 +966,29 @@ def _swap_plain():
 SAMPLE_NUMS = list(range(1, 301)) + [1000, 4097]
 # (pixel samples, light samples) of the path's patterns
 SAMPLE_PATTERNS = [(ps, ls) for ps in (1, 2, 3, 12) for ls in (1, 2)]
-# Instructions a lane issues in csrc/cmj.cu, counted from its SASS as
-# tools/cmj_sass.py prints it (sm_90a; the basic blocks on a lane's path,
-# fast-path divisions): a hash, besides its operands, and per operand (an
-# immediate's; a tensor's loads take 1-5 more); a 1-D and a 2-D sample
-# with an int64 index and permutation (an int32 index takes 5 fewer, an
-# int32 permutation 3), each permutation's first round of the cycle walk
-# included, and its rounds after the first (the loop: its test and
-# branch included; the walk's invariants are hoisted out of it).
-HASH_INSNS = 31
-HASH_OPERAND_INSNS = 24
-SAMPLE_INSNS = {1: 145, 2: 361}
-INT32_SAVES = {"index": 5, "perm": 3}
-ROUND_INSNS = 31
+# The draw set's own arithmetic, in lane instructions of csrc/cmj.cu's
+# draw-set kernel (cmj_draws_kernel), counted in its SASS (the sm_90a
+# build of the source as it stands; tools/cmj_sass.py --out lists it):
+# the instructions that compute the function, and not the kernel's plan
+# decoding (constant-bank reads, the shift and mask derived from a
+# divisor's l, the operand selects), loop control, walk tests or
+# addressing, the rule `float_loads` keeps for the bounds of
+# cluster_pipeline and fold_small. A lane's px, py and si loads; a hash_step per seed operand (0x0680-0x0760); a seed's products
+# by the salts its draws use, each permutation salt with its p >> 8, >> 16
+# and >> 23 and its (1 | p >> 27) * 0x6935FA69, each rand_float salt with
+# its 1 | p >> 18 (0x1120-0x1260, 0x25a0-0x25d0); the flat index's
+# multiply-add where the index is not si itself; a permutation's first
+# round, its + p and its magic remainder (0x1340-0x1590, 0x1800-0x1910),
+# a round after the first (0x1600-0x17c0); a 2-D draw's magic quotient
+# and remainder of pidx by nx; a rand_float (its I2FP and FMUL
+# included); per IEEE division its fast path (MUFU.RCP, FCHK, five FFMA)
+# and the I2FP and FADD of lane values before it; a store per output row.
+DRAWS_OPS = {"lane": 3, "operand": 12, "perm_salt": 7, "rand_salt": 3,
+             "index": 1, "permute": 35, "round": 27, "split": 7, "rand": 16,
+             "div": 9, "store": 1}
+# the salts of a draw's seed: its permutations' and its rand_floats'
+PERM_SALTS = {1: (0x8FF3CD11,), 2: (0xC2D3C8FB, 0xA511E9B3, 0x63D83595)}
+RAND_SALTS = {1: (0xA399D265,), 2: (0xA399D265, 0x711AD6A5)}
 # lane instructions one H100 SXM issues per second, whatever their pipe:
 # 132 SMs x 4 schedulers x one warp instruction of 32 lanes per clock at
 # the 1,980 MHz boost clock (NVIDIA's Hopper architecture white paper)
@@ -988,32 +1013,6 @@ def _walk_rounds(i, num: int, perm) -> int:
         x = torch.where(out, rng._permute_round(x, perm, w), x)
         out = x >= num
     return rounds
-
-
-def _sample_work(index, nx: int, ny: int, perm, mul: int = 1, add: int = 0):
-    """(lane instructions, bytes) of one cmj_sample_1d (ny = 0) or
-    cmj_sample_2d call on these inputs: this run's walks; each input read
-    once, each output written once."""
-    import torch
-
-    from rayito_tpu_torch.ops import rng
-
-    n = index.numel()
-    idx, p = rng.u32(rng._index(index, mul, add)), rng.u32(perm)
-    nbytes = n * (index.element_size() + perm.element_size()
-                  + 4 * (1 + (ny > 0)))
-    insns = n * (SAMPLE_INSNS[1 + (ny > 0)]
-                 - INT32_SAVES["index"] * (index.dtype == torch.int32)
-                 - INT32_SAVES["perm"] * (perm.dtype == torch.int32))
-    if not ny:
-        rounds = _walk_rounds(idx, nx, rng._mul32(p, 0x8FF3CD11))
-        return insns + rounds * ROUND_INSNS, nbytes
-    salt = rng._mul32(p, 0xC2D3C8FB)
-    pidx = rng.cmj_permute(idx, nx * ny, salt)
-    rounds = (_walk_rounds(idx, nx * ny, salt)
-              + _walk_rounds(pidx % nx, nx, rng._mul32(p, 0xA511E9B3))
-              + _walk_rounds(pidx // nx, ny, rng._mul32(p, 0x63D83595)))
-    return insns + rounds * ROUND_INSNS, nbytes
 
 
 def _draws(m, px, py, si, ps: int, ls: int, seed: int):
@@ -1057,27 +1056,107 @@ def _differing(a, b) -> int:
     return int((a != b).sum())
 
 
-def _time_draw(r, key, px, py, purpose, si, nx, ny, seed):
-    """One draw at these inputs, hash_combine(px, py, purpose, 1, seed)
-    then its sample (1-D of nx when ny is 0): device ms of the kernels
-    (CUDA-graph replays of 20 draws), the plain versions' ms, the bound
-    (lane instructions at PEAK_ISSUE or bytes at 3.35 TB/s) and share."""
+def _set_work(plan, px, py, si):
+    """(lane instructions, bytes) of one cmj_draws launch of ``plan``: the
+    draw set's own arithmetic (DRAWS_OPS) per lane, seed and draw, and per
+    cycle-walk round after the first, this run's walks; px, py and si read
+    once, each output row written once."""
     from rayito_tpu_torch.ops import rng
 
-    def draw(hash_combine, s1, s2):
-        h = hash_combine(px, py, purpose, 1, seed)
-        return s2(si, nx, ny, h) if ny else s1(si, nx, h)
+    lanes = {"px": px, "py": py, "si": si}
+    n = px.numel()
+    seeds, salts, per_lane, rounds = {}, set(), DRAWS_OPS["lane"], 0
+    for dr in plan:
+        if dr.seed not in seeds:
+            seeds[dr.seed] = rng.u32(rng.hash_combine_plain(*(
+                lanes[v] if isinstance(v, str) else v for v in dr.seed)))
+            per_lane += DRAWS_OPS["operand"] * len(dr.seed)
+        dims = 1 + (dr.ny > 0)
+        for kind, salt in ([("perm_salt", c) for c in PERM_SALTS[dims]]
+                           + [("rand_salt", c) for c in RAND_SALTS[dims]]):
+            if (dr.seed, salt) not in salts:
+                salts.add((dr.seed, salt))
+                per_lane += DRAWS_OPS[kind]
+        p = seeds[dr.seed]
+        idx = rng.u32(rng._index(si, dr.index_mul, dr.index_add))
+        per_lane += DRAWS_OPS["index"] * ((dr.index_mul, dr.index_add)
+                                          != (1, 0))
+        per_lane += (dims * (DRAWS_OPS["rand"] + DRAWS_OPS["store"])
+                     + (2 * dims - 1) * DRAWS_OPS["div"])
+        if not dr.ny:
+            per_lane += DRAWS_OPS["permute"]
+            rounds += _walk_rounds(idx, dr.nx, rng._mul32(p, 0x8FF3CD11))
+            continue
+        per_lane += 3 * DRAWS_OPS["permute"] + DRAWS_OPS["split"]
+        salt = rng._mul32(p, 0xC2D3C8FB)
+        pidx = rng.cmj_permute(idx, dr.nx * dr.ny, salt)
+        rounds += (_walk_rounds(idx, dr.nx * dr.ny, salt)
+                   + _walk_rounds(pidx % dr.nx, dr.nx,
+                                  rng._mul32(p, 0xA511E9B3))
+                   + _walk_rounds(pidx // dr.nx, dr.ny,
+                                  rng._mul32(p, 0x63D83595)))
+    rows = sum(2 if dr.ny else 1 for dr in plan)
+    nbytes = n * (px.element_size() + py.element_size() + si.element_size()
+                  + 4 * rows)
+    return n * per_lane + rounds * DRAWS_OPS["round"], nbytes
 
-    r[key + "_ms"] = _device_ms(lambda: draw(
-        rng.hash_combine, rng.cmj_sample_1d, rng.cmj_sample_2d))
-    r[key + "_plain_ms"] = _median_ms(lambda: draw(
-        rng.hash_combine_plain, rng.cmj_sample_1d_plain,
-        rng.cmj_sample_2d_plain), 5)
-    h = rng.hash_combine(px, py, purpose, 1, seed)
-    ops, nbytes = _sample_work(si, nx, ny, h)
-    n = px.shape[0]
-    ops += n * (HASH_INSNS + 5 * HASH_OPERAND_INSNS)
-    nbytes += n * (px.element_size() + py.element_size() + 8)
+
+def _draw_sets(cfg, n_lights: int) -> dict:
+    """{name: plan} of the renderers' draw sets at ``cfg``: the camera's,
+    bounce 1's with ``n_lights`` lights, a direct pass's subpixel draws
+    (stratified and stage 2's (64, 1)) and its light loop over two
+    lights."""
+    from rayito_tpu_torch.render import integrator as ig
+    from rayito_tpu_torch.render import pathtracer as pt
+
+    ps = cfg.pixel_samples
+    return {"camera": pt.camera_draws(cfg),
+            "bounce": pt.bounce_draws(cfg, n_lights, 1),
+            "direct_subpixel": (ig.subpixel_draw(cfg, ps, ps),
+                                ig.subpixel_draw(cfg, 64, 1)),
+            "direct_lights": ig.direct_light_draws(cfg, 2)}
+
+
+def _time_set(r, key, plan, px, py, si):
+    """One draw set at these lanes: device ms of its cmj_draws launch
+    (CUDA-graph replays of 20 sets), the same draws one by one through the
+    single-draw kernels (single_ms, the form before the draw sets), the
+    plain version's ms, the bound (the set's own arithmetic, DRAWS_OPS, at
+    PEAK_ISSUE, or bytes at 3.35 TB/s) and share, and the launches one
+    set made (the device counter, read after one set alone)."""
+    import torch
+
+    from rayito_tpu_torch.ops import rng
+    from rayito_tpu_torch.utils import cuda_lib
+
+    lanes = {"px": px, "py": py, "si": si}
+
+    def single():
+        seeds, out = {}, []
+        for dr in plan:
+            if dr.seed not in seeds:
+                seeds[dr.seed] = rng.hash_combine(*(
+                    lanes[v] if isinstance(v, str) else v for v in dr.seed))
+            if dr.ny:
+                out += rng.cmj_sample_2d(si, dr.nx, dr.ny, seeds[dr.seed],
+                                         dr.index_mul, dr.index_add)
+            else:
+                out.append(rng.cmj_sample_1d(si, dr.nx, seeds[dr.seed],
+                                             dr.index_mul, dr.index_add))
+        return out
+
+    r[key + "_ms"] = _device_ms(lambda: rng.cmj_draws(plan, px, py, si))
+    r[key + "_single_ms"] = _device_ms(single)
+    r[key + "_plain_ms"] = _median_ms(
+        lambda: rng.cmj_draws_plain(plan, px, py, si), 3)
+    cuda_lib.reset_launch_counts()
+    rng.cmj_draws(plan, px, py, si)
+    torch.cuda.synchronize()
+    r[key + "_launches"] = cuda_lib.launch_counts()["cmj"]
+    if r[key + "_launches"] != len(rng._encode(tuple(plan))[0]):
+        raise AssertionError(f"draw set {key}: {r[key + '_launches']} cmj "
+                             "launches on the card, not its plan's")
+    ops, nbytes = _set_work(plan, px, py, si)
     t_ops, t_bytes = ops / PEAK_ISSUE * 1e3, nbytes / PEAK_BYTES * 1e3
     r[key + "_bound_ms"], r[key + "_bound_by"] = (
         (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
@@ -1145,13 +1224,43 @@ def run_samples(dev, card: str) -> dict:
         raise AssertionError("the sample streams disagree with their plain "
                              "versions")
 
+    # the draw sets: every renderer's plan through one cmj_draws launch
+    # against cmj_draws_plain (the fixed cycle-walk rounds on the card)
+    for ps, ls in SAMPLE_PATTERNS:
+        si = torch.from_numpy(rs.integers(0, ps * ps, n).astype(np.int32))
+        si = si.to(dev)
+        cfg = RenderConfig(width=WIDTH, height=n // WIDTH, pixel_samples=ps,
+                           light_samples=ls, seed=seed)
+        for name, plan in _draw_sets(cfg, 3).items():
+            got = rng.cmj_draws(plan, px, py, si)
+            want = rng.cmj_draws_plain(plan, px, py, si)
+            diff = _differing(got, want)
+            err = max(err, float((got - want).abs().max()))
+            if diff:
+                print(f"draw set {name} at {ps}x{ps} x {ls}x{ls}: "
+                      f"{got.shape[0]} rows of {n} lanes, values differing "
+                      f"{diff}")
+            bad += diff
+        print(f"draw sets at {ps}x{ps} pixel x {ls}x{ls} light samples: "
+              f"camera, bounce, direct subpixel and light loop, values "
+              f"differing {bad}")
+    if bad:
+        raise AssertionError("the draw sets disagree with cmj_draws_plain")
+
     si = torch.zeros((n,), dtype=torch.int32, device=dev)
     r = {"lanes": n, "max_abs_err": err}
-    _time_draw(r, "draw", px, py, rng.PURPOSE_BOUNCE, si, 2, 2, seed)
-    for ps in (3, 12):
-        _time_draw(r, f"draw{ps}x{ps}", px, py, rng.PURPOSE_SUBPIXEL, si,
-                   ps, ps, seed)
-    _time_draw(r, "time144", px, py, rng.PURPOSE_TIME, si, 144, 0, seed)
+    # stage 6's sets (its config and lights; the first band, sample 0) and
+    # stage 3's light loop at its golden 4x4 light samples
+    scene, cfg, _, _ = stage6_setup(dev)
+    sets = _draw_sets(cfg, scene.n_lights)
+    _time_set(r, "draw", sets["bounce"], px, py, si)
+    _time_set(r, "camera_set", sets["camera"], px, py, si)
+    stage3 = dataclasses.replace(cfg, pixel_samples=4, light_samples=4)
+    _time_set(r, "direct_set", _draw_sets(stage3, 2)["direct_lights"], px,
+              py, si)
+    if r["draw_launches"] != 1 or r["camera_set_launches"] != 1:
+        raise AssertionError("stage 6's bounce or camera set took more than "
+                             "one cmj launch")
     print("sample streams: " + _fmt(r), flush=True)
     return r
 
@@ -1943,9 +2052,9 @@ MARKERS = {"cluster_masks": "cluster_masks_kernel",
            "traverse_blocks": "blocks_init_kernel",
            "gather_rows_t": "gather_rows_t_kernel",
            "traverse_items": "items_init_kernel",
-           "build_items": "items_count_kernel",
+           "build_items": "build_items_kernel",
            "cluster_pipeline": "cluster_pipeline_kernel",
-           "cmj": "cmj_",  # cmj_hash_kernel, cmj_sample_kernel
+           "cmj": "cmj_",  # cmj_draws_kernel, or a single draw's kernels
            "fold_small": "fold_small_kernel"}
 
 
@@ -3046,14 +3155,77 @@ def _eager_passes():
         graphs.run = run
 
 
+@contextlib.contextmanager
+def _card_libm(dev):
+    """torch.sin, torch.cos and torch.pow of CPU tensors evaluated by the
+    card's library (the inputs copied over, the results back): neither
+    PyTorch's CPU nor its CUDA float32 transcendentals are correctly
+    rounded, so the two differ in the last bit of some values."""
+    import torch
+
+    saved = {k: getattr(torch, k) for k in ("sin", "cos", "pow")}
+
+    def on_card(f):
+        def g(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.device.type == "cpu"
+                   for a in args):
+                args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                        for a in args]
+                return f(*args, **kw).cpu()
+            return f(*args, **kw)
+        return g
+
+    for k, f in saved.items():
+        setattr(torch, k, on_card(f))
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(torch, k, f)
+
+
+def _check_pass_radiance(dev, obj) -> None:
+    """One replayed stage-6 pass (128x128, sample 1 of 2x2, depth 3, the
+    n=64 stand-in) on the card against the same pass on the CPU: its
+    radiance bit for bit with the CPU's sin, cos and pow taken from the
+    card's library (every root, division, draw and kernel of the pass
+    agreeing), queries equal; the values that differ with the CPU's own
+    library printed."""
+    import torch
+
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.render import pathtracer as pt
+
+    scene, cfg, cam, _ = stage6_setup(dev)
+    w = 128
+    cfg = dataclasses.replace(cfg, width=w, height=w,
+                              max_rays_per_pass=w * w)
+    on_cpu = demo.stage6_scene(obj).compile("cpu")
+    for _ in range(2):  # the capture, then a replay
+        card = pt._render_path_pass(scene, cfg, cam, [1], 0, w)
+    img = card[0].cpu()
+    raw = pt._render_path_pass(on_cpu, cfg, cam, [1], 0, w)
+    with _card_libm(dev):
+        same_libm = pt._render_path_pass(on_cpu, cfg, cam, [1], 0, w)
+    bad = _differing(img, same_libm[0])
+    print(f"a replayed stage-6 pass ({w}x{w}, depth 3) card against CPU: "
+          f"radiance values differing {bad} of {img.numel()} with the "
+          f"card's sin, cos and pow on both, {_differing(img, raw[0])} with "
+          f"the CPU's own; queries {int(card[2])} / {int(same_libm[2])} / "
+          f"{int(raw[2])}")
+    if bad or int(card[2]) != int(same_libm[2]):
+        raise AssertionError("the card's stage-6 pass differs from the CPU's")
+
+
 def run_divisions(dev, card: str) -> None:
     """Phase 26: the scalar divisions on the card. The CLI's 640x480 camera
     rays (its 2x2 samples, 1,228,800 lanes: screen coordinates divided by
     640 and 480, the sample streams, the lens and the time) on the card
     against the same function on the CPU, bit for bit; how many seeded
-    square roots PyTorch's sqrt takes off the IEEE root the rays use, on
-    the card and on the CPU (printed; the IEEE root must be the same on
-    both); then
+    square roots PyTorch's sqrt takes off the IEEE root every root of the
+    port takes, on the card and on the CPU (printed; the IEEE root must be
+    the same on both); one replayed stage-6 pass's radiance against the
+    CPU's (``_check_pass_radiance``); then
     utils/div_audit.ScalarDivisions over one eager pass of every path this
     script drives, at 64x32 (the same code as at full size): stage 6 on
     the kernel route and under 'xla', the big scene's item route, stages
@@ -3102,6 +3274,7 @@ def run_divisions(dev, card: str) -> None:
           "CPU")
     if _differing(sqrt_ieee(x.to(dev)).cpu(), ieee):
         raise AssertionError("sqrt_ieee on the card differs from the CPU's")
+    _check_pass_radiance(dev, obj)
 
     small = dict(width=64, height=32, max_rays_per_pass=2048)
     paths = []
@@ -3150,6 +3323,9 @@ def run_divisions(dev, card: str) -> None:
     left = {n: dict(a.found) for n, a in sites.items() if a.found}
     if left:
         raise AssertionError(f"scalar divisions on the card's path: {left}")
+    roots = {n: dict(a.sqrts) for n, a in sites.items() if a.sqrts}
+    if roots:
+        raise AssertionError(f"float32 roots outside sqrt_ieee: {roots}")
     print(f"scalar divisions: none on {len(sites)} paths", flush=True)
 
 

@@ -5,8 +5,8 @@ Reference quirks kept: ``tan_fov`` uses the FULL stated angle, right/up are
 not normalized in the stage-5+ camera (the stage 1-4 camera,
 ``make_camera_ray_stage1``, normalizes them), and DOF is blended by mask.
 Ray directions take the correctly rounded square root on every device
-(``ops/vec3.sqrt_ieee``; PyTorch's float32 root on the CPU is not), so a
-card's camera rays equal the CPU's bit for bit.
+(``ops/vec3.sqrt_ieee``, as every root of the port does), so a card's
+camera rays equal the CPU's bit for bit.
 """
 
 from __future__ import annotations
@@ -116,8 +116,7 @@ class PerspectiveCamera:
         does, so no Python branch reads the lens."""
         sx = (x_screen - 0.5) * self.tan_fov
         sy = (y_screen - 0.5) * self.tan_fov
-        direction = normalize(self.forward + self.right * sx + self.up * sy,
-                              sqrt_ieee)
+        direction = normalize(self.forward + self.right * sx + self.up * sy)
         origin = self.origin.broadcast_to(sx.shape)
         t = self.time(time_u).expand(sx.shape)
         # depth of field: uniform-disk lens
@@ -127,7 +126,7 @@ class PerspectiveCamera:
         local_len = sqrt_ieee(sx * sx + sy * sy + 1.0)
         focus = origin + direction * (self.focal_distance * local_len)
         lens_origin = origin + self.right * hshift + self.up * vshift
-        lens_dir = normalize(focus - lens_origin, sqrt_ieee)
+        lens_dir = normalize(focus - lens_origin)
         use_dof = self.lens_radius > 0.0
         return (vwhere(use_dof, lens_origin, origin),
                 vwhere(use_dof, lens_dir, direction), t)
@@ -144,5 +143,5 @@ def make_camera_ray_stage1(fov_degrees, origin, target, up, xu, yu):
         for v in _look_basis(origin, target, up, True))
     tan_fov = _f32(math.tan(fov_degrees * PI / 180.0))
     direction = normalize(fwd + right * ((xu - 0.5) * tan_fov)
-                          + cam_up * ((yu - 0.5) * tan_fov), sqrt_ieee)
+                          + cam_up * ((yu - 0.5) * tan_fov))
     return V3(*(torch.full_like(xu, c) for c in (o.x, o.y, o.z))), direction

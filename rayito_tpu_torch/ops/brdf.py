@@ -19,6 +19,7 @@ from .vec3 import (
     from_local_frame,
     make_coordinate_space,
     normalize,
+    sqrt_ieee,
     where as vwhere,
 )
 from .warps import uniform_to_cosine_hemisphere
@@ -96,7 +97,7 @@ def glossy_sample_sa(outgoing: V3, normal: V3, u1, u2, exponent):
     cos_theta = torch.pow(
         torch.clamp_min(1.0 - u2, 0.0), 1.0 / (exponent + 1.0)
     )
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = sqrt_ieee(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     local_half = V3(
         sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta
     )

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .vec3 import V3, cross, dot, normalize
+from .vec3 import V3, cross, dot, normalize, sqrt_ieee
 
 INF = float("inf")
 
@@ -32,7 +32,7 @@ def sphere_intersect(o: V3, d: V3, tmin, tcur, center: V3, radius):
     c = dot(oc, oc) - radius * radius
     disc = b * b - 4.0 * a * c
     has_root = disc >= 0.0
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt_ieee(torch.clamp_min(disc, 0.0))
     q = torch.where(b < 0.0, -0.5 * (b - sq), -0.5 * (b + sq))
     t0 = q / a
     t1 = torch.where(q != 0.0, c / torch.where(q == 0.0, 1.0, q), tcur)
@@ -57,8 +57,8 @@ def rect_intersect(o: V3, d: V3, tmin, tcur, corner: V3, side1: V3,
         nonparallel, n_dot_d, 1.0
     )
     in_range = (t < tcur) & (t >= tmin)
-    s1_len = torch.sqrt(dot(side1, side1))
-    s2_len = torch.sqrt(dot(side2, side2))
+    s1_len = sqrt_ieee(dot(side1, side1))
+    s2_len = sqrt_ieee(dot(side2, side2))
     s1n = side1 / torch.clamp_min(s1_len, 1e-37)
     s2n = side2 / torch.clamp_min(s2_len, 1e-37)
     rel = o + d * t - corner
@@ -129,4 +129,4 @@ def bullseye_ring(hit_pos: V3, plane_pos: V3):
     """The bullseye texture's dark rings: fmod(dist * 0.25, 1) > 0.5 of the
     distance from the plane's position."""
     rel = hit_pos - plane_pos
-    return torch.remainder(torch.sqrt(dot(rel, rel)) * 0.25, 1.0) > 0.5
+    return torch.remainder(sqrt_ieee(dot(rel, rel)) * 0.25, 1.0) > 0.5

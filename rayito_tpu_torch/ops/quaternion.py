@@ -77,8 +77,8 @@ def norm2(q: Quat):
 
 
 def normalize(q: Quat) -> Quat:
-    """The correctly rounded square root (``sqrt_ieee``) on every device,
-    as csrc/fold_small.cu takes it."""
+    """The correctly rounded square root (``sqrt_ieee``), as
+    csrc/fold_small.cu takes it."""
     inv = 1.0 / sqrt_ieee(torch.clamp_min(norm2(q), 1e-37))
     return Quat(q.w * inv, q.v * inv)
 
@@ -128,7 +128,7 @@ def to_axis_angle(q: Quat):
     qn = normalize(q)
     w = torch.clamp(qn.w, -1.0, 1.0)
     angle = 2.0 * torch.arccos(w)
-    s = torch.sqrt(torch.clamp_min(1.0 - w * w, 0.0))
+    s = sqrt_ieee(torch.clamp_min(1.0 - w * w, 0.0))
     small = s < 1e-6
     inv = 1.0 / torch.where(small, 1.0, s)
     axis = vwhere(small,

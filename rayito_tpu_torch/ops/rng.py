@@ -4,10 +4,14 @@ Counterpart of ``rayito_tpu/ops/rng.py`` (Kensler correlated multi-jittered
 sampling and the per-purpose seed hash). The streams are bit-identical to
 the JAX package's.
 
-The integrators draw through ``hash_combine``, ``cmj_sample_1d`` and
-``cmj_sample_2d``: on CUDA tensors they launch the ``cmj`` kernel
-(``csrc/cmj.cu``: native uint32, one thread per lane, each lane its own
-cycle walk), on CPU tensors they run their plain versions
+The integrators draw through ``cmj_draws``: a draw set (every draw of one
+bounce, of the camera or of a direct-lighting pass: a tuple of ``Draw``)
+in one launch of the ``cmj`` kernel on CUDA tensors (``csrc/cmj.cu``
+``cmj_draws_kernel``: native uint32, one thread per lane, the seeds in
+registers, each lane its own cycle walk), its plain version
+``cmj_draws_plain`` on CPU tensors. The single draws ``hash_combine``,
+``cmj_sample_1d`` and ``cmj_sample_2d`` (the samplers' and the tests')
+launch the same file's single-draw kernels, or run their plain versions
 (``*_plain``). torch has no full uint32 arithmetic, so the plain versions
 hold every uint32 value in an int64 tensor in ``[0, 2**32)``: logical
 shifts are plain shifts of non-negative values, and wrapping multiplies
@@ -20,6 +24,8 @@ integrator draws from it.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -327,6 +333,188 @@ def cmj_sample_2d(index, nx: int, ny: int, permutation, index_mul: int = 1,
         raise ValueError(f"cmj_sample_2d: pattern {nx} x {ny} out of range")
     return _sample("cmj_sample_2d", index, nx, ny, permutation, index_mul,
                    index_add)
+
+
+# ---------------------------------------------------------------------------
+# Draw sets: the seeds and samples of one bounce, of the camera or of a
+# direct-lighting pass in one launch (csrc/cmj.cu cmj_draws_kernel)
+# ---------------------------------------------------------------------------
+
+# seed operands that are the lane's own values (anything else: an int)
+LANE_OPERANDS = ("px", "py", "si")
+# cmj.cu's plan capacity (kMaxSeeds, kMaxDraws): the plan and the other
+# parameters of one launch fit the classic 4 KB of kernel parameters; a
+# larger set is split into several launches
+MAX_PLAN_SEEDS = 8
+MAX_PLAN_DRAWS = 64
+
+
+class Draw(NamedTuple):
+    """One draw of a set: the seed ``hash_combine(*seed)`` (each operand
+    one of ``LANE_OPERANDS`` or an int) and its CMJ sample of the index
+    ``si * index_mul + index_add``: the 1-D sample of an ``nx`` pattern
+    (``ny`` 0; one output row) or the 2-D sample of an ``nx`` x ``ny``
+    pattern (two rows). ``index_mul`` 0 is the immediate index
+    ``index_add``."""
+
+    seed: tuple
+    nx: int
+    ny: int = 0
+    index_mul: int = 1
+    index_add: int = 0
+
+
+def draw_rows(plan) -> list:
+    """Each draw's first output row of ``cmj_draws`` in plan order."""
+    rows, r = [], 0
+    for dr in plan:
+        rows.append(r)
+        r += 2 if dr.ny else 1
+    return rows
+
+
+def cmj_draws_plain(plan, px, py, si) -> torch.Tensor:
+    """The draw set ``plan`` (a sequence of ``Draw``) at the lanes (px, py,
+    si): [n_out, *lanes] float32, each draw's rows in plan order, through
+    the single-draw plain versions (each distinct seed hashed once)."""
+    lanes = dict(zip(LANE_OPERANDS, (px, py, si)))
+    seeds, rows = {}, []
+    for dr in plan:
+        h = seeds.get(dr.seed)
+        if h is None:
+            h = seeds[dr.seed] = hash_combine_plain(*(
+                lanes[v] if isinstance(v, str) else v for v in dr.seed))
+        if dr.ny:
+            rows += cmj_sample_2d_plain(si, dr.nx, dr.ny, h, dr.index_mul,
+                                        dr.index_add)
+        else:
+            rows.append(cmj_sample_1d_plain(si, dr.nx, h, dr.index_mul,
+                                            dr.index_add))
+    return torch.stack(rows)
+
+
+def magic_divisor(d: int) -> tuple:
+    """(d, m, l) of a divisor d in [1, 2^32): l = ceil(log2 d), m =
+    floor(2^32 (2^l - d) / d) + 1 < 2^32, so that with t = umulhi(n, m),
+    (t + ((n - t) >> min(l, 1))) >> max(l - 1, 0) is floor(n / d) for
+    every uint32 n (Granlund & Montgomery 1994, Theorem 4.1)."""
+    if not 1 <= d <= MASK32:
+        raise ValueError(f"divisor {d} out of [1, 2^32)")
+    l = (d - 1).bit_length()
+    return d, ((1 << 32) * ((1 << l) - d)) // d + 1, l
+
+
+class _DrawDiv(ctypes.Structure):
+    _fields_ = [("d", ctypes.c_uint32), ("m", ctypes.c_uint32),
+                ("l", ctypes.c_uint32)]
+
+
+class _DrawSpec(ctypes.Structure):
+    _fields_ = [("num", _DrawDiv), ("nx", _DrawDiv), ("ny", _DrawDiv),
+                ("mul", ctypes.c_uint32), ("add", ctypes.c_uint32),
+                ("row", ctypes.c_int)]
+
+
+class _DrawSeed(ctypes.Structure):
+    _fields_ = [("imm", ctypes.c_uint32 * MAX_HASH_OPERANDS),
+                ("src", ctypes.c_uint32), ("n_ops", ctypes.c_int),
+                ("draw0", ctypes.c_int), ("n_draws", ctypes.c_int)]
+
+
+class _DrawPlan(ctypes.Structure):
+    """cmj.cu's ``DrawPlan``: seeds, their draws grouped by seed."""
+
+    _fields_ = [("seed", _DrawSeed * MAX_PLAN_SEEDS),
+                ("draw", _DrawSpec * MAX_PLAN_DRAWS),
+                ("n_seeds", ctypes.c_int)]
+
+
+def _check_draw(dr: Draw) -> None:
+    if not isinstance(dr, Draw):
+        raise TypeError(f"cmj_draws: a Draw expected, got {dr!r}")
+    if dr.nx < 1 or dr.ny < 0 or dr.nx * max(dr.ny, 1) > MASK32:
+        raise ValueError(f"cmj_draws: pattern {dr.nx} x {dr.ny} out of "
+                         "range")
+    if len(dr.seed) > MAX_HASH_OPERANDS:
+        raise ValueError(f"cmj_draws: at most {MAX_HASH_OPERANDS} seed "
+                         f"operands, got {len(dr.seed)}")
+    for v in dr.seed:
+        if isinstance(v, str) and v not in LANE_OPERANDS:
+            raise ValueError(f"cmj_draws: seed operand {v!r} is neither an "
+                             f"int nor one of {LANE_OPERANDS}")
+
+
+@functools.lru_cache(maxsize=256)
+def _encode(plan: tuple) -> tuple:
+    """(the launches' ``_DrawPlan``s, output rows) of a draw set: its draws
+    grouped by seed, a launch holding at most MAX_PLAN_SEEDS seeds and
+    MAX_PLAN_DRAWS draws (a seed with more draws than fit is repeated in
+    the next launch)."""
+    for dr in plan:
+        _check_draw(dr)
+    rows = draw_rows(plan)
+    by_seed = {}
+    for dr, row in zip(plan, rows):
+        by_seed.setdefault(dr.seed, []).append((dr, row))
+    launches, cur, used = [], None, MAX_PLAN_DRAWS
+    for seed, draws in by_seed.items():
+        while draws:
+            if used == MAX_PLAN_DRAWS or cur.n_seeds == MAX_PLAN_SEEDS:
+                cur, used = _DrawPlan(), 0
+                launches.append(cur)
+            take, draws = (draws[:MAX_PLAN_DRAWS - used],
+                           draws[MAX_PLAN_DRAWS - used:])
+            sd = cur.seed[cur.n_seeds]
+            cur.n_seeds += 1
+            sd.n_ops, sd.draw0, sd.n_draws = len(seed), used, len(take)
+            for j, v in enumerate(seed):
+                if isinstance(v, str):
+                    sd.src |= (1 + LANE_OPERANDS.index(v)) << (2 * j)
+                else:
+                    sd.imm[j] = int(v) & MASK32
+            for dr, row in take:
+                spec = cur.draw[used]
+                used += 1
+                spec.nx = _DrawDiv(*magic_divisor(dr.nx))
+                spec.num = _DrawDiv(*magic_divisor(dr.nx * max(dr.ny, 1)))
+                if dr.ny:
+                    spec.ny = _DrawDiv(*magic_divisor(dr.ny))
+                spec.mul = dr.index_mul & MASK32
+                spec.add = dr.index_add & MASK32
+                spec.row = row
+    return tuple(launches), sum(2 if dr.ny else 1 for dr in plan)
+
+
+def cmj_draws(plan, px, py, si) -> torch.Tensor:
+    """Kernel wrapper of :func:`cmj_draws_plain`: the draw set in one
+    launch (more where it outgrows a launch's plan), the lanes' px, py and
+    si (int32 or int64 tensors of one shape, or 0-d) read once each."""
+    plan = tuple(plan)
+    if _plain("cmj_draws", (px, py, si)):
+        for dr in plan:
+            _check_draw(dr)
+        return cmj_draws_plain(plan, px, py, si)
+    launches, n_rows = _encode(plan)
+    vals, shape = _lanes("cmj_draws", (px, py, si))
+    ops = [_operand("cmj_draws", v) for v in vals]
+    dev = next(v.device for v in vals if isinstance(v, torch.Tensor))
+    out = torch.empty((n_rows, *shape), dtype=torch.float32, device=dev)
+    n = int(np.prod(shape))
+    if n:
+        _check_plan_layout()
+        for p in launches:
+            cmj("rt_cmj_draws", dev, ctypes.addressof(p),
+                *(ctypes.addressof(o) for o in ops), out.data_ptr(), n)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _check_plan_layout() -> None:
+    """The plan's ctypes layout is the kernel's (once per process)."""
+    size = cuda_lib.library().rt_cmj_plan_bytes()
+    if size != ctypes.sizeof(_DrawPlan):
+        raise RuntimeError(f"cmj_draws: DrawPlan is {size} bytes in cmj.cu, "
+                           f"{ctypes.sizeof(_DrawPlan)} here")
 
 
 # Purpose salts (same values and meaning as the reference's table).

@@ -84,11 +84,15 @@ def div_scalar(x: torch.Tensor, s) -> torch.Tensor:
 
 
 def sqrt_ieee(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded float32 square root on every device. PyTorch's
-    float32 sqrt on the CPU is not (its AVX-512 kernel took about 0.6% of
-    seeded values in [0.01, 100] one ulp off); its CUDA sqrt is, and so is
-    the float64 root of a float32 value rounded to float32 (53 >= 2 * 24 +
-    2 bits)."""
+    """The correctly rounded float32 square root on every device, the only
+    float32 root the port takes (``utils/div_audit.py`` lists any other).
+    PyTorch's float32 sqrt on the CPU is not correctly rounded (its AVX-512
+    kernel took about 0.6% of seeded values in [0.01, 100] one ulp off), so
+    there it is the float64 root rounded to float32 (53 >= 2 * 24 + 2 bits:
+    the double rounding is exact); on the card ``torch.sqrt`` is correctly
+    rounded and is taken as it is."""
+    if x.is_cuda:
+        return torch.sqrt(x)
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
@@ -124,15 +128,14 @@ def length2(v: V3):
 
 
 def length(v: V3):
-    return torch.sqrt(length2(v))
+    return sqrt_ieee(length2(v))
 
 
-def normalize(v: V3, sqrt=torch.sqrt) -> V3:
-    """Guards len > 0 like the reference. ``sqrt=sqrt_ieee`` takes the
-    correctly rounded root on the CPU too."""
+def normalize(v: V3) -> V3:
+    """Guards len > 0 like the reference; the root is ``sqrt_ieee``."""
     len2 = length2(v)
     inv = torch.where(
-        len2 > 0.0, 1.0 / sqrt(torch.clamp_min(len2, 1e-37)), 1.0
+        len2 > 0.0, 1.0 / sqrt_ieee(torch.clamp_min(len2, 1e-37)), 1.0
     )
     return v * inv
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .vec3 import PI, V3
+from .vec3 import PI, V3, sqrt_ieee
 
 
 def concentric_sample_disk(u1, u2):
@@ -46,21 +46,21 @@ def concentric_sample_disk(u1, u2):
 def uniform_to_sphere(u1, u2) -> V3:
     """Uniform point on the unit sphere."""
     z = 1.0 - 2.0 * u1
-    radius = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    radius = sqrt_ieee(torch.clamp_min(1.0 - z * z, 0.0))
     phi = 2.0 * PI * u2
     return V3(radius * torch.cos(phi), radius * torch.sin(phi), z)
 
 
 def uniform_to_uniform_disk(u1, u2):
     """sqrt-r disk warp."""
-    radius = torch.sqrt(u1)
+    radius = sqrt_ieee(u1)
     theta = 2.0 * PI * u2
     return radius * torch.cos(theta), radius * torch.sin(theta)
 
 
 def uniform_to_hemisphere(u1, u2) -> V3:
     """Uniform hemisphere, +Z up."""
-    radius = torch.sqrt(torch.clamp_min(1.0 - u1 * u1, 0.0))
+    radius = sqrt_ieee(torch.clamp_min(1.0 - u1 * u1, 0.0))
     phi = 2.0 * PI * u2
     return V3(radius * torch.cos(phi), radius * torch.sin(phi), u1)
 
@@ -68,14 +68,14 @@ def uniform_to_hemisphere(u1, u2) -> V3:
 def uniform_to_cosine_hemisphere(u1, u2) -> V3:
     """Cosine-weighted hemisphere via concentric disk projection."""
     dx, dy = concentric_sample_disk(u1, u2)
-    z = torch.sqrt(torch.clamp_min(1.0 - dx * dx - dy * dy, 0.0))
+    z = sqrt_ieee(torch.clamp_min(1.0 - dx * dx - dy * dy, 0.0))
     return V3(dx, dy, z)
 
 
 def uniform_to_cone(u1, u2, cos_theta_max) -> V3:
     """Uniform direction in a cone about +Z."""
     cos_theta = u1 * (cos_theta_max - 1.0) + 1.0
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = sqrt_ieee(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     phi = 2.0 * PI * u2
     return V3(torch.cos(phi) * sin_theta, torch.sin(phi) * sin_theta,
               cos_theta)
@@ -92,5 +92,5 @@ def uniform_cone_pdf(cos_theta_max):
 
 def uniform_to_barycentric_triangle(u1, u2):
     """Uniform barycentrics: (1 - sqrt(u1), u2 * sqrt(u1))."""
-    s = torch.sqrt(u1)
+    s = sqrt_ieee(u1)
     return 1.0 - s, u2 * s

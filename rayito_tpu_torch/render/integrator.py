@@ -20,7 +20,7 @@ from ..ops import rng as rngo
 from ..ops.brdf import (KIND_EMITTER, KIND_LAMBERT, KIND_PHONG,
                         lambert_shade, phong_shade)
 from ..ops.vec3 import (V3, cross, div_scalar, dot, from_aos, normalize,
-                        where as vwhere)
+                        sqrt_ieee, where as vwhere)
 from ..ops.warps import uniform_to_sphere
 from ..utils import graphs
 from ..utils.config import RenderConfig
@@ -52,12 +52,31 @@ def screen_uv(config: RenderConfig, px, py, jx, jy):
     return xu, yu
 
 
+def subpixel_draw(config: RenderConfig, spp_x: int, spp_y: int):
+    """The stratified CMJ jitter in the pixel of the sample si, keyed by
+    (pixel, purpose, seed): one ``Draw`` of a set."""
+    return rngo.Draw(("px", "py", rngo.PURPOSE_SUBPIXEL, config.seed), spp_x,
+                     spp_y)
+
+
 def _subpixel_jitter(config: RenderConfig, px, py, si, spp_x: int,
                      spp_y: int):
-    """Stratified CMJ jitter in the pixel, keyed by (pixel, purpose,
-    seed)."""
-    perm = rngo.hash_combine(px, py, rngo.PURPOSE_SUBPIXEL, config.seed)
-    return rngo.cmj_sample_2d(si, spp_x, spp_y, perm)
+    """(jx, jy): the subpixel jitter of the lanes, one draw set."""
+    jx, jy = rngo.cmj_draws((subpixel_draw(config, spp_x, spp_y),), px, py,
+                            si)
+    return jx, jy
+
+
+def direct_light_draws(config: RenderConfig, n_lights: int) -> tuple:
+    """The light loop's draw set of a direct-lighting pass: for each light
+    li, the seed hash_combine(px, py, si, PURPOSE_LIGHT, li, seed) and its
+    2-D ls x ls samples of each k < ls^2 (an immediate index), rows
+    2 (li ls^2 + k) and the one after."""
+    ls = config.light_samples
+    return tuple(
+        rngo.Draw(("px", "py", "si", rngo.PURPOSE_LIGHT, li, config.seed),
+                  ls, ls, index_mul=0, index_add=k)
+        for li in range(n_lights) for k in range(ls * ls))
 
 
 def _image(v: V3, n_si: int, h: int, w: int):
@@ -184,22 +203,21 @@ def _direct_pass_body(scene: SceneData, config: RenderConfig, fov: float,
 
     ls = config.light_samples
     ls_total = ls * ls
+    u = rngo.cmj_draws(direct_light_draws(config, scene.n_lights), px, py,
+                       si)
     for li in range(scene.n_lights):
         lc = scene.light_color[li]
         lpow = scene.light_power[li]
         emitted = V3(lc[0] * lpow, lc[1] * lpow, lc[2] * lpow)
         light_sid = scene.light_shape_id[li]
         is_rect = scene.light_kinds_host[li] == LIGHT_RECT
-        perm = rngo.hash_combine(px, py, si, rngo.PURPOSE_LIGHT, li,
-                                 config.seed)
         acc = V3(zero, zero, zero)
         for k in range(ls_total):
-            u1, u2 = rngo.cmj_sample_2d(
-                torch.full((n,), k, dtype=torch.int64, device=dev), ls, ls,
-                perm)
+            row = 2 * (li * ls_total + k)
+            u1, u2 = u[row], u[row + 1]
             lp, _ = _sample_light_surface_direct(scene, li, position, u1, u2)
             to_light = lp - position
-            dist = torch.sqrt(torch.clamp_min(dot(to_light, to_light),
+            dist = sqrt_ieee(torch.clamp_min(dot(to_light, to_light),
                                               1e-37))
             to_light = to_light / dist
             # the shadow ray is a full closest-hit query up to the sampled

@@ -32,6 +32,7 @@ from ..ops.vec3 import (
     from_local_frame,
     make_coordinate_space,
     normalize,
+    sqrt_ieee,
     where as vwhere,
 )
 from ..ops.warps import (
@@ -75,12 +76,12 @@ def _sample_rect(scene: SceneData, idx, links, ref_pos: V3, u1, u2):
     s2 = _row3(scene.rect_side2, idx)
     pos = _chain(xfm.from_local_point_chain, links, corner + s1 * u1 + s2 * u2)
     outgoing = ref_pos - pos
-    dist = torch.sqrt(torch.clamp_min(dot(outgoing, outgoing), 1e-37))
+    dist = sqrt_ieee(torch.clamp_min(dot(outgoing, outgoing), 1e-37))
     outgoing = outgoing / dist
     # out as a vector, so its length stays the (scaled) area
     nrm = _chain(xfm.from_local_vector_chain, links,
                  cross(s1, s2).broadcast_to(pos.shape))
-    area = torch.sqrt(torch.clamp_min(dot(nrm, nrm), 1e-37))
+    area = sqrt_ieee(torch.clamp_min(dot(nrm, nrm), 1e-37))
     nrm = nrm / area
     flip = dot(nrm, outgoing) < 0.0
     nrm = vwhere(flip, -nrm, nrm)
@@ -110,7 +111,7 @@ def _sample_sphere(scene: SceneData, idx, links, ref_pos: V3, u1, u2,
 
     # outside: cone sampling plus the verification ray, in local space
     sin2 = radius * radius / torch.clamp_min(dist2, 1e-37)
-    cos_theta_max = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+    cos_theta_max = sqrt_ieee(torch.clamp_min(1.0 - sin2, 0.0))
     x, y, z = make_coordinate_space(to_center)
     cone = normalize(
         from_local_frame(uniform_to_cone(u1, u2, cos_theta_max), x, y, z)
@@ -205,7 +206,7 @@ def _rect_intersect_pdf(scene: SceneData, idx, links, ray_d: V3, t,
         s1 = xfm.from_local_vector_chain(links, s1.broadcast_to(t.shape))
         s2 = xfm.from_local_vector_chain(links, s2.broadcast_to(t.shape))
     c = cross(s1, s2)
-    area = torch.sqrt(torch.clamp_min(dot(c, c), 1e-37))
+    area = sqrt_ieee(torch.clamp_min(dot(c, c), 1e-37))
     pdf = t * t / torch.clamp_min(
         torch.abs(dot(hit_normal, -ray_d)) * area, 1e-37
     )
@@ -225,7 +226,7 @@ def _sphere_intersect_pdf(scene: SceneData, idx, links, ray_o: V3, ray_d: V3,
         torch.abs(dot(normalize(to_surf), hit_normal)), 1e-37
     )
     sin2 = radius * radius / torch.clamp_min(dist2, 1e-37)
-    cos_theta_max = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+    cos_theta_max = sqrt_ieee(torch.clamp_min(1.0 - sin2, 0.0))
     return torch.where(inside, pdf_in, uniform_cone_pdf(cos_theta_max))
 
 

@@ -47,11 +47,11 @@ from ..ops.brdf import (
     sample_sa,
 )
 from ..ops.mis import power_heuristic
-from ..ops.vec3 import RAY_TMAX, V3, dot, where as vwhere
+from ..ops.vec3 import RAY_TMAX, V3, dot, sqrt_ieee, where as vwhere
 from ..utils import graphs
 from ..utils.config import RenderConfig
 from . import lights as L
-from .integrator import _image, _pixel_grid, _subpixel_jitter, screen_uv
+from .integrator import _image, _pixel_grid, screen_uv, subpixel_draw
 from .trace import (
     material_emittance,
     material_row,
@@ -102,9 +102,6 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     overflow = 0
 
     nls = config.light_samples * config.light_samples if n_lights else 0
-    ps = config.pixel_samples
-    ls = config.light_samples
-    seed = config.seed
     tmin = config.ray_tmin
 
     for bounce in range(config.max_depth):
@@ -128,27 +125,17 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
         normal = hit.normal
         cmod_color = mat_color * hit.color_mod
 
+        # every draw of the bounce in one set (bounce_draws)
+        u = rngo.cmj_draws(bounce_draws(config, n_lights, bounce), px, py,
+                           si)
         if n_lights > 0 and nls > 0:
             nee_lane = lane & ~is_dirac
-            perm_sel = rngo.hash_combine(
-                px, py, rngo.PURPOSE_LIGHT_SELECT, bounce, seed)
-            perm_elem = rngo.hash_combine(
-                px, py, rngo.PURPOSE_LIGHT_ELEMENT, bounce, seed)
-            perm_light = rngo.hash_combine(
-                px, py, rngo.PURPOSE_LIGHT, bounce, seed)
-            perm_brdf = rngo.hash_combine(
-                px, py, rngo.PURPOSE_BRDF, bounce, seed)
             acc = V3(zeros, zeros, zeros)
             for lsi in range(nls):
-                # the flat sample index fsi = si * nls + lsi
-                fsi = dict(index_mul=nls, index_add=lsi)
-                liu = rngo.cmj_sample_1d(si, (ps * ls) ** 2, perm_sel, **fsi)
+                liu, lsu, lsv, leu, bsu, bsv = u[6 * lsi:6 * lsi + 6]
                 light_idx = torch.clamp_max(
                     (liu * n_lights).to(torch.int32), n_lights - 1
                 )
-                lsu, lsv = rngo.cmj_sample_2d(si, ps * ls, ps * ls,
-                                              perm_light, **fsi)
-                leu = rngo.cmj_sample_1d(si, (ps * ls) ** 2, perm_elem, **fsi)
 
                 # each lane's chosen light only
                 lp, _, lpdf = L.sample_chosen_light_rolled(
@@ -157,7 +144,7 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
 
                 # light-sampled direction
                 light_incoming = position - lp
-                dist = torch.sqrt(torch.clamp_min(
+                dist = sqrt_ieee(torch.clamp_min(
                     dot(light_incoming, light_incoming), 1e-37))
                 light_incoming = light_incoming / dist
                 f_l, brdf_pdf_l = evaluate_sa(kind, exponent, light_incoming,
@@ -168,8 +155,6 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                 tmax_l = torch.where(ok_l, dist - tmin, 0.0)
 
                 # BRDF-sampled direction toward the same light
-                bsu, bsv = rngo.cmj_sample_2d(si, ps * ls, ps * ls,
-                                              perm_brdf, **fsi)
                 b_in, f_b, pdf_b = sample_sa(kind, exponent, outgoing,
                                              normal, bsu, bsv)
                 ok_b = nee_lane & (pdf_b > 0.0) & (f_b > 0.0)
@@ -230,9 +215,7 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
             )
 
         # BRDF sample for the path continuation
-        perm_bounce = rngo.hash_combine(px, py, rngo.PURPOSE_BOUNCE, bounce,
-                                        seed)
-        bu, bv = rngo.cmj_sample_2d(si, ps, ps, perm_bounce)
+        bu, bv = u[-2], u[-1]
         incoming, f_c, pdf_c = sample_sa(kind, exponent, outgoing, normal,
                                          bu, bv)
         cont = lane & (pdf_c > 0.0)
@@ -250,17 +233,46 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     return result, overflow, queries
 
 
+def camera_draws(config: RenderConfig) -> tuple:
+    """The camera's draw set: the subpixel jitter (2-D), the lens sample
+    (2-D) and the shutter time (1-D), each of the pixel sample si; rows
+    jx, jy, lens_u, lens_v, time_u."""
+    ps, seed = config.pixel_samples, config.seed
+    return (subpixel_draw(config, ps, ps),
+            rngo.Draw(("px", "py", rngo.PURPOSE_LENS, seed), ps, ps),
+            rngo.Draw(("px", "py", rngo.PURPOSE_TIME, seed), ps * ps))
+
+
+def bounce_draws(config: RenderConfig, n_lights: int, bounce: int) -> tuple:
+    """One bounce's draw set: with lights, for each light sample lsi (the
+    flat index si * nls + lsi) the light choice (1-D), the point on it
+    (2-D), its element (1-D) and the BRDF direction toward it (2-D), rows
+    6 lsi to 6 lsi + 5; then the continuation's BRDF sample (2-D), the
+    last two rows."""
+    ps, ls, seed = config.pixel_samples, config.light_samples, config.seed
+    nls = ls * ls if n_lights else 0
+    key = lambda purpose: ("px", "py", purpose, bounce, seed)  # noqa: E731
+    plan = []
+    for lsi in range(nls):
+        fsi = dict(index_mul=nls, index_add=lsi)
+        plan += [
+            rngo.Draw(key(rngo.PURPOSE_LIGHT_SELECT), (ps * ls) ** 2, **fsi),
+            rngo.Draw(key(rngo.PURPOSE_LIGHT), ps * ls, ps * ls, **fsi),
+            rngo.Draw(key(rngo.PURPOSE_LIGHT_ELEMENT), (ps * ls) ** 2,
+                      **fsi),
+            rngo.Draw(key(rngo.PURPOSE_BRDF), ps * ls, ps * ls, **fsi)]
+    plan.append(rngo.Draw(key(rngo.PURPOSE_BOUNCE), ps, ps))
+    return tuple(plan)
+
+
 def _camera_rays(config: RenderConfig, camera: PerspectiveCamera, px, py,
                  si):
     """Camera rays (origin V3, direction V3, time) of the lanes (px, py,
-    si): subpixel jitter, lens and shutter-time samples per lane."""
-    ps = config.pixel_samples
-    jx, jy = _subpixel_jitter(config, px, py, si, ps, ps)
+    si): subpixel jitter, lens and shutter-time samples per lane, one draw
+    set (camera_draws)."""
+    jx, jy, lens_u, lens_v, time_u = rngo.cmj_draws(camera_draws(config),
+                                                    px, py, si)
     xu, yu = screen_uv(config, px, py, jx, jy)
-    perm_lens = rngo.hash_combine(px, py, rngo.PURPOSE_LENS, config.seed)
-    lens_u, lens_v = rngo.cmj_sample_2d(si, ps, ps, perm_lens)
-    perm_time = rngo.hash_combine(px, py, rngo.PURPOSE_TIME, config.seed)
-    time_u = rngo.cmj_sample_1d(si, ps * ps, perm_time)
     return camera.make_rays(xu, yu, lens_u, lens_v, time_u)
 
 

@@ -452,10 +452,18 @@ def build_items_plain(masks, w: int, maxitems: int, cap: int):
     return items, n_steps, overflow, aligned > 0
 
 
+# build_items.cu's state words (its counters, then a 64-bit status word per
+# tile of 8 ray blocks and per fill CTA, at most 4 per SM): enough for
+# 2^19 ray blocks, allocated zeroed once per device and never freed, since
+# captured graphs hold its address
+ITEMS_STATE_WORDS = 4 + 2 * ((1 << 16) + 1024)
+_items_state = {}
+
+
 @cuda_lib.counted
 def build_items(masks, w: int, maxitems: int, cap: int):
-    """Kernel wrapper of :func:`build_items_plain` (same contract): three
-    launches from one C entry, nothing read back to the host."""
+    """Kernel wrapper of :func:`build_items_plain` (same contract): one
+    single-pass launch, nothing read back to the host."""
     _check_dtype("build_items", masks, torch.int32, 2)
     validate_items(w, maxitems, cap)
     nblk, nw = masks.shape
@@ -466,18 +474,25 @@ def build_items(masks, w: int, maxitems: int, cap: int):
         return build_items_plain(masks, w, maxitems, cap)
     if nblk * (nw * 32 + w) >= 2**31 or maxitems + w >= 2**31:
         raise ValueError("build_items: the list's counts must fit in int32")
+    if nblk > 1 << 19:
+        raise ValueError("build_items: at most 2^19 ray blocks")
     lib, stream = cuda_lib.launch_args("build_items", masks)
     dev = masks.device
-    # the list, the group count, then count / aligned / start / total
-    ints = torch.empty((maxitems + w + 1 + 3 * nblk + 1,), dtype=torch.int32,
-                       device=dev)
+    state = _items_state.get(dev)
+    if state is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"build_items: the first launch on {dev} was "
+                               "made under a capture")
+        state = _items_state[dev] = torch.zeros(
+            (ITEMS_STATE_WORDS,), dtype=torch.int32, device=dev)
+    # the list, then the group count
+    ints = torch.empty((maxitems + w + 1,), dtype=torch.int32, device=dev)
     # the overflow flag, then block_used
     flags = torch.empty((nblk + 1,), dtype=torch.bool, device=dev)
     cuda_lib.check(lib.rt_build_items(
         masks.data_ptr(), ints.data_ptr(), ints.data_ptr() + 4 * (maxitems + w),
-        flags.data_ptr(), flags.data_ptr() + 1,
-        ints.data_ptr() + 4 * (maxitems + w + 1), nblk, nw, w, maxitems, cap,
-        stream,
+        flags.data_ptr(), flags.data_ptr() + 1, state.data_ptr(),
+        ITEMS_STATE_WORDS, nblk, nw, w, maxitems, cap, stream,
     ), "build_items")
     cuda_lib.count_launch(build_items, dev)
     return ints[:maxitems + w], ints[maxitems + w], flags[0], flags[1:]

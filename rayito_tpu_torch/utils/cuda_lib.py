@@ -53,10 +53,14 @@ SIGNATURES = {
     "rt_gather_rows_t": [_P, _P, _P, _I, _I, _I, _P],
     "rt_traverse_items": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _F, _I, _P],
-    "rt_build_items": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rt_build_items": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
+                       _I, _I, _I, _P],
     "rt_cluster_pipeline": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _P],
     "rt_hash_combine": [_P, _I, _I, _P, _P],
     "rt_cmj_sample": [_P, _U, _U, _P, _I, _I, _P, _P, _I, _P],
+    # plan, px, py, si, out, n, stream
+    "rt_cmj_draws": [_P, _P, _P, _P, _P, _I, _P],
+    "rt_cmj_plan_bytes": [],
     # spec, 6 tables, 7 rays, time, tmin, 9 inputs, 6 outputs, n, stream
     "rt_fold_small": [_P] * 15 + [_F] + [_P] * 15 + [_I, _P],
 }

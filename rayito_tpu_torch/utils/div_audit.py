@@ -9,11 +9,11 @@ device divides as IEEE on both (``ops/rng.py`` ``_div``).
 active, every floating-point ``aten.div`` / ``aten.floor_divide`` whose
 divisor is such a scalar (``found``), every ``aten.reciprocal``
 (``reciprocals``: ``1.0 / t`` is one IEEE reciprocal on both devices, so it
-is listed, not a fault) and every float32 ``aten.sqrt`` (``sqrts``:
-PyTorch's float32 root is correctly rounded on the card but not on the
-CPU, so these may differ between the two in the last bit;
-``ops/vec3.sqrt_ieee`` is correctly rounded on both). Each entry is the
-call site in the port, as ``file:line``. It sees the same ops on the CPU as on the card, so a CPU
+is listed, not a fault) and every float32 ``aten.sqrt`` taken outside ``ops/vec3.sqrt_ieee``
+(``sqrts``: PyTorch's float32 root is correctly rounded on the card but
+not on the CPU, so such a root may differ between the two in the last
+bit; ``sqrt_ieee`` is correctly rounded on both, and is the only root the
+port takes). Each entry is the call site in the port, as ``file:line``. It sees the same ops on the CPU as on the card, so a CPU
 run lists what the card would round twice::
 
     with ScalarDivisions() as audit:
@@ -37,14 +37,23 @@ _DIVS = {"div", "div_", "floor_divide", "floor_divide_", "true_divide",
          "true_divide_"}
 
 
-def _site() -> str:
-    """The innermost frame of the port (this module excluded), or '?'."""
+def _port_frame():
+    """The innermost frame of the port (this module excluded), or None."""
     for fr in reversed(traceback.extract_stack()):
         path = os.path.abspath(fr.filename)
         if path.startswith(_PKG) and path != _HERE:
-            rel = os.path.relpath(path, os.path.dirname(_PKG))
-            return f"{rel}:{fr.lineno}"
-    return "?"
+            return fr
+    return None
+
+
+def _site(fr=None) -> str:
+    """``file:line`` of the innermost frame of the port, or '?'."""
+    fr = fr or _port_frame()
+    if fr is None:
+        return "?"
+    rel = os.path.relpath(os.path.abspath(fr.filename),
+                          os.path.dirname(_PKG))
+    return f"{rel}:{fr.lineno}"
 
 
 def _scalar_divisor(dividend, divisor) -> bool:
@@ -58,8 +67,8 @@ def _scalar_divisor(dividend, divisor) -> bool:
 
 
 class ScalarDivisions(TorchDispatchMode):
-    """Records scalar divisions, reciprocals and float32 square roots by
-    call site (Counters of ``file:line``)."""
+    """Records scalar divisions, reciprocals and float32 square roots
+    outside ``sqrt_ieee`` by call site (Counters of ``file:line``)."""
 
     def __init__(self):
         super().__init__()
@@ -80,7 +89,9 @@ class ScalarDivisions(TorchDispatchMode):
             self.reciprocals[_site()] += 1
         elif (name in ("sqrt", "sqrt_") and torch.is_tensor(args[0])
               and args[0].dtype == torch.float32):
-            self.sqrts[_site()] += 1
+            fr = _port_frame()
+            if fr is None or fr.name != "sqrt_ieee":
+                self.sqrts[_site(fr)] += 1
         return out
 
     def summary(self) -> str:
@@ -90,7 +101,8 @@ class ScalarDivisions(TorchDispatchMode):
         lines.append(f"reciprocals (1.0 / t, IEEE on both devices): "
                      f"{sum(self.reciprocals.values())} at "
                      f"{len(self.reciprocals)} sites")
-        lines.append(f"float32 square roots (not correctly rounded on the "
-                     f"CPU): {sum(self.sqrts.values())} at "
-                     f"{len(self.sqrts)} sites")
+        lines.append(f"float32 square roots outside sqrt_ieee (not "
+                     f"correctly rounded on the CPU): "
+                     f"{sum(self.sqrts.values())} at {len(self.sqrts)} sites")
+        lines += [f"  {site} x{n}" for site, n in sorted(self.sqrts.items())]
         return "\n".join(lines)

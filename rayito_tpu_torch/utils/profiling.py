@@ -13,9 +13,7 @@ from __future__ import annotations
 _PHASES = (
     ("cluster_masks_kernel", "cluster-mask kernel (slab tests)"),
     ("blocks_", "block traversal kernels (traverse_blocks)"),
-    ("items_count_kernel", "item-list kernels (build_items)"),
-    ("items_scan_kernel", "item-list kernels (build_items)"),
-    ("items_write_kernel", "item-list kernels (build_items)"),
+    ("build_items_kernel", "item-list kernel (build_items)"),
     ("items_", "item traversal kernels (traverse_items)"),
     ("gather_rows_t_kernel", "winner-row gather kernel"),
     ("cluster_pipeline_kernel", "two-level cluster pipeline kernel"),

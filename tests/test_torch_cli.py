@@ -338,7 +338,7 @@ def test_phase_table_buckets_the_port_kernels():
         row("cluster_masks_kernel(float const*, ...)", 500.0, 18),
         row("blocks_fold_kernel(int const*, ...)", 4000.0, 18),
         row("blocks_units_kernel(int const*, ...)", 100.0, 18),
-        row("items_count_kernel(int const*, int*)", 30.0, 6),
+        row("build_items_kernel(int const*, int*, ...)", 30.0, 6),
         row("items_fold_kernel(int const*, ...)", 2000.0, 6),
         row("gather_rows_t_kernel(float const*, ...)", 120.0, 6),
         row("void at::native::vectorized_elementwise_kernel<4, ...>", 9000.0,
@@ -354,7 +354,7 @@ def test_phase_table_buckets_the_port_kernels():
     table = {label: (ms, n) for label, ms, n in phase_table(prof, 2.0)}
     assert table["cluster-mask kernel (slab tests)"] == (0.25, 18)
     assert table["block traversal kernels (traverse_blocks)"] == (2.05, 36)
-    assert table["item-list kernels (build_items)"] == (0.015, 6)
+    assert table["item-list kernel (build_items)"] == (0.015, 6)
     assert table["item traversal kernels (traverse_items)"] == (1.0, 6)
     assert table["winner-row gather kernel"] == (0.06, 6)
     assert table["PyTorch elementwise kernels"] == (4.5, 20000)

@@ -45,7 +45,12 @@ the sample streams' kernel (hash_combine, cmj_sample_1d, cmj_sample_2d)
 against its plain versions at nums that walk and nums that do not, with
 int32 and int64 operands, 0-d and immediate permutations and the
 multiplier-and-addend index, its launch count inside a captured graph,
-and fold_small (every tiny mesh of a query in one launch) against its
+the draw-set kernel (cmj_draws) against cmj_draws_plain on every
+renderer's plan at pixel samples {1, 2, 3, 12} x light samples {1, 2}, a
+plan split into three launches and a set replayed in a graph, and
+build_items replayed five times in one graph over masks changed between
+replays, at both budgets and with cuts at and inside a tile, and
+fold_small (every tiny mesh of a query in one launch) against its
 plain twin on stage 7b's ten cubes (in one launch, and cut into four
 chained launches), a one-key cube, a cube in a turning group and a
 192-row mesh whose every hit ties with a twin row, closest and any hit.
@@ -1743,6 +1748,135 @@ def test_cmj_kernel_counts_and_captures(dev):
     assert rng.cmj.launches == 2
     assert cuda_lib.launch_counts()["cmj"] == 4  # two replays of two launches
     assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+def _draw_plans(ps, ls):
+    """{name: plan} of the renderers' draw sets at (ps, ls)."""
+    from rayito_tpu_torch.render import integrator as tint
+    from rayito_tpu_torch.render import pathtracer as tpath
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig(width=64, height=48, pixel_samples=ps,
+                       light_samples=ls, seed=7)
+    return {"camera": tpath.camera_draws(cfg),
+            "bounce": tpath.bounce_draws(cfg, 3, 1),
+            "bounce_dark": tpath.bounce_draws(cfg, 0, 2),
+            "direct_subpixel": (tint.subpixel_draw(cfg, ps, ps),
+                                tint.subpixel_draw(cfg, 64, 1)),
+            "direct_lights": tint.direct_light_draws(cfg, 2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("ps, ls", [(ps, ls) for ps in (1, 2, 3, 12)
+                                    for ls in (1, 2)])
+def test_cmj_draws_match_plain(dev, ps, ls, dtype):
+    """The draw-set kernel against cmj_draws_plain (the fixed cycle-walk
+    rounds on the card) on every renderer's plan, bit for bit, on 65,536
+    lanes of a 640-wide grid: one launch per set, counted."""
+    from rayito_tpu_torch.ops import rng
+
+    n = 65536
+    rs = np.random.default_rng(10 * ps + ls)
+    lane = torch.arange(n, device=dev)
+    px, py = (lane % 640).to(dtype), (lane // 640).to(dtype)
+    si = torch.from_numpy(rs.integers(0, ps * ps, n)).to(dev, dtype)
+    for name, plan in _draw_plans(ps, ls).items():
+        before = rng.cmj.launches
+        got = rng.cmj_draws(plan, px, py, si)
+        assert rng.cmj.launches - before == 1, name
+        want = rng.cmj_draws_plain(plan, px, py, si)
+        assert got.shape == want.shape and _same_bits(got, want), name
+
+
+def test_cmj_draws_split_and_captured(dev):
+    """A set of 150 draws over ten seeds runs as three launches (the plan's
+    64-draw and 8-seed limits) and equals its plain version; a 0-d si and
+    int64 px serve every lane; a bounce's set captured in a graph counts
+    one launch per replay and replays the eager draws."""
+    from rayito_tpu_torch.ops import rng
+
+    px = torch.arange(4096, dtype=torch.int32, device=dev)
+    big = tuple(rng.Draw(("px", "py", k % 10), 3 + k % 4, k % 3)
+                for k in range(150))
+    before = rng.cmj.launches
+    got = rng.cmj_draws(big, px, px // 64, px % 9)
+    assert rng.cmj.launches - before == 3
+    assert _same_bits(got, rng.cmj_draws_plain(big, px, px // 64, px % 9))
+    si = torch.tensor(5, dtype=torch.int32, device=dev)
+    got = rng.cmj_draws(big[:7], px.long(), px // 64, si)
+    assert got.shape[1:] == (4096,)
+    assert _same_bits(got, rng.cmj_draws_plain(big[:7], px.long(), px // 64,
+                                               si))
+    plan = _draw_plans(2, 2)["bounce"]
+    want = rng.cmj_draws(plan, px, px // 64, px % 4)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = rng.cmj_draws(plan, px, px // 64, px % 4)
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    assert rng.cmj.launches == 1
+    assert cuda_lib.launch_counts()["cmj"] == 3
+    assert _same_bits(out, want)
+
+
+def _aligned_prefix(masks, w):
+    """Each block's w-aligned count and their running sum (numpy)."""
+    counts = np.unpackbits(masks.view(np.uint8)).reshape(
+        masks.shape[0], -1).sum(1)
+    aligned = -(-counts // w) * w
+    return counts, np.concatenate([[0], np.cumsum(aligned)])
+
+
+@pytest.mark.parametrize("budget", ["fits", "reference", "tile_edge",
+                                    "inside_tile", "past_tile_edge"])
+def test_build_items_replayed_in_a_graph(dev, budget):
+    """build_items captured once in a CUDA graph and replayed five times
+    over masks changed in place between replays (200 blocks of 60 words:
+    25 tiles of 8 blocks), every output equal to build_items_plain on
+    each replay's masks: at a budget that never overflows, at the
+    reference's 24,576 / 64 (overflow by cap), and at budgets whose cut
+    falls exactly at the end of the twelfth tile (block 96), inside the
+    fourteenth tile (block 109) and just past the twelfth tile's end. One
+    launch per replay."""
+    rs = np.random.default_rng(31)
+    nblk, nw, w = 200, 60, 4
+
+    def masks_for(k):
+        m = _random_masks(np.random.default_rng(1000 + k), nblk=nblk, nw=nw)
+        m[rs.random(nblk) < 0.1] = 0
+        return m
+
+    first = masks_for(0)
+    counts, prefix = _aligned_prefix(first, w)
+    maxitems, cap = {
+        "fits": (nblk * nw * 32, nw * 32),
+        "reference": (24576, 64),
+        "tile_edge": (int(prefix[96]), nw * 32),
+        "inside_tile": (int(prefix[96 + 13]) + 2, nw * 32),
+        "past_tile_edge": (int(prefix[96]) + 1, nw * 32)}[budget]
+    static = torch.from_numpy(first).to(dev)
+    tv.build_items(static, w, maxitems, cap)  # warm-up, eager
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = tv.build_items(static, w, maxitems, cap)
+    overflowed = 0
+    for k in range(5):
+        static.copy_(torch.from_numpy(first if k == 0 else masks_for(k)))
+        g.replay()
+        want = tv.build_items_plain(static, w, maxitems, cap)
+        _check_build(out, want)
+        overflowed += bool(want[2])
+    assert cuda_lib.launch_counts()["build_items"] == 5
+    if budget == "fits":
+        assert overflowed == 0
+    elif budget != "past_tile_edge" or counts[96:].any():
+        assert overflowed >= 1
 
 
 @pytest.mark.parametrize("mesh", ["stage7b", "one_key", "nested", "tied_192",

@@ -153,8 +153,7 @@ def _branch_rays(cam, xu, yu, lu, lv, tu):
     of the lens radius (with the camera's correctly rounded root)."""
     sx = (xu - 0.5) * cam.tan_fov
     sy = (yu - 0.5) * cam.tan_fov
-    direction = normalize(cam.forward + cam.right * sx + cam.up * sy,
-                          sqrt_ieee)
+    direction = normalize(cam.forward + cam.right * sx + cam.up * sy)
     origin = cam.origin.broadcast_to(sx.shape)
     if float(cam.lens_radius) > 0.0:
         hs, vs = uniform_to_uniform_disk(lu, lv)
@@ -162,7 +161,7 @@ def _branch_rays(cam, xu, yu, lu, lv, tu):
         focus = origin + direction * (
             cam.focal_distance * sqrt_ieee(sx * sx + sy * sy + 1.0))
         origin = origin + cam.right * hs + cam.up * vs
-        direction = normalize(focus - origin, sqrt_ieee)
+        direction = normalize(focus - origin)
     return origin, direction, cam.time(tu).expand(sx.shape)
 
 

@@ -1,25 +1,40 @@
 """The SASS the port's kernels compile to, counted for their bounds.
 
 Builds the kernel library (``utils/cuda_lib.build``), disassembles it with
-``cuobjdump -sass`` and prints, for each kernel named (by default the two
-sample-stream kernels of ``csrc/cmj.cu``, ``cmj_hash_kernel`` and
+``cuobjdump -sass`` and prints, for each kernel named (by default the
+sample-stream kernels of ``csrc/cmj.cu``: the draw set's
+``cmj_draws_kernel`` and the single draws' ``cmj_hash_kernel`` and
 ``cmj_sample_kernel``), one JSON line per compiled function: its
 instruction count by opcode, every loop (a branch back to an earlier
 address) with the instructions between its head and that branch, and its
-basic blocks. The cycle walk's loop gives the instructions one round
-after the first costs, with what the compiler hoisted out of it; the
-blocks on a lane's path give what a hash, its operands and a sample cost
-(``chip_smoke.py``'s ``HASH_INSNS``, ``SAMPLE_INSNS`` and ``ROUND_INSNS``).
+basic blocks. The draw set's bound counts its own arithmetic in the
+listing ``--out`` writes (``chip_smoke.py``'s ``DRAWS_OPS``, with the
+addresses of the build of ``csrc/cmj.cu`` as it stands: a hash operand,
+a seed's salt products, a permutation round, the magic divisions, a
+rand_float, an IEEE division, a store), leaving out plan decoding, loop
+control and addressing.
+``--kernels build_items_kernel`` lists the single-pass item-list kernel
+(its bound is bytes).
 ``--kernels cluster_pipeline_kernel`` gives the pipeline's slab-test and
 triangle-test loops (``chip_smoke.py``'s ``PIPE_INSNS``), ``--kernels
 fold_small_kernel`` the tiny-mesh fold's (``FOLD_INSNS``); for those two
 each loop also counts its ``float_loads``: float instructions (arithmetic,
 compares, selects, ``MUFU`` and the division's ``FCHK``) and loads from
 shared or global memory, leaving out integer, address and control work.
-The whole listing is written to ``--out``.
+The whole listing is written to ``--out``. ``--walk START:STOP[:A=t,B=n]``
+counts the instructions a lane issues from address START up to STOP (not
+included) in the first kernel named: a predicated forward branch is taken
+and a backward one is not (no loop repeats), unless listed as taken
+(``t``) or not (``n``); an unpredicated branch is followed: every
+instruction the kernel issues on that path, its overhead included (the
+same build: the lane set-up ``0:480:100=t,250=t,380=t``, a seed
+``480:1270`` with its operand selects set per operand kind, a 2-D draw
+``1270:3270:1320=n``, a 1-D draw ``1270:3270:1320=t``, the seed loop's
+tail and the exit ``3270:32c0``).
 
     python3 tools/cmj_sass.py --out build/cmj_sass.txt
     python3 tools/cmj_sass.py --kernels cluster_pipeline_kernel,fold_small_kernel
+    python3 tools/cmj_sass.py --kernels cmj_draws_kernel --walk 1270:3270:1320=n
 
 Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit); no card.
 """
@@ -37,7 +52,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-KERNELS = ("cmj_hash_kernel", "cmj_sample_kernel")
+KERNELS = ("cmj_draws_kernel", "cmj_hash_kernel", "cmj_sample_kernel")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -127,12 +142,51 @@ def summarize(lines) -> dict:
             "blocks": [f"{a:#06x}: {n}, {op}" for a, n, op in blocks]}
 
 
+def walk(lines, spec: str) -> dict:
+    """Instructions on the path ``START:STOP[:A=t,B=n]`` (hex addresses)
+    of one function's listing, and the branches it took."""
+    parts = spec.split(":")
+    start, stop = int(parts[0], 16), int(parts[1], 16)
+    decide = {}
+    if len(parts) > 2 and parts[2]:
+        for item in parts[2].split(","):
+            addr, how = item.split("=")
+            decide[int(addr, 16)] = how == "t"
+    insns, labels = _parse(lines)
+    at = {addr: k for k, (addr, _, _) in enumerate(insns)}
+    preds = {}
+    for line in lines:
+        m = _INSN.search(line)
+        if m:
+            preds[int(m.group(1), 16)] = bool(m.group(2))
+    k, count, taken = at[start], 0, []
+    while insns[k][0] != stop:
+        addr, op, args = insns[k]
+        if count > 100_000:
+            raise RuntimeError(f"walk {spec}: no end")
+        count += op != "NOP"
+        if op.startswith("EXIT") and not preds[addr]:
+            break
+        if op.startswith("BRA"):
+            tgt = _target(args, labels)
+            conditional = preds[addr] or args.startswith(("P", "!P"))
+            if not conditional or decide.get(addr, tgt > addr):
+                taken.append(f"{addr:#x}->{tgt:#x}")
+                k = at[tgt]
+                continue
+        k += 1
+    return {"walk": spec, "insns": count, "taken": taken}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="file for the whole listing of the kernels")
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated kernel names (symbol substrings)")
+    ap.add_argument("--walk", action="append", default=[],
+                    help="START:STOP[:ADDR=t|n,...] path to count in the "
+                         "first kernel named (hex addresses)")
     args = ap.parse_args()
     kernels = tuple(args.kernels.split(","))
 
@@ -158,6 +212,9 @@ def main() -> int:
         kernel = next(k for k in kernels if k in name)
         print(json.dumps({"kernel": kernel, "symbol": name,
                           **summarize(lines)}))
+    first = next(n for n in funcs if kernels[0] in n)
+    for spec in args.walk:
+        print(json.dumps({"kernel": kernels[0], **walk(funcs[first], spec)}))
     return 0
 
 
