@@ -22,7 +22,7 @@ JAX. Phases, each printed, each fatal on failure:
      the dispatch (``_render_path_frame``: one replay of the pass graph per
      launch), counting every kernel's launches, checked against the same
      frame rendered with the plain versions through the eager pass body;
-     then one timed frame;
+     then one timed frame; then phase 27 (the shading kernels);
   5. big-scene kernels: the big scene (five n=64 stand-ins, 245,760
      triangles, 1,920 clusters) and its camera, bounce and shadow
      populations of one 131,072-ray band: each of the five kernels against
@@ -185,11 +185,26 @@ JAX. Phases, each printed, each fatal on failure:
      CPU's own library moves printed); and utils/div_audit.ScalarDivisions
      over one eager pass of every path above at 64x32 (cli.main too,
      plain and --sharded): no division by a Python or CPU scalar and no
-     float32 root outside sqrt_ieee left on any of them.
+     float32 root outside sqrt_ieee left on any of them;
+ 27. shading kernels (run after phase 4): bounce_prepare and
+     bounce_resolve (csrc/shade.cu) against their plain versions on the
+     card, every output bit for bit, on the inputs the eager pass body
+     hands them: stage 6's first band at bounces 0 and 1, stage 7's first
+     band at seeded lane times in [-0.5, 1.5] (its keyed rect and sphere
+     lights), the box mesh light at light_samples=2 (the BRDF-side
+     closest-hit branch), the 16-light scene at light_samples 1 and 2;
+     stage 6's bounce 0 timed (CUDA-graph replays of 20 calls, each after
+     an 80 MB write that evicts the inputs from L2, less the write's time;
+     and back to back), beside the plain versions, with each kernel's bound (bytes at 3.35 TB/s: each
+     input read once, each output written once; or SHADE_OPS at 67
+     TFLOP/s) and share.
 
-Every frame that draws samples launches cmj (all but stage 1's); the
-plain-version frames swap all eight kernels for their plain versions
-(``_swap_plain``), the sample streams and the tiny-mesh fold included.
+Every frame that draws samples launches cmj (all but stage 1's); every
+path-trace frame launches bounce_prepare and bounce_resolve once per
+bounce and pass, read from the device counters (phases 4-13 and 23); the
+plain-version frames swap all ten kernels for their plain versions
+(``_swap_plain``), the sample streams, the tiny-mesh fold and the
+shading included.
 Launches are counted on the device: each kernel wrapper adds one to a
 device counter beside its launch, so a captured graph holds the add and
 every replay counts (``utils/cuda_lib.launch_counts``); the counts are
@@ -293,7 +308,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phases = [lambda: run_samples(dev, card),
               lambda: run_divisions(dev, card),
-              lambda: run(dev, card), lambda: run_big(dev, card),
+              lambda: run(dev, card), lambda: run_shade(dev, card),
+              lambda: run_big(dev, card),
               lambda: run_stage7(dev, card), lambda: run_stage7b(dev, card),
               lambda: run_stage5(dev, card),
               lambda: run_mesh_light(dev, card), lambda: run_many(dev, card),
@@ -308,11 +324,11 @@ def main() -> int:
         graphs.clear()  # the pools of one phase's graphs go with it
         print(f"-- phase done in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    (samples, _, stage6, big, stage7, stage7b, stage5, mesh_light, _, direct,
-     cli, xla, _, _, by_graph, _) = outs
+    (samples, _, stage6, shading, big, stage7, stage7b, stage5, mesh_light,
+     _, direct, cli, xla, _, _, by_graph, _) = outs
 
     records = kernel_records(samples, stage6, big, stage7, stage7b, stage5,
-                             mesh_light, xla)
+                             mesh_light, xla, shading)
     for k in records:
         k["launches_frame"]["stages1_4"] = direct["launches"][k["name"]]
         k["launches_frame"]["cli_stage6"] = cli["launches"][k["name"]]
@@ -335,8 +351,8 @@ def main() -> int:
 
 def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
                    stage7b: dict, stage5: dict, mesh_light: dict,
-                   xla: dict) -> list:
-    """The eight kernels' records: launches (device-counted, replays
+                   xla: dict, shading: dict) -> list:
+    """The ten kernels' records: launches (device-counted, replays
     included) in the replayed frame of the path each serves first (stage 6;
     the big scene for the item route; the 'xla' stage-6 frame for
     cluster_pipeline; stage 7b for fold_small) and per frame of each path;
@@ -463,6 +479,30 @@ def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
          **{k: stage7b["fold"][k] for k in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
+    main_pop = shading["stage6_b0"]
+    shade_err = max(r["shade_err"] for r in shading.values())
+    for key, line in (("prepare", 150), ("resolve", 338)):
+        kernels.append({
+            "name": "bounce_" + key, "route": "cuda",
+            "source": src + "shade.cu",
+            "replaces": f"rayito_tpu/render/pathtracer.py:{line}",
+            "note": "port-only: the XLA-fused bounce body of the "
+                    "reference's pathtrace_wave (pathtracer.py:150-305 "
+                    "before the shadow queries, :338-396 after them), no "
+                    "pallas_call; ms, bound and share of stage 6's first "
+                    "band at bounce 0 (131,072 lanes), each call after an "
+                    "80 MB write that evicts its inputs from L2 (warm_ms: "
+                    "back to back); launches once per bounce and pass",
+            "launches": launches["bounce_" + key],
+            "max_abs_err": shade_err,
+            **{k: main_pop[f"{key}_{k}"] for k in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "share": main_pop[f"{key}_share"],
+            "warm_ms": main_pop[f"{key}_warm_ms"],
+            "bytes": main_pop[f"{key}_bytes"],
+            "populations": {name: {k: r[k] for k in (
+                "lanes", "light_samples", "alive_lanes", "queries")}
+                for name, r in shading.items()}})
     for k in kernels:
         k["launches_frame"] = {
             "stage6": launches[k["name"]],
@@ -570,13 +610,28 @@ def _mask_bound(r, soat, box, tmin, n_live, masks):
 MESH_N = 64
 WIDTH = 512
 RAYS_PER_PASS = 1 << 17  # 256-row bands of 131,072 rays
+# the bounce's shading kernels: one launch of each per bounce and pass of
+# every path-trace frame
+SHADE_KERNELS = ("bounce_prepare", "bounce_resolve")
 # the sample streams' kernel launches on every frame that draws samples
-STAGE6_KERNELS = ("cluster_masks", "traverse_blocks", "gather_rows_t", "cmj")
+STAGE6_KERNELS = ("cluster_masks", "traverse_blocks", "gather_rows_t",
+                  "cmj") + SHADE_KERNELS
 # the traversal kernels: no frame without a traversal domain launches them
 TRAVERSAL_KERNELS = ("cluster_masks", "traverse_blocks", "traverse_items",
                      "build_items", "cluster_pipeline")
 # the big scene's item route: the scan stands by for lists that overflow
 BIG_ITEM_KERNELS = STAGE6_KERNELS + ("traverse_items", "build_items")
+
+
+def _check_shade_launches(label, launches, passes: int, depth: int = 3):
+    """One launch of each shading kernel per bounce and pass, read from the
+    device counters."""
+    got = tuple(launches[k] for k in SHADE_KERNELS)
+    print(f"{label}: bounce_prepare / bounce_resolve launches {got[0]} / "
+          f"{got[1]} ({depth} bounces x {passes} passes)")
+    if got != (depth * passes,) * 2:
+        raise AssertionError(f"{label}: {depth * passes} launches of each "
+                             "shading kernel expected")
 
 
 def _standin_obj() -> str:
@@ -925,18 +980,20 @@ def _check_masks(name, soat, box, tmin, n_live, r):
 
 
 def _swap_plain():
-    """Point the path at the plain versions of all eight kernels (the
-    'xla' route's pipeline and winner-row gather, the sample streams and
-    the tiny-mesh fold too); returns the undo."""
+    """Point the path at the plain versions of all ten kernels (the
+    'xla' route's pipeline and winner-row gather, the sample streams, the
+    tiny-mesh fold and the bounce's shading too); returns the undo."""
     from rayito_tpu_torch.ops import rng
     from rayito_tpu_torch.render import mesh_intersect as mi
+    from rayito_tpu_torch.render import shade
     from rayito_tpu_torch.render import trace as tr
     from rayito_tpu_torch.render import traverse as tv
 
     saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
              tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
              mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
-             rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small)
+             rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small,
+             shade.bounce_prepare, shade.bounce_resolve)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
     tv.traverse_items = tv.traverse_items_plain
@@ -949,12 +1006,15 @@ def _swap_plain():
     rng.cmj_sample_2d = rng.cmj_sample_2d_plain
     rng.cmj_draws = rng.cmj_draws_plain
     tr.fold_small = mi.fold_small_query_plain
+    shade.bounce_prepare = shade.bounce_prepare_plain
+    shade.bounce_resolve = shade.bounce_resolve_plain
 
     def undo():
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
          tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
          mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
-         rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small) = saved
+         rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small,
+         shade.bounce_prepare, shade.bounce_resolve) = saved
 
     return undo
 
@@ -1424,6 +1484,7 @@ def _frame_phase(label: str, cfg, frame, card: str,
     print(f"frame {img.shape}: queries {int(queries)}, {diag}")
     if min(launches[k] for k in kernels) <= 0:
         raise AssertionError("a kernel of the path was never launched")
+    _check_shade_launches(label, launches, cfg.height // band, cfg.max_depth)
 
     undo = _swap_plain()
     try:
@@ -1472,6 +1533,276 @@ def run(dev, card: str) -> dict:
     fr = _frame_phase(f"stage-6 frame (n={MESH_N} stand-in, {WIDTH}x{WIDTH},"
                       " sample 0", cfg, frame, card)
     return {"results": results, "launches": fr["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the bounce's shading (csrc/shade.cu)
+# ---------------------------------------------------------------------------
+
+# Float operations of the shading kernels per lane, counted by hand from
+# csrc/shade.cu's formulas along the cheapest path a lane can take (a
+# Lambert lane: each add, multiply, compare, select, division, root, sin,
+# cos and pow at one operation; loads, integer work and the clamps' NaN
+# guards left out), so the bound stays a lower bound. bounce_prepare: per
+# lane the material row, the emission gate, the position and the
+# continuation's Lambert sample (concentric disk 24, its sin and cos 2,
+# the frame 38, the rest 30); per light sample the light choice (3), a rect
+# light's sample (58), the direction to it (14), Lambert's evaluation (16),
+# the Lambert sample toward the light (94) and, with analytic lights, a
+# rect's analytic hit (62). bounce_resolve: per lane the continuation (22);
+# per light sample both power heuristics (12), both gains (16), the sums
+# (12) and a rect's intersect pdf (28).
+SHADE_OPS = {"prepare_lane": 136, "prepare_sample": 185,
+             "prepare_analytic": 62, "resolve_lane": 22,
+             "resolve_sample": 68}
+
+
+def _nbytes(*ts) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def _v3s(*vs):
+    return [c for v in vs if v is not None for c in (v.x, v.y, v.z)]
+
+
+def _shade_tables(scene) -> int:
+    """Bytes of the scene tables a shading launch may read, once each."""
+    from rayito_tpu_torch.models.scene import LIGHT_MESH
+    from rayito_tpu_torch.render import shade
+
+    tabs = [getattr(scene, k) for k in shade._TABLES
+            if k not in ("tri_area_cdf", "tri_vert_rows")
+            and (scene.has_motion or not k.startswith("xf_"))]
+    total = _nbytes(*tabs)
+    for kind, idx in zip(scene.light_kinds_host, scene.light_indices_host):
+        if kind == LIGHT_MESH:  # its CDF run and vertex rows
+            total += scene.mesh_tri_ranges[idx][1] * (4 + 9 * 4)
+    return total
+
+
+def _shade_work(scene, args, prep, res_args=None):
+    """(ops, bytes) of one bounce_prepare (``res_args`` None) or
+    bounce_resolve launch on these inputs: each input read once, each
+    output written once."""
+    from rayito_tpu_torch.render import shade
+
+    n = prep.f_c.shape[0]
+    nls = prep.light_idx.shape[0]
+    analytic = shade.analytic_lights(scene)
+    tables = _shade_tables(scene)
+    motion = scene.has_motion
+    if res_args is None:
+        (_, _, _, hit, u, tp, alive, nd, o, d, tm, res) = args
+        reads = _nbytes(hit.t, hit.valid, hit.mat, hit.color_mod, u, alive,
+                        nd, *_v3s(hit.normal, tp, o, d, res),
+                        tm if motion else None)
+        ls_rows = 17 if analytic else 13
+        writes = n * (14 * 4 + 4 + 1) + nls * n * (ls_rows * 4 + 4 + 2)
+        ops = n * (SHADE_OPS["prepare_lane"] + nls * (
+            SHADE_OPS["prepare_sample"]
+            + SHADE_OPS["prepare_analytic"] * analytic))
+        return ops, reads + writes + tables
+    (_, _, _, normal, tp, o, d, tm, occ, blk, hits) = res_args
+    ls_rows = 15 if analytic else 11  # the tmax rows are not read
+    reads = (n * (14 * 4 + 1) + nls * n * (ls_rows * 4 + 4 + 2)
+             + _nbytes(*_v3s(normal, tp, o, d), tm if motion else None, *occ,
+                       *(() if blk is None else blk))
+             + sum(_nbytes(h.valid, h.shape_id, h.t, *_v3s(h.normal))
+                   for h in (() if hits is None else hits)))
+    writes = n * (12 * 4 + 1)
+    ops = n * (SHADE_OPS["resolve_lane"] + nls * SHADE_OPS["resolve_sample"])
+    return ops, reads + writes + tables
+
+
+@contextlib.contextmanager
+def _spy_shade(keep: int):
+    """Collect the inputs of the first ``keep`` bounces' shading calls the
+    path makes: [(prepare args, resolve args)], as the eager pass body
+    issues them (the wrappers run as they are)."""
+    from rayito_tpu_torch.render import shade
+
+    calls = []
+    prep, res = shade.bounce_prepare, shade.bounce_resolve
+
+    def spy_prep(*a):
+        if len(calls) < keep:
+            calls.append([a, None])
+        return prep(*a)
+
+    def spy_res(*a):
+        if calls and calls[-1][1] is None:
+            calls[-1][1] = a
+        return res(*a)
+
+    shade.bounce_prepare, shade.bounce_resolve = spy_prep, spy_res
+    try:
+        yield calls
+    finally:
+        shade.bounce_prepare, shade.bounce_resolve = prep, res
+
+
+def _shade_differ(a, b):
+    """(values whose bits differ, the largest |a - b| over finite pairs)
+    of two outputs: tensors, V3s, or None both."""
+    import torch
+
+    from rayito_tpu_torch.ops.vec3 import V3
+
+    if a is None or b is None:
+        if (a is None) != (b is None):
+            raise AssertionError("an output is missing on one side")
+        return 0, 0.0
+    if isinstance(a, V3):
+        a, b = torch.stack([a.x, a.y, a.z]), torch.stack([b.x, b.y, b.z])
+    if not a.is_floating_point():
+        return int((a != b).sum()), 0.0
+    bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    err = float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+    return bad, err
+
+
+def _check_shade(label, scene, call, time=None, timed=False) -> dict:
+    """One bounce's bounce_prepare and bounce_resolve calls (``call``:
+    their recorded arguments, the lane times replaced by ``time`` where
+    given): each kernel against its plain version on the same inputs,
+    every output bit for bit (the resolve on the kernel's prepared planes
+    and the recorded shadow bits); with ``timed``, device times (CUDA-graph
+    replays of 20 calls), the plain versions' times, the bounds and
+    shares."""
+    import dataclasses as dc
+
+    import torch
+
+    from rayito_tpu_torch.render import shade
+
+    args, res_args = (list(a) for a in call)
+    if time is not None:
+        args[10] = res_args[7] = time
+    pk = shade.bounce_prepare(*args)
+    pp = shade.bounce_prepare_plain(*args)
+    res_args[2] = pk
+    rk = shade.bounce_resolve(*res_args)
+    rp = shade.bounce_resolve_plain(*res_args)
+    torch.cuda.synchronize()
+    r = {"lanes": pk.f_c.shape[0], "light_samples": pk.light_idx.shape[0]}
+    bad, err = {}, 0.0
+    for f in dc.fields(shade.Prepared):
+        if f.name != "buffers":
+            bad[f.name], e = _shade_differ(getattr(pk, f.name),
+                                           getattr(pp, f.name))
+            err = max(err, e)
+    for name, a, b in zip(("result", "throughput", "o", "d", "alive"), rk,
+                          rp):
+        bad["resolve_" + name], e = _shade_differ(a, b)
+        err = max(err, e)
+    differing = {k: v for k, v in bad.items() if v}
+    r["shade_err"] = err
+    r["alive_lanes"] = int(pk.lane.sum())
+    r["queries"] = int(pk.ok_l.sum() + pk.ok_b.sum())
+    print(f"{label}: {r['lanes']} lanes x {r['light_samples']} light "
+          f"samples, {r['alive_lanes']} shaded, {r['queries']} NEE queries; "
+          f"outputs whose bits differ: {differing or 'none'}")
+    if differing:
+        raise AssertionError(f"{label}: a shading kernel disagrees with its "
+                             "plain version")
+    if timed:
+        # 20 calls on the same inputs keep them in the 50 MB L2 (a launch
+        # moves ~30 MB); the frame finds them colder. "ms" is each call
+        # after an 80 MB write that evicts them, less that write's own
+        # time; "warm_ms" the calls back to back
+        flush = torch.empty(80 << 20, dtype=torch.uint8,
+                            device=pk.f_c.device)
+        flush_ms = _device_ms(flush.zero_)
+        for key, fn, plain, work in (
+                ("prepare", lambda: shade.bounce_prepare(*args),
+                 lambda: shade.bounce_prepare_plain(*args),
+                 _shade_work(scene, args, pk)),
+                ("resolve", lambda: shade.bounce_resolve(*res_args),
+                 lambda: shade.bounce_resolve_plain(*res_args),
+                 _shade_work(scene, args, pk, res_args))):
+            r[key + "_warm_ms"] = _device_ms(fn)
+            r[key + "_ms"] = _device_ms(
+                lambda fn=fn: (flush.zero_(), fn())) - flush_ms
+            r[key + "_plain_ms"] = _median_ms(plain, 3)
+            r[key + "_bytes"] = work[1]
+            _put_bound(r, key, *work)
+            r[key + "_warm_share"] = r[key + "_bound_ms"] / r[key + "_warm_ms"]
+            r[key + "_library_ms"] = None
+        r["flush_ms"] = flush_ms
+        del flush
+        print(f"{label}: " + _fmt({k: v for k, v in r.items()
+                                   if v is not None}), flush=True)
+    return r
+
+
+@_once
+def box_light_setup(dev):
+    """(scene, config, camera, frame) of the box mesh light at 512x512,
+    light_samples=2: a plane, the inline box, and a second inline box
+    scaled and lifted, wrapped as a ShapeLight."""
+    import numpy as np
+
+    import rayito_tpu_torch as tt
+    from rayito_tpu_torch.models.demo import inline_box_mesh
+
+    def make():
+        s = tt.Scene()
+        s.add(tt.Plane((0.0, -1.5, 0.0), (0.0, 1.0, 0.0),
+                       tt.DiffuseMaterial((0.7, 0.7, 0.8))))
+        s.add(inline_box_mesh(tt.DiffuseMaterial((0.8, 0.3, 0.1))))
+        lm = inline_box_mesh(tt.DiffuseMaterial((0.9, 0.9, 0.9)))
+        lm.vertices = (np.asarray(lm.vertices, np.float32) * np.float32(0.5)
+                       + np.float32([0.0, 3.0, 0.0]))
+        s.add(tt.ShapeLight(lm, color=(1.0, 1.0, 1.0), power=8.0))
+        return s
+
+    scene, cfg, cam, _ = _still_setup(dev, make, 40.0,
+                                      ((0, 3, 10), (0, 0, 0), (0, 1, 0)))
+    cfg = dataclasses.replace(cfg, light_samples=2)
+    return scene, cfg, cam, _frame_fn(scene, cfg, cam)
+
+
+def run_shade(dev, card: str) -> dict:
+    """Phase 27 on ``dev``: bounce_prepare and bounce_resolve against their
+    plain versions on the card, bit for bit on every output, on the inputs
+    the eager pass body hands them: stage 6's first band at bounces 0 and
+    1 (timed, bounded), stage 7's first band at seeded lane times in
+    [-0.5, 1.5] (its keyed rect and sphere lights), the box mesh light at
+    light_samples=2 (the BRDF-side closest-hit branch), and the 16-light
+    scene at light_samples 1 and 2. Returns {population: numbers}."""
+    import numpy as np
+    import torch
+
+    _phase("shading kernels")
+    s16 = sixteen_lights_setup(dev)
+    s16_ls2 = dataclasses.replace(s16[1], light_samples=2)
+    cases = [("stage6", stage6_setup(dev), 2, None),
+             ("stage7", stage7_setup(dev), 1, "times"),
+             ("box_light", box_light_setup(dev), 1, None),
+             ("lights16", s16, 1, None),
+             ("lights16_ls2", (s16[0], s16_ls2, s16[2],
+                               _frame_fn(s16[0], s16_ls2, s16[2])), 1, None)]
+    out = {}
+    for name, setup, keep, times in cases:
+        scene, frame = setup[0], setup[-1]
+        with _spy_shade(keep) as calls:  # the first band's first bounces
+            frame(graph=False)
+            torch.cuda.synchronize()
+        for bounce, call in enumerate(calls):
+            time_l = None
+            if times:
+                time_l = torch.from_numpy(np.random.default_rng(27).uniform(
+                    -0.5, 1.5, RAYS_PER_PASS).astype(np.float32)).to(dev)
+            label = f"shade {name} bounce {bounce}"
+            out[f"{name}_b{bounce}"] = _check_shade(
+                label, scene, call, time_l,
+                timed=(name == "stage6" and bounce == 0))
+        del calls
+    return out
 
 
 def _item_counts(masks, w: int = 4):
@@ -1647,6 +1978,8 @@ def run_big(dev, card: str) -> dict:
     print(f"frame {img.shape}: queries {int(queries)}, {diag}")
     if min(launches[k] for k in BIG_ITEM_KERNELS) <= 0:
         raise AssertionError("a kernel of the path was never launched")
+    _check_shade_launches("big-scene frame", launches, cfg.height // band,
+                          cfg.max_depth)
 
     undo = _swap_plain()
     try:
@@ -1785,6 +2118,8 @@ def run_stage7b(dev, card: str) -> dict:
             launches[k] for k in ("gather_rows_t", "cmj", "fold_small")) <= 0:
         raise AssertionError("stage-7b: expected gather_rows_t, cmj and "
                              "fold_small launches and no traversal launch")
+    _check_shade_launches("stage-7b frame", launches, cfg.height // (
+        cfg.max_rays_per_pass // cfg.width), cfg.max_depth)
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, "stage-7b frame")
     print(f"frame {img.shape}: queries {int(queries)}, {diag}")
@@ -2055,7 +2390,9 @@ MARKERS = {"cluster_masks": "cluster_masks_kernel",
            "build_items": "build_items_kernel",
            "cluster_pipeline": "cluster_pipeline_kernel",
            "cmj": "cmj_",  # cmj_draws_kernel, or a single draw's kernels
-           "fold_small": "fold_small_kernel"}
+           "fold_small": "fold_small_kernel",
+           "bounce_prepare": "bounce_prepare_kernel",
+           "bounce_resolve": "bounce_resolve_kernel"}
 
 
 # idle time inside the profiler's window on each side of a profiled frame:
@@ -2139,9 +2476,12 @@ def run_stage5(dev, card: str) -> dict:
     launches = cuda_lib.launch_counts()
     print(f"launches in one stage-5 frame: {launches}")
     if launches["cmj"] <= 0 or any(
-            v for k, v in launches.items() if k != "cmj"):
-        raise AssertionError("stage 5 has no mesh: expected cmj launches "
-                             "and no other kernel")
+            v for k, v in launches.items() if k not in ("cmj",)
+            + SHADE_KERNELS):
+        raise AssertionError("stage 5 has no mesh: expected cmj and "
+                             "shading launches and no other kernel")
+    _check_shade_launches("stage-5 frame", launches, cfg.height // (
+        cfg.max_rays_per_pass // cfg.width), cfg.max_depth)
     img = first[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, "stage-5 frame")
     print(f"frame {img.shape}: queries {int(first[1])}, {diag}")
@@ -2193,7 +2533,7 @@ def _mesh_light_populations(scene, cfg, cam, li):
     from rayito_tpu_torch.ops.brdf import KIND_EMITTER, KIND_REFLECTION, sample_sa
     from rayito_tpu_torch.ops.vec3 import RAY_TMAX, dot
     from rayito_tpu_torch.render import lights as L
-    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import shade
     from rayito_tpu_torch.render import trace as tr
     from rayito_tpu_torch.render.integrator import _pixel_grid, screen_uv
 
@@ -2209,7 +2549,7 @@ def _mesh_light_populations(scene, cfg, cam, li):
     out["camera"] = _captured_launches(lambda: hits.append(
         tr.scene_intersect(scene, o, d, None, tmin, 1e30)))
     hit = hits[0]
-    kind, _, exponent = pt._mat_lookup(scene, hit.mat)
+    kind, _, exponent = shade._mat_lookup(scene, hit.mat)
     nee = hit.valid & (kind != KIND_EMITTER) & (kind != KIND_REFLECTION)
     pos = o + d * hit.t
     u = torch.from_numpy(np.random.default_rng(0).uniform(
@@ -2414,7 +2754,10 @@ def run_many(dev, card: str) -> None:
     fold shape by shape), bit for bit, with the host launches and one timed
     frame of each; and the 16-light scene's chosen-light forms against its
     per-light functions."""
+    import torch
+
     from rayito_tpu_torch.render import trace as tr
+    from rayito_tpu_torch.utils import cuda_lib
 
     _phase("many-shape frames")
     for label, setup in (("40 spheres", many_spheres_setup),
@@ -2423,7 +2766,12 @@ def run_many(dev, card: str) -> None:
         print(f"{label}: {scene.n_spheres} spheres, {scene.n_rects} rects, "
               f"{scene.n_lights} lights; ROLL_CHUNK = {tr.ROLL_CHUNK}")
         frame()  # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
         batched = frame()
+        torch.cuda.synchronize()
+        _check_shade_launches(label, cuda_lib.launch_counts(), cfg.height // (
+            cfg.max_rays_per_pass // cfg.width), cfg.max_depth)
         img = batched[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
         diag = _check_image(img, label)
         print(f"{label} frame {img.shape}: queries {int(batched[1])}, {diag}")
@@ -2711,7 +3059,7 @@ XLA_KERNELS_OFF = ("cluster_masks", "traverse_blocks", "traverse_items",
                    "build_items", "fold_small")
 
 
-XLA_KERNELS = ("cluster_pipeline", "gather_rows_t", "cmj")
+XLA_KERNELS = ("cluster_pipeline", "gather_rows_t", "cmj") + SHADE_KERNELS
 
 
 def _xla_launches(label):
@@ -3365,7 +3713,7 @@ def _pool_mb(gs) -> float:
 
 
 def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
-                 profiled: bool = True) -> dict:
+                 profiled: bool = True, depth: int = 3) -> dict:
     """One frame through the dispatch. ``eager()`` and ``replayed()``
     return (images, issued queries): the eager pass body per launch, and
     the entry point whose passes replay CUDA graphs. With the graphs
@@ -3430,6 +3778,7 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
         raise AssertionError(f"{label}: a kernel of the path never launched "
                              f"in the replayed frame: {launches}")
     per_frame = sum(g.replays - b for g, b in zip(gs, before))
+    _check_shade_launches(label, launches, per_frame, depth)
     frame_s, _ = _time_frames(replayed)
     ev = []
     for _ in range(3):
@@ -3562,16 +3911,17 @@ def run_graphs(dev, card: str) -> dict:
     frames = [
         ("stage6", s6[3], STAGE6_KERNELS),
         ("big_items", bframe, ("cluster_masks", "build_items",
-                               "traverse_items", "gather_rows_t")),
+                               "traverse_items", "gather_rows_t")
+         + SHADE_KERNELS),
         ("big_scan", lambda scene=scan, graph=True: bframe(scan, graph),
          STAGE6_KERNELS),
         ("stage7", stage7_setup(dev)[3], STAGE6_KERNELS),
         ("stage7b", stage7b_setup(dev)[3],
-         ("gather_rows_t", "cmj", "fold_small")),
-        ("stage5", stage5_setup(dev)[3], ("cmj",)),
+         ("gather_rows_t", "cmj", "fold_small") + SHADE_KERNELS),
+        ("stage5", stage5_setup(dev)[3], ("cmj",) + SHADE_KERNELS),
         ("mesh_light", mesh_light_setup(dev)[4], STAGE6_KERNELS),
-        ("spheres40", many_spheres_setup(dev)[3], ("cmj",)),
-        ("lights16", sixteen_lights_setup(dev)[3], ("cmj",)),
+        ("spheres40", many_spheres_setup(dev)[3], ("cmj",) + SHADE_KERNELS),
+        ("lights16", sixteen_lights_setup(dev)[3], ("cmj",) + SHADE_KERNELS),
     ]
     out = {}
     for name, frame, kernels in frames:
@@ -3583,7 +3933,7 @@ def run_graphs(dev, card: str) -> dict:
     # its 16 replays of 26,574 device ops each take minutes to profile
     out["stage3"] = _graph_phase("graph stage3 (golden config)",
                                  *_stage3_frames(dev), card, ("cmj",),
-                                 profiled=False)
+                                 profiled=False, depth=0)
     out["cli_stage6"] = _graph_phase("graph cli_stage6 (640x480, 4 spp)",
                                      *_cli_frames(dev), card, STAGE6_KERNELS)
     for name, frames in (("stage6_xla", _xla_frames(s6)),

@@ -22,6 +22,7 @@ outermost link first; points, vectors and normals leave innermost first.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from . import quaternion as quat
 from .vec3 import V3, lerp
@@ -125,10 +126,11 @@ def eval_chain(xf_times, xf_translate, xf_scale, xf_rotate, xf_nkeys,
     stops at the root, which gives the same values."""
     links = []
     s = int(xf_id)
-    while s >= 0:
-        links.append(eval_transform(xf_times, xf_translate, xf_scale,
-                                    xf_rotate, xf_nkeys, s, time))
-        s = int(xf_parent[s])
+    with record_function("transforms"):
+        while s >= 0:
+            links.append(eval_transform(xf_times, xf_translate, xf_scale,
+                                        xf_rotate, xf_nkeys, s, time))
+            s = int(xf_parent[s])
     return links
 
 
@@ -146,6 +148,19 @@ def lane_links(scene, xf_id: int, time):
                       xf_id, time)
 
 
+def chain_slots(scene, xf_id: int) -> list:
+    """The slots of ``lane_links``' chain, outermost first, for a kernel
+    that evaluates the links itself ([] where ``lane_links`` is None)."""
+    if not scene.has_motion or xf_id == 0:
+        return []
+    chain = []
+    s = int(xf_id)
+    while s >= 0:
+        chain.append(s)
+        s = int(scene.xf_parent_host[s])
+    return chain[::-1]
+
+
 def local_ray(scene, xf_id: int, o: V3, d: V3, time):
     """The ray in the local space of ``scene``'s transform slot ``xf_id``:
     (o, d, world-from-local rotation, None for the identity)."""
@@ -160,16 +175,18 @@ def ray_to_local_chain(links, o: V3, d: V3):
     d_local, rot): ``rot`` is the composed world-from-local rotation
     (outermost * ... * innermost), for rotating normals back out."""
     rot = None
-    for tr, sc, ro in reversed(links):
-        o = to_local_point(o, tr, sc, ro)
-        d = to_local_vector(d, tr, sc, ro)
-        rot = ro if rot is None else quat.multiply(rot, ro)
+    with record_function("transforms"):
+        for tr, sc, ro in reversed(links):
+            o = to_local_point(o, tr, sc, ro)
+            d = to_local_vector(d, tr, sc, ro)
+            rot = ro if rot is None else quat.multiply(rot, ro)
     return o, d, rot
 
 
 def _apply_chain(links, x, one_link, innermost_first: bool):
-    for tr, sc, ro in (links if innermost_first else reversed(links)):
-        x = one_link(x, tr, sc, ro)
+    with record_function("transforms"):
+        for tr, sc, ro in (links if innermost_first else reversed(links)):
+            x = one_link(x, tr, sc, ro)
     return x
 
 

@@ -239,15 +239,8 @@ class _FoldSpec(ctypes.Structure):
 
 def _chain(scene, mi: int) -> list:
     """Mesh ``mi``'s transform slots, outermost first ([] where nothing
-    moves: ``xf.lane_links`` is None there)."""
-    slot = scene.mesh_xf_host[mi]
-    if not scene.has_motion or slot == 0:
-        return []
-    chain = []
-    while slot >= 0:
-        chain.append(int(slot))
-        slot = int(scene.xf_parent_host[slot])
-    return chain[::-1]
+    moves)."""
+    return xf.chain_slots(scene, scene.mesh_xf_host[mi])
 
 
 def _fold_specs(scene) -> list:

@@ -35,43 +35,21 @@ import sys
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..models.camera import PerspectiveCamera
-from ..models.scene import LIGHT_RECT, LIGHT_SPHERE, SceneData
+from ..models.scene import SceneData
 from ..ops import rng as rngo
-from ..ops.brdf import (
-    KIND_EMITTER,
-    KIND_GLOSSY,
-    KIND_REFLECTION,
-    evaluate_sa,
-    sample_sa,
-)
-from ..ops.mis import power_heuristic
-from ..ops.vec3 import RAY_TMAX, V3, dot, sqrt_ieee, where as vwhere
+from ..ops.vec3 import RAY_TMAX, V3
 from ..utils import graphs
 from ..utils.config import RenderConfig
-from . import lights as L
+from . import shade
 from .integrator import _image, _pixel_grid, screen_uv, subpixel_draw
-from .trace import (
-    material_emittance,
-    material_row,
-    scene_intersect,
-    scene_occluded,
-    scene_occluded_pair,
-)
+from .trace import scene_intersect, scene_occluded, scene_occluded_pair
 
 # the reference's threshold for its rolled light loop; here it only times
 # the compile-time warning about a mesh light in a larger set
 ROLL_LIGHTS = 8
-
-
-def _mat_lookup(scene: SceneData, mat_ids):
-    kind, color, param = material_row(scene, mat_ids)
-    # glossy exponent = 1/roughness^2
-    exponent = torch.where(
-        kind == KIND_GLOSSY, 1.0 / torch.clamp_min(param * param, 1e-12), 1.0
-    )
-    return kind, color, exponent
 
 
 def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
@@ -84,10 +62,14 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     scene queries the integrator issues — alive-lane traces plus NEE
     shadow / BRDF-side queries on lanes whose masks require one — the
     ray-throughput denominator, as the reference defines it. ``active`` (bool [N]) marks launch-padding lanes dead from
-    bounce 0."""
+    bounce 0.
+
+    A bounce: the closest-hit query, the bounce's draw set, the shading
+    before the shadow queries (``shade.bounce_prepare``), each light
+    sample's queries, the shading after them (``shade.bounce_resolve``):
+    on the card two kernel launches around the queries."""
     n_lights = scene.n_lights
-    analytic_lights = all(k in (LIGHT_RECT, LIGHT_SPHERE)
-                          for k in scene.light_kinds_host)
+    analytic = shade.analytic_lights(scene)
     n = o.x.shape[0]
     dev = o.x.device
     f32 = torch.float32
@@ -101,7 +83,7 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     queries = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = 0
 
-    nls = config.light_samples * config.light_samples if n_lights else 0
+    nls = shade.light_samples(scene, config)
     tmin = config.ray_tmin
 
     for bounce in range(config.max_depth):
@@ -109,127 +91,40 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
                               torch.where(alive, RAY_TMAX, 0.0))
         overflow = overflow + hit.overflow
         queries = queries + alive.sum()
-        lane = alive & hit.valid
-        kind, mat_color, exponent = _mat_lookup(scene, hit.mat)
-
-        # emission: camera-visible or through a pure-Dirac chain
-        gate = lane & ((bounce == 0) | (num_dirac == bounce))
-        result = result + vwhere(gate, throughput * material_emittance(
-            scene, hit.mat), V3(zeros, zeros, zeros))
-        lane = lane & (kind != KIND_EMITTER)  # emitters end the path
-        is_dirac = (kind == KIND_REFLECTION) & lane
-        num_dirac = num_dirac + is_dirac.to(torch.int32)
-
-        position = o + d * hit.t
-        outgoing = -d
-        normal = hit.normal
-        cmod_color = mat_color * hit.color_mod
-
         # every draw of the bounce in one set (bounce_draws)
         u = rngo.cmj_draws(bounce_draws(config, n_lights, bounce), px, py,
                            si)
-        if n_lights > 0 and nls > 0:
-            nee_lane = lane & ~is_dirac
-            acc = V3(zeros, zeros, zeros)
-            for lsi in range(nls):
-                liu, lsu, lsv, leu, bsu, bsv = u[6 * lsi:6 * lsi + 6]
-                light_idx = torch.clamp_max(
-                    (liu * n_lights).to(torch.int32), n_lights - 1
-                )
-
-                # each lane's chosen light only
-                lp, _, lpdf = L.sample_chosen_light_rolled(
-                    scene, light_idx, position, time, lsu, lsv, leu, tmin)
-                emitted = L.light_emitted_rolled(scene, light_idx)
-
-                # light-sampled direction
-                light_incoming = position - lp
-                dist = sqrt_ieee(torch.clamp_min(
-                    dot(light_incoming, light_incoming), 1e-37))
-                light_incoming = light_incoming / dist
-                f_l, brdf_pdf_l = evaluate_sa(kind, exponent, light_incoming,
-                                              outgoing, normal)
-                ok_l = (nee_lane & (lpdf > 0.0) & (f_l > 0.0)
-                        & (brdf_pdf_l > 0.0))
-                queries = queries + ok_l.sum()
-                tmax_l = torch.where(ok_l, dist - tmin, 0.0)
-
-                # BRDF-sampled direction toward the same light
-                b_in, f_b, pdf_b = sample_sa(kind, exponent, outgoing,
-                                             normal, bsu, bsv)
-                ok_b = nee_lane & (pdf_b > 0.0) & (f_b > 0.0)
-                if analytic_lights:
-                    # "full intersect, hit shape == the chosen light" is:
-                    # the light is hit analytically and nothing is nearer,
-                    # so one analytic hit + one any-hit query replace it
-                    t_l, n_l, l_hit = L.light_hit_analytic_rolled(
-                        scene, light_idx, position, -b_in, time, tmin)
-                    ok_b = ok_b & l_hit
-                    queries = queries + ok_b.sum()
-                    occluded, blocked, ovf = scene_occluded_pair(
-                        scene, position, -light_incoming, tmax_l, -b_in,
-                        torch.where(ok_b,
-                                    torch.where(l_hit, t_l, 0.0) - tmin,
-                                    0.0),
-                        time, tmin, live=ok_l | ok_b,
-                    )
-                    overflow = overflow + ovf
-                    hit_light = ok_b & ~blocked
-                else:
-                    # a mesh light has no analytic hit: the full closest
-                    # hit, for every light of the scene (dead lanes carry
-                    # tmax = tmin)
-                    occluded, ovf = scene_occluded(
-                        scene, position, -light_incoming, time, tmin, tmax_l)
-                    queries = queries + ok_b.sum()
-                    sh = scene_intersect(
-                        scene, position, -b_in, time, tmin,
-                        torch.where(ok_b, RAY_TMAX, tmin))
-                    overflow = overflow + ovf + sh.overflow
-                    chosen_sid = scene.light_shape_id[light_idx.long()]
-                    hit_light = ok_b & sh.valid & (sh.shape_id == chosen_sid)
-                    t_l, n_l = sh.t, sh.normal
-
-                ok_l = ok_l & ~occluded
-                w_l = power_heuristic(1.0, lpdf, 1.0, brdf_pdf_l)
-                gain_l = torch.where(
-                    ok_l,
-                    f_l * torch.abs(dot(-light_incoming, normal)) * w_l
-                    / torch.clamp_min(lpdf, 1e-37),
-                    0.0,
-                )
-                acc = acc + emitted * cmod_color * gain_l
-                lpdf_b = L.light_intersect_pdf_rolled(
-                    scene, light_idx, position, -b_in, t_l, n_l, time)
-                ok_b = hit_light & (lpdf_b > 0.0)
-                w_b = power_heuristic(1.0, pdf_b, 1.0, lpdf_b)
-                gain_b = torch.where(
-                    ok_b,
-                    f_b * torch.abs(dot(-b_in, normal)) * w_b
-                    / torch.clamp_min(pdf_b, 1e-37),
-                    0.0,
-                )
-                acc = acc + emitted * cmod_color * gain_b
-            result = result + throughput * acc * float(
-                np.float32(n_lights) / np.float32(nls)
-            )
-
-        # BRDF sample for the path continuation
-        bu, bv = u[-2], u[-1]
-        incoming, f_c, pdf_c = sample_sa(kind, exponent, outgoing, normal,
-                                         bu, bv)
-        cont = lane & (pdf_c > 0.0)
-        gain_c = torch.where(
-            cont,
-            f_c * torch.abs(dot(-incoming, normal))
-            / torch.clamp_min(pdf_c, 1e-37),
-            1.0,
-        )
-        throughput = vwhere(cont, throughput * cmod_color * gain_c,
-                            throughput)
-        o = vwhere(cont, position, o)
-        d = vwhere(cont, -incoming, d)
-        alive = cont
+        with record_function("shading"):
+            prep = shade.bounce_prepare(scene, config, bounce, hit, u,
+                                        throughput, alive, num_dirac, o, d,
+                                        time, result)
+        num_dirac = prep.num_dirac
+        if nls:
+            queries = queries + prep.ok_l.sum() + prep.ok_b.sum()
+        occluded, blocked, hits = [], [], []
+        for lsi in range(nls):
+            if analytic:
+                occ, blk, ovf = scene_occluded_pair(
+                    scene, prep.position, prep.wl[lsi], prep.tmax_l[lsi],
+                    prep.wb[lsi], prep.tmax_b[lsi], time, tmin, live=None)
+                blocked.append(blk)
+            else:
+                # a mesh light has no analytic hit: the full closest hit,
+                # for every light of the scene (dead lanes carry tmax =
+                # tmin)
+                occ, ovf = scene_occluded(scene, prep.position, prep.wl[lsi],
+                                          time, tmin, prep.tmax_l[lsi])
+                h = scene_intersect(scene, prep.position, prep.wb[lsi], time,
+                                    tmin, prep.tmax_b[lsi])
+                ovf = ovf + h.overflow
+                hits.append(h)
+            occluded.append(occ)
+            overflow = overflow + ovf
+        with record_function("shading"):
+            result, throughput, o, d, alive = shade.bounce_resolve(
+                scene, config, prep, hit.normal, throughput, o, d, time,
+                occluded, blocked if analytic else None,
+                None if analytic else hits)
     return result, overflow, queries
 
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from ..accel.kernel_tables import KTRI
 from ..models.scene import SceneData
@@ -439,12 +440,16 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
             torch.where(closer, cm_c, cm_b),
         )
 
-    if scene.n_planes:
-        best = fold(best, _planes_candidate(scene, o, d, time, tmin, tmax))
-    if scene.n_spheres:
-        best = fold(best, _spheres_candidate(scene, o, d, time, tmin, tmax))
-    if scene.n_rects:
-        best = fold(best, _rects_candidate(scene, o, d, time, tmin, tmax))
+    with record_function("analytic_folds"):
+        if scene.n_planes:
+            best = fold(best, _planes_candidate(scene, o, d, time, tmin,
+                                                tmax))
+        if scene.n_spheres:
+            best = fold(best, _spheres_candidate(scene, o, d, time, tmin,
+                                                 tmax))
+        if scene.n_rects:
+            best = fold(best, _rects_candidate(scene, o, d, time, tmin,
+                                               tmax))
     overflow = 0
     if scene.n_meshes:
         # cap the mesh query at the analytic winner: it prunes clusters
@@ -507,7 +512,8 @@ def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     n, dev = o.x.shape[0], o.x.device
     tmax = _lanes(tmax, n, dev)
     time = _lane_time(scene, time, n, dev)
-    occluded = _analytic_occluded(scene, o, d, time, tmin, tmax)
+    with record_function("analytic_folds"):
+        occluded = _analytic_occluded(scene, o, d, time, tmin, tmax)
     if not scene.n_meshes:
         return occluded, 0
     xla = scene.traversal == "xla"

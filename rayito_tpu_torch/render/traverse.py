@@ -41,6 +41,7 @@ re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..accel.clusters import (CLUSTERS_PER_SUPER, SC_ROW_WIDTH,
                               TRI_PER_CLUSTER, TRI_ROW_WIDTH)
@@ -920,8 +921,9 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
     holds none of their blocks."""
     validate_blocks(b, sb)
     n = o.x.shape[0]
-    soat, perm, n_live = prepare_rays(o, d, tmax, cl_box, tmin, sort_rays,
-                                      sb, live_prefix)
+    with record_function("traversal_plumbing"):
+        soat, perm, n_live = prepare_rays(o, d, tmax, cl_box, tmin,
+                                          sort_rays, sb, live_prefix)
     n_tot = soat.shape[0] * sb
     masks = cluster_masks(soat, cl_box, float(tmin), n_live, b)
     if items and tri.shape[0] <= 1 << CID_BITS:
@@ -933,14 +935,15 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
         t_bn, p_bn = traverse_blocks(masks, soat, tri, float(tmin), mt_mode,
                                      any_hit, n_live, b)
     t_bn, p_bn = t_bn.view(n_tot), p_bn.view(n_tot)
-    if any_hit and not want_t:
-        p_bn = torch.where(p_bn >= 0, 0, -1).to(torch.int32)
-    if perm is not None:
-        prim = torch.empty_like(p_bn)
-        prim[perm.long()] = p_bn
-        if want_t:
-            t = torch.empty_like(t_bn)
-            t[perm.long()] = t_bn
-    else:
-        prim, t = p_bn, t_bn
+    with record_function("traversal_plumbing"):
+        if any_hit and not want_t:
+            p_bn = torch.where(p_bn >= 0, 0, -1).to(torch.int32)
+        if perm is not None:
+            prim = torch.empty_like(p_bn)
+            prim[perm.long()] = p_bn
+            if want_t:
+                t = torch.empty_like(t_bn)
+                t[perm.long()] = t_bn
+        else:
+            prim, t = p_bn, t_bn
     return (t[:n] if want_t else None), prim[:n]

@@ -19,6 +19,8 @@ _PHASES = (
     ("cluster_pipeline_kernel", "two-level cluster pipeline kernel"),
     ("cmj_", "sample-stream kernels (cmj)"),
     ("fold_small_kernel", "tiny-mesh fold kernel"),
+    ("bounce_prepare_kernel", "shading kernel before the queries"),
+    ("bounce_resolve_kernel", "shading kernel after the queries"),
     ("sort", "coherence sort / unsort"),
     ("elementwise", "PyTorch elementwise kernels"),
     ("reduce", "PyTorch reductions"),
@@ -35,6 +37,13 @@ _PHASES = (
 _ROLLUPS = {
     "mesh_intersect_clusters":
         "two-level cluster pipeline, traversal='xla' (rollup)",
+    # the regions of an eager pass (render/pathtracer.py, trace.py,
+    # traverse.py, ops/transform.py); transforms nest inside the others
+    "shading": "bounce shading, before and after the queries (rollup)",
+    "analytic_folds": "analytic folds: planes, spheres, rects (rollup)",
+    "traversal_plumbing":
+        "traversal plumbing: packing, coherence sort, unsort (rollup)",
+    "transforms": "keyed transforms and chains (rollup)",
 }
 
 
@@ -67,3 +76,23 @@ def phase_table(prof, divisor: float = 1.0):
     return sorted(((label, us / 1e3 / divisor, count)
                    for label, (us, count) in rows.items() if count),
                   key=lambda r: -r[1])
+
+
+def range_table(prof, divisor: float = 1.0):
+    """{range: (device ms, device ops, instances)} of the ``_ROLLUPS``
+    ranges an eager pass records: the kernels launched inside each
+    instance, its nested calls included (a graph replay records none)."""
+    from torch.autograd import DeviceType
+
+    def ops(e):
+        return len(e.kernels) + sum(ops(c) for c in e.cpu_children)
+
+    rows = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in _ROLLUPS:
+            row = rows.setdefault(e.name, [0.0, 0, 0])
+            row[0] += e.device_time_total
+            row[1] += ops(e)
+            row[2] += 1
+    return {k: (us / 1e3 / divisor, n / divisor, count)
+            for k, (us, n, count) in rows.items()}

@@ -53,7 +53,13 @@ replays, at both budgets and with cuts at and inside a tile, and
 fold_small (every tiny mesh of a query in one launch) against its
 plain twin on stage 7b's ten cubes (in one launch, and cut into four
 chained launches), a one-key cube, a cube in a turning group and a
-192-row mesh whose every hit ties with a twin row, closest and any hit.
+192-row mesh whose every hit ties with a twin row, closest and any hit;
+and the bounce's shading (bounce_prepare, bounce_resolve) against its
+plain versions on the eager pass's own inputs at bounces 0 and 1 of stage
+6, stage 7 (also at lane times outside its keys), the mesh light and
+sixteen lights at light_samples=2, one launch of each per bounce in a
+replayed pass, the pair captured in a graph and replayed, and the
+wrappers' refusals (a plain-made prep on the card, mixed devices).
 Every kernel comparison is exact: kernel and plain version run the same
 IEEE float32 operations in the same order, without contraction.
 """
@@ -1526,8 +1532,8 @@ def test_xla_pass_is_captured_and_replayed(dev, graph_scenes, name):
     sync debug mode 'error' reads nothing back, a second call only
     replays, and both equal the eager body bit for bit, overflow and
     queries included. The replay launches cluster_pipeline once per mesh
-    query, gather_rows_t and the sample streams' kernel, and no kernel of
-    the other route."""
+    query, gather_rows_t, the sample streams' kernel and each shading
+    kernel once per bounce, and no kernel of the other route."""
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import graphs
 
@@ -1544,6 +1550,8 @@ def test_xla_pass_is_captured_and_replayed(dev, graph_scenes, name):
     (g,) = graphs.graphs()
     assert g.replays == 2 and all(fn.launches == 0 for fn in cuda_lib.KERNELS)
     assert counts.pop("cluster_pipeline") > 0 and counts.pop("cmj") > 0
+    assert (counts.pop("bounce_prepare") == counts.pop("bounce_resolve")
+            == cfg.max_depth)
     assert counts.pop("gather_rows_t") > 0 and not any(counts.values())
     for got in (first, again):
         assert torch.equal(got[0].view(torch.int32),
@@ -1950,3 +1958,160 @@ def test_fold_small_kernel_matches_plain(dev, mesh, monkeypatch):
     assert torch.equal(got, want) and int((want & ~occ0).sum()) > 1000
     assert mi.fold_small.launches == 2 * per_query
     assert cuda_lib.launch_counts()["fold_small"] == 2 * per_query
+
+
+# ---------------------------------------------------------------------------
+# the bounce's shading (csrc/shade.cu)
+# ---------------------------------------------------------------------------
+
+
+def _shade_calls(scene, cfg, cam, dev, keep=2):
+    """The (prepare, resolve) arguments of the first ``keep`` bounces of
+    one eager 16-row pass (pixel samples 0 and 1)."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import shade
+
+    calls = []
+    prep, res = shade.bounce_prepare, shade.bounce_resolve
+
+    def spy_prep(*a):
+        if len(calls) < keep:
+            calls.append([list(a), None])
+        return prep(*a)
+
+    def spy_res(*a):
+        if calls and calls[-1][1] is None:
+            calls[-1][1] = list(a)
+        return res(*a)
+
+    shade.bounce_prepare, shade.bounce_resolve = spy_prep, spy_res
+    try:
+        pt._path_pass_body(scene, cfg, cam.to(dev),
+                           torch.arange(2, dtype=torch.int32, device=dev),
+                           torch.full((), 16, dtype=torch.int32, device=dev),
+                           16)
+    finally:
+        shade.bounce_prepare, shade.bounce_resolve = prep, res
+    return calls
+
+
+def _shade_same(a, b):
+    """Two shading outputs (tensors, V3s or None) agree bit for bit."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, V3):
+        a, b = torch.stack([a.x, a.y, a.z]), torch.stack([b.x, b.y, b.z])
+    return _same_bits(a, b)
+
+
+def _check_shade_call(call, time=None):
+    """bounce_prepare and bounce_resolve against their plain versions on
+    one bounce's recorded arguments, every output bit for bit."""
+    import dataclasses
+
+    from rayito_tpu_torch.render import shade
+
+    args, res_args = (list(a) for a in call)
+    if time is not None:
+        args[10] = res_args[7] = time
+    got = shade.bounce_prepare(*args)
+    want = shade.bounce_prepare_plain(*args)
+    for f in dataclasses.fields(shade.Prepared):
+        if f.name != "buffers":
+            assert _shade_same(getattr(got, f.name),
+                               getattr(want, f.name)), f.name
+    res_args[2] = got
+    for a, b in zip(shade.bounce_resolve(*res_args),
+                    shade.bounce_resolve_plain(*res_args)):
+        assert _shade_same(a, b)
+    return got
+
+
+@pytest.mark.parametrize("name", ["stage6", "stage7", "mesh_light",
+                                  "lights16_ls2"])
+def test_shade_kernels_match_plain(dev, graph_scenes, name):
+    """Both shading kernels against their plain versions on the inputs the
+    eager pass hands them at bounces 0 and 1: stage 6, stage 7 (also at
+    seeded lane times in [-0.5, 1.5], outside its keys), the mesh light
+    (the BRDF-side closest-hit branch) and sixteen lights at
+    light_samples=2."""
+    import dataclasses
+
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+
+    if name == "lights16_ls2":
+        scene = demo.sixteen_lights_scene().compile(dev)
+        cfg = dataclasses.replace(graph_scenes["stage6"][1], light_samples=2)
+        cam = PerspectiveCamera.make(40.0, (0, 3, 10), (0, 0, 0), (0, 1, 0))
+    else:
+        scene, cfg, cam = graph_scenes[name]
+    calls = _shade_calls(scene, cfg, cam, dev)
+    assert len(calls) == 2
+    for call in calls:
+        got = _check_shade_call(call)
+        assert int(got.lane.sum()) > 0
+    assert int(calls[0][1][2].ok_l.sum()) > 100
+    if name == "stage7":
+        rs = np.random.default_rng(15)
+        n = calls[0][0][3].t.shape[0]
+        time = torch.from_numpy(
+            rs.uniform(-0.5, 1.5, n).astype(np.float32)).to(dev)
+        _check_shade_call(calls[0], time)
+
+
+def test_shade_kernels_count_and_capture(dev, graph_scenes):
+    """One launch of each shading kernel per bounce and pass, counted on the
+    device inside a replayed graph; the kernels captured in a graph replay
+    to the outputs of their eager calls."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import shade
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    pt._render_path_pass(scene, cfg, cam, si, 16, 16)  # captures
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+    counts = cuda_lib.launch_counts()
+    assert counts["bounce_prepare"] == counts["bounce_resolve"] == \
+        cfg.max_depth
+    graphs.clear()
+
+    (args, res_args), = _shade_calls(scene, cfg, cam, dev, keep=1)
+    eager = shade.bounce_prepare(*args)
+    res_args[2] = eager
+    eager_res = shade.bounce_resolve(*res_args)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        prep = shade.bounce_prepare(*args)
+        res_args[2] = prep
+        out = shade.bounce_resolve(*res_args)
+    cuda_lib.reset_launch_counts()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    counts = cuda_lib.launch_counts()
+    assert counts["bounce_prepare"] == counts["bounce_resolve"] == 2
+    assert _shade_same(prep.result, eager.result)
+    assert _shade_same(prep.wb, eager.wb)
+    for a, b in zip(out, eager_res):
+        assert _shade_same(a, b)
+
+
+def test_shade_wrappers_refuse_what_they_cannot_launch(dev, graph_scenes):
+    """bounce_resolve takes only a prep its kernel made on the card; mixed
+    devices raise."""
+    from rayito_tpu_torch.render import shade
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    (args, res_args), = _shade_calls(scene, cfg, cam, dev, keep=1)
+    res_args[2] = shade.bounce_prepare_plain(*args)
+    with pytest.raises(ValueError, match="bounce_prepare on the card"):
+        shade.bounce_resolve(*res_args)
+    args[4] = args[4].cpu()
+    with pytest.raises(ValueError, match="bounce_prepare"):
+        shade.bounce_prepare(*args)

@@ -208,10 +208,17 @@ def test_wrappers_refuse_mixed_devices_and_shapes():
 
 def test_kernel_registry_lists_eight_kernels():
     """Every hand kernel counts its launches: the sample streams under
-    one name whichever wrapper launched, and the tiny-mesh fold."""
+    one name whichever wrapper launched, the tiny-mesh fold, and (since
+    the bounce's shading became kernels) the two shading kernels: ten
+    names, the eight of the name and those two."""
+    # the shading wrappers register when render/shade.py is imported,
+    # which the other modules this file imports do not do
+    import rayito_tpu_torch.render.shade  # noqa: F401
+
     names = sorted(fn.__name__ for fn in cuda_lib.KERNELS)
-    assert names == ["build_items", "cluster_masks", "cluster_pipeline",
-                     "cmj", "fold_small", "gather_rows_t", "traverse_blocks",
+    assert names == ["bounce_prepare", "bounce_resolve", "build_items",
+                     "cluster_masks", "cluster_pipeline", "cmj",
+                     "fold_small", "gather_rows_t", "traverse_blocks",
                      "traverse_items"]
     cuda_lib.reset_launch_counts()
     trng.hash_combine(torch.arange(4), 1)

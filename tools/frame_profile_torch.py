@@ -21,7 +21,10 @@ frames call the entry points themselves):
   * the device ops (kernels run on the card) of the profiled frame;
   * the number of kernel and CUDA-graph launches per frame;
   * the twelve kernels that take the most device time;
-  * utils/profiling.phase_table: device time by renderer phase.
+  * utils/profiling.phase_table: device time by renderer phase;
+  * with ``--eager``, utils/profiling.range_table: the device ms and ops
+    of the eager pass's ranges (shading, analytic_folds,
+    traversal_plumbing, transforms; transforms nest in the others).
 
 Run from the repo root on a machine with a GPU:
 ``python3 tools/frame_profile_torch.py [--scene big --route scan] [--eager]``
@@ -87,6 +90,7 @@ def profile_frame(frame, card: str, label: str, tree: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from rayito_tpu_torch.utils import profiling
     from rayito_tpu_torch.utils.profiling import collect_device_ops, phase_table
 
     imgs, queries = frame()
@@ -129,12 +133,21 @@ def profile_frame(frame, card: str, label: str, tree: str) -> dict:
     print("by phase:")
     for row, ms, count in phase_table(prof):
         print(f"  {ms:9.3f} ms {count:6d}x  {row}")
+    # the eager pass's ranges (utils/profiling.py _ROLLUPS; a tree without
+    # them, or a replayed frame, records none)
+    ranges = (profiling.range_table(prof)
+              if hasattr(profiling, "range_table") else {})
+    for name, (ms, n_ops, count) in sorted(ranges.items()):
+        print(f"  range {name}: {ms:.3f} ms, {n_ops:.0f} device ops, "
+              f"{count} instances")
     rec = {"tree": tree, "frame": label, "frame_ms": frame_ms,
            "profiled_ms": prof_ms, "kernel_ms": device_ms,
            "device_ops": ops, "kernel_launches": launches,
            "graph_launches": graph_launches, "queries": int(queries),
            "overflow": None if overflow is None else int(overflow),
-           "image_sha256": bits, "card": card}
+           "image_sha256": bits, "card": card,
+           "ranges": {k: {"ms": ms, "device_ops": n_ops, "instances": c}
+                      for k, (ms, n_ops, c) in ranges.items()}}
     print(json.dumps(rec), flush=True)
     return rec
 
