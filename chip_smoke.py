@@ -205,11 +205,13 @@ bounce and pass, read from the device counters (phases 4-13 and 23); the
 plain-version frames swap all ten kernels for their plain versions
 (``_swap_plain``), the sample streams, the tiny-mesh fold and the
 shading included.
-Launches are counted on the device: each kernel wrapper adds one to a
-device counter beside its launch, so a captured graph holds the add and
-every replay counts (``utils/cuda_lib.launch_counts``); the counts are
-set to 0 after a frame that captured its graphs, so a counted frame is
-replays only unless said otherwise. Host launches are counted as kernel and graph launches (cudaLaunchKernel,
+Launches are counted with tracing on (``utils/tracing.py``): each kernel
+wrapper adds one to its ``launches.<kernel>`` counter, which a captured
+graph books at every replay (``utils/cuda_lib.launch_counts``). A phase
+that counts turns tracing on around its counted frame and the captures
+before it (its traced graphs), and captures the untraced graphs after it
+for what it times; the counts are set to 0 after a frame that captured
+its graphs, so a counted frame is replays only unless said otherwise. Host launches are counted as kernel and graph launches (cudaLaunchKernel,
 cudaGraphLaunch). Every phase's graphs are freed
 (``utils/graphs.clear()``) before the next phase.
 
@@ -269,6 +271,15 @@ def _fmt(r: dict) -> str:
     """key value pairs, numbers unrounded to 6 significant digits."""
     return ", ".join(f"{k} {v:.6g}" if isinstance(v, (int, float))
                      else f"{k} {v}" for k, v in r.items())
+
+
+def _tracing():
+    """utils/tracing.on(): the launch counters count only with tracing on,
+    so a phase that reads them turns it on around what it counts, the
+    captures of its graphs included."""
+    from rayito_tpu_torch.utils import tracing
+
+    return tracing.on()
 
 
 def _phase(name: str) -> None:
@@ -1209,10 +1220,11 @@ def _time_set(r, key, plan, px, py, si):
     r[key + "_single_ms"] = _device_ms(single)
     r[key + "_plain_ms"] = _median_ms(
         lambda: rng.cmj_draws_plain(plan, px, py, si), 3)
-    cuda_lib.reset_launch_counts()
-    rng.cmj_draws(plan, px, py, si)
-    torch.cuda.synchronize()
-    r[key + "_launches"] = cuda_lib.launch_counts()["cmj"]
+    with _tracing():
+        cuda_lib.reset_launch_counts()
+        rng.cmj_draws(plan, px, py, si)
+        torch.cuda.synchronize()
+        r[key + "_launches"] = cuda_lib.launch_counts()["cmj"]
     if r[key + "_launches"] != len(rng._encode(tuple(plan))[0]):
         raise AssertionError(f"draw set {key}: {r[key + '_launches']} cmj "
                              "launches on the card, not its plan's")
@@ -1472,12 +1484,14 @@ def _frame_phase(label: str, cfg, frame, card: str,
     from rayito_tpu_torch.utils import cuda_lib
 
     band = cfg.max_rays_per_pass // cfg.width
-    frame()  # warm-up: captures the pass graph
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    imgs, queries = frame()
-    torch.cuda.synchronize()
-    launches = cuda_lib.launch_counts()
+    with _tracing():
+        frame()  # warm-up: captures the pass graph
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        imgs, queries = frame()
+        torch.cuda.synchronize()
+        launches = cuda_lib.launch_counts()
+    frame()  # captures the untraced graph
     print(f"launches in one frame: {launches}")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, label)
@@ -1965,12 +1979,14 @@ def run_big(dev, card: str) -> dict:
 
     _phase("big-scene frame")
     band = cfg.max_rays_per_pass // cfg.width
-    frame()  # warm-up: captures the pass graph
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    imgs, queries = frame()
-    torch.cuda.synchronize()
-    launches = cuda_lib.launch_counts()
+    with _tracing():
+        frame()  # warm-up: captures the pass graph
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        imgs, queries = frame()
+        torch.cuda.synchronize()
+        launches = cuda_lib.launch_counts()
+    frame()  # captures the untraced graph
     print(f"launches in one big-scene frame (traverse_items=True): "
           f"{launches}")
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
@@ -2007,7 +2023,7 @@ def run_big(dev, card: str) -> dict:
 
     # the eager body, so the spy sees every launch's flag; the wrapper
     # counts its launches on the name it is called by
-    spy.launches, spy.device_launches = build.launches, build.device_launches
+    spy.launches = build.launches
     tv.build_items = spy
     try:
         imgs_d, q_d = frame(defaults, graph=False)
@@ -2107,12 +2123,14 @@ def run_stage7b(dev, card: str) -> dict:
     print(f"stage-7b scene: {scene.n_spheres} spheres, {scene.n_meshes} "
           f"meshes ({scene.tri_meta_rows.shape[0]} triangle rows), domains "
           f"{scene.ktab_xf}, tiny meshes {scene.ktab_small}")
-    frame()  # warm-up: captures the pass graph
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    imgs, queries = frame()
-    torch.cuda.synchronize()
-    launches = cuda_lib.launch_counts()
+    with _tracing():
+        frame()  # warm-up: captures the pass graph
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        imgs, queries = frame()
+        torch.cuda.synchronize()
+        launches = cuda_lib.launch_counts()
+    frame()  # captures the untraced graph
     print(f"launches in one stage-7b frame: {launches}")
     if any(launches[k] for k in TRAVERSAL_KERNELS) or min(
             launches[k] for k in ("gather_rows_t", "cmj", "fold_small")) <= 0:
@@ -2468,12 +2486,14 @@ def run_stage5(dev, card: str) -> dict:
     print(f"stage-5 scene: {scene.n_planes} plane, {scene.n_spheres} spheres, "
           f"{scene.n_rects} rect, {scene.n_meshes} meshes, {scene.n_lights} "
           f"lights (kinds {scene.light_kinds_host})")
-    frame()  # warm-up: captures the pass graph
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    first = frame()
-    torch.cuda.synchronize()
-    launches = cuda_lib.launch_counts()
+    with _tracing():
+        frame()  # warm-up: captures the pass graph
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        first = frame()
+        torch.cuda.synchronize()
+        launches = cuda_lib.launch_counts()
+    frame()  # captures the untraced graph
     print(f"launches in one stage-5 frame: {launches}")
     if launches["cmj"] <= 0 or any(
             v for k, v in launches.items() if k not in ("cmj",)
@@ -2765,12 +2785,15 @@ def run_many(dev, card: str) -> None:
         scene, cfg, cam, frame = setup(dev)
         print(f"{label}: {scene.n_spheres} spheres, {scene.n_rects} rects, "
               f"{scene.n_lights} lights; ROLL_CHUNK = {tr.ROLL_CHUNK}")
-        frame()  # warm-up
-        torch.cuda.synchronize()
-        cuda_lib.reset_launch_counts()
-        batched = frame()
-        torch.cuda.synchronize()
-        _check_shade_launches(label, cuda_lib.launch_counts(), cfg.height // (
+        with _tracing():
+            frame()  # warm-up
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            batched = frame()
+            torch.cuda.synchronize()
+            launches = cuda_lib.launch_counts()
+        frame()  # captures the untraced graph
+        _check_shade_launches(label, launches, cfg.height // (
             cfg.max_rays_per_pass // cfg.width), cfg.max_depth)
         img = batched[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
         diag = _check_image(img, label)
@@ -2875,16 +2898,17 @@ def run_direct(dev, card: str) -> dict:
     cam23 = dict(fov=demo.STAGE23_FOV, camera=demo.STAGE23_CAMERA)
     setups = {k: direct_setup(dev, k) for k in ("stage1", "stage2",
                                                 "stage3")}
-    for _, _, _, frame in setups.values():
-        frame()  # warm-up
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    imgs, frame_ms = {}, {}
-    for k, (_, _, _, frame) in setups.items():
-        t0 = time.perf_counter()  # each frame ends in its image's readback
-        imgs[k] = frame()[0]
-        frame_ms[k] = (time.perf_counter() - t0) * 1e3
-    launches = cuda_lib.launch_counts()
+    with _tracing():
+        for _, _, _, frame in setups.values():
+            frame()  # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        imgs, frame_ms = {}, {}
+        for k, (_, _, _, frame) in setups.items():
+            t0 = time.perf_counter()  # each frame ends in its readback
+            imgs[k] = frame()[0]
+            frame_ms[k] = (time.perf_counter() - t0) * 1e3
+        launches = cuda_lib.launch_counts()
     print(f"launches in the stage 1-3 frames: {launches}")
     if launches["cmj"] <= 0 or any(
             v for k, v in launches.items() if k != "cmj"):
@@ -2987,12 +3011,13 @@ def run_cli(dev, card: str) -> dict:
     pfm = {k: os.path.join(outdir, k + ".pfm")
            for k in ("cli", "sharded", "resumed")}
     torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    cli.main(args + ["-o", pfm["cli"]])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    main_launches = cuda_lib.launch_counts()
+    with _tracing():
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(args + ["-o", pfm["cli"]])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        main_launches = cuda_lib.launch_counts()
     print(f"launches in cli.main (640x480, 4 spp, depth 3, 2 bands per "
           f"sample; the capture's warm-up pass included): {main_launches}; "
           f"{cli_s:.2f} s with the scene build")
@@ -3001,13 +3026,17 @@ def run_cli(dev, card: str) -> dict:
                              "its path")
 
     scene, cfg, cam = _cli_inputs(dev, obj)
-    pt.render_path_with_stats(scene, cfg, cam)  # warm-up: captures
+    with _tracing():
+        pt.render_path_with_stats(scene, cfg, cam)  # warm-up: captures
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        ref, _, queries = pt.render_path_with_stats(scene, cfg, cam)
+        launches = cuda_lib.launch_counts()
+    pt.render_path_with_stats(scene, cfg, cam)  # captures untraced
     torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     ref, _, queries = pt.render_path_with_stats(scene, cfg, cam)
     render_s = time.perf_counter() - t0
-    launches = cuda_lib.launch_counts()
     print(f"launches in one replayed render_path_with_stats frame at the "
           f"CLI's inputs: {launches}")
     if min(launches[k] for k in STAGE6_KERNELS) <= 0:
@@ -3333,13 +3362,15 @@ def _xla_frame(label, frame, scene, cfg, card, other=None, timed=1):
 
     from rayito_tpu_torch.utils import cuda_lib
 
-    frame(scene)  # warm-up: captures the pass graph
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    imgs, q = frame(scene)
-    torch.cuda.synchronize()
-    ovf = int(frame.overflow)
-    launches = _xla_launches(label)
+    with _tracing():
+        frame(scene)  # warm-up: captures the pass graph
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        imgs, q = frame(scene)
+        torch.cuda.synchronize()
+        ovf = int(frame.overflow)
+        launches = _xla_launches(label)
+    frame(scene)  # captures the untraced graph
     img = imgs.reshape(cfg.height, cfg.width, 3).cpu().numpy()
     diag = _check_image(img, label)
     print(f"{label}: queries {int(q)}, overflow {ovf} ({ovf / int(q):.3e} "
@@ -3448,12 +3479,16 @@ def run_xla(dev, card: str) -> dict:
     graphs.capture = spy
     try:
         torch.cuda.synchronize()
-        cuda_lib.reset_launch_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stderr(err):
-            cli.main(["--scene", "stage6", "--obj", obj, "--pfm", "-o", out])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
+        with _tracing():
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                cli.main(["--scene", "stage6", "--obj", obj, "--pfm", "-o",
+                          out])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            cli_launches = _xla_launches(
+                "cli.main under RAYITO_TRAVERSAL=xla")
     finally:
         graphs.capture = real_capture
         if saved_env is None:
@@ -3461,7 +3496,6 @@ def run_xla(dev, card: str) -> dict:
         else:
             os.environ["RAYITO_TRAVERSAL"] = saved_env
     print(err.getvalue().strip())
-    cli_launches = _xla_launches("cli.main under RAYITO_TRAVERSAL=xla")
     replays = sum(g.replays for g in captured)
     print(f"cli.main under RAYITO_TRAVERSAL=xla: {len(captured)} graph(s) "
           f"captured, {replays} replays")
@@ -3723,7 +3757,8 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
     queries included (and, where they return a third element, the 'xla'
     route's overflow). Then: pool MB; one frame with the launch counts set
     to 0 just before it and read just after (each of ``kernels`` must have
-    run: the wrappers' device counters move with every replay); 3 timed
+    run: the launch counters move with every replay of the traced
+    graphs, captured here with tracing on); 3 timed
     frames (host clock, and CUDA events around each); and, if
     ``profiled``, one frame under the profiler: host kernel and graph
     launches, device ops, kernel ms and wall ms of that same frame (busy
@@ -3769,15 +3804,19 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
         if ovf[0] != ovf[1]:
             raise AssertionError(f"{label}: the overflow differs")
     gs = graphs.graphs()
-    before = [g.replays for g in gs]
-    cuda_lib.reset_launch_counts()
-    replayed()
-    torch.cuda.synchronize()
-    launches = cuda_lib.launch_counts()
+    with _tracing():  # the launch counters count with tracing on
+        replayed()  # captures the traced twins
+        torch.cuda.synchronize()
+        traced = [g for g in graphs.graphs() if g.template is not None]
+        before = [g.replays for g in traced]
+        cuda_lib.reset_launch_counts()
+        replayed()
+        torch.cuda.synchronize()
+        launches = cuda_lib.launch_counts()
     if any(launches[k] <= 0 for k in kernels):
         raise AssertionError(f"{label}: a kernel of the path never launched "
                              f"in the replayed frame: {launches}")
-    per_frame = sum(g.replays - b for g, b in zip(gs, before))
+    per_frame = sum(g.replays - b for g, b in zip(traced, before))
     _check_shade_launches(label, launches, per_frame, depth)
     frame_s, _ = _time_frames(replayed)
     ev = []
@@ -3796,12 +3835,12 @@ def _graph_phase(label: str, eager, replayed, card: str, kernels=(),
     if len(got) > 2:
         r["overflow"] = int(got[2])
     if profiled:
-        cuda_lib.reset_launch_counts()
+        # an untraced frame's device records against the traced frame's
+        # launch counters: the same kernels, the markers apart
         p = _profile_frame(replayed)
-        counted = cuda_lib.launch_counts()
-        if p["by_kernel"] != counted:
+        if p["by_kernel"] != launches:
             raise AssertionError(f"{label}: device records {p['by_kernel']} "
-                                 f"!= launch counters {counted}")
+                                 f"!= launch counters {launches}")
         r.update(kernel_ms=p["kernel_ms"], profiled_ms=p["wall_ms"],
                  busy=p["kernel_ms"] / p["wall_ms"],
                  device_ops=p["device_ops"],

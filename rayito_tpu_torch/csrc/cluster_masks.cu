@@ -43,6 +43,10 @@
 // Rows of steps at or past the live prefix (n_live, read from device
 // memory so the host never waits) and of steps whose max tmax is not > 0
 // (step_alive, the reference's dead-step guard) are written as zeros.
+//
+// With a counter (pairs, an int64 in device memory; null when tracing is
+// off) the set bits of every word written are added to it: the (ray block,
+// cluster) pairs the traversal's fold walks.
 #include "common.cuh"
 
 namespace {
@@ -129,6 +133,7 @@ __global__ void __launch_bounds__(kThreads) cluster_masks_kernel(
     const uint8_t* __restrict__ step_alive,  // [n_steps]
     const int32_t* __restrict__ n_live,   // [] or null
     int32_t* __restrict__ out,            // [n_blocks, n_words]
+    unsigned long long* __restrict__ pairs,  // [] or null
     int c_pad, int n_words, int b, int sb, int n_steps, float tmin) {
     extern __shared__ float rays[];  // [7, b]: ox oy oz ix iy iz tmax
     const int blk = blockIdx.x;
@@ -198,7 +203,11 @@ __global__ void __launch_bounds__(kThreads) cluster_masks_kernel(
             if (__all_sync(kFull, hit)) break;
         }
         const unsigned word = __ballot_sync(kFull, hit);
-        if (lane == 0) row[w] = (int32_t)word;
+        if (lane == 0) {
+            row[w] = (int32_t)word;
+            if (pairs != nullptr && word != 0u)
+                atomicAdd(pairs, (unsigned long long)__popc(word));
+        }
     }
 }
 
@@ -208,11 +217,12 @@ extern "C" int rt_cluster_masks(const float* soat, const float* box,
                                 const uint8_t* step_alive,
                                 const int32_t* n_live, int32_t* out,
                                 int n_blocks, int c_pad, int b, int sb,
-                                int n_steps, float tmin, void* stream) {
+                                int n_steps, float tmin, long long* pairs,
+                                void* stream) {
     const size_t smem = (size_t)7 * b * sizeof(float);
     cluster_masks_kernel<<<n_blocks, kThreads, smem,
                            (cudaStream_t)stream>>>(
-        soat, box, step_alive, n_live, out, c_pad, c_pad / 32, b, sb,
-        n_steps, tmin);
+        soat, box, step_alive, n_live, out, (unsigned long long*)pairs, c_pad,
+        c_pad / 32, b, sb, n_steps, tmin);
     return (int)cudaGetLastError();
 }

@@ -22,8 +22,8 @@ outermost link first; points, vectors and normals leave innermost first.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
+from ..utils import tracing
 from . import quaternion as quat
 from .vec3 import V3, lerp
 
@@ -126,7 +126,7 @@ def eval_chain(xf_times, xf_translate, xf_scale, xf_rotate, xf_nkeys,
     stops at the root, which gives the same values."""
     links = []
     s = int(xf_id)
-    with record_function("transforms"):
+    with tracing.device_span("transforms", xf_times):
         while s >= 0:
             links.append(eval_transform(xf_times, xf_translate, xf_scale,
                                         xf_rotate, xf_nkeys, s, time))
@@ -175,7 +175,7 @@ def ray_to_local_chain(links, o: V3, d: V3):
     d_local, rot): ``rot`` is the composed world-from-local rotation
     (outermost * ... * innermost), for rotating normals back out."""
     rot = None
-    with record_function("transforms"):
+    with tracing.device_span("transforms", o.x):
         for tr, sc, ro in reversed(links):
             o = to_local_point(o, tr, sc, ro)
             d = to_local_vector(d, tr, sc, ro)
@@ -184,7 +184,7 @@ def ray_to_local_chain(links, o: V3, d: V3):
 
 
 def _apply_chain(links, x, one_link, innermost_first: bool):
-    with record_function("transforms"):
+    with tracing.device_span("transforms", x.x):
         for tr, sc, ro in (links if innermost_first else reversed(links)):
             x = one_link(x, tr, sc, ro)
     return x

@@ -108,14 +108,7 @@ def mesh_intersect_clusters(scene, mi: int, o: V3, d: V3, tmin, tmax,
     [N]) below ``tmax`` ([N] or scalar), through the two-level cluster
     pipeline. Returns (t [N], prim [N] global triangle id or -1, beta [N],
     gamma [N], overflow: an int64 scalar tensor on the rays' device). With
-    ``any_hit`` beta and gamma are zeros and t is the pipeline's. In an
-    eager pass a profiler range of this name spans the call
-    (``utils/profiling.py`` rolls its kernels up)."""
-    with torch.profiler.record_function("mesh_intersect_clusters"):
-        return _mesh_intersect_clusters(scene, mi, o, d, tmin, tmax, any_hit)
-
-
-def _mesh_intersect_clusters(scene, mi, o: V3, d: V3, tmin, tmax, any_hit):
+    ``any_hit`` beta and gamma are zeros and t is the pipeline's."""
     n = o.x.shape[0]
     dev = o.x.device
     if not torch.is_tensor(tmax):  # filled on the device: no copy to wait on

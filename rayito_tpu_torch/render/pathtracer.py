@@ -35,13 +35,12 @@ import sys
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.camera import PerspectiveCamera
 from ..models.scene import SceneData
 from ..ops import rng as rngo
 from ..ops.vec3 import RAY_TMAX, V3
-from ..utils import graphs
+from ..utils import graphs, tracing
 from ..utils.config import RenderConfig
 from . import shade
 from .integrator import _image, _pixel_grid, screen_uv, subpixel_draw
@@ -87,45 +86,63 @@ def pathtrace_wave(scene: SceneData, config: RenderConfig, o: V3, d: V3,
     tmin = config.ray_tmin
 
     for bounce in range(config.max_depth):
-        hit = scene_intersect(scene, o, d, time, tmin,
-                              torch.where(alive, RAY_TMAX, 0.0))
-        overflow = overflow + hit.overflow
-        queries = queries + alive.sum()
-        # every draw of the bounce in one set (bounce_draws)
-        u = rngo.cmj_draws(bounce_draws(config, n_lights, bounce), px, py,
-                           si)
-        with record_function("shading"):
-            prep = shade.bounce_prepare(scene, config, bounce, hit, u,
-                                        throughput, alive, num_dirac, o, d,
-                                        time, result)
-        num_dirac = prep.num_dirac
-        if nls:
-            queries = queries + prep.ok_l.sum() + prep.ok_b.sum()
-        occluded, blocked, hits = [], [], []
-        for lsi in range(nls):
-            if analytic:
-                occ, blk, ovf = scene_occluded_pair(
-                    scene, prep.position, prep.wl[lsi], prep.tmax_l[lsi],
-                    prep.wb[lsi], prep.tmax_b[lsi], time, tmin, live=None)
-                blocked.append(blk)
-            else:
-                # a mesh light has no analytic hit: the full closest hit,
-                # for every light of the scene (dead lanes carry tmax =
-                # tmin)
-                occ, ovf = scene_occluded(scene, prep.position, prep.wl[lsi],
-                                          time, tmin, prep.tmax_l[lsi])
-                h = scene_intersect(scene, prep.position, prep.wb[lsi], time,
-                                    tmin, prep.tmax_b[lsi])
-                ovf = ovf + h.overflow
-                hits.append(h)
-            occluded.append(occ)
-            overflow = overflow + ovf
-        with record_function("shading"):
-            result, throughput, o, d, alive = shade.bounce_resolve(
-                scene, config, prep, hit.normal, throughput, o, d, time,
-                occluded, blocked if analytic else None,
-                None if analytic else hits)
+        with tracing.device_span(f"bounce[{bounce}]", dev):
+            with tracing.device_span("query.closest", dev):
+                hit = scene_intersect(scene, o, d, time, tmin,
+                                      torch.where(alive, RAY_TMAX, 0.0))
+            overflow = overflow + hit.overflow
+            n_alive = alive.sum()
+            tracing.count("query.rays.closest", n_alive)
+            queries = queries + n_alive
+            # every draw of the bounce in one set (bounce_draws)
+            with tracing.device_span("draws", dev):
+                u = rngo.cmj_draws(bounce_draws(config, n_lights, bounce),
+                                   px, py, si)
+            with tracing.device_span("shading.prepare", dev):
+                prep = shade.bounce_prepare(scene, config, bounce, hit, u,
+                                            throughput, alive, num_dirac, o,
+                                            d, time, result)
+            num_dirac = prep.num_dirac
+            if nls:
+                n_shadow = prep.ok_l.sum() + prep.ok_b.sum()
+                tracing.count("query.rays.shadow", n_shadow)
+                queries = queries + n_shadow
+            occluded, blocked, hits = [], [], []
+            for lsi in range(nls):
+                with tracing.device_span(f"query.shadow[{lsi}]", dev):
+                    occ, blk, h, ovf = _shadow_queries(scene, prep, lsi,
+                                                       analytic, time, tmin)
+                if analytic:
+                    blocked.append(blk)
+                else:
+                    hits.append(h)
+                occluded.append(occ)
+                overflow = overflow + ovf
+            with tracing.device_span("shading.resolve", dev):
+                result, throughput, o, d, alive = shade.bounce_resolve(
+                    scene, config, prep, hit.normal, throughput, o, d, time,
+                    occluded, blocked if analytic else None,
+                    None if analytic else hits)
     return result, overflow, queries
+
+
+def _shadow_queries(scene: SceneData, prep, lsi: int, analytic: bool, time,
+                    tmin):
+    """Light sample ``lsi``'s NEE queries: (occluded, blocked or None, the
+    BRDF side's hit or None, overflow). With analytic lights both sides
+    are any-hit queries; a mesh light has no analytic hit, so the BRDF
+    side is the full closest hit, for every light of the scene (dead lanes
+    carry tmax = tmin)."""
+    if analytic:
+        occ, blk, ovf = scene_occluded_pair(
+            scene, prep.position, prep.wl[lsi], prep.tmax_l[lsi],
+            prep.wb[lsi], prep.tmax_b[lsi], time, tmin, live=None)
+        return occ, blk, None, ovf
+    occ, ovf = scene_occluded(scene, prep.position, prep.wl[lsi], time, tmin,
+                              prep.tmax_l[lsi])
+    h = scene_intersect(scene, prep.position, prep.wb[lsi], time, tmin,
+                        prep.tmax_b[lsi])
+    return occ, None, h, ovf + h.overflow
 
 
 def camera_draws(config: RenderConfig) -> tuple:
@@ -181,15 +198,17 @@ def _path_pass_body(scene: SceneData, config: RenderConfig,
     dev = scene.device
     w = config.width
     n_si = si.shape[0]
-    px, py = _pixel_grid(w, rows, dev)
-    py = py + row0
-    px = px.repeat(n_si)
-    py = py.repeat(n_si)
-    si = si.repeat_interleave(w * rows)
-    o, d, t = _camera_rays(config, camera.to(dev), px, py, si)
+    with tracing.device_span("camera_rays", dev):
+        px, py = _pixel_grid(w, rows, dev)
+        py = py + row0
+        px = px.repeat(n_si)
+        py = py.repeat(n_si)
+        si = si.repeat_interleave(w * rows)
+        o, d, t = _camera_rays(config, camera.to(dev), px, py, si)
     radiance, overflow, queries = pathtrace_wave(scene, config, o, d, t, px,
                                                  py, si)
-    return _image(radiance, n_si, rows, w), overflow, queries
+    with tracing.device_span("image", dev):
+        return _image(radiance, n_si, rows, w), overflow, queries
 
 
 def _path_pass(scene: SceneData, config: RenderConfig, si, row0,

@@ -11,6 +11,13 @@ camera's fields, every SceneData tensor); resume refuses one whose digest
 differs and starts fresh instead of blending incompatible sums. A
 checkpoint written by the JAX package has another digest, so it is refused
 the same way.
+
+With tracing on (``utils/tracing.py``) a render is the host span
+``render``; each pass is ``pass``, each band's launch ``band.replay``
+(``utils/graphs.run``) serving the request (render, first sample of the
+pass, band), its read-back ``band.readback`` and its add into the image
+``band.host_add``; then ``checkpoint`` and ``progress`` (the callbacks).
+The read-back's copy on the device is the device span ``readback``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from ..models.camera import PerspectiveCamera
 from ..models.scene import SceneData
 from ..parallel.sharding import sharded_lane_range
+from ..utils import tracing
 from ..utils.config import RenderConfig
 from .pathtracer import _render_path_pass, warn_overflow
 
@@ -75,6 +83,43 @@ def render_inputs_digest(scene: SceneData, config: RenderConfig,
     return h.hexdigest()
 
 
+def _one_pass(scene, config, camera, mesh, banded: bool, s_done: int,
+              hi: int, acc, rid, overflow: int, rays: int):
+    """Samples [s_done, hi) of every pixel added into ``acc`` (the host
+    image, in place). Returns (overflow, rays) with this pass's added."""
+    w, h = config.width, config.height
+    n_pix = w * h
+    si = torch.arange(s_done, hi, dtype=torch.int32, device=scene.device)
+    if mesh is not None:
+        ovf, q = sharded_lane_range(scene, config, camera, mesh,
+                                    s_done * n_pix, hi * n_pix,
+                                    acc.reshape(-1, 3))
+        return overflow + ovf, rays + q
+    if banded:
+        # render_path_with_stats's bands: a uniform height, the last band
+        # shifted up and cropped; every band is dispatched (one replay each
+        # on the card) before the host adds them in order
+        band = max(1, config.max_rays_per_pass // w)
+        r0s = [min(b * band, h - band) for b in range(-(-h // band))]
+    else:
+        band, r0s = h, [0]
+    outs = []
+    for b, r0 in enumerate(r0s):
+        with tracing.requesting((rid, s_done, b)):
+            outs.append(_render_path_pass(scene, config, camera, si, r0,
+                                          band))
+    for b, (img, ovf, q) in enumerate(outs):
+        skip = max(0, b * band - r0s[b])
+        with tracing.span("band.readback", request=(rid, s_done, b)):
+            with tracing.device_span("readback", img):
+                part = img.cpu().numpy()
+        with tracing.span("band.host_add", request=(rid, s_done, b)):
+            acc[r0s[b] + skip:r0s[b] + band] += part[skip:]
+        overflow += int(ovf)
+        rays += int(q)
+    return overflow, rays
+
+
 def render_progressive(
     scene: SceneData,
     config: RenderConfig,
@@ -105,6 +150,15 @@ def render_progressive(
     A positive ``overflow`` (samples rendered in this call) prints the
     reference's warning.
     """
+    with tracing.span("render") as rid:
+        return _render_progressive(scene, config, camera, checkpoint_path,
+                                   checkpoint_every, on_progress, on_preview,
+                                   mesh, rid)
+
+
+def _render_progressive(scene, config, camera, checkpoint_path,
+                        checkpoint_every, on_progress, on_preview, mesh,
+                        rid):
     spp_total = config.pixel_samples ** 2
     w, h = config.width, config.height
     n_pix = w * h
@@ -150,45 +204,26 @@ def render_progressive(
             1, min(spp_total, config.max_rays_per_pass // n_pix))
     camera = camera.to(scene.device)
     while s_done < spp_total:
-        hi = min(s_done + chunk, spp_total)
-        si = torch.arange(s_done, hi, dtype=torch.int32, device=scene.device)
-        if mesh is not None:
-            ovf, q = sharded_lane_range(scene, config, camera, mesh,
-                                        s_done * n_pix, hi * n_pix,
-                                        acc.reshape(-1, 3))
-            overflow += ovf
-            rays += q
-        elif banded:
-            # render_path_with_stats's bands: a uniform height, the last
-            # band shifted up and cropped; every band is dispatched (one
-            # replay each on the card) before the host adds them in order
-            band = max(1, config.max_rays_per_pass // w)
-            r0s = [min(b * band, h - band) for b in range(-(-h // band))]
-            outs = [_render_path_pass(scene, config, camera, si, r0, band)
-                    for r0 in r0s]
-            for b, (img, ovf, q) in enumerate(outs):
-                skip = max(0, b * band - r0s[b])
-                acc[r0s[b] + skip:r0s[b] + band] += img.cpu().numpy()[skip:]
-                overflow += int(ovf)
-                rays += int(q)
-        else:
-            img, ovf, q = _render_path_pass(scene, config, camera, si)
-            acc += img.cpu().numpy()
-            overflow += int(ovf)
-            rays += int(q)
-        s_done = hi
-        chunks_since_save += 1
-        if checkpoint_path and (chunks_since_save >= checkpoint_every
-                                or s_done >= spp_total):
-            save_checkpoint()
-            chunks_since_save = 0
-        if on_progress or on_preview:
-            st = RenderStats(s_done, spp_total, time.perf_counter() - t0,
-                             rays, overflow)
-            if on_progress:
-                on_progress(st)
-            if on_preview:
-                on_preview(acc / np.float32(max(s_done, 1)), st)
+        with tracing.span("pass"):
+            hi = min(s_done + chunk, spp_total)
+            overflow, rays = _one_pass(scene, config, camera, mesh, banded,
+                                       s_done, hi, acc, rid, overflow, rays)
+            s_done = hi
+            chunks_since_save += 1
+            if checkpoint_path and (chunks_since_save >= checkpoint_every
+                                    or s_done >= spp_total):
+                with tracing.span("checkpoint"):
+                    save_checkpoint()
+                chunks_since_save = 0
+            if on_progress or on_preview:
+                with tracing.span("progress"):
+                    st = RenderStats(s_done, spp_total,
+                                     time.perf_counter() - t0, rays,
+                                     overflow)
+                    if on_progress:
+                        on_progress(st)
+                    if on_preview:
+                        on_preview(acc / np.float32(max(s_done, 1)), st)
 
     warn_overflow(overflow)
     stats = RenderStats(s_done, spp_total, time.perf_counter() - t0, rays,

@@ -39,7 +39,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from ..accel.kernel_tables import KTRI
 from ..models.scene import SceneData
@@ -56,6 +55,7 @@ from ..ops.intersect import (
 from ..ops import quaternion as quat
 from ..ops.quaternion import Quat, rotate_vector
 from ..ops.vec3 import V3, from_aos, normalize, where as vwhere
+from ..utils import tracing
 from .mesh_intersect import fold_small, mesh_intersect_clusters
 from .traverse import gather_rows_t, traverse
 
@@ -392,9 +392,10 @@ def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     overflow = 0
     if not xla and scene.ktab_small:
         meta_best = None
-        t_best, prim_best, beta_best, gamma_best, rot_best = fold_small(
-            scene, o, d, time, tmin, tmax,
-            best=(t_best, prim_best, beta_best, gamma_best, rot_best))
+        with tracing.device_span("tiny_mesh_fold", dev):
+            t_best, prim_best, beta_best, gamma_best, rot_best = fold_small(
+                scene, o, d, time, tmin, tmax,
+                best=(t_best, prim_best, beta_best, gamma_best, rot_best))
     for mi in range(scene.n_meshes) if xla else ():
         o_l, d_l, rot = xf.local_ray(scene, scene.mesh_xf_host[mi], o, d,
                                          time)
@@ -440,7 +441,7 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
             torch.where(closer, cm_c, cm_b),
         )
 
-    with record_function("analytic_folds"):
+    with tracing.device_span("analytic_folds", dev):
         if scene.n_planes:
             best = fold(best, _planes_candidate(scene, o, d, time, tmin,
                                                 tmax))
@@ -452,9 +453,11 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
                                                tmax))
     overflow = 0
     if scene.n_meshes:
-        # cap the mesh query at the analytic winner: it prunes clusters
-        tmax_mesh = torch.minimum(tmax, best[0])
-        cand, overflow = _mesh_candidate(scene, o, d, time, tmin, tmax_mesh)
+        with tracing.device_span("mesh", dev):
+            # cap the mesh query at the analytic winner: it prunes clusters
+            tmax_mesh = torch.minimum(tmax, best[0])
+            cand, overflow = _mesh_candidate(scene, o, d, time, tmin,
+                                             tmax_mesh)
         best = fold(best, cand)
 
     t, shape_id, mat, normal, color_mod = best
@@ -512,10 +515,18 @@ def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     n, dev = o.x.shape[0], o.x.device
     tmax = _lanes(tmax, n, dev)
     time = _lane_time(scene, time, n, dev)
-    with record_function("analytic_folds"):
+    with tracing.device_span("analytic_folds", dev):
         occluded = _analytic_occluded(scene, o, d, time, tmin, tmax)
     if not scene.n_meshes:
         return occluded, 0
+    with tracing.device_span("mesh", dev):
+        return _mesh_occluded(scene, o, d, time, tmin, tmax, occluded)
+
+
+def _mesh_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
+                   occluded):
+    """The mesh part of scene_occluded: lanes already ``occluded`` query
+    with tmax 0. Returns (occluded, overflow)."""
     xla = scene.traversal == "xla"
     if not xla:
         tq_dn = _occl_tmax_down(occluded, tmax)
@@ -537,8 +548,9 @@ def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     # already occluded query with tmax 0
     overflow = 0
     if not xla and scene.ktab_small:
-        occluded = fold_small(scene, o, d, time, tmin, tmax,
-                              occluded=occluded)
+        with tracing.device_span("tiny_mesh_fold", o.x):
+            occluded = fold_small(scene, o, d, time, tmin, tmax,
+                                  occluded=occluded)
     for mi in range(scene.n_meshes) if xla else ():
         o_l, d_l, _ = xf.local_ray(scene, scene.mesh_xf_host[mi], o, d,
                                        time)

@@ -32,7 +32,10 @@ plain twin of the ``fold_small`` kernel (``render/mesh_intersect.py``).
 Every kernel has its plain PyTorch version beside it (``*_plain``), with
 the same contract. A wrapper runs the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel or raises. Each wrapper counts its
-launches on the host and on the device (``utils/cuda_lib.counted``).
+launches (``utils/cuda_lib.counted``). With tracing on, ``cluster_masks``
+adds the set bits of the masks it writes to the counter ``traverse.pairs``
+and ``prepare_rays`` the lanes that reach the domain's root to
+``traverse.live_rays`` (``utils/tracing.py``).
 
 t carries the key's ~2^-17 relative slack; exact t comes from the winner
 re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
@@ -41,7 +44,6 @@ re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..accel.clusters import (CLUSTERS_PER_SUPER, SC_ROW_WIDTH,
                               TRI_PER_CLUSTER, TRI_ROW_WIDTH)
@@ -49,7 +51,7 @@ from ..accel.kernel_tables import KTRI, NEVER_HIT
 from ..models.scene import validate_blocks, validate_items
 from ..ops.intersect import triangle_intersect
 from ..ops.vec3 import V3
-from ..utils import cuda_lib
+from ..utils import cuda_lib, tracing
 
 _INF = float("inf")
 _IMAX = 2**31 - 1
@@ -136,7 +138,10 @@ def cluster_masks(soat, cl_box, tmin: float, n_live=None, b: int = 128):
                          "[8, C_pad] with C_pad % 32 == 0 expected")
     validate_blocks(b, sb)
     if cuda_lib.on_cpu("cluster_masks", soat, cl_box, n_live):
-        return cluster_masks_plain(soat, cl_box, tmin, n_live, b)
+        out = cluster_masks_plain(soat, cl_box, tmin, n_live, b)
+        if tracing.enabled():
+            tracing.count("traverse.pairs", popcount(out))
+        return out
     _check_live(n_live, soat.device)
     alive = _step_alive(soat).to(torch.uint8)
     args = [soat, cl_box, alive] + ([n_live] if n_live is not None else [])
@@ -146,10 +151,20 @@ def cluster_masks(soat, cl_box, tmin: float, n_live=None, b: int = 128):
                       device=soat.device)
     cuda_lib.check(lib.rt_cluster_masks(
         soat.data_ptr(), cl_box.data_ptr(), alive.data_ptr(), _ptr(n_live),
-        out.data_ptr(), n_blocks, c_pad, b, sb, n_steps, float(tmin), stream,
+        out.data_ptr(), n_blocks, c_pad, b, sb, n_steps, float(tmin),
+        tracing.counter_ptr("traverse.pairs", soat), stream,
     ), "cluster_masks")
     cuda_lib.count_launch(cluster_masks, soat.device)
     return out
+
+
+def popcount(words) -> torch.Tensor:
+    """The set bits of the int32 ``words``, summed: an int64 scalar."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) >> 24) & 0xFF).sum()
 
 
 def word_roots_plain(cl_box):
@@ -862,17 +877,21 @@ def prepare_rays(o, d, tmax, cl_box, tmin: float, sort_rays: bool = True,
     for k, comp in enumerate((o.x, o.y, o.z, d.x, d.y, d.z)):
         soa8[:n, k] = comp
     soa8[:n, 6] = tmax
-    if not sort_rays:
+    if not sort_rays and not tracing.enabled():
         return soa8.view(n_steps, sb, 8), None, None
 
     col = lambda k: soa8[:, k]
     key = coherence_key(col(0), col(1), col(2), col(3), col(4), col(5),
                         col(6), cl_box, float(tmin))
-    n_live = None
-    if live_prefix:
+    if live_prefix or tracing.enabled():
         # miss-flagged lanes (dead, root-missing, padding) sort past the
         # live prefix; the kernels skip the steps beyond it
         live_cnt = (key < _MISS_FLAG).sum(dtype=torch.int32)
+        tracing.count("traverse.live_rays", live_cnt)
+    if not sort_rays:
+        return soa8.view(n_steps, sb, 8), None, None
+    n_live = None
+    if live_prefix:
         n_live = ((live_cnt + sb - 1) // sb).to(torch.int32).reshape(1)
     lane_ids = torch.arange(n_tot, dtype=torch.int32, device=dev)
     if n_tot <= (1 << 17):
@@ -921,7 +940,7 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
     holds none of their blocks."""
     validate_blocks(b, sb)
     n = o.x.shape[0]
-    with record_function("traversal_plumbing"):
+    with tracing.device_span("traversal_plumbing", cl_box):
         soat, perm, n_live = prepare_rays(o, d, tmax, cl_box, tmin,
                                           sort_rays, sb, live_prefix)
     n_tot = soat.shape[0] * sb
@@ -935,7 +954,7 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
         t_bn, p_bn = traverse_blocks(masks, soat, tri, float(tmin), mt_mode,
                                      any_hit, n_live, b)
     t_bn, p_bn = t_bn.view(n_tot), p_bn.view(n_tot)
-    with record_function("traversal_plumbing"):
+    with tracing.device_span("traversal_plumbing", cl_box):
         if any_hit and not want_t:
             p_bn = torch.where(p_bn >= 0, 0, -1).to(torch.int32)
         if perm is not None:

@@ -11,8 +11,9 @@ raises.
 Beside the build, what every kernel wrapper shares: the dispatch on the
 tensors' device (``on_cpu``), the library and stream of a launch
 (``launch_args``) and the launch counts: ``counted`` registers a wrapper
-in ``KERNELS``, ``count_launch`` counts one launch, ``reset_launch_counts``
-and ``launch_counts`` set and read them all.
+in ``KERNELS``, ``count_launch`` counts one launch (on the host, and with
+tracing on in the ``launches.<kernel>`` counters of ``utils/tracing.py``),
+``reset_launch_counts`` and ``launch_counts`` set and read them all.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import subprocess
 import time
 
 import torch
+
+from . import tracing
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -47,7 +50,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
 SIGNATURES = {
-    "rt_cluster_masks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "rt_cluster_masks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+                         _P],
     "rt_traverse_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _F, _I, _I, _P],
     "rt_gather_rows_t": [_P, _P, _P, _I, _I, _I, _P],
@@ -67,6 +71,8 @@ SIGNATURES = {
     "rt_shade": [_P, _P, _I, _I, _P],
     "rt_shade_spec_bytes": [],
     "rt_shade_ptrs": [],
+    # log, cursor, capacity, code, stream
+    "rt_trace_mark": [_P, _P, _I, _I, _P],
 }
 
 
@@ -184,40 +190,34 @@ KERNELS = []  # every kernel wrapper, as ``counted`` registered it
 
 def counted(fn):
     """Register kernel wrapper ``fn`` for the launch counts: ``launches``
-    counts its calls that launched, on the host, and ``device_launches``
-    (one int64 counter per device) is a device add enqueued beside each
-    launch, so a CUDA graph that holds the launch holds the add too and
-    every replay counts."""
+    counts its calls that launched, on the host (captures included)."""
     fn.launches = 0
-    fn.device_launches = {}
     KERNELS.append(fn)
     return fn
 
 
 def count_launch(fn, device) -> None:
-    """One launch of ``fn``'s kernel on ``device``: its host count, and one
-    added on the device in the launch's stream (captured with it)."""
+    """One launch of ``fn``'s kernel on ``device``: its host count, and,
+    with tracing on, the counter ``launches.<fn>`` (``utils/tracing.py``),
+    which a pass graph's replays add to."""
     fn.launches += 1
-    c = fn.device_launches.get(device)
-    if c is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"{fn.__name__}: the first launch on {device} "
-                               "was made under a capture")
-        c = fn.device_launches[device] = torch.zeros(
-            (), dtype=torch.int64, device=device)
-    c.add_(1)
+    tracing.count("launches." + fn.__name__, 1, device)
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's host and device launch counts to 0."""
+    """Set every kernel's host count and ``launches.*`` counter to 0."""
     for fn in KERNELS:
         fn.launches = 0
-        for c in fn.device_launches.values():
-            c.zero_()
+    tracing.reset_counts("launches.")
 
 
 def launch_counts() -> dict:
-    """{kernel: launches the devices ran since the last reset}, graph
-    replays included (reads the devices back)."""
-    return {fn.__name__: sum(int(c) for c in fn.device_launches.values())
+    """{kernel: launches run since the last reset while tracing was on},
+    graph replays included (reads the devices back). Raises when tracing
+    is off: nothing is counted then."""
+    if not tracing.enabled():
+        raise RuntimeError("launch_counts: tracing is off, so no launch was "
+                           "counted (utils/tracing.on())")
+    c = tracing.counters()
+    return {fn.__name__: c.get("launches." + fn.__name__, 0)
             for fn in KERNELS}

@@ -19,7 +19,12 @@ as a CUDA graph and replays it (``run``):
     read the device back names itself). That run builds and loads the
     kernel library and fills the kernels' first-call caches;
   * each graph has its own memory pool; ``clear()`` frees every graph and
-    pool.
+    pool;
+  * whether tracing is on (``utils/tracing.py``) is part of the key: a
+    graph captured with tracing on holds its device spans' markers and
+    counter adds, and its ``Template`` books them at every replay; one
+    captured with tracing off holds neither. ``run`` is the host span
+    ``band.replay`` (the input copies and the replay).
 
 A capture failure raises: nothing falls back to eager on the card. ``run``
 runs the body eagerly on the CPU only, because the caller asked for the
@@ -35,6 +40,8 @@ from typing import Any, Callable
 
 import torch
 
+from . import tracing
+
 
 @dataclasses.dataclass
 class Graph:
@@ -46,6 +53,7 @@ class Graph:
     inputs: dict
     outputs: tuple
     keep: tuple  # objects besides the scene whose tensors the graph reads
+    template: Any = None  # tracing.Template of a graph captured traced
     replays: int = 0
 
     def replay(self, inputs: dict) -> tuple:
@@ -55,6 +63,7 @@ class Graph:
         for name, value in inputs.items():
             self.inputs[name].copy_(value)
         self.graph.replay()
+        tracing.replayed(self.template)
         self.replays += 1
         return self.outputs
 
@@ -85,10 +94,11 @@ def capture(label: str, body: Callable, inputs: dict, device,
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
-            outputs = body(**inputs)
+        with tracing.capturing(device) as template:
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
+                outputs = body(**inputs)
     return Graph(label=label, device=device, graph=graph, inputs=inputs,
-                 outputs=tuple(outputs), keep=tuple(keep))
+                 outputs=tuple(outputs), keep=tuple(keep), template=template)
 
 
 def _drop(scene_id: int) -> None:
@@ -107,10 +117,22 @@ def run(key, scene, device, body: Callable, inputs: dict,
     ``keep``: other objects whose tensors the body reads (held while the
     graph lives; the scene itself is held weakly). Returns a tuple of
     tensors on ``device``."""
-    device = torch.device(device)
+    with tracing.span("band.replay"):
+        return _run(key, scene, torch.device(device), body, inputs, label,
+                    keep)
+
+
+def full_key(key, scene, device) -> tuple:
+    """The cache key of the graph of ``key`` for ``scene`` on ``device``:
+    the scene's identity, the device, the pass's static arguments and
+    whether tracing is on."""
+    return (id(scene), torch.device(device), key, tracing.enabled())
+
+
+def _run(key, scene, device, body, inputs, label, keep) -> tuple:
     if device.type != "cuda":
         return tuple(body(**inputs))
-    full = (id(scene), device, key)
+    full = full_key(key, scene, device)
     g = _GRAPHS.get(full)
     if g is None:
         static = {k: v.detach().to(device, copy=True)

@@ -21,48 +21,31 @@ _PHASES = (
     ("fold_small_kernel", "tiny-mesh fold kernel"),
     ("bounce_prepare_kernel", "shading kernel before the queries"),
     ("bounce_resolve_kernel", "shading kernel after the queries"),
+    ("trace_mark_kernel", "device span markers (utils/tracing.py)"),
     ("sort", "coherence sort / unsort"),
     ("elementwise", "PyTorch elementwise kernels"),
     ("reduce", "PyTorch reductions"),
 )
 
-# Host-side ranges (``torch.profiler.record_function`` labels) whose
-# kernels are mostly PyTorch's own, so no kernel name tells them apart
-# (an eager pass records them; a graph replay does not): each is
-# reported as a rollup of the device time of every kernel launched inside
-# it, beside the phases above and not summed with them (the reference's
-# bounce-loop "while" rollup is reported the same way). On the card a range
-# also leaves a device-side annotation of its name spanning its kernels,
-# idle gaps included: that row is not a kernel and is dropped.
-_ROLLUPS = {
-    "mesh_intersect_clusters":
-        "two-level cluster pipeline, traversal='xla' (rollup)",
-    # the regions of an eager pass (render/pathtracer.py, trace.py,
-    # traverse.py, ops/transform.py); transforms nest inside the others
-    "shading": "bounce shading, before and after the queries (rollup)",
-    "analytic_folds": "analytic folds: planes, spheres, rects (rollup)",
-    "traversal_plumbing":
-        "traversal plumbing: packing, coherence sort, unsort (rollup)",
-    "transforms": "keyed transforms and chains (rollup)",
-}
-
-
 def collect_device_ops(prof):
     """{kernel name: (total µs, count)} over the device-side events of a
-    finished ``torch.profiler.profile``."""
+    finished ``torch.profiler.profile``. A host span's range
+    (``utils/tracing.span``) also leaves a device-side annotation spanning
+    its kernels, idle gaps included: that row is no kernel and is
+    dropped."""
     from torch.autograd import DeviceType
 
     return {e.key: (e.self_device_time_total, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in _ROLLUPS}
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
 
 
 def phase_table(prof, divisor: float = 1.0):
-    """[(phase, ms, kernel or range count)] sorted by cost, the rollups of
-    ``_ROLLUPS`` included (their kernels also count in the phases).
-    ``divisor`` scales the totals (e.g. the number of profiled frames)."""
-    from torch.autograd import DeviceType
-
+    """[(phase, ms, kernel count)] sorted by cost: the device kernels by
+    name. ``divisor`` scales the totals (e.g. the number of profiled
+    frames). Which layer of the pass a PyTorch kernel served is told by the
+    device spans of ``utils/tracing.py``, not by its name."""
     rows = {}
     for name, (us, count) in collect_device_ops(prof).items():
         label = next((lab for key, lab in _PHASES if key in name.lower()),
@@ -70,29 +53,27 @@ def phase_table(prof, divisor: float = 1.0):
         row = rows.setdefault(label, [0.0, 0])
         row[0] += us
         row[1] += count
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CPU and e.key in _ROLLUPS:
-            rows[_ROLLUPS[e.key]] = [e.device_time_total, e.count]
     return sorted(((label, us / 1e3 / divisor, count)
                    for label, (us, count) in rows.items() if count),
                   key=lambda r: -r[1])
 
 
-def range_table(prof, divisor: float = 1.0):
-    """{range: (device ms, device ops, instances)} of the ``_ROLLUPS``
-    ranges an eager pass records: the kernels launched inside each
-    instance, its nested calls included (a graph replay records none)."""
-    from torch.autograd import DeviceType
 
-    def ops(e):
-        return len(e.kernels) + sum(ops(c) for c in e.cpu_children)
-
+def span_table(snapshot, divisor: float = 1.0) -> dict:
+    """{name: (ms, self ms, instances)} of the device spans of a
+    ``utils/tracing.snapshot()``: each span's duration, and that less its
+    child spans' (the time of its own work). ``divisor`` scales the times
+    (e.g. the number of frames)."""
+    spans = snapshot.device
+    child = {}
+    for s in spans:
+        if s.parent is not None:
+            child[s.parent] = child.get(s.parent, 0.0) + (s.end - s.start)
     rows = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in _ROLLUPS:
-            row = rows.setdefault(e.name, [0.0, 0, 0])
-            row[0] += e.device_time_total
-            row[1] += ops(e)
-            row[2] += 1
-    return {k: (us / 1e3 / divisor, n / divisor, count)
-            for k, (us, n, count) in rows.items()}
+    for s in spans:
+        row = rows.setdefault(s.name, [0.0, 0.0, 0])
+        row[0] += s.end - s.start
+        row[1] += s.end - s.start - child.get(s.id, 0.0)
+        row[2] += 1
+    return {k: (t / 1e6 / divisor, own / 1e6 / divisor, n)
+            for k, (t, own, n) in rows.items()}

@@ -363,33 +363,3 @@ def test_phase_table_buckets_the_port_kernels():
     assert table["other device kernels"] == (0.025, 2)
     ms = [r[1] for r in phase_table(prof)]
     assert ms == sorted(ms, reverse=True)
-
-
-def test_phase_table_rolls_up_the_xla_pipeline():
-    """The 'xla' route's profiler range becomes a rollup of the device time
-    of its kernels (the host-side row), and its device-side annotation,
-    which spans the range's idle gaps too, counts as no kernel."""
-    from types import SimpleNamespace
-
-    from torch.autograd import DeviceType
-
-    from rayito_tpu_torch.utils.profiling import collect_device_ops, phase_table
-
-    rows = [
-        SimpleNamespace(key="mesh_intersect_clusters", device_time_total=900.0,
-                        self_device_time_total=0.0, count=4,
-                        device_type=DeviceType.CPU),
-        SimpleNamespace(key="mesh_intersect_clusters", device_time_total=2500.0,
-                        self_device_time_total=2500.0, count=4,
-                        device_type=DeviceType.CUDA),
-        SimpleNamespace(key="void at::native::vectorized_elementwise_kernel<4>",
-                        device_time_total=1000.0, self_device_time_total=1000.0,
-                        count=50, device_type=DeviceType.CUDA),
-    ]
-    prof = SimpleNamespace(key_averages=lambda: rows)
-    assert list(collect_device_ops(prof)) == [rows[2].key]
-    table = {label: (ms, n) for label, ms, n in phase_table(prof)}
-    assert table == {
-        "PyTorch elementwise kernels": (1.0, 50),
-        "two-level cluster pipeline, traversal='xla' (rollup)": (0.9, 4),
-    }

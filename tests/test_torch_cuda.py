@@ -59,7 +59,13 @@ plain versions on the eager pass's own inputs at bounces 0 and 1 of stage
 6, stage 7 (also at lane times outside its keys), the mesh light and
 sixteen lights at light_samples=2, one launch of each per bounce in a
 replayed pass, the pair captured in a graph and replayed, and the
-wrappers' refusals (a plain-made prep on the card, mixed devices).
+wrappers' refusals (a plain-made prep on the card, mixed devices); and
+tracing (utils/tracing.py): a traced pass replays the untraced bits, every
+device span comes back from the log and from the profiler's trace with
+durations that agree, an untraced graph holds no marker or counter add,
+and the device counters equal the host-plain counts. The launch counters
+count only with tracing on, so each test that reads them turns it on
+around what it counts, captures included.
 Every kernel comparison is exact: kernel and plain version run the same
 IEEE float32 operations in the same order, without contraction.
 """
@@ -71,11 +77,19 @@ import torch
 from rayito_tpu_torch.accel import kernel_tables as tkt
 from rayito_tpu_torch.ops.vec3 import V3
 from rayito_tpu_torch.render import traverse as tv
-from rayito_tpu_torch.utils import cuda_lib
+from rayito_tpu_torch.utils import cuda_lib, tracing
 
 pytestmark = pytest.mark.cuda
 
 SB = 2048
+
+
+@pytest.fixture(autouse=True)
+def _tracing_off():
+    """Tracing (utils/tracing.py) is off in every test unless the test
+    turns it on; a failed test leaves it off for the next."""
+    yield
+    tracing.enable(False)
 
 
 @pytest.fixture(scope="module")
@@ -1434,12 +1448,13 @@ def test_replayed_pass_equals_the_eager_body(dev, graph_scenes, name):
     graphs.clear()
     si = torch.arange(2, dtype=torch.int32, device=dev)
     row0 = torch.full((), 16, dtype=torch.int32, device=dev)
-    eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
-    first = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
-    counts = cuda_lib.launch_counts()
+    with tracing.on():  # the launch counters count with tracing on
+        eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
+        first = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+        counts = cuda_lib.launch_counts()
     (g,) = graphs.graphs()
     assert g.replays == 2
     kernels = ("build_items", "traverse_items") if name == "big_items" else \
@@ -1541,12 +1556,13 @@ def test_xla_pass_is_captured_and_replayed(dev, graph_scenes, name):
     graphs.clear()
     si = torch.arange(2, dtype=torch.int32, device=dev)
     row0 = torch.full((), 16, dtype=torch.int32, device=dev)
-    eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
-    first = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
-    counts = cuda_lib.launch_counts()
+    with tracing.on():  # the launch counters count with tracing on
+        eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
+        first = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+        counts = cuda_lib.launch_counts()
     (g,) = graphs.graphs()
     assert g.replays == 2 and all(fn.launches == 0 for fn in cuda_lib.KERNELS)
     assert counts.pop("cluster_pipeline") > 0 and counts.pop("cmj") > 0
@@ -1746,15 +1762,17 @@ def test_cmj_kernel_counts_and_captures(dev):
 
     want = draw()
     torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        got = draw()
-    g.replay()
-    g.replay()
-    torch.cuda.synchronize()
-    assert rng.cmj.launches == 2
-    assert cuda_lib.launch_counts()["cmj"] == 4  # two replays of two launches
+    with tracing.on():
+        cuda_lib.reset_launch_counts()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            got = draw()
+        g.replay()
+        g.replay()
+        torch.cuda.synchronize()
+        assert rng.cmj.launches == 2
+        # two replays of two launches
+        assert cuda_lib.launch_counts()["cmj"] == 4
     assert all(_same_bits(a, b) for a, b in zip(got, want))
 
 
@@ -1819,15 +1837,16 @@ def test_cmj_draws_split_and_captured(dev):
     plan = _draw_plans(2, 2)["bounce"]
     want = rng.cmj_draws(plan, px, px // 64, px % 4)
     torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out = rng.cmj_draws(plan, px, px // 64, px % 4)
-    for _ in range(3):
-        g.replay()
-    torch.cuda.synchronize()
-    assert rng.cmj.launches == 1
-    assert cuda_lib.launch_counts()["cmj"] == 3
+    with tracing.on():
+        cuda_lib.reset_launch_counts()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = rng.cmj_draws(plan, px, px // 64, px % 4)
+        for _ in range(3):
+            g.replay()
+        torch.cuda.synchronize()
+        assert rng.cmj.launches == 1
+        assert cuda_lib.launch_counts()["cmj"] == 3
     assert _same_bits(out, want)
 
 
@@ -1869,18 +1888,19 @@ def test_build_items_replayed_in_a_graph(dev, budget):
     static = torch.from_numpy(first).to(dev)
     tv.build_items(static, w, maxitems, cap)  # warm-up, eager
     torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out = tv.build_items(static, w, maxitems, cap)
     overflowed = 0
-    for k in range(5):
-        static.copy_(torch.from_numpy(first if k == 0 else masks_for(k)))
-        g.replay()
-        want = tv.build_items_plain(static, w, maxitems, cap)
-        _check_build(out, want)
-        overflowed += bool(want[2])
-    assert cuda_lib.launch_counts()["build_items"] == 5
+    with tracing.on():
+        cuda_lib.reset_launch_counts()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = tv.build_items(static, w, maxitems, cap)
+        for k in range(5):
+            static.copy_(torch.from_numpy(first if k == 0 else masks_for(k)))
+            g.replay()
+            want = tv.build_items_plain(static, w, maxitems, cap)
+            _check_build(out, want)
+            overflowed += bool(want[2])
+        assert cuda_lib.launch_counts()["build_items"] == 5
     if budget == "fits":
         assert overflowed == 0
     elif budget != "past_tile_edge" or counts[96:].any():
@@ -1936,6 +1956,7 @@ def test_fold_small_kernel_matches_plain(dev, mesh, monkeypatch):
     best = (t_run, torch.where(t_run < 1e30, 5, -1).to(torch.int32),
             zero + 0.25, zero + 0.5, Quat(one, V3(zero, zero, zero)))
     args = (sd, v3(o), v3(d), time, 1e-4, f(tmax))
+    tracing.enable(True)  # the launch counters count with tracing on
     cuda_lib.reset_launch_counts()
     got = mi.fold_small(*args, best=best)
     want = mi.fold_small_query_plain(*args, best=best)
@@ -1958,6 +1979,7 @@ def test_fold_small_kernel_matches_plain(dev, mesh, monkeypatch):
     assert torch.equal(got, want) and int((want & ~occ0).sum()) > 1000
     assert mi.fold_small.launches == 2 * per_query
     assert cuda_lib.launch_counts()["fold_small"] == 2 * per_query
+    tracing.enable(False)
 
 
 # ---------------------------------------------------------------------------
@@ -2071,11 +2093,12 @@ def test_shade_kernels_count_and_capture(dev, graph_scenes):
     scene, cfg, cam = graph_scenes["stage6"]
     graphs.clear()
     si = torch.arange(2, dtype=torch.int32, device=dev)
-    pt._render_path_pass(scene, cfg, cam, si, 16, 16)  # captures
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    pt._render_path_pass(scene, cfg, cam, si, 16, 16)
-    counts = cuda_lib.launch_counts()
+    with tracing.on():  # the launch counters count with tracing on
+        pt._render_path_pass(scene, cfg, cam, si, 16, 16)  # captures
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+        counts = cuda_lib.launch_counts()
     assert counts["bounce_prepare"] == counts["bounce_resolve"] == \
         cfg.max_depth
     graphs.clear()
@@ -2086,15 +2109,16 @@ def test_shade_kernels_count_and_capture(dev, graph_scenes):
     eager_res = shade.bounce_resolve(*res_args)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        prep = shade.bounce_prepare(*args)
-        res_args[2] = prep
-        out = shade.bounce_resolve(*res_args)
-    cuda_lib.reset_launch_counts()
-    g.replay()
-    g.replay()
-    torch.cuda.synchronize()
-    counts = cuda_lib.launch_counts()
+    with tracing.on():  # the capture holds the launch counters' adds
+        with torch.cuda.graph(g):
+            prep = shade.bounce_prepare(*args)
+            res_args[2] = prep
+            out = shade.bounce_resolve(*res_args)
+        cuda_lib.reset_launch_counts()
+        g.replay()
+        g.replay()
+        torch.cuda.synchronize()
+        counts = cuda_lib.launch_counts()
     assert counts["bounce_prepare"] == counts["bounce_resolve"] == 2
     assert _shade_same(prep.result, eager.result)
     assert _shade_same(prep.wb, eager.wb)
@@ -2115,3 +2139,178 @@ def test_shade_wrappers_refuse_what_they_cannot_launch(dev, graph_scenes):
     args[4] = args[4].cpu()
     with pytest.raises(ValueError, match="bounce_prepare"):
         shade.bounce_prepare(*args)
+
+
+# ---------------------------------------------------------------------------
+# tracing (utils/tracing.py): spans and counters in replayed graphs
+# ---------------------------------------------------------------------------
+
+
+def test_traced_pass_replays_the_untraced_bits(dev, graph_scenes):
+    """A stage-6 pass replayed from its traced graph gives the image, the
+    queries and the overflow of its untraced graph, bit for bit; the two
+    graphs are cached apart."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    off = [pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+           for _ in range(2)]
+    with tracing.on():
+        on = [pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+              for _ in range(2)]
+    gs = graphs.graphs()
+    assert len(gs) == 2 and [g.template is None for g in gs] == [True, False]
+    assert all(g.replays == 2 for g in gs)
+    for p in off[1:] + on:
+        _same_pass(p, off[0])
+    graphs.clear()
+
+
+def _chrome_events(prof, tmp_path):
+    import json
+
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        data = json.load(f)
+    return data["traceEvents"] if isinstance(data, dict) else data
+
+
+def test_device_spans_from_the_log_and_the_trace_agree(dev, graph_scenes,
+                                                       tmp_path):
+    """A progressive render replayed with tracing on under the profiler:
+    every device span comes back from the log (its %globaltimer stamps)
+    and from the trace (its markers paired in order), with durations that
+    agree; each band's spans hang below its band.replay and serve its
+    request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rayito_tpu_torch.render import progressive as tprog
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    with tracing.on():
+        tprog.render_progressive(scene, cfg, cam)  # captures
+        torch.cuda.synchronize()
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tprog.render_progressive(scene, cfg, cam)
+            torch.cuda.synchronize()
+        snap = tracing.snapshot()
+    clocked = tracing.on_trace(snap, _chrome_events(prof, tmp_path))
+    on_clock = {s.id: s for s in clocked if s.kind == "device"}
+    assert len(on_clock) == len(snap.device) > 0
+    replays = [s for s in snap.host if s.name == "band.replay"]
+    assert len(replays) == 12  # 3 bands of 16 rows, 4 samples
+    for rep in replays:
+        top = [s for s in snap.device if s.parent == rep.id]
+        assert [s.name for s in top] == ["camera_rays", "bounce[0]",
+                                         "bounce[1]", "bounce[2]", "image"]
+    by_id = {s.id: s for s in snap.device}
+    host = {s.id: s for s in snap.host}
+    for s in snap.device:
+        root = s
+        while root.parent in by_id:
+            root = by_id[root.parent]
+        # a band's replay, or its read-back (the copy: "readback")
+        band = host[root.parent]
+        assert band.name in ("band.replay", "band.readback")
+        assert s.request == band.request and s.end > s.start
+        log_us = (s.end - s.start) / 1e3
+        trace_us = on_clock[s.id].end - on_clock[s.id].start
+        assert abs(log_us - trace_us) <= 5.0 + 0.02 * trace_us, s.name
+    graphs.clear()
+
+
+def _device_ops(events):
+    return [e["name"] for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def test_an_untraced_graph_holds_no_marker_or_counter_add(dev, graph_scenes,
+                                                          tmp_path):
+    """One replay of a stage-6 pass graph under the profiler, captured with
+    tracing off and with it on: the untraced replay runs no marker kernel,
+    and the traced one runs exactly its template's markers and counter
+    adds more device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    ops = {}
+    for traced in (False, True):
+        with tracing.on(traced):
+            pt._render_path_pass(scene, cfg, cam, si, 16, 16)  # captures
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+                torch.cuda.synchronize()
+            ops[traced] = _device_ops(_chrome_events(prof, tmp_path))
+    (tpl,) = [g.template for g in graphs.graphs() if g.template is not None]
+    markers = [n for n in ops[True] if tracing.MARKER_KERNEL in n]
+    assert not any(tracing.MARKER_KERNEL in n for n in ops[False])
+    assert len(markers) == len(tpl.codes) > 0 and tpl.adds > 0
+    assert len(ops[True]) - len(ops[False]) == len(markers) + tpl.adds
+    graphs.clear()
+
+
+def test_device_counters_equal_the_host_plain_counts(dev, graph_scenes,
+                                                     monkeypatch):
+    """A stage-6 pass on the card with tracing on, eagerly: the pair
+    counter that cluster_masks adds to on the device equals a popcount of
+    cluster_masks_plain on the same inputs, the live rays the lanes of the
+    coherence keys, and the query counters sum to the pass's queries. Its
+    replayed graph then counts the same, launches included."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    row0 = torch.full((), 16, dtype=torch.int32, device=dev)
+    calls, keys = [], []
+    masks, key = tv.cluster_masks, tv.coherence_key
+
+    def spy_masks(soat, cl_box, tmin, n_live=None, b=128):
+        calls.append((soat.clone(), cl_box, tmin,
+                      None if n_live is None else n_live.clone(), b))
+        return masks(soat, cl_box, tmin, n_live, b)
+
+    # the wrapper counts its launch on the name it is called by
+    spy_masks.__name__, spy_masks.launches = "cluster_masks", 0
+
+    def spy_key(*a):
+        keys.append(key(*a))
+        return keys[-1]
+
+    with tracing.on():
+        tracing.reset()
+        monkeypatch.setattr(tv, "cluster_masks", spy_masks)
+        monkeypatch.setattr(tv, "coherence_key", spy_key)
+        eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
+        eager_counts = tracing.counters()
+        monkeypatch.undo()
+        pt._render_path_pass(scene, cfg, cam, si, 16, 16)  # captures
+        torch.cuda.synchronize()
+        tracing.reset()
+        again = pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+        replay_counts = tracing.counters()
+    _same_pass(again, eager)
+    assert len(calls) == len(keys) == 9  # 3 bounces x 3 queries
+    pairs = sum(int(tv.popcount(tv.cluster_masks_plain(*c))) for c in calls)
+    assert eager_counts["traverse.pairs"] == pairs > 0
+    assert eager_counts["traverse.live_rays"] == sum(
+        int((k < (1 << 30)).sum()) for k in keys) > 0
+    assert (eager_counts["query.rays.closest"]
+            + eager_counts["query.rays.shadow"]) == int(eager[2])
+    assert replay_counts == eager_counts
+    graphs.clear()

@@ -21,10 +21,16 @@ frames call the entry points themselves):
   * the device ops (kernels run on the card) of the profiled frame;
   * the number of kernel and CUDA-graph launches per frame;
   * the twelve kernels that take the most device time;
-  * utils/profiling.phase_table: device time by renderer phase;
-  * with ``--eager``, utils/profiling.range_table: the device ms and ops
-    of the eager pass's ranges (shading, analytic_folds,
-    traversal_plumbing, transforms; transforms nest in the others).
+  * utils/profiling.phase_table: device time by kernel family;
+  * utils/profiling.span_table of one more frame run with tracing on
+    (utils/tracing.py; its traced graphs captured by a frame before it):
+    each device span's ms per frame, its self ms (less its child spans)
+    and its instances, read from the markers' log with
+    ``tracing.snapshot()`` (camera_rays, bounce[i], query.closest,
+    query.shadow[i], analytic_folds, transforms, mesh,
+    traversal_plumbing, tiny_mesh_fold, draws, shading.prepare,
+    shading.resolve, image), and the counters (launches per kernel,
+    query.rays.*, traverse.pairs, traverse.live_rays).
 
 Run from the repo root on a machine with a GPU:
 ``python3 tools/frame_profile_torch.py [--scene big --route scan] [--eager]``
@@ -93,6 +99,11 @@ def profile_frame(frame, card: str, label: str, tree: str) -> dict:
     from rayito_tpu_torch.utils import profiling
     from rayito_tpu_torch.utils.profiling import collect_device_ops, phase_table
 
+    try:  # a tree before tracing has no span table
+        from rayito_tpu_torch.utils import tracing
+    except ImportError:
+        tracing = None
+
     imgs, queries = frame()
     torch.cuda.synchronize()
     overflow = getattr(frame, "overflow", None)
@@ -133,21 +144,30 @@ def profile_frame(frame, card: str, label: str, tree: str) -> dict:
     print("by phase:")
     for row, ms, count in phase_table(prof):
         print(f"  {ms:9.3f} ms {count:6d}x  {row}")
-    # the eager pass's ranges (utils/profiling.py _ROLLUPS; a tree without
-    # them, or a replayed frame, records none)
-    ranges = (profiling.range_table(prof)
-              if hasattr(profiling, "range_table") else {})
-    for name, (ms, n_ops, count) in sorted(ranges.items()):
-        print(f"  range {name}: {ms:.3f} ms, {n_ops:.0f} device ops, "
-              f"{count} instances")
+    spans, counters = {}, {}
+    if tracing is not None:
+        with tracing.on():
+            frame()  # captures the traced graphs
+            torch.cuda.synchronize()
+            tracing.reset()
+            frame()
+            snap = tracing.snapshot()
+        spans, counters = profiling.span_table(snap), snap.counters
+        tracing.reset()
+    print("device spans of one traced frame (ms, self ms, instances):")
+    for name, (ms, own, count) in sorted(spans.items(), key=lambda kv:
+                                         -kv[1][0]):
+        print(f"  {ms:9.3f} ms {own:9.3f} self {count:6d}x  {name}")
+    print(f"counters of the traced frame: {counters}")
     rec = {"tree": tree, "frame": label, "frame_ms": frame_ms,
            "profiled_ms": prof_ms, "kernel_ms": device_ms,
            "device_ops": ops, "kernel_launches": launches,
            "graph_launches": graph_launches, "queries": int(queries),
            "overflow": None if overflow is None else int(overflow),
            "image_sha256": bits, "card": card,
-           "ranges": {k: {"ms": ms, "device_ops": n_ops, "instances": c}
-                      for k, (ms, n_ops, c) in ranges.items()}}
+           "spans": {k: {"ms": ms, "self_ms": own, "instances": c}
+                     for k, (ms, own, c) in spans.items()},
+           "counters": counters}
     print(json.dumps(rec), flush=True)
     return rec
 
