@@ -66,7 +66,8 @@ JAX. Phases, each printed, each fatal on failure:
      7b's cubes cut into four chained launches a query;
      that eager frame bit-identical to the replayed one, one timed frame;
  10. stage-5 frame: stage5_scene (no mesh) at 512x512, 1 spp, depth 3: no
-     kernel launch but the sample streams' (which must launch), no NaN or
+     kernel launch but the sample streams', the analytic fold's and the
+     shading's (which must launch), no NaN or
      negative pixel, the eager frame bit-identical, host launches
      counted, one timed frame;
  11. mesh-light kernels: the stage-6 geometry with the n=64 stand-in
@@ -84,18 +85,19 @@ JAX. Phases, each printed, each fatal on failure:
      any-hit launches apart) and checked against the plain versions as in
      phase 4, then one timed frame;
  13. many-shape frames: 40 spheres and 16 lights at 512x512, 1 spp,
-     depth 3, each in batches of ROLL_CHUNK rows against the same frame
-     with one row per batch (the fold shape by shape, through the eager
-     body, since a captured graph holds its batches): bit for bit, with
+     depth 3, each through analytic_fold against the same frame through
+     its plain twin with one row per batch (the fold shape by shape,
+     through the eager body): bit for bit, with
      the batched form's host launches; and each lane's chosen light against the
      per-light functions evaluated for all 16 lights, bit for bit;
  14. stages 1-4: the direct integrators at CONFIG_STAGE123, 512x512, on the
-     card (no kernel launch): stage 1's quantised PPM byte-equal to the
+     card (no traversal launch): stage 1's quantised PPM byte-equal to the
      CPU's; stage 2 (64 unstratified samples) and stage 3 (4x4 pixel x 4x4
      light samples, the golden configuration; stage 4 renders the same)
      timed at 512x512 and held against the CPU at 128x128
      (the CPU's time cuts the size), no kernel launch but the sample
-     streams' (stages 2-3 draw): stage 2 within 0.5%; stage 3, a
+     streams' (stages 2-3 draw) and the analytic fold's: stage 2 within
+     0.5%; stage 3, a
      float32 knife edge (a sphere light's shadow ray ends on the light),
      by its channel means and its share of agreeing pixels, and its
      geometry and shading without the sphere light (1e-2 epsilon) within
@@ -197,14 +199,24 @@ JAX. Phases, each printed, each fatal on failure:
      an 80 MB write that evicts the inputs from L2, less the write's time;
      and back to back), beside the plain versions, with each kernel's bound (bytes at 3.35 TB/s: each
      input read once, each output written once; or SHADE_OPS at 67
-     TFLOP/s) and share.
+     TFLOP/s) and share;
+ 28. analytic folds (run after phase 8): analytic_fold
+     (csrc/analytic_fold.cu) against its plain twin on the card, every
+     output bit for bit (t, shape id, material, normal, color_mod;
+     occluded), on one 131,072-lane band at bounce 0 of stage 6 and of
+     stage 7 (at seeded lane times): the camera and bounce rays' closest
+     hit and the shadow rays' any hit; each timed (CUDA-graph replays of
+     20 calls) beside the plain twin, with its bound (the larger of the
+     lane instructions from the SASS, AF_INSNS, at the issue limit and the
+     bytes at 3.35 TB/s) and share. Every query of every path launches
+     analytic_fold once (stage 7's frame: 18, counted in phase 8).
 
 Every frame that draws samples launches cmj (all but stage 1's); every
 path-trace frame launches bounce_prepare and bounce_resolve once per
 bounce and pass, read from the device counters (phases 4-13 and 23); the
-plain-version frames swap all ten kernels for their plain versions
-(``_swap_plain``), the sample streams, the tiny-mesh fold and the
-shading included.
+plain-version frames swap all eleven kernels for their plain versions
+(``_swap_plain``), the sample streams, the tiny-mesh fold, the shading
+and the analytic fold included.
 Launches are counted with tracing on (``utils/tracing.py``): each kernel
 wrapper adds one to its ``launches.<kernel>`` counter, which a captured
 graph books at every replay (``utils/cuda_lib.launch_counts``). A phase
@@ -321,7 +333,8 @@ def main() -> int:
               lambda: run_divisions(dev, card),
               lambda: run(dev, card), lambda: run_shade(dev, card),
               lambda: run_big(dev, card),
-              lambda: run_stage7(dev, card), lambda: run_stage7b(dev, card),
+              lambda: run_stage7(dev, card), lambda: run_analytic(dev, card),
+              lambda: run_stage7b(dev, card),
               lambda: run_stage5(dev, card),
               lambda: run_mesh_light(dev, card), lambda: run_many(dev, card),
               lambda: run_direct(dev, card), lambda: run_cli(dev, card),
@@ -335,11 +348,11 @@ def main() -> int:
         graphs.clear()  # the pools of one phase's graphs go with it
         print(f"-- phase done in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    (samples, _, stage6, shading, big, stage7, stage7b, stage5, mesh_light,
-     _, direct, cli, xla, _, _, by_graph, _) = outs
+    (samples, _, stage6, shading, big, stage7, analytic, stage7b, stage5,
+     mesh_light, _, direct, cli, xla, _, _, by_graph, _) = outs
 
     records = kernel_records(samples, stage6, big, stage7, stage7b, stage5,
-                             mesh_light, xla, shading)
+                             mesh_light, xla, shading, analytic)
     for k in records:
         k["launches_frame"]["stages1_4"] = direct["launches"][k["name"]]
         k["launches_frame"]["cli_stage6"] = cli["launches"][k["name"]]
@@ -362,8 +375,8 @@ def main() -> int:
 
 def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
                    stage7b: dict, stage5: dict, mesh_light: dict,
-                   xla: dict, shading: dict) -> list:
-    """The ten kernels' records: launches (device-counted, replays
+                   xla: dict, shading: dict, analytic: dict) -> list:
+    """The eleven kernels' records: launches (device-counted, replays
     included) in the replayed frame of the path each serves first (stage 6;
     the big scene for the item route; the 'xla' stage-6 frame for
     cluster_pipeline; stage 7b for fold_small) and per frame of each path;
@@ -514,6 +527,22 @@ def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
             "populations": {name: {k: r[k] for k in (
                 "lanes", "light_samples", "alive_lanes", "queries")}
                 for name, r in shading.items()}})
+    kernels.append({
+        "name": "analytic_fold", "route": "cuda",
+        "source": src + "analytic_fold.cu",
+        "replaces": "rayito_tpu/render/trace.py:176",
+        "note": "port-only: the reference's XLA fold over its planes, "
+                "spheres and rects (render/trace.py:176-387, "
+                "_analytic_occluded :777), each keyed row's transform chain "
+                "inside it, no pallas_call; ms, bound and share of stage 6's "
+                "first band's camera rays (131,072 lanes); one launch per "
+                "closest or any-hit query",
+        "launches": launches["analytic_fold"],
+        "max_abs_err": 0.0,
+        **{k: analytic["stage-6 camera"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "share")},
+        "library_ms": None,
+        "populations": analytic})
     for k in kernels:
         k["launches_frame"] = {
             "stage6": launches[k["name"]],
@@ -991,9 +1020,10 @@ def _check_masks(name, soat, box, tmin, n_live, r):
 
 
 def _swap_plain():
-    """Point the path at the plain versions of all ten kernels (the
+    """Point the path at the plain versions of all eleven kernels (the
     'xla' route's pipeline and winner-row gather, the sample streams, the
-    tiny-mesh fold and the bounce's shading too); returns the undo."""
+    tiny-mesh fold, the bounce's shading and the analytic fold too);
+    returns the undo."""
     from rayito_tpu_torch.ops import rng
     from rayito_tpu_torch.render import mesh_intersect as mi
     from rayito_tpu_torch.render import shade
@@ -1004,7 +1034,7 @@ def _swap_plain():
              tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
              mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
              rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small,
-             shade.bounce_prepare, shade.bounce_resolve)
+             shade.bounce_prepare, shade.bounce_resolve, tr.analytic_fold)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
     tv.traverse_items = tv.traverse_items_plain
@@ -1019,13 +1049,14 @@ def _swap_plain():
     tr.fold_small = mi.fold_small_query_plain
     shade.bounce_prepare = shade.bounce_prepare_plain
     shade.bounce_resolve = shade.bounce_resolve_plain
+    tr.analytic_fold = tr.analytic_fold_plain
 
     def undo():
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
          tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
          mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
          rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small,
-         shade.bounce_prepare, shade.bounce_resolve) = saved
+         shade.bounce_prepare, shade.bounce_resolve, tr.analytic_fold) = saved
 
     return undo
 
@@ -2094,8 +2125,9 @@ def run_stage7(dev, card: str) -> dict:
     _phase("stage-7 frame")
     fr = _frame_phase(f"stage-7 frame (n={MESH_N} stand-in, {WIDTH}x{WIDTH},"
                       " 1 spp, depth 3, shutter 0..1", cfg, frame, card)
-    if fr["launches"]["fold_small"] != 18:  # 9 queries on each of 2 bands
-        raise AssertionError("stage 7: 18 fold_small launches expected")
+    for k in ("fold_small", "analytic_fold"):  # 9 queries on each of 2 bands
+        if fr["launches"][k] != 18:
+            raise AssertionError(f"stage 7: 18 {k} launches expected")
     # the cube's fold on every query of the first band, kernel against twin
     with _spy_folds() as folds:
         frame(graph=False)
@@ -2103,6 +2135,114 @@ def run_stage7(dev, card: str) -> dict:
     fold = _check_folds("stage-7", folds[:9])
     return {"results": results, "launches": fr["launches"], "frame": fr,
             "fold": fold}
+
+
+# Lane instructions of one row test of csrc/analytic_fold.cu, counted from
+# the SASS (tools/cmj_sass.py --kernels analytic_fold_kernel on sm_90a):
+# each kind's row loop's float_loads (float instructions, compares,
+# selects, MUFU and FCHK, and loads) less those of the chain loop inside
+# it, the same on a closest-hit and an any-hit query; a link of a chain is
+# counted at one instruction per flop (XF_FLOPS), as fold_small's; the
+# winner's record, the lane's loads and stores, integer, address and
+# control work are left out, so the bound stays a lower bound.
+AF_INSNS = {"plane": 36, "sphere": 65, "rect": 156}
+
+
+def _af_work(scene, o, d, time, tmin, tmax, any_hit: bool):
+    """(lane instructions, bytes) of one analytic_fold call on this run's
+    data: every lane walks every row, a keyed row's chain evaluated where
+    the row before had another; on an any-hit query a lane stops at its
+    first hit (per-row plain tests give the lanes still open). Bytes: the
+    rays, tmax and time read once, the record (t, shape id, material,
+    normal, color_mod) or occluded written once."""
+    import torch
+
+    from rayito_tpu_torch.ops import transform as xf
+    from rayito_tpu_torch.render import trace as tr
+
+    n = tmax.shape[0]
+    open_ = torch.ones((n,), dtype=torch.bool, device=tmax.device)
+    link = XF_FLOPS["link"] + XF_FLOPS["keyed"] * (
+        scene.xf_times.shape[1] > 1)
+    kinds = (("plane", scene.pln_xf_host, tr._plane_rows),
+             ("sphere", scene.sph_xf_host, tr._sphere_rows),
+             ("rect", scene.rect_xf_host,
+              lambda *a: tr._rect_rows(*a)[0]))
+    insns, cur = 0, None
+    for kind, xf_host, rows_t in kinds:
+        for row, slot in enumerate(xf_host):
+            lanes = int(open_.sum())
+            chain = xf.chain_slots(scene, slot)
+            if chain and slot != cur:
+                insns += lanes * len(chain) * link
+            cur = slot if chain else None
+            insns += lanes * AF_INSNS[kind]
+            if any_hit:
+                o_l, d_l, _ = xf.local_ray(scene, slot, o, d, time)
+                t = rows_t(scene, row, row + 1, o_l, d_l, tmin, tmax)[0]
+                open_ &= ~torch.isfinite(t)
+    nbytes = n * 4 * (7 + scene.has_motion) + n * (1 if any_hit else 28)
+    return insns, nbytes
+
+
+def run_analytic(dev, card: str) -> dict:
+    """Phase 28 on ``dev``: analytic_fold (csrc/analytic_fold.cu, every
+    plane, sphere and rect of a query in one launch) against its plain twin
+    on one 131,072-lane band at bounce 0 of stage 6 and of stage 7 (at
+    seeded lane times): the camera and bounce rays' closest hit and the
+    shadow rays' any hit, every output bit for bit; each timed (20 calls
+    in a CUDA graph between events) beside the plain twin, against its
+    bound (the larger of the lane instructions counted from the SASS at
+    the issue limit and the bytes at 3.35 TB/s). Returns {"<stage>
+    <population>": record}."""
+    import numpy as np
+    import torch
+
+    from rayito_tpu_torch.render import trace as tr
+
+    _phase("analytic folds")
+    out = {}
+    for label, setup in (("stage-6", stage6_setup), ("stage-7", stage7_setup)):
+        scene, cfg, cam, _ = setup(dev)
+        lane_time = torch.from_numpy(np.random.default_rng(7).uniform(
+            0.0, 1.0, RAYS_PER_PASS).astype(np.float32)).to(dev) \
+            if scene.has_motion else None
+        cases = _populations(scene, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0),
+                             lane_time)
+        rows = scene.n_planes + scene.n_spheres + scene.n_rects
+        for name, co, cd, ctmax, _, any_hit in cases:
+            args = (scene, co, cd, lane_time, cfg.ray_tmin, ctmax)
+            got = tr.analytic_fold(*args, any_hit=any_hit)
+            want = tr.analytic_fold_plain(*args, any_hit=any_hit)
+            torch.cuda.synchronize()
+            if any_hit:
+                got, want = [got], [want]
+            else:
+                got, want = ([*r[:3], r[3].x, r[3].y, r[3].z, r[4]]
+                             for r in (got, want))
+            bad = sum(_differing(g, w) for g, w in zip(got, want))
+            hits = int(want[0].sum()) if any_hit else int(
+                torch.isfinite(want[0]).sum())
+            r = {"lanes": co.x.shape[0], "rows": rows, "hits": hits,
+                 "ms": _device_ms(lambda: tr.analytic_fold(
+                     *args, any_hit=any_hit)),
+                 "plain_ms": _median_ms(lambda: tr.analytic_fold_plain(
+                     *args, any_hit=any_hit), 3)}
+            insns, nbytes = _af_work(*args, any_hit)
+            bounds = {"operations": insns / PEAK_ISSUE * 1e3,
+                      "bytes": nbytes / PEAK_BYTES * 1e3}
+            r["bound_by"] = max(bounds, key=bounds.get)
+            r["bound_ms"] = bounds[r["bound_by"]]
+            r["share"] = r["bound_ms"] / r["ms"]
+            r["insns_per_lane"] = insns / r["lanes"]
+            kind = "any" if any_hit else "closest"
+            print(f"{label} analytic_fold {name} ({kind} hit) on {card}: "
+                  f"values differing {bad}, " + _fmt(r), flush=True)
+            if bad:
+                raise AssertionError(f"{label} {name}: analytic_fold "
+                                     "disagrees with its plain twin")
+            out[f"{label} {name}"] = r
+    return out
 
 
 def run_stage7b(dev, card: str) -> dict:
@@ -2410,7 +2550,8 @@ MARKERS = {"cluster_masks": "cluster_masks_kernel",
            "cmj": "cmj_",  # cmj_draws_kernel, or a single draw's kernels
            "fold_small": "fold_small_kernel",
            "bounce_prepare": "bounce_prepare_kernel",
-           "bounce_resolve": "bounce_resolve_kernel"}
+           "bounce_resolve": "bounce_resolve_kernel",
+           "analytic_fold": "analytic_fold_kernel"}
 
 
 # idle time inside the profiler's window on each side of a profiled frame:
@@ -2495,11 +2636,11 @@ def run_stage5(dev, card: str) -> dict:
         launches = cuda_lib.launch_counts()
     frame()  # captures the untraced graph
     print(f"launches in one stage-5 frame: {launches}")
-    if launches["cmj"] <= 0 or any(
-            v for k, v in launches.items() if k not in ("cmj",)
+    if min(launches[k] for k in ("cmj", "analytic_fold")) <= 0 or any(
+            v for k, v in launches.items() if k not in ("cmj", "analytic_fold")
             + SHADE_KERNELS):
-        raise AssertionError("stage 5 has no mesh: expected cmj and "
-                             "shading launches and no other kernel")
+        raise AssertionError("stage 5 has no mesh: expected cmj, analytic_fold "
+                             "and shading launches and no other kernel")
     _check_shade_launches("stage-5 frame", launches, cfg.height // (
         cfg.max_rays_per_pass // cfg.width), cfg.max_depth)
     img = first[0].reshape(cfg.height, cfg.width, 3).cpu().numpy()
@@ -2769,11 +2910,11 @@ def _check_chosen_light(scene, label: str) -> None:
 
 
 def run_many(dev, card: str) -> None:
-    """Phase 13 on ``dev``: the 40-sphere and 16-light frames in batches of
-    ``ROLL_CHUNK`` rows against the same frames with one row per batch (the
-    fold shape by shape), bit for bit, with the host launches and one timed
-    frame of each; and the 16-light scene's chosen-light forms against its
-    per-light functions."""
+    """Phase 13 on ``dev``: the 40-sphere and 16-light frames through
+    analytic_fold against the same frames through its plain twin with one
+    row per batch (the fold shape by shape), bit for bit, with the host
+    launches and one timed frame of each; and the 16-light scene's
+    chosen-light forms against its per-light functions."""
     import torch
 
     from rayito_tpu_torch.render import trace as tr
@@ -2799,15 +2940,16 @@ def run_many(dev, card: str) -> None:
         diag = _check_image(img, label)
         print(f"{label} frame {img.shape}: queries {int(batched[1])}, {diag}")
         stats = {"batched": (_host_launches(frame), *_time_frames(frame, 1))}
-        chunk = tr.ROLL_CHUNK
-        tr.ROLL_CHUNK = 1
-        try:  # the eager body: the captured graph holds ROLL_CHUNK's rows
+        chunk, fold = tr.ROLL_CHUNK, tr.analytic_fold
+        tr.ROLL_CHUNK, tr.analytic_fold = 1, tr.analytic_fold_plain
+        try:  # the eager body with the plain fold, one row per batch
             by_row = frame(graph=False)
             stats["row-by-row"] = ("not counted", *_time_frames(
                 lambda: frame(graph=False), 1))
         finally:
-            tr.ROLL_CHUNK = chunk
-        _same_frame(f"{label}, batched vs one row per batch", batched, by_row)
+            tr.ROLL_CHUNK, tr.analytic_fold = chunk, fold
+        _same_frame(f"{label}, analytic_fold vs the plain fold one row per "
+                    "batch", batched, by_row)
         for form, (host, frame_s, q) in stats.items():
             print(f"{label}, {form} form: {host} host launches, "
                   f"{frame_s * 1e3:.1f} ms/frame, {q:.0f} queries, "
@@ -2910,10 +3052,11 @@ def run_direct(dev, card: str) -> dict:
             frame_ms[k] = (time.perf_counter() - t0) * 1e3
         launches = cuda_lib.launch_counts()
     print(f"launches in the stage 1-3 frames: {launches}")
-    if launches["cmj"] <= 0 or any(
-            v for k, v in launches.items() if k != "cmj"):
+    if min(launches[k] for k in ("cmj", "analytic_fold")) <= 0 or any(
+            v for k, v in launches.items() if k not in ("cmj", "analytic_fold")):
         raise AssertionError("stages 1-4 have no mesh: expected cmj "
-                             "launches (stages 2-3) and no other kernel")
+                             "launches (stages 2-3), analytic_fold launches "
+                             "and no other kernel")
     out = {"launches": launches}
     for k, img in imgs.items():
         diag = _check_image(img, k)

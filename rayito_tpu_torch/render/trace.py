@@ -23,20 +23,25 @@ sees the ray in its local space at the lane's time; local t is world t.
 Normals leave through the winner's world-from-local rotation. Scenes
 without motion skip every transform step.
 
-The reference unrolls its fold shape by shape, and above 24 shapes of a
-kind rolls it into a loop over packed rows to keep its compile time flat.
-Nothing is compiled here; what a shape costs is host launches. So at every
-count the rows of a kind that do not move are tested in one batched
-[rows, N] evaluation (``ROLL_CHUNK`` rows at a time) and a batch's winner is
-the ``argmin`` over its rows: the nearest hit, ties to the lowest row, as
-the unrolled fold's strict ``<`` in ascending order. A row with a keyed
-transform is a batch of its own in its local space, in its place in the
-row order.
+The analytic shapes of a query fold in one launch of ``analytic_fold``
+(``csrc/analytic_fold.cu``), each keyed row's transform chain evaluated
+per lane inside it. Its plain twin, which CPU tensors take, follows the
+reference: the reference unrolls its fold shape by shape, and above 24
+shapes of a kind rolls it into a loop over packed rows to keep its compile
+time flat. The twin tests the rows of a kind that do not move in one
+batched [rows, N] evaluation (``ROLL_CHUNK`` rows at a time) and a batch's
+winner is the ``argmin`` over its rows: the nearest hit, ties to the
+lowest row, as the unrolled fold's strict ``<`` in ascending order. A row
+with a keyed transform is a batch of its own in its local space, in its
+place in the row order. The kernel walks the same rows in the same order
+under the same strict ``<``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -55,7 +60,7 @@ from ..ops.intersect import (
 from ..ops import quaternion as quat
 from ..ops.quaternion import Quat, rotate_vector
 from ..ops.vec3 import V3, from_aos, normalize, where as vwhere
-from ..utils import tracing
+from ..utils import cuda_lib, tracing
 from .mesh_intersect import fold_small, mesh_intersect_clusters
 from .traverse import gather_rows_t, traverse
 
@@ -421,36 +426,8 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
     n, dev = o.x.shape[0], o.x.device
     tmax = _lanes(tmax, n, dev)
     time = _lane_time(scene, time, n, dev)
-    best = (
-        _full(n, INF, torch.float32, dev),
-        _full(n, -1, torch.int32, dev),
-        _full(n, -1, torch.int32, dev),
-        _zeros3(n, dev),
-        torch.ones((n,), dtype=torch.float32, device=dev),
-    )
-
-    def fold(best, cand):
-        t_b, id_b, mat_b, n_b, cm_b = best
-        t_c, id_c, mat_c, n_c, cm_c = cand
-        closer = t_c < t_b
-        return (
-            torch.where(closer, t_c, t_b),
-            torch.where(closer, id_c.to(torch.int32), id_b),
-            torch.where(closer, mat_c.to(torch.int32), mat_b),
-            vwhere(closer, n_c, n_b),
-            torch.where(closer, cm_c, cm_b),
-        )
-
     with tracing.device_span("analytic_folds", dev):
-        if scene.n_planes:
-            best = fold(best, _planes_candidate(scene, o, d, time, tmin,
-                                                tmax))
-        if scene.n_spheres:
-            best = fold(best, _spheres_candidate(scene, o, d, time, tmin,
-                                                 tmax))
-        if scene.n_rects:
-            best = fold(best, _rects_candidate(scene, o, d, time, tmin,
-                                               tmax))
+        best = analytic_fold(scene, o, d, time, tmin, tmax)
     overflow = 0
     if scene.n_meshes:
         with tracing.device_span("mesh", dev):
@@ -458,7 +435,7 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
             tmax_mesh = torch.minimum(tmax, best[0])
             cand, overflow = _mesh_candidate(scene, o, d, time, tmin,
                                              tmax_mesh)
-        best = fold(best, cand)
+        best = _fold_best(best, cand)
 
     t, shape_id, mat, normal, color_mod = best
     valid = torch.isfinite(t) & (t < tmax)
@@ -497,6 +474,203 @@ def _analytic_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     return occluded
 
 
+def _fold_best(best, cand):
+    """A candidate (t, shape id, material, normal, color_mod) replaces the
+    best where it is strictly nearer: ties keep the earlier kind."""
+    t_b, id_b, mat_b, n_b, cm_b = best
+    t_c, id_c, mat_c, n_c, cm_c = cand
+    closer = t_c < t_b
+    return (
+        torch.where(closer, t_c, t_b),
+        torch.where(closer, id_c.to(torch.int32), id_b),
+        torch.where(closer, mat_c.to(torch.int32), mat_b),
+        vwhere(closer, n_c, n_b),
+        torch.where(closer, cm_c, cm_b),
+    )
+
+
+def analytic_fold_plain(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
+                        any_hit: bool = False):
+    """The analytic shapes of one query, kind by kind: planes, spheres,
+    rects. o, d: V3 of [N]; time: [N] where the scene moves, else None;
+    tmax: [N]. Closest hit: (t [N] f32, shape id [N] i32, material [N]
+    i32, world normal V3, color_mod [N] f32) of the nearest hit, ties to
+    the earlier kind and the lower row, the fold's start where nothing
+    hits. Any hit: occluded [N] bool."""
+    if any_hit:
+        return _analytic_occluded(scene, o, d, time, tmin, tmax)
+    n, dev = o.x.shape[0], o.x.device
+    best = (_full(n, INF, torch.float32, dev), _full(n, -1, torch.int32, dev),
+            _full(n, -1, torch.int32, dev), _zeros3(n, dev),
+            torch.ones((n,), dtype=torch.float32, device=dev))
+    if scene.n_planes:
+        best = _fold_best(best, _planes_candidate(scene, o, d, time, tmin,
+                                                  tmax))
+    if scene.n_spheres:
+        best = _fold_best(best, _spheres_candidate(scene, o, d, time, tmin,
+                                                   tmax))
+    if scene.n_rects:
+        best = _fold_best(best, _rects_candidate(scene, o, d, time, tmin,
+                                                 tmax))
+    return best
+
+
+# csrc/analytic_fold.cu's limits per launch: rows, distinct chains and
+# chain slots (a query with more launches again, each launch folding into
+# the last one's outputs; a chain has at most AF_MAX_SLOTS links)
+AF_MAX_ROWS = 128
+AF_MAX_CHAINS = 32
+AF_MAX_SLOTS = 256
+
+
+class _AfChain(ctypes.Structure):
+    """A keyed slot's transform chain: ``depth`` slots of the spec's
+    ``slots`` from ``start``, outermost first."""
+    _fields_ = [("start", ctypes.c_int32), ("depth", ctypes.c_int32)]
+
+
+class _AfSpec(ctypes.Structure):
+    """A launch's rows, passed to the kernel by value: the counts of its
+    planes, spheres and rects and the first table row of each, each row's
+    chain (an index into ``chains``, -1 for the world ray), the chains'
+    slots, and the scene's constants."""
+    _fields_ = [("count", ctypes.c_int32 * 3), ("first", ctypes.c_int32 * 3),
+                ("sphere_id0", ctypes.c_int32), ("rect_id0", ctypes.c_int32),
+                ("k", ctypes.c_int32), ("motion", ctypes.c_int32),
+                ("n_chain", ctypes.c_int32), ("n_slot", ctypes.c_int32),
+                ("chain", ctypes.c_int8 * AF_MAX_ROWS),
+                ("chains", _AfChain * AF_MAX_CHAINS),
+                ("slots", ctypes.c_int32 * AF_MAX_SLOTS)]
+
+
+def _af_specs(scene: SceneData) -> list:
+    """The analytic rows of a query (every plane, then every sphere, then
+    every rect, each kind in ascending row order) cut into launches of at
+    most AF_MAX_ROWS rows, AF_MAX_CHAINS distinct chains and AF_MAX_SLOTS
+    chain slots. A row with a keyed slot in a moving scene takes its
+    slot's chain, outermost first (``xf.chain_slots``); every other row,
+    and every row of a static scene, has none and tests the world ray."""
+    specs, spec, index = [], None, {}
+    kinds = (scene.pln_xf_host, scene.sph_xf_host, scene.rect_xf_host)
+    for kind, xf_host in enumerate(kinds):
+        for row, slot in enumerate(xf_host):
+            chain = xf.chain_slots(scene, slot)
+            if len(chain) > AF_MAX_SLOTS:
+                raise ValueError(f"analytic_fold: a chain of {len(chain)} "
+                                 f"transforms; the kernel takes at most "
+                                 f"{AF_MAX_SLOTS}")
+            rows = sum(spec.count) if spec is not None else 0
+            new = bool(chain) and slot not in index
+            if (spec is None or rows == AF_MAX_ROWS
+                    or (new and (spec.n_chain == AF_MAX_CHAINS or spec.n_slot
+                                 + len(chain) > AF_MAX_SLOTS))):
+                spec = _AfSpec(sphere_id0=scene.sphere_id0,
+                               rect_id0=scene.rect_id0,
+                               k=int(scene.xf_times.shape[1]),
+                               motion=int(scene.has_motion))
+                specs.append(spec)
+                rows, index = 0, {}
+            if not spec.count[kind]:
+                spec.first[kind] = row
+            if chain and slot not in index:
+                index[slot] = spec.n_chain
+                spec.chains[spec.n_chain] = _AfChain(spec.n_slot, len(chain))
+                for j, s in enumerate(chain):
+                    spec.slots[spec.n_slot + j] = s
+                spec.n_chain += 1
+                spec.n_slot += len(chain)
+            spec.chain[rows] = index[slot] if chain else -1
+            spec.count[kind] += 1
+    return specs
+
+
+# pointer slots of a launch, in csrc/analytic_fold.cu's order: the scene's
+# tables, the lanes, the state a chained launch folds into (s_*) and the
+# outputs (o_*)
+_AF_TABLES = ("pln_pos", "pln_normal", "pln_mat", "pln_bullseye",
+              "sph_center", "sph_radius", "sph_mat", "rect_corner",
+              "rect_side1", "rect_side2", "rect_mat", "xf_times",
+              "xf_translate", "xf_scale", "xf_rotate", "xf_nkeys")
+_AF_LANES = ("ox", "oy", "oz", "dx", "dy", "dz", "tmax", "time")
+_AF_STATE = ("t", "id", "mat", "n", "cmod", "occ")
+_AF_PTRS = (_AF_TABLES + _AF_LANES + tuple("s_" + k for k in _AF_STATE)
+            + tuple("o_" + k for k in _AF_STATE))
+
+
+@functools.lru_cache(maxsize=None)
+def _check_af_layout() -> None:
+    """The spec's ctypes layout and the pointer count are the kernel's
+    (once per process)."""
+    lib = cuda_lib.library()
+    if lib.rt_analytic_fold_spec_bytes() != ctypes.sizeof(_AfSpec):
+        raise RuntimeError("analytic_fold: AfSpec differs between "
+                           "analytic_fold.cu and render/trace.py")
+    if lib.rt_analytic_fold_ptrs() != len(_AF_PTRS):
+        raise RuntimeError("analytic_fold: the pointer slots differ between "
+                           "analytic_fold.cu and render/trace.py")
+
+
+@cuda_lib.counted
+def analytic_fold(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
+                  any_hit: bool = False):
+    """Kernel wrapper of :func:`analytic_fold_plain` (same contract): the
+    analytic shapes of one query in one launch (``csrc/analytic_fold.cu``;
+    more past its limits, each folding into the last one's outputs), each
+    lane's transform chains evaluated inside it. A scene without analytic
+    shapes launches nothing."""
+    name = "analytic_fold"
+    n = o.x.shape[0]
+    motion = scene.has_motion
+    if (time is None) == motion:
+        raise ValueError(f"{name}: a time per lane where, and only where, "
+                         "the scene moves")
+    lanes = (o.x, o.y, o.z, d.x, d.y, d.z, tmax) + ((time,) if motion else ())
+    if any(t.shape != (n,) for t in lanes):
+        raise ValueError(f"{name}: rays, tmax and time must be [N]")
+    if any(t.dtype != torch.float32 for t in lanes):
+        raise ValueError(f"{name}: f32 rays, tmax and time expected")
+    tables = tuple(getattr(scene, k) for k in _AF_TABLES)
+    if cuda_lib.on_cpu(name, *lanes, *tables):
+        return analytic_fold_plain(scene, o, d, time, tmin, tmax, any_hit)
+    if not isinstance(tmin, (int, float)):
+        raise ValueError(f"{name}: tmin must be a Python number")
+    specs = _af_specs(scene)
+    if not specs:  # nothing to fold: the fold's start
+        return analytic_fold_plain(scene, o, d, time, tmin, tmax, any_hit)
+    _check_af_layout()
+    lanes = tuple(t.contiguous() for t in lanes)
+    lib, stream = cuda_lib.launch_args(name, *lanes, *tables)
+    dev = o.x.device
+    ptrs = dict(zip(_AF_TABLES, tables))
+    ptrs.update(zip(_AF_LANES, lanes))
+    for spec in specs:
+        if any_hit:
+            outs = {"occ": torch.empty((n,), dtype=torch.bool, device=dev)}
+        else:
+            f32, i32 = (dict(dtype=dt, device=dev)
+                        for dt in (torch.float32, torch.int32))
+            outs = {"t": torch.empty((n,), **f32),
+                    "id": torch.empty((n,), **i32),
+                    "mat": torch.empty((n,), **i32),
+                    "n": torch.empty((3, n), **f32),
+                    "cmod": torch.empty((n,), **f32)}
+        ptrs.update(("o_" + k, v) for k, v in outs.items())
+        arr = (ctypes.c_void_p * len(_AF_PTRS))(
+            *(None if ptrs.get(k) is None else ptrs[k].data_ptr()
+              for k in _AF_PTRS))
+        if n:
+            cuda_lib.check(lib.rt_analytic_fold(
+                ctypes.byref(spec), arr, float(tmin), int(any_hit), n,
+                stream), name)
+            cuda_lib.count_launch(analytic_fold, dev)
+        ptrs.update(("s_" + k, v) for k, v in outs.items())
+    if any_hit:
+        return outs["occ"]
+    nrm = outs["n"]
+    return (outs["t"], outs["id"], outs["mat"], V3(nrm[0], nrm[1], nrm[2]),
+            outs["cmod"])
+
+
 def _occl_tmax_down(occluded, tmax):
     """Shadow-launch tmax: zero already-occluded lanes and round the rest
     DOWN one full 128-ulp key bucket, so every hit the kernel reports
@@ -516,7 +690,7 @@ def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     tmax = _lanes(tmax, n, dev)
     time = _lane_time(scene, time, n, dev)
     with tracing.device_span("analytic_folds", dev):
-        occluded = _analytic_occluded(scene, o, d, time, tmin, tmax)
+        occluded = analytic_fold(scene, o, d, time, tmin, tmax, any_hit=True)
     if not scene.n_meshes:
         return occluded, 0
     with tracing.device_span("mesh", dev):

@@ -54,7 +54,15 @@ fold_small (every tiny mesh of a query in one launch) against its
 plain twin on stage 7b's ten cubes (in one launch, and cut into four
 chained launches), a one-key cube, a cube in a turning group and a
 192-row mesh whose every hit ties with a twin row, closest and any hit;
-and the bounce's shading (bounce_prepare, bounce_resolve) against its
+and analytic_fold (every plane, sphere and rect of a query in one
+launch, each keyed row's chain inside it) against its plain twin on
+131,072 seeded lanes of camera, bounce and shadow populations of stage 6,
+stage 7, stage 7b, stage 5, the mesh light, sixteen lights, forty moving
+spheres, a depth-3 and a depth-12 group chain and rows that tie exactly (twin planes and
+spheres, a rect lying on the planes, 155 rows in two chained launches),
+NaN and infinite lanes among them, closest and any hit; the same queries
+in chained launches under cut limits; one launch per query in a replayed
+pass; and the bounce's shading (bounce_prepare, bounce_resolve) against its
 plain versions on the eager pass's own inputs at bounces 0 and 1 of stage
 6, stage 7 (also at lane times outside its keys), the mesh light and
 sixteen lights at light_samples=2, one launch of each per bounce in a
@@ -993,10 +1001,11 @@ def test_argmin_tie_on_the_card_takes_the_first_row(dev):
                                   "spheres40_twins"])
 def test_many_spheres_scene_intersect_on_the_card_matches_the_cpu(dev, lit,
                                                                   name):
-    """The batched fold on the card against the CPU, and against one row
-    per batch on the card (the fold shape by shape): identical hits, shapes
-    and materials, t to 1e-5 relative, normals to 1e-5; of two identical
-    spheres the lower row wins on both."""
+    """The analytic fold on the card (the kernel) against the CPU's
+    batched fold, and against the plain twin with one row per batch on the
+    card (the fold shape by shape): identical hits, shapes and materials,
+    t to 1e-5 relative, normals to 1e-5; of two identical spheres the lower
+    row wins on both."""
     from rayito_tpu_torch.render import trace as tr
 
     card, cpu = lit[name]
@@ -1021,12 +1030,12 @@ def test_many_spheres_scene_intersect_on_the_card_matches_the_cpu(dev, lit,
 
     g, g_occ = query(card, dev)
     c, c_occ = query(cpu, torch.device("cpu"))
-    chunk = tr.ROLL_CHUNK
-    tr.ROLL_CHUNK = 1
+    chunk, fold = tr.ROLL_CHUNK, tr.analytic_fold
+    tr.ROLL_CHUNK, tr.analytic_fold = 1, tr.analytic_fold_plain
     try:
         p, p_occ = query(card, dev)
     finally:
-        tr.ROLL_CHUNK = chunk
+        tr.ROLL_CHUNK, tr.analytic_fold = chunk, fold
     valid = c.valid
     assert valid.sum() > n // 8
     for other, other_occ in ((c, c_occ), (p, p_occ)):
@@ -1279,8 +1288,8 @@ def test_nearest_k_ties_on_the_card(dev):
 def test_xla_route_launches_gather_rows_t(dev, xla_scenes):
     """A closest-hit query under 'xla' on the card runs cluster_pipeline
     once per mesh, gathers its winners' rows through the gather_rows_t
-    kernel and launches no kernel of the other route; its hits equal the
-    CPU's."""
+    kernel, folds its analytic shapes in one analytic_fold launch and
+    launches no kernel of the other route; its hits equal the CPU's."""
     from rayito_tpu_torch.render import trace as tr
 
     sd = xla_scenes["stage6"]
@@ -1295,6 +1304,7 @@ def test_xla_route_launches_gather_rows_t(dev, xla_scenes):
     counts = {fn.__name__: fn.launches for fn in cuda_lib.KERNELS}
     assert counts.pop("gather_rows_t") >= 2
     assert counts.pop("cluster_pipeline") == sd.n_meshes
+    assert counts.pop("analytic_fold") == 1  # the plane, spheres and rect
     assert not any(counts.values())
     ref = tr.scene_intersect(sd, v3(o, "cpu"), v3(d, "cpu"), None, 1e-4,
                              1e30)
@@ -1547,8 +1557,9 @@ def test_xla_pass_is_captured_and_replayed(dev, graph_scenes, name):
     sync debug mode 'error' reads nothing back, a second call only
     replays, and both equal the eager body bit for bit, overflow and
     queries included. The replay launches cluster_pipeline once per mesh
-    query, gather_rows_t, the sample streams' kernel and each shading
-    kernel once per bounce, and no kernel of the other route."""
+    query, gather_rows_t, the sample streams' kernel, each shading kernel
+    once per bounce and the analytic fold once per query, and no kernel of
+    the other route."""
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import graphs
 
@@ -1568,6 +1579,10 @@ def test_xla_pass_is_captured_and_replayed(dev, graph_scenes, name):
     assert counts.pop("cluster_pipeline") > 0 and counts.pop("cmj") > 0
     assert (counts.pop("bounce_prepare") == counts.pop("bounce_resolve")
             == cfg.max_depth)
+    # the analytic fold once per query: a closest hit and two shadow
+    # queries a light sample per bounce
+    assert counts.pop("analytic_fold") == cfg.max_depth * (
+        1 + 2 * cfg.light_samples)
     assert counts.pop("gather_rows_t") > 0 and not any(counts.values())
     for got in (first, again):
         assert torch.equal(got[0].view(torch.int32),
@@ -1980,6 +1995,274 @@ def test_fold_small_kernel_matches_plain(dev, mesh, monkeypatch):
     assert mi.fold_small.launches == 2 * per_query
     assert cuda_lib.launch_counts()["fold_small"] == 2 * per_query
     tracing.enable(False)
+
+
+# ---------------------------------------------------------------------------
+# the analytic folds (csrc/analytic_fold.cu)
+# ---------------------------------------------------------------------------
+
+
+def _nested_analytic_scene():
+    """Depth-3 chains on analytic shapes: a group turning about Y over the
+    shutter holds a translated, scaled group, which holds a sphere with two
+    keys of its own and a translated rect light; a bullseye plane and a
+    sphere light stay at the root."""
+    import rayito_tpu_torch as tt
+
+    s = tt.Scene()
+    s.add(tt.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                   tt.DiffuseMaterial((0.6, 0.6, 0.9)), bullseye=True))
+    outer = tt.Group()
+    outer.transform.set_rotation(0.0, (1.0, 0.0, 0.0, 0.0))
+    outer.transform.set_rotation(
+        1.0, (np.cos(np.pi / 6), 0.0, np.sin(np.pi / 6), 0.0))
+    outer.transform.set_translation(1.0, (0.5, 0.0, 0.0))
+    inner = tt.Group()
+    inner.transform.set_translation(0.0, (0.0, 0.5, 0.0))
+    inner.transform.set_scaling(0.0, (1.0, 1.2, 1.0))
+    sph = tt.Sphere((0.0, 0.0, 0.0), 0.6, tt.GlossyMaterial((0.3, 0.9, 0.3),
+                                                           0.1))
+    sph.transform.set_translation(0.0, (-2.5, 0.0, 1.0))
+    sph.transform.set_translation(1.0, (-2.0, 0.0, 1.0))
+    inner.add(sph)
+    inner.add(tt.RectangleLight((0.0, 0.0, 0.0), (2.0, 0.0, 0.0),
+                                (0.0, 0.0, 2.0), (1.0, 1.0, 1.0), 5.0,
+                                transform=tt.Transform(
+                                    times=[0.0],
+                                    translations=[(-1.0, 3.0, -1.0)])))
+    outer.add(inner)
+    s.add(outer)
+    s.add(tt.ShapeLight(tt.Sphere((0.0, 2.0, 4.0), 0.2,
+                                  tt.DiffuseMaterial((0.6, 0.6, 0.9))),
+                        color=(1.0, 1.0, 0.3), power=40.0))
+    return s
+
+
+def _deep_analytic_scene(depth=12):
+    """A sphere with keys of its own, and a rect, inside eleven nested
+    groups each translated over the shutter (chains of 12 and 11 links,
+    past the 8 of the shading and the tiny-mesh fold), over a plane."""
+    import rayito_tpu_torch as tt
+
+    s = tt.Scene()
+    s.add(tt.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                   tt.DiffuseMaterial((0.6, 0.6, 0.9)), bullseye=True))
+    sph = tt.Sphere((0.0, 0.0, 0.0), 1.5, tt.DiffuseMaterial((0.3, 0.9, 0.3)))
+    sph.transform.set_translation(0.0, (-1.0, 0.0, 0.0))
+    sph.transform.set_translation(1.0, (-0.6, 0.0, 0.0))
+    node = tt.Group()
+    node.add(sph)
+    node.add(tt.RectangleLight((-1.0, 3.0, -1.0), (2.0, 0.0, 0.0),
+                               (0.0, 0.0, 2.0), (1.0, 1.0, 1.0), 5.0))
+    for g in range(depth - 1):
+        node.transform.set_translation(0.0, (0.1, 0.0, 0.0))
+        node.transform.set_translation(1.0, (0.1, 0.03 * g, 0.0))
+        if g < depth - 2:
+            outer = tt.Group()
+            outer.add(node)
+            node = outer
+    s.add(node)
+    return s
+
+
+def _tied_analytic_scene():
+    """Rows that tie exactly: two identical bullseye planes at y = -2, a
+    rect lying on them (16 x 16, so its unit normal is exact and its t
+    equals the planes'), two identical spheres, and 150 seeded spheres
+    after them (past the kernel's 128 rows a launch, so every query
+    chains two launches), every fifth of them moving."""
+    import rayito_tpu_torch as tt
+
+    rs = np.random.default_rng(8)
+    s = tt.Scene()
+    for c in ((0.7, 0.7, 0.9), (0.9, 0.2, 0.2)):
+        s.add(tt.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                       tt.DiffuseMaterial(c), bullseye=True))
+    for c in ((0.8, 0.3, 0.7), (0.2, 0.8, 0.3)):
+        s.add(tt.Sphere((1.0, 0.0, 0.5), 1.0, tt.DiffuseMaterial(c)))
+    for i in range(150):
+        sph = tt.Sphere(tuple(rs.uniform(-7.0, 7.0, 3)),
+                        float(rs.uniform(0.1, 0.3)),
+                        tt.DiffuseMaterial((0.5, 0.5, 0.5)))
+        if i % 5 == 0:
+            sph.transform.set_translation(0.0, (0.0, 0.0, 0.0))
+            sph.transform.set_translation(1.0, tuple(rs.uniform(-1, 1, 3)))
+        s.add(sph)
+    s.add(tt.RectangleLight((-8.0, -2.0, -8.0), (16.0, 0.0, 0.0),
+                            (0.0, 0.0, 16.0), (1.0, 1.0, 1.0), 2.0))
+    return s
+
+
+@pytest.fixture(scope="module")
+def af_scenes(dev, graph_scenes, lit):
+    """{name: scene on the card} for the analytic fold."""
+    from rayito_tpu_torch.models import demo
+
+    return {"stage6": graph_scenes["stage6"][0],
+            "stage7": graph_scenes["stage7"][0],
+            "stage7b": demo.stage7_scene2().compile(dev),
+            "stage5": demo.stage5_scene().compile(dev),
+            "mesh_light": lit["mesh_light"][0],
+            "lights16": lit["lights16"][0],
+            "spheres40_motion": lit["spheres40_motion"][0],
+            "nested": _nested_analytic_scene().compile(dev),
+            "deep": _deep_analytic_scene().compile(dev),
+            "ties": _tied_analytic_scene().compile(dev)}
+
+
+AF_N = 131072
+
+
+def _af_rays(scene, dev, pop, seed):
+    """Seeded (o, d, time, tmax) of one population on the card: camera
+    rays from above and in front of the origin at points of the scene;
+    bounce rays from the camera rays' nearest analytic hits (the plain
+    fold's) in random directions; shadow rays from there to points around
+    the lights, tmax the distance. Lane times in [-0.5, 1.5], outside the
+    keys on either side. Lanes 0-31 are edges: NaN and infinite
+    components, NaN, infinite and zero tmax, NaN and infinite times, and
+    rays straight down onto the tied rows."""
+    from rayito_tpu_torch.render import trace as tr
+
+    rs = np.random.default_rng(seed)
+    n = AF_N
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731,E501
+    v3 = lambda a: V3(f(a[:, 0]), f(a[:, 1]), f(a[:, 2]))  # noqa: E731
+    time = rs.uniform(-0.5, 1.5, n).astype(np.float32)
+    o = np.tile(np.float32([-4.0, 5.0, 15.0]), (n, 1))
+    o += rs.normal(0.0, 0.3, (n, 3)).astype(np.float32)
+    target = rs.uniform([-8.0, -3.0, -8.0], [8.0, 7.0, 8.0], (n, 3))
+    if pop != "camera":
+        d = target - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tm = f(time) if scene.has_motion else None
+        t = tr.analytic_fold_plain(scene, v3(o), v3(d), tm, 1e-4,
+                                   f(np.full(n, 1e30)))[0].cpu().numpy()
+        hit = np.isfinite(t)
+        o = np.where(hit[:, None], o + d * np.where(hit, t, 0)[:, None],
+                     target).astype(np.float32)
+        if pop == "bounce":
+            target = o + rs.normal(size=(n, 3))
+        else:
+            target = rs.uniform([-6.0, 2.0, -4.0], [6.0, 9.0, 6.0], (n, 3))
+    d = (target - o).astype(np.float32)
+    dist = np.linalg.norm(d, axis=1)
+    d /= dist[:, None]
+    tmax = (dist * 0.999 if pop == "shadow" else np.full(n, 1e30))
+    tmax = tmax.astype(np.float32)
+    tmax[::7] = rs.uniform(0.5, 8.0, tmax[::7].shape)
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    d[0:4] = np.float32([nan, inf, -inf, 0.0])[:, None]
+    o[4:8, 1] = [nan, inf, -inf, 1e30]
+    tmax[8:16] = [nan, inf, 0.0, -1.0, 1e-30, nan, inf, 0.0]
+    time[16:24] = [nan, inf, -inf, 0.0, 1.0, 0.5, -1e30, 1e30]
+    d[24:32] = [0.0, -1.0, 0.0]  # straight down: the tied rows
+    o[24:32] = rs.uniform([-5, 3, -5], [5, 6, 5], (8, 3))
+    return (v3(o), v3(d), f(time) if scene.has_motion else None, 1e-4,
+            f(tmax))
+
+
+def _af_flat(out):
+    """analytic_fold's outputs as a flat list of tensors."""
+    if torch.is_tensor(out):
+        return [out]
+    t, sid, mat, nrm, cmod = out
+    return [t, sid, mat, nrm.x, nrm.y, nrm.z, cmod]
+
+
+@pytest.mark.parametrize("pop", ["camera", "bounce", "shadow"])
+@pytest.mark.parametrize("name", ["stage6", "stage7", "stage7b", "stage5",
+                                  "mesh_light", "lights16",
+                                  "spheres40_motion", "nested", "deep",
+                                  "ties"])
+def test_analytic_fold_kernel_matches_plain(dev, af_scenes, name, pop):
+    """analytic_fold (every plane, sphere and rect of a query in one
+    launch) against its plain twin analytic_fold_plain on the card, 131,072
+    seeded lanes of one population (lanes at NaN and infinite rays, tmax
+    and times among them): closest hit (t, shape id, material, normal and
+    color_mod bit for bit on every lane) and any hit (occluded equal), each
+    one launch a query ("ties": 155 rows, two chained launches), counted
+    on the host and on the device. On "ties" the twin rows tie exactly and
+    the first of them wins: the lower plane and sphere row, and a plane
+    before the rect lying on it."""
+    from rayito_tpu_torch.render import trace as tr
+
+    sd = af_scenes[name]
+    args = (sd, *_af_rays(sd, dev, pop, seed=len(name) * 7 + len(pop)))
+    per_query = len(tr._af_specs(sd))
+    assert per_query == (2 if name == "ties" else 1)
+    with tracing.on():  # the launch counters count with tracing on
+        cuda_lib.reset_launch_counts()
+        got = tr.analytic_fold(*args)
+        occ = tr.analytic_fold(*args, any_hit=True)
+        counts = cuda_lib.launch_counts()
+    want = tr.analytic_fold_plain(*args)
+    want_occ = tr.analytic_fold_plain(*args, any_hit=True)
+    for g, w in zip(_af_flat(got), _af_flat(want)):
+        assert _same_bits(g, w)
+    assert torch.equal(occ, want_occ)
+    assert tr.analytic_fold.launches == counts["analytic_fold"] == \
+        2 * per_query
+    assert int(torch.isfinite(want[0]).sum()) > AF_N // 50
+    assert int(want_occ.sum()) > AF_N // 50
+    assert not bool(torch.isfinite(want[0][:8]).any())  # NaN / inf rays
+    if name == "ties":
+        # a ray going down meets both planes and the rect at one t; the
+        # double-sided rect alone takes rays going up from below them
+        sid, down = want[1].cpu(), args[2].y.cpu() < 0.0
+        assert int((sid == 0).sum()) > 0  # the first plane
+        assert not bool(((sid == 1) | (sid == sd.sphere_id0 + 1)
+                         | ((sid == sd.rect_id0) & down)).any())
+
+
+@pytest.mark.parametrize("name", ["stage7", "spheres40_motion", "nested"])
+def test_analytic_fold_chained_launches(dev, af_scenes, name, monkeypatch):
+    """With the launch limits cut (3 rows and 2 chains a launch), a query
+    chains several launches, each folding into the last one's outputs:
+    the same bits as one launch and as the plain twin."""
+    from rayito_tpu_torch.render import trace as tr
+
+    sd = af_scenes[name]
+    args = (sd, *_af_rays(sd, dev, "bounce", seed=21))
+    whole = _af_flat(tr.analytic_fold(*args))
+    whole_occ = tr.analytic_fold(*args, any_hit=True)
+    monkeypatch.setattr(tr, "AF_MAX_ROWS", 3)
+    monkeypatch.setattr(tr, "AF_MAX_CHAINS", 2)
+    per_query = len(tr._af_specs(sd))
+    assert per_query >= 2
+    before = tr.analytic_fold.launches
+    got = _af_flat(tr.analytic_fold(*args))
+    occ = tr.analytic_fold(*args, any_hit=True)
+    assert tr.analytic_fold.launches - before == 2 * per_query
+    want = _af_flat(tr.analytic_fold_plain(*args))
+    for g, w, a in zip(got, want, whole):
+        assert _same_bits(g, w) and _same_bits(a, w)
+    assert torch.equal(occ, whole_occ)
+    assert torch.equal(occ, tr.analytic_fold_plain(*args, any_hit=True))
+
+
+@pytest.mark.parametrize("name", ["stage6", "stage7"])
+def test_analytic_fold_launches_once_per_query(dev, graph_scenes, name):
+    """One replayed pass launches analytic_fold once per query: per bounce
+    one closest-hit and two shadow queries a light sample, read from the
+    device counter; the scene_intersect and scene_occluded results of the
+    replayed pass are the eager body's (test_replayed_pass_equals_the_
+    eager_body holds the bits)."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes[name]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    with tracing.on():
+        pt._render_path_pass(scene, cfg, cam, si, 16, 16)  # captures
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+        counts = cuda_lib.launch_counts()
+    assert counts["analytic_fold"] == cfg.max_depth * (
+        1 + 2 * cfg.light_samples) == 9
+    graphs.clear()
 
 
 # ---------------------------------------------------------------------------

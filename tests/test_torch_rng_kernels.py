@@ -208,24 +208,27 @@ def test_wrappers_refuse_mixed_devices_and_shapes():
 
 def test_kernel_registry_lists_eight_kernels():
     """Every hand kernel counts its launches: the sample streams under
-    one name whichever wrapper launched, the tiny-mesh fold, and (since
-    the bounce's shading became kernels) the two shading kernels: ten
-    names, the eight of the name and those two."""
+    one name whichever wrapper launched, the tiny-mesh fold, the two
+    shading kernels (since the bounce's shading became kernels) and the
+    analytic fold (since the analytic shapes of a query became one
+    kernel): eleven names, the eight of the name and those three."""
     # the shading wrappers register when render/shade.py is imported,
     # which the other modules this file imports do not do
     import rayito_tpu_torch.render.shade  # noqa: F401
 
     names = sorted(fn.__name__ for fn in cuda_lib.KERNELS)
-    assert names == ["bounce_prepare", "bounce_resolve", "build_items",
-                     "cluster_masks", "cluster_pipeline", "cmj",
-                     "fold_small", "gather_rows_t", "traverse_blocks",
+    assert names == ["analytic_fold", "bounce_prepare", "bounce_resolve",
+                     "build_items", "cluster_masks", "cluster_pipeline",
+                     "cmj", "fold_small", "gather_rows_t", "traverse_blocks",
                      "traverse_items"]
     cuda_lib.reset_launch_counts()
     trng.hash_combine(torch.arange(4), 1)
     z = torch.zeros(4)
-    tmi.fold_small(tdemo.stage7_scene2().compile("cpu"), TV3(z, z, z),
-                   TV3(z, z, z + 1.0), z, 1e-4, z,
+    sd = tdemo.stage7_scene2().compile("cpu")
+    tmi.fold_small(sd, TV3(z, z, z), TV3(z, z, z + 1.0), z, 1e-4, z,
                    occluded=torch.zeros(4, dtype=torch.bool))
+    from rayito_tpu_torch.render import trace as ttrace
+    ttrace.analytic_fold(sd, TV3(z, z, z), TV3(z, z, z + 1.0), z, 1e-4, z)
     assert all(fn.launches == 0 for fn in cuda_lib.KERNELS)  # plain on the CPU
 
 
