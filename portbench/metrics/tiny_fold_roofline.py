@@ -1,0 +1,27 @@
+"""The tiny-mesh fold's share of its roofline, in percent: the least time
+for the work the program's ``fold_small.*`` counters count in the span
+render (``rooflines/fold_small.py``: lane instructions at the issue rate
+or bytes at the memory bandwidth, the larger) over the device time of
+``fold_small_kernel`` in the traced render of the window. Both renders are
+one render of the same seeded frame, so they do the same work; the
+counters' own cost (tracing on) stays out of the time."""
+
+from portbench import spans
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None or not tr.kernels:
+        return None
+    roof = ctx.roofline("fold_small")
+    us = sum(d for name, _, d in tr.kernels
+             if ctx.kernel_id(name) == roof.KERNEL)
+    if not us:
+        return None
+    spans.ensure(ctx)
+    c = ctx.counters or {}
+    if not (c.get("fold_small.lanes.closest")
+            or c.get("fold_small.lanes.any")):
+        return None
+    least = roof.least_seconds(c, ctx.config, ctx.scene["motion"])
+    return 100.0 * least / (us * 1e-6)

@@ -494,6 +494,34 @@ def nested_cube_scene(pkg=None):
     return s
 
 
+def deep_cube_scene(depth: int = 9, pkg=None):
+    """A cube with two keys of its own inside ``depth - 1`` nested groups,
+    each drifting over the shutter and the outermost turning about Y (a
+    transform chain of ``depth`` links, deeper than any demo scene's), over
+    a plane, under an unnested rect light."""
+    pkg = pkg or _own
+    s = pkg.Scene()
+    s.add(pkg.Plane((0.0, -2.0, 0.0), (0.0, 1.0, 0.0),
+                    pkg.DiffuseMaterial((0.6, 0.6, 0.9))))
+    node = _cube(pkg, pkg.GlossyMaterial((0.8, 0.3, 0.1), 0.3))
+    node.transform.set_translation(0.0, (-0.6, -0.5, -0.4))
+    node.transform.set_translation(1.0, (-0.2, -0.5, -0.6))
+    for g in range(depth - 1):
+        group = pkg.Group()
+        group.transform.set_translation(0.0, (0.05, 0.0, 0.0))
+        group.transform.set_translation(1.0, (0.05, 0.02 * g, 0.0))
+        if g == depth - 2:
+            group.transform.set_rotation(0.0, (1.0, 0.0, 0.0, 0.0))
+            group.transform.set_rotation(
+                1.0, (math.cos(math.pi / 8), 0.0, math.sin(math.pi / 8), 0.0))
+        group.add(node)
+        node = group
+    s.add(node)
+    s.add(pkg.RectangleLight((-1.0, 3.0, -1.0), (2.0, 0.0, 0.0),
+                             (0.0, 0.0, 2.0), (1.0, 1.0, 1.0), 8.0))
+    return s
+
+
 def tied_slivers_scene():
     """15,360 seeded slanted slivers (320 clusters, 20 superclusters), each
     from z = 0 up to z = 1 over the square [-1, 1]^2, and a rect light:

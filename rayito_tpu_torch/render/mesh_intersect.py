@@ -61,7 +61,7 @@ from ..ops import quaternion as quat
 from ..ops import transform as xf
 from ..ops.intersect import INF, triangle_intersect
 from ..ops.vec3 import V3
-from ..utils import cuda_lib
+from ..utils import cuda_lib, tracing
 from .traverse import (K1_SUPERS, K2_CLUSTERS, box_slab, cluster_pipeline,
                        fold_small_plain, gather_rows_t)
 
@@ -147,12 +147,15 @@ def mesh_intersect_clusters(scene, mi: int, o: V3, d: V3, tmin, tmax,
             beta, gamma, overflow)
 
 
-def mesh_fold_small(scene, mi: int, o: V3, d: V3, tmin, tmax):
+def mesh_fold_small(scene, mi: int, o: V3, d: V3, tmin, tmax,
+                    first: bool = False):
     """Nearest hit of tiny mesh ``mi`` (at most 4 x 48 triangles) for its
     local-space rays o, d (V3 of [N]) below ``tmax`` ([N] or scalar), by
     the dense fold over its padded rows (``fold_small_plain``). Returns
     (t [N], prim [N] global triangle id or -1, beta [N], gamma [N]); ties
-    go to the lowest triangle."""
+    go to the lowest triangle. With ``first``, also the row of each lane's
+    first hit in row order ([N] int64, -1 on a miss): where an any-hit
+    lane of the kernel stops."""
     tri0, count = scene.mesh_tri_ranges[mi]
     n_cl = max(1, -(-count // TRI_PER_CLUSTER))
     if n_cl > BRUTE_FORCE_CLUSTERS:
@@ -165,7 +168,7 @@ def mesh_fold_small(scene, mi: int, o: V3, d: V3, tmin, tmax):
     tmax = tmax.to(torch.float32).expand(n).contiguous()
     o, d = (V3(v.x.contiguous(), v.y.contiguous(), v.z.contiguous())
             for v in (o, d))
-    return fold_small_plain(rows, tri0, o, d, tmin, tmax)
+    return fold_small_plain(rows, tri0, o, d, tmin, tmax, first=first)
 
 
 def fold_small_query_plain(scene, o: V3, d: V3, time, tmin, tmax,
@@ -180,15 +183,46 @@ def fold_small_query_plain(scene, o: V3, d: V3, time, tmin, tmax,
     replaces the best where it hits (prim >= 0), the rotation with it.
     Returns the merged ``best``. Any hit, ``occluded`` [N] bool: each mesh
     is queried below tmax where the lane is not occluded yet (0 where it
-    is). Returns ``occluded`` or'ed with the meshes' hits."""
+    is). Returns ``occluded`` or'ed with the meshes' hits.
+
+    With tracing on it adds what the kernel counts, keyed by the query's
+    kind: ``fold_small.lanes.closest`` or ``.any`` (the lanes times the
+    kernel's launches), ``fold_small.tests.closest`` (every real row of
+    every mesh a lane) or ``.any`` (a lane's rows up to its first hit: the
+    kernel's lane stops there), and ``fold_small.links`` (each lane's chain
+    links, on an any-hit query only the meshes it reaches still open)."""
+    counting = tracing.enabled()
+    n = o.x.shape[0]
+    if counting:
+        tracing.count("fold_small.lanes."
+                      + ("any" if occluded is not None else "closest"),
+                      n * len(_launch_cuts(scene)), where=o.x)
     if occluded is not None:
+        tests = links = 0
         for mi in scene.ktab_small:
             o_l, d_l, _ = xf.local_ray(scene, scene.mesh_xf_host[mi], o, d,
                                        time)
             tq = torch.where(occluded, 0.0, tmax)
-            prim_m = mesh_fold_small(scene, mi, o_l, d_l, tmin, tq)[1]
-            occluded = occluded | (prim_m >= 0)
+            hit = mesh_fold_small(scene, mi, o_l, d_l, tmin, tq,
+                                  first=counting)
+            if counting:
+                open_ = ~occluded
+                count = scene.mesh_tri_ranges[mi][1]
+                tests = tests + torch.where(
+                    open_, torch.where(hit[4] >= 0, hit[4] + 1, count),
+                    0).sum()
+                links = links + open_.sum() * len(_chain(scene, mi))
+            occluded = occluded | (hit[1] >= 0)
+        if counting:
+            tracing.count("fold_small.tests.any", tests)
+            tracing.count("fold_small.links", links)
         return occluded
+    if counting:
+        tracing.count("fold_small.tests.closest", n * sum(
+            scene.mesh_tri_ranges[mi][1] for mi in scene.ktab_small),
+            where=o.x)
+        tracing.count("fold_small.links", n * sum(
+            len(_chain(scene, mi)) for mi in scene.ktab_small), where=o.x)
     t_best, prim_best, beta_best, gamma_best, rot_best = best
     for mi in scene.ktab_small:
         o_l, d_l, rot = xf.local_ray(scene, scene.mesh_xf_host[mi], o, d,
@@ -206,28 +240,30 @@ def fold_small_query_plain(scene, o: V3, d: V3, time, tmin, tmax,
     return t_best, prim_best, beta_best, gamma_best, rot_best
 
 
-# csrc/fold_small.cu's limits: meshes and rows per launch (a query with
-# more launches again, each launch folding into the last one's result),
-# links per transform chain
+# csrc/fold_small.cu's limits per launch: meshes, rows and chain links (a
+# query with more launches again, each launch folding into the last one's
+# result; a chain has at most FOLD_MAX_LINKS links)
 FOLD_MAX_MESHES = 64
 FOLD_MAX_ROWS = 1024
-FOLD_MAX_DEPTH = 8
+FOLD_MAX_LINKS = 512
 
 
 class _FoldMesh(ctypes.Structure):
     """One tiny mesh of a launch: its first row of ``tri_vert_rows`` (its
     global triangle id 0), its real triangles, and its transform chain,
-    outermost slot first (depth 0: no transform)."""
+    ``depth`` slots of the spec's ``slots`` from ``link0``, outermost first
+    (depth 0: no transform)."""
     _fields_ = [("row0", ctypes.c_int32), ("count", ctypes.c_int32),
-                ("depth", ctypes.c_int32),
-                ("slot", ctypes.c_int32 * FOLD_MAX_DEPTH)]
+                ("link0", ctypes.c_int32), ("depth", ctypes.c_int32)]
 
 
 class _FoldSpec(ctypes.Structure):
-    """A launch's meshes, in fold order, passed to the kernel by value."""
+    """A launch's meshes, in fold order, and their chains' slots, passed
+    to the kernel by value."""
     _fields_ = [("n_mesh", ctypes.c_int32), ("rows", ctypes.c_int32),
-                ("k", ctypes.c_int32),
-                ("mesh", _FoldMesh * FOLD_MAX_MESHES)]
+                ("k", ctypes.c_int32), ("n_link", ctypes.c_int32),
+                ("mesh", _FoldMesh * FOLD_MAX_MESHES),
+                ("slots", ctypes.c_int32 * FOLD_MAX_LINKS)]
 
 
 def _chain(scene, mi: int) -> list:
@@ -236,32 +272,51 @@ def _chain(scene, mi: int) -> list:
     return xf.chain_slots(scene, scene.mesh_xf_host[mi])
 
 
-def _fold_specs(scene) -> list:
-    """``scene.ktab_small`` cut into launches of at most FOLD_MAX_MESHES
-    meshes and FOLD_MAX_ROWS rows. Each mesh tests only its real
-    triangles: the rows past them are all zero, so det = 0 there and they
-    never hit."""
-    specs, spec = [], None
+def _launch_cuts(scene) -> list:
+    """``scene.ktab_small`` cut into the kernel's launches: lists of mesh
+    ids, at most FOLD_MAX_MESHES meshes, FOLD_MAX_ROWS rows and
+    FOLD_MAX_LINKS chain links each. Refuses a mesh the kernel does not
+    take: outside 1-192 triangles, or a chain past FOLD_MAX_LINKS."""
+    cuts, rows, links = [], 0, 0
     for mi in scene.ktab_small:
-        row0, count = scene.mesh_tri_ranges[mi]
-        chain = _chain(scene, mi)
+        count = scene.mesh_tri_ranges[mi][1]
+        depth = len(_chain(scene, mi))
         if (not 1 <= count <= BRUTE_FORCE_CLUSTERS * TRI_PER_CLUSTER
-                or len(chain) > FOLD_MAX_DEPTH):
-            raise ValueError(f"fold_small: mesh {mi} has {count} triangles "
-                             f"and a chain of {len(chain)} transforms; the "
-                             f"kernel takes 1-192 and at most "
-                             f"{FOLD_MAX_DEPTH}")
-        if (spec is None or spec.n_mesh == FOLD_MAX_MESHES
-                or spec.rows + count > FOLD_MAX_ROWS):
-            spec = _FoldSpec(n_mesh=0, rows=0,
-                             k=int(scene.xf_times.shape[1]))
-            specs.append(spec)
-        m = spec.mesh[spec.n_mesh]
-        m.row0, m.count, m.depth = row0, count, len(chain)
-        for j, s in enumerate(chain):
-            m.slot[j] = s
-        spec.n_mesh += 1
-        spec.rows += count
+                or depth > FOLD_MAX_LINKS):
+            raise ValueError(
+                f"fold_small: mesh {mi} has {count} triangles and a chain "
+                f"of {depth} transforms; the kernel takes 1-192 and at most "
+                f"{FOLD_MAX_LINKS}")
+        if (not cuts or len(cuts[-1]) == FOLD_MAX_MESHES
+                or rows + count > FOLD_MAX_ROWS
+                or links + depth > FOLD_MAX_LINKS):
+            cuts.append([])
+            rows = links = 0
+        cuts[-1].append(mi)
+        rows += count
+        links += depth
+    return cuts
+
+
+def _fold_specs(scene) -> list:
+    """The kernel's launches (``_launch_cuts``) as specs. Each mesh tests
+    only its real triangles: the rows past them are all zero, so det = 0
+    there and they never hit."""
+    specs = []
+    for cut in _launch_cuts(scene):
+        spec = _FoldSpec(n_mesh=0, rows=0, k=int(scene.xf_times.shape[1]),
+                         n_link=0)
+        specs.append(spec)
+        for mi in cut:
+            row0, count = scene.mesh_tri_ranges[mi]
+            chain = _chain(scene, mi)
+            spec.mesh[spec.n_mesh] = _FoldMesh(row0, count, spec.n_link,
+                                               len(chain))
+            for j, s in enumerate(chain):
+                spec.slots[spec.n_link + j] = s
+            spec.n_mesh += 1
+            spec.rows += count
+            spec.n_link += len(chain)
     return specs
 
 
@@ -270,7 +325,8 @@ def fold_small(scene, o: V3, d: V3, time, tmin, tmax, best=None,
                occluded=None):
     """Kernel wrapper of :func:`fold_small_query_plain` (same contract):
     every tiny mesh of the query in one launch (``csrc/fold_small.cu``),
-    each lane's transform chains evaluated inside it."""
+    each lane's transform chains evaluated inside it. With tracing on the
+    kernel adds the twin's counters on the device."""
     name = "fold_small"
     if (best is None) == (occluded is None):
         raise ValueError(f"{name}: give best (closest hit) or occluded "
@@ -314,6 +370,10 @@ def fold_small(scene, o: V3, d: V3, time, tmin, tmax, best=None,
     f32 = dict(dtype=torch.float32, device=dev)
     rays, state = lanes[:7], lanes[7:7 + len(state)]
     t_lane = lanes[7 + len(state)].data_ptr() if motion else None
+    kind = "closest" if best is not None else "any"
+    counters = tuple(tracing.counter_ptr(c, dev) for c in (
+        f"fold_small.tests.{kind}", "fold_small.links",
+        f"fold_small.lanes.{kind}"))
     for spec in specs:
         if best is not None:
             rot_out = torch.empty((4, n), **f32) if motion else None
@@ -332,8 +392,8 @@ def fold_small(scene, o: V3, d: V3, time, tmin, tmax, best=None,
         if n:
             cuda_lib.check(lib.rt_fold_small(
                 ctypes.byref(spec), *(t.data_ptr() for t in tables),
-                *(t.data_ptr() for t in rays), t_lane, float(tmin), *io, n,
-                stream), name)
+                *(t.data_ptr() for t in rays), t_lane, float(tmin), *io,
+                *counters, n, stream), name)
             cuda_lib.count_launch(fold_small, dev)
         state = outs
     if best is None:

@@ -798,13 +798,15 @@ def cluster_pipeline(ray_of_slot, n_active, o, d, tmax, tmin: float, t_sc,
 # ---------------------------------------------------------------------------
 
 
-def fold_small_plain(rows, tri0: int, o: V3, d: V3, tmin: float, tmax):
+def fold_small_plain(rows, tri0: int, o: V3, d: V3, tmin: float, tmax,
+                     first: bool = False):
     """Nearest hit of one tiny mesh for every lane: rows [T <= 192, 16] f32
     (its ``tri_vert_rows``: v0, v1, v2 first), the lanes' o, d (V3 of [N]
     f32), tmax [N] f32. One dense [N, T] Möller-Trumbore (t >= tmin, t <
     tmax). Returns (t [N], INF on a miss; prim [N] i32, tri0 + the first
     triangle of least t, -1 on a miss; beta [N], gamma [N] of that
-    triangle, of triangle 0 on a miss)."""
+    triangle, of triangle 0 on a miss), and with ``first`` the first row
+    that hits ([N] int64, -1 on a miss)."""
     vert = lambda k: V3(rows[None, :, k], rows[None, :, k + 1],
                         rows[None, :, k + 2])
     t, _, beta, gamma, _ = triangle_intersect(
@@ -814,7 +816,13 @@ def fold_small_plain(rows, tri0: int, o: V3, d: V3, tmin: float, tmax):
     t_best = t.gather(1, j)[:, 0]
     prim = torch.where(torch.isfinite(t_best), tri0 + j[:, 0].to(torch.int32),
                        -1).to(torch.int32)
-    return t_best, prim, beta.gather(1, j)[:, 0], gamma.gather(1, j)[:, 0]
+    out = (t_best, prim, beta.gather(1, j)[:, 0], gamma.gather(1, j)[:, 0])
+    if not first:
+        return out
+    hit = torch.isfinite(t)
+    j_first = torch.where(hit.any(1), torch.argmax(hit.to(torch.int32), 1),
+                          -1)
+    return out + (j_first,)
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,7 @@ SIGNATURES = {
     "rt_cmj_draws": [_P, _P, _P, _P, _P, _I, _P],
     "rt_cmj_plan_bytes": [],
     # spec, 6 tables, 7 rays, time, tmin, 9 inputs, 6 outputs, n, stream
-    "rt_fold_small": [_P] * 15 + [_F] + [_P] * 15 + [_I, _P],
+    "rt_fold_small": [_P] * 15 + [_F] + [_P] * 18 + [_I, _P],
     # spec, pointer array, resolve, n, stream
     "rt_shade": [_P, _P, _I, _I, _P],
     "rt_shade_spec_bytes": [],

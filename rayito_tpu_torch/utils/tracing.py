@@ -31,7 +31,14 @@ spans opened inside it, (render, first sample of the pass, band) in
 Counters (``count``) add to named int64 totals: a Python number on the
 host (under a capture, once per replay of the graph), a device tensor with
 one add on its device (captured with the pass). ``counter_ptr`` hands a
-kernel the address of a counter's int64 slot on the device.
+kernel the address of a counter's int64 slot on the device. The port's
+counters: ``launches.<kernel>`` (``utils/cuda_lib.py``),
+``query.rays.closest`` and ``query.rays.shadow`` (``render/pathtracer.py``),
+``traverse.pairs`` and ``traverse.live_rays`` (``render/traverse.py``,
+the first added by ``cluster_masks_kernel``), and the tiny-mesh fold's
+``fold_small.tests.closest`` / ``.any``, ``fold_small.lanes.closest`` /
+``.any`` and ``fold_small.links`` (``render/mesh_intersect.py``, added by
+``fold_small_kernel`` once per block).
 
 ``snapshot()`` reads it all back (it waits for the devices) and
 ``reset()`` starts anew; nothing is written out unless asked.

@@ -71,9 +71,15 @@ wrappers' refusals (a plain-made prep on the card, mixed devices); and
 tracing (utils/tracing.py): a traced pass replays the untraced bits, every
 device span comes back from the log and from the profiler's trace with
 durations that agree, an untraced graph holds no marker or counter add,
-and the device counters equal the host-plain counts. The launch counters
-count only with tracing on, so each test that reads them turns it on
-around what it counts, captures included.
+and the device counters equal the host-plain counts; the tiny-mesh
+fold's counters (tests, links, lanes) equal its plain twin's on a
+131,072-lane stage-7b band in one and in chained launches, an untraced
+stage-7b pass graph adds nothing to them, a tiny mesh nine and twelve
+links deep runs in the kernel, its chain in the launch's slot table, bit
+for bit with the twin and replays, and the stage-7 tumbling
+cell's render (two samples a launch) replays its eager bodies bit for
+bit. The launch counters count only with tracing on, so each test that
+reads them turns it on around what it counts, captures included.
 Every kernel comparison is exact: kernel and plain version run the same
 IEEE float32 operations in the same order, without contraction.
 """
@@ -2596,4 +2602,232 @@ def test_device_counters_equal_the_host_plain_counts(dev, graph_scenes,
     assert (eager_counts["query.rays.closest"]
             + eager_counts["query.rays.shadow"]) == int(eager[2])
     assert replay_counts == eager_counts
+    graphs.clear()
+
+
+# ---------------------------------------------------------------------------
+# the tiny-mesh fold's counters, its chains in a slot table, and the stage-7
+# tumbling cell's two samples a launch
+# ---------------------------------------------------------------------------
+
+
+def _s7b_rays(dev, n, seed):
+    """n seeded rays from stage 7b's camera at the cubes, lane times in
+    [0, 1], every 9th cut short."""
+    rs = np.random.default_rng(seed)
+    o = np.tile(np.float32([-4.0, 10.0, 30.0]), (n, 1))
+    target = np.stack([rs.uniform(-10.0, 11.0, n), rs.uniform(-2.0, 11.0, n),
+                       rs.uniform(1.0, 4.0, n)], 1)
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 1e30)
+    tmax[::9] = 30.0
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    v3 = lambda a: V3(f(a[:, 0]), f(a[:, 1]), f(a[:, 2]))  # noqa: E731
+    return v3(o), v3(d), f(rs.uniform(0.0, 1.0, n)), f(tmax), rs
+
+
+def _inf_best(dev, n):
+    from rayito_tpu_torch.ops.quaternion import Quat
+
+    one, zero = torch.ones((n,), device=dev), torch.zeros((n,), device=dev)
+    return (torch.full((n,), float("inf"), device=dev),
+            torch.full((n,), -1, dtype=torch.int32, device=dev), zero,
+            zero.clone(), Quat(one, V3(zero, zero, zero)))
+
+
+def _fold_counts(fn):
+    """(fn(), the fold's nonzero counters it added)."""
+    tracing.reset()
+    out = fn()
+    c = {k: v for k, v in tracing.counters().items()
+         if k.startswith("fold_small.") and v}
+    tracing.reset()
+    return out, c
+
+
+@pytest.mark.parametrize("chained", [False, True])
+def test_fold_small_counters_equal_the_plain_twins(dev, chained,
+                                                   monkeypatch):
+    """A 131,072-lane band of stage 7b's ten cubes at seeded times, closest
+    and any hit (a fifth of the lanes occluded before the fold): the four
+    counters the kernel adds on the device equal the plain twin's, in one
+    launch a query and in four chained ones."""
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.render import mesh_intersect as mi
+
+    sd = demo.stage7_scene2().compile(dev)
+    n = 131072
+    o, d, time, tmax, rs = _s7b_rays(dev, n, seed=19)
+    if chained:
+        monkeypatch.setattr(mi, "FOLD_MAX_MESHES", 3)
+    per_query = len(mi._fold_specs(sd))
+    assert per_query == (4 if chained else 1)
+    args = (sd, o, d, time, 1e-4, tmax)
+    occ0 = torch.from_numpy(rs.random(n) < 0.2).to(dev)
+    with tracing.on():
+        got, c_k = _fold_counts(lambda: mi.fold_small(
+            *args, best=_inf_best(dev, n)))
+        want, c_p = _fold_counts(lambda: mi.fold_small_query_plain(
+            *args, best=_inf_best(dev, n)))
+        occ, a_k = _fold_counts(lambda: mi.fold_small(*args,
+                                                      occluded=occ0))
+        occ_p, a_p = _fold_counts(lambda: mi.fold_small_query_plain(
+            *args, occluded=occ0))
+    assert all(_same_bits(g, w) for g, w in zip(got[:4], want[:4]))
+    assert torch.equal(occ, occ_p)
+    assert c_k == c_p == {"fold_small.lanes.closest": n * per_query,
+                          "fold_small.links": n * 10,
+                          "fold_small.tests.closest": n * 120}
+    assert a_k == a_p and a_k["fold_small.lanes.any"] == n * per_query
+    assert 0 < a_k["fold_small.tests.any"] < n * 120
+    assert 0 < a_k["fold_small.links"] < n * 10
+
+
+def _tumbling(dev, width=512, height=256, seed=2**31 + 7):
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig(width=width, height=height, pixel_samples=2,
+                       light_samples=1, max_depth=3,
+                       max_rays_per_pass=262144, seed=seed)
+    cam = PerspectiveCamera.make(30.0, *demo.STAGE7_SCENE2_CAMERA,
+                                 focal_distance=16.0, lens_radius=0.0,
+                                 shutter_open=0.0, shutter_close=1.0)
+    return demo.stage7_scene2().compile(dev), cfg, cam
+
+
+def test_an_untraced_tumbling_pass_counts_nothing(dev, tmp_path):
+    """Stage 7b's pass captured with tracing off and with it on: the
+    untraced graph holds no marker and adds nothing to the fold's counters
+    (its kernel is the uncounted instance), and the traced one runs no
+    more device operations than its markers and counter adds: the fold's
+    counts ride inside its kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = _tumbling(dev, 64, 32)
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    ops, counts = {}, {}
+    for traced in (True, False):
+        with tracing.on():
+            tracing.reset()
+        with tracing.on(traced):
+            pt._render_path_pass(scene, cfg, cam, si, 0, 32)  # captures
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pt._render_path_pass(scene, cfg, cam, si, 0, 32)
+                torch.cuda.synchronize()
+        ops[traced] = _device_ops(_chrome_events(prof, tmp_path))
+        counts[traced] = {k: v for k, v in tracing.counters().items()
+                          if k.startswith("fold_small.")}
+    (tpl,) = [g.template for g in graphs.graphs() if g.template is not None]
+    markers = [n for n in ops[True] if tracing.MARKER_KERNEL in n]
+    assert not any(tracing.MARKER_KERNEL in n for n in ops[False])
+    assert len(ops[True]) - len(ops[False]) == len(markers) + tpl.adds
+    lanes = counts[True]["fold_small.lanes.closest"]
+    assert lanes > 0 and lanes % (9 * 2 * 64 * 32) == 0  # 9 queries a pass
+    assert counts[False] == {k: 0 for k in counts[True]}
+    graphs.clear()
+
+
+def test_two_samples_a_launch_replay_the_eager_body(dev):
+    """The stage-7 tumbling cell's render: 512x256 at 2x2 samples under a
+    262,144-lane budget, two samples a launch, two passes. Replayed through
+    render_progressive (once traced, once not), the image is the eager pass
+    bodies' sum bit for bit, the queries theirs; each pass launches the
+    tiny-mesh fold 9 times (3 bounces x 3 queries)."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render.progressive import render_progressive
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = _tumbling(dev)
+    graphs.clear()
+    with tracing.on():
+        render_progressive(scene, cfg, cam)  # captures the traced graph
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        traced, st_t = render_progressive(scene, cfg, cam)
+        counts = cuda_lib.launch_counts()
+    plain, st = render_progressive(scene, cfg, cam)
+    labels = sorted(g.label for g in graphs.graphs())
+    assert labels == ["path pass 512x256, 2 samples"] * 2
+    assert counts["fold_small"] == 2 * 9 and counts["analytic_fold"] == 2 * 9
+    acc = np.zeros((256, 512, 3), np.float32)
+    queries = 0
+    row0 = torch.zeros((), dtype=torch.int32, device=dev)
+    for s0 in (0, 2):
+        si = torch.arange(s0, s0 + 2, dtype=torch.int32, device=dev)
+        img, _, q = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0,
+                                       256)
+        acc += img.cpu().numpy()
+        queries += int(q)
+    want = acc / np.float32(4)
+    for got, stats in ((traced, st_t), (plain, st)):
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+        assert stats.rays_traced == queries > 0
+    graphs.clear()
+
+
+def test_a_tiny_mesh_nine_links_deep_renders_on_the_card(dev):
+    """A cube nine and twelve links deep (past the 8 a mesh once held):
+    the kernel launches once a query, the chain in its launch's slot table,
+    and agrees with the plain twin bit for bit, closest and any hit. The
+    nine-link pass replays from a captured graph bit for bit against the
+    eager body, the kernel launching once a query (9 a pass)."""
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+    from rayito_tpu_torch.render import mesh_intersect as mi
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+    from rayito_tpu_torch.utils.config import RenderConfig
+
+    rs = np.random.default_rng(23)
+    n = 131072
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    org = np.float32([0.3, 0.8, 6.0])
+    tgt = rs.uniform(-1.2, 1.6, (n, 3)).astype(np.float32)
+    o = V3(*(torch.full((n,), float(v), device=dev) for v in org))
+    d = V3(*(f(tgt[:, k] - org[k]) for k in range(3)))
+    time, tmax = f(rs.uniform(0.0, 1.0, n)), f(np.full(n, 1e30))
+    scenes = {depth: demo.deep_cube_scene(depth).compile(dev)
+              for depth in (9, 12)}
+    for depth, sd in scenes.items():
+        (spec,) = mi._fold_specs(sd)
+        assert spec.n_link == depth
+    with tracing.on():
+        cuda_lib.reset_launch_counts()
+        for depth, sd in scenes.items():
+            args = (sd, o, d, time, 1e-4, tmax)
+            got = mi.fold_small(*args, best=_inf_best(dev, n))
+            want = mi.fold_small_query_plain(*args, best=_inf_best(dev, n))
+            assert all(_same_bits(g, w) for g, w in zip(got[:4], want[:4]))
+            assert int((got[1] >= 0).sum()) > 1000, depth
+            occ0 = torch.zeros((n,), dtype=torch.bool, device=dev)
+            assert torch.equal(mi.fold_small(*args, occluded=occ0),
+                               mi.fold_small_query_plain(*args,
+                                                         occluded=occ0))
+        assert cuda_lib.launch_counts()["fold_small"] == 4
+    scene = scenes[9]
+    cfg = RenderConfig(width=64, height=48, pixel_samples=2, light_samples=1,
+                       max_depth=3, max_rays_per_pass=64 * 48 * 2)
+    cam = PerspectiveCamera.make(30.0, (0.5, 1.0, 7.0), (0.0, -0.5, 0.0),
+                                 (0.0, 1.0, 0.0), shutter_close=1.0)
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    row0 = torch.zeros((), dtype=torch.int32, device=dev)
+    eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 48)
+    with tracing.on():
+        first = pt._render_path_pass(scene, cfg, cam, si, 0, 48)  # captures
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        again = pt._render_path_pass(scene, cfg, cam, si, 0, 48)
+        counts = cuda_lib.launch_counts()
+    _same_pass(first, eager)
+    _same_pass(again, eager)
+    assert counts["fold_small"] == counts["analytic_fold"] == 9
     graphs.clear()

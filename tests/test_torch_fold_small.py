@@ -33,7 +33,8 @@ Seeded rays (numpy) at seeded lane times, some cut short by tmax:
     zero and never hit: the fold over the padded rows equals the fold over
     the real rows alone, which is what the kernel tests;
   * the kernel's launch list (``_fold_specs``): meshes in ``ktab_small``
-    order, chains outermost first, cut at the kernel's mesh and row limits.
+    order, chains outermost first in the launch's slot table, cut at the
+    kernel's mesh, row and link limits.
 """
 
 import jax.numpy as jnp
@@ -270,24 +271,29 @@ def test_pad_rows_never_hit(compiled):
 
 def test_launch_list(compiled, monkeypatch):
     """The kernel's launch list: ktab_small order, each mesh's real rows
-    and its chain outermost first; cut where the mesh or row limit would
-    overflow, a chain deeper than the kernel takes refused."""
+    and its chain outermost first in the launch's slot table; cut where the
+    mesh, row or link limit would overflow, a chain longer than the table
+    refused."""
     nest = compiled["nested"][1]
     (spec,) = tmi._fold_specs(nest)
-    assert (spec.n_mesh, spec.rows, spec.k) == (2, 24, 2)
+    assert (spec.n_mesh, spec.rows, spec.k, spec.n_link) == (2, 24, 2, 3)
     m0, m1 = spec.mesh[0], spec.mesh[1]
     cube_slot, still_slot = nest.mesh_xf_host
     group_slot = nest.xf_parent_host[cube_slot]
-    assert (m0.row0, m0.count, m0.depth) == (nest.mesh_tri_ranges[0][0], 12,
-                                             2)
-    assert list(m0.slot[:2]) == [group_slot, cube_slot]
-    assert (m1.count, m1.depth, m1.slot[0]) == (12, 1, still_slot)
+    assert (m0.row0, m0.count, m0.link0, m0.depth) == (
+        nest.mesh_tri_ranges[0][0], 12, 0, 2)
+    assert list(spec.slots[:2]) == [group_slot, cube_slot]
+    assert (m1.count, m1.link0, m1.depth) == (12, 2, 1)
+    assert spec.slots[2] == still_slot
     s7b = compiled["stage7b"][1]
     monkeypatch.setattr(tmi, "FOLD_MAX_MESHES", 4)
     assert [s.n_mesh for s in tmi._fold_specs(s7b)] == [4, 4, 2]
     monkeypatch.setattr(tmi, "FOLD_MAX_MESHES", 64)
     monkeypatch.setattr(tmi, "FOLD_MAX_ROWS", 36)
     assert [s.rows for s in tmi._fold_specs(s7b)] == [36, 36, 36, 12]
-    monkeypatch.setattr(tmi, "FOLD_MAX_DEPTH", 1)
+    monkeypatch.setattr(tmi, "FOLD_MAX_ROWS", 1024)
+    monkeypatch.setattr(tmi, "FOLD_MAX_LINKS", 3)
+    assert [s.n_link for s in tmi._fold_specs(s7b)] == [3, 3, 3, 1]
+    monkeypatch.setattr(tmi, "FOLD_MAX_LINKS", 1)
     with pytest.raises(ValueError, match="chain of 2"):
         tmi._fold_specs(nest)
