@@ -209,14 +209,27 @@ JAX. Phases, each printed, each fatal on failure:
      20 calls) beside the plain twin, with its bound (the larger of the
      lane instructions from the SASS, AF_INSNS, at the issue limit and the
      bytes at 3.35 TB/s) and share. Every query of every path launches
-     analytic_fold once (stage 7's frame: 18, counted in phase 8).
+     analytic_fold once (stage 7's frame: 18, counted in phase 8);
+ 29. traversal plumbing (run after phase 28): ray_pack, ray_reorder and
+     ray_unsort (csrc/ray_prep.cu) against their plain twins on the card,
+     every output bit for bit, at the cells' shape (262,144 lanes, the
+     stable sort) on stage 6's bounce and shadow rays: each timed (20 calls
+     in a CUDA graph between events, each after an 80 MB write that evicts
+     L2, less its time, and back to back) beside its plain twin, the
+     torch.sort between them, the torch calls the kernels replaced (the
+     soa8[perm] gather, the index_put unsort) as library_ms, and the bound
+     (bytes at 3.35 TB/s: each input byte read once, each output byte
+     written once);
+     and a whole call's plumbing (prepare_rays and the unsort) through the
+     kernels and through the plain twins. Every traverse() call launches
+     each of the three once (stage 6's frame: 18, counted in phase 4).
 
 Every frame that draws samples launches cmj (all but stage 1's); every
 path-trace frame launches bounce_prepare and bounce_resolve once per
 bounce and pass, read from the device counters (phases 4-13 and 23); the
-plain-version frames swap all eleven kernels for their plain versions
-(``_swap_plain``), the sample streams, the tiny-mesh fold, the shading
-and the analytic fold included.
+plain-version frames swap all fourteen kernels for their plain versions
+(``_swap_plain``), the sample streams, the tiny-mesh fold, the shading,
+the analytic fold and the traversal's plumbing included.
 Launches are counted with tracing on (``utils/tracing.py``): each kernel
 wrapper adds one to its ``launches.<kernel>`` counter, which a captured
 graph books at every replay (``utils/cuda_lib.launch_counts``). A phase
@@ -334,6 +347,7 @@ def main() -> int:
               lambda: run(dev, card), lambda: run_shade(dev, card),
               lambda: run_big(dev, card),
               lambda: run_stage7(dev, card), lambda: run_analytic(dev, card),
+              lambda: run_plumbing(dev, card),
               lambda: run_stage7b(dev, card),
               lambda: run_stage5(dev, card),
               lambda: run_mesh_light(dev, card), lambda: run_many(dev, card),
@@ -348,11 +362,11 @@ def main() -> int:
         graphs.clear()  # the pools of one phase's graphs go with it
         print(f"-- phase done in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    (samples, _, stage6, shading, big, stage7, analytic, stage7b, stage5,
-     mesh_light, _, direct, cli, xla, _, _, by_graph, _) = outs
+    (samples, _, stage6, shading, big, stage7, analytic, plumbing, stage7b,
+     stage5, mesh_light, _, direct, cli, xla, _, _, by_graph, _) = outs
 
     records = kernel_records(samples, stage6, big, stage7, stage7b, stage5,
-                             mesh_light, xla, shading, analytic)
+                             mesh_light, xla, shading, analytic, plumbing)
     for k in records:
         k["launches_frame"]["stages1_4"] = direct["launches"][k["name"]]
         k["launches_frame"]["cli_stage6"] = cli["launches"][k["name"]]
@@ -375,8 +389,9 @@ def main() -> int:
 
 def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
                    stage7b: dict, stage5: dict, mesh_light: dict,
-                   xla: dict, shading: dict, analytic: dict) -> list:
-    """The eleven kernels' records: launches (device-counted, replays
+                   xla: dict, shading: dict, analytic: dict,
+                   plumbing: dict) -> list:
+    """The fourteen kernels' records: launches (device-counted, replays
     included) in the replayed frame of the path each serves first (stage 6;
     the big scene for the item route; the 'xla' stage-6 frame for
     cluster_pipeline; stage 7b for fold_small) and per frame of each path;
@@ -543,6 +558,25 @@ def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
            ("ms", "plain_ms", "bound_ms", "bound_by", "share")},
         "library_ms": None,
         "populations": analytic})
+    main_call = plumbing["bounce"]
+    for key, line in (("pack", "pack"), ("reorder", "gather"),
+                      ("unsort", "unsort")):
+        kernels.append({
+            "name": "ray_" + key, "route": "cuda",
+            "source": src + "ray_prep.cu",
+            "replaces": "rayito_tpu/render/pallas_traverse.py:traverse",
+            "note": "port-only: the reference's XLA plumbing around its "
+                    "coherence sort (ray packing, _coherence_key, the "
+                    "gather and the unsort), no pallas_call; ms, bound and "
+                    "share of stage 6's bounce rays at the cells' 262,144 "
+                    "lanes; library_ms the torch call it replaced (" + line
+                    + "); one launch per traverse() call",
+            "launches": launches["ray_" + key],
+            "max_abs_err": 0.0,
+            **{k: main_call[f"{key}_{k}"] for k in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "share")},
+            "library_ms": main_call.get(f"{key}_library_ms"),
+            "populations": plumbing})
     for k in kernels:
         k["launches_frame"] = {
             "stage6": launches[k["name"]],
@@ -654,11 +688,13 @@ RAYS_PER_PASS = 1 << 17  # 256-row bands of 131,072 rays
 # every path-trace frame
 SHADE_KERNELS = ("bounce_prepare", "bounce_resolve")
 # the sample streams' kernel launches on every frame that draws samples
+# the plumbing around the coherence sort: once each per traverse() call
+PLUMBING_KERNELS = ("ray_pack", "ray_reorder", "ray_unsort")
 STAGE6_KERNELS = ("cluster_masks", "traverse_blocks", "gather_rows_t",
-                  "cmj") + SHADE_KERNELS
+                  "cmj") + SHADE_KERNELS + PLUMBING_KERNELS
 # the traversal kernels: no frame without a traversal domain launches them
 TRAVERSAL_KERNELS = ("cluster_masks", "traverse_blocks", "traverse_items",
-                     "build_items", "cluster_pipeline")
+                     "build_items", "cluster_pipeline") + PLUMBING_KERNELS
 # the big scene's item route: the scan stands by for lists that overflow
 BIG_ITEM_KERNELS = STAGE6_KERNELS + ("traverse_items", "build_items")
 
@@ -1020,10 +1056,10 @@ def _check_masks(name, soat, box, tmin, n_live, r):
 
 
 def _swap_plain():
-    """Point the path at the plain versions of all eleven kernels (the
+    """Point the path at the plain versions of all fourteen kernels (the
     'xla' route's pipeline and winner-row gather, the sample streams, the
-    tiny-mesh fold, the bounce's shading and the analytic fold too);
-    returns the undo."""
+    tiny-mesh fold, the bounce's shading, the analytic fold and the
+    traversal's plumbing too); returns the undo."""
     from rayito_tpu_torch.ops import rng
     from rayito_tpu_torch.render import mesh_intersect as mi
     from rayito_tpu_torch.render import shade
@@ -1050,8 +1086,10 @@ def _swap_plain():
     shade.bounce_prepare = shade.bounce_prepare_plain
     shade.bounce_resolve = shade.bounce_resolve_plain
     tr.analytic_fold = tr.analytic_fold_plain
+    undo_plumbing = _plain_plumbing()
 
     def undo():
+        undo_plumbing()
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
          tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
          mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
@@ -2245,6 +2283,146 @@ def run_analytic(dev, card: str) -> dict:
     return out
 
 
+def _plain_plumbing():
+    """Point traverse()'s plumbing at the plain twins of ray_pack,
+    ray_reorder and ray_unsort; returns the undo."""
+    from rayito_tpu_torch.render import traverse as tv
+
+    names = ("ray_pack", "ray_reorder", "ray_unsort")
+    saved = [getattr(tv, k) for k in names]
+    for k in names:
+        setattr(tv, k, getattr(tv, k + "_plain"))
+
+    def undo():
+        for k, fn in zip(names, saved):
+            setattr(tv, k, fn)
+
+    return undo
+
+
+# lanes of one traverse() call in the benchmark's cells: 409 rows of 640
+# padded to 128 steps of 2,048 (the stable sort)
+PLUMBING_LANES = 1 << 18
+
+
+def _plumbing_bytes(n, n_tot, stable, want_t):
+    """Bytes of each plumbing kernel, each input byte read once and each
+    output byte written once: ray_pack reads 7 floats a real lane and
+    writes a 32-byte row and the operand a lane; ray_reorder reads the
+    lane order (and the sorted operand for the live count) and a row, and
+    writes a row and perm; ray_unsort reads perm and prim (and t) a slot
+    and writes prim (and t) a real lane."""
+    order = 8 + 4 if stable else 4
+    t = 4 if want_t else 0
+    return {"pack": n * 28 + n_tot * 36,
+            "reorder": n_tot * (order + 32) + n_tot * 36 + 4,
+            "unsort": n_tot * (8 + t) + n * (4 + t)}
+
+
+def run_plumbing(dev, card: str) -> dict:
+    """Phase 29 on ``dev``: the traversal's plumbing kernels (ray_pack,
+    ray_reorder, ray_unsort; csrc/ray_prep.cu) against their plain twins
+    on the card, every output bit for bit, on stage 6's bounce and shadow
+    rays at the cells' 262,144 lanes (one 512-row band); each timed (20
+    calls in a CUDA graph between events, each after an 80 MB write that
+    evicts L2, and back to back as warm_ms) beside its plain twin (back to
+    back), with the torch.sort between them, the torch calls the kernels
+    replaced (the soa8[perm] gather and the index_put unsort) as
+    library_ms (after the write), each kernel's bound (bytes at 3.35 TB/s)
+    and share, and the whole call's plumbing (back to back) through the
+    kernels and through the plain twins. Returns {population: record}."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+
+    _phase("traversal plumbing")
+    scene, cfg, cam, _ = stage6_setup(dev)
+    cfg = dataclasses.replace(cfg, max_rays_per_pass=PLUMBING_LANES)
+    cases = _populations(scene, cfg, cam, (-1.5, 4.0, -1.5), (3.0, 3.0))
+    box = scene.ktab_box[0]
+    tmin = cfg.ray_tmin
+    flush = torch.empty(80 << 20, dtype=torch.uint8, device=dev)
+    flush_ms = _device_ms(flush.zero_)
+    out = {}
+    for name, o, d, tmax, mt, any_hit in cases:
+        if name == "camera":
+            continue
+        n = o.x.shape[0]
+        tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
+        soa8, operand = tv.ray_pack(o, d, tmax, box, tmin)
+        soa8_p, operand_p = tv.ray_pack_plain(o, d, tmax, box, tmin)
+        vals, idx = tv.coherence_sort(operand)
+        soat, perm, n_live = tv.ray_reorder(soa8, vals, idx)
+        ref = tv.ray_reorder_plain(soa8, vals, idx)
+        masks = tv.cluster_masks(soat.view(-1, 2048, 8), box, tmin, n_live)
+        t_bn, p_bn = (x.view(-1) for x in tv.traverse_blocks(
+            masks, soat.view(-1, 2048, 8), tri, tmin, mt, any_hit, n_live))
+        t_in = None if any_hit else t_bn
+        un = tv.ray_unsort(p_bn, t_in, perm, n, any_hit)
+        un_p = tv.ray_unsort_plain(p_bn, t_in, perm, n, any_hit)
+        torch.cuda.synchronize()
+        pairs = [(soa8, soa8_p), (operand, operand_p), *zip((soat, perm,
+                                                             n_live), ref),
+                 (un[1], un_p[1])] + ([] if any_hit else [(un[0], un_p[0])])
+        bad = sum(_differing(a, b) for a, b in pairs)
+        n_tot = soa8.shape[0]
+        p_long = perm.long()
+
+        def index_put():
+            prim = torch.empty_like(p_bn)
+            prim[p_long] = p_bn
+            if t_in is not None:
+                t = torch.empty_like(t_in)
+                t[p_long] = t_in
+
+        r = {"lanes": n, "slots": n_tot, "live_steps": int(n_live),
+             "stable_sort": idx is not None}
+        for key, fn, plain, lib in (
+                ("pack", lambda: tv.ray_pack(o, d, tmax, box, tmin),
+                 lambda: tv.ray_pack_plain(o, d, tmax, box, tmin), None),
+                ("sort", lambda: tv.coherence_sort(operand), None, None),
+                ("reorder", lambda: tv.ray_reorder(soa8, vals, idx),
+                 lambda: tv.ray_reorder_plain(soa8, vals, idx),
+                 lambda: soa8[perm]),
+                ("unsort", lambda: tv.ray_unsort(p_bn, t_in, perm, n,
+                                                 any_hit),
+                 lambda: tv.ray_unsort_plain(p_bn, t_in, perm, n, any_hit),
+                 index_put)):
+            # the cell finds the inputs in L2 (warm_ms: calls back to
+            # back); "ms" is each call after an 80 MB write that evicts
+            # them, less that write's own time
+            r[key + "_warm_ms"] = _device_ms(fn)
+            r[key + "_ms"] = _device_ms(
+                lambda fn=fn: (flush.zero_(), fn())) - flush_ms
+            if plain is not None:
+                r[key + "_plain_ms"] = _device_ms(plain)
+            if lib is not None:
+                r[key + "_library_ms"] = _device_ms(
+                    lambda lib=lib: (flush.zero_(), lib())) - flush_ms
+
+        def call():
+            s, q, _ = tv.prepare_rays(o, d, tmax, box, tmin)
+            tv.ray_unsort(p_bn, t_in, q, n, any_hit)
+
+        r["call_ms"] = _device_ms(call)
+        undo = _plain_plumbing()
+        try:
+            r["call_plain_ms"] = _device_ms(call)
+        finally:
+            undo()
+        for key, nbytes in _plumbing_bytes(n, n_tot, idx is not None,
+                                           t_in is not None).items():
+            r[key + "_bytes"] = nbytes
+            _put_bound(r, key, 0, nbytes)
+        print(f"plumbing {name} on {card}: values differing {bad}, "
+              + _fmt(r), flush=True)
+        if bad:
+            raise AssertionError(f"plumbing {name}: a kernel disagrees with "
+                                 "its plain twin")
+        out[name] = r
+    return out
+
+
 def run_stage7b(dev, card: str) -> dict:
     """Phase 9 on ``dev``: bench.py's stage-7b frame with the launch counts
     set to 0 just before it and read just after (no traversal kernel: the
@@ -2551,7 +2729,10 @@ MARKERS = {"cluster_masks": "cluster_masks_kernel",
            "fold_small": "fold_small_kernel",
            "bounce_prepare": "bounce_prepare_kernel",
            "bounce_resolve": "bounce_resolve_kernel",
-           "analytic_fold": "analytic_fold_kernel"}
+           "analytic_fold": "analytic_fold_kernel",
+           "ray_pack": "ray_pack_kernel",
+           "ray_reorder": "ray_reorder_kernel",
+           "ray_unsort": "ray_unsort_kernel"}
 
 
 # idle time inside the profiler's window on each side of a profiled frame:
@@ -3228,7 +3409,7 @@ def run_cli(dev, card: str) -> dict:
 
 XLA_SUBSET = 16384  # rays per population held card against CPU
 XLA_KERNELS_OFF = ("cluster_masks", "traverse_blocks", "traverse_items",
-                   "build_items", "fold_small")
+                   "build_items", "fold_small") + PLUMBING_KERNELS
 
 
 XLA_KERNELS = ("cluster_pipeline", "gather_rows_t", "cmj") + SHADE_KERNELS

@@ -20,12 +20,15 @@ One launch domain's nearest (or any) triangle hit for a wavefront:
      overflows the budget (the choice is made on the device);
   5. the results are scattered back to the caller's lane order.
 
-``gather_rows_t`` (kernel) serves the exact winner re-test in
-``render/trace.py``. Steps 1, 2 and 5 were XLA in the reference and are
-plain torch here. ``cluster_pipeline`` (kernel) is phases 2-3 of the
-``traversal='xla'`` route's two-level pipeline
-(``render/mesh_intersect.py``), the body of the reference's device-side
-block loop. ``fold_small_plain`` is the dense fold of one tiny
+Steps 1, 2 and 5 were XLA in the reference. Here ``ray_pack`` (kernel)
+packs the rows and writes the sort operand, ``torch.sort`` sorts it,
+``ray_reorder`` (kernel) moves the rows into sorted order and writes the
+live step count, and ``ray_unsort`` (kernel) scatters the results back:
+three launches and the sort a call. ``gather_rows_t`` (kernel) serves the
+exact winner re-test in ``render/trace.py``. ``cluster_pipeline``
+(kernel) is phases 2-3 of the ``traversal='xla'`` route's two-level
+pipeline (``render/mesh_intersect.py``), the body of the reference's
+device-side block loop. ``fold_small_plain`` is the dense fold of one tiny
 transformed mesh (the reference's XLA ``_brute_force_mesh``), a part of the
 plain twin of the ``fold_small`` kernel (``render/mesh_intersect.py``).
 
@@ -34,7 +37,7 @@ the same contract. A wrapper runs the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches (``utils/cuda_lib.counted``). With tracing on, ``cluster_masks``
 adds the set bits of the masks it writes to the counter ``traverse.pairs``
-and ``prepare_rays`` the lanes that reach the domain's root to
+and ``ray_pack`` the lanes that reach the domain's root to
 ``traverse.live_rays`` (``utils/tracing.py``).
 
 t carries the key's ~2^-17 relative slack; exact t comes from the winner
@@ -826,8 +829,12 @@ def fold_small_plain(rows, tri0: int, o: V3, d: V3, tmin: float, tmax,
 
 
 # ---------------------------------------------------------------------------
-# traverse(): the XLA-side plumbing of the reference, in plain torch
+# Kernels 7-9: traverse()'s plumbing around the coherence sort (the
+# reference's XLA ray packing, _coherence_key and unsort)
 # ---------------------------------------------------------------------------
+
+LANE_BITS = 17  # lane field of a packed sort operand (launches <= 2^17)
+_LANE_MASK = (1 << LANE_BITS) - 1
 
 
 def _part1by2(x):
@@ -870,45 +877,215 @@ def coherence_key(ox, oy, oz, dx, dy, dz, tmax, cl_box, tmin: float):
     return torch.where(live, key, _MISS_FLAG)
 
 
+def _n_tot(n: int, sb: int) -> int:
+    return max(1, -(-n // sb)) * sb
+
+
+def ray_pack_plain(o, d, tmax, cl_box, tmin: float, sb: int = 2048,
+                   key: bool = True):
+    """Rays o, d (V3 of [N] f32), tmax [N] f32 -> (soa8 [n_tot, 8] f32,
+    operand [n_tot] i32 or None), n_tot = N rounded up to a multiple of
+    ``sb`` (at least ``sb``). A row is (o, d, tmax, 0); padding lanes have
+    d = 1 and tmax = 0, so they produce no candidates. With ``key``, the
+    operand of the coherence sort: a launch of at most 2^17 lanes packs
+    13 coarse key bits above the lane id, ``((key >> 17) << 17) | lane``,
+    a larger one gives the key itself; with tracing on, the lanes whose
+    key is below the miss flag (those that reach the root box) are added
+    to ``traverse.live_rays``."""
+    n = o.x.shape[0]
+    n_tot = _n_tot(n, sb)
+    soa8 = torch.zeros((n_tot, 8), dtype=torch.float32, device=cl_box.device)
+    soa8[n:, 3:6] = 1.0
+    for k, comp in enumerate((o.x, o.y, o.z, d.x, d.y, d.z, tmax)):
+        soa8[:n, k] = comp
+    if not key:
+        return soa8, None
+    col = lambda k: soa8[:, k]
+    k = coherence_key(col(0), col(1), col(2), col(3), col(4), col(5),
+                      col(6), cl_box, float(tmin))
+    if tracing.enabled():
+        tracing.count("traverse.live_rays",
+                      (k < _MISS_FLAG).sum(dtype=torch.int32))
+    if n_tot <= 1 << LANE_BITS:
+        lanes = torch.arange(n_tot, dtype=torch.int32, device=cl_box.device)
+        return soa8, ((k >> LANE_BITS) << LANE_BITS) | lanes
+    return soa8, k
+
+
+def _check_rays(name, comps, n):
+    for c in comps:
+        _check_dtype(name, c, torch.float32, 1)
+        if c.shape[0] != n:
+            raise ValueError(f"{name}: o, d and tmax must all be [N]")
+
+
+@cuda_lib.counted
+def ray_pack(o, d, tmax, cl_box, tmin: float, sb: int = 2048,
+             key: bool = True):
+    """Kernel wrapper of :func:`ray_pack_plain` (same contract): one launch
+    packs the rows and writes the operand; with tracing on the kernel adds
+    the live lanes to ``traverse.live_rays`` itself."""
+    comps = (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
+    _check_rays("ray_pack", comps, o.x.shape[0])
+    _check_dtype("ray_pack", cl_box, torch.float32, 2)
+    if cl_box.shape[0] != 8 or cl_box.shape[1] == 0 or sb <= 0:
+        raise ValueError("ray_pack: cl_box [8, C_pad > 0] and sb > 0 "
+                         "expected")
+    if cuda_lib.on_cpu("ray_pack", *comps, cl_box):
+        return ray_pack_plain(o, d, tmax, cl_box, tmin, sb, key)
+    lib, stream = cuda_lib.launch_args("ray_pack", *comps, cl_box)
+    n = o.x.shape[0]
+    n_tot = _n_tot(n, sb)
+    if n_tot >= 2**31 or cl_box.numel() >= 2**31:
+        raise ValueError("ray_pack: lanes and boxes must fit in int32")
+    dev = cl_box.device
+    soa8 = torch.empty((n_tot, 8), dtype=torch.float32, device=dev)
+    operand = (torch.empty((n_tot,), dtype=torch.int32, device=dev) if key
+               else None)
+    live = tracing.counter_ptr("traverse.live_rays", dev) if key else None
+    cuda_lib.check(lib.rt_ray_pack(
+        *(c.data_ptr() for c in comps), cl_box.data_ptr(), soa8.data_ptr(),
+        _ptr(operand), live, n, n_tot, cl_box.shape[1], float(tmin),
+        int(bool(key)), stream,
+    ), "ray_pack")
+    cuda_lib.count_launch(ray_pack, dev)
+    return soa8, operand
+
+
+def coherence_sort(operand):
+    """The coherence sort of :func:`ray_pack`'s operand: (the sorted
+    operand [n_tot] i32, the stable sort's lane order [n_tot] i64 or None
+    for a packed operand, whose low bits are the lanes). One packed
+    keys-only sort up to 2^17 lanes, a stable sort of the keys above."""
+    if operand.shape[0] <= 1 << LANE_BITS:
+        return torch.sort(operand).values, None
+    return tuple(torch.sort(operand, stable=True))
+
+
+def ray_reorder_plain(soa8, vals, idx=None, sb: int = 2048,
+                      live: bool = True):
+    """soa8 [n_tot, 8] f32 and the coherence sort's output (``vals``
+    [n_tot] i32, ``idx`` [n_tot] i64 or None; :func:`coherence_sort`) ->
+    (soat [n_tot, 8] f32, the rows in sorted order; perm [n_tot] i32, the
+    lane of each sorted slot; n_live [1] i32, the steps of ``sb`` lanes
+    that hold the live lanes (operand below the miss flag, which sort
+    first), or None without ``live``)."""
+    perm = (vals & _LANE_MASK) if idx is None else idx.to(torch.int32)
+    n_live = None
+    if live:
+        cnt = (vals < _MISS_FLAG).sum(dtype=torch.int32)
+        n_live = ((cnt + sb - 1) // sb).reshape(1)
+    return soa8[perm], perm, n_live
+
+
+@cuda_lib.counted
+def ray_reorder(soa8, vals, idx=None, sb: int = 2048, live: bool = True):
+    """Kernel wrapper of :func:`ray_reorder_plain` (same contract): one
+    launch moves the rows and writes perm and n_live."""
+    _check_dtype("ray_reorder", soa8, torch.float32, 2)
+    _check_dtype("ray_reorder", vals, torch.int32, 1)
+    if idx is not None:
+        _check_dtype("ray_reorder", idx, torch.int64, 1)
+    n_tot = soa8.shape[0]
+    if (soa8.shape[1] != 8 or vals.shape[0] != n_tot or sb <= 0
+            or (idx is not None and idx.shape[0] != n_tot)
+            or (idx is None and n_tot > 1 << LANE_BITS)):
+        raise ValueError("ray_reorder: soa8 [n_tot, 8], vals [n_tot], idx "
+                         "[n_tot] or None (a packed operand, n_tot <= "
+                         "2^17) and sb > 0 expected")
+    if cuda_lib.on_cpu("ray_reorder", soa8, vals, idx):
+        return ray_reorder_plain(soa8, vals, idx, sb, live)
+    args = [t for t in (soa8, vals, idx) if t is not None]
+    lib, stream = cuda_lib.launch_args("ray_reorder", *args)
+    if soa8.data_ptr() % 16:
+        raise ValueError("ray_reorder: soa8 must be 16-byte aligned")
+    dev = soa8.device
+    soat = torch.empty_like(soa8)
+    perm = torch.empty((n_tot,), dtype=torch.int32, device=dev)
+    n_live = torch.empty((1,), dtype=torch.int32, device=dev) if live else None
+    cuda_lib.check(lib.rt_ray_reorder(
+        soa8.data_ptr(), vals.data_ptr(), _ptr(idx), soat.data_ptr(),
+        perm.data_ptr(), _ptr(n_live), n_tot, sb, stream,
+    ), "ray_reorder")
+    cuda_lib.count_launch(ray_reorder, dev)
+    return soat, perm, n_live
+
+
 def prepare_rays(o, d, tmax, cl_box, tmin: float, sort_rays: bool = True,
                  sb: int = 2048, live_prefix: bool = True):
     """Pack rays into kernel rows and coherence-sort them. Returns (soat
     [n_steps, sb, 8], perm [n_steps * sb] i32 or None, n_live [1] i32
     device count of live steps or None). Padding lanes have d = 1 and
-    tmax = 0, so they produce no candidates."""
+    tmax = 0, so they produce no candidates. ``ray_pack``, the sort and
+    ``ray_reorder``; with tracing on the key is computed for the
+    ``traverse.live_rays`` counter even when nothing is sorted."""
     n = o.x.shape[0]
     dev = cl_box.device
     n_steps = max(1, -(-n // sb))
-    n_tot = n_steps * sb
-    soa8 = torch.zeros((n_tot, 8), dtype=torch.float32, device=dev)
-    soa8[n:, 3:6] = 1.0
-    for k, comp in enumerate((o.x, o.y, o.z, d.x, d.y, d.z)):
-        soa8[:n, k] = comp
-    soa8[:n, 6] = tmax
-    if not sort_rays and not tracing.enabled():
-        return soa8.view(n_steps, sb, 8), None, None
-
-    col = lambda k: soa8[:, k]
-    key = coherence_key(col(0), col(1), col(2), col(3), col(4), col(5),
-                        col(6), cl_box, float(tmin))
-    if live_prefix or tracing.enabled():
-        # miss-flagged lanes (dead, root-missing, padding) sort past the
-        # live prefix; the kernels skip the steps beyond it
-        live_cnt = (key < _MISS_FLAG).sum(dtype=torch.int32)
-        tracing.count("traverse.live_rays", live_cnt)
+    o, d = (V3(v.x.contiguous(), v.y.contiguous(), v.z.contiguous())
+            for v in (o, d))
+    if not torch.is_tensor(tmax):
+        tmax = torch.full((n,), float(tmax), device=dev)
+    tmax = tmax.to(torch.float32).expand(n).contiguous()
+    soa8, operand = ray_pack(o, d, tmax, cl_box, float(tmin), sb,
+                             key=sort_rays or tracing.enabled())
     if not sort_rays:
         return soa8.view(n_steps, sb, 8), None, None
-    n_live = None
-    if live_prefix:
-        n_live = ((live_cnt + sb - 1) // sb).to(torch.int32).reshape(1)
-    lane_ids = torch.arange(n_tot, dtype=torch.int32, device=dev)
-    if n_tot <= (1 << 17):
-        # one packed operand: 13 coarse key bits above the lane id
-        packed = ((key >> 17) << 17) | lane_ids
-        perm = torch.sort(packed).values & ((1 << 17) - 1)
+    vals, idx = coherence_sort(operand)
+    # miss-flagged lanes (dead, root-missing, padding) sort past the live
+    # prefix; the kernels skip the steps beyond it
+    soat, perm, n_live = ray_reorder(soa8, vals, idx, sb, live_prefix)
+    return soat.view(n_steps, sb, 8), perm, n_live
+
+
+def ray_unsort_plain(p_bn, t_bn, perm, n: int, hit_only: bool = False):
+    """The traversal's results in sorted order (p_bn [n_tot] i32, t_bn
+    [n_tot] f32 or None) back in the caller's lane order: (t [n] f32 or
+    None, prim [n] i32) with prim[perm[j]] = p_bn[j] (perm [n_tot] i32 from
+    :func:`ray_reorder`; None: the identity). ``hit_only`` maps prim to 0
+    on a hit and -1 on a miss first (an any-hit query without t)."""
+    if hit_only:
+        p_bn = torch.where(p_bn >= 0, 0, -1).to(torch.int32)
+    if perm is None:
+        prim, t = p_bn, t_bn
     else:
-        perm = torch.sort(key, stable=True).indices.to(torch.int32)
-    return soa8[perm].view(n_steps, sb, 8), perm, n_live
+        prim = torch.empty_like(p_bn)
+        prim[perm.long()] = p_bn
+        t = None
+        if t_bn is not None:
+            t = torch.empty_like(t_bn)
+            t[perm.long()] = t_bn
+    return (None if t is None else t[:n]), prim[:n]
+
+
+@cuda_lib.counted
+def ray_unsort(p_bn, t_bn, perm, n: int, hit_only: bool = False):
+    """Kernel wrapper of :func:`ray_unsort_plain` (same contract): one
+    launch writes the [n] outputs."""
+    _check_dtype("ray_unsort", p_bn, torch.int32, 1)
+    n_tot = p_bn.shape[0]
+    if t_bn is not None:
+        _check_dtype("ray_unsort", t_bn, torch.float32, 1)
+    if perm is not None:
+        _check_dtype("ray_unsort", perm, torch.int32, 1)
+    if (not 0 <= n <= n_tot or (t_bn is not None and t_bn.shape[0] != n_tot)
+            or (perm is not None and perm.shape[0] != n_tot)):
+        raise ValueError("ray_unsort: p_bn, t_bn and perm [n_tot] with "
+                         "0 <= n <= n_tot expected")
+    if cuda_lib.on_cpu("ray_unsort", p_bn, t_bn, perm):
+        return ray_unsort_plain(p_bn, t_bn, perm, n, hit_only)
+    args = [x for x in (p_bn, t_bn, perm) if x is not None]
+    lib, stream = cuda_lib.launch_args("ray_unsort", *args)
+    dev = p_bn.device
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    t = (torch.empty((n,), dtype=torch.float32, device=dev)
+         if t_bn is not None else None)
+    cuda_lib.check(lib.rt_ray_unsort(
+        p_bn.data_ptr(), _ptr(t_bn), _ptr(perm), prim.data_ptr(), _ptr(t),
+        n, n_tot, int(bool(hit_only)), stream,
+    ), "ray_unsort")
+    cuda_lib.count_launch(ray_unsort, dev)
+    return t, prim
 
 
 def _items_route(masks, soat, tri, tmin: float, mt_mode: str, any_hit: bool,
@@ -961,16 +1138,7 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
     else:
         t_bn, p_bn = traverse_blocks(masks, soat, tri, float(tmin), mt_mode,
                                      any_hit, n_live, b)
-    t_bn, p_bn = t_bn.view(n_tot), p_bn.view(n_tot)
     with tracing.device_span("traversal_plumbing", cl_box):
-        if any_hit and not want_t:
-            p_bn = torch.where(p_bn >= 0, 0, -1).to(torch.int32)
-        if perm is not None:
-            prim = torch.empty_like(p_bn)
-            prim[perm.long()] = p_bn
-            if want_t:
-                t = torch.empty_like(t_bn)
-                t[perm.long()] = t_bn
-        else:
-            prim, t = p_bn, t_bn
-    return (t[:n] if want_t else None), prim[:n]
+        return ray_unsort(p_bn.view(n_tot),
+                          t_bn.view(n_tot) if want_t else None, perm, n,
+                          hit_only=any_hit and not want_t)

@@ -1319,24 +1319,25 @@ def test_xla_route_launches_gather_rows_t(dev, xla_scenes):
     assert int(got.overflow) == int(ref.overflow) == 0
 
 
-def _stage6_population(sd, kind, dev, n=16384):
-    """(o, d, tmax) on the card: the stage-6 camera's rays at seeded screen
-    positions; from their hits, seeded bounce directions about the normal
-    (tmax 1e30), or shadow rays to seeded points of the rect light (tmax
-    the distance less 1e-4); lanes without a hit keep the camera ray."""
+def _stage6_population(sd, kind, dev, n=16384, time=None, camera=None):
+    """(o, d, tmax) on the card: the stage-6 camera's rays (or
+    ``camera``'s) at seeded screen positions; from their hits (at the
+    lanes' ``time``), seeded bounce directions about the normal (tmax
+    1e30), or shadow rays to seeded points of the rect light (tmax the
+    distance less 1e-4); lanes without a hit keep the camera ray."""
     from rayito_tpu_torch.models import demo
     from rayito_tpu_torch.models.camera import PerspectiveCamera
     from rayito_tpu_torch.render import trace as tr
 
     rs = np.random.default_rng(17)
     f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-    cam = PerspectiveCamera.make(30.0, *demo.STAGE6_CAMERA).to(dev)
+    cam = PerspectiveCamera.make(30.0, *(camera or demo.STAGE6_CAMERA))
     u = f(rs.uniform(0.0, 1.0, (5, n)))
-    o, d, _ = cam.make_rays(u[0], u[1], u[2], u[3], u[4])
+    o, d, _ = cam.to(dev).make_rays(u[0], u[1], u[2], u[3], u[4])
     tmax = torch.full((n,), 1e30, device=dev)
     if kind == "camera":
         return o, d, tmax
-    hit = tr.scene_intersect(sd, o, d, None, 1e-4, 1e30)
+    hit = tr.scene_intersect(sd, o, d, time, 1e-4, 1e30)
     t = torch.where(hit.valid, hit.t, 0.0)
     p = V3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t)
     if kind == "bounce":
@@ -2556,8 +2557,9 @@ def test_device_counters_equal_the_host_plain_counts(dev, graph_scenes,
                                                      monkeypatch):
     """A stage-6 pass on the card with tracing on, eagerly: the pair
     counter that cluster_masks adds to on the device equals a popcount of
-    cluster_masks_plain on the same inputs, the live rays the lanes of the
-    coherence keys, and the query counters sum to the pass's queries. Its
+    cluster_masks_plain on the same inputs, the live rays that ray_pack
+    adds the live lanes of the plain coherence keys of its rows, and the
+    query counters sum to the pass's queries. Its
     replayed graph then counts the same, launches included."""
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import graphs
@@ -2567,24 +2569,28 @@ def test_device_counters_equal_the_host_plain_counts(dev, graph_scenes,
     si = torch.arange(2, dtype=torch.int32, device=dev)
     row0 = torch.full((), 16, dtype=torch.int32, device=dev)
     calls, keys = [], []
-    masks, key = tv.cluster_masks, tv.coherence_key
+    masks, pack = tv.cluster_masks, tv.ray_pack
 
     def spy_masks(soat, cl_box, tmin, n_live=None, b=128):
         calls.append((soat.clone(), cl_box, tmin,
                       None if n_live is None else n_live.clone(), b))
         return masks(soat, cl_box, tmin, n_live, b)
 
-    # the wrapper counts its launch on the name it is called by
-    spy_masks.__name__, spy_masks.launches = "cluster_masks", 0
+    def spy_pack(o, d, tmax, cl_box, tmin, sb=2048, key=True):
+        soa8, operand = pack(o, d, tmax, cl_box, tmin, sb, key)
+        col = lambda k: soa8[:, k]
+        keys.append(tv.coherence_key(*(col(k) for k in range(7)), cl_box,
+                                     tmin))
+        return soa8, operand
 
-    def spy_key(*a):
-        keys.append(key(*a))
-        return keys[-1]
+    # the wrappers count their launches on the name they are called by
+    spy_masks.__name__, spy_masks.launches = "cluster_masks", 0
+    spy_pack.__name__, spy_pack.launches = "ray_pack", 0
 
     with tracing.on():
         tracing.reset()
         monkeypatch.setattr(tv, "cluster_masks", spy_masks)
-        monkeypatch.setattr(tv, "coherence_key", spy_key)
+        monkeypatch.setattr(tv, "ray_pack", spy_pack)
         eager = pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
         eager_counts = tracing.counters()
         monkeypatch.undo()
@@ -2831,3 +2837,224 @@ def test_a_tiny_mesh_nine_links_deep_renders_on_the_card(dev):
     _same_pass(again, eager)
     assert counts["fold_small"] == counts["analytic_fold"] == 9
     graphs.clear()
+
+
+# ---------------------------------------------------------------------------
+# the traversal's plumbing (csrc/ray_prep.cu): ray_pack, ray_reorder and
+# ray_unsort around the coherence sort
+# ---------------------------------------------------------------------------
+
+# the cells' launches (stable sort), a chip_smoke band (packed sort) and a
+# ragged launch (padded to 262,144)
+PLUMBING_LANES = [262144, 131072, 261760]
+
+
+@pytest.fixture(scope="module")
+def plumbing_scenes(dev, tmp_path_factory):
+    """Stage 6 and stage 7 (its rotating mesh the traversal domain) on the
+    n=8 stand-in, on the card."""
+    from rayito_tpu_torch.models import demo
+
+    path = str(tmp_path_factory.mktemp("obj") / "bumpy8.obj")
+    demo.write_bumpy_standin(path, n=8)
+    return {"stage6": demo.stage6_scene(path).compile(dev),
+            "stage7": demo.stage7_scene1(path).compile(dev)}
+
+
+def _plumbing_rays(scenes, name, kind, n, dev, nan=True):
+    """(o, d, tmax, cl_box, time) of ``n`` camera, bounce or shadow rays of
+    stage 6 or 7 in the traversal domain's space (stage 7's at seeded lane
+    times), a few lanes dead (tmax 0) and, with ``nan``, one NaN."""
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.render import trace as tr
+
+    scene = scenes[name]
+    time = None
+    if name == "stage7":
+        rs = np.random.default_rng(n)
+        time = torch.from_numpy(rs.uniform(0.0, 1.0, n).astype(
+            np.float32)).to(dev)
+    o, d, tmax = _stage6_population(
+        scene, kind, dev, n, time,
+        demo.STAGE7_CAMERA if name == "stage7" else None)
+    o, d, _ = tr._domain_local_ray(scene, 0, o, d, time)
+    o, d = (V3(v.x.contiguous(), v.y.contiguous(), v.z.contiguous())
+            for v in (o, d))
+    tmax = tmax.clone()
+    tmax[::97] = 0.0
+    if nan:
+        tmax[5] = float("nan")
+    return o, d, tmax, scene.ktab_box[0], time
+
+
+def _bits_equal(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    view = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    return a.shape == b.shape and torch.equal(view(a), view(b))
+
+
+def _live_rays(fn):
+    """(fn()'s outputs, the lanes it added to traverse.live_rays)."""
+    with tracing.on():
+        tracing.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        live = tracing.counters().get("traverse.live_rays", 0)
+    return out, live
+
+
+@pytest.mark.parametrize("n", PLUMBING_LANES)
+@pytest.mark.parametrize("kind", ["camera", "bounce", "shadow"])
+@pytest.mark.parametrize("name", ["stage6", "stage7"])
+def test_ray_prep_kernels_match_plain(dev, plumbing_scenes, name, kind, n):
+    """Each plumbing kernel against its plain twin on the card, bit for
+    bit: ray_pack's rows, sort operand and live-ray count; ray_reorder's
+    rows, permutation and live steps (with and without the live prefix)
+    after the unchanged torch.sort; ray_unsort's prim and t from the
+    traversal's own results, sorted and not, closest hit and any hit."""
+    o, d, tmax, box, _ = _plumbing_rays(plumbing_scenes, name, kind, n, dev)
+    (soa8, operand), live = _live_rays(
+        lambda: tv.ray_pack(o, d, tmax, box, 1e-4, SB))
+    (soa8_p, operand_p), live_p = _live_rays(
+        lambda: tv.ray_pack_plain(o, d, tmax, box, 1e-4, SB))
+    assert _bits_equal(soa8, soa8_p) and _bits_equal(operand, operand_p)
+    assert live == live_p and 0 < live < n
+    bare = tv.ray_pack(o, d, tmax, box, 1e-4, SB, key=False)
+    assert bare[1] is None and _bits_equal(bare[0], soa8_p)
+    vals, idx = tv.coherence_sort(operand)
+    assert (idx is None) == (soa8.shape[0] <= 1 << 17)
+    for live_prefix in (False, True):
+        got = tv.ray_reorder(soa8, vals, idx, SB, live_prefix)
+        ref = tv.ray_reorder_plain(soa8, vals, idx, SB, live_prefix)
+        assert all(_bits_equal(a, b) for a, b in zip(got, ref))
+    soat, perm, n_live = got[0].view(-1, SB, 8), got[1], got[2]
+    assert int(n_live) == -(-live // SB)
+    masks = tv.cluster_masks(soat, box, 1e-4)
+    tri = plumbing_scenes[name].ktab_mxu[0]
+    t_bn, p_bn = (x.view(-1) for x in tv.traverse_blocks(masks, soat, tri,
+                                                          1e-4, "bw"))
+    assert int((p_bn >= 0).sum()) > 100
+    for sorted_, t_in, hit_only in ((True, t_bn, False), (True, None, True),
+                                    (False, t_bn, False),
+                                    (False, None, True)):
+        args = (p_bn, t_in, perm if sorted_ else None, o.x.shape[0],
+                hit_only)
+        got, ref = tv.ray_unsort(*args), tv.ray_unsort_plain(*args)
+        assert _bits_equal(got[0], ref[0]) and _bits_equal(got[1], ref[1])
+
+
+def _plain_route(monkeypatch):
+    for name in ("ray_pack", "ray_reorder", "ray_unsort"):
+        monkeypatch.setattr(tv, name, getattr(tv, name + "_plain"))
+
+
+@pytest.mark.parametrize("kind", ["bounce", "shadow"])
+@pytest.mark.parametrize("name", ["stage6", "stage7"])
+def test_traverse_through_the_plumbing_kernels_matches_the_plain_route(
+        dev, plumbing_scenes, monkeypatch, name, kind):
+    """traverse() through the three kernels equals traverse() through their
+    plain twins on the card and traverse() without the sort: prim and t
+    bits on closest hits, prim on any hits, at a ragged launch. No lane
+    has a NaN tmax here: the sort puts such a lane past the live prefix,
+    while unsorted it may take a hit in its block's clusters, in the
+    reference as here."""
+    o, d, tmax, box, _ = _plumbing_rays(plumbing_scenes, name, kind, 261760,
+                                        dev, nan=False)
+    scene = plumbing_scenes[name]
+    cases = (("bw", False, True, scene.ktab_mxu[0]),
+             ("vpu", True, False, scene.ktab_tri[0]))
+    for mt, any_hit, want_t, tri in cases:
+        run = lambda **kw: tv.traverse(o, d, tmax, box, tri, 1e-4,
+                                       want_t=want_t, mt_mode=mt,
+                                       any_hit=any_hit, **kw)
+        kern, unsorted = run(), run(sort_rays=False)
+        with monkeypatch.context() as m:
+            _plain_route(m)
+            plain = run()
+        torch.cuda.synchronize()
+        assert int((plain[1] >= 0).sum()) > 100
+        for other in (plain, unsorted):
+            if any_hit:
+                assert torch.equal(kern[1] >= 0, other[1] >= 0)
+            else:
+                assert _bits_equal(kern[0], other[0])
+                assert torch.equal(kern[1], other[1])
+
+
+def test_ray_prep_replayed_in_a_graph(dev, plumbing_scenes):
+    """prepare_rays, the traversal and the unsort captured in one CUDA graph
+    and replayed on two populations copied into its inputs: each replay
+    equals the plain twins' rows, permutation and live steps and an eager
+    traverse()'s hits, so nothing of one replay (the live count above all)
+    carries into the next."""
+    pops = [_plumbing_rays(plumbing_scenes, "stage6", kind, 262144, dev)
+            for kind in ("camera", "bounce")]
+    o, d, tmax, box, _ = pops[0]
+    o, d = (V3(v.x.clone(), v.y.clone(), v.z.clone()) for v in (o, d))
+    tmax = tmax.clone()
+    tri = plumbing_scenes["stage6"].ktab_mxu[0]
+
+    def body():
+        soat, perm, n_live = tv.prepare_rays(o, d, tmax, box, 1e-4)
+        masks = tv.cluster_masks(soat, box, 1e-4, n_live)
+        t_bn, p_bn = tv.traverse_blocks(masks, soat, tri, 1e-4, "bw", False,
+                                        n_live)
+        return soat, perm, n_live, tv.ray_unsort(
+            p_bn.view(-1), t_bn.view(-1), perm, o.x.shape[0])
+
+    body()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    for po, pd, ptmax, _, _ in pops * 2:
+        for dst, src in zip((o.x, o.y, o.z, d.x, d.y, d.z, tmax),
+                            (po.x, po.y, po.z, pd.x, pd.y, pd.z, ptmax)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        soa8, operand = tv.ray_pack_plain(po, pd, ptmax, box, 1e-4, SB)
+        ref = tv.ray_reorder_plain(soa8, *tv.coherence_sort(operand), SB)
+        assert _bits_equal(out[0].view(-1, 8), ref[0])
+        assert _bits_equal(out[1], ref[1]) and _bits_equal(out[2], ref[2])
+        t, p = tv.traverse(po, pd, ptmax, box, tri, 1e-4, mt_mode="bw")
+        assert _bits_equal(out[3][0], t) and torch.equal(out[3][1], p)
+
+
+def test_ray_prep_launches_once_per_traverse_call(dev, graph_scenes):
+    """A replayed stage-6 pass launches ray_pack, ray_reorder and
+    ray_unsort once per traverse() call (3 bounces x 3 queries), as the
+    device counters read."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    with tracing.on():
+        pt._render_path_pass(scene, cfg, cam, si, 16, 16)  # captures
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+        counts = cuda_lib.launch_counts()
+    calls = cfg.max_depth * (1 + 2 * cfg.light_samples)
+    assert (counts["ray_pack"] == counts["ray_reorder"]
+            == counts["ray_unsort"] == counts["traverse_blocks"] == calls
+            == 9)
+    graphs.clear()
+
+
+def test_ray_prep_wrappers_refuse_mixed_devices(dev):
+    """A wrapper launches or raises: rays on the card with a box table on
+    the CPU (or the reverse) raise, and no launch is counted."""
+    o = V3(*(torch.zeros(SB, device=dev) for _ in range(3)))
+    tmax = torch.zeros(SB, device=dev)
+    box = torch.zeros((8, 32))
+    tv.ray_pack.launches = tv.ray_unsort.launches = 0
+    with pytest.raises(ValueError):
+        tv.ray_pack(o, o, tmax, box, 1e-4)
+    p = torch.zeros(SB, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        tv.ray_unsort(p, None, torch.zeros(SB, dtype=torch.int32), SB)
+    assert tv.ray_pack.launches == 0 and tv.ray_unsort.launches == 0

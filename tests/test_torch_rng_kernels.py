@@ -209,9 +209,11 @@ def test_wrappers_refuse_mixed_devices_and_shapes():
 def test_kernel_registry_lists_eight_kernels():
     """Every hand kernel counts its launches: the sample streams under
     one name whichever wrapper launched, the tiny-mesh fold, the two
-    shading kernels (since the bounce's shading became kernels) and the
+    shading kernels (since the bounce's shading became kernels), the
     analytic fold (since the analytic shapes of a query became one
-    kernel): eleven names, the eight of the name and those three."""
+    kernel) and the traversal's plumbing around the coherence sort
+    (ray_pack, ray_reorder, ray_unsort): fourteen names, the eight of the
+    name and those six."""
     # the shading wrappers register when render/shade.py is imported,
     # which the other modules this file imports do not do
     import rayito_tpu_torch.render.shade  # noqa: F401
@@ -219,7 +221,8 @@ def test_kernel_registry_lists_eight_kernels():
     names = sorted(fn.__name__ for fn in cuda_lib.KERNELS)
     assert names == ["analytic_fold", "bounce_prepare", "bounce_resolve",
                      "build_items", "cluster_masks", "cluster_pipeline",
-                     "cmj", "fold_small", "gather_rows_t", "traverse_blocks",
+                     "cmj", "fold_small", "gather_rows_t", "ray_pack",
+                     "ray_reorder", "ray_unsort", "traverse_blocks",
                      "traverse_items"]
     cuda_lib.reset_launch_counts()
     trng.hash_combine(torch.arange(4), 1)
@@ -229,6 +232,11 @@ def test_kernel_registry_lists_eight_kernels():
                    occluded=torch.zeros(4, dtype=torch.bool))
     from rayito_tpu_torch.render import trace as ttrace
     ttrace.analytic_fold(sd, TV3(z, z, z), TV3(z, z, z + 1.0), z, 1e-4, z)
+    from rayito_tpu_torch.render import traverse as ttraverse
+    box = torch.zeros((8, 32))
+    _, perm, _ = ttraverse.prepare_rays(TV3(z, z, z), TV3(z, z, z + 1.0), z,
+                                        box, 1e-4, sb=8)
+    ttraverse.ray_unsort(torch.zeros(8, dtype=torch.int32), None, perm, 4)
     assert all(fn.launches == 0 for fn in cuda_lib.KERNELS)  # plain on the CPU
 
 
