@@ -146,8 +146,9 @@ JAX. Phases, each printed, each fatal on failure:
      no --device: it must render on cuda;
  22. one profiled, replayed 512x512 stage-6 frame on each route: host
      kernel and graph launches, kernel ms, the share of that frame's wall
-     ms they fill, and utils/profiling.phase_table ('xla' with the
-     cluster_pipeline kernel's row);
+     ms they fill, and its costliest kernels by name
+     (utils/profiling.collect_device_ops; 'xla' with device time in the
+     cluster_pipeline kernel);
  23. graphs, the reference's dispatch (each pass a CUDA graph captured once
      and replayed): the frames of phases 4, 6 (item and scan route), 8-10,
      12, 13 and 14 (stage 3 at its golden configuration), the CLI's
@@ -161,17 +162,17 @@ JAX. Phases, each printed, each fatal on failure:
      and busy share (their ratio), host kernel and graph launches, and
      each kernel's launches from the device records, which must equal its
      counter (stage 3 not profiled: 16 replays of 26,574 device ops);
- 24. sample streams (run right after the build): hash_combine,
-     cmj_sample_1d and cmj_sample_2d (csrc/cmj.cu) against their plain
-     versions on the card (which run the fixed cycle-walk rounds), bit
-     for bit, at 131,072 lanes: 1-D samples of seeded permutations at
-     every num in 1-300, 1,000 and 4,097; every draw of the path's
-     patterns at pixel samples {1, 2, 3, 12} x light samples {1, 2}; the
-     draw sets (cmj_draws, one launch of cmj_draws_kernel a set) of every
-     renderer's plan at the same patterns against cmj_draws_plain; stage
-     6's bounce and camera sets and stage 3's light loop (4x4 light
-     samples, two lights) timed (CUDA-graph replays of 20 sets), the
-     same draws through the single-draw kernels and the plain version
+ 24. sample streams (run right after the build): the single draws
+     hash_combine, cmj_sample_1d and cmj_sample_2d (torch ops, no kernel;
+     the fixed cycle-walk rounds on the card) against the same calls on
+     the CPU, bit for bit, at 131,072 lanes, with no cmj launch: 1-D
+     samples of seeded permutations at every num in 1-300, 1,000 and
+     4,097; every draw of the path's patterns at pixel samples
+     {1, 2, 3, 12} x light samples {1, 2}; the draw sets (cmj_draws, one
+     launch of cmj_draws_kernel a set, csrc/cmj.cu) of every renderer's
+     plan at the same patterns against cmj_draws_plain; stage 6's bounce
+     and camera sets and stage 3's light loop (4x4 light samples, two
+     lights) timed (CUDA-graph replays of 20 sets), the plain version
      beside them, the bound (the set's own arithmetic in lane
      instructions, counted in the kernel's SASS without its plan
      decoding, loop control or addressing, at the SMs' issue rate of 33.4
@@ -353,7 +354,7 @@ def main() -> int:
               lambda: run_mesh_light(dev, card), lambda: run_many(dev, card),
               lambda: run_direct(dev, card), lambda: run_cli(dev, card),
               lambda: run_xla(dev, card), run_cli_subprocess,
-              lambda: run_phase_table(dev), lambda: run_graphs(dev, card),
+              lambda: run_frame_profile(dev), lambda: run_graphs(dev, card),
               lambda: run_probes(dev, card)]
     outs = []
     for phase in phases:
@@ -494,16 +495,12 @@ def kernel_records(samples: dict, stage6: dict, big: dict, stage7: dict,
          "note": "port-only: the reference's XLA uint32 sample streams "
                  "(ops/rng.py:74-205, cmj_permute's while_loop at :134), no "
                  "pallas_call; ms is stage 6's bounce draw set (every seed "
-                 "and sample of one bounce, one cmj_draws_kernel launch; "
-                 "single_ms the same draws through the single-draw "
-                 "kernels)",
+                 "and sample of one bounce, one cmj_draws_kernel launch)",
          "launches": launches["cmj"],
          "max_abs_err": samples["max_abs_err"],
          **timed(samples, "draw"),
-         "single_ms": samples["draw_single_ms"],
          "sets": {key: {k: samples[f"{key}_{k}"] for k in
-                        ("ms", "single_ms", "plain_ms", "bound_ms", "share",
-                         "launches")}
+                        ("ms", "plain_ms", "bound_ms", "share", "launches")}
                   for key in ("draw", "camera_set", "direct_set")}},
         {"name": "fold_small", "route": "cuda",
          "source": src + "fold_small.cu",
@@ -1057,9 +1054,9 @@ def _check_masks(name, soat, box, tmin, n_live, r):
 
 def _swap_plain():
     """Point the path at the plain versions of all fourteen kernels (the
-    'xla' route's pipeline and winner-row gather, the sample streams, the
-    tiny-mesh fold, the bounce's shading, the analytic fold and the
-    traversal's plumbing too); returns the undo."""
+    'xla' route's pipeline and winner-row gather, the sample streams' draw
+    sets, the tiny-mesh fold, the bounce's shading, the analytic fold and
+    the traversal's plumbing too); returns the undo."""
     from rayito_tpu_torch.ops import rng
     from rayito_tpu_torch.render import mesh_intersect as mi
     from rayito_tpu_torch.render import shade
@@ -1068,8 +1065,7 @@ def _swap_plain():
 
     saved = (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
              tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
-             mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
-             rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small,
+             mi.cluster_pipeline, rng.cmj_draws, tr.fold_small,
              shade.bounce_prepare, shade.bounce_resolve, tr.analytic_fold)
     tv.cluster_masks = tv.cluster_masks_plain
     tv.traverse_blocks = tv.traverse_blocks_plain
@@ -1078,9 +1074,6 @@ def _swap_plain():
     tr.gather_rows_t = tv.gather_rows_t_plain
     mi.gather_rows_t = tv.gather_rows_t_plain
     mi.cluster_pipeline = tv.cluster_pipeline_plain
-    rng.hash_combine = rng.hash_combine_plain
-    rng.cmj_sample_1d = rng.cmj_sample_1d_plain
-    rng.cmj_sample_2d = rng.cmj_sample_2d_plain
     rng.cmj_draws = rng.cmj_draws_plain
     tr.fold_small = mi.fold_small_query_plain
     shade.bounce_prepare = shade.bounce_prepare_plain
@@ -1092,8 +1085,7 @@ def _swap_plain():
         undo_plumbing()
         (tv.cluster_masks, tv.traverse_blocks, tv.traverse_items,
          tv.build_items, tr.gather_rows_t, mi.gather_rows_t,
-         mi.cluster_pipeline, rng.hash_combine, rng.cmj_sample_1d,
-         rng.cmj_sample_2d, rng.cmj_draws, tr.fold_small,
+         mi.cluster_pipeline, rng.cmj_draws, tr.fold_small,
          shade.bounce_prepare, shade.bounce_resolve, tr.analytic_fold) = saved
 
     return undo
@@ -1155,35 +1147,35 @@ def _walk_rounds(i, num: int, perm) -> int:
     return rounds
 
 
-def _draws(m, px, py, si, ps: int, ls: int, seed: int):
-    """Every draw of the path's patterns at (ps, ls), through ``m`` (the
-    kernel wrappers, or the plain versions): the camera's subpixel and
-    time samples, one bounce's light-loop samples (flat index si * nls +
-    lsi) and continuation sample, stages 2-3's per-light draws (six hash
-    operands, a constant index) and stage 2's (64, 1) pattern."""
+def _draws(px, py, si, ps: int, ls: int, seed: int):
+    """Every draw of the path's patterns at (ps, ls), through the single
+    draws on the lanes' device: the camera's subpixel and time samples,
+    one bounce's light-loop samples (flat index si * nls + lsi) and
+    continuation sample, stages 2-3's per-light draws (six hash operands,
+    a constant index) and stage 2's (64, 1) pattern."""
     import torch
 
     from rayito_tpu_torch.ops import rng
 
     n, nls = px.shape[0], ls * ls
     out = []
-    h = m.hash_combine(px, py, rng.PURPOSE_SUBPIXEL, seed)
-    out += [h, *m.cmj_sample_2d(si, ps, ps, h)]
-    h = m.hash_combine(px, py, rng.PURPOSE_TIME, seed)
-    out += [h, m.cmj_sample_1d(si, ps * ps, h)]
-    hs = m.hash_combine(px, py, rng.PURPOSE_LIGHT_SELECT, 1, seed)
-    hl = m.hash_combine(px, py, rng.PURPOSE_LIGHT, 1, seed)
+    h = rng.hash_combine(px, py, rng.PURPOSE_SUBPIXEL, seed)
+    out += [h, *rng.cmj_sample_2d(si, ps, ps, h)]
+    h = rng.hash_combine(px, py, rng.PURPOSE_TIME, seed)
+    out += [h, rng.cmj_sample_1d(si, ps * ps, h)]
+    hs = rng.hash_combine(px, py, rng.PURPOSE_LIGHT_SELECT, 1, seed)
+    hl = rng.hash_combine(px, py, rng.PURPOSE_LIGHT, 1, seed)
     out += [hs, hl]
     for lsi in range(nls):
-        out += [m.cmj_sample_1d(si, (ps * ls) ** 2, hs, nls, lsi),
-                *m.cmj_sample_2d(si, ps * ls, ps * ls, hl, nls, lsi)]
-    h = m.hash_combine(px, py, rng.PURPOSE_BOUNCE, 1, seed)
-    out += [h, *m.cmj_sample_2d(si, ps, ps, h)]
-    h = m.hash_combine(px, py, si, rng.PURPOSE_LIGHT, 1, seed)
+        out += [rng.cmj_sample_1d(si, (ps * ls) ** 2, hs, nls, lsi),
+                *rng.cmj_sample_2d(si, ps * ls, ps * ls, hl, nls, lsi)]
+    h = rng.hash_combine(px, py, rng.PURPOSE_BOUNCE, 1, seed)
+    out += [h, *rng.cmj_sample_2d(si, ps, ps, h)]
+    h = rng.hash_combine(px, py, si, rng.PURPOSE_LIGHT, 1, seed)
     for k in range(nls):
-        out += m.cmj_sample_2d(torch.full((n,), k, dtype=torch.int64,
-                                          device=px.device), ls, ls, h)
-    out += m.cmj_sample_2d(si, 64, 1, h)
+        out += rng.cmj_sample_2d(torch.full((n,), k, dtype=torch.int64,
+                                            device=px.device), ls, ls, h)
+    out += rng.cmj_sample_2d(si, 64, 1, h)
     return out
 
 
@@ -1208,7 +1200,7 @@ def _set_work(plan, px, py, si):
     seeds, salts, per_lane, rounds = {}, set(), DRAWS_OPS["lane"], 0
     for dr in plan:
         if dr.seed not in seeds:
-            seeds[dr.seed] = rng.u32(rng.hash_combine_plain(*(
+            seeds[dr.seed] = rng.u32(rng.hash_combine(*(
                 lanes[v] if isinstance(v, str) else v for v in dr.seed)))
             per_lane += DRAWS_OPS["operand"] * len(dr.seed)
         dims = 1 + (dr.ny > 0)
@@ -1259,34 +1251,16 @@ def _draw_sets(cfg, n_lights: int) -> dict:
 
 def _time_set(r, key, plan, px, py, si):
     """One draw set at these lanes: device ms of its cmj_draws launch
-    (CUDA-graph replays of 20 sets), the same draws one by one through the
-    single-draw kernels (single_ms, the form before the draw sets), the
-    plain version's ms, the bound (the set's own arithmetic, DRAWS_OPS, at
-    PEAK_ISSUE, or bytes at 3.35 TB/s) and share, and the launches one
-    set made (the device counter, read after one set alone)."""
+    (CUDA-graph replays of 20 sets), the plain version's ms, the bound
+    (the set's own arithmetic, DRAWS_OPS, at PEAK_ISSUE, or bytes at 3.35
+    TB/s) and share, and the launches one set made (the device counter,
+    read after one set alone)."""
     import torch
 
     from rayito_tpu_torch.ops import rng
     from rayito_tpu_torch.utils import cuda_lib
 
-    lanes = {"px": px, "py": py, "si": si}
-
-    def single():
-        seeds, out = {}, []
-        for dr in plan:
-            if dr.seed not in seeds:
-                seeds[dr.seed] = rng.hash_combine(*(
-                    lanes[v] if isinstance(v, str) else v for v in dr.seed))
-            if dr.ny:
-                out += rng.cmj_sample_2d(si, dr.nx, dr.ny, seeds[dr.seed],
-                                         dr.index_mul, dr.index_add)
-            else:
-                out.append(rng.cmj_sample_1d(si, dr.nx, seeds[dr.seed],
-                                             dr.index_mul, dr.index_add))
-        return out
-
     r[key + "_ms"] = _device_ms(lambda: rng.cmj_draws(plan, px, py, si))
-    r[key + "_single_ms"] = _device_ms(single)
     r[key + "_plain_ms"] = _median_ms(
         lambda: rng.cmj_draws_plain(plan, px, py, si), 3)
     with _tracing():
@@ -1306,18 +1280,16 @@ def _time_set(r, key, plan, px, py, si):
 
 
 def run_samples(dev, card: str) -> dict:
-    """The sample-streams phase, right after the build: hash_combine,
-    cmj_sample_1d and cmj_sample_2d on the card against their plain
-    versions (which run the fixed cycle-walk rounds on the card), bit for
-    bit, at 131,072 lanes: 1-D samples of seeded permutations at every num
-    in 1-300, 1,000 and 4,097 (int32 and int64 operands in turn); every
-    draw of the path's patterns at pixel samples {1, 2, 3, 12} x light
-    samples {1, 2}; then the draws timed at stage-6 shapes (the first
-    band's pixels, sample 0): the bounce draw at 2x2 (the kernel's row),
-    and the camera's subpixel draws at 3x3 and 12x12 and its time draw at
-    12x12, with bounds and shares."""
-    import types
-
+    """The sample-streams phase, right after the build: the single draws
+    hash_combine, cmj_sample_1d and cmj_sample_2d on the card (torch ops
+    running the fixed cycle-walk rounds) against the same calls on the
+    CPU (the walk stopping once every lane is in range), bit for bit, at
+    131,072 lanes, with no cmj launch: 1-D samples of seeded permutations
+    at every num in 1-300, 1,000 and 4,097 (int32 and int64 operands in
+    turn); every draw of the path's patterns at pixel samples
+    {1, 2, 3, 12} x light samples {1, 2}; then the draw sets (one
+    cmj_draws launch a set) against cmj_draws_plain, and stage 6's sets
+    and stage 3's light loop timed, with bounds and shares."""
     import numpy as np
     import torch
 
@@ -1330,40 +1302,41 @@ def run_samples(dev, card: str) -> dict:
     rs = np.random.default_rng(11)
     t0 = time.perf_counter()
     bad, err = 0, 0.0
+    launches = rng.cmj.launches
     for num in SAMPLE_NUMS:
         idx = torch.arange(n, dtype=torch.int64, device=dev) % num
         perm = torch.from_numpy(rs.integers(0, 2**32, n)).to(dev)
         if num % 2:  # odd nums through int32 operands
             idx, perm = idx.to(torch.int32), perm.to(torch.int32)
-        got = rng.cmj_sample_1d(idx, num, perm)
-        want = rng.cmj_sample_1d_plain(idx, num, perm)
+        got = rng.cmj_sample_1d(idx, num, perm).cpu()
+        want = rng.cmj_sample_1d(idx.cpu(), num, perm.cpu())
         bad += _differing(got, want)
         err = max(err, float((got - want).abs().max()))
     print(f"1-D samples at every num in 1-300, 1000 and 4097 ({n} lanes "
-          f"each, seeded permutations): values differing {bad}; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"each, seeded permutations), card against CPU: values "
+          f"differing {bad}; {time.perf_counter() - t0:.1f} s", flush=True)
     if bad:
-        raise AssertionError("cmj_sample_1d disagrees with its plain version")
+        raise AssertionError("cmj_sample_1d on the card disagrees with the "
+                             "CPU")
 
     seed = RenderConfig(width=1, height=1).seed
     px, py = _pixel_grid(WIDTH, n // WIDTH, dev)
-    plain = types.SimpleNamespace(hash_combine=rng.hash_combine_plain,
-                                  cmj_sample_1d=rng.cmj_sample_1d_plain,
-                                  cmj_sample_2d=rng.cmj_sample_2d_plain)
     for ps, ls in SAMPLE_PATTERNS:
         si = torch.from_numpy(rs.integers(0, ps * ps, n).astype(np.int32))
-        si = si.to(dev)
-        got = _draws(rng, px, py, si, ps, ls, seed)
-        want = _draws(plain, px, py, si, ps, ls, seed)
+        got = [t.cpu() for t in _draws(px, py, si.to(dev), ps, ls, seed)]
+        want = _draws(px.cpu(), py.cpu(), si, ps, ls, seed)
         diff = sum(_differing(a, b) for a, b in zip(got, want))
         err = max([err] + [float((a - b).abs().max()) for a, b in
                            zip(got, want) if a.dtype == torch.float32])
         print(f"path patterns, {ps}x{ps} pixel x {ls}x{ls} light samples: "
-              f"{len(got)} outputs of {n} lanes, values differing {diff}")
+              f"{len(got)} outputs of {n} lanes, card against CPU, values "
+              f"differing {diff}")
         bad += diff
     if bad:
-        raise AssertionError("the sample streams disagree with their plain "
-                             "versions")
+        raise AssertionError("the single draws on the card disagree with "
+                             "the CPU")
+    if rng.cmj.launches != launches:
+        raise AssertionError("a single draw launched the cmj kernel")
 
     # the draw sets: every renderer's plan through one cmj_draws launch
     # against cmj_draws_plain (the fixed cycle-walk rounds on the card)
@@ -2725,7 +2698,7 @@ MARKERS = {"cluster_masks": "cluster_masks_kernel",
            "traverse_items": "items_init_kernel",
            "build_items": "build_items_kernel",
            "cluster_pipeline": "cluster_pipeline_kernel",
-           "cmj": "cmj_",  # cmj_draws_kernel, or a single draw's kernels
+           "cmj": "cmj_draws_kernel",
            "fold_small": "fold_small_kernel",
            "bounce_prepare": "bounce_prepare_kernel",
            "bounce_resolve": "bounce_resolve_kernel",
@@ -4309,44 +4282,39 @@ def run_graphs(dev, card: str) -> dict:
     return out
 
 
-def run_phase_table(dev) -> None:
+def run_frame_profile(dev) -> None:
     """Phase 22: one profiled, replayed stage-6 frame on each route: host
     kernel and graph launches, kernel ms and the share of that frame's
-    wall ms they fill, and utils/profiling.phase_table (the 'xla' frame's
-    cluster_pipeline kernel must be there)."""
+    wall ms they fill, and its twelve costliest kernels by name
+    (utils/profiling.collect_device_ops; the 'xla' frame's
+    cluster_pipeline kernel must have device time)."""
     import torch
 
-    from rayito_tpu_torch.utils.profiling import collect_device_ops as \
-        collect_ops
-    from rayito_tpu_torch.utils.profiling import phase_table
+    from rayito_tpu_torch.utils.profiling import collect_device_ops
 
-    _phase("phase table")
+    _phase("frame profile")
     scene, _, _, frame = stage6_setup(dev)
     for traversal in ("pallas", "xla"):
         sd = dataclasses.replace(scene, traversal=traversal)
         frame(sd)  # captures the pass graph
         torch.cuda.synchronize()
         p = _profile_frame(lambda: frame(sd))
-        prof = p["prof"]
-        rows = phase_table(prof)
+        ops = sorted(collect_device_ops(p["prof"]).items(),
+                     key=lambda kv: -kv[1][0])
         print(f"stage-6 frame, traversal={traversal!r}: "
               f"{p['host_kernel_launches']} host kernel launches "
               f"({p['graph_launches']} graph launches), {p['kernel_ms']:.1f} "
               f"ms of kernels in a {p['wall_ms']:.1f} ms profiled frame "
               f"(busy {p['kernel_ms'] / p['wall_ms']:.1%})")
-        for label, ms, count in rows:
-            print(f"  {ms:9.3f} ms {count:6d}x  {label}")
-        if not rows:
+        for name, (us, count) in ops[:12]:
+            print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:110]}")
+        if not ops:
             raise AssertionError("the profiler recorded no device kernel")
         if traversal == "xla" and not any(
-                label == "two-level cluster pipeline kernel" and ms > 0
-                for label, ms, _ in rows):
+                "cluster_pipeline_kernel" in name and us > 0
+                for name, (us, _) in ops):
             raise AssertionError("no device time in the 'xla' frame's "
                                  "cluster_pipeline kernel")
-    # the 'xla' frame's costliest kernels by name
-    ops = sorted(collect_ops(prof).items(), key=lambda kv: -kv[1][0])
-    for name, (us, count) in ops[:12]:
-        print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:110]}")
 
 
 if __name__ == "__main__":

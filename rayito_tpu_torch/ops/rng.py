@@ -10,12 +10,12 @@ in one launch of the ``cmj`` kernel on CUDA tensors (``csrc/cmj.cu``
 ``cmj_draws_kernel``: native uint32, one thread per lane, the seeds in
 registers, each lane its own cycle walk), its plain version
 ``cmj_draws_plain`` on CPU tensors. The single draws ``hash_combine``,
-``cmj_sample_1d`` and ``cmj_sample_2d`` (the samplers' and the tests')
-launch the same file's single-draw kernels, or run their plain versions
-(``*_plain``). torch has no full uint32 arithmetic, so the plain versions
-hold every uint32 value in an int64 tensor in ``[0, 2**32)``: logical
-shifts are plain shifts of non-negative values, and wrapping multiplies
-are split into two 16-bit halves so no int64 product can overflow.
+``cmj_sample_1d`` and ``cmj_sample_2d`` (the samplers', the plain
+version's and the tests') launch no kernel: they are torch ops on every
+device. torch has no full uint32 arithmetic, so they hold every uint32
+value in an int64 tensor in ``[0, 2**32)``: logical shifts are plain
+shifts of non-negative values, and wrapping multiplies are split into two
+16-bit halves so no int64 product can overflow.
 
 The Marsaglia MWC generator is the reference's oracle mode only: no
 integrator draws from it.
@@ -172,10 +172,18 @@ def _index(index, index_mul: int, index_add: int):
     return (u32(index) * (index_mul & MASK32) + (index_add & MASK32)) & MASK32
 
 
-def cmj_sample_1d_plain(index: torch.Tensor, n: int, permutation,
-                        index_mul: int = 1, index_add: int = 0):
+def _on_cpu(name, vals) -> bool:
+    """True: no tensor operand, or CPU tensors; False: tensors on one CUDA
+    device. Tensors on more than one device raise."""
+    tensors = [v for v in vals if isinstance(v, torch.Tensor)]
+    return not tensors or cuda_lib.on_cpu(name, *tensors)
+
+
+def cmj_sample_1d(index, n: int, permutation, index_mul: int = 1,
+                  index_add: int = 0):
     """1-D CMJ sample for a pattern of n samples, of the index
     ``index * index_mul + index_add``."""
+    _on_cpu("cmj_sample_1d", (index, permutation))  # raises for two devices
     index = _index(index, index_mul, index_add)
     permutation = u32(permutation)
     pidx = cmj_permute(index, n, _mul32(permutation, 0x8FF3CD11))
@@ -183,10 +191,11 @@ def cmj_sample_1d_plain(index: torch.Tensor, n: int, permutation,
     return _div(pidx.to(torch.float32) + sx, n)
 
 
-def cmj_sample_2d_plain(index: torch.Tensor, nx: int, ny: int, permutation,
-                        index_mul: int = 1, index_add: int = 0):
+def cmj_sample_2d(index, nx: int, ny: int, permutation, index_mul: int = 1,
+                  index_add: int = 0):
     """2-D CMJ sample for an nx x ny pattern, of the index ``index *
     index_mul + index_add``. Returns (d1, d2) in [0,1)."""
+    _on_cpu("cmj_sample_2d", (index, permutation))  # raises for two devices
     index = _index(index, index_mul, index_add)
     permutation = u32(permutation)
     n = nx * ny
@@ -200,9 +209,18 @@ def cmj_sample_2d_plain(index: torch.Tensor, nx: int, ny: int, permutation,
     return d1, d2
 
 
-def hash_combine_plain(*vals) -> torch.Tensor:
-    """Mix a tuple of uint32 tensors/ints into one uint32 seed (the
-    reference's Wang-hash style finalizer over an FNV-ish accumulator)."""
+# a seed's operands: the draw plan's capacity (cmj.cu's kMaxOps)
+MAX_HASH_OPERANDS = 6
+
+
+def hash_combine(*vals) -> torch.Tensor:
+    """Mix a tuple of at most MAX_HASH_OPERANDS uint32 tensors/ints into one
+    uint32 seed (the reference's Wang-hash style finalizer over an
+    FNV-ish accumulator). An all-int call stays a host value."""
+    if len(vals) > MAX_HASH_OPERANDS:
+        raise ValueError(f"hash_combine: at most {MAX_HASH_OPERANDS} "
+                         f"operands, got {len(vals)}")
+    _on_cpu("hash_combine", vals)  # raises for two devices
     # Python ints stay Python ints (scalar operands of the tensor ops): a
     # tensor made from one would be a host-to-device copy, which waits
     h = 0x9E3779B9
@@ -218,10 +236,9 @@ def hash_combine_plain(*vals) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The sample streams' kernel (csrc/cmj.cu) and its wrappers
+# The sample streams' kernel (csrc/cmj.cu): its operands and its launch
 # ---------------------------------------------------------------------------
 
-MAX_HASH_OPERANDS = 6
 _KINDS = {torch.int32: 1, torch.int64: 2}  # cmj.cu's operand kinds (0: imm)
 
 
@@ -259,80 +276,14 @@ def _lanes(name, vals):
     return vals, shape
 
 
-def _plain(name, vals) -> bool:
-    """True: the plain version runs (no tensor operand, or CPU tensors)."""
-    tensors = [v for v in vals if isinstance(v, torch.Tensor)]
-    return not tensors or cuda_lib.on_cpu(name, *tensors)
-
-
 @cuda_lib.counted
-def cmj(entry: str, dev, *args) -> None:
-    """Launch ``entry`` of csrc/cmj.cu (``rt_hash_combine`` or
-    ``rt_cmj_sample``) on ``dev``'s current stream and count it: the launch
-    count of the sample streams' kernel, whichever wrapper launched."""
+def cmj(dev, *args) -> None:
+    """Launch ``rt_cmj_draws`` (csrc/cmj.cu) on ``dev``'s current stream and
+    count it: the launch count of the sample streams' kernel."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    cuda_lib.check(getattr(cuda_lib.library(), entry)(*args, stream), entry)
+    cuda_lib.check(cuda_lib.library().rt_cmj_draws(*args, stream),
+                   "rt_cmj_draws")
     cuda_lib.count_launch(cmj, dev)
-
-
-def hash_combine(*vals) -> torch.Tensor:
-    """Kernel wrapper of :func:`hash_combine_plain` (at most
-    MAX_HASH_OPERANDS operands: int32 or int64 tensors, or ints). An
-    all-int call stays a host value."""
-    if _plain("hash_combine", vals):
-        return hash_combine_plain(*vals)
-    if len(vals) > MAX_HASH_OPERANDS:
-        raise ValueError(f"hash_combine: at most {MAX_HASH_OPERANDS} "
-                         f"operands on the card, got {len(vals)}")
-    vals, shape = _lanes("hash_combine", vals)
-    ops = (_Operand * MAX_HASH_OPERANDS)(*(
-        _operand("hash_combine", v) for v in vals))
-    dev = next(v.device for v in vals if isinstance(v, torch.Tensor))
-    out = torch.empty(shape, dtype=torch.int64, device=dev)
-    if out.numel():
-        cmj("rt_hash_combine", dev, ctypes.addressof(ops), len(vals),
-            out.numel(), out.data_ptr())
-    return out
-
-
-def _sample(name, index, nx: int, ny: int, permutation, index_mul: int,
-            index_add: int):
-    """Launch the sample kernel: (d1, d2) of the 2-D nx x ny pattern, or
-    (d1, None) of the 1-D nx pattern when ny is 0."""
-    if nx < 1 or ny < 0 or nx * max(ny, 1) > MASK32:
-        raise ValueError(f"{name}: pattern {nx} x {ny} out of range")
-    vals, shape = _lanes(name, (index, permutation))
-    idx, perm = (_operand(name, v) for v in vals)
-    dev = next(v.device for v in vals if isinstance(v, torch.Tensor))
-    d1 = torch.empty(shape, dtype=torch.float32, device=dev)
-    d2 = torch.empty(shape, dtype=torch.float32, device=dev) if ny else None
-    if d1.numel():
-        cmj("rt_cmj_sample", dev, ctypes.addressof(idx), index_mul & MASK32,
-            index_add & MASK32, ctypes.addressof(perm), nx, ny,
-            d1.data_ptr(), 0 if d2 is None else d2.data_ptr(), d1.numel())
-    return d1, d2
-
-
-def cmj_sample_1d(index, n: int, permutation, index_mul: int = 1,
-                  index_add: int = 0):
-    """Kernel wrapper of :func:`cmj_sample_1d_plain`."""
-    if _plain("cmj_sample_1d", (index, permutation)):
-        return cmj_sample_1d_plain(index, n, permutation, index_mul,
-                                   index_add)
-    return _sample("cmj_sample_1d", index, n, 0, permutation, index_mul,
-                   index_add)[0]
-
-
-def cmj_sample_2d(index, nx: int, ny: int, permutation, index_mul: int = 1,
-                  index_add: int = 0):
-    """Kernel wrapper of :func:`cmj_sample_2d_plain`."""
-    if _plain("cmj_sample_2d", (index, permutation)):
-        return cmj_sample_2d_plain(index, nx, ny, permutation, index_mul,
-                                   index_add)
-    if ny < 1:
-        raise ValueError(f"cmj_sample_2d: pattern {nx} x {ny} out of range")
-    return _sample("cmj_sample_2d", index, nx, ny, permutation, index_mul,
-                   index_add)
 
 
 # ---------------------------------------------------------------------------
@@ -376,20 +327,20 @@ def draw_rows(plan) -> list:
 def cmj_draws_plain(plan, px, py, si) -> torch.Tensor:
     """The draw set ``plan`` (a sequence of ``Draw``) at the lanes (px, py,
     si): [n_out, *lanes] float32, each draw's rows in plan order, through
-    the single-draw plain versions (each distinct seed hashed once)."""
+    the single draws (each distinct seed hashed once)."""
     lanes = dict(zip(LANE_OPERANDS, (px, py, si)))
     seeds, rows = {}, []
     for dr in plan:
         h = seeds.get(dr.seed)
         if h is None:
-            h = seeds[dr.seed] = hash_combine_plain(*(
+            h = seeds[dr.seed] = hash_combine(*(
                 lanes[v] if isinstance(v, str) else v for v in dr.seed))
         if dr.ny:
-            rows += cmj_sample_2d_plain(si, dr.nx, dr.ny, h, dr.index_mul,
-                                        dr.index_add)
+            rows += cmj_sample_2d(si, dr.nx, dr.ny, h, dr.index_mul,
+                                  dr.index_add)
         else:
-            rows.append(cmj_sample_1d_plain(si, dr.nx, h, dr.index_mul,
-                                            dr.index_add))
+            rows.append(cmj_sample_1d(si, dr.nx, h, dr.index_mul,
+                                      dr.index_add))
     return torch.stack(rows)
 
 
@@ -490,7 +441,7 @@ def cmj_draws(plan, px, py, si) -> torch.Tensor:
     launch (more where it outgrows a launch's plan), the lanes' px, py and
     si (int32 or int64 tensors of one shape, or 0-d) read once each."""
     plan = tuple(plan)
-    if _plain("cmj_draws", (px, py, si)):
+    if _on_cpu("cmj_draws", (px, py, si)):
         for dr in plan:
             _check_draw(dr)
         return cmj_draws_plain(plan, px, py, si)
@@ -503,7 +454,7 @@ def cmj_draws(plan, px, py, si) -> torch.Tensor:
     if n:
         _check_plan_layout()
         for p in launches:
-            cmj("rt_cmj_draws", dev, ctypes.addressof(p),
+            cmj(dev, ctypes.addressof(p),
                 *(ctypes.addressof(o) for o in ops), out.data_ptr(), n)
     return out
 

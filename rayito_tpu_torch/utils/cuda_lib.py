@@ -48,7 +48,6 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_U = ctypes.c_uint32
 SIGNATURES = {
     "rt_cluster_masks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
                          _P],
@@ -60,8 +59,6 @@ SIGNATURES = {
     "rt_build_items": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
                        _I, _I, _I, _P],
     "rt_cluster_pipeline": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _P],
-    "rt_hash_combine": [_P, _I, _I, _P, _P],
-    "rt_cmj_sample": [_P, _U, _U, _P, _I, _I, _P, _P, _I, _P],
     # plan, px, py, si, out, n, stream
     "rt_cmj_draws": [_P, _P, _P, _P, _P, _I, _P],
     "rt_cmj_plan_bytes": [],

@@ -1,31 +1,14 @@
 """Device-time profiling helpers (counterpart of
 ``rayito_tpu/utils/profiling.py``): digest a finished ``torch.profiler``
-trace into per-kernel and per-phase device time, so the tools can answer
+trace into per-kernel device time, and the device spans of
+``utils/tracing.py`` into per-layer device time, so the tools can answer
 "where does the frame go" without reading thousands of trace events.
+Which layer of the pass a kernel served is told by the spans, not by its
+name.
 """
 
 from __future__ import annotations
 
-# Kernel-name substrings (matched in lower case) -> renderer phase, first
-# match wins. The port's
-# CUDA kernels are named by their __global__ symbols in csrc/; PyTorch's
-# own kernels are bucketed by family.
-_PHASES = (
-    ("cluster_masks_kernel", "cluster-mask kernel (slab tests)"),
-    ("blocks_", "block traversal kernels (traverse_blocks)"),
-    ("build_items_kernel", "item-list kernel (build_items)"),
-    ("items_", "item traversal kernels (traverse_items)"),
-    ("gather_rows_t_kernel", "winner-row gather kernel"),
-    ("cluster_pipeline_kernel", "two-level cluster pipeline kernel"),
-    ("cmj_", "sample-stream kernels (cmj)"),
-    ("fold_small_kernel", "tiny-mesh fold kernel"),
-    ("bounce_prepare_kernel", "shading kernel before the queries"),
-    ("bounce_resolve_kernel", "shading kernel after the queries"),
-    ("trace_mark_kernel", "device span markers (utils/tracing.py)"),
-    ("sort", "coherence sort / unsort"),
-    ("elementwise", "PyTorch elementwise kernels"),
-    ("reduce", "PyTorch reductions"),
-)
 
 def collect_device_ops(prof):
     """{kernel name: (total µs, count)} over the device-side events of a
@@ -39,24 +22,6 @@ def collect_device_ops(prof):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)}
-
-
-def phase_table(prof, divisor: float = 1.0):
-    """[(phase, ms, kernel count)] sorted by cost: the device kernels by
-    name. ``divisor`` scales the totals (e.g. the number of profiled
-    frames). Which layer of the pass a PyTorch kernel served is told by the
-    device spans of ``utils/tracing.py``, not by its name."""
-    rows = {}
-    for name, (us, count) in collect_device_ops(prof).items():
-        label = next((lab for key, lab in _PHASES if key in name.lower()),
-                     "other device kernels")
-        row = rows.setdefault(label, [0.0, 0])
-        row[0] += us
-        row[1] += count
-    return sorted(((label, us / 1e3 / divisor, count)
-                   for label, (us, count) in rows.items() if count),
-                  key=lambda r: -r[1])
-
 
 
 def span_table(snapshot, divisor: float = 1.0) -> dict:

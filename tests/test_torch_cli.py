@@ -320,15 +320,16 @@ def test_cli_sharded_and_resumed_write_the_same_bytes(tmp_path,
     assert data["plain"] == data["sharded"] == data["resumed"]
 
 
-def test_phase_table_buckets_the_port_kernels():
-    """collect_device_ops keeps the device rows of a profile;
-    phase_table buckets them by the csrc kernels' __global__ symbols and
-    PyTorch's kernel families."""
+def test_collect_device_ops_keeps_the_device_kernels():
+    """collect_device_ops keeps each device row of a profile, the csrc
+    kernels' __global__ symbols and PyTorch's kernels alike, with its
+    total µs and count as the profiler gave them, and drops the host
+    rows."""
     from types import SimpleNamespace
 
     from torch.autograd import DeviceType
 
-    from rayito_tpu_torch.utils.profiling import collect_device_ops, phase_table
+    from rayito_tpu_torch.utils.profiling import collect_device_ops
 
     def row(key, us, count, device=DeviceType.CUDA):
         return SimpleNamespace(key=key, self_device_time_total=us,
@@ -337,29 +338,15 @@ def test_phase_table_buckets_the_port_kernels():
     rows = [
         row("cluster_masks_kernel(float const*, ...)", 500.0, 18),
         row("blocks_fold_kernel(int const*, ...)", 4000.0, 18),
-        row("blocks_units_kernel(int const*, ...)", 100.0, 18),
-        row("build_items_kernel(int const*, int*, ...)", 30.0, 6),
-        row("items_fold_kernel(int const*, ...)", 2000.0, 6),
-        row("gather_rows_t_kernel(float const*, ...)", 120.0, 6),
+        row("analytic_fold_kernel(void const*, ...)", 300.0, 9),
+        row("ray_unsort_kernel(int const*, ...)", 40.0, 6),
         row("void at::native::vectorized_elementwise_kernel<4, ...>", 9000.0,
             20000),
-        row("void at::native::reduce_kernel<512, 1, ...>", 700.0, 300),
         row("void at::native::radixSortKVInPlace<...>", 400.0, 36),
-        row("void some_other_kernel<...>", 50.0, 2),
         row("aten::add", 1e6, 20000, DeviceType.CPU),
+        row("cudaLaunchKernel", 2e5, 300, DeviceType.CPU),
     ]
     prof = SimpleNamespace(key_averages=lambda: rows)
     ops = collect_device_ops(prof)
-    assert len(ops) == 10 and "aten::add" not in ops
-    table = {label: (ms, n) for label, ms, n in phase_table(prof, 2.0)}
-    assert table["cluster-mask kernel (slab tests)"] == (0.25, 18)
-    assert table["block traversal kernels (traverse_blocks)"] == (2.05, 36)
-    assert table["item-list kernel (build_items)"] == (0.015, 6)
-    assert table["item traversal kernels (traverse_items)"] == (1.0, 6)
-    assert table["winner-row gather kernel"] == (0.06, 6)
-    assert table["PyTorch elementwise kernels"] == (4.5, 20000)
-    assert table["PyTorch reductions"] == (0.35, 300)
-    assert table["coherence sort / unsort"] == (0.2, 36)
-    assert table["other device kernels"] == (0.025, 2)
-    ms = [r[1] for r in phase_table(prof)]
-    assert ms == sorted(ms, reverse=True)
+    assert ops == {r.key: (r.self_device_time_total, r.count)
+                   for r in rows[:6]}

@@ -41,11 +41,11 @@ a mesh whose boxes all tie and stage 6's camera, bounce and shadow rays,
 and its passes captured as graphs (stage 6 and the overflowing stack) and
 replayed through render_path_with_stats, render_progressive and the
 sharded render; and
-the sample streams' kernel (hash_combine, cmj_sample_1d, cmj_sample_2d)
-against its plain versions at nums that walk and nums that do not, with
-int32 and int64 operands, 0-d and immediate permutations and the
-multiplier-and-addend index, its launch count inside a captured graph,
-the draw-set kernel (cmj_draws) against cmj_draws_plain on every
+the single draws (hash_combine, cmj_sample_1d, cmj_sample_2d: torch ops,
+no kernel) on the card against the same calls on the CPU at nums that
+walk and nums that do not, with int32 and int64 operands, 0-d and
+immediate permutations and the multiplier-and-addend index, no launch
+counted, the draw-set kernel (cmj_draws) against cmj_draws_plain on every
 renderer's plan at pixel samples {1, 2, 3, 12} x light samples {1, 2}, a
 plan split into three launches and a set replayed in a graph, and
 build_items replayed five times in one graph over masks changed between
@@ -1716,15 +1716,20 @@ def _same_bits(a, b):
     return torch.equal(a, b)
 
 
+def _cpu(v):
+    return v.cpu() if isinstance(v, torch.Tensor) else v
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
                          ids=["int32", "int64"])
 @pytest.mark.parametrize("num", [1, 2, 3, 5, 9, 17, 144, 300, 576, 4097])
 def test_cmj_samples_match_plain(dev, num, dtype):
-    """cmj_sample_1d and a num x 3 cmj_sample_2d through the kernel
-    against their plain versions (the fixed cycle-walk rounds on the
-    card), bit for bit, on 65,536 lanes of seeded permutations: the plain
-    index, a 0-d and an immediate permutation, and the flat index
-    si * 3 + 2 as a multiplier and an addend."""
+    """cmj_sample_1d and a num x 3 cmj_sample_2d on the card (the fixed
+    cycle-walk rounds) against the same calls on CPU copies of their
+    inputs (the walk stopping once every lane is in range), bit for bit,
+    on 65,536 lanes of seeded permutations: the plain index, a 0-d and an
+    immediate permutation, and the flat index si * 3 + 2 as a multiplier
+    and an addend. No cmj launch is counted."""
     from rayito_tpu_torch.ops import rng
 
     rs = np.random.default_rng(num)
@@ -1737,65 +1742,43 @@ def test_cmj_samples_match_plain(dev, num, dtype):
     if num % 3 == 0:
         cases.append((((lane % (num // 3)).to(dtype), num, perm),
                       {"index_mul": 3, "index_add": 2}))
+    before = rng.cmj.launches
     for args, kw in cases:
         got = rng.cmj_sample_1d(*args, **kw)
-        assert _same_bits(got, rng.cmj_sample_1d_plain(*args, **kw)), kw
+        want = rng.cmj_sample_1d(*map(_cpu, args), **kw)
+        assert got.is_cuda and _same_bits(got.cpu(), want), kw
     idx2 = (lane % (num * 3)).to(dtype)
     got = rng.cmj_sample_2d(idx2, num, 3, perm)
-    want = rng.cmj_sample_2d_plain(idx2, num, 3, perm)
-    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    want = rng.cmj_sample_2d(idx2.cpu(), num, 3, perm.cpu())
+    assert all(g.is_cuda and _same_bits(g.cpu(), w)
+               for g, w in zip(got, want))
+    assert rng.cmj.launches == before
 
 
 def test_hash_combine_matches_plain(dev):
-    """hash_combine through the kernel against its plain version, bit for
-    bit: int32 and int64 lanes, 0-d tensors and immediates, one to six
-    operands; seven operands and tensors on two devices are refused; an
-    all-int hash stays on the host."""
+    """hash_combine on the card against the same call on CPU copies of its
+    operands, bit for bit: int32 and int64 lanes, 0-d tensors and
+    immediates, one to six operands, no cmj launch counted; seven
+    operands and tensors on two devices are refused; an all-int hash
+    stays on the host."""
     from rayito_tpu_torch.ops import rng
 
     rs = np.random.default_rng(2)
     n = 100_000
     a, b = _u32(rs, n, dev, torch.int32), _u32(rs, n, dev)
     c = torch.tensor(-3, dtype=torch.int32, device=dev)
+    before = rng.cmj.launches
     for ops in ((a,), (a, b), (a, 7, b, c),
                 (a, b, rng.PURPOSE_LIGHT, 2, c, 0xFFFFFFFF)):
         got = rng.hash_combine(*ops)
-        assert got.dtype == torch.int64 and got.shape == (n,)
-        assert torch.equal(got, rng.hash_combine_plain(*ops))
+        assert got.dtype == torch.int64 and got.shape == (n,) and got.is_cuda
+        assert torch.equal(got.cpu(), rng.hash_combine(*map(_cpu, ops)))
+    assert rng.cmj.launches == before
     with pytest.raises(ValueError, match="at most 6"):
         rng.hash_combine(a, 1, 2, 3, 4, 5, 6)
     assert rng.hash_combine(1, 2).device.type == "cpu"
     with pytest.raises(ValueError, match="one CUDA device"):
         rng.hash_combine(a, torch.zeros(n, dtype=torch.int32))
-
-
-def test_cmj_kernel_counts_and_captures(dev):
-    """Each wrapper launch counts once, under the one name cmj, on the host
-    and on the device; inside a captured graph every replay counts, and
-    the replayed draw equals the eager one."""
-    from rayito_tpu_torch.ops import rng
-
-    px = torch.arange(4096, dtype=torch.int32, device=dev)
-    si = px % 4
-
-    def draw():
-        h = rng.hash_combine(px, px // 64, rng.PURPOSE_BOUNCE, 1, 1)
-        return rng.cmj_sample_2d(si, 2, 2, h)
-
-    want = draw()
-    torch.cuda.synchronize()
-    with tracing.on():
-        cuda_lib.reset_launch_counts()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            got = draw()
-        g.replay()
-        g.replay()
-        torch.cuda.synchronize()
-        assert rng.cmj.launches == 2
-        # two replays of two launches
-        assert cuda_lib.launch_counts()["cmj"] == 4
-    assert all(_same_bits(a, b) for a, b in zip(got, want))
 
 
 def _draw_plans(ps, ls):

@@ -12,8 +12,8 @@ launch of ``csrc/cmj.cu``'s ``cmj_draws_kernel`` on the card, held against
     the reference's ``rayito_tpu.ops.rng`` draws bit for bit (op by op
     under ``jax.disable_jit``), on 512 seeded lanes at pixel samples
     {1, 2, 3, 12} x light samples {1, 2};
-  * it equals the same draws made one by one through the single-draw
-    plain versions, with int32 and int64 lanes;
+  * it equals the same draws made one by one through the single draws,
+    with int32 and int64 lanes;
   * the plan's encoding: its rows, its split into launches of at most
     MAX_PLAN_SEEDS seeds and MAX_PLAN_DRAWS draws, and what it refuses;
   * the kernel's magic-number divisions (``magic_divisor``, its
@@ -110,21 +110,21 @@ def test_draw_sets_match_reference(ps, ls):
                          ids=["int32", "int64"])
 @pytest.mark.parametrize("ps, ls", [(1, 1), (2, 2), (3, 1), (12, 2)])
 def test_draw_sets_equal_single_draws(ps, ls, dtype):
-    """Each draw's rows equal hash_combine_plain then cmj_sample_*_plain of
-    that draw alone, at the rows draw_rows gives it."""
+    """Each draw's rows equal hash_combine then cmj_sample_* of that draw
+    alone, at the rows draw_rows gives it."""
     px, py, si = (torch.from_numpy(a) for a in _lanes(ps, ls, dtype))
     lanes = {"px": px, "py": py, "si": si}
     for name, plan in _plans(ps, ls).items():
         got = trng.cmj_draws_plain(plan, px, py, si)
         for dr, row in zip(plan, trng.draw_rows(plan)):
-            h = trng.hash_combine_plain(*(
+            h = trng.hash_combine(*(
                 lanes[v] if isinstance(v, str) else v for v in dr.seed))
             if dr.ny:
-                want = trng.cmj_sample_2d_plain(si, dr.nx, dr.ny, h,
-                                                dr.index_mul, dr.index_add)
+                want = trng.cmj_sample_2d(si, dr.nx, dr.ny, h,
+                                          dr.index_mul, dr.index_add)
             else:
-                want = (trng.cmj_sample_1d_plain(si, dr.nx, h, dr.index_mul,
-                                                 dr.index_add),)
+                want = (trng.cmj_sample_1d(si, dr.nx, h, dr.index_mul,
+                                           dr.index_add),)
             for k, w in enumerate(want):
                 assert torch.equal(got[row + k].view(torch.int32),
                                    w.view(torch.int32)), (name, dr, k)

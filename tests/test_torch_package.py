@@ -4,10 +4,13 @@
     without importing jax or rayito_tpu;
   * the reference's TPU-only scheduling options are rejected loudly;
   * a kernel wrapper runs its plain version only for CPU tensors: other
-    devices raise, and a library that cannot be built raises.
+    devices raise, and a library that cannot be built raises;
+  * ``cuda_lib.SIGNATURES`` declares exactly the ``extern "C"`` entries of
+    ``csrc/*.cu``, each with as many parameters as its definition.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -135,3 +138,20 @@ def test_unbuildable_library_raises(monkeypatch, tmp_path):
             cuda_lib.library()
     finally:
         cuda_lib.library.cache_clear()
+
+
+def test_signatures_declare_every_c_entry():
+    """The ctypes declarations and the sources agree: every ``extern "C"``
+    entry of csrc/*.cu is in SIGNATURES with its parameter count, and
+    SIGNATURES names nothing else."""
+    entry = re.compile(r'extern "C"\s+int\s+(\w+)\s*\(([^)]*)\)')
+    found = {}
+    for f in sorted(os.listdir(cuda_lib.CSRC)):
+        if f.endswith(".cu"):
+            with open(os.path.join(cuda_lib.CSRC, f)) as src:
+                for name, params in entry.findall(src.read()):
+                    assert name not in found, f"{name} defined twice"
+                    found[name] = len([p for p in params.split(",")
+                                       if p.strip() not in ("", "void")])
+    assert found == {name: len(argtypes)
+                     for name, argtypes in cuda_lib.SIGNATURES.items()}

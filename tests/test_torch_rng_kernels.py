@@ -1,11 +1,13 @@
 """Port parity: the sample streams and the tiny-mesh fold, the two kernels
 whose plain versions were the reference's XLA regions, on the CPU.
 
-On a CPU tensor ``hash_combine``, ``cmj_sample_1d``, ``cmj_sample_2d``
-(``ops/rng.py``) and ``fold_small`` (``render/mesh_intersect.py``) run
-their plain versions; the kernels themselves (``csrc/cmj.cu``,
-``csrc/fold_small.cu``) are held against those on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``). Here, against
+``hash_combine``, ``cmj_sample_1d`` and ``cmj_sample_2d`` (``ops/rng.py``,
+the single draws) are torch ops on every device, and the draw-set
+kernel's plain version draws through them; on a CPU tensor
+``fold_small`` (``render/mesh_intersect.py``) runs its plain version. The
+kernels themselves (``csrc/cmj.cu``, ``csrc/fold_small.cu``) are held
+against those on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``). Here, against
 ``rayito_tpu`` (op by op under ``jax.disable_jit``, so XLA contracts
 nothing and walks the cycle in a Python loop):
 

@@ -21,10 +21,10 @@ after a warm-up frame), its queries, and one launch's camera rays
 the host's enqueue of each small op included) and ``cam_kernel_ms``, the
 device time of their kernels under torch.profiler. In a tree whose
 ``cmj_permute`` takes ``fixed_rounds``, also the same two through the
-plain versions with the walk stopping early (``cam_early_ms``,
-``cam_early_kernel_ms``), the card read back each round. A replayed graph
-runs the fixed rounds at about their kernel time; an eager pass pays
-their event time.
+draw set's plain version (``cmj_draws_plain``) with the walk stopping
+early (``cam_early_ms``, ``cam_early_kernel_ms``), the card read back
+each round. A replayed graph runs the fixed rounds at about their kernel
+time; an eager pass pays their event time.
 
 ``--root`` names the tree whose ``rayito_tpu_torch`` is imported (default:
 this checkout), so two commits can be compared in one call:
@@ -134,23 +134,16 @@ def main() -> int:
              "cam_ms": _event_ms(rays), "cam_kernel_ms": _kernel_ms(rays),
              "card": card}
         if early:
-            walk = rng.cmj_permute
-            # a tree with the cmj kernel: its wrappers' plain versions
-            names = [k for k in ("hash_combine", "cmj_sample_1d",
-                                 "cmj_sample_2d")
-                     if hasattr(rng, k + "_plain")]
-            saved = {k: getattr(rng, k) for k in names}
-            for k in names:
-                setattr(rng, k, getattr(rng, k + "_plain"))
+            # the draw set's plain version, its walk stopping early
+            walk, draws = rng.cmj_permute, rng.cmj_draws
             rng.cmj_permute = (lambda i, num, p:  # noqa: E731
                                walk(i, num, p, fixed_rounds=False))
+            rng.cmj_draws = rng.cmj_draws_plain
             try:
                 r["cam_early_ms"] = _event_ms(rays)
                 r["cam_early_kernel_ms"] = _kernel_ms(rays)
             finally:
-                rng.cmj_permute = walk
-                for k, fn in saved.items():
-                    setattr(rng, k, fn)
+                rng.cmj_permute, rng.cmj_draws = walk, draws
         print(json.dumps(r), flush=True)
     return 0
 

@@ -2,9 +2,8 @@
 
 Builds the kernel library (``utils/cuda_lib.build``), disassembles it with
 ``cuobjdump -sass`` and prints, for each kernel named (by default the
-sample-stream kernels of ``csrc/cmj.cu``: the draw set's
-``cmj_draws_kernel`` and the single draws' ``cmj_hash_kernel`` and
-``cmj_sample_kernel``), one JSON line per compiled function: its
+sample streams' kernel of ``csrc/cmj.cu``, the draw set's
+``cmj_draws_kernel``), one JSON line per compiled function: its
 instruction count by opcode, every loop (a branch back to an earlier
 address) with the instructions between its head and that branch, and its
 basic blocks. The draw set's bound counts its own arithmetic in the
@@ -52,7 +51,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-KERNELS = ("cmj_draws_kernel", "cmj_hash_kernel", "cmj_sample_kernel")
+KERNELS = ("cmj_draws_kernel",)
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"([^;]*);")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")

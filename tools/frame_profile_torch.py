@@ -21,7 +21,6 @@ frames call the entry points themselves):
   * the device ops (kernels run on the card) of the profiled frame;
   * the number of kernel and CUDA-graph launches per frame;
   * the twelve kernels that take the most device time;
-  * utils/profiling.phase_table: device time by kernel family;
   * utils/profiling.span_table of one more frame run with tracing on
     (utils/tracing.py; its traced graphs captured by a frame before it):
     each device span's ms per frame, its self ms (less its child spans)
@@ -97,7 +96,7 @@ def profile_frame(frame, card: str, label: str, tree: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from rayito_tpu_torch.utils import profiling
-    from rayito_tpu_torch.utils.profiling import collect_device_ops, phase_table
+    from rayito_tpu_torch.utils.profiling import collect_device_ops
 
     try:  # a tree before tracing has no span table
         from rayito_tpu_torch.utils import tracing
@@ -141,9 +140,6 @@ def profile_frame(frame, card: str, label: str, tree: str) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     for name, (us, count) in top[:12]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}")
-    print("by phase:")
-    for row, ms, count in phase_table(prof):
-        print(f"  {ms:9.3f} ms {count:6d}x  {row}")
     spans, counters = {}, {}
     if tracing is not None:
         with tracing.on():

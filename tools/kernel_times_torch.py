@@ -26,12 +26,9 @@ as one call), ``fold_ms`` the fold kernels alone (the per-mesh tree's ten
 launches on rays already in local space; the per-query tree's one).
 ``draws`` times the sample streams' draw sets at stage 6's shapes (the
 first band's 131,072 lanes, sample 0): the camera's, one bounce's, and
-stage 3's direct-lighting light loop (two lights, 4x4 light samples):
-``set_ms`` is the set as the tree draws it (one ``cmj_draws`` launch per
-set, ``launches`` of them; absent in a tree without it), ``single_ms``
-the same draws one by one (``hash_combine`` per seed and a
-``cmj_sample_1d`` / ``cmj_sample_2d`` per draw, as the renderers drew
-before the draw sets).
+stage 3's direct-lighting light loop (two lights, 4x4 light samples), as
+the tree's renderers build them: ``set_ms`` is one set (one
+``cmj_draws`` launch per set, ``launches`` of them).
 
 ``--root`` names the tree whose ``chip_smoke.py`` and ``rayito_tpu_torch``
 are imported (default: this checkout), so two commits can be compared in
@@ -168,37 +165,8 @@ def _tiny_records(cs, dev):
                "query_ms": _device_ms(query), "fold_ms": _device_ms(fold)}
 
 
-def _plans(stage6_cfg, n_lights: int) -> dict:
-    """The draw sets as (seed operands, nx, ny, index_mul, index_add)
-    tuples, as render/pathtracer.py's camera_draws and bounce_draws (bounce
-    1) and render/integrator.py's direct_light_draws (stage 3's 4x4 light
-    samples, two lights) build them."""
-    ps, ls, seed = (stage6_cfg.pixel_samples, stage6_cfg.light_samples,
-                    stage6_cfg.seed)
-    from rayito_tpu_torch.ops import rng
-
-    nls = ls * ls
-    key = lambda p: ("px", "py", p, 1, seed)  # noqa: E731
-    bounce = []
-    for lsi in range(nls if n_lights else 0):
-        bounce += [(key(rng.PURPOSE_LIGHT_SELECT), (ps * ls) ** 2, 0, nls,
-                    lsi),
-                   (key(rng.PURPOSE_LIGHT), ps * ls, ps * ls, nls, lsi),
-                   (key(rng.PURPOSE_LIGHT_ELEMENT), (ps * ls) ** 2, 0, nls,
-                    lsi),
-                   (key(rng.PURPOSE_BRDF), ps * ls, ps * ls, nls, lsi)]
-    bounce.append((key(rng.PURPOSE_BOUNCE), ps, ps, 1, 0))
-    camera = [(("px", "py", p, seed), nx, ny, 1, 0) for p, nx, ny in (
-        (rng.PURPOSE_SUBPIXEL, ps, ps), (rng.PURPOSE_LENS, ps, ps),
-        (rng.PURPOSE_TIME, ps * ps, 0))]
-    direct = [(("px", "py", "si", rng.PURPOSE_LIGHT, li, seed), 4, 4, 0, k)
-              for li in range(2) for k in range(16)]
-    return {"camera": camera, "bounce": bounce, "direct_lights": direct}
-
-
 def _draws_records(cs, dev):
-    """The draw sets at stage 6's shapes, as one launch per set and as
-    single draws."""
+    """The draw sets at stage 6's shapes, one ``cmj_draws`` call a set."""
     import torch
 
     from rayito_tpu_torch.ops import rng
@@ -209,41 +177,18 @@ def _draws_records(cs, dev):
     n = cfg.max_rays_per_pass
     px, py = ig._pixel_grid(cfg.width, n // cfg.width, dev)
     si = torch.zeros((n,), dtype=torch.int32, device=dev)
-    lanes = {"px": px, "py": py, "si": si}
-    plans = _plans(cfg, scene.n_lights)
-    if hasattr(rng, "cmj_draws"):  # the tree's own plans, the same draws
-        cfg3 = cfg.__class__(width=cfg.width, height=cfg.height,
-                             light_samples=4, seed=cfg.seed)
-        own = {"camera": pt.camera_draws(cfg),
-               "bounce": pt.bounce_draws(cfg, scene.n_lights, 1),
-               "direct_lights": ig.direct_light_draws(cfg3, 2)}
-        for name, plan in own.items():
-            if [tuple(d) for d in plan] != plans[name]:
-                raise RuntimeError(f"the {name} plan differs from the tree's")
-
-    def single(plan):
-        seeds = {}
-        out = []
-        for ops, nx, ny, mul, add in plan:
-            if ops not in seeds:
-                seeds[ops] = rng.hash_combine(*(lanes.get(v, v)
-                                                for v in ops))
-            if ny:
-                out += rng.cmj_sample_2d(si, nx, ny, seeds[ops], mul, add)
-            else:
-                out.append(rng.cmj_sample_1d(si, nx, seeds[ops], mul, add))
-        return out
-
+    cfg3 = cfg.__class__(width=cfg.width, height=cfg.height,
+                         light_samples=4, seed=cfg.seed)
+    plans = {"camera": pt.camera_draws(cfg),
+             "bounce": pt.bounce_draws(cfg, scene.n_lights, 1),
+             "direct_lights": ig.direct_light_draws(cfg3, 2)}
     for name, plan in plans.items():
-        rec = {"scene": "draws", "set": name, "lanes": n,
-               "draws": len(plan), "seeds": len({p[0] for p in plan}),
-               "single_ms": _device_ms(lambda: single(plan))}
-        if hasattr(rng, "cmj_draws"):
-            draws = tuple(rng.Draw(*p) for p in plan)
-            rec["launches"] = len(rng._encode(draws)[0])
-            rec["set_ms"] = _device_ms(lambda: rng.cmj_draws(draws, px, py,
-                                                             si))
-        yield rec
+        plan = tuple(plan)
+        yield {"scene": "draws", "set": name, "lanes": n,
+               "draws": len(plan), "seeds": len({d.seed for d in plan}),
+               "launches": len(rng._encode(plan)[0]),
+               "set_ms": _device_ms(lambda: rng.cmj_draws(plan, px, py,
+                                                          si))}
 
 
 def main() -> int:
