@@ -636,16 +636,23 @@ def _put_bound(r, key, ops, nbytes):
     r[key + "_share"] = r[key + "_bound_ms"] / r[key + "_ms"]
 
 
-def _traverse_bound(r, key, masks, soat, tri, mt):
-    """Bound of one traverse_blocks (or traverse_items) launch: every
-    listed pair's 128 x 128 tests; each input read once (the masks, the
-    rays, the listed clusters' rows), t and prim written once."""
+def _traverse_bound(r, key, masks, soat, tri, mt, runs):
+    """Bound of one traverse_blocks (or traverse_items) launch: the tests
+    its warps ran, 32 x 32 a slice run (``runs``, the counter
+    ``traverse.slices``), and beside it (``_listed_bound_ms``) every listed
+    pair's 128 x 128, which the slice cull skips most of; each input read
+    once (the masks, the rays, the listed clusters' rows and slice boxes),
+    t and prim written once."""
     pairs, clusters = _listed(masks, tri.shape[0])
     rows = 12 if mt == "bw" else 9
     nbytes = (masks.numel() * 4 + soat.numel() * 4
-              + clusters * rows * 128 * 4 + soat.shape[0] * soat.shape[1] * 8)
-    _put_bound(r, key, pairs * 128 * 128 * TEST_OPS[mt], nbytes)
+              + clusters * (rows * 128 + 32) * 4
+              + soat.shape[0] * soat.shape[1] * 8)
+    _put_bound(r, key, runs * 32 * 32 * TEST_OPS[mt], nbytes)
+    r[key + "_listed_bound_ms"] = _bound(
+        pairs * 128 * 128 * TEST_OPS[mt], nbytes)[0]
     r["pairs"] = pairs
+    r[key + "_runs"] = runs
 
 
 def _mask_bound(r, soat, box, tmin, n_live, masks):
@@ -1465,6 +1472,90 @@ def _time_frames(frame, n_frames: int = 3):
             sum(int(q) for q in qs) / n_frames)
 
 
+def _slice_runs(name, masks, soat, tri, sl, tmin, mt, any_hit, n_live):
+    """The slices one traverse_blocks launch's warps ran, from the device
+    counter ``traverse.slices`` (tracing on): on a closest-hit launch
+    exactly ``fold_slices_plain``'s count, on an any-hit one at most it
+    (its rays stop once they have hits)."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import tracing
+
+    with _tracing():
+        tracing.reset()
+        tv.traverse_blocks(masks, soat, tri, tmin, mt, any_hit, n_live,
+                           slices=sl)
+        torch.cuda.synchronize()
+        runs = int(tracing.counters().get("traverse.slices", 0))
+    want = int(tv.fold_slices_plain(masks, soat, sl, tmin, mt, n_live))
+    pairs = _listed(masks, tri.shape[0])[0]
+    print(f"{name}: slices run {runs} (the plain count {want}) of the "
+          f"masks' {pairs * 16}: {runs / max(pairs * 16, 1):.4f}")
+    if runs > want or (not any_hit and runs != want):
+        raise AssertionError(f"{name}: traverse.slices {runs} against "
+                             f"the plain count {want}")
+    return runs
+
+
+def _item_slice_runs(il, steps, soab, tri, sl, tmin, mt, w):
+    """The slices one traverse_items launch's warps ran (the counter
+    ``traverse.slices``), equal to the plain count over its items: the
+    item kernel finds the nearest hit on any-hit launches too."""
+    import torch
+
+    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import tracing
+
+    with _tracing():
+        tracing.reset()
+        tv.traverse_items(il, steps, soab, tri, tmin, mt, w, slices=sl)
+        torch.cuda.synchronize()
+        runs = int(tracing.counters().get("traverse.slices", 0))
+    want = int(tv._item_slices_plain(il, steps, soab, sl, tmin, mt, w))
+    if runs != want:
+        raise AssertionError(f"traverse_items: traverse.slices {runs} "
+                             f"against the plain count {want}")
+    return runs
+
+
+def _shuffled_population(name, r, co, cd, ctmax, box, tri, sl, tmin, mt,
+                         any_hit):
+    """The cull's worst case: the population in a seeded random order and
+    not sorted, so a block's and a warp's rays are incoherent and nearly
+    every slice a warp tests is live. traverse_blocks against its plain
+    version (bit for bit on closest hits), its device time, runs and
+    bound under ``shuffled_``."""
+    import torch
+
+    from rayito_tpu_torch.ops.vec3 import V3
+    from rayito_tpu_torch.render import traverse as tv
+
+    n = co.x.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(n)
+    perm = torch.randperm(n, generator=g).to(co.x.device)
+    so, sd = (V3(v.x[perm], v.y[perm], v.z[perm]) for v in (co, cd))
+    soat, _, _ = tv.prepare_rays(so, sd, ctmax[perm], box, tmin,
+                                 sort_rays=False)
+    masks = tv.cluster_masks(soat, box, tmin)
+    t_k, p_k = tv.traverse_blocks(masks, soat, tri, tmin, mt, any_hit,
+                                  slices=sl)
+    t_p, p_p = tv.traverse_blocks_plain(masks, soat, tri, tmin, mt, any_hit)
+    torch.cuda.synchronize()
+    bad = (int(((p_k >= 0) != (p_p >= 0)).sum()) if any_hit else
+           int((p_k != p_p).sum())
+           + int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum()))
+    if bad:
+        raise AssertionError(f"{name} shuffled: kernel disagrees with plain")
+    sub = {"shuffled_ms": _device_ms(lambda: tv.traverse_blocks(
+        masks, soat, tri, tmin, mt, any_hit, slices=sl))}
+    runs = _slice_runs(f"{name} shuffled", masks, soat, tri, sl, tmin, mt,
+                       any_hit, None)
+    _traverse_bound(sub, "shuffled", masks, soat, tri, mt, runs)
+    sub["shuffled_pairs"] = sub.pop("pairs")
+    r.update(sub)
+
+
 def _check_population(name, scene, di, co, cd, ctmax, mt, any_hit, tmin):
     """One ray population through domain ``di``'s kernels (rays in the
     domain's space): cluster_masks, traverse_blocks and, on closest-hit
@@ -1476,11 +1567,13 @@ def _check_population(name, scene, di, co, cd, ctmax, mt, any_hit, tmin):
 
     box = scene.ktab_box[di]
     tri = scene.ktab_tri[di] if mt == "vpu" else scene.ktab_mxu[di]
+    sl = scene.ktab_slice[di]
     n = co.x.shape[0]
     soat, _, n_live = tv.prepare_rays(co, cd, ctmax, box, tmin)
     r = {}
     m_k = _check_masks(name, soat, box, tmin, n_live, r)
-    t_k, p_k = tv.traverse_blocks(m_k, soat, tri, tmin, mt, any_hit, n_live)
+    t_k, p_k = tv.traverse_blocks(m_k, soat, tri, tmin, mt, any_hit, n_live,
+                                  slices=sl)
     t_p, p_p = tv.traverse_blocks_plain(m_k, soat, tri, tmin, mt, any_hit,
                                         n_live)
     torch.cuda.synchronize()
@@ -1499,15 +1592,18 @@ def _check_population(name, scene, di, co, cd, ctmax, mt, any_hit, tmin):
     if bad_p or bad_t:
         raise AssertionError(f"{name}: kernel disagrees with plain")
     r["trav_ms"] = _device_ms(lambda: tv.traverse_blocks(
-        m_k, soat, tri, tmin, mt, any_hit, n_live))
+        m_k, soat, tri, tmin, mt, any_hit, n_live, slices=sl))
     r["trav_call_ms"] = _median_ms(lambda: tv.traverse_blocks(
-        m_k, soat, tri, tmin, mt, any_hit, n_live), 20)
+        m_k, soat, tri, tmin, mt, any_hit, n_live, slices=sl), 20)
     r["trav_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
         m_k, soat, tri, tmin, mt, any_hit, n_live), 1)
     r["t_err"] = t_err
     r["hits"] = hits
     _mask_bound(r, soat, box, tmin, n_live, m_k)
-    _traverse_bound(r, "trav", m_k, soat, tri, mt)
+    runs = _slice_runs(name, m_k, soat, tri, sl, tmin, mt, any_hit, n_live)
+    _traverse_bound(r, "trav", m_k, soat, tri, mt, runs)
+    _shuffled_population(name, r, co, cd, ctmax, box, tri, sl, tmin, mt,
+                         any_hit)
     if not any_hit:
         _check_gather(name, scene, di, p_k, r)
     print(f"{name}: " + _fmt(r), flush=True)
@@ -1881,6 +1977,7 @@ def run_big(dev, card: str) -> dict:
     t0 = time.perf_counter()
     scan, items, defaults, cfg, cam, frame = big_setup(dev)
     box = scan.ktab_box[0]
+    sl = scan.ktab_slice[0]
     c_pad = box.shape[1]
     print(f"big scene (five n={MESH_N} stand-ins): "
           f"{scan.tri_vm_rows.shape[0]} triangle rows, "
@@ -1931,10 +2028,11 @@ def run_big(dev, card: str) -> dict:
                                  "overflowed")
         il, steps, _, _ = lists["fits"]
         soab = soat.view(nblk, scan.traverse_b, 8)
-        t_k, p_k = tv.traverse_items(il, steps, soab, tri, tmin, mt, w)
+        t_k, p_k = tv.traverse_items(il, steps, soab, tri, tmin, mt, w,
+                                     slices=sl)
         t_p, p_p = tv.traverse_items_plain(il, steps, soab, tri, tmin, mt, w)
         t_s, p_s = tv.traverse_blocks(masks, soat, tri, tmin, mt, False,
-                                      n_live)
+                                      n_live, slices=sl)
         torch.cuda.synchronize()
         # the item kernel finds the nearest hit on any-hit launches too, so
         # every comparison here is exact
@@ -1956,7 +2054,7 @@ def run_big(dev, card: str) -> dict:
         if any_hit:
             # the scan's own any-hit launch: only prim >= 0 is defined
             _, p_a = tv.traverse_blocks(masks, soat, tri, tmin, mt, True,
-                                        n_live)
+                                        n_live, slices=sl)
             torch.cuda.synchronize()
             bad_a = int(((p_a.view(-1) >= 0) != (p_p.view(-1) >= 0)).sum())
             print(f"{name}: traverse_blocks any-hit vs plain: prim >= 0 "
@@ -1964,7 +2062,8 @@ def run_big(dev, card: str) -> dict:
             if bad_a:
                 raise AssertionError(f"{name}: any-hit scan disagrees")
         # the two routes through traverse(), at both budgets
-        kw = dict(want_t=not any_hit, mt_mode=mt, any_hit=any_hit)
+        kw = dict(want_t=not any_hit, mt_mode=mt, any_hit=any_hit,
+                  slices=sl)
         t_r, p_r = tv.traverse(co, cd, ctmax, box, tri, tmin, **kw)
         for label, sd in (("fits", items), ("defaults", defaults)):
             t_i, p_i = tv.traverse(co, cd, ctmax, box, tri, tmin, items=True,
@@ -1980,13 +2079,13 @@ def run_big(dev, card: str) -> dict:
             if bad_r:
                 raise AssertionError(f"{name}: item route != scan route")
         r["items_ms"] = _device_ms(lambda: tv.traverse_items(
-            il, steps, soab, tri, tmin, mt, w))
+            il, steps, soab, tri, tmin, mt, w, slices=sl))
         r["items_plain_ms"] = _median_ms(lambda: tv.traverse_items_plain(
             il, steps, soab, tri, tmin, mt, w), 1)
         r["scan_ms"] = _device_ms(lambda: tv.traverse_blocks(
-            masks, soat, tri, tmin, mt, any_hit, n_live))
+            masks, soat, tri, tmin, mt, any_hit, n_live, slices=sl))
         r["scan_call_ms"] = _median_ms(lambda: tv.traverse_blocks(
-            masks, soat, tri, tmin, mt, any_hit, n_live), 20)
+            masks, soat, tri, tmin, mt, any_hit, n_live, slices=sl), 20)
         r["scan_plain_ms"] = _median_ms(lambda: tv.traverse_blocks_plain(
             masks, soat, tri, tmin, mt, any_hit, n_live), 1)
         for label, sd in (("build_items", items),
@@ -2006,8 +2105,12 @@ def run_big(dev, card: str) -> dict:
             co, cd, ctmax, box, tri, tmin, **kw), 10)
         r["items"] = n_items
         _mask_bound(r, soat, box, tmin, n_live, masks)
-        _traverse_bound(r, "scan", masks, soat, tri, mt)
-        _traverse_bound(r, "items", masks, soat, tri, mt)
+        runs = _slice_runs(name, masks, soat, tri, sl, tmin, mt, any_hit,
+                           n_live)
+        _traverse_bound(r, "scan", masks, soat, tri, mt, runs)
+        _traverse_bound(r, "items", masks, soat, tri, mt,
+                        _item_slice_runs(il, steps, soab, tri, sl, tmin,
+                                         mt, w))
         r["scan_vs_items"] = r["scan_ms"] / r["items_ms"]
         print(f"{name}: device ms per launch (CUDA-graph replay): "
               f"traverse_items {r['items_ms']:.6g}, traverse_blocks "
@@ -2329,7 +2432,8 @@ def run_plumbing(dev, card: str) -> dict:
         ref = tv.ray_reorder_plain(soa8, vals, idx)
         masks = tv.cluster_masks(soat.view(-1, 2048, 8), box, tmin, n_live)
         t_bn, p_bn = (x.view(-1) for x in tv.traverse_blocks(
-            masks, soat.view(-1, 2048, 8), tri, tmin, mt, any_hit, n_live))
+            masks, soat.view(-1, 2048, 8), tri, tmin, mt, any_hit, n_live,
+            slices=scene.ktab_slice[0]))
         t_in = None if any_hit else t_bn
         un = tv.ray_unsort(p_bn, t_in, perm, n, any_hit)
         un_p = tv.ray_unsort_plain(p_bn, t_in, perm, n, any_hit)
@@ -2977,7 +3081,8 @@ def run_mesh_light(dev, card: str) -> dict:
                                           cd, ctmax, mt, any_hit, tmin)
         # once through the item route, at the budget that never overflows
         tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
-        kw = dict(want_t=not any_hit, mt_mode=mt, any_hit=any_hit)
+        kw = dict(want_t=not any_hit, mt_mode=mt, any_hit=any_hit,
+                  slices=scene.ktab_slice[0])
         t_r, p_r = tv.traverse(co, cd, ctmax, box, tri, tmin, **kw)
         t_i, p_i = tv.traverse(co, cd, ctmax, box, tri, tmin, items=True,
                                items_w=4, items_max=n_blocks * c_pad,

@@ -10,7 +10,9 @@ reference's, so the tables are bit-identical).
   * cluster AABBs are an [8, C_pad] table (rows 0-5 = min.xyz / max.xyz,
     lanes padded to 128 with never-hit boxes);
   * the tri table is padded to whole KSC=8-cluster groups with all-zero
-    (degenerate, never-hit) clusters.
+    (degenerate, never-hit) clusters;
+  * ``build_slice_boxes`` gives, per cluster, the padded box of each
+    32-lane slice (port-only: the fold's warp cull, ``csrc/fold.cuh``).
 
 All static meshes merge into one world-space table, so one launch
 traverses the scene's triangles. The MXU weight table of the reference is a
@@ -33,6 +35,12 @@ INF = np.float32(np.inf)
 # max(near, tmin) > min(far, tmax) rejects (an inverted infinite box would
 # hit every ray).
 NEVER_HIT = np.float32(1e30)
+
+SLICE = 32  # lanes of a slice: one warp's tests of a cluster at b = 128
+N_SLICES = KTRI // SLICE
+# a slice box's pad: of its largest extent, and of its largest |coordinate|
+SLICE_PAD_EXTENT = 2.0**-8
+SLICE_PAD_COORD = 2.0**-14
 
 
 @dataclasses.dataclass
@@ -168,3 +176,46 @@ def build_bw_rows(tri: np.ndarray) -> np.ndarray:
     out[:, 11] = -np.einsum("cka,cka->ck", rv, v0)
     out[:, 0:3] *= good[:, None, :]
     return out.astype(np.float32)
+
+
+def build_slice_boxes(tri: np.ndarray) -> np.ndarray:
+    """[C, KCOMP, 128] MT rows -> [C, 4, 8] f32: per cluster and 32-lane
+    slice, lo.xyz, hi.xyz and two zeros. The box is the float64 union of
+    the corners v0, v0 + e1, v0 + e2 of the slice's lanes that hold a
+    triangle (a nonzero row: an all-zero lane is never hit, by either
+    key), widened on every side by SLICE_PAD_EXTENT of its largest extent
+    plus SLICE_PAD_COORD of its largest |coordinate| and rounded outward
+    to float32. A slice without a triangle gets the never-hit box.
+
+    The pad is what lets the fold skip a slice for a ray whose slab test
+    over [tmin, tmax] misses the box: a BW key's hit point lies within a
+    few ulps of (|o| + |coordinates|) of its triangle, and an MT key's t
+    places the ray within its relative error of the triangle, which the
+    extent's share covers for rays off the triangle's plane by more than
+    ~3e-5 rad. The fold widens each box once more per ray (by 2^-16 |o| and
+    2 tmin |d|), which covers the slab's rounding and a self-hit at tmin,
+    and bounds the slab's t by tmax only on BW rows (``csrc/fold.cuh``)."""
+    f64 = np.float64
+    c = tri.shape[0]
+    t = tri.astype(f64).reshape(c, KCOMP, N_SLICES, SLICE)
+    v0 = t[:, 0:3]
+    corners = np.stack([v0, v0 + t[:, 3:6], v0 + t[:, 6:9]], 1)
+    full = (tri[:, 0:9] != 0).any(1).reshape(c, 1, 1, N_SLICES, SLICE)
+    lo = np.where(full, corners, np.inf).min(axis=(1, 4))  # [C, 3, 4]
+    hi = np.where(full, corners, -np.inf).max(axis=(1, 4))
+    real = np.isfinite(lo).all(1)  # [C, 4]
+    lo = np.where(real[:, None], lo, 0.0)
+    hi = np.where(real[:, None], hi, 0.0)
+    pad = (SLICE_PAD_EXTENT * (hi - lo).max(1)
+           + SLICE_PAD_COORD * np.maximum(abs(lo), abs(hi)).max(1))
+    lo = lo - pad[:, None]
+    hi = hi + pad[:, None]
+    lo32 = lo.astype(np.float32)
+    hi32 = hi.astype(np.float32)
+    lo32 = np.where(lo32 > lo, np.nextafter(lo32, np.float32(-np.inf)), lo32)
+    hi32 = np.where(hi32 < hi, np.nextafter(hi32, np.float32(np.inf)), hi32)
+    out = np.zeros((c, N_SLICES, 8), np.float32)
+    for k, v in ((0, lo32), (3, hi32)):
+        out[:, :, k:k + 3] = np.where(real[:, None], v,
+                                      NEVER_HIT).transpose(0, 2, 1)
+    return out

@@ -1,142 +1,132 @@
-// The cluster fold shared by traverse_blocks and traverse_items.
+// The mesh fold shared by traverse_blocks and traverse_items: one warp
+// folds 32 rays (a 32-ray group of a ray block; fewer at b < 32) against
+// one 32-lane slice of each cluster of a sequence, the clusters ascending.
 //
-// A CTA of b * split threads holds one ray block at a time, split threads
-// per ray (4 at b = 128), each testing 128 / split lanes of every cluster.
-// It walks a sequence of (ray block, cluster) entries, each ray block's
-// clusters ascending. Each cluster's rows are copied with 4-byte cp.async
-// into shared memory, triangle-major (one triangle's rows in 20 floats:
-// three 16-byte broadcast loads per test; 20 and not 16 so the
-// transposing copies meet 4-way and not 16-way bank conflicts),
-// double-buffered so the next entry's cluster loads while this one is
-// tested, across a change of ray block too. Each thread keeps its minimum
-// key with a strict < over the ascending clusters. When the ray block
-// changes, and at the end, the split threads of a ray take the minimum of
-// their pack_best values in shared memory and a hit below the ray's
-// initial key is merged into its best with one 64-bit atomicMin
+// The slice cull. The mask lists a cluster for a whole 128-ray block, but
+// a warp's rays reach few of its four slices. Before a slice's tests each
+// lane slab-tests its ray against the slice's box (the slice table,
+// accel/kernel_tables.py build_slice_boxes: the padded box of the slice's
+// triangles) and the warp runs the 32 tests only when one of its rays
+// hits the box (__any_sync), so every branch is warp-uniform. A ray that
+// misses the box cannot take a key there: the table's pad and the ray's
+// own (2^-16 |o| + 2 tmin |d| on every side) cover the slab's rounding, a
+// key's placement of its hit and a self-hit at tmin; the slab's upper t
+// is tmax widened by 2^-14 (a key's 128-ulp t bucket) on BW rows and none
+// on MT rows (an MT key's t can err far on a grazing ray while the line
+// still crosses the triangle inside its box). So the bests are the bits a
+// fold of every listed test gives.
+//
+// Warps run alone. Each warp takes its own (sequence, ray group, slice)
+// units; a live slice's rows are read coalesced (lane i: triangle i's
+// rows) into the warp's own shared buffer, triangle-major in 12 floats
+// (three 16-byte broadcast loads a test), and tested; nothing waits on
+// another warp: with most slices skipped, a cluster staged for a whole
+// CTA behind barriers would hold every warp for as long as its busiest
+// one (measured: half the fall in tests lost). Each lane keeps its ray's
+// least key with a strict < over the ascending clusters and merges a hit
+// below the ray's initial key into its best with one 64-bit atomicMin
 // (common.cuh: least key, then lowest cluster, the order of the strict <,
-// so any order of sequences gives the same bits).
+// so any order of units gives the same bits).
 #pragma once
 
 #include "common.cuh"
 
-#define RT_FOLD_STRIDE 20         // floats per staged triangle
-#define RT_FOLD_MAX_THREADS 1024
+#define RT_SLICE 32               // lanes of a slice
+#define RT_SLICES (RT_KTRI / RT_SLICE)
+#define RT_FOLD_ROW 12            // floats per staged triangle
+#define RT_FOLD_WARPS 8           // warps per CTA
 
-struct __align__(16) FoldShared {
-    float tri[2][RT_KTRI * RT_FOLD_STRIDE];
-    long long red[RT_FOLD_MAX_THREADS];
-    uint8_t ray_hit[RT_FOLD_MAX_THREADS];  // any-hit: the ray has a hit
+constexpr unsigned kFoldFull = 0xffffffffu;
+
+// A warp's staged slice: 32 triangles' rows, triangle-major.
+struct __align__(16) FoldStage {
+    float4 tri[RT_SLICE * RT_FOLD_ROW / 4];
 };
 
-// Threads per ray for ray blocks of b: the CTA holds at least one warp.
-inline int fold_split(int b) {
-    if (b >= 512) return 1;
-    if (b == 256) return 2;
-    return b >= 8 ? 4 : 32 / b;
-}
-
-// Resident CTAs of `kernel` at `threads` on the whole card, at most `cap`;
-// `cache` holds the per-SM count per log2 thread count.
+// Resident CTAs of `kernel` at RT_FOLD_WARPS warps on the whole card, at
+// most `cap`; `cache` holds the per-SM count.
 template <class Kernel>
-long long fold_grid(Kernel kernel, int threads, int (&cache)[11],
-                    long long cap) {
-    int lg = 0;
-    while ((1 << lg) < threads) ++lg;
-    if (cache[lg] == 0) {
+long long fold_grid(Kernel kernel, int& cache, long long cap) {
+    if (cache == 0) {
         int n = 0;
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0);
-        cache[lg] = n > 0 ? n : 1;
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                      RT_FOLD_WARPS * 32, 0);
+        cache = n > 0 ? n : 1;
     }
     int dev = 0, n_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    const long long grid = (long long)n_sm * cache[lg];
+    const long long grid = (long long)n_sm * cache;
     return grid < cap ? grid : cap;
 }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
-                 "l"(gmem)
-                 : "memory");
+// A ray's terms of the slice test (render/traverse.py slice_rays_plain).
+struct SliceRay {
+    float ox, oy, oz, ix, iy, iz;
+    float pad;  // every side of a box widened by this
+    float cap;  // the slab's upper t: tm widened, NaN -> inf
+};
+
+__device__ __forceinline__ SliceRay slice_ray(float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              float tm, float tmin) {
+    SliceRay r;
+    r.ox = ox, r.oy = oy, r.oz = oz;
+    r.ix = 1.0f / dx, r.iy = 1.0f / dy, r.iz = 1.0f / dz;
+    const float om = nan_max(nan_max(fabsf(ox), fabsf(oy)), fabsf(oz));
+    const float dm = nan_max(nan_max(fabsf(dx), fabsf(dy)), fabsf(dz));
+    r.pad = 0x1p-16f * om + (2.0f * tmin) * dm;
+    r.cap = tm != tm ? __int_as_float(0x7f800000)
+                     : fmaxf(tm * (1.0f + 0x1p-14f), 0.0f);
+    return r;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Copy cluster c's rows [kRows, 128] into dst triangle-major [128, 20].
-template <int kRows>
-__device__ __forceinline__ void fold_stage(float* dst, const float* tri,
-                                           int c) {
-    const float* src = tri + (long long)c * RT_KCOMP * RT_KTRI;
-    for (int e = threadIdx.x; e < kRows * RT_KTRI; e += blockDim.x)
-        cp_async4(dst + (e & (RT_KTRI - 1)) * RT_FOLD_STRIDE + (e >> 7),
-                  src + e);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// Merge the CTA's bests of ray g (split threads per ray) into best[g].
-__device__ __forceinline__ void fold_flush(FoldShared& sm, long long* best,
-                                           long long g, int32_t kb,
-                                           int32_t cb, int q, int ray,
-                                           int split, int b) {
-    if (split > 1) {
-        sm.red[threadIdx.x] = cb >= 0 ? pack_best(kb, cb) : LLONG_MAX;
-        __syncthreads();
-        if (q == 0) {
-            long long m = sm.red[ray];
-            for (int s = 1; s < split; ++s) m = min(m, sm.red[s * b + ray]);
-            if (m != LLONG_MAX) atomicMin(best + g, m);
+// Whether ray r slab-hits slice box (lo.xyz, hi.xyz) = (a.xyz, a.w, b.xy)
+// widened by r.pad over [tmin, r.cap], cluster_masks' NaN-robust root
+// slab (an axis whose entry or exit is NaN spans (-inf, inf)); the
+// operation order of slice_slab_plain.
+__device__ __forceinline__ bool slice_hit(float4 a, float4 b,
+                                          const SliceRay& r, float tmin) {
+    const float lo[3] = {a.x, a.y, a.z}, hi[3] = {a.w, b.x, b.y};
+    const float o[3] = {r.ox, r.oy, r.oz}, inv[3] = {r.ix, r.iy, r.iz};
+    float near = -__int_as_float(0x7f800000);
+    float far = __int_as_float(0x7f800000);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        const float t0 = ((lo[k] - r.pad) - o[k]) * inv[k];
+        const float t1 = ((hi[k] + r.pad) - o[k]) * inv[k];
+        if (t0 == t0 && t1 == t1) {
+            near = fmaxf(near, fminf(t0, t1));
+            far = fminf(far, fmaxf(t0, t1));
         }
-    } else if (cb >= 0) {
-        atomicMin(best + g, pack_best(kb, cb));
     }
+    return fmaxf(near, tmin) <= fminf(far, r.cap) && far >= tmin;
 }
 
-// Fold the entries that it.next(blk, cid) yields (false at the end) into
-// best[blk * b + ray]; It::kOneBlock says that they all share one ray
-// block. rays: [n_blocks * b, 8] (o, d, tmax, pad), 16-byte
-// aligned; tri: [n_clusters, 16, 128], cluster ids past it read its last
-// cluster (the result still names the id given). The initial key is
-// pack(min(tmax, 3e38), 127); kKeepNaN keeps a NaN tmax's own bits in it,
-// else min.NaN gives the canonical NaN. With any_hit the sequence holds
-// one ray block, sm.ray_hit holds its rays' hits on entry, warps whose
-// rays all have a hit skip their tests, and the fold stops once every ray
-// has one. Every branch depends only on the sequence (or on a CTA-wide
-// vote), so all threads reach each barrier.
-template <bool BW, bool kKeepNaN, class It>
-__device__ __forceinline__ void fold_clusters(It& it, FoldShared& sm,
-                                              const float* __restrict__ rays,
-                                              const float* __restrict__ tri,
-                                              long long* __restrict__ best,
-                                              int b, int n_clusters,
-                                              float tmin, bool any_hit) {
-    constexpr int kRows = BW ? 12 : 9;
-    const int split = blockDim.x / b;
-    const int q = threadIdx.x / b;  // which lanes of each cluster
-    const int ray = threadIdx.x - q * b;
-    const int lanes = RT_KTRI / split;
-    const int j0 = q * lanes;
-    int blk, c;
-    if (!it.next(blk, c)) return;
-    int cur = -1;
-    long long g = 0;
-    float4 ra = {}, rb = {};
-    float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-    int32_t kb = 0, cb = -1;
-    bool done = false;
-    // a ray block's rays: load() issues the loads, start() decodes them
-    // into the ray and its initial key where they are first needed
-    auto load = [&](int blk_) {
-        cur = blk_;
-        g = (long long)blk_ * b + ray;
-        const float4* r4 = (const float4*)(rays + g * 8);
-        ra = r4[0];
-        rb = r4[1];
-    };
-    auto start = [&]() {
+// One lane's ray in a warp's unit: start() loads it (rays: [n, 8] (o, d,
+// tmax, pad) rows, 16-byte aligned; g its row, valid whether the lane has
+// a ray); the initial key is pack(min(tmax, 3e38), 127), kKeepNaN keeping
+// a NaN tmax's own bits (else min.NaN gives the canonical NaN).
+// cluster() folds slice s of cluster c (tri [n_clusters, 16, 128] rows,
+// slices [n_clusters, 4, 8]; ids past the table read its last cluster, the
+// result still names the id given); merge() puts a hit into best[g].
+template <bool BW>
+struct FoldRay {
+    float ox, oy, oz, dx, dy, dz;
+    SliceRay sr;
+    int32_t kb, cb;
+    bool live;  // the lane has a ray that still takes part
+
+    template <bool kKeepNaN>
+    __device__ __forceinline__ void start(const float* __restrict__ rays,
+                                          long long g, bool valid,
+                                          float tmin) {
+        float4 ra = {}, rb = {};
+        if (valid) {
+            const float4* r4 = (const float4*)(rays + g * 8);
+            ra = r4[0];
+            rb = r4[1];
+        }
         ox = ra.x, oy = ra.y, oz = ra.z;
         dx = ra.w, dy = rb.x, dz = rb.y;
         // clamp: an inf tmax would pack to NaN bits
@@ -144,63 +134,66 @@ __device__ __forceinline__ void fold_clusters(It& it, FoldShared& sm,
         kb = pack_key(kKeepNaN && tm != tm ? tm : nan_min(tm, 3e38f),
                       RT_KTRI - 1);
         cb = -1;
-        done = any_hit && sm.ray_hit[ray] != 0;
-    };
-    if (It::kOneBlock) {
-        load(blk);
-        start();
+        live = valid;
+        // a BW key's t places the ray at its triangle, so tmax bounds the
+        // slab; an MT key's t can err far on a grazing ray, so no upper t
+        sr = slice_ray(ox, oy, oz, dx, dy, dz,
+                       BW ? tm : __int_as_float(0x7f800000), tmin);
     }
-    fold_stage<kRows>(sm.tri[0], tri, min(c, n_clusters - 1));
-    for (int k = 0;; ++k) {
-        int nblk, nc;
-        const bool more = it.next(nblk, nc);
-        if (more)
-            fold_stage<kRows>(sm.tri[(k + 1) & 1], tri,
-                              min(nc, n_clusters - 1));
-        // a new ray block: merge the last one's bests, and load its rays
-        // while the cluster's copy lands
-        const bool fresh = !It::kOneBlock && blk != cur;
-        if (fresh) {
-            if (cur >= 0) fold_flush(sm, best, g, kb, cb, q, ray, split, b);
-            load(blk);
-        }
-        if (more)
-            cp_async_wait<1>();
-        else
-            cp_async_wait<0>();
-        __syncthreads();
-        if (fresh) start();
-        if (!(any_hit && __all_sync(0xffffffffu, done))) {
-            const float4* s4 = (const float4*)sm.tri[k & 1];
+
+    __device__ __forceinline__ void cluster(
+        const float* __restrict__ tri, const float* __restrict__ slices,
+        FoldStage& st, int c, int s, int n_clusters, float tmin,
+        unsigned& runs) {
+        constexpr int kRows = BW ? 12 : 9;
+        const int cc = min(c, n_clusters - 1);
+        const float4* bx = (const float4*)slices +
+                           ((long long)cc * RT_SLICES + s) * 2;
+        const float4 a = __ldg(bx), z = __ldg(bx + 1);
+        if (!__any_sync(kFoldFull, live && slice_hit(a, z, sr, tmin)))
+            return;
+        ++runs;
+        const int lane = threadIdx.x & 31;
+        const float* src = tri + (long long)cc * RT_KCOMP * RT_KTRI +
+                           s * RT_SLICE + lane;
+        float* dst = (float*)st.tri + lane * RT_FOLD_ROW;
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) dst[k] = __ldg(src + k * RT_KTRI);
+        __syncwarp();
 #pragma unroll 2
-            for (int j = j0; j < j0 + lanes; ++j) {
-                const float4 a = s4[j * (RT_FOLD_STRIDE / 4) + 0];
-                const float4 m = s4[j * (RT_FOLD_STRIDE / 4) + 1];
-                const float4 z = s4[j * (RT_FOLD_STRIDE / 4) + 2];
-                const float r[12] = {a.x, a.y, a.z, a.w, m.x, m.y,
-                                     m.z, m.w, z.x, z.y, z.z, z.w};
-                const int32_t key =
-                    BW ? key_bw(r, j, ox, oy, oz, dx, dy, dz, tmin)
-                       : key_vpu(r, j, ox, oy, oz, dx, dy, dz, tmin);
-                if (key < kb) {
-                    kb = key;
-                    cb = c;
-                }
+        for (int j = 0; j < RT_SLICE; ++j) {
+            const float4 p = st.tri[j * 3 + 0];
+            const float4 m = st.tri[j * 3 + 1];
+            const float4 q = st.tri[j * 3 + 2];
+            const float r[12] = {p.x, p.y, p.z, p.w, m.x, m.y,
+                                 m.z, m.w, q.x, q.y, q.z, q.w};
+            const int lj = s * RT_SLICE + j;
+            const int32_t key =
+                BW ? key_bw(r, lj, ox, oy, oz, dx, dy, dz, tmin)
+                   : key_vpu(r, lj, ox, oy, oz, dx, dy, dz, tmin);
+            if (key < kb) {
+                kb = key;
+                cb = c;
             }
         }
-        // the buffer just read is refilled by the next step's copy
-        if (any_hit) {
-            if (cb >= 0) sm.ray_hit[ray] = 1;
-            __syncthreads();
-            done = sm.ray_hit[ray] != 0;
-            if (__syncthreads_and(done)) break;
-        } else {
-            __syncthreads();
-        }
-        if (!more) break;
-        blk = nblk;
-        c = nc;
+        __syncwarp();  // the buffer is refilled by the next live slice
     }
-    cp_async_wait<0>();  // an any-hit stop may leave a copy in flight
-    fold_flush(sm, best, g, kb, cb, q, ray, split, b);
+
+    __device__ __forceinline__ void merge(long long* __restrict__ best,
+                                          long long g) {
+        if (cb >= 0) atomicMin(best + g, pack_best(kb, cb));
+    }
+};
+
+// Add the CTA's slice runs to *counter (null: tracing off), one add a
+// CTA; every thread calls it at its end. runs: its warp's count.
+__device__ __forceinline__ void fold_count(unsigned long long* counter,
+                                           unsigned runs, unsigned& s_runs) {
+    if (counter == nullptr) return;
+    if (threadIdx.x == 0) s_runs = 0;
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0 && runs != 0) atomicAdd(&s_runs, runs);
+    __syncthreads();
+    if (threadIdx.x == 0 && s_runs != 0)
+        atomicAdd(counter, (unsigned long long)s_runs);
 }

@@ -42,6 +42,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..accel.kernel_tables import build_slice_boxes
+
 MAT_LAMBERT = 0
 MAT_GLOSSY = 1
 MAT_REFLECTION = 2
@@ -305,6 +307,8 @@ ARRAY_FIELDS = (
     "cl_min", "cl_max", "sc_min", "sc_max", "sc_rows", "tri_rows",
 )
 DOMAIN_FIELDS = ("ktab_tri", "ktab_mxu", "ktab_box", "ktab_base")
+# per domain, built from ktab_tri by scene_data_from_arrays (port-only)
+SLICE_FIELD = "ktab_slice"
 STATIC_FIELDS = (
     "ktab_xf", "ktab_seg", "ktab_small", "mesh_tri_ranges", "mesh_cl_ranges",
     "mesh_sc_ranges", "light_kinds_host", "light_indices_host", "has_motion",
@@ -380,6 +384,9 @@ class SceneData:
     ktab_mxu: tuple = ()
     ktab_box: tuple = ()
     ktab_base: tuple = ()
+    # per domain, each cluster's 32-lane slice boxes [C, 4, 8]
+    # (accel/kernel_tables.py build_slice_boxes)
+    ktab_slice: tuple = ()
     ktab_xf: tuple = ()  # domain transform ids (0 = world space)
     ktab_seg: tuple = ()  # per domain ((cl_start, tri0), ...)
     # transformed meshes of at most 192 triangles: folded densely
@@ -442,7 +449,7 @@ class SceneData:
         if device == self.device:
             return self
         kw = {k: getattr(self, k).to(device) for k in ARRAY_FIELDS}
-        for k in DOMAIN_FIELDS:
+        for k in DOMAIN_FIELDS + (SLICE_FIELD,):
             kw[k] = tuple(t.to(device) for t in getattr(self, k))
         return dataclasses.replace(self, device=device, **kw)
 
@@ -517,12 +524,13 @@ def scene_data_from_arrays(arrays: dict, static: dict, device) -> SceneData:
     """Build a SceneData on ``device`` from numpy arrays named like the
     reference SceneData's fields (``ARRAY_FIELDS``; ``DOMAIN_FIELDS`` hold a
     sequence with one array per domain) and host-static values
-    (``STATIC_FIELDS``). A TPU-only option in ``static`` raises ValueError;
-    an unknown name raises TypeError. Where ``arrays`` holds the
-    reference's lane-packed rows (``tri_vm_packed``, 4 rows of 32 per
-    128-float row) and an empty ``tri_vm_rows``, the [T, 32] table is
-    rebuilt from them: the same floats, since device memory here has no
-    lane tiling to save."""
+    (``STATIC_FIELDS``). The slice boxes of each domain's clusters
+    (``ktab_slice``) are built here from ``ktab_tri``. A TPU-only option
+    in ``static`` raises ValueError; an unknown name raises TypeError.
+    Where ``arrays`` holds the reference's lane-packed rows
+    (``tri_vm_packed``, 4 rows of 32 per 128-float row) and an empty
+    ``tri_vm_rows``, the [T, 32] table is rebuilt from them: the same
+    floats, since device memory here has no lane tiling to save."""
     for k in static:
         if k in UNPORTED_KNOBS:
             raise ValueError(
@@ -545,6 +553,8 @@ def scene_data_from_arrays(arrays: dict, static: dict, device) -> SceneData:
     kw = {k: dev(arrays[k]) for k in ARRAY_FIELDS}
     for k in DOMAIN_FIELDS:
         kw[k] = tuple(dev(a) for a in arrays.get(k, ()))
+    kw[SLICE_FIELD] = tuple(dev(build_slice_boxes(np.asarray(a)))
+                            for a in arrays.get("ktab_tri", ()))
     for k in HOST_XF_FIELDS:
         kw[k + "_host"] = tuple(int(x) for x in np.asarray(arrays[k]))
     return SceneData(device=device, **kw, **static)

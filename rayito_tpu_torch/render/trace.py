@@ -292,6 +292,7 @@ def _launch(scene: SceneData, di: int, o: V3, d: V3, tmax, tmin, mt: str,
             sort_rays: bool, any_hit: bool):
     return traverse(
         o, d, tmax, scene.ktab_box[di], _domain_tri(scene, di, mt), tmin,
+        slices=scene.ktab_slice[di],
         sort_rays=sort_rays, want_t=False, mt_mode=mt, any_hit=any_hit,
         b=scene.traverse_b, sb=scene.traverse_sb,
         live_prefix=scene.live_prefix, items=scene.traverse_items,

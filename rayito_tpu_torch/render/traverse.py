@@ -14,6 +14,8 @@ One launch domain's nearest (or any) triangle hit for a wavefront:
   4. ``traverse_blocks`` (kernel) tests each ray against the listed
      clusters' 128 triangles and keeps the nearest packed (t, lane) key,
      one (ray block, nonzero mask word) unit at a time, merged per ray;
+     a warp skips each 32-lane slice of a cluster whose box
+     (``slices``) none of its rays slab-hits (:func:`slice_slab_plain`);
      or, with ``items``, ``build_items`` (kernel) flattens the masks into
      one list of (ray block, cluster) items and ``traverse_items``
      (kernel) folds it, with ``traverse_blocks`` taking launches whose list
@@ -36,9 +38,10 @@ Every kernel has its plain PyTorch version beside it (``*_plain``), with
 the same contract. A wrapper runs the plain version only for CPU tensors;
 for CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches (``utils/cuda_lib.counted``). With tracing on, ``cluster_masks``
-adds the set bits of the masks it writes to the counter ``traverse.pairs``
-and ``ray_pack`` the lanes that reach the domain's root to
-``traverse.live_rays`` (``utils/tracing.py``).
+adds the set bits of the masks it writes to the counter ``traverse.pairs``,
+``ray_pack`` the lanes that reach the domain's root to
+``traverse.live_rays`` and the fold the 32-lane slices its warps ran to
+``traverse.slices`` (``utils/tracing.py``).
 
 t carries the key's ~2^-17 relative slack; exact t comes from the winner
 re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
@@ -50,7 +53,7 @@ import torch
 
 from ..accel.clusters import (CLUSTERS_PER_SUPER, SC_ROW_WIDTH,
                               TRI_PER_CLUSTER, TRI_ROW_WIDTH)
-from ..accel.kernel_tables import KTRI, NEVER_HIT
+from ..accel.kernel_tables import KTRI, N_SLICES, NEVER_HIT, SLICE
 from ..models.scene import validate_blocks, validate_items
 from ..ops.intersect import triangle_intersect
 from ..ops.vec3 import V3
@@ -276,9 +279,104 @@ def _keys(mt_mode, row, o, d, tmin, lane):
     return torch.where(ok, _pack_key(t, lane), _IMAX)
 
 
+# the fold's per-ray widening of a slice box (csrc/fold.cuh FoldRay)
+SLICE_PAD_ORIGIN = 2.0**-16  # of the ray's largest |origin coordinate|
+SLICE_PAD_TMIN = 2.0  # of tmin times its largest |direction component|
+SLICE_TMAX_SCALE = 1.0 + 2.0**-14
+
+
+def slice_rays_plain(rays, tmin: float, mt_mode: str):
+    """The fold's per-ray terms of the slice test from ``soat`` rows
+    [..., 8]: (o, inverse direction, box widening, upper t), each [..., 1]
+    or a 3-tuple of them, in the kernel's operation order. The upper t is
+    tmax widened for BW rows and inf for MT rows: a BW key's t places the
+    ray at the triangle, an MT key's t can err far on a grazing ray, while
+    the line still crosses the triangle inside its box."""
+    col = [rays[..., k:k + 1] for k in range(7)]
+    o, d, tm = col[0:3], col[3:6], col[6]
+    inv = tuple(1.0 / x for x in d)
+    mx = torch.maximum
+    pad = (SLICE_PAD_ORIGIN * mx(mx(o[0].abs(), o[1].abs()), o[2].abs())
+           + (SLICE_PAD_TMIN * tmin) * mx(mx(d[0].abs(), d[1].abs()),
+                                          d[2].abs()))
+    if mt_mode != "bw":
+        tm = torch.full_like(tm, _INF)
+    cap = torch.where(tm != tm, _INF,
+                      torch.clamp_min(tm * SLICE_TMAX_SCALE, 0.0))
+    return tuple(o), inv, pad, cap
+
+
+def slice_slab_plain(ray_terms, box, tmin: float):
+    """Whether rays (``slice_rays_plain``'s terms) slab-hit slice boxes
+    ``box`` [..., 8] (broadcast against them) widened by the ray's pad,
+    over [tmin, cap]: ``cluster_masks``' NaN-robust root slab, where an
+    axis whose entry or exit is NaN spans (-inf, inf)."""
+    o, inv, pad, cap = ray_terms
+    near = torch.full((), -_INF, device=box.device)
+    far = torch.full((), _INF, device=box.device)
+    for k in range(3):
+        t0 = ((box[..., k] - pad[..., 0]) - o[k][..., 0]) * inv[k][..., 0]
+        t1 = ((box[..., k + 3] + pad[..., 0]) - o[k][..., 0]) * inv[k][..., 0]
+        ok = (t0 == t0) & (t1 == t1)
+        near = torch.where(ok, torch.maximum(near, torch.minimum(t0, t1)),
+                           near)
+        far = torch.where(ok, torch.minimum(far, torch.maximum(t0, t1)), far)
+    return ((torch.maximum(near, torch.tensor(tmin))
+             <= torch.minimum(far, cap[..., 0])) & (far >= tmin))
+
+
+# (ray block, cluster) pairs per batch of slice_runs_plain
+_SLICE_PAIR_BATCH = 2048
+
+
+def slice_runs_plain(blk, cid, soab, slices, tmin: float, mt_mode: str,
+                     b: int):
+    """The slice runs of the fold over (ray block ``blk``, cluster ``cid``)
+    pairs (int64 [P] each; soab [n_blocks, b, 8], slices [C, 4, 8]): per
+    pair, per 32-ray group of the block (a warp; the whole block at
+    b < 32) and per slice, 1 when a ray of the group slab-hits the slice's
+    box (:func:`slice_slab_plain`). An int64 scalar."""
+    dev = soab.device
+    cid = torch.clamp_max(cid, slices.shape[0] - 1)
+    group = min(b, SLICE)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for p0 in range(0, blk.numel(), _SLICE_PAIR_BATCH):
+        pb = blk[p0:p0 + _SLICE_PAIR_BATCH]
+        pc = cid[p0:p0 + _SLICE_PAIR_BATCH]
+        terms = slice_rays_plain(soab[pb][:, :, None, :], tmin, mt_mode)
+        hit = slice_slab_plain(terms, slices[pc][:, None, :, :], tmin)
+        total += hit.view(hit.shape[0], -1, group, N_SLICES).any(2).sum()
+    return total
+
+
+def fold_slices_plain(masks, soat, slices, tmin: float, mt_mode: str,
+                      n_live=None, b: int = 128):
+    """The slice runs of ``traverse_blocks``' closest-hit fold (its counter
+    ``traverse.slices``, :func:`slice_runs_plain`) over the clusters each
+    live ray block's mask lists. An any-hit fold, which stops once its
+    rays have hits, runs at most this."""
+    n_steps, sb, _ = soat.shape
+    dev = soat.device
+    n_blocks = _live_floor(n_live, n_steps) * sb // b
+    n_words = masks.shape[1]
+    bits = ((masks[:n_blocks, :, None].to(torch.int64)
+             >> torch.arange(32, device=dev)) & 1).bool()
+    bits = bits.reshape(n_blocks, n_words * 32)[:, :slices.shape[0]]
+    blk, cid = torch.nonzero(bits, as_tuple=True)
+    return slice_runs_plain(blk, cid, soat.reshape(-1, b, 8), slices, tmin,
+                            mt_mode, b)
+
+
+def _check_slices(name, slices, tri):
+    _check_dtype(name, slices, torch.float32, 3)
+    if tuple(slices.shape) != (tri.shape[0], N_SLICES, 8):
+        raise ValueError(f"{name}: slices must be [C, {N_SLICES}, 8] for a "
+                         f"tri table of C = {tri.shape[0]} clusters")
+
+
 def traverse_blocks_plain(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
                           any_hit: bool = False, n_live=None, b: int = 128,
-                          run_if=None):
+                          run_if=None, *, slices=None):
     """masks [n_blocks, n_words] i32, soat [n_steps, sb, 8] f32, tri
     [C, 16, 128] f32 (MT rows for 'vpu', BW rows for 'bw') -> (t, prim)
     each [n_steps, sb, 1]: per ray the minimum packed key over the
@@ -288,8 +386,10 @@ def traverse_blocks_plain(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
     misses. ``any_hit`` only loosens the contract to prim >= 0; the plain
     version always finds the nearest hit. With a one-element bool
     ``run_if`` that is False the launch does nothing and its outputs are
-    undefined (here: misses)."""
-    del any_hit
+    undefined (here: misses). ``slices``, the kernel's slice boxes, is not
+    read: this version runs every test, of which the kernel's slice cull
+    skips only some that cannot pass."""
+    del any_hit, slices
     n_steps, sb, _ = soat.shape
     dev = soat.device
     if run_if is not None and not bool(run_if):
@@ -330,12 +430,18 @@ _LIST_HEAD = 4  # int32 counters ahead of the kernel's unit list
 @cuda_lib.counted
 def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
                     any_hit: bool = False, n_live=None, b: int = 128,
-                    run_if=None):
+                    run_if=None, *, slices):
     """Kernel wrapper of :func:`traverse_blocks_plain` (same contract; a
-    clear ``run_if`` flag makes the kernel exit before writing)."""
+    clear ``run_if`` flag makes the kernel exit before writing). slices:
+    the tri table's slice boxes [C, 4, 8]
+    (``accel/kernel_tables.py build_slice_boxes``), from which the kernel's
+    warps skip the 32-lane slices none of their rays can reach. With
+    tracing on the kernel adds the slices its warps ran to the counter
+    ``traverse.slices`` (on the CPU: :func:`fold_slices_plain`)."""
     _check_dtype("traverse_blocks", masks, torch.int32, 2)
     _check_dtype("traverse_blocks", soat, torch.float32, 3)
     _check_dtype("traverse_blocks", tri, torch.float32, 3)
+    _check_slices("traverse_blocks", slices, tri)
     n_steps, sb, width = soat.shape
     validate_blocks(b, sb)
     if (width != 8 or tuple(tri.shape[1:]) != (16, KTRI)
@@ -345,18 +451,25 @@ def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
                          " tri [C, 16, 128])")
     if mt_mode not in ("vpu", "bw"):
         raise ValueError(f"traverse_blocks: mt_mode {mt_mode!r}")
-    if cuda_lib.on_cpu("traverse_blocks", masks, soat, tri, n_live, run_if):
+    if cuda_lib.on_cpu("traverse_blocks", masks, soat, tri, slices, n_live,
+                       run_if):
+        if tracing.enabled() and (run_if is None or bool(run_if)):
+            tracing.count("traverse.slices", fold_slices_plain(
+                masks, soat, slices, tmin, mt_mode, n_live, b))
         return traverse_blocks_plain(masks, soat, tri, tmin, mt_mode,
                                      any_hit, n_live, b, run_if)
     _check_live(n_live, soat.device)
     _check_flag("traverse_blocks", run_if)
-    args = [t for t in (masks, soat, tri, n_live, run_if) if t is not None]
+    args = [t for t in (masks, soat, tri, slices, n_live, run_if)
+            if t is not None]
     lib, stream = cuda_lib.launch_args("traverse_blocks", *args)
     n_units = masks.shape[0] * masks.shape[1]
-    if n_units + _LIST_HEAD >= 2**31:
+    # the fold's tickets: a warp's (unit, 32-ray group, slice)
+    if n_units * max(b // SLICE, 1) * N_SLICES >= 2**31 - 2**24:
         raise ValueError("traverse_blocks: too many mask words")
-    if soat.data_ptr() % 16:
-        raise ValueError("traverse_blocks: soat must be 16-byte aligned")
+    if soat.data_ptr() % 16 or slices.data_ptr() % 16:
+        raise ValueError("traverse_blocks: soat and slices must be 16-byte "
+                         "aligned")
     n = n_steps * sb
     t = torch.empty((n_steps, sb, 1), dtype=torch.float32, device=soat.device)
     p = torch.empty((n_steps, sb, 1), dtype=torch.int32, device=soat.device)
@@ -364,11 +477,12 @@ def traverse_blocks(masks, soat, tri, tmin: float, mt_mode: str = "vpu",
     scratch = torch.empty((n + (n_units + _LIST_HEAD + 1) // 2,),
                           dtype=torch.int64, device=soat.device)
     cuda_lib.check(lib.rt_traverse_blocks(
-        masks.data_ptr(), soat.data_ptr(), tri.data_ptr(), _ptr(n_live),
-        _ptr(run_if), scratch.data_ptr(), scratch.data_ptr() + 8 * n,
-        t.data_ptr(), p.data_ptr(), masks.shape[0], b, masks.shape[1],
-        tri.shape[0], sb, n_steps, float(tmin), int(mt_mode == "bw"),
-        int(bool(any_hit)), stream,
+        masks.data_ptr(), soat.data_ptr(), tri.data_ptr(),
+        slices.data_ptr(), _ptr(n_live), _ptr(run_if), scratch.data_ptr(),
+        scratch.data_ptr() + 8 * n, t.data_ptr(), p.data_ptr(),
+        tracing.counter_ptr("traverse.slices", soat), masks.shape[0], b,
+        masks.shape[1], tri.shape[0], sb, n_steps, float(tmin),
+        int(mt_mode == "bw"), int(bool(any_hit)), stream,
     ), "traverse_blocks")
     cuda_lib.count_launch(traverse_blocks, soat.device)
     return t, p
@@ -518,7 +632,8 @@ def build_items(masks, w: int, maxitems: int, cap: int):
 
 
 def traverse_items_plain(items, n_steps, soab, tri, tmin: float,
-                         mt_mode: str = "vpu", w: int = 4, skip=None):
+                         mt_mode: str = "vpu", w: int = 4, skip=None, *,
+                         slices=None):
     """items [maxitems + w] i32, n_steps [] i32 (from :func:`build_items`),
     soab [n_blocks, b, 8] f32, tri [C, 16, 128] f32 -> (t, prim) each
     [n_blocks, b, 1]. Per ray, the minimum packed key over its block's
@@ -528,7 +643,9 @@ def traverse_items_plain(items, n_steps, soab, tri, tmin: float,
     :func:`traverse_blocks_plain`'s. Rays of blocks without items are
     misses. Item clusters past the table read its last cluster, as the
     reference's index map clamps them. A set one-element bool ``skip``
-    makes the launch write misses only."""
+    makes the launch write misses only. ``slices`` is not read, as in
+    :func:`traverse_blocks_plain`."""
+    del slices
     nblk, b, _ = soab.shape
     dev = soab.device
     n = nblk * b
@@ -559,14 +676,31 @@ def traverse_items_plain(items, n_steps, soab, tri, tmin: float,
     return t.view(nblk, b, 1), prim.view(nblk, b, 1)
 
 
+def _item_slices_plain(items, n_steps, soab, slices, tmin: float,
+                       mt_mode: str, w: int):
+    """:func:`slice_runs_plain` over the list's items, its pads (an item
+    equal to the one before it) and items of no block dropped, as the
+    kernel reads them."""
+    n_items = min(max(int(n_steps), 0), (items.shape[0] - w) // w) * w
+    it = items[:n_items].long()
+    bid, cid = it >> CID_BITS, it & _CID_MASK
+    keep = (bid >= 0) & (bid < soab.shape[0])
+    keep[1:] &= it[1:] != it[:-1]
+    return slice_runs_plain(bid[keep], cid[keep], soab, slices, tmin,
+                            mt_mode, soab.shape[1])
+
+
 @cuda_lib.counted
 def traverse_items(items, n_steps, soab, tri, tmin: float,
-                   mt_mode: str = "vpu", w: int = 4, skip=None):
+                   mt_mode: str = "vpu", w: int = 4, skip=None, *, slices):
     """Kernel wrapper of :func:`traverse_items_plain` (same contract; a
-    set ``skip`` flag makes the fold exit at once)."""
+    set ``skip`` flag makes the fold exit at once). slices, and the
+    counter ``traverse.slices`` (on the CPU :func:`slice_runs_plain` over
+    the list's items): as in :func:`traverse_blocks`."""
     _check_dtype("traverse_items", items, torch.int32, 1)
     _check_dtype("traverse_items", soab, torch.float32, 3)
     _check_dtype("traverse_items", tri, torch.float32, 3)
+    _check_slices("traverse_items", slices, tri)
     nblk, b, width = soab.shape
     if (width != 8 or tuple(tri.shape[1:]) != (16, KTRI)
             or n_steps.dtype != torch.int32 or n_steps.numel() != 1
@@ -580,22 +714,33 @@ def traverse_items(items, n_steps, soab, tri, tmin: float,
     if b > 1024 or b & (b - 1):
         raise ValueError(f"traverse_items: b={b} must be a power of two "
                          "<= 1024")
-    if cuda_lib.on_cpu("traverse_items", items, n_steps, soab, tri, skip):
+    if cuda_lib.on_cpu("traverse_items", items, n_steps, soab, tri, slices,
+                       skip):
+        if tracing.enabled() and (skip is None or not bool(skip)):
+            tracing.count("traverse.slices", _item_slices_plain(
+                items, n_steps, soab, slices, tmin, mt_mode, w))
         return traverse_items_plain(items, n_steps, soab, tri, tmin,
                                     mt_mode, w, skip)
     _check_flag("traverse_items", skip)
-    args = [t for t in (items, n_steps, soab, tri, skip) if t is not None]
+    args = [t for t in (items, n_steps, soab, tri, slices, skip)
+            if t is not None]
     lib, stream = cuda_lib.launch_args("traverse_items", *args)
-    if soab.data_ptr() % 16:
-        raise ValueError("traverse_items: soab must be 16-byte aligned")
+    if soab.data_ptr() % 16 or slices.data_ptr() % 16:
+        raise ValueError("traverse_items: soab and slices must be 16-byte "
+                         "aligned")
+    # the fold's tickets: a warp's (32-item chunk, 32-ray group, slice)
+    if ((items.shape[0] // 32 + 1) * max(b // SLICE, 1) * N_SLICES
+            >= 2**31 - 2**24):
+        raise ValueError("traverse_items: too many items")
     t = torch.empty((nblk, b, 1), dtype=torch.float32, device=soab.device)
     p = torch.empty((nblk, b, 1), dtype=torch.int32, device=soab.device)
     # the rays' 64-bit bests, then the group counter
     best = torch.empty((nblk * b + 1,), dtype=torch.int64, device=soab.device)
     cuda_lib.check(lib.rt_traverse_items(
         items.data_ptr(), n_steps.data_ptr(), soab.data_ptr(), tri.data_ptr(),
-        _ptr(skip), best.data_ptr(), best.data_ptr() + 8 * nblk * b,
-        t.data_ptr(), p.data_ptr(), nblk, b, tri.shape[0],
+        slices.data_ptr(), _ptr(skip), best.data_ptr(),
+        best.data_ptr() + 8 * nblk * b, t.data_ptr(), p.data_ptr(),
+        tracing.counter_ptr("traverse.slices", soab), nblk, b, tri.shape[0],
         (items.shape[0] - w) // w, w, float(tmin), int(mt_mode == "bw"),
         stream,
     ), "traverse_items")
@@ -1088,8 +1233,9 @@ def ray_unsort(p_bn, t_bn, perm, n: int, hit_only: bool = False):
     return t, prim
 
 
-def _items_route(masks, soat, tri, tmin: float, mt_mode: str, any_hit: bool,
-                 n_live, b: int, w: int, maxitems: int, cap: int):
+def _items_route(masks, soat, tri, slices, tmin: float, mt_mode: str,
+                 any_hit: bool, n_live, b: int, w: int, maxitems: int,
+                 cap: int):
     """The item traversal with the scan as its overflow fallback, both
     launched and gated on the device-side overflow flag (the reference's
     ``lax.cond``); outputs of blocks without items are misses."""
@@ -1097,9 +1243,9 @@ def _items_route(masks, soat, tri, tmin: float, mt_mode: str, any_hit: bool,
     item_list, n_groups, overflow, block_used = build_items(masks, w,
                                                             maxitems, cap)
     t_i, p_i = traverse_items(item_list, n_groups, soat.view(-1, b, 8), tri,
-                              tmin, mt_mode, w, skip=overflow)
+                              tmin, mt_mode, w, skip=overflow, slices=slices)
     t_s, p_s = traverse_blocks(masks, soat, tri, tmin, mt_mode, any_hit,
-                               n_live, b, run_if=overflow)
+                               n_live, b, run_if=overflow, slices=slices)
     used = block_used[:, None].expand(-1, b).reshape(n_steps, sb, 1)
     t_i = torch.where(used, t_i.view(n_steps, sb, 1), _INF)
     p_i = torch.where(used, p_i.view(n_steps, sb, 1), -1)
@@ -1110,9 +1256,10 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
              want_t: bool = True, mt_mode: str = "vpu", any_hit: bool = False,
              b: int = 128, sb: int = 2048, live_prefix: bool = True,
              items: bool = False, items_w: int = 4, items_max: int = 24576,
-             items_cap: int = 64):
+             items_cap: int = 64, *, slices):
     """Nearest triangle hit of rays (o, d: V3 of [N]) against one domain's
-    tables (cl_box [8, C_pad], tri [C, 16, 128] rows for ``mt_mode``).
+    tables (cl_box [8, C_pad], tri [C, 16, 128] rows for ``mt_mode``,
+    slices [C, 4, 8] its clusters' slice boxes).
     tmax: [N] or scalar. Returns (t [N] f32 or None, prim [N] i32
     table-local triangle id or -1); see the module docstring. ``items``
     takes the item route for tables of at most 8192 clusters (the packed
@@ -1132,12 +1279,12 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
     masks = cluster_masks(soat, cl_box, float(tmin), n_live, b)
     if items and tri.shape[0] <= 1 << CID_BITS:
         validate_items(items_w, items_max, items_cap)
-        t_bn, p_bn = _items_route(masks, soat, tri, float(tmin), mt_mode,
-                                  any_hit, n_live, b, items_w, items_max,
-                                  items_cap)
+        t_bn, p_bn = _items_route(masks, soat, tri, slices, float(tmin),
+                                  mt_mode, any_hit, n_live, b, items_w,
+                                  items_max, items_cap)
     else:
         t_bn, p_bn = traverse_blocks(masks, soat, tri, float(tmin), mt_mode,
-                                     any_hit, n_live, b)
+                                     any_hit, n_live, b, slices=slices)
     with tracing.device_span("traversal_plumbing", cl_box):
         return ray_unsort(p_bn.view(n_tot),
                           t_bn.view(n_tot) if want_t else None, perm, n,

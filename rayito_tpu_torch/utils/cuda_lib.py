@@ -51,11 +51,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rt_cluster_masks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
                          _P],
-    "rt_traverse_blocks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _F, _I, _I, _P],
+    # masks, soat, tri, slices, n_live, run_if, best, list, t, prim,
+    # counter, n_blocks, b, n_words, n_clusters, sb, n_steps, tmin, bw,
+    # any_hit, stream
+    "rt_traverse_blocks": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P],
     "rt_gather_rows_t": [_P, _P, _P, _I, _I, _I, _P],
-    "rt_traverse_items": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _F, _I, _P],
+    # items, n_steps, soab, tri, slices, skip, best, counter, t, prim,
+    # slice counter, n_blocks, b, n_clusters, max_groups, w, tmin, bw, stream
+    "rt_traverse_items": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
     "rt_build_items": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
                        _I, _I, _I, _P],
     "rt_cluster_pipeline": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _P],

@@ -34,8 +34,9 @@ one add on its device (captured with the pass). ``counter_ptr`` hands a
 kernel the address of a counter's int64 slot on the device. The port's
 counters: ``launches.<kernel>`` (``utils/cuda_lib.py``),
 ``query.rays.closest`` and ``query.rays.shadow`` (``render/pathtracer.py``),
-``traverse.pairs`` and ``traverse.live_rays`` (``render/traverse.py``,
-the first added by ``cluster_masks_kernel``), and the tiny-mesh fold's
+``traverse.pairs``, ``traverse.live_rays`` and ``traverse.slices``
+(``render/traverse.py``, added by ``cluster_masks_kernel``,
+``ray_pack_kernel`` and the mesh fold's kernels), and the tiny-mesh fold's
 ``fold_small.tests.closest`` / ``.any``, ``fold_small.lanes.closest`` /
 ``.any`` and ``fold_small.links`` (``render/mesh_intersect.py``, added by
 ``fold_small_kernel`` once per block).

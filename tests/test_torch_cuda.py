@@ -78,8 +78,13 @@ stage-7b pass graph adds nothing to them, a tiny mesh nine and twelve
 links deep runs in the kernel, its chain in the launch's slot table, bit
 for bit with the twin and replays, and the stage-7 tumbling
 cell's render (two samples a launch) replays its eager bodies bit for
-bit. The launch counters count only with tracing on, so each test that
-reads them turns it on around what it counts, captures included.
+bit; and the fold's slice cull: traverse_blocks at ray blocks of 128, 256
+and 512 and traverse_items bit for bit with their plain folds on camera,
+bounce and shadow rays of stage 6 and stage 7's moving domain, the
+slices run equal to the plain count, and on a traced pass at most 16 a
+(block, cluster) pair, none on an untraced one. The launch counters
+count only with tracing on, so each test that reads them turns it on
+around what it counts, captures included.
 Every kernel comparison is exact: kernel and plain version run the same
 IEEE float32 operations in the same order, without contraction.
 """
@@ -226,7 +231,15 @@ def tri_scene():
     tmax[n // 2:] = rs.uniform(1.0, 40.0, n - n // 2)
     tmax[-50:] = 0.0
     return dict(o=o, d=d, tmax=tmax, box=kt.cl_box, vpu=kt.tri,
-                bw=tkt.build_bw_rows(kt.tri))
+                bw=tkt.build_bw_rows(kt.tri),
+                slices=tkt.build_slice_boxes(kt.tri))
+
+
+def _tables(kt, dev):
+    """A domain's MT rows, BW rows and slice boxes on ``dev``."""
+    return {"vpu": torch.from_numpy(kt.tri).to(dev),
+            "bw": torch.from_numpy(tkt.build_bw_rows(kt.tri)).to(dev),
+            "slices": torch.from_numpy(tkt.build_slice_boxes(kt.tri)).to(dev)}
 
 
 MODES = [("bw", False), ("vpu", False), ("vpu", True)]
@@ -242,7 +255,8 @@ def test_traverse_blocks_kernel_matches_plain(dev, tri_scene, mt, any_hit):
     tmax = torch.from_numpy(s["tmax"]).to(dev)
     soat, _, n_live = tv.prepare_rays(o, d, tmax, box, 1e-4)
     masks = tv.cluster_masks(soat, box, 1e-4, n_live)
-    t_k, p_k = tv.traverse_blocks(masks, soat, tri, 1e-4, mt, any_hit, n_live)
+    t_k, p_k = tv.traverse_blocks(masks, soat, tri, 1e-4, mt, any_hit, n_live,
+                                  slices=torch.from_numpy(s["slices"]).to(dev))
     t_p, p_p = tv.traverse_blocks_plain(masks, soat, tri, 1e-4, mt, any_hit,
                                         n_live)
     torch.cuda.synchronize()
@@ -267,7 +281,8 @@ def test_traverse_on_the_card_matches_the_cpu(dev, tri_scene, mt, any_hit):
             o, d, torch.from_numpy(s["tmax"]).to(device),
             torch.from_numpy(s["box"]).to(device),
             torch.from_numpy(s["bw" if mt == "bw" else "vpu"]).to(device),
-            1e-4, want_t=not any_hit, mt_mode=mt, any_hit=any_hit)
+            1e-4, want_t=not any_hit, mt_mode=mt, any_hit=any_hit,
+            slices=torch.from_numpy(s["slices"]).to(device))
         return (None if t is None else t.cpu()), p.cpu()
 
     t_c, p_c = run(torch.device("cpu"))
@@ -278,9 +293,9 @@ def test_traverse_on_the_card_matches_the_cpu(dev, tri_scene, mt, any_hit):
 
 
 def _blocks_both(masks, soat, tri, mt, any_hit=False, n_live=None,
-                 run_if=None):
+                 run_if=None, *, slices):
     got = tv.traverse_blocks(masks, soat, tri, 1e-4, mt, any_hit, n_live,
-                             run_if=run_if)
+                             run_if=run_if, slices=slices)
     ref = tv.traverse_blocks_plain(masks, soat, tri, 1e-4, mt, any_hit,
                                    n_live, run_if=run_if)
     torch.cuda.synchronize()
@@ -320,9 +335,7 @@ def _tie_case(dev):
     kt = tkt.build_kernel_tables(v0, v1, v2, np.ones(n_tri, bool))
     soat = torch.from_numpy(rows.reshape(1, SB, 8)).to(dev)
     box = torch.from_numpy(kt.cl_box).to(dev)
-    tri = {"vpu": torch.from_numpy(kt.tri).to(dev),
-           "bw": torch.from_numpy(tkt.build_bw_rows(kt.tri)).to(dev)}
-    return soat, box, tri
+    return soat, box, _tables(kt, dev)
 
 
 @pytest.mark.parametrize("mt", ["bw", "vpu"])
@@ -331,7 +344,7 @@ def test_traverse_blocks_key_tie_across_words(dev, mt):
     units of the kernel, merged in any order): the lower cluster wins."""
     soat, box, tri = _tie_case(dev)
     masks = tv.cluster_masks(soat, box, 1e-4)
-    got, ref = _blocks_both(masks, soat, tri[mt], mt)
+    got, ref = _blocks_both(masks, soat, tri[mt], mt, slices=tri["slices"])
     _check_blocks(got, ref, False)
     want = torch.tensor([5 * 128 + j for j in TIE_LANES], dtype=torch.int32)
     assert torch.equal(got[1].view(-1)[:len(TIE_LANES)].cpu(), want)
@@ -345,16 +358,19 @@ def test_traverse_blocks_gates(dev, big_items, case, mt, any_hit):
     the run_if gate: set, the launch runs; clear, it writes nothing."""
     s = big_items
     masks, soat, tri = s["masks"], s["soat"], s["tri"][mt]
+    slices = s["tri"]["slices"]
     if case == "short_live":
         n_live = torch.tensor([3], dtype=torch.int32, device=dev)
-        got, ref = _blocks_both(masks, soat, tri, mt, any_hit, n_live)
+        got, ref = _blocks_both(masks, soat, tri, mt, any_hit, n_live,
+                                slices=slices)
         _check_blocks(got, ref, any_hit)
         assert not bool((got[1][3:] >= 0).any())
         assert bool((got[1][:3] >= 0).any())
         return
     flag = torch.tensor(case == "run_if_set", device=dev)
     if case == "run_if_set":
-        got, ref = _blocks_both(masks, soat, tri, mt, any_hit, run_if=flag)
+        got, ref = _blocks_both(masks, soat, tri, mt, any_hit, run_if=flag,
+                                slices=slices)
         _check_blocks(got, ref, any_hit)
         assert int((ref[1] >= 0).sum()) > N_BIG // 8
         return
@@ -366,11 +382,11 @@ def test_traverse_blocks_gates(dev, big_items, case, mt, any_hit):
     scratch = torch.zeros(n + (n_units + 5) // 2, dtype=torch.int64,
                           device=dev)
     cuda_lib.check(lib.rt_traverse_blocks(
-        masks.data_ptr(), soat.data_ptr(), tri.data_ptr(), None,
-        flag.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8 * n,
-        t.data_ptr(), p.data_ptr(), masks.shape[0], 128, masks.shape[1],
-        tri.shape[0], SB, soat.shape[0], 1e-4, int(mt == "bw"),
-        int(any_hit), stream), "traverse_blocks")
+        masks.data_ptr(), soat.data_ptr(), tri.data_ptr(), slices.data_ptr(),
+        None, flag.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8 * n,
+        t.data_ptr(), p.data_ptr(), None, masks.shape[0], 128,
+        masks.shape[1], tri.shape[0], SB, soat.shape[0], 1e-4,
+        int(mt == "bw"), int(any_hit), stream), "traverse_blocks")
     torch.cuda.synchronize()
     assert bool((t == 7.0).all()) and bool((p == 7).all())
     assert not bool(scratch.any())
@@ -392,8 +408,7 @@ def all_words(dev):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     box = torch.from_numpy(kt.cl_box).to(dev)
     assert box.shape[1] == 1920
-    tri = {"vpu": torch.from_numpy(kt.tri).to(dev),
-           "bw": torch.from_numpy(tkt.build_bw_rows(kt.tri)).to(dev)}
+    tri = _tables(kt, dev)
     tmax = np.full(n, np.inf, np.float32)
     soat = torch.from_numpy(_soat(o, d, tmax)).to(dev)
     masks = tv.cluster_masks(soat, box, 1e-4)
@@ -408,7 +423,7 @@ def test_traverse_blocks_block_lists_every_cluster(dev, all_words, mt,
     heavy unit), the other blocks their own lists."""
     s = all_words
     got, ref = _blocks_both(s["masks"], s["soat"], s["tri"][mt], mt,
-                            any_hit)
+                            any_hit, slices=s["tri"]["slices"])
     _check_blocks(got, ref, any_hit)
     assert int((ref[1][0, :128] >= 0).sum()) > 64
 
@@ -449,8 +464,7 @@ def big_items(dev):
     tmax[N_BIG // 2:] = rs.uniform(1.0, 20.0, N_BIG // 2)
     tmax[-2 * SB:] = 0.0
     box = torch.from_numpy(kt.cl_box).to(dev)
-    tri = {"vpu": torch.from_numpy(kt.tri).to(dev),
-           "bw": torch.from_numpy(tkt.build_bw_rows(kt.tri)).to(dev)}
+    tri = _tables(kt, dev)
     rays = tuple(V3(*(torch.from_numpy(a[:, i].copy()).to(dev)
                       for i in range(3))) for a in (o, d))
     tmax_d = torch.from_numpy(tmax).to(dev)
@@ -468,7 +482,8 @@ def _items_both(big, mt, w, n_steps=None, soat=None):
     if n_steps is not None:
         steps = torch.full_like(steps, n_steps)
     soab = soat.view(nblk, 128, 8)
-    got = tv.traverse_items(items, steps, soab, big["tri"][mt], 1e-4, mt, w)
+    got = tv.traverse_items(items, steps, soab, big["tri"][mt], 1e-4, mt, w,
+                            slices=big["tri"]["slices"])
     ref = tv.traverse_items_plain(items, steps, soab, big["tri"][mt], 1e-4,
                                   mt, w)
     torch.cuda.synchronize()
@@ -511,7 +526,8 @@ def test_traverse_items_kernel_matches_plain(dev, big_items, mt, w):
     _equal(got, ref)
     assert int((ref[1] >= 0).sum()) > N_BIG // 8
     scan = tv.traverse_blocks(big_items["masks"], big_items["soat"],
-                              big_items["tri"][mt], 1e-4, mt)
+                              big_items["tri"][mt], 1e-4, mt,
+                              slices=big_items["tri"]["slices"])
     torch.cuda.synchronize()
     _equal((got[0].view(scan[0].shape), got[1].view(scan[1].shape)), scan)
 
@@ -565,11 +581,12 @@ def test_traverse_items_route_does_not_wait_on_the_device(dev, big_items,
     o, d = big_items["rays"]
     args = (o, d, big_items["tmax"], big_items["box"], big_items["tri"]["bw"],
             1e-4)
+    kw["slices"] = big_items["tri"]["slices"]
     _swap = (tv.cluster_masks, tv.traverse_blocks)
     tv.cluster_masks, tv.traverse_blocks = (tv.cluster_masks_plain,
                                             tv.traverse_blocks_plain)
     try:
-        scan = tv.traverse(*args, mt_mode="bw")
+        scan = tv.traverse(*args, mt_mode="bw", slices=kw["slices"])
     finally:
         tv.cluster_masks, tv.traverse_blocks = _swap
     tv.traverse(*args, mt_mode="bw", **kw)  # warm-up
@@ -587,7 +604,8 @@ def test_traverse_items_route_does_not_wait_on_the_device(dev, big_items,
     _equal(got, scan)
 
 
-def _items_case(masks, soat, tri, mt, w, maxitems=None, cap=None):
+def _items_case(masks, soat, tri, mt, w, maxitems=None, cap=None, *,
+                slices):
     """The item kernel against its plain version on the list that the
     build_items kernel makes from ``masks`` (checked against its plain
     version first); by default a budget that never overflows."""
@@ -598,7 +616,8 @@ def _items_case(masks, soat, tri, mt, w, maxitems=None, cap=None):
     _check_build(lst, tv.build_items_plain(masks, w, maxitems, cap))
     items, steps, overflow, _ = lst
     soab = soat.view(masks.shape[0], -1, 8)
-    got = tv.traverse_items(items, steps, soab, tri, 1e-4, mt, w)
+    got = tv.traverse_items(items, steps, soab, tri, 1e-4, mt, w,
+                            slices=slices)
     ref = tv.traverse_items_plain(items, steps, soab, tri, 1e-4, mt, w)
     torch.cuda.synchronize()
     _equal(got, ref)
@@ -611,9 +630,10 @@ def test_traverse_items_block_spans_chunks(dev, all_words, mt):
     merged into its rays' bests; the result is the scan's."""
     s = all_words
     got, items, n_items, _ = _items_case(s["masks"], s["soat"], s["tri"][mt],
-                                         mt, 4)
+                                         mt, 4, slices=s["tri"]["slices"])
     assert int((items[:1920] >> tv.CID_BITS == 0).sum()) == 1920
-    scan = tv.traverse_blocks(s["masks"], s["soat"], s["tri"][mt], 1e-4, mt)
+    scan = tv.traverse_blocks(s["masks"], s["soat"], s["tri"][mt], 1e-4, mt,
+                              slices=s["tri"]["slices"])
     torch.cuda.synchronize()
     _equal((got[0].view(scan[0].shape), got[1].view(scan[1].shape)), scan)
     assert int((got[1][0] >= 0).sum()) > 64
@@ -632,7 +652,8 @@ def test_traverse_items_key_tie_across_chunks(dev, mt):
     rows[4:8, 6] = nans.to(dev)
     masks = torch.zeros((SB // 128, 2), dtype=torch.int32, device=dev)
     masks[0, 0], masks[0, 1] = -1, 0xFF
-    got, _, n_items, _ = _items_case(masks, soat, tri[mt], mt, 4)
+    got, _, n_items, _ = _items_case(masks, soat, tri[mt], mt, 4,
+                                     slices=tri["slices"])
     assert n_items == 40
     want = torch.tensor([5 * 128 + j for j in TIE_LANES], dtype=torch.int32)
     assert torch.equal(got[1].view(-1)[:len(TIE_LANES)].cpu(), want)
@@ -649,7 +670,9 @@ def test_traverse_items_pads_and_clusters_past_the_table(dev, big_items, w):
     masks[1] = 0
     masks[1, 3] = 1 << 7
     tri = s["tri"]["bw"][:s["c_pad"] - 100].contiguous()
-    got, items, n_items, _ = _items_case(masks, s["soat"], tri, "bw", w)
+    slices = s["tri"]["slices"][:s["c_pad"] - 100].contiguous()
+    got, items, n_items, _ = _items_case(masks, s["soat"], tri, "bw", w,
+                                         slices=slices)
     cids = items[:n_items] & ((1 << tv.CID_BITS) - 1)
     assert bool((cids >= tri.shape[0]).any())
     assert bool((items[1:n_items] == items[:n_items - 1]).any())  # pads
@@ -774,7 +797,8 @@ def test_moving_domain_kernels_match_plain(dev, stage7, when, mt, any_hit):
     soat, _, n_live = tv.prepare_rays(o_l, d_l, tmax, box, 1e-4)
     masks = tv.cluster_masks(soat, box, 1e-4, n_live)
     assert torch.equal(masks, tv.cluster_masks_plain(soat, box, 1e-4, n_live))
-    got = tv.traverse_blocks(masks, soat, tri, 1e-4, mt, any_hit, n_live)
+    got = tv.traverse_blocks(masks, soat, tri, 1e-4, mt, any_hit, n_live,
+                             slices=scene.ktab_slice[0])
     ref = tv.traverse_blocks_plain(masks, soat, tri, 1e-4, mt, any_hit,
                                    n_live)
     torch.cuda.synchronize()
@@ -2543,7 +2567,9 @@ def test_device_counters_equal_the_host_plain_counts(dev, graph_scenes,
     cluster_masks_plain on the same inputs, the live rays that ray_pack
     adds the live lanes of the plain coherence keys of its rows, and the
     query counters sum to the pass's queries. Its
-    replayed graph then counts the same, launches included."""
+    replayed graph then counts the same, launches included; the slices
+    the folds ran, which an any-hit fold's early stop makes vary, are
+    more than none and at most 16 a listed pair in both."""
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import graphs
 
@@ -2590,6 +2616,10 @@ def test_device_counters_equal_the_host_plain_counts(dev, graph_scenes,
         int((k < (1 << 30)).sum()) for k in keys) > 0
     assert (eager_counts["query.rays.closest"]
             + eager_counts["query.rays.shadow"]) == int(eager[2])
+    # the slices an any-hit fold runs depend on when other warps' hits
+    # land, so they may differ between two runs of one pass
+    runs = [c.pop("traverse.slices") for c in (eager_counts, replay_counts)]
+    assert all(0 < n <= pairs * 16 for n in runs)
     assert replay_counts == eager_counts
     graphs.clear()
 
@@ -2915,8 +2945,9 @@ def test_ray_prep_kernels_match_plain(dev, plumbing_scenes, name, kind, n):
     assert int(n_live) == -(-live // SB)
     masks = tv.cluster_masks(soat, box, 1e-4)
     tri = plumbing_scenes[name].ktab_mxu[0]
-    t_bn, p_bn = (x.view(-1) for x in tv.traverse_blocks(masks, soat, tri,
-                                                          1e-4, "bw"))
+    t_bn, p_bn = (x.view(-1) for x in tv.traverse_blocks(
+        masks, soat, tri, 1e-4, "bw",
+        slices=plumbing_scenes[name].ktab_slice[0]))
     assert int((p_bn >= 0).sum()) > 100
     for sorted_, t_in, hit_only in ((True, t_bn, False), (True, None, True),
                                     (False, t_bn, False),
@@ -2950,7 +2981,8 @@ def test_traverse_through_the_plumbing_kernels_matches_the_plain_route(
     for mt, any_hit, want_t, tri in cases:
         run = lambda **kw: tv.traverse(o, d, tmax, box, tri, 1e-4,
                                        want_t=want_t, mt_mode=mt,
-                                       any_hit=any_hit, **kw)
+                                       any_hit=any_hit,
+                                       slices=scene.ktab_slice[0], **kw)
         kern, unsorted = run(), run(sort_rays=False)
         with monkeypatch.context() as m:
             _plain_route(m)
@@ -2977,12 +3009,13 @@ def test_ray_prep_replayed_in_a_graph(dev, plumbing_scenes):
     o, d = (V3(v.x.clone(), v.y.clone(), v.z.clone()) for v in (o, d))
     tmax = tmax.clone()
     tri = plumbing_scenes["stage6"].ktab_mxu[0]
+    slices = plumbing_scenes["stage6"].ktab_slice[0]
 
     def body():
         soat, perm, n_live = tv.prepare_rays(o, d, tmax, box, 1e-4)
         masks = tv.cluster_masks(soat, box, 1e-4, n_live)
         t_bn, p_bn = tv.traverse_blocks(masks, soat, tri, 1e-4, "bw", False,
-                                        n_live)
+                                        n_live, slices=slices)
         return soat, perm, n_live, tv.ray_unsort(
             p_bn.view(-1), t_bn.view(-1), perm, o.x.shape[0])
 
@@ -3001,7 +3034,8 @@ def test_ray_prep_replayed_in_a_graph(dev, plumbing_scenes):
         ref = tv.ray_reorder_plain(soa8, *tv.coherence_sort(operand), SB)
         assert _bits_equal(out[0].view(-1, 8), ref[0])
         assert _bits_equal(out[1], ref[1]) and _bits_equal(out[2], ref[2])
-        t, p = tv.traverse(po, pd, ptmax, box, tri, 1e-4, mt_mode="bw")
+        t, p = tv.traverse(po, pd, ptmax, box, tri, 1e-4, mt_mode="bw",
+                           slices=slices)
         assert _bits_equal(out[3][0], t) and torch.equal(out[3][1], p)
 
 
@@ -3041,3 +3075,112 @@ def test_ray_prep_wrappers_refuse_mixed_devices(dev):
     with pytest.raises(ValueError):
         tv.ray_unsort(p, None, torch.zeros(SB, dtype=torch.int32), SB)
     assert tv.ray_pack.launches == 0 and tv.ray_unsort.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the fold's slice cull (csrc/fold.cuh): a warp runs a 32-lane slice of a
+# cluster only when one of its rays slab-hits the slice's box
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cull_scenes(dev, tmp_path_factory):
+    """Stage 6 and stage 7 (its rotating mesh the traversal domain) on the
+    n=24 stand-in (6,912 triangles, 54 clusters), on the card."""
+    from rayito_tpu_torch.models import demo
+
+    path = str(tmp_path_factory.mktemp("obj") / "bumpy24.obj")
+    demo.write_bumpy_standin(path, n=24)
+    return {"stage6": demo.stage6_scene(path).compile(dev),
+            "stage7": demo.stage7_scene1(path).compile(dev)}
+
+
+CULL_LANES = 65536
+
+
+def _counted(fn):
+    """(fn()'s outputs, the slices its fold ran: traverse.slices)."""
+    with tracing.on():
+        tracing.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        runs = tracing.counters().get("traverse.slices", 0)
+    return out, runs
+
+
+@pytest.mark.parametrize("b", [128, 256, 512])
+@pytest.mark.parametrize("kind", ["camera", "bounce", "shadow"])
+@pytest.mark.parametrize("name", ["stage6", "stage7"])
+def test_slice_cull_matches_the_plain_fold(dev, cull_scenes, name, kind, b):
+    """traverse_blocks with the slice cull against the plain fold, which
+    runs every test, on camera, bounce and shadow rays of stage 6 and of
+    stage 7's moving domain (its local space, lane times) at ray blocks of
+    128, 256 and 512 (4, 8 and 16 warp groups): closest hits (BW rows)
+    bit for bit in t and prim, any hits (MT rows) in prim >= 0. The
+    slices the closest-hit fold ran equal fold_slices_plain's count and
+    are fewer than the masks' b / 8 a (ray block, cluster) pair; the
+    any-hit fold runs at most that count. At b = 128 the item route too,
+    closest and any hit bit for bit, its count equal to the plain count
+    over its items."""
+    o, d, tmax, box, _ = _plumbing_rays(cull_scenes, name, kind, CULL_LANES,
+                                        dev)
+    scene = cull_scenes[name]
+    sl = scene.ktab_slice[0]
+    soat, _, n_live = tv.prepare_rays(o, d, tmax, box, 1e-4)
+    masks = tv.cluster_masks(soat, box, 1e-4, n_live, b)
+    listed = int(tv.popcount(masks)) * b // 8
+    for mt, any_hit in (("bw", False), ("vpu", True)):
+        tri = scene.ktab_mxu[0] if mt == "bw" else scene.ktab_tri[0]
+        got, runs = _counted(lambda: tv.traverse_blocks(
+            masks, soat, tri, 1e-4, mt, any_hit, n_live, b, slices=sl))
+        ref = tv.traverse_blocks_plain(masks, soat, tri, 1e-4, mt, any_hit,
+                                       n_live, b)
+        torch.cuda.synchronize()
+        assert int((ref[1] >= 0).sum()) > 100
+        _check_blocks(got, ref, any_hit)
+        want = int(tv.fold_slices_plain(masks, soat, sl, 1e-4, mt, n_live,
+                                        b))
+        assert 0 < want < listed
+        assert runs <= want if any_hit else runs == want
+        if b != 128:
+            continue
+        nblk, c_pad = masks.shape[0], box.shape[1]
+        items, steps, overflow, _ = tv.build_items(masks, 4, nblk * c_pad,
+                                                   c_pad)
+        soab = soat.view(nblk, b, 8)
+        got, runs = _counted(lambda: tv.traverse_items(
+            items, steps, soab, tri, 1e-4, mt, 4, slices=sl))
+        ref = tv.traverse_items_plain(items, steps, soab, tri, 1e-4, mt, 4)
+        torch.cuda.synchronize()
+        assert not bool(overflow)
+        _equal(got, ref)
+        assert runs == int(tv._item_slices_plain(items, steps, soab, sl,
+                                                 1e-4, mt, 4)) > 0
+
+
+def test_slice_counter_on_a_traced_render(dev, graph_scenes):
+    """A stage-6 pass captured and replayed with tracing on: the slices its
+    folds ran are more than none and at most the masks' 16 a (128-ray
+    block, cluster) pair; the same pass captured and replayed with tracing
+    off adds nothing to the counter."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.utils import graphs
+
+    scene, cfg, cam = graph_scenes["stage6"]
+    graphs.clear()
+    si = torch.arange(2, dtype=torch.int32, device=dev)
+    counts = {}
+    for traced in (True, False):
+        with tracing.on():
+            tracing.reset()
+        with tracing.on(traced):
+            pt._render_path_pass(scene, cfg, cam, si, 16, 16)  # captures
+            pt._render_path_pass(scene, cfg, cam, si, 16, 16)
+            torch.cuda.synchronize()
+        with tracing.on():
+            counts[traced] = tracing.counters()
+    c = counts[True]
+    assert 0 < c["traverse.slices"] <= c["traverse.pairs"] * 16
+    assert counts[False]["traverse.slices"] == 0
+    assert counts[False]["traverse.pairs"] == 0
+    graphs.clear()

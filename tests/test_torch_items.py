@@ -224,6 +224,8 @@ def _port(s, mt, any_hit, sort_rays, items, tri=None, **kw):
         TV3(*(torch.from_numpy(s["d"][:, k].copy()) for k in range(3))),
         torch.from_numpy(s["tmax"]), torch.from_numpy(s["box"]),
         torch.from_numpy(s[mt] if tri is None else tri), 1e-4,
+        slices=torch.from_numpy(tkt.build_slice_boxes(
+            s["vpu"] if tri is None else tri)),
         sort_rays=sort_rays, want_t=not any_hit, mt_mode=mt,
         any_hit=any_hit, items=items, **kw,
     )

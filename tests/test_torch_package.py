@@ -96,16 +96,18 @@ def _kernel_calls(dev):
     box = torch.zeros((8, 128), device=dev)
     masks = torch.zeros((16, 4), dtype=torch.int32, device=dev)
     tri = torch.zeros((1, 16, 128), device=dev)
+    slices = torch.zeros((1, 4, 8), device=dev)
     table = torch.zeros((8, 16), device=dev)
     idx = torch.zeros((4,), dtype=torch.int32, device=dev)
     items = torch.full((12,), -1, dtype=torch.int32, device=dev)
     n_steps = torch.zeros((), dtype=torch.int32, device=dev)
     return {
         "cluster_masks": lambda: tv.cluster_masks(soat, box, 1e-4),
-        "traverse_blocks": lambda: tv.traverse_blocks(masks, soat, tri, 1e-4),
+        "traverse_blocks": lambda: tv.traverse_blocks(masks, soat, tri, 1e-4,
+                                                      slices=slices),
         "gather_rows_t": lambda: tv.gather_rows_t(table, idx),
         "traverse_items": lambda: tv.traverse_items(
-            items, n_steps, soat.view(16, 128, 8), tri, 1e-4),
+            items, n_steps, soat.view(16, 128, 8), tri, 1e-4, slices=slices),
         "build_items": lambda: tv.build_items(masks, 4, 64, 8),
         "cluster_pipeline": lambda: tv.cluster_pipeline(
             idx, n_steps, V3(*soat[0, :4, :3].t()), V3(*soat[0, :4, 3:6].t()),

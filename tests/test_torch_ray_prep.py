@@ -299,7 +299,8 @@ def test_traverse_calls_each_wrapper_once(monkeypatch, sort_rays):
         monkeypatch.setattr(tv, name, spy(name))
     o, d, tmax, box = _rays(SB - 3)
     tri = torch.zeros((box.shape[1], 16, 128))
-    t, p = tv.traverse(o, d, tmax, box, tri, 1e-4, sort_rays=sort_rays)
+    t, p = tv.traverse(o, d, tmax, box, tri, 1e-4, sort_rays=sort_rays,
+                       slices=torch.zeros((box.shape[1], 4, 8)))
     assert t.shape == p.shape == (SB - 3,)
     assert calls == (["ray_pack", "ray_reorder", "ray_unsort"] if sort_rays
                      else ["ray_pack", "ray_unsort"])

@@ -383,6 +383,7 @@ def _port_traverse(sr, mt, any_hit, sort_rays, live_prefix=True):
         torch.from_numpy(tri), 1e-4, sort_rays=sort_rays,
         want_t=not any_hit, mt_mode=mt, any_hit=any_hit,
         live_prefix=live_prefix,
+        slices=torch.from_numpy(tkt.build_slice_boxes(sr["tri"])),
     )
     return (None if t is None else t.numpy()), p.numpy()
 

@@ -10,7 +10,11 @@ between two events, median of 5 replays, per call) and, for the first two,
 around one call with CUDA events (median of 20 calls, the host's enqueue
 included).
 Prints one JSON line per population, with the card's name and power limit
-and the (ray block, cluster) pairs its masks list.
+and the (ray block, cluster) pairs its masks list; on a tree with the
+fold's slice cull also the slices its warps ran (``runs``, the counter
+``traverse.slices``). On stage 6 each population is timed once more in a
+seeded random order, unsorted (``shuffled_trav_ms``, ``shuffled_pairs``,
+``shuffled_runs``): the cull's worst case, every warp's rays incoherent.
 
 ``--scenes`` picks the scenes (default ``stage6,big_scene``); ``stage7`` is
 chip_smoke.py's stage-7 populations in the rotating mesh's local space at
@@ -49,6 +53,21 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _runs(fn):
+    """The slices ``fn``'s fold ran (the counter ``traverse.slices``, read
+    with tracing on); None on a tree without it."""
+    import torch
+
+    from rayito_tpu_torch.utils import tracing
+
+    with tracing.on():
+        tracing.reset()
+        fn()
+        torch.cuda.synchronize()
+        runs = tracing.counters().get("traverse.slices")
+    return None if runs is None else int(runs)
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -250,6 +269,9 @@ def main() -> int:
             if lane_time is not None:  # the moving domain's local space
                 o, d, _ = tr._domain_local_ray(scene, 0, o, d, lane_time)
             tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
+            # a tree with the slice cull takes the domain's slice boxes
+            sl = ({"slices": scene.ktab_slice[0]}
+                  if hasattr(scene, "ktab_slice") else {})
             soat, _, n_live = tv.prepare_rays(o, d, tmax, box, tmin)
             masks = tv.cluster_masks(soat, box, tmin, n_live)
 
@@ -258,7 +280,7 @@ def main() -> int:
 
             def trav_fn():
                 return tv.traverse_blocks(masks, soat, tri, tmin, mt,
-                                          any_hit, n_live)
+                                          any_hit, n_live, **sl)
 
             rec = {"tree": args.label, "scene": scene_name,
                    "population": name,
@@ -266,14 +288,31 @@ def main() -> int:
                    "mask_call_ms": _median_ms(mask_fn, 20),
                    "trav_ms": _device_ms(trav_fn),
                    "trav_call_ms": _median_ms(trav_fn, 20),
-                   "pairs": cs._listed(masks, tri.shape[0])[0]}
+                   "pairs": cs._listed(masks, tri.shape[0])[0],
+                   "runs": _runs(trav_fn)}
+            if scene_name == "stage6":
+                g = torch.Generator().manual_seed(o.x.shape[0])
+                perm = torch.randperm(o.x.shape[0], generator=g).to(dev)
+                so, sd = (type(v)(v.x[perm], v.y[perm], v.z[perm])
+                          for v in (o, d))
+                soat_s, _, _ = tv.prepare_rays(so, sd, tmax[perm], box, tmin,
+                                               sort_rays=False)
+                masks_s = tv.cluster_masks(soat_s, box, tmin)
+
+                def shuffled_fn():
+                    return tv.traverse_blocks(masks_s, soat_s, tri, tmin, mt,
+                                              any_hit, **sl)
+
+                rec["shuffled_trav_ms"] = _device_ms(shuffled_fn)
+                rec["shuffled_pairs"] = cs._listed(masks_s, tri.shape[0])[0]
+                rec["shuffled_runs"] = _runs(shuffled_fn)
             if scene_name == "big_scene":
                 w = items.items_w
                 il, steps, _, _ = tv.build_items(masks, w, items.items_max,
                                                  items.items_cap)
                 soab = soat.view(masks.shape[0], scene.traverse_b, 8)
                 rec["items_ms"] = _device_ms(lambda: tv.traverse_items(
-                    il, steps, soab, tri, tmin, mt, w))
+                    il, steps, soab, tri, tmin, mt, w, **sl))
                 for key, sd in (("build_items_ms", items),
                                 ("build_items_ref_ms", defaults)):
                     rec[key] = _device_ms(lambda: tv.build_items(
