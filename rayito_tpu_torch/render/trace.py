@@ -367,7 +367,9 @@ def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     space, and re-tests the winner exactly, then folds each tiny
     transformed mesh (ktab_small) densely; 'xla' runs every mesh through
     the two-level pipeline. Each mesh alone is queried in its local space
-    at the lane's time, capped at the nearest hit so far."""
+    at the lane's time, capped at the nearest hit so far. A domain's local
+    ray, launch, re-test and merge run inside a ``domain`` device span, the
+    re-test and the merge inside a ``domain_merge`` one."""
     n, dev = o.x.shape[0], o.x.device
     xla = scene.traversal == "xla"
     t_best = _full(n, INF, torch.float32, dev)
@@ -378,21 +380,25 @@ def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     rot_best = _identity_rot(n, dev) if scene.has_motion else None
     mt = _mt_for(scene, occlusion=False)
     for di in range(0 if xla else len(scene.ktab_xf)):
-        o_l, d_l, rot = _domain_local_ray(scene, di, o, d, time)
-        p_d = _launch(scene, di, o_l, d_l, torch.minimum(t_best, tmax), tmin,
-                      mt, sort_rays=True, any_hit=False)
-        t_fin, ok_fin, beta, gamma, g_d, meta = _winner_retest(
-            scene, di, o_l, d_l, p_d, tmin, INF, want_meta=True
-        )
-        closer = ok_fin & (t_fin < torch.minimum(t_best, tmax))
-        t_best = torch.where(closer, t_fin, t_best)
-        prim_best = torch.where(closer, g_d, prim_best)
-        beta_best = torch.where(closer, beta, beta_best)
-        gamma_best = torch.where(closer, gamma, gamma_best)
-        meta_best = (meta if meta_best is None
-                     else torch.where(closer[None, :], meta, meta_best))
-        if rot_best is not None:
-            rot_best = quat.where(closer, rot or quat.IDENTITY, rot_best)
+        with tracing.device_span("domain", dev):
+            o_l, d_l, rot = _domain_local_ray(scene, di, o, d, time)
+            p_d = _launch(scene, di, o_l, d_l, torch.minimum(t_best, tmax),
+                          tmin, mt, sort_rays=True, any_hit=False)
+            with tracing.device_span("domain_merge", dev):
+                t_fin, ok_fin, beta, gamma, g_d, meta = _winner_retest(
+                    scene, di, o_l, d_l, p_d, tmin, INF, want_meta=True
+                )
+                closer = ok_fin & (t_fin < torch.minimum(t_best, tmax))
+                t_best = torch.where(closer, t_fin, t_best)
+                prim_best = torch.where(closer, g_d, prim_best)
+                beta_best = torch.where(closer, beta, beta_best)
+                gamma_best = torch.where(closer, gamma, gamma_best)
+                meta_best = (meta if meta_best is None
+                             else torch.where(closer[None, :], meta,
+                                              meta_best))
+                if rot_best is not None:
+                    rot_best = quat.where(closer, rot or quat.IDENTITY,
+                                          rot_best)
     # these winners carry no meta rows: with any such mesh the shading
     # gathers the meta rows of every winner
     overflow = 0
@@ -701,24 +707,28 @@ def scene_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
 def _mesh_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
                    occluded):
     """The mesh part of scene_occluded: lanes already ``occluded`` query
-    with tmax 0. Returns (occluded, overflow)."""
+    with tmax 0. Each domain runs inside a ``domain`` device span, its
+    re-test and the or into ``occluded`` inside a ``domain_merge`` one.
+    Returns (occluded, overflow)."""
     xla = scene.traversal == "xla"
     if not xla:
         tq_dn = _occl_tmax_down(occluded, tmax)
         mt = _mt_for(scene, occlusion=True)
     for di in range(0 if xla else len(scene.ktab_xf)):
-        o_l, d_l, _ = _domain_local_ray(scene, di, o, d, time)
-        p_d = _launch(scene, di, o_l, d_l,
-                      torch.where(occluded, 0.0, tq_dn), tmin, mt,
-                      sort_rays=scene.sort_occl, any_hit=mt == "vpu")
-        if mt != "vpu":
-            # approximate-t (BW) winners are re-tested exactly
-            occluded = occluded | _winner_retest(
-                scene, di, o_l, d_l, p_d, tmin,
-                torch.where(occluded, 0.0, tmax),
-            )[1]
-        else:
-            occluded = occluded | (p_d >= 0)
+        with tracing.device_span("domain", o.x):
+            o_l, d_l, _ = _domain_local_ray(scene, di, o, d, time)
+            p_d = _launch(scene, di, o_l, d_l,
+                          torch.where(occluded, 0.0, tq_dn), tmin, mt,
+                          sort_rays=scene.sort_occl, any_hit=mt == "vpu")
+            with tracing.device_span("domain_merge", o.x):
+                if mt != "vpu":
+                    # approximate-t (BW) winners are re-tested exactly
+                    occluded = occluded | _winner_retest(
+                        scene, di, o_l, d_l, p_d, tmin,
+                        torch.where(occluded, 0.0, tmax),
+                    )[1]
+                else:
+                    occluded = occluded | (p_d >= 0)
     # mesh by mesh, tmax as it is (no launch key to round for); lanes
     # already occluded query with tmax 0
     overflow = 0

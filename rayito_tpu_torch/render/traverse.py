@@ -40,8 +40,9 @@ for CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches (``utils/cuda_lib.counted``). With tracing on, ``cluster_masks``
 adds the set bits of the masks it writes to the counter ``traverse.pairs``,
 ``ray_pack`` the lanes that reach the domain's root to
-``traverse.live_rays`` and the fold the 32-lane slices its warps ran to
-``traverse.slices`` (``utils/tracing.py``).
+``traverse.live_rays``, the fold the 32-lane slices its warps ran to
+``traverse.slices``, and ``traverse`` the lanes it was handed to
+``traverse.lanes`` (``utils/tracing.py``).
 
 t carries the key's ~2^-17 relative slack; exact t comes from the winner
 re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
@@ -1272,6 +1273,7 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
     holds none of their blocks."""
     validate_blocks(b, sb)
     n = o.x.shape[0]
+    tracing.count("traverse.lanes", n, cl_box)
     with tracing.device_span("traversal_plumbing", cl_box):
         soat, perm, n_live = prepare_rays(o, d, tmax, cl_box, tmin,
                                           sort_rays, sb, live_prefix)

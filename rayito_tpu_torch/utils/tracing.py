@@ -22,6 +22,18 @@ replay's spans are rebuilt on the host from the log: a replay runs no
 Python. On the CPU a device span is timed on the host clock, since the
 eager pass is the device's work there.
 
+The port's device spans: ``camera_rays``, ``bounce[i]`` ⊃ {``query.closest``,
+``draws``, ``shading.prepare``, ``query.shadow[i]``, ``shading.resolve``}
+and ``image`` (``render/pathtracer.py``); in a query ``analytic_folds`` and
+``mesh`` ⊃ {``domain`` ⊃ {``transforms``, ``traversal_plumbing``,
+``domain_merge``}, ``tiny_mesh_fold``} (``render/trace.py``: one ``domain``
+per traversal domain, around its local ray, its ``traverse()`` call, its
+winner re-test and its merge into the query's best; ``domain_merge``
+around the re-test and the merge, on the closest-hit and the any-hit
+path; ``traversal_plumbing`` in ``render/traverse.py``, ``transforms``
+around every keyed chain in ``ops/transform.py``, the lights' too);
+``readback`` (``render/progressive.py``).
+
 Every span has an id, a name, a parent (the innermost span open when it
 opened; a replayed span's root parent is the host span open at the
 replay) and the request it serves: the one ``requesting`` sets for the
@@ -36,7 +48,9 @@ counters: ``launches.<kernel>`` (``utils/cuda_lib.py``),
 ``query.rays.closest`` and ``query.rays.shadow`` (``render/pathtracer.py``),
 ``traverse.pairs``, ``traverse.live_rays`` and ``traverse.slices``
 (``render/traverse.py``, added by ``cluster_masks_kernel``,
-``ray_pack_kernel`` and the mesh fold's kernels), and the tiny-mesh fold's
+``ray_pack_kernel`` and the mesh fold's kernels), ``traverse.lanes`` (the
+lanes handed to each ``traverse()`` call, a Python number), and the
+tiny-mesh fold's
 ``fold_small.tests.closest`` / ``.any``, ``fold_small.lanes.closest`` /
 ``.any`` and ``fold_small.links`` (``render/mesh_intersect.py``, added by
 ``fold_small_kernel`` once per block).

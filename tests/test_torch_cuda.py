@@ -68,10 +68,12 @@ plain versions on the eager pass's own inputs at bounces 0 and 1 of stage
 sixteen lights at light_samples=2, one launch of each per bounce in a
 replayed pass, the pair captured in a graph and replayed, and the
 wrappers' refusals (a plain-made prep on the card, mixed devices); and
-tracing (utils/tracing.py): a traced pass replays the untraced bits, every
-device span comes back from the log and from the profiler's trace with
-durations that agree, an untraced graph holds no marker or counter add,
-and the device counters equal the host-plain counts; the tiny-mesh
+tracing (utils/tracing.py): on stage 6 and on the benchmark's five-domain
+``big_instanced``, a traced pass replays the untraced bits, every device
+span comes back from the log and from the profiler's trace with durations
+that agree (a ``domain`` span a traversal domain in every mesh query, a
+``domain_merge`` in each), an untraced graph holds no marker or counter
+add; and the device counters equal the host-plain counts; the tiny-mesh
 fold's counters (tests, links, lanes) equal its plain twin's on a
 131,072-lane stage-7b band in one and in chained launches, an untraced
 stage-7b pass graph adds nothing to them, a tiny mesh nine and twelve
@@ -1437,11 +1439,20 @@ def test_cluster_pipeline_kernel_matches_plain(dev, xla_scenes, case):
 @pytest.fixture(scope="module")
 def graph_scenes(dev, tmp_path_factory):
     """{name: (scene on the card, config, camera)}: stage 6, stage 7 (keyed
-    transforms, a moving domain, shutter 0..1), the mesh-light scene and
-    the big scene on its item route, on the n=8 stand-in, 64x48 in
-    16-row bands, 2x2 pixel samples."""
+    transforms, a moving domain, shutter 0..1), the mesh-light scene, the
+    big scene on its item route and the benchmark's ``big_instanced``
+    (five placed copies: five traversal domains, four under a one-key
+    transform), on the n=8 stand-in, 64x48 in 16-row bands, 2x2 pixel
+    samples."""
     import dataclasses
+    import json
+    import os
+    import sys
 
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import port_scene, run
     from rayito_tpu_torch.models import demo
     from rayito_tpu_torch.models.camera import PerspectiveCamera
     from rayito_tpu_torch.models.scene import scene_data_from_arrays
@@ -1455,6 +1466,9 @@ def graph_scenes(dev, tmp_path_factory):
     arrays, static = _mesh_light_scene(path).compile_arrays()
     big = demo.big_streamed_scene(path).compile(dev)
     still = PerspectiveCamera.make(30.0, *demo.STAGE6_CAMERA)
+    with open(os.path.join(root, "portbench", "configs",
+                           "big_instanced.json")) as f:
+        inst = json.load(f)
     return {
         "stage6": (demo.stage6_scene(path).compile(dev), cfg, still),
         "stage7": (demo.stage7_scene1(path).compile(dev), cfg,
@@ -1464,6 +1478,8 @@ def graph_scenes(dev, tmp_path_factory):
                        still),
         "big_items": (dataclasses.replace(big, traverse_items=True), cfg,
                       PerspectiveCamera.make(40.0, *demo.STAGE6_CAMERA)),
+        "big_instanced": (port_scene.build(inst, {"bumpy": path}).compile(
+            dev), cfg, run.camera_of(inst["camera"])),
     }
 
 
@@ -2443,14 +2459,16 @@ def test_shade_wrappers_refuse_what_they_cannot_launch(dev, graph_scenes):
 # ---------------------------------------------------------------------------
 
 
-def test_traced_pass_replays_the_untraced_bits(dev, graph_scenes):
-    """A stage-6 pass replayed from its traced graph gives the image, the
-    queries and the overflow of its untraced graph, bit for bit; the two
-    graphs are cached apart."""
+@pytest.mark.parametrize("name", ["stage6", "big_instanced"])
+def test_traced_pass_replays_the_untraced_bits(dev, graph_scenes, name):
+    """A stage-6 pass, and one of the five-domain ``big_instanced``,
+    replayed from its traced graph gives the image, the queries and the
+    overflow of its untraced graph, bit for bit; the two graphs are cached
+    apart."""
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import graphs
 
-    scene, cfg, cam = graph_scenes["stage6"]
+    scene, cfg, cam = graph_scenes[name]
     graphs.clear()
     si = torch.arange(2, dtype=torch.int32, device=dev)
     off = [pt._render_path_pass(scene, cfg, cam, si, 16, 16)
@@ -2476,19 +2494,22 @@ def _chrome_events(prof, tmp_path):
     return data["traceEvents"] if isinstance(data, dict) else data
 
 
+@pytest.mark.parametrize("name", ["stage6", "big_instanced"])
 def test_device_spans_from_the_log_and_the_trace_agree(dev, graph_scenes,
-                                                       tmp_path):
+                                                       tmp_path, name):
     """A progressive render replayed with tracing on under the profiler:
     every device span comes back from the log (its %globaltimer stamps)
     and from the trace (its markers paired in order), with durations that
     agree; each band's spans hang below its band.replay and serve its
-    request."""
+    request; every mesh query holds one ``domain`` span a traversal domain
+    (one in stage 6, five in ``big_instanced``), each with one
+    ``domain_merge``."""
     from torch.profiler import ProfilerActivity, profile
 
     from rayito_tpu_torch.render import progressive as tprog
     from rayito_tpu_torch.utils import graphs
 
-    scene, cfg, cam = graph_scenes["stage6"]
+    scene, cfg, cam = graph_scenes[name]
     graphs.clear()
     with tracing.on():
         tprog.render_progressive(scene, cfg, cam)  # captures
@@ -2508,6 +2529,14 @@ def test_device_spans_from_the_log_and_the_trace_agree(dev, graph_scenes,
         top = [s for s in snap.device if s.parent == rep.id]
         assert [s.name for s in top] == ["camera_rays", "bounce[0]",
                                          "bounce[1]", "bounce[2]", "image"]
+    kids = {}
+    for s in snap.device:
+        kids.setdefault(s.parent, []).append(s.name)
+    meshes = [s for s in snap.device if s.name == "mesh"]
+    domains = [s for s in snap.device if s.name == "domain"]
+    assert meshes and all(kids[m.id] == ["domain"] * len(scene.ktab_xf)
+                          for m in meshes)
+    assert all(kids[d.id].count("domain_merge") == 1 for d in domains)
     by_id = {s.id: s for s in snap.device}
     host = {s.id: s for s in snap.host}
     for s in snap.device:
@@ -2529,18 +2558,21 @@ def _device_ops(events):
             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
+@pytest.mark.parametrize("name", ["stage6", "big_instanced"])
 def test_an_untraced_graph_holds_no_marker_or_counter_add(dev, graph_scenes,
-                                                          tmp_path):
-    """One replay of a stage-6 pass graph under the profiler, captured with
-    tracing off and with it on: the untraced replay runs no marker kernel,
-    and the traced one runs exactly its template's markers and counter
-    adds more device operations."""
+                                                          tmp_path, name):
+    """One replay of a stage-6 pass graph, and of a five-domain
+    ``big_instanced`` one, under the profiler, captured with tracing off
+    and with it on: the untraced replay runs no marker kernel, and the
+    traced one runs exactly its template's markers and counter adds more
+    device operations; the traced template books ``traverse.lanes`` once
+    a replay, and the untraced graph has no template."""
     from torch.profiler import ProfilerActivity, profile
 
     from rayito_tpu_torch.render import pathtracer as pt
     from rayito_tpu_torch.utils import graphs
 
-    scene, cfg, cam = graph_scenes["stage6"]
+    scene, cfg, cam = graph_scenes[name]
     graphs.clear()
     si = torch.arange(2, dtype=torch.int32, device=dev)
     ops = {}
@@ -2553,6 +2585,9 @@ def test_an_untraced_graph_holds_no_marker_or_counter_add(dev, graph_scenes,
                 torch.cuda.synchronize()
             ops[traced] = _device_ops(_chrome_events(prof, tmp_path))
     (tpl,) = [g.template for g in graphs.graphs() if g.template is not None]
+    # 3 bounces x 3 queries of two samples of 64 x 16 lanes, a call a domain
+    assert tpl.counts["traverse.lanes"] == (
+        9 * len(scene.ktab_xf) * 2 * 64 * 16)
     markers = [n for n in ops[True] if tracing.MARKER_KERNEL in n]
     assert not any(tracing.MARKER_KERNEL in n for n in ops[False])
     assert len(markers) == len(tpl.codes) > 0 and tpl.adds > 0

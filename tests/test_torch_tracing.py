@@ -4,8 +4,9 @@
     graphs' key as it was; on, the key differs, and off again restores it;
   * the spans of an eager CPU render nest as the tree the benchmark reads:
     render > pass > band.replay > camera_rays, bounce[i] (query.closest
-    > analytic_folds, mesh > traversal_plumbing; draws; shading.prepare;
-    query.shadow[0]; shading.resolve), image; band.readback (> readback,
+    > analytic_folds, mesh > domain > traversal_plumbing, domain_merge;
+    draws; shading.prepare; query.shadow[0]; shading.resolve), image;
+    band.readback (> readback,
     the copy) and band.host_add beside the replays; each with its parent,
     and one request id (render, first sample, band) per band;
   * ``traverse.pairs`` and ``traverse.live_rays`` on a small stage-6
@@ -121,7 +122,11 @@ def test_spans_of_an_eager_cpu_render_nest_as_the_tree(stage6):
             # the light- and BRDF-sampled any-hit queries
             assert _children(dev, q.id) == ["analytic_folds", "mesh"] * 2
         for m in (s for s in band if s.name == "mesh"):
-            assert _children(dev, m.id) == ["traversal_plumbing"] * 2
+            # stage 6's one traversal domain
+            assert _children(dev, m.id) == ["domain"]
+        for d in (s for s in band if s.name == "domain"):
+            assert _children(dev, d.id) == ["traversal_plumbing"] * 2 + [
+                "domain_merge"]
     for rb in (s for s in snap.host if s.name == "band.readback"):
         assert _children(dev, rb.id) == ["readback"]
         assert {s.request for s in dev if s.parent == rb.id} == {rb.request}
