@@ -2207,7 +2207,7 @@ def run_stage7(dev, card: str) -> dict:
     import numpy as np
     import torch
 
-    from rayito_tpu_torch.render import trace as tr
+    from rayito_tpu_torch.ops import transform as xf
 
     _phase("stage-7 scene")
     t0 = time.perf_counter()
@@ -2232,7 +2232,8 @@ def run_stage7(dev, card: str) -> dict:
     for name, co, cd, ctmax, mt, any_hit in cases:
         # the domain's local space at each lane's time; t, and so tmax,
         # is the same there
-        o_l, d_l, _ = tr._domain_local_ray(scene, 0, co, cd, lane_time)
+        o_l, d_l, _ = xf.local_ray(scene, scene.ktab_xf[0], co, cd,
+                                   lane_time)
         results[name] = _check_population(name, scene, 0, o_l, d_l, ctmax,
                                           mt, any_hit, cfg.ray_tmin)
 
@@ -2406,7 +2407,8 @@ def run_plumbing(dev, card: str) -> dict:
     replaced (the soa8[perm] gather and the index_put unsort) as
     library_ms (after the write), each kernel's bound (bytes at 3.35 TB/s)
     and share, and the whole call's plumbing (back to back) through the
-    kernels and through the plain twins. Returns {population: record}."""
+    kernels and through the plain twins; then ray_pack through a domain's
+    transform chain (_plumbing_chain). Returns {population: record}."""
     import torch
 
     from rayito_tpu_torch.render import traverse as tv
@@ -2497,6 +2499,133 @@ def run_plumbing(dev, card: str) -> dict:
             raise AssertionError(f"plumbing {name}: a kernel disagrees with "
                                  "its plain twin")
         out[name] = r
+    out.update(_plumbing_chain(dev, card, flush, flush_ms))
+    return out
+
+
+def _chain_bytes(n, n_tot, keyed, want_ray, want_rot):
+    """Bytes of one ray_pack launch through a domain's chain: the 7 floats
+    of a real lane and its time where the tables have keys; a row and the
+    operand a slot; the local ray (24 B) and the rotation (16 B) a real
+    lane where asked. The slot table and the transform tables, a few
+    hundred bytes every lane reads alike, are left out."""
+    return (n * (28 + 4 * keyed) + n_tot * 36
+            + n * (24 * want_ray + 16 * want_rot))
+
+
+def _plumbing_chain(dev, card, flush, flush_ms) -> dict:
+    """Phase 29's chained populations: ray_pack through a traversal
+    domain's transform chain (the scene's ``ktab_chain`` row) against
+    ray_pack_plain with the same chain, bit for bit (rows, operand, local
+    ray, rotation, the live count the kernel adds to traverse.live_rays),
+    on stage 7's rotating domain and on big_instanced's first one-key copy,
+    bounce and shadow rays at 262,144 lanes and seeded lane times (some on
+    a key, before the first and past the last), asking for what the main
+    path asks (trace.py _launch: ray and rotation on a closest hit, the ray
+    on a 'bw' any hit, nothing on a 'vpu' one). Each timed as phase 29
+    times ray_pack (pack_warm_ms back to back, pack_ms after the L2
+    flush, pack_plain_ms the twin) beside torch_chain_ms, the torch chain
+    (ops/transform.py local_ray) and the chainless pack it replaced, with
+    its bound (_chain_bytes at 3.35 TB/s). Returns {"chain.<domain>.
+    <population>": record}."""
+    import numpy as np
+    import torch
+
+    from portbench import port_scene
+    from portbench import run as bench
+    from rayito_tpu_torch.ops import transform as xf
+    from rayito_tpu_torch.render import traverse as tv
+    from rayito_tpu_torch.utils import tracing
+
+    _phase("traversal plumbing through a domain's chain")
+    n = PLUMBING_LANES
+    rs = np.random.default_rng(11)
+    t = rs.uniform(-0.25, 1.25, n).astype(np.float32)
+    t[::7], t[1::7], t[2::7] = 0.0, 0.5, 1.0
+    lane_time = torch.from_numpy(t).to(dev)
+    stage7, cfg, cam, _ = stage7_setup(dev)
+    cfg = dataclasses.replace(cfg, max_rays_per_pass=n)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "portbench", "configs",
+                           "big_instanced.json")) as f:
+        inst = json.load(f)
+    big = port_scene.build(inst, {"bumpy": _standin_obj()}).compile(dev)
+    tmin = cfg.ray_tmin
+    out = {}
+    for dom, scene, camera, light in (
+            ("stage7", stage7, cam, ((-1.5, 4.0, -1.5), (3.0, 3.0))),
+            ("big_instanced", big, bench.camera_of(inst["camera"]),
+             ((-4.0, 10.0, -4.0), (8.0, 8.0)))):
+        di = next(i for i, sl in enumerate(scene.ktab_chain) if sl.numel())
+        slots = scene.ktab_chain[di]
+        if slots.tolist() != xf.chain_slots(scene, scene.ktab_xf[di]):
+            raise AssertionError(f"{dom}: the scene's slot table is not "
+                                 "the domain's chain")
+        box = scene.ktab_box[di]
+        tables = (scene.xf_times, scene.xf_translate, scene.xf_scale,
+                  scene.xf_rotate, scene.xf_nkeys)
+        keyed = bool(int(scene.xf_nkeys[slots.long()].max()) > 1)
+        for name, o, d, tmax, mt, any_hit in _populations(
+                scene, cfg, camera, *light, lane_time):
+            if name == "camera":
+                continue
+            tmax = tmax.contiguous()
+            chain = tv.Chain(tables, slots, lane_time,
+                             want_ray=not any_hit or mt != "vpu",
+                             want_rot=not any_hit)
+
+            def counted(pack):
+                """(pack's outputs, the lanes it added to
+                traverse.live_rays)."""
+                with _tracing():
+                    tracing.reset()
+                    got = pack(o, d, tmax, box, tmin, chain=chain)
+                    torch.cuda.synchronize()
+                    live = tracing.counters().get("traverse.live_rays", 0)
+                    tracing.reset()
+                return got, live
+
+            (ker, live), (ref, live_p) = (
+                counted(tv.ray_pack), counted(tv.ray_pack_plain))
+            pairs = [(ker[0], ref[0]), (ker[1], ref[1])]
+            for a, b in zip(ker[2], ref[2]):
+                if (a is None) != (b is None):
+                    raise AssertionError(f"chain {dom} {name}: the kernel "
+                                         "and its twin hand on different "
+                                         "outputs")
+                if a is not None:
+                    pairs.append((a, b))
+            bad = sum(_differing(a, b) for a, b in pairs)
+            n_tot = ker[0].shape[0]
+
+            def torch_chain():
+                o_l, d_l, _ = xf.local_ray(scene, scene.ktab_xf[di], o, d,
+                                           lane_time)
+                o_l, d_l = (type(v)(v.x.contiguous(), v.y.contiguous(),
+                                    v.z.contiguous()) for v in (o_l, d_l))
+                return tv.ray_pack(o_l, d_l, tmax, box, tmin)
+
+            fn = lambda: tv.ray_pack(o, d, tmax, box, tmin, chain=chain)
+            r = {"lanes": n, "slots": n_tot, "domain": di,
+                 "depth": slots.shape[0], "keyed": keyed,
+                 "want_ray": chain.want_ray, "want_rot": chain.want_rot,
+                 "live_rays": live, "live_rays_plain": live_p,
+                 "pack_warm_ms": _device_ms(fn),
+                 "pack_ms": _device_ms(
+                     lambda: (flush.zero_(), fn())) - flush_ms,
+                 "pack_plain_ms": _device_ms(
+                     lambda: tv.ray_pack_plain(o, d, tmax, box, tmin,
+                                               chain=chain)),
+                 "torch_chain_ms": _device_ms(torch_chain),
+                 "pack_bytes": _chain_bytes(n, n_tot, keyed,
+                                            chain.want_ray, chain.want_rot)}
+            _put_bound(r, "pack", 0, r["pack_bytes"])
+            print(f"plumbing chain {dom} {name} on {card}: values "
+                  f"differing {bad}, " + _fmt(r), flush=True)
+            if bad or live != live_p or not 0 < live < n:
+                raise AssertionError(f"plumbing chain {dom} {name}: ray_pack "
+                                     "disagrees with its plain twin")
+            out[f"chain.{dom}.{name}"] = r
     return out
 
 
@@ -2919,15 +3048,20 @@ def run_stage5(dev, card: str) -> dict:
 
 def _captured_launches(fn):
     """Run ``fn`` and return what it handed to the traversal: [(domain, o,
-    d, tmax, mt_mode, any_hit)], rays in the domain's space."""
+    d, tmax, mt_mode, any_hit)], rays in the domain's space (the world
+    rays ``_launch`` takes, through the domain's chain where it has one)."""
+    from rayito_tpu_torch.ops import transform as xf
     from rayito_tpu_torch.render import trace as tr
 
     seen = []
     launch = tr._launch
 
-    def spy(scene, di, o, d, tmax, tmin, mt, sort_rays, any_hit):
-        seen.append((di, o, d, tmax.clone(), mt, any_hit))
-        return launch(scene, di, o, d, tmax, tmin, mt, sort_rays, any_hit)
+    def spy(scene, di, o, d, time, tmax, tmin, mt, sort_rays, any_hit,
+            **want):
+        o_l, d_l, _ = xf.local_ray(scene, scene.ktab_xf[di], o, d, time)
+        seen.append((di, o_l, d_l, tmax.clone(), mt, any_hit))
+        return launch(scene, di, o, d, time, tmax, tmin, mt, sort_rays,
+                      any_hit, **want)
 
     tr._launch = spy
     try:

@@ -1,12 +1,14 @@
 // ray_prep: the traversal's plumbing around the coherence sort
 // (render/traverse.py traverse()), three launches a call:
 //
-//   ray_pack_kernel     packs the rays into the kernels' 32-byte rows
-//                       (o, d, tmax, 0; padding lanes d = 1, tmax = 0) and
-//                       writes each lane's sort operand: its coherence key
-//                       (miss flag, direction octant, Morton cell of the
-//                       root-box entry point), packed above the lane id when
-//                       the launch has at most 2^17 lanes;
+//   ray_pack_kernel     takes each lane into the traversal domain's space
+//                       when the domain has a transform chain, packs the
+//                       rays into the kernels' 32-byte rows (o, d, tmax, 0;
+//                       padding lanes d = 1, tmax = 0) and writes each
+//                       lane's sort operand: its coherence key (miss flag,
+//                       direction octant, Morton cell of the root-box entry
+//                       point), packed above the lane id when the launch has
+//                       at most 2^17 lanes;
 //   ray_reorder_kernel  moves the rows into the sorted order and writes the
 //                       permutation and the live step count;
 //   ray_unsort_kernel   scatters the traversal's results back to the
@@ -27,8 +29,22 @@
 // integer cells). So the operand, and the sort's permutation, are the plain
 // twin's bit for bit.
 //
+// The chain (ChainIo: the domain's slots, outermost first, read from the
+// device table the scene holds, SceneData.ktab_chain, so a replayed graph
+// reads the same slots) is ops/transform.py local_ray's:
+// per link, at the lane's own time, eval_link of xform.cuh, then
+// (~R)(o - T) / S and (~R)d / S, and the world-from-local rotation
+// composed as rot * R, in the plain twin's operation order, so the local
+// ray, the rows and the operand are its bits too. A table of one key
+// takes its keys as constants and reads no time. On request the kernel
+// also writes the local ray ([6, N] rows, for the winner re-test) and the
+// rotation ([4, N] rows, w x y z, for the shading). A domain without a
+// chain takes the kChain = false instance: no time read, no extra output.
+//
 // What bounds it on the H100: bytes, all of them in L2 at the main path's
-// 262,144 lanes. ray_pack reads 28 B a lane and writes 36 B, ray_reorder
+// 262,144 lanes. ray_pack reads 28 B a lane and writes 36 B (through a
+// chain it reads the lane's time, 4 B, where the table has keys, and writes
+// the local ray's 24 B and the rotation's 16 B where asked), ray_reorder
 // reads the lane order (4 B, or 8 and the sorted key's 4) and a 32-byte
 // row and writes 36 B, ray_unsort reads 8 B (12 with t) and writes 4 (8). Design: ray_pack runs two lanes a thread,
 // each block reducing the root box over the table's columns once (the
@@ -38,6 +54,7 @@
 // found by the one thread that sees the crossing, so no counter has to be
 // reset between calls or graph replays.
 #include "common.cuh"
+#include "xform.cuh"
 
 namespace {
 
@@ -46,6 +63,19 @@ constexpr int kPackLanes = 2;  // lanes a thread packs
 constexpr int kThreads = 256;
 constexpr int32_t kMissFlag = 1 << 30;
 constexpr int kLaneBits = 17;  // lane field of a packed sort operand
+
+// A traversal domain's transform chain: depth slots of the transform
+// tables, outermost first, of tables of k keys a slot; the lanes' times;
+// and where the chain's outputs go, the local ray [6, n] and the rotation
+// [4, n] (each null where the caller does not want it).
+struct ChainIo {
+    XfTables tb;
+    const int32_t* slots;
+    int depth, k;
+    const float* time;
+    float* local;
+    float* rot;
+};
 
 // torch.clamp / clamp_min on the card: a NaN operand comes back as it is
 __device__ __forceinline__ float tclamp(float v, float lo, float hi) {
@@ -138,15 +168,47 @@ __device__ __forceinline__ int32_t coherence_key(float ox, float oy, float oz,
     return (octant << 27) | morton;
 }
 
-template <bool kKey, bool kPacked>
+// Lane i's ray r[0..5] (o, d) into the chain's space, in place; writes
+// the local ray and the rotation where io asks for them.
+__device__ __forceinline__ void to_local(const ChainIo& io, int n, int i,
+                                         float* r) {
+    const float tm = io.k > 1 ? io.time[i] : 0.0f;
+    Rot rot = {1.0f, 0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < io.depth; ++c) {
+        Vec tr, sc;
+        Rot ro;
+        eval_link(io.tb, io.k, io.slots[c], tm, tr, sc, ro);
+        const Vec po = unrotate(ro, {r[0] - tr.x, r[1] - tr.y, r[2] - tr.z});
+        const Vec pd = unrotate(ro, {r[3], r[4], r[5]});
+        r[0] = po.x / sc.x;
+        r[1] = po.y / sc.y;
+        r[2] = po.z / sc.z;
+        r[3] = pd.x / sc.x;
+        r[4] = pd.y / sc.y;
+        r[5] = pd.z / sc.z;
+        rot = c == 0 ? ro : qmul(rot, ro);
+    }
+    if (io.local != nullptr) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) io.local[(long long)k * n + i] = r[k];
+    }
+    if (io.rot != nullptr) {
+        io.rot[i] = rot.w;
+        io.rot[(long long)n + i] = rot.x;
+        io.rot[2 * (long long)n + i] = rot.y;
+        io.rot[3 * (long long)n + i] = rot.z;
+    }
+}
+
+template <bool kKey, bool kPacked, bool kChain>
 __global__ void __launch_bounds__(kPackThreads) ray_pack_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ tmax, const float* __restrict__ box,
     float4* __restrict__ soa8, int32_t* __restrict__ operand,
-    unsigned long long* __restrict__ live_rays, int n, int n_tot, int c_pad,
-    float tmin) {
+    unsigned long long* __restrict__ live_rays, const ChainIo io, int n,
+    int n_tot, int c_pad, float tmin) {
     float ray[kPackLanes][7];
     const int i0 = blockIdx.x * (kPackThreads * kPackLanes) + threadIdx.x;
 #pragma unroll
@@ -160,6 +222,9 @@ __global__ void __launch_bounds__(kPackThreads) ray_pack_kernel(
         ray[u][4] = real ? dy[i] : 1.0f;
         ray[u][5] = real ? dz[i] : 1.0f;
         ray[u][6] = real ? tmax[i] : 0.0f;
+        if constexpr (kChain) {
+            if (real) to_local(io, n, i, ray[u]);
+        }
         if (i < n_tot) {
             soa8[2 * (long long)i] =
                 make_float4(ray[u][0], ray[u][1], ray[u][2], ray[u][3]);
@@ -237,28 +302,47 @@ __global__ void __launch_bounds__(kThreads) ray_unsort_kernel(
 extern "C" int rt_ray_pack(const float* ox, const float* oy, const float* oz,
                            const float* dx, const float* dy, const float* dz,
                            const float* tmax, const float* box, float* soa8,
-                           int32_t* operand, long long* live_rays, int n,
-                           int n_tot, int c_pad, float tmin, int key,
-                           void* stream) {
+                           int32_t* operand, long long* live_rays,
+                           const int32_t* slots, const float* xf_times,
+                           const float* xf_translate, const float* xf_scale,
+                           const float* xf_rotate, const int32_t* xf_nkeys,
+                           const float* time, float* local, float* rot,
+                           int depth, int k, int n, int n_tot, int c_pad,
+                           float tmin, int key, void* stream) {
     if (n < 0 || n > n_tot || c_pad <= 0 || (key && operand == nullptr))
+        return (int)cudaErrorInvalidValue;
+    if (depth == 0 ? local != nullptr || rot != nullptr
+                   : depth < 0 || k < 1 || slots == nullptr ||
+                         xf_times == nullptr || xf_translate == nullptr ||
+                         xf_scale == nullptr || xf_rotate == nullptr ||
+                         xf_nkeys == nullptr || (k > 1 && time == nullptr))
         return (int)cudaErrorInvalidValue;
     const int per_block = kPackThreads * kPackLanes;
     const int blocks = (n_tot + per_block - 1) / per_block;
     cudaStream_t s = (cudaStream_t)stream;
     auto* rows = (float4*)soa8;
     auto* live = (unsigned long long*)live_rays;
-    if (!key)
-        ray_pack_kernel<false, false><<<blocks, kPackThreads, 0, s>>>(
-            ox, oy, oz, dx, dy, dz, tmax, box, rows, operand, live, n, n_tot,
-            c_pad, tmin);
-    else if (n_tot <= (1 << kLaneBits))
-        ray_pack_kernel<true, true><<<blocks, kPackThreads, 0, s>>>(
-            ox, oy, oz, dx, dy, dz, tmax, box, rows, operand, live, n, n_tot,
-            c_pad, tmin);
-    else
-        ray_pack_kernel<true, false><<<blocks, kPackThreads, 0, s>>>(
-            ox, oy, oz, dx, dy, dz, tmax, box, rows, operand, live, n, n_tot,
-            c_pad, tmin);
+    const ChainIo io = {{xf_times, xf_translate, xf_scale, xf_rotate,
+                         xf_nkeys},
+                        slots, depth, k, time, local, rot};
+#define RT_RAY_PACK(KEY, PACKED, CHAIN)                                    \
+    ray_pack_kernel<KEY, PACKED, CHAIN><<<blocks, kPackThreads, 0, s>>>(   \
+        ox, oy, oz, dx, dy, dz, tmax, box, rows, operand, live, io, n,     \
+        n_tot, c_pad, tmin)
+#define RT_RAY_PACK_KEYS(CHAIN)                                            \
+    if (!key)                                                              \
+        RT_RAY_PACK(false, false, CHAIN);                                  \
+    else if (n_tot <= (1 << kLaneBits))                                    \
+        RT_RAY_PACK(true, true, CHAIN);                                    \
+    else                                                                   \
+        RT_RAY_PACK(true, false, CHAIN)
+    if (depth == 0) {
+        RT_RAY_PACK_KEYS(false);
+    } else {
+        RT_RAY_PACK_KEYS(true);
+    }
+#undef RT_RAY_PACK_KEYS
+#undef RT_RAY_PACK
     return (int)cudaGetLastError();
 }
 

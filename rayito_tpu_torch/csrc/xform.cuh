@@ -1,7 +1,7 @@
 // Keyed transforms on the card: ops/transform.py's eval_transform and
 // ops/quaternion.py's rotate_vector and multiply, in their operation order,
 // for the kernels that evaluate a transform chain per lane at the lane's
-// own time (fold_small.cu, shade.cu). Build with -fmad=false
+// own time (fold_small.cu, shade.cu, ray_prep.cu). Build with -fmad=false
 // -prec-div=true -prec-sqrt=true, as every source of this library: each
 // multiply and add rounds on its own, divisions and roots are IEEE, so the
 // values equal the plain PyTorch ops' bit for bit.

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..accel.kernel_tables import build_slice_boxes
+from ..ops import transform as xf
 
 MAT_LAMBERT = 0
 MAT_GLOSSY = 1
@@ -388,6 +389,11 @@ class SceneData:
     # (accel/kernel_tables.py build_slice_boxes)
     ktab_slice: tuple = ()
     ktab_xf: tuple = ()  # domain transform ids (0 = world space)
+    # per domain, its transform chain's slots, outermost first (i32 [depth],
+    # empty for world space; ops/transform.py chain_slots), built with the
+    # scene for render/traverse.py ray_pack's kernel to read
+    ktab_chain: tuple = dataclasses.field(default=(), init=False,
+                                          repr=False, compare=False)
     ktab_seg: tuple = ()  # per domain ((cl_start, tri0), ...)
     # transformed meshes of at most 192 triangles: folded densely
     # (render/mesh_intersect.py) instead of a launch domain of their own
@@ -441,6 +447,9 @@ class SceneData:
                              f"got {self.traverse_mt!r}")
         validate_blocks(self.traverse_b, self.traverse_sb)
         validate_items(self.items_w, self.items_max, self.items_cap)
+        object.__setattr__(self, "ktab_chain", tuple(
+            torch.tensor(xf.chain_slots(self, x), dtype=torch.int32,
+                         device=self.device) for x in self.ktab_xf))
 
     def to(self, device) -> "SceneData":
         """This scene with every tensor on ``device`` (itself if it is

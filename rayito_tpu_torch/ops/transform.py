@@ -174,12 +174,19 @@ def ray_to_local_chain(links, o: V3, d: V3):
     """A ray through the chain, outermost link first. Returns (o_local,
     d_local, rot): ``rot`` is the composed world-from-local rotation
     (outermost * ... * innermost), for rotating normals back out."""
-    rot = None
     with tracing.device_span("transforms", o.x):
-        for tr, sc, ro in reversed(links):
-            o = to_local_point(o, tr, sc, ro)
-            d = to_local_vector(d, tr, sc, ro)
-            rot = ro if rot is None else quat.multiply(rot, ro)
+        return ray_to_local(links, o, d)
+
+
+def ray_to_local(links, o: V3, d: V3):
+    """:func:`ray_to_local_chain` outside a ``transforms`` span, for a
+    caller whose own span times it (``render/traverse.py``
+    ``ray_pack_plain``)."""
+    rot = None
+    for tr, sc, ro in reversed(links):
+        o = to_local_point(o, tr, sc, ro)
+        d = to_local_vector(d, tr, sc, ro)
+        rot = ro if rot is None else quat.multiply(rot, ro)
     return o, d, rot
 
 

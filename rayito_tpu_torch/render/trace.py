@@ -5,7 +5,8 @@ The analytic shapes (planes, spheres, rects) fold kind by kind over the
 whole wavefront. Triangle meshes take the scene's traversal:
 
   * ``'pallas'``: the kernel traversal (``render/traverse.py``), one
-    launch per traversal domain, whose winner is re-tested exactly and
+    launch per traversal domain, its transform chain evaluated per lane
+    inside ``ray_pack``, whose winner is re-tested exactly and
     shaded from one gathered, transposed 32-column row (``gather_rows_t``).
     Tiny transformed meshes fold densely, all of a query's in one
     ``fold_small`` launch, their transforms inside it
@@ -62,7 +63,7 @@ from ..ops.quaternion import Quat, rotate_vector
 from ..ops.vec3 import V3, from_aos, normalize, where as vwhere
 from ..utils import cuda_lib, tracing
 from .mesh_intersect import fold_small, mesh_intersect_clusters
-from .traverse import gather_rows_t, traverse
+from .traverse import Chain, gather_rows_t, traverse
 
 # rows per batched [rows, N] evaluation (bounds the temporaries: 32 MB
 # each at 131,072 lanes)
@@ -282,23 +283,41 @@ def _domain_tri(scene: SceneData, di: int, mt: str):
     return scene.ktab_tri[di] if mt == "vpu" else scene.ktab_mxu[di]
 
 
-def _domain_local_ray(scene: SceneData, di: int, o: V3, d: V3, time):
-    """The ray in traversal domain ``di``'s space (world space for the
-    merged static domain)."""
-    return xf.local_ray(scene, scene.ktab_xf[di], o, d, time)
-
-
-def _launch(scene: SceneData, di: int, o: V3, d: V3, tmax, tmin, mt: str,
-            sort_rays: bool, any_hit: bool):
-    return traverse(
+def _launch(scene: SceneData, di: int, o: V3, d: V3, time, tmax, tmin,
+            mt: str, sort_rays: bool, any_hit: bool, want_ray: bool = False,
+            want_rot: bool = False):
+    """Traversal domain ``di``'s ``traverse()`` call on world rays o, d:
+    ``ray_pack`` takes each lane into the domain's space through its
+    transform chain (``scene.ktab_chain[di]``; empty for a world-space
+    domain or a static scene). Returns (prim, o_l, d_l, rot): the ray in
+    the domain's space where ``want_ray`` asks (else None; the world ray
+    where the domain has no chain) and its world-from-local rotation where
+    ``want_rot`` asks (None without a chain)."""
+    slots = scene.ktab_chain[di]
+    chain = None
+    if slots.shape[0]:
+        chain = Chain((scene.xf_times, scene.xf_translate, scene.xf_scale,
+                       scene.xf_rotate, scene.xf_nkeys), slots, time,
+                      want_ray, want_rot)
+    out = traverse(
         o, d, tmax, scene.ktab_box[di], _domain_tri(scene, di, mt), tmin,
-        slices=scene.ktab_slice[di],
+        slices=scene.ktab_slice[di], chain=chain,
         sort_rays=sort_rays, want_t=False, mt_mode=mt, any_hit=any_hit,
         b=scene.traverse_b, sb=scene.traverse_sb,
         live_prefix=scene.live_prefix, items=scene.traverse_items,
         items_w=scene.items_w, items_max=scene.items_max,
         items_cap=scene.items_cap,
-    )[1]
+    )
+    if chain is None:
+        return out[1], o, d, None
+    ray, rot = out[2]
+    if ray is not None:
+        o, d = V3(ray[0], ray[1], ray[2]), V3(ray[3], ray[4], ray[5])
+    else:
+        o = d = None
+    if rot is not None:
+        rot = Quat(rot[0], V3(rot[1], rot[2], rot[3]))
+    return out[1], o, d, rot
 
 
 def _winner_retest(scene: SceneData, di: int, o: V3, d: V3, p_d, tmin, tmax,
@@ -381,9 +400,9 @@ def _mesh_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     mt = _mt_for(scene, occlusion=False)
     for di in range(0 if xla else len(scene.ktab_xf)):
         with tracing.device_span("domain", dev):
-            o_l, d_l, rot = _domain_local_ray(scene, di, o, d, time)
-            p_d = _launch(scene, di, o_l, d_l, torch.minimum(t_best, tmax),
-                          tmin, mt, sort_rays=True, any_hit=False)
+            p_d, o_l, d_l, rot = _launch(
+                scene, di, o, d, time, torch.minimum(t_best, tmax), tmin, mt,
+                sort_rays=True, any_hit=False, want_ray=True, want_rot=True)
             with tracing.device_span("domain_merge", dev):
                 t_fin, ok_fin, beta, gamma, g_d, meta = _winner_retest(
                     scene, di, o_l, d_l, p_d, tmin, INF, want_meta=True
@@ -716,10 +735,10 @@ def _mesh_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
         mt = _mt_for(scene, occlusion=True)
     for di in range(0 if xla else len(scene.ktab_xf)):
         with tracing.device_span("domain", o.x):
-            o_l, d_l, _ = _domain_local_ray(scene, di, o, d, time)
-            p_d = _launch(scene, di, o_l, d_l,
-                          torch.where(occluded, 0.0, tq_dn), tmin, mt,
-                          sort_rays=scene.sort_occl, any_hit=mt == "vpu")
+            p_d, o_l, d_l, _ = _launch(
+                scene, di, o, d, time, torch.where(occluded, 0.0, tq_dn),
+                tmin, mt, sort_rays=scene.sort_occl, any_hit=mt == "vpu",
+                want_ray=mt != "vpu")
             with tracing.device_span("domain_merge", o.x):
                 if mt != "vpu":
                     # approximate-t (BW) winners are re-tested exactly

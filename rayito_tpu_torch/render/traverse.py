@@ -3,7 +3,9 @@
 Counterpart of ``rayito_tpu/render/pallas_traverse.py``'s ``traverse()``.
 One launch domain's nearest (or any) triangle hit for a wavefront:
 
-  1. the rays are packed into ``soa8`` rows [n_pad, 8] (o, d, tmax, pad);
+  1. the rays are packed into ``soa8`` rows [n_pad, 8] (o, d, tmax, pad),
+     taken first into the domain's space where the domain has a transform
+     chain (``chain``: each lane at its own time);
   2. a coherence key (octant, root-box entry cell) orders the wavefront
      with one packed sort; lanes with the key's miss flag sort to the end,
      and the number of live steps stays on the device;
@@ -42,7 +44,8 @@ adds the set bits of the masks it writes to the counter ``traverse.pairs``,
 ``ray_pack`` the lanes that reach the domain's root to
 ``traverse.live_rays``, the fold the 32-lane slices its warps ran to
 ``traverse.slices``, and ``traverse`` the lanes it was handed to
-``traverse.lanes`` (``utils/tracing.py``).
+``traverse.lanes`` and those it took through a chain to
+``traverse.chain_lanes`` (``utils/tracing.py``).
 
 t carries the key's ~2^-17 relative slack; exact t comes from the winner
 re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
@@ -50,12 +53,15 @@ re-test. With ``any_hit`` only ``prim >= 0`` is defined (prim is 0/-1).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..accel.clusters import (CLUSTERS_PER_SUPER, SC_ROW_WIDTH,
                               TRI_PER_CLUSTER, TRI_ROW_WIDTH)
 from ..accel.kernel_tables import KTRI, N_SLICES, NEVER_HIT, SLICE
 from ..models.scene import validate_blocks, validate_items
+from ..ops import transform as xf
 from ..ops.intersect import triangle_intersect
 from ..ops.vec3 import V3
 from ..utils import cuda_lib, tracing
@@ -1027,8 +1033,42 @@ def _n_tot(n: int, sb: int) -> int:
     return max(1, -(-n // sb)) * sb
 
 
+@dataclasses.dataclass(frozen=True)
+class Chain:
+    """A traversal domain's transform chain, for :func:`ray_pack` to take
+    each lane into the domain's space at the lane's own time: ``tables``
+    the scene's transform tables (xf_times [X, K], xf_translate [X, K, 3],
+    xf_scale [X, K, 3], xf_rotate [X, K, 4], xf_nkeys [X] i32), ``slots``
+    the chain's slots, outermost first, i32 [depth >= 1] on the tables'
+    device (the scene's ``ktab_chain`` row of the domain), ``time`` each
+    lane's time [N] f32. ``want_ray`` and ``want_rot`` ask for the local
+    ray and the world-from-local rotation back."""
+
+    tables: tuple
+    slots: torch.Tensor
+    time: torch.Tensor
+    want_ray: bool = False
+    want_rot: bool = False
+
+
+def _chain_plain(chain: Chain, o, d):
+    """``ops/transform.py`` ``local_ray`` of ``chain``: (o, d) in the
+    domain's space and the local outputs of :func:`ray_pack_plain`. Each
+    slot is taken as a per-lane id on its device, so the twin never reads
+    the device back and can run under a graph capture."""
+    slots = chain.slots
+    links = [xf.eval_transform(*chain.tables, slots[c:c + 1], chain.time)
+             for c in reversed(range(slots.shape[0]))]
+    o, d, rot = xf.ray_to_local(links, o, d)
+    ray = (torch.stack((o.x, o.y, o.z, d.x, d.y, d.z)) if chain.want_ray
+           else None)
+    rot = (torch.stack((rot.w, rot.v.x, rot.v.y, rot.v.z)) if chain.want_rot
+           else None)
+    return o, d, (ray, rot)
+
+
 def ray_pack_plain(o, d, tmax, cl_box, tmin: float, sb: int = 2048,
-                   key: bool = True):
+                   key: bool = True, chain: Chain | None = None):
     """Rays o, d (V3 of [N] f32), tmax [N] f32 -> (soa8 [n_tot, 8] f32,
     operand [n_tot] i32 or None), n_tot = N rounded up to a multiple of
     ``sb`` (at least ``sb``). A row is (o, d, tmax, 0); padding lanes have
@@ -1037,25 +1077,36 @@ def ray_pack_plain(o, d, tmax, cl_box, tmin: float, sb: int = 2048,
     13 coarse key bits above the lane id, ``((key >> 17) << 17) | lane``,
     a larger one gives the key itself; with tracing on, the lanes whose
     key is below the miss flag (those that reach the root box) are added
-    to ``traverse.live_rays``."""
+    to ``traverse.live_rays``.
+
+    With a ``chain`` (:class:`Chain`) o and d are world rays: each lane is
+    taken through the chain first (``ops/transform.py`` ``local_ray``),
+    the rows and the operand are the local ray's, and a third element
+    follows, (ray [6, N] f32: the local o and d; rot [4, N] f32: the
+    world-from-local rotation, w x y z), each None unless the chain's
+    ``want_ray`` / ``want_rot`` asks for it."""
+    local = None
+    if chain is not None:
+        o, d, local = _chain_plain(chain, o, d)
     n = o.x.shape[0]
     n_tot = _n_tot(n, sb)
     soa8 = torch.zeros((n_tot, 8), dtype=torch.float32, device=cl_box.device)
     soa8[n:, 3:6] = 1.0
     for k, comp in enumerate((o.x, o.y, o.z, d.x, d.y, d.z, tmax)):
         soa8[:n, k] = comp
-    if not key:
-        return soa8, None
-    col = lambda k: soa8[:, k]
-    k = coherence_key(col(0), col(1), col(2), col(3), col(4), col(5),
-                      col(6), cl_box, float(tmin))
-    if tracing.enabled():
-        tracing.count("traverse.live_rays",
-                      (k < _MISS_FLAG).sum(dtype=torch.int32))
-    if n_tot <= 1 << LANE_BITS:
-        lanes = torch.arange(n_tot, dtype=torch.int32, device=cl_box.device)
-        return soa8, ((k >> LANE_BITS) << LANE_BITS) | lanes
-    return soa8, k
+    operand = None
+    if key:
+        col = lambda k: soa8[:, k]
+        operand = coherence_key(col(0), col(1), col(2), col(3), col(4),
+                                col(5), col(6), cl_box, float(tmin))
+        if tracing.enabled():
+            tracing.count("traverse.live_rays",
+                          (operand < _MISS_FLAG).sum(dtype=torch.int32))
+        if n_tot <= 1 << LANE_BITS:
+            lanes = torch.arange(n_tot, dtype=torch.int32,
+                                 device=cl_box.device)
+            operand = ((operand >> LANE_BITS) << LANE_BITS) | lanes
+    return (soa8, operand) if chain is None else (soa8, operand, local)
 
 
 def _check_rays(name, comps, n):
@@ -1065,37 +1116,72 @@ def _check_rays(name, comps, n):
             raise ValueError(f"{name}: o, d and tmax must all be [N]")
 
 
+def _check_chain(chain: Chain, n: int) -> None:
+    times, translate, scale, rotate, nkeys = chain.tables
+    x, k = times.shape if times.dim() == 2 else (0, 0)
+    shapes = ((times, torch.float32, (x, k)),
+              (translate, torch.float32, (x, k, 3)),
+              (scale, torch.float32, (x, k, 3)),
+              (rotate, torch.float32, (x, k, 4)),
+              (nkeys, torch.int32, (x,)), (chain.time, torch.float32, (n,)))
+    slots = chain.slots
+    if (x == 0 or k == 0 or any(t.dtype != dt or tuple(t.shape) != sh
+                                or not t.is_contiguous()
+                                for t, dt, sh in shapes)
+            or not torch.is_tensor(slots) or slots.dtype != torch.int32
+            or slots.dim() != 1 or slots.shape[0] == 0
+            or not slots.is_contiguous()):
+        raise ValueError("ray_pack: a chain's tables are contiguous f32 "
+                         "[X, K], [X, K, 3], [X, K, 3], [X, K, 4] and i32 "
+                         "[X], its slots i32 [depth >= 1] and its time f32 "
+                         "[N], contiguous too")
+
+
 @cuda_lib.counted
 def ray_pack(o, d, tmax, cl_box, tmin: float, sb: int = 2048,
-             key: bool = True):
+             key: bool = True, chain: Chain | None = None):
     """Kernel wrapper of :func:`ray_pack_plain` (same contract): one launch
-    packs the rows and writes the operand; with tracing on the kernel adds
-    the live lanes to ``traverse.live_rays`` itself."""
+    takes the lanes through the chain, packs the rows and writes the
+    operand and the chain's outputs; with tracing on the kernel adds the
+    live lanes to ``traverse.live_rays`` itself."""
     comps = (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
-    _check_rays("ray_pack", comps, o.x.shape[0])
+    n = o.x.shape[0]
+    _check_rays("ray_pack", comps, n)
     _check_dtype("ray_pack", cl_box, torch.float32, 2)
     if cl_box.shape[0] != 8 or cl_box.shape[1] == 0 or sb <= 0:
         raise ValueError("ray_pack: cl_box [8, C_pad > 0] and sb > 0 "
                          "expected")
-    if cuda_lib.on_cpu("ray_pack", *comps, cl_box):
-        return ray_pack_plain(o, d, tmax, cl_box, tmin, sb, key)
-    lib, stream = cuda_lib.launch_args("ray_pack", *comps, cl_box)
-    n = o.x.shape[0]
+    inputs = comps + (cl_box,)
+    if chain is not None:
+        _check_chain(chain, n)
+        inputs += tuple(chain.tables) + (chain.slots, chain.time)
+    if cuda_lib.on_cpu("ray_pack", *inputs):
+        return ray_pack_plain(o, d, tmax, cl_box, tmin, sb, key, chain)
+    lib, stream = cuda_lib.launch_args("ray_pack", *inputs)
     n_tot = _n_tot(n, sb)
     if n_tot >= 2**31 or cl_box.numel() >= 2**31:
         raise ValueError("ray_pack: lanes and boxes must fit in int32")
     dev = cl_box.device
-    soa8 = torch.empty((n_tot, 8), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    soa8 = torch.empty((n_tot, 8), **f32)
     operand = (torch.empty((n_tot,), dtype=torch.int32, device=dev) if key
                else None)
     live = tracing.counter_ptr("traverse.live_rays", dev) if key else None
+    ptrs, depth, k, local = (None,) * 9, 0, 0, None
+    if chain is not None:
+        local = (torch.empty((6, n), **f32) if chain.want_ray else None,
+                 torch.empty((4, n), **f32) if chain.want_rot else None)
+        ptrs = (chain.slots.data_ptr(),
+                *(t.data_ptr() for t in chain.tables),
+                chain.time.data_ptr(), *(_ptr(t) for t in local))
+        depth, k = chain.slots.shape[0], chain.tables[0].shape[1]
     cuda_lib.check(lib.rt_ray_pack(
         *(c.data_ptr() for c in comps), cl_box.data_ptr(), soa8.data_ptr(),
-        _ptr(operand), live, n, n_tot, cl_box.shape[1], float(tmin),
-        int(bool(key)), stream,
+        _ptr(operand), live, *ptrs, depth, k, n, n_tot, cl_box.shape[1],
+        float(tmin), int(bool(key)), stream,
     ), "ray_pack")
     cuda_lib.count_launch(ray_pack, dev)
-    return soa8, operand
+    return (soa8, operand) if chain is None else (soa8, operand, local)
 
 
 def coherence_sort(operand):
@@ -1158,10 +1244,12 @@ def ray_reorder(soa8, vals, idx=None, sb: int = 2048, live: bool = True):
 
 
 def prepare_rays(o, d, tmax, cl_box, tmin: float, sort_rays: bool = True,
-                 sb: int = 2048, live_prefix: bool = True):
+                 sb: int = 2048, live_prefix: bool = True,
+                 chain: Chain | None = None):
     """Pack rays into kernel rows and coherence-sort them. Returns (soat
     [n_steps, sb, 8], perm [n_steps * sb] i32 or None, n_live [1] i32
-    device count of live steps or None). Padding lanes have d = 1 and
+    device count of live steps or None), and with a ``chain`` the chain's
+    outputs of :func:`ray_pack` fourth. Padding lanes have d = 1 and
     tmax = 0, so they produce no candidates. ``ray_pack``, the sort and
     ``ray_reorder``; with tracing on the key is computed for the
     ``traverse.live_rays`` counter even when nothing is sorted."""
@@ -1173,15 +1261,18 @@ def prepare_rays(o, d, tmax, cl_box, tmin: float, sort_rays: bool = True,
     if not torch.is_tensor(tmax):
         tmax = torch.full((n,), float(tmax), device=dev)
     tmax = tmax.to(torch.float32).expand(n).contiguous()
-    soa8, operand = ray_pack(o, d, tmax, cl_box, float(tmin), sb,
-                             key=sort_rays or tracing.enabled())
+    if chain is not None:
+        chain = dataclasses.replace(chain, time=chain.time.contiguous())
+    soa8, operand, *local = ray_pack(o, d, tmax, cl_box, float(tmin), sb,
+                                     key=sort_rays or tracing.enabled(),
+                                     chain=chain)
     if not sort_rays:
-        return soa8.view(n_steps, sb, 8), None, None
+        return (soa8.view(n_steps, sb, 8), None, None, *local)
     vals, idx = coherence_sort(operand)
     # miss-flagged lanes (dead, root-missing, padding) sort past the live
     # prefix; the kernels skip the steps beyond it
     soat, perm, n_live = ray_reorder(soa8, vals, idx, sb, live_prefix)
-    return soat.view(n_steps, sb, 8), perm, n_live
+    return (soat.view(n_steps, sb, 8), perm, n_live, *local)
 
 
 def ray_unsort_plain(p_bn, t_bn, perm, n: int, hit_only: bool = False):
@@ -1257,12 +1348,16 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
              want_t: bool = True, mt_mode: str = "vpu", any_hit: bool = False,
              b: int = 128, sb: int = 2048, live_prefix: bool = True,
              items: bool = False, items_w: int = 4, items_max: int = 24576,
-             items_cap: int = 64, *, slices):
+             items_cap: int = 64, *, slices, chain: Chain | None = None):
     """Nearest triangle hit of rays (o, d: V3 of [N]) against one domain's
     tables (cl_box [8, C_pad], tri [C, 16, 128] rows for ``mt_mode``,
     slices [C, 4, 8] its clusters' slice boxes).
     tmax: [N] or scalar. Returns (t [N] f32 or None, prim [N] i32
-    table-local triangle id or -1); see the module docstring. ``items``
+    table-local triangle id or -1); see the module docstring. With a
+    ``chain`` (:class:`Chain`) o and d are world rays, which ``ray_pack``
+    takes into the domain's space, and a third element follows: the
+    chain's (local ray [6, N], rotation [4, N]) of :func:`ray_pack`, as it
+    asks for them. ``items``
     takes the item route for tables of at most 8192 clusters (the packed
     item's cluster field), with the budget ``items_max`` items per launch
     and ``items_cap`` per ray block; the result is the scan's, bit for
@@ -1274,9 +1369,11 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
     validate_blocks(b, sb)
     n = o.x.shape[0]
     tracing.count("traverse.lanes", n, cl_box)
+    if chain is not None:
+        tracing.count("traverse.chain_lanes", n, cl_box)
     with tracing.device_span("traversal_plumbing", cl_box):
-        soat, perm, n_live = prepare_rays(o, d, tmax, cl_box, tmin,
-                                          sort_rays, sb, live_prefix)
+        soat, perm, n_live, *local = prepare_rays(
+            o, d, tmax, cl_box, tmin, sort_rays, sb, live_prefix, chain)
     n_tot = soat.shape[0] * sb
     masks = cluster_masks(soat, cl_box, float(tmin), n_live, b)
     if items and tri.shape[0] <= 1 << CID_BITS:
@@ -1288,6 +1385,7 @@ def traverse(o, d, tmax, cl_box, tri, tmin: float, sort_rays: bool = True,
         t_bn, p_bn = traverse_blocks(masks, soat, tri, float(tmin), mt_mode,
                                      any_hit, n_live, b, slices=slices)
     with tracing.device_span("traversal_plumbing", cl_box):
-        return ray_unsort(p_bn.view(n_tot),
-                          t_bn.view(n_tot) if want_t else None, perm, n,
-                          hit_only=any_hit and not want_t)
+        t, prim = ray_unsort(p_bn.view(n_tot),
+                             t_bn.view(n_tot) if want_t else None, perm, n,
+                             hit_only=any_hit and not want_t)
+    return (t, prim, *local)

@@ -77,9 +77,10 @@ SIGNATURES = {
     "rt_analytic_fold": [_P, _P, _F, _I, _I, _P],
     "rt_analytic_fold_spec_bytes": [],
     "rt_analytic_fold_ptrs": [],
-    # 7 ray planes, box, soa8, operand, live counter, n, n_tot, c_pad,
-    # tmin, key, stream
-    "rt_ray_pack": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
+    # 7 ray planes, box, soa8, operand, live counter, chain slots, 5
+    # transform tables, time, local ray, rotation, depth, k, n, n_tot,
+    # c_pad, tmin, key, stream
+    "rt_ray_pack": [_P] * 20 + [_I] * 5 + [_F, _I, _P],
     # soa8, vals, idx, soat, perm, n_live, n_tot, sb, stream
     "rt_ray_reorder": [_P] * 6 + [_I, _I, _P],
     # p_bn, t_bn, perm, prim, t, n, n_slots, hit_only, stream

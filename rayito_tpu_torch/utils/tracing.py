@@ -25,13 +25,15 @@ eager pass is the device's work there.
 The port's device spans: ``camera_rays``, ``bounce[i]`` ⊃ {``query.closest``,
 ``draws``, ``shading.prepare``, ``query.shadow[i]``, ``shading.resolve``}
 and ``image`` (``render/pathtracer.py``); in a query ``analytic_folds`` and
-``mesh`` ⊃ {``domain`` ⊃ {``transforms``, ``traversal_plumbing``,
-``domain_merge``}, ``tiny_mesh_fold``} (``render/trace.py``: one ``domain``
-per traversal domain, around its local ray, its ``traverse()`` call, its
-winner re-test and its merge into the query's best; ``domain_merge``
-around the re-test and the merge, on the closest-hit and the any-hit
-path; ``traversal_plumbing`` in ``render/traverse.py``, ``transforms``
-around every keyed chain in ``ops/transform.py``, the lights' too);
+``mesh`` ⊃ {``domain`` ⊃ {``traversal_plumbing``, ``domain_merge``},
+``tiny_mesh_fold``} (``render/trace.py``: one ``domain`` per traversal
+domain, around its ``traverse()`` call, whose ``ray_pack`` takes the lanes
+into the domain's space, its winner re-test and its merge into the
+query's best; ``domain_merge`` around the re-test and the merge, on the
+closest-hit and the any-hit path; ``traversal_plumbing`` in
+``render/traverse.py``; ``transforms`` around every keyed chain that
+``ops/transform.py`` evaluates in torch: the 'xla' route's, the folds'
+plain twins', the lights');
 ``readback`` (``render/progressive.py``).
 
 Every span has an id, a name, a parent (the innermost span open when it
@@ -49,7 +51,10 @@ counters: ``launches.<kernel>`` (``utils/cuda_lib.py``),
 ``traverse.pairs``, ``traverse.live_rays`` and ``traverse.slices``
 (``render/traverse.py``, added by ``cluster_masks_kernel``,
 ``ray_pack_kernel`` and the mesh fold's kernels), ``traverse.lanes`` (the
-lanes handed to each ``traverse()`` call, a Python number), and the
+lanes handed to each ``traverse()`` call, a Python number),
+``traverse.chain_lanes`` (those of them ``ray_pack`` took through a
+domain's transform chain, a Python number, added only by calls with a
+chain), and the
 tiny-mesh fold's
 ``fold_small.tests.closest`` / ``.any``, ``fold_small.lanes.closest`` /
 ``.any`` and ``fold_small.links`` (``render/mesh_intersect.py``, added by

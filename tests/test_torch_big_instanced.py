@@ -17,7 +17,8 @@ what its cell reads of the domain loop, on the CPU:
     not;
   * with tracing on, ``traverse.lanes`` is the lanes of every
     ``traverse()`` call of a pass and ``traverse.live_rays`` at most that;
-    nothing is counted with tracing off;
+    ``traverse.chain_lanes`` the lanes of the four transformed copies'
+    calls; nothing is counted with tracing off;
   * every ``traverse()`` call of a traced pass lies inside a ``domain``
     span and every winner re-test inside a ``domain_merge`` span inside
     it, on the closest-hit and the any-hit path;
@@ -282,6 +283,26 @@ def test_traverse_lanes_counts_every_call_of_a_pass(big8, monkeypatch):
     snap = _pass(big8, traced=False)
     assert len(calls) == 30 and snap.counters == {}
     assert snap.device == [] and snap.host == []
+
+
+def test_chain_lanes_count_the_four_transformed_domains(big8):
+    """``traverse.chain_lanes``: the lanes ``ray_pack`` took through a
+    domain's chain, those of the four copies under a translation, none of
+    the centre copy's; no ``transforms`` span opens inside a domain."""
+    from rayito_tpu_torch.ops import transform as xf
+
+    chained = [bool(xf.chain_slots(big8, x)) for x in big8.ktab_xf]
+    assert chained.count(True) == 4 and chained.count(False) == 1
+    snap = _pass(big8, traced=True)
+    c = snap.counters
+    assert c["traverse.chain_lanes"] == 6 * 4 * 384
+    assert c["traverse.chain_lanes"] * 5 == c["traverse.lanes"] * 4
+    by_id = {s.id: s for s in snap.device}
+    for s in snap.device:
+        if s.name == "transforms":
+            while s.parent in by_id:
+                s = by_id[s.parent]
+                assert s.name != "domain"
 
 
 @pytest.mark.parametrize("mt", ["bw_closest", "bw"])

@@ -84,7 +84,13 @@ bit; and the fold's slice cull: traverse_blocks at ray blocks of 128, 256
 and 512 and traverse_items bit for bit with their plain folds on camera,
 bounce and shadow rays of stage 6 and stage 7's moving domain, the
 slices run equal to the plain count, and on a traced pass at most 16 a
-(block, cluster) pair, none on an untraced one. The launch counters
+(block, cluster) pair, none on an untraced one; and ray_pack through a
+traversal domain's transform chain (stage 7's three-key mesh at lane
+times before, on and past its keys, each of big_instanced's four one-key
+copies, a nested two-link chain) bit for bit with its plain twin and
+ops/transform.py local_ray (rows, operand, local ray, rotation, live
+rays), the depth-0 instance on the world ray, and traverse() through the
+chain with traverse() of the local ray. The launch counters
 count only with tracing on, so each test that reads them turns it on
 around what it counts, captures included.
 Every kernel comparison is exact: kernel and plain version run the same
@@ -96,6 +102,7 @@ import pytest
 import torch
 
 from rayito_tpu_torch.accel import kernel_tables as tkt
+from rayito_tpu_torch.ops import transform as xf
 from rayito_tpu_torch.ops.vec3 import V3
 from rayito_tpu_torch.render import traverse as tv
 from rayito_tpu_torch.utils import cuda_lib, tracing
@@ -782,8 +789,6 @@ def test_moving_domain_kernels_match_plain(dev, stage7, when, mt, any_hit):
     """Rays in the rotating mesh's local space at the shutter's start, its
     middle key, its end and at each lane's own time: the masks, the block
     traversal and the winners' row gathers equal their plain versions."""
-    from rayito_tpu_torch.render import trace as tr
-
     scene = stage7["card"]
     n = stage7["o"].shape[0]
     time = {"start": np.zeros(n, np.float32),
@@ -791,8 +796,9 @@ def test_moving_domain_kernels_match_plain(dev, stage7, when, mt, any_hit):
             "end": np.ones(n, np.float32),
             "lanes": stage7["time"]}[when]
     time = torch.from_numpy(time).to(dev)
-    o_l, d_l, _ = tr._domain_local_ray(scene, 0, _v3_on(stage7["o"], dev),
-                                       _v3_on(stage7["d"], dev), time)
+    o_l, d_l, _ = xf.local_ray(scene, scene.ktab_xf[0],
+                               _v3_on(stage7["o"], dev),
+                               _v3_on(stage7["d"], dev), time)
     box = scene.ktab_box[0]
     tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
     tmax = torch.full((n,), float("inf"), device=dev)
@@ -2620,12 +2626,12 @@ def test_device_counters_equal_the_host_plain_counts(dev, graph_scenes,
                       None if n_live is None else n_live.clone(), b))
         return masks(soat, cl_box, tmin, n_live, b)
 
-    def spy_pack(o, d, tmax, cl_box, tmin, sb=2048, key=True):
-        soa8, operand = pack(o, d, tmax, cl_box, tmin, sb, key)
-        col = lambda k: soa8[:, k]
+    def spy_pack(o, d, tmax, cl_box, tmin, sb=2048, key=True, chain=None):
+        out = pack(o, d, tmax, cl_box, tmin, sb, key, chain)
+        col = lambda k: out[0][:, k]
         keys.append(tv.coherence_key(*(col(k) for k in range(7)), cl_box,
                                      tmin))
-        return soa8, operand
+        return out
 
     # the wrappers count their launches on the name they are called by
     spy_masks.__name__, spy_masks.launches = "cluster_masks", 0
@@ -2914,7 +2920,6 @@ def _plumbing_rays(scenes, name, kind, n, dev, nan=True):
     stage 6 or 7 in the traversal domain's space (stage 7's at seeded lane
     times), a few lanes dead (tmax 0) and, with ``nan``, one NaN."""
     from rayito_tpu_torch.models import demo
-    from rayito_tpu_torch.render import trace as tr
 
     scene = scenes[name]
     time = None
@@ -2925,7 +2930,7 @@ def _plumbing_rays(scenes, name, kind, n, dev, nan=True):
     o, d, tmax = _stage6_population(
         scene, kind, dev, n, time,
         demo.STAGE7_CAMERA if name == "stage7" else None)
-    o, d, _ = tr._domain_local_ray(scene, 0, o, d, time)
+    o, d, _ = xf.local_ray(scene, scene.ktab_xf[0], o, d, time)
     o, d = (V3(v.x.contiguous(), v.y.contiguous(), v.z.contiguous())
             for v in (o, d))
     tmax = tmax.clone()
@@ -2991,6 +2996,133 @@ def test_ray_prep_kernels_match_plain(dev, plumbing_scenes, name, kind, n):
                 hit_only)
         got, ref = tv.ray_unsort(*args), tv.ray_unsort_plain(*args)
         assert _bits_equal(got[0], ref[0]) and _bits_equal(got[1], ref[1])
+
+
+# the domain's transform chain inside ray_pack: stage 7's rotating mesh
+# (three keys), each of big_instanced's four one-key copies, a nested
+# two-link chain (a keyed link outside a one-key one), and big_instanced's
+# world-space copy (no chain: the depth-0 instance)
+CHAIN_CASES = ["stage7", "big0", "big1", "big2", "big3", "nested", "depth0"]
+
+
+def _chain_case(case, plumbing_scenes, graph_scenes):
+    """(scene, domain, chain slots i32 [depth] on the card, camera of the
+    rays) of a case: the scene's own slot table (``ktab_chain``), which is
+    ``chain_slots``' chain, but for the nested case."""
+    from rayito_tpu_torch.models import demo
+
+    if case in ("stage7", "nested"):
+        scene = plumbing_scenes["stage7"]
+        slots = scene.ktab_chain[0]
+        assert slots.tolist() == xf.chain_slots(scene, scene.ktab_xf[0])
+        if case == "nested":
+            one = next(s for s in range(1, scene.xf_nkeys.shape[0])
+                       if int(scene.xf_nkeys[s]) == 1)
+            slots = torch.tensor(slots.tolist() + [one], dtype=torch.int32,
+                                 device=slots.device)
+        return scene, 0, slots, demo.STAGE7_CAMERA
+    scene = graph_scenes["big_instanced"][0]
+    moving = [di for di, x in enumerate(scene.ktab_xf)
+              if xf.chain_slots(scene, x)]
+    di = ([di for di in range(len(scene.ktab_xf)) if di not in moving][0]
+          if case == "depth0" else moving[int(case[-1])])
+    slots = scene.ktab_chain[di]
+    assert slots.tolist() == xf.chain_slots(scene, scene.ktab_xf[di])
+    return scene, di, slots, None
+
+
+def _chain_times(n, dev):
+    """Seeded lane times over and past the shutter: before the first key,
+    after the last and exactly on each key among them."""
+    rs = np.random.default_rng(n + 3)
+    t = rs.uniform(-0.25, 1.25, n).astype(np.float32)
+    t[:: 7] = 0.0
+    t[1:: 7] = 0.5
+    t[2:: 7] = 1.0
+    t[3:: 11] = -1.0
+    t[4:: 11] = 2.0
+    return torch.from_numpy(t).to(dev)
+
+
+@pytest.mark.parametrize("n", [262144, 131072])
+@pytest.mark.parametrize("kind", ["camera", "shadow"])
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_ray_pack_chain_matches_plain(dev, plumbing_scenes, graph_scenes,
+                                      case, kind, n):
+    """ray_pack with the domain's chain against its plain twin (the torch
+    chain of ops/transform.py, then the packing) on the card, bit for bit:
+    the local rows, the sort operand, the local ray and the rotation, the
+    live-ray count; without the key, and asking for less, the same rows.
+    The depth-0 launch (no chain) equals the twin on the world ray."""
+    import dataclasses
+
+    scene, di, slots, camera = _chain_case(case, plumbing_scenes,
+                                           graph_scenes)
+    time = _chain_times(n, dev)
+    o, d, tmax = _stage6_population(scene, kind, dev, n, time, camera)
+    o, d = (V3(v.x.contiguous(), v.y.contiguous(), v.z.contiguous())
+            for v in (o, d))
+    tmax = tmax.clone()
+    tmax[::97] = 0.0
+    box = scene.ktab_box[di]
+    chain = None
+    if case != "depth0":
+        assert slots.shape[0] == (2 if case == "nested" else 1)
+        chain = tv.Chain((scene.xf_times, scene.xf_translate, scene.xf_scale,
+                          scene.xf_rotate, scene.xf_nkeys), slots, time,
+                         want_ray=True, want_rot=True)
+    else:
+        assert slots.shape[0] == 0
+    got, live = _live_rays(
+        lambda: tv.ray_pack(o, d, tmax, box, 1e-4, SB, chain=chain))
+    ref, live_p = _live_rays(
+        lambda: tv.ray_pack_plain(o, d, tmax, box, 1e-4, SB, chain=chain))
+    assert len(got) == len(ref) == (2 if chain is None else 3)
+    assert _bits_equal(got[0], ref[0]) and _bits_equal(got[1], ref[1])
+    assert live == live_p and 0 < live < n
+    if chain is None:
+        return
+    assert all(_bits_equal(a, b) for a, b in zip(got[2], ref[2]))
+    if case != "nested":
+        o_l, d_l, rot = xf.local_ray(scene, scene.ktab_xf[di], o, d, time)
+        assert _bits_equal(got[2][0], torch.stack((o_l.x, o_l.y, o_l.z,
+                                                   d_l.x, d_l.y, d_l.z)))
+        assert _bits_equal(got[2][1], torch.stack((rot.w, rot.v.x,
+                                                   rot.v.y, rot.v.z)))
+    bare = tv.ray_pack(o, d, tmax, box, 1e-4, SB, key=False,
+                       chain=dataclasses.replace(chain, want_ray=False,
+                                                 want_rot=False))
+    assert bare[1] is None and bare[2] == (None, None)
+    assert _bits_equal(bare[0], ref[0])
+
+
+@pytest.mark.parametrize("mt,any_hit", MODES)
+@pytest.mark.parametrize("case", ["stage7", "big1"])
+def test_traverse_through_the_chain_equals_traverse_of_the_local_ray(
+        dev, plumbing_scenes, graph_scenes, case, mt, any_hit):
+    """traverse() given the world ray and the domain's chain equals
+    traverse() given ops/transform.py local_ray's ray on the card: prim
+    (and t on closest hits) bit for bit, at 261,760 lanes."""
+    scene, di, slots, camera = _chain_case(case, plumbing_scenes,
+                                           graph_scenes)
+    n = 261760
+    time = _chain_times(n, dev)
+    o, d, tmax = _stage6_population(scene, "bounce", dev, n, time, camera)
+    tri = scene.ktab_tri[di] if mt == "vpu" else scene.ktab_mxu[di]
+    kw = dict(mt_mode=mt, any_hit=any_hit, slices=scene.ktab_slice[di])
+    chain = tv.Chain((scene.xf_times, scene.xf_translate, scene.xf_scale,
+                      scene.xf_rotate, scene.xf_nkeys), slots, time)
+    box = scene.ktab_box[di]
+    t, p, local = tv.traverse(o, d, tmax, box, tri, 1e-4, chain=chain, **kw)
+    o_l, d_l, _ = xf.local_ray(scene, scene.ktab_xf[di], o, d, time)
+    t_l, p_l = tv.traverse(o_l, d_l, tmax, box, tri, 1e-4, **kw)
+    torch.cuda.synchronize()
+    assert local == (None, None)
+    assert int((p_l >= 0).sum()) > 100
+    if any_hit:
+        assert torch.equal(p >= 0, p_l >= 0)
+    else:
+        assert _bits_equal(t, t_l) and torch.equal(p, p_l)
 
 
 def _plain_route(monkeypatch):

@@ -34,6 +34,18 @@ stage 3's direct-lighting light loop (two lights, 4x4 light samples), as
 the tree's renderers build them: ``set_ms`` is one set (one
 ``cmj_draws`` launch per set, ``launches`` of them).
 
+``chain`` times ``ray_pack`` through a traversal domain's transform chain
+at the cells' 262,144 lanes, on chip_smoke.py's stage-7 populations at
+seeded lane times (the rotating mesh: three keys) and on the same
+populations of one of ``big_instanced``'s one-key copies (its camera): the
+kernel with the chain's outputs the query wants (``chain_ms``: the local
+ray and the rotation on closest hits, none on any hits), against the
+plain-torch chain (``ops/transform.py`` ``local_ray``) and the pack of
+the local ray (``torch_chain_ms``), and the pack of the world ray alone
+(``pack_ms``); the rows, operand and local ray compared bit for bit
+(``differing``), the kernel's bytes and its bound at 3.35 TB/s. It needs
+a tree whose ``ray_pack`` takes a chain.
+
 ``--root`` names the tree whose ``chip_smoke.py`` and ``rayito_tpu_torch``
 are imported (default: this checkout), so two commits can be compared in
 one run: unpack the other with ``git archive`` under ``build/`` and run
@@ -210,6 +222,80 @@ def _draws_records(cs, dev):
                                                           si))}
 
 
+def _chain_records(cs, dev):
+    """ray_pack through a domain's chain against the torch chain and the
+    pack, per population (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from portbench import port_scene, run
+    from rayito_tpu_torch.ops import transform as xf
+    from rayito_tpu_torch.render import traverse as tv
+
+    n = cs.PLUMBING_LANES
+    lane_time = torch.from_numpy(np.random.default_rng(7).uniform(
+        0.0, 1.0, n).astype(np.float32)).to(dev)
+    stage7, cfg, cam, _ = cs.stage7_setup(dev)
+    cfg = dataclasses.replace(cfg, max_rays_per_pass=n)
+    with open(os.path.join(HERE, "portbench", "configs",
+                           "big_instanced.json")) as f:
+        inst = json.load(f)
+    big = port_scene.build(inst, {"bumpy": cs._standin_obj()}).compile(dev)
+    cases = [("stage7", stage7, cam, ((-1.5, 4.0, -1.5), (3.0, 3.0))),
+             ("big_instanced", big, run.camera_of(inst["camera"]),
+              ((-4.0, 10.0, -4.0), (8.0, 8.0)))]
+    tmin = cfg.ray_tmin
+    for scene_name, scene, camera, light in cases:
+        di = next(i for i, x in enumerate(scene.ktab_xf)
+                  if xf.chain_slots(scene, x))
+        slots = scene.ktab_chain[di]
+        box = scene.ktab_box[di]
+        k = scene.xf_times.shape[1]
+        for name, o, d, tmax, _, any_hit in cs._populations(
+                scene, cfg, camera, *light, lane_time):
+            tmax = tmax.contiguous()
+            chain = tv.Chain((scene.xf_times, scene.xf_translate,
+                              scene.xf_scale, scene.xf_rotate,
+                              scene.xf_nkeys), slots, lane_time,
+                             want_ray=not any_hit, want_rot=not any_hit)
+
+            def kernel():
+                return tv.ray_pack(o, d, tmax, box, tmin, chain=chain)
+
+            def torch_chain():
+                o_l, d_l, _ = xf.local_ray(scene, scene.ktab_xf[di], o, d,
+                                           lane_time)
+                o_l, d_l = (type(v)(v.x.contiguous(), v.y.contiguous(),
+                                    v.z.contiguous()) for v in (o_l, d_l))
+                return o_l, d_l, tv.ray_pack(o_l, d_l, tmax, box, tmin)
+
+            soa8, operand, (ray, _) = kernel()
+            o_l, d_l, (soa8_t, operand_t) = torch_chain()
+            pairs = [(soa8, soa8_t), (operand, operand_t)]
+            if ray is not None:
+                pairs.append((ray, torch.stack((o_l.x, o_l.y, o_l.z, d_l.x,
+                                                d_l.y, d_l.z))))
+            differing = sum(int((a.view(torch.int32)
+                                 != b.view(torch.int32)).sum())
+                            if a.dtype == torch.float32
+                            else int((a != b).sum()) for a, b in pairs)
+            n_tot = soa8.shape[0]
+            nbytes = (n * (28 + 4 * (k > 1)) + n_tot * 36
+                      + (0 if any_hit else n * 40))
+            rec = {"scene": "chain", "domain": scene_name,
+                   "population": name, "lanes": n, "depth": slots.shape[0],
+                   "keys": k, "chain_ms": _device_ms(kernel),
+                   "torch_chain_ms": _device_ms(torch_chain),
+                   "pack_ms": _device_ms(
+                       lambda: tv.ray_pack(o, d, tmax, box, tmin)),
+                   "bytes": nbytes, "bound_ms": nbytes / 3.35e9,
+                   "differing": differing}
+            rec["share"] = rec["bound_ms"] / rec["chain_ms"]
+            yield rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
@@ -225,7 +311,7 @@ def main() -> int:
         print("no CUDA device: nothing to time", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from rayito_tpu_torch.render import trace as tr
+    from rayito_tpu_torch.ops import transform as xf
     from rayito_tpu_torch.render import traverse as tv
 
     if not os.path.abspath(tv.__file__).startswith(root + os.sep):
@@ -237,9 +323,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     runs = []
     for scene_name in args.scenes.split(","):
-        if scene_name in ("xla", "tiny", "draws"):
+        if scene_name in ("xla", "tiny", "draws", "chain"):
             timed = {"xla": _xla_records, "tiny": _tiny_records,
-                     "draws": _draws_records}[scene_name]
+                     "draws": _draws_records,
+                     "chain": _chain_records}[scene_name]
             for rec in timed(cs, dev):
                 rec.update(tree=args.label, card=card)
                 print(json.dumps(rec), flush=True)
@@ -267,7 +354,8 @@ def main() -> int:
         for name, o, d, tmax, mt, any_hit in cs._populations(
                 scene, cfg, cam, corner, sides, lane_time):
             if lane_time is not None:  # the moving domain's local space
-                o, d, _ = tr._domain_local_ray(scene, 0, o, d, lane_time)
+                o, d, _ = xf.local_ray(scene, scene.ktab_xf[0], o, d,
+                                       lane_time)
             tri = scene.ktab_tri[0] if mt == "vpu" else scene.ktab_mxu[0]
             # a tree with the slice cull takes the domain's slice boxes
             sl = ({"slices": scene.ktab_slice[0]}
