@@ -195,7 +195,11 @@ JAX. Phases, each printed, each fatal on failure:
      hands them: stage 6's first band at bounces 0 and 1, stage 7's first
      band at seeded lane times in [-0.5, 1.5] (its keyed rect and sphere
      lights), the box mesh light at light_samples=2 (the BRDF-side
-     closest-hit branch), the 16-light scene at light_samples 1 and 2;
+     closest-hit branch), the 16-light scene at light_samples 1 and 2, 65
+     sphere lights and a sphere light nine groups deep (at seeded lane
+     times), past the 64 lights and 8 links the kernel once took by value:
+     each scene's light table and chain slots read from the scene's device
+     tables (SceneData.light_table, light_slots);
      stage 6's bounce 0 timed (CUDA-graph replays of 20 calls, each after
      an 80 MB write that evicts the inputs from L2, less the write's time;
      and back to back), beside the plain versions, with each kernel's bound (bytes at 3.35 TB/s: each
@@ -937,6 +941,22 @@ def sixteen_lights_setup(dev):
     from rayito_tpu_torch.models.demo import sixteen_lights_scene
 
     return _still_setup(dev, sixteen_lights_scene, 40.0,
+                        ((0, 3, 10), (0, 0, 0), (0, 1, 0)))
+
+
+@_once
+def many_lights_setup(dev):
+    from rayito_tpu_torch.models.demo import many_sphere_lights_scene
+
+    return _still_setup(dev, many_sphere_lights_scene, 40.0,
+                        ((0, 3, 10), (0, 0, 0), (0, 1, 0)))
+
+
+@_once
+def deep_light_setup(dev):
+    from rayito_tpu_torch.models.demo import deep_light_scene
+
+    return _still_setup(dev, deep_light_scene, 40.0,
                         ((0, 3, 10), (0, 0, 0), (0, 1, 0)))
 
 
@@ -1924,8 +1944,10 @@ def run_shade(dev, card: str) -> dict:
     the eager pass body hands them: stage 6's first band at bounces 0 and
     1 (timed, bounded), stage 7's first band at seeded lane times in
     [-0.5, 1.5] (its keyed rect and sphere lights), the box mesh light at
-    light_samples=2 (the BRDF-side closest-hit branch), and the 16-light
-    scene at light_samples 1 and 2. Returns {population: numbers}."""
+    light_samples=2 (the BRDF-side closest-hit branch), the 16-light scene
+    at light_samples 1 and 2, 65 sphere lights, and a sphere light nine
+    groups deep at seeded lane times; each scene's light table and chain
+    slots are its device tables. Returns {population: numbers}."""
     import numpy as np
     import torch
 
@@ -1937,10 +1959,20 @@ def run_shade(dev, card: str) -> dict:
              ("box_light", box_light_setup(dev), 1, None),
              ("lights16", s16, 1, None),
              ("lights16_ls2", (s16[0], s16_ls2, s16[2],
-                               _frame_fn(s16[0], s16_ls2, s16[2])), 1, None)]
+                               _frame_fn(s16[0], s16_ls2, s16[2])), 1, None),
+             ("lights65", many_lights_setup(dev), 1, None),
+             ("deep_light9", deep_light_setup(dev), 1, "times")]
     out = {}
     for name, setup, keep, times in cases:
         scene, frame = setup[0], setup[-1]
+        table, slots = scene.light_table, scene.light_slots
+        if (table.device != dev or slots.device != dev
+                or tuple(table.shape) != (scene.n_lights, 7)):
+            raise AssertionError(f"shade {name}: the light table is not "
+                                 "the scene's on the card")
+        print(f"shade {name}: {scene.n_lights} lights, chains of "
+              f"{int(table[:, 2].max())} links at most, {slots.numel()} "
+              "slots, read from the scene's device tables")
         with _spy_shade(keep) as calls:  # the first band's first bounces
             frame(graph=False)
             torch.cuda.synchronize()

@@ -51,6 +51,14 @@
 // -fmad=false -prec-div=true -prec-sqrt=true: every multiply and add
 // rounds on its own, divisions and square roots are IEEE, so every output
 // equals the plain twin's bit for bit.
+//
+// Counters (tracing on; render/trace.py passes the int64 slots of
+// utils/tracing.py): the row tests each lane ran, by kind (a lane of an
+// any-hit query counts up to its first hit; a lane that a chained launch
+// finds occluded runs none), and the lanes of the query (added by its
+// first launch only), summed per block and added once per block. With
+// null pointers the kernel is the uncounted instance: no add, no
+// reduction.
 #include <math.h>
 
 #include "common.cuh"
@@ -99,6 +107,11 @@ enum Ptr : int {
 
 struct Ptrs {
     const void* p[kPtrs];
+};
+
+struct AfCounters {
+    unsigned long long* tests[3];  // analytic_fold.tests.plane, .sphere, .rect
+    unsigned long long* lanes;     // analytic_fold.lanes.closest or .any
 };
 
 template <typename T>
@@ -241,14 +254,16 @@ struct Winner {
     Rot rot;
 };
 
-// One kind's rows of the launch, rows r0.. of the spec's chain list.
+// One kind's rows of the launch, rows r0.. of the spec's chain list; adds
+// the row tests it runs to tests[kKind].
 template <int kKind, bool kAnyHit>
 __device__ __forceinline__ bool walk_kind(const AfSpec& spec,
                                           const Ptrs& P, const XfTables& tb,
                                           int r0, float tm, const Vec& o,
                                           const Vec& d, float tmin,
                                           float tmax, int& cur, Vec& lo,
-                                          Vec& ld, Rot& lrot, Winner& w) {
+                                          Vec& ld, Rot& lrot, Winner& w,
+                                          int (&tests)[3]) {
     const int first = spec.first[kKind];
     for (int j = 0; j < spec.count[kKind]; ++j) {
         const int c = spec.chain[r0 + j];
@@ -263,20 +278,24 @@ __device__ __forceinline__ bool walk_kind(const AfSpec& spec,
                 : (kKind == kSphere ? sphere_t(P, row, lo, ld, tmin, tmax)
                                     : rect_t(P, row, lo, ld, tmin, tmax));
         if (kAnyHit) {
-            if (t < f_inf()) return true;  // t is finite exactly on a hit
+            if (t < f_inf()) {  // t is finite exactly on a hit
+                tests[kKind] += j + 1;
+                return true;
+            }
         } else if (t < w.t) {
             w = {t, kKind, row, lo, ld, lrot};
         }
     }
+    tests[kKind] += spec.count[kKind];
     return false;
 }
 
+// Lane i's fold over the launch's rows, its record or occlusion written;
+// adds the row tests it runs to tests.
 template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads)
-analytic_fold_kernel(const __grid_constant__ AfSpec spec,
-                     const __grid_constant__ Ptrs P, float tmin, int n) {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n) return;
+__device__ __forceinline__ void fold_lane(const AfSpec& spec, const Ptrs& P,
+                                          float tmin, int n, int i,
+                                          int (&tests)[3]) {
     const Vec o = {in<float>(P, L_OX)[i], in<float>(P, L_OY)[i],
                    in<float>(P, L_OZ)[i]};
     const Vec d = {in<float>(P, L_DX)[i], in<float>(P, L_DY)[i],
@@ -298,11 +317,13 @@ analytic_fold_kernel(const __grid_constant__ AfSpec spec,
     if (!occ) {
         const int r1 = spec.count[kPlane], r2 = r1 + spec.count[kSphere];
         occ = walk_kind<kPlane, kAnyHit>(spec, P, tb, 0, tm, o, d, tmin,
-                                         tmax, cur, lo, ld, lrot, w) ||
+                                         tmax, cur, lo, ld, lrot, w,
+                                         tests) ||
               walk_kind<kSphere, kAnyHit>(spec, P, tb, r1, tm, o, d, tmin,
-                                          tmax, cur, lo, ld, lrot, w) ||
+                                          tmax, cur, lo, ld, lrot, w,
+                                          tests) ||
               walk_kind<kRect, kAnyHit>(spec, P, tb, r2, tm, o, d, tmin,
-                                        tmax, cur, lo, ld, lrot, w);
+                                        tmax, cur, lo, ld, lrot, w, tests);
     }
     if (kAnyHit) {
         out<uint8_t>(P, O_OCC)[i] = occ ? 1 : 0;
@@ -357,6 +378,42 @@ analytic_fold_kernel(const __grid_constant__ AfSpec spec,
     out<float>(P, O_CMOD)[i] = cmod;
 }
 
+// The block's row tests by kind (every thread of the block calls it) and,
+// where the query counts them here, its lanes added to the counters, one
+// add each.
+__device__ __forceinline__ void count_block(const int (&tests)[3], int n,
+                                            const AfCounters& cnt) {
+    __shared__ int part[3][kThreads / 32];
+    int t[3] = {tests[0], tests[1], tests[2]};
+    for (int s = 16; s > 0; s >>= 1)
+        for (int k = 0; k < 3; ++k)
+            t[k] += __shfl_down_sync(0xffffffffu, t[k], s);
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0)
+        for (int k = 0; k < 3; ++k) part[k][warp] = t[k];
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    for (int k = 0; k < 3; ++k) {
+        long long sum = 0;
+        for (int w = 0; w < kThreads / 32; ++w) sum += part[k][w];
+        atomicAdd(cnt.tests[k], (unsigned long long)sum);
+    }
+    if (cnt.lanes != nullptr)
+        atomicAdd(cnt.lanes, (unsigned long long)min(
+                                 n - (int)blockIdx.x * kThreads, kThreads));
+}
+
+template <bool kAnyHit, bool kCount>
+__global__ void __launch_bounds__(kThreads)
+analytic_fold_kernel(const __grid_constant__ AfSpec spec,
+                     const __grid_constant__ Ptrs P, float tmin,
+                     const AfCounters cnt, int n) {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    int tests[3] = {0, 0, 0};
+    if (i < n) fold_lane<kAnyHit>(spec, P, tmin, n, i, tests);
+    if (kCount) count_block(tests, n, cnt);
+}
+
 int check_spec(const AfSpec* s, bool moving) {
     int rows = 0;
     for (int k = 0; k < 3; ++k) {
@@ -390,28 +447,46 @@ extern "C" int rt_analytic_fold_ptrs() { return (int)kPtrs; }
 // O_OCC out). spec is an AfSpec and ptrs an array of kPtrs device
 // pointers, both in host memory (types of this file's own, so passed as
 // void*); L_TIME is null for a static scene, which may have no chain.
+// c_plane, c_sphere, c_rect: int64 counters to add the row tests to
+// (analytic_fold.tests.<kind>), all three or none (null: the uncounted
+// kernel); c_lanes: the query's lanes (analytic_fold.lanes.<query>), null
+// on a chained launch and where nothing is counted.
 extern "C" int rt_analytic_fold(const void* spec_ptr,
                                 const void* const* ptrs, float tmin,
-                                int any_hit, int n, void* stream) {
+                                int any_hit, long long* c_plane,
+                                long long* c_sphere, long long* c_rect,
+                                long long* c_lanes, int n, void* stream) {
     const AfSpec* spec = static_cast<const AfSpec*>(spec_ptr);
     const int bad = check_spec(spec, ptrs[L_TIME] != nullptr);
     if (bad || n < 0) return bad ? bad : (int)cudaErrorInvalidValue;
     const bool closest_io = ptrs[O_T] != nullptr && ptrs[O_ID] != nullptr &&
                             ptrs[O_MAT] != nullptr && ptrs[O_N] != nullptr &&
                             ptrs[O_CMOD] != nullptr;
-    if (any_hit ? ptrs[O_OCC] == nullptr : !closest_io)
+    const bool counted = c_plane != nullptr;
+    if ((any_hit ? ptrs[O_OCC] == nullptr : !closest_io) ||
+        (c_sphere != nullptr) != counted || (c_rect != nullptr) != counted ||
+        (c_lanes != nullptr && !counted))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     Ptrs P;
     for (int k = 0; k < kPtrs; ++k) P.p[k] = ptrs[k];
+    const AfCounters cnt = {{(unsigned long long*)c_plane,
+                             (unsigned long long*)c_sphere,
+                             (unsigned long long*)c_rect},
+                            (unsigned long long*)c_lanes};
     const int blocks = (n + kThreads - 1) / kThreads;
-    if (any_hit)
-        analytic_fold_kernel<true><<<blocks, kThreads, 0,
-                                     (cudaStream_t)stream>>>(*spec, P, tmin,
-                                                             n);
+#define RT_ANALYTIC_FOLD(ANY, COUNT)                                        \
+    analytic_fold_kernel<ANY, COUNT><<<blocks, kThreads, 0,                 \
+                                       (cudaStream_t)stream>>>(*spec, P,    \
+                                                               tmin, cnt, n)
+    if (any_hit && counted)
+        RT_ANALYTIC_FOLD(true, true);
+    else if (any_hit)
+        RT_ANALYTIC_FOLD(true, false);
+    else if (counted)
+        RT_ANALYTIC_FOLD(false, true);
     else
-        analytic_fold_kernel<false><<<blocks, kThreads, 0,
-                                      (cudaStream_t)stream>>>(*spec, P, tmin,
-                                                              n);
+        RT_ANALYTIC_FOLD(false, false);
+#undef RT_ANALYTIC_FOLD
     return (int)cudaGetLastError();
 }

@@ -33,10 +33,17 @@
 // sample; bounce_resolve reads ~30 + 20 a light sample and writes 13. The
 // arithmetic is a few hundred flops a lane plus a handful of sin, cos, pow
 // and roots (chip_smoke.py counts both). Design: one thread per lane, no
-// shared memory; the light table, the transform chains and the mesh
-// lights' CDF runs are a by-value launch parameter (ShadeSpec) and small
-// device tables, so a CUDA graph holds every launch; outputs are planes of
-// [rows, N] (and [rows, nls, N]) so each output is one contiguous tensor.
+// shared memory; the launch's constants are a by-value parameter
+// (ShadeSpec), and the lights are the scene's device tables, built once
+// with the scene (SceneData.light_table: a 28-byte record a light, its
+// kind, its row of the kind's table, its chain and a mesh light's CDF
+// run; SceneData.light_slots: every light's chain slots), read by pointer,
+// so a lane's light choice indexes a table of any size and a chain of any
+// depth runs; a link is evaluated where it is used (eval_link of
+// xform.cuh, a deterministic function of the slot and the lane's time, so
+// every use sees the same bits). A CUDA graph holds every launch; outputs
+// are planes of [rows, N] (and [rows, nls, N]) so each output is one
+// contiguous tensor.
 #include <float.h>
 #include <math.h>
 
@@ -46,9 +53,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxLights = 64;
-constexpr int kMaxSlots = 128;
-constexpr int kMaxDepth = 8;
 constexpr int kRowWidth = 16;  // tri_vert_rows: v0, v1, v2, then meta
 
 // ops/brdf.py material kinds, models/scene.py light kinds
@@ -75,6 +79,8 @@ constexpr float kNear = (float)0.999;
 constexpr float kInside = (float)1.00001;
 constexpr float kFltMin = (float)1.1754943508222875e-38;  // brdf._FLT_MIN
 
+// One light's record of SceneData.light_table (render/shade.py
+// LIGHT_FIELDS)
 struct ShadeLight {
     int32_t kind, idx, depth, chain0;  // chain: slots[chain0 ..], outermost first
     int32_t tri0, own, n_padded;       // a mesh light's CDF run
@@ -83,15 +89,14 @@ struct ShadeLight {
 struct ShadeSpec {
     int32_t n_lights, nls, k, bounce, analytic, motion;
     float tmin, light_scale;
-    int32_t slots[kMaxSlots];
-    ShadeLight light[kMaxLights];
 };
 
 // Pointer slots of a launch (render/shade.py _PTRS names them alike)
 enum Ptr : int {
     T_MAT_KIND, T_MAT_COLOR, T_MAT_PARAM, T_L_COLOR, T_L_POWER, T_L_SID,
-    T_RECT_CORNER, T_RECT_S1, T_RECT_S2, T_SPH_CENTER, T_SPH_RADIUS, T_CDF,
-    T_VROWS, T_MESH_TOTAL, T_XF_TIMES, T_XF_T, T_XF_S, T_XF_R, T_XF_NK,
+    T_LIGHTS, T_L_SLOTS, T_RECT_CORNER, T_RECT_S1, T_RECT_S2, T_SPH_CENTER,
+    T_SPH_RADIUS, T_CDF, T_VROWS, T_MESH_TOTAL, T_XF_TIMES, T_XF_T, T_XF_S,
+    T_XF_R, T_XF_NK,
     L_HIT_T, L_HIT_VALID, L_HIT_MAT, L_NX, L_NY, L_NZ, L_CMOD, L_U, L_TPX,
     L_TPY, L_TPZ, L_ALIVE, L_NDIRAC, L_OX, L_OY, L_OZ, L_DX, L_DY, L_DZ,
     L_TIME, L_RX, L_RY, L_RZ,
@@ -386,45 +391,58 @@ struct Link {
     Rot ro;
 };
 
+// A light's chain: depth slots of the scene's slot table, outermost
+// first, each evaluated at the lane's time where it is used
 struct Chain {
-    int depth;
-    Link link[kMaxDepth];  // outermost first
+    int depth, k;
+    const int32_t* slots;
+    XfTables tb;
+    float tm;
 };
 
-__device__ __forceinline__ void load_chain(const ShadeSpec& s,
-                                           const ShadeLight& L,
-                                           const XfTables& tb, float tm,
-                                           Chain& ch) {
-    ch.depth = L.depth;
-    for (int c = 0; c < L.depth; ++c)
-        eval_link(tb, s.k, s.slots[L.chain0 + c], tm, ch.link[c].tr,
-                  ch.link[c].sc, ch.link[c].ro);
+__device__ __forceinline__ Chain light_chain(const Ptrs& P,
+                                             const ShadeSpec& s,
+                                             const ShadeLight& L,
+                                             const XfTables& tb, float tm) {
+    return {L.depth, s.k, in<int32_t>(P, T_L_SLOTS) + L.chain0, tb, tm};
+}
+__device__ __forceinline__ Link link_at(const Chain& ch, int c) {
+    Link l;
+    eval_link(ch.tb, ch.k, ch.slots[c], ch.tm, l.tr, l.sc, l.ro);
+    return l;
 }
 // local -> world, innermost link first
 __device__ __forceinline__ Vec from_local_point(const Chain& ch, Vec p) {
-    for (int c = ch.depth - 1; c >= 0; --c)
-        p = add(rotate(ch.link[c].ro, mul(p, ch.link[c].sc)), ch.link[c].tr);
+    for (int c = ch.depth - 1; c >= 0; --c) {
+        const Link l = link_at(ch, c);
+        p = add(rotate(l.ro, mul(p, l.sc)), l.tr);
+    }
     return p;
 }
 __device__ __forceinline__ Vec from_local_vector(const Chain& ch, Vec v) {
-    for (int c = ch.depth - 1; c >= 0; --c)
-        v = rotate(ch.link[c].ro, mul(v, ch.link[c].sc));
+    for (int c = ch.depth - 1; c >= 0; --c) {
+        const Link l = link_at(ch, c);
+        v = rotate(l.ro, mul(v, l.sc));
+    }
     return v;
 }
 __device__ __forceinline__ Vec from_local_normal(const Chain& ch, Vec n) {
-    for (int c = ch.depth - 1; c >= 0; --c) n = rotate(ch.link[c].ro, n);
+    for (int c = ch.depth - 1; c >= 0; --c) n = rotate(link_at(ch, c).ro, n);
     return n;
 }
 // world -> local, outermost link first
 __device__ __forceinline__ Vec to_local_point(const Chain& ch, Vec p) {
-    for (int c = 0; c < ch.depth; ++c)
-        p = divv(unrotate(ch.link[c].ro, sub(p, ch.link[c].tr)),
-                 ch.link[c].sc);
+    for (int c = 0; c < ch.depth; ++c) {
+        const Link l = link_at(ch, c);
+        p = divv(unrotate(l.ro, sub(p, l.tr)), l.sc);
+    }
     return p;
 }
 __device__ __forceinline__ Vec to_local_vector(const Chain& ch, Vec v) {
-    for (int c = 0; c < ch.depth; ++c)
-        v = divv(unrotate(ch.link[c].ro, v), ch.link[c].sc);
+    for (int c = 0; c < ch.depth; ++c) {
+        const Link l = link_at(ch, c);
+        v = divv(unrotate(l.ro, v), l.sc);
+    }
     return v;
 }
 
@@ -664,6 +682,7 @@ bounce_prepare_kernel(const __grid_constant__ ShadeSpec spec,
     const Vec normal = lane3(P, L_NX, i);
     const Vec cmod = muls(color, in<float>(P, L_CMOD)[i]);
     const float* u = in<float>(P, L_U);
+    const ShadeLight* lights = in<ShadeLight>(P, T_LIGHTS);
     const float tm = spec.motion ? in<float>(P, L_TIME)[i] : 0.0f;
     const float tmin = spec.tmin;
     const bool nee_lane = lane && !is_dirac;
@@ -679,9 +698,8 @@ bounce_prepare_kernel(const __grid_constant__ ShadeSpec spec,
                     leu = ul[3 * N], bsu = ul[4 * N], bsv = ul[5 * N];
         const int li =
             min((int32_t)(liu * (float)spec.n_lights), spec.n_lights - 1);
-        const ShadeLight& L = spec.light[li];
-        Chain ch;
-        load_chain(spec, L, xt, tm, ch);
+        const ShadeLight L = lights[li];
+        const Chain ch = light_chain(P, spec, L, xt, tm);
         float lpdf;
         const Vec lp = sample_light(L, ch, tb, position, lsu, lsv, leu, tmin,
                                     lpdf);
@@ -769,13 +787,14 @@ bounce_resolve_kernel(const __grid_constant__ ShadeSpec spec,
     const Vec normal = lane3(P, L_NX, i);
     const Vec tp = lane3(P, L_TPX, i);
     const float tm = spec.motion ? in<float>(P, L_TIME)[i] : 0.0f;
+    const ShadeLight* lights = in<ShadeLight>(P, T_LIGHTS);
     if (spec.nls > 0) {
         Vec acc = {0.0f, 0.0f, 0.0f};
         const uint8_t* occ = in<uint8_t>(P, Q_OCC);
         for (int lsi = 0; lsi < spec.nls; ++lsi) {
             const long long j = lsi * N + i;
             const int li = ils[j];
-            const ShadeLight& L = spec.light[li];
+            const ShadeLight L = lights[li];
             const float pw = in<float>(P, T_L_POWER)[li];
             const Vec emitted = muls(load3(in<float>(P, T_L_COLOR), li), pw);
             const bool ok_b = bls[S + j] != 0;
@@ -805,8 +824,7 @@ bounce_resolve_kernel(const __grid_constant__ ShadeSpec spec,
                      : 0.0f;
             const Vec ec = mul(emitted, cmod);
             acc = add(acc, muls(ec, gain_l));
-            Chain ch;
-            load_chain(spec, L, xt, tm, ch);
+            const Chain ch = light_chain(P, spec, L, xt, tm);
             const Vec wb = ls_row3(F_WB, j);
             const float lpdf_b =
                 light_intersect_pdf(L, ch, tb, position, wb, t_l, n_l);
@@ -839,18 +857,13 @@ bounce_resolve_kernel(const __grid_constant__ ShadeSpec spec,
     out<uint8_t>(P, R_B)[i] = cont ? 1 : 0;
 }
 
-int check_spec(const ShadeSpec* s) {
-    if (s->n_lights < 0 || s->n_lights > kMaxLights || s->nls < 0 ||
-        (s->nls > 0 && s->n_lights < 1) || s->k < 1)
+// The constants, and the light table wherever a lane picks a light (the
+// records themselves are the scene's, built with it: render/shade.py
+// light_records)
+int check_spec(const ShadeSpec* s, const void* const* ptrs) {
+    if (s->n_lights < 0 || s->nls < 0 || (s->nls > 0 && s->n_lights < 1) ||
+        s->k < 1 || (s->nls > 0 && ptrs[T_LIGHTS] == nullptr))
         return (int)cudaErrorInvalidValue;
-    for (int l = 0; l < s->n_lights; ++l) {
-        const ShadeLight& L = s->light[l];
-        if (L.depth < 0 || L.depth > kMaxDepth || L.chain0 < 0 ||
-            L.chain0 + L.depth > kMaxSlots || L.kind < 0 || L.kind > 2 ||
-            (L.kind == 2 && (L.own < 1 || L.n_padded < 1)) ||
-            (L.kind == 2 && s->analytic))
-            return (int)cudaErrorInvalidValue;
-    }
     return 0;
 }
 
@@ -862,11 +875,12 @@ extern "C" int rt_shade_ptrs() { return (int)kPtrs; }
 // One launch of bounce_prepare (resolve = 0) or bounce_resolve (resolve =
 // 1) over n lanes. spec is a ShadeSpec and ptrs an array of kPtrs device
 // pointers, both in host memory (types of this file's own, so passed as
-// void*); a pointer the launch does not read is null.
+// void*); a pointer the launch does not read is null (the slot table of a
+// scene where no light moves).
 extern "C" int rt_shade(const void* spec_ptr, const void* const* ptrs,
                         int resolve, int n, void* stream) {
     const ShadeSpec* spec = static_cast<const ShadeSpec*>(spec_ptr);
-    const int bad = check_spec(spec);
+    const int bad = check_spec(spec, ptrs);
     if (bad || n < 0) return bad ? bad : (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     Ptrs P;

@@ -447,6 +447,53 @@ def sixteen_lights_scene(pkg=None):
     return b
 
 
+def many_sphere_lights_scene(pkg=None):
+    """A plane, a glossy sphere and 65 seeded small sphere lights above
+    them (more than the 64 the card's shading once took): static."""
+    pkg = pkg or _own
+    rs = np.random.default_rng(65)
+    b = pkg.Scene()
+    b.add(pkg.Plane((0, -1, 0), (0, 1, 0),
+                    pkg.DiffuseMaterial((0.7, 0.7, 0.7))))
+    b.add(pkg.Sphere((0.0, 0.5, 0.0), 1.0,
+                     pkg.GlossyMaterial((0.8, 0.7, 0.2), 0.3)))
+    for _ in range(65):
+        b.add(pkg.ShapeLight(
+            pkg.Sphere(tuple(rs.uniform((-5.0, 3.0, -5.0), (5.0, 6.0, 5.0))),
+                       0.25, None),
+            tuple(rs.uniform(0.5, 1.0, 3)), 3.0))
+    return b
+
+
+def deep_light_scene(pkg=None):
+    """A sphere light inside nine nested groups, each drifting over the
+    shutter and the outermost turning about Y (a light chain of nine
+    links, past the 8 the card's shading once took), over a plane and a
+    glossy sphere, beside an unnested rect light."""
+    pkg = pkg or _own
+    s = pkg.Scene()
+    s.add(pkg.Plane((0.0, -1.0, 0.0), (0.0, 1.0, 0.0),
+                    pkg.DiffuseMaterial((0.6, 0.6, 0.9))))
+    s.add(pkg.Sphere((0.0, 0.0, 0.0), 1.0,
+                     pkg.GlossyMaterial((0.8, 0.3, 0.1), 0.3)))
+    node = pkg.ShapeLight(pkg.Sphere((1.0, 2.0, 0.5), 0.5, None),
+                          (1.0, 0.9, 0.6), 6.0)
+    for g in range(9):
+        group = pkg.Group()
+        group.transform.set_translation(0.0, (0.04, 0.0, 0.0))
+        group.transform.set_translation(1.0, (0.04, 0.03 * g, -0.02))
+        if g == 8:
+            group.transform.set_rotation(0.0, (1.0, 0.0, 0.0, 0.0))
+            group.transform.set_rotation(
+                1.0, (math.cos(math.pi / 8), 0.0, math.sin(math.pi / 8), 0.0))
+        group.add(node)
+        node = group
+    s.add(node)
+    s.add(pkg.RectangleLight((-2.0, 3.5, -1.0), (1.5, 0.0, 0.0),
+                             (0.0, 0.0, 1.5), (1.0, 1.0, 1.0), 4.0))
+    return s
+
+
 # ---------------------------------------------------------------------------
 # Scenes that hold the tiny-mesh fold and the 'xla' pipeline at their edges
 # (``pkg`` as above, where the reference's copy is compared)

@@ -394,6 +394,13 @@ class SceneData:
     # scene for render/traverse.py ray_pack's kernel to read
     ktab_chain: tuple = dataclasses.field(default=(), init=False,
                                           repr=False, compare=False)
+    # the lights as csrc/shade.cu reads them, built with the scene
+    # (render/shade.py light_records): one record a light (i32 [L, 7]) and
+    # every light's chain slots, outermost first (i32 [S])
+    light_table: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    light_slots: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
     ktab_seg: tuple = ()  # per domain ((cl_start, tri0), ...)
     # transformed meshes of at most 192 triangles: folded densely
     # (render/mesh_intersect.py) instead of a launch domain of their own
@@ -450,6 +457,13 @@ class SceneData:
         object.__setattr__(self, "ktab_chain", tuple(
             torch.tensor(xf.chain_slots(self, x), dtype=torch.int32,
                          device=self.device) for x in self.ktab_xf))
+        from ..render.shade import light_records
+
+        records, slots = light_records(self)
+        object.__setattr__(self, "light_table", torch.from_numpy(
+            records).to(self.device))
+        object.__setattr__(self, "light_slots", torch.from_numpy(
+            slots).to(self.device))
 
     def to(self, device) -> "SceneData":
         """This scene with every tensor on ``device`` (itself if it is

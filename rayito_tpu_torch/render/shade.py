@@ -296,9 +296,6 @@ def bounce_resolve_plain(scene: SceneData, config: RenderConfig,
 # The kernels (csrc/shade.cu)
 # ---------------------------------------------------------------------------
 
-SHADE_MAX_LIGHTS = 64
-SHADE_MAX_SLOTS = 128
-SHADE_MAX_DEPTH = 8
 # row order of the prepared planes: per lane [F_LANE, N], per light sample
 # [F_LS, nls, N] (csrc/shade.cu FLane, FLs)
 F_LANE = (("result", 3), ("position", 3), ("cmod_color", 3), ("wc", 3),
@@ -306,13 +303,15 @@ F_LANE = (("result", 3), ("position", 3), ("cmod_color", 3), ("wc", 3),
 F_LS = (("lpdf", 1), ("f_l", 1), ("pdf_l", 1), ("wl", 3), ("tmax_l", 1),
         ("wb", 3), ("f_b", 1), ("pdf_b", 1), ("tmax_b", 1), ("t_l", 1),
         ("n_l", 3))
-# a launch's pointer slots, in csrc/shade.cu's enum Ptr order
+# a launch's pointer slots, in csrc/shade.cu's enum Ptr order; the scene's
+# tables first, the light table and its chain slots among them
+# (SceneData.light_table, light_slots)
 _PTRS = (
     "mat_kind", "mat_color", "mat_param", "light_color", "light_power",
-    "light_shape_id", "rect_corner", "rect_side1", "rect_side2",
-    "sph_center", "sph_radius", "tri_area_cdf", "tri_vert_rows",
-    "mesh_total_area", "xf_times", "xf_translate", "xf_scale", "xf_rotate",
-    "xf_nkeys",
+    "light_shape_id", "light_table", "light_slots", "rect_corner",
+    "rect_side1", "rect_side2", "sph_center", "sph_radius", "tri_area_cdf",
+    "tri_vert_rows", "mesh_total_area", "xf_times", "xf_translate",
+    "xf_scale", "xf_rotate", "xf_nkeys",
     "hit_t", "hit_valid", "hit_mat", "nx", "ny", "nz", "cmod", "u", "tpx",
     "tpy", "tpz", "alive", "num_dirac", "ox", "oy", "oz", "dx", "dy", "dz",
     "time", "rx", "ry", "rz",
@@ -320,68 +319,61 @@ _PTRS = (
     "occluded", "blocked", "sh_valid", "sh_shape_id", "sh_t", "sh_n",
     "r_f", "r_b",
 )
-_TABLES = _PTRS[:19]
+_TABLES = _PTRS[:21]
 
 
-class _ShadeLight(ctypes.Structure):
-    """One light: its kind, its row of the kind's table (the mesh for a
-    mesh light), its transform chain (``depth`` slots of ``slots`` from
-    ``chain0``, outermost first; 0 where it does not move) and a mesh
-    light's CDF run."""
-    _fields_ = [(k, ctypes.c_int32) for k in (
-        "kind", "idx", "depth", "chain0", "tri0", "own", "n_padded")]
+# a light's record in SceneData.light_table (csrc/shade.cu ShadeLight)
+LIGHT_FIELDS = ("kind", "idx", "depth", "chain0", "tri0", "own", "n_padded")
+
+
+def light_records(scene: SceneData):
+    """The scene's lights as csrc/shade.cu reads them, built once with the
+    scene (``SceneData.light_table``, ``light_slots``): (records i32
+    [L, 7], one ``LIGHT_FIELDS`` row a light, and slots i32 [S], every
+    light's transform chain, outermost first, ``depth`` slots from
+    ``chain0``; depth 0 where the light does not move). A mesh light's record holds
+    the run of the area CDF that ``render/lights.py`` searches: its first
+    triangle, the run's length (its triangles padded to whole clusters, cut
+    at the table's end) and its padded cluster count in triangles."""
+    xf_of = {LIGHT_RECT: scene.rect_xf_host, LIGHT_SPHERE: scene.sph_xf_host,
+             LIGHT_MESH: scene.mesh_xf_host}
+    cdf_len = scene.tri_area_cdf.shape[0]
+    records, slots = [], []
+    for kind, idx in zip(scene.light_kinds_host, scene.light_indices_host):
+        if kind not in xf_of:
+            raise NotImplementedError(f"unknown light kind {kind}")
+        chain = xfm.chain_slots(scene, xf_of[kind][idx])
+        tri0 = own = n_padded = 0
+        if kind == LIGHT_MESH:
+            tri0, count = scene.mesh_tri_ranges[idx]
+            own = min(max(1, -(-count // TRI_PER_CLUSTER)) * TRI_PER_CLUSTER,
+                      cdf_len - tri0)
+            n_padded = scene.mesh_cl_ranges[idx][1] * TRI_PER_CLUSTER
+        records.append((kind, idx, len(chain), len(slots), tri0, own,
+                        n_padded))
+        slots += chain
+    return (np.asarray(records, np.int32).reshape(-1, len(LIGHT_FIELDS)),
+            np.asarray(slots, np.int32))
 
 
 class _ShadeSpec(ctypes.Structure):
-    """A launch's light table and constants, passed to the kernel by
-    value."""
+    """A launch's constants, passed to the kernel by value (the lights are
+    the scene's device table)."""
     _fields_ = [("n_lights", ctypes.c_int32), ("nls", ctypes.c_int32),
                 ("k", ctypes.c_int32), ("bounce", ctypes.c_int32),
                 ("analytic", ctypes.c_int32), ("motion", ctypes.c_int32),
-                ("tmin", ctypes.c_float), ("light_scale", ctypes.c_float),
-                ("slots", ctypes.c_int32 * SHADE_MAX_SLOTS),
-                ("light", _ShadeLight * SHADE_MAX_LIGHTS)]
+                ("tmin", ctypes.c_float), ("light_scale", ctypes.c_float)]
 
 
 def _spec(scene: SceneData, config: RenderConfig, bounce: int) -> _ShadeSpec:
-    name = "shade"
     n_lights = scene.n_lights
     nls = light_samples(scene, config)
-    if n_lights > SHADE_MAX_LIGHTS:
-        raise ValueError(f"{name}: {n_lights} lights; the kernel takes at "
-                         f"most {SHADE_MAX_LIGHTS}")
-    spec = _ShadeSpec(
+    return _ShadeSpec(
         n_lights=n_lights, nls=nls, k=int(scene.xf_times.shape[1]),
         bounce=bounce, analytic=int(analytic_lights(scene)),
         motion=int(scene.has_motion), tmin=float(config.ray_tmin),
         light_scale=float(np.float32(n_lights) / np.float32(nls)) if nls
         else 0.0)
-    n_slots = 0
-    xf = {LIGHT_RECT: scene.rect_xf_host, LIGHT_SPHERE: scene.sph_xf_host,
-          LIGHT_MESH: scene.mesh_xf_host}
-    cdf_len = scene.tri_area_cdf.shape[0]
-    for li, (kind, idx) in enumerate(zip(scene.light_kinds_host,
-                                         scene.light_indices_host)):
-        if kind not in xf:
-            raise NotImplementedError(f"unknown light kind {kind}")
-        chain = xfm.chain_slots(scene, xf[kind][idx])
-        if (len(chain) > SHADE_MAX_DEPTH
-                or n_slots + len(chain) > SHADE_MAX_SLOTS):
-            raise ValueError(f"{name}: light {li}'s chain of {len(chain)} "
-                             "transforms does not fit the kernel's table")
-        rec = spec.light[li]
-        rec.kind, rec.idx = kind, idx
-        rec.depth, rec.chain0 = len(chain), n_slots
-        for j, s in enumerate(chain):
-            spec.slots[n_slots + j] = s
-        n_slots += len(chain)
-        if kind == LIGHT_MESH:
-            tri0, count = scene.mesh_tri_ranges[idx]
-            own = max(1, -(-count // TRI_PER_CLUSTER)) * TRI_PER_CLUSTER
-            # the run as lights._sample_mesh_light slices it
-            rec.tri0, rec.own = tri0, min(own, cdf_len - tri0)
-            rec.n_padded = scene.mesh_cl_ranges[idx][1] * TRI_PER_CLUSTER
-    return spec
 
 
 @functools.lru_cache(maxsize=None)

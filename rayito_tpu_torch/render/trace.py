@@ -260,14 +260,21 @@ def _rects_candidate(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
             torch.ones_like(f.t))
 
 
-def _rows_occluded(scene: SceneData, xf_host, o: V3, d: V3, time, rows_t):
-    """Any-hit over the row batches of one kind; ``rows_t(r0, r1, o, d)``
-    gives t [rows, N]."""
-    occluded = torch.zeros((o.x.shape[0],), dtype=torch.bool,
-                           device=o.x.device)
+def _rows_occluded(scene: SceneData, xf_host, o: V3, d: V3, time, rows_t,
+                   occluded, tests=None):
+    """Any-hit over the row batches of one kind, for the lanes not yet
+    ``occluded``; ``rows_t(r0, r1, o, d)`` gives t [rows, N]. Returns
+    (occluded, tests): with ``tests`` ([N] i64) each open lane's row tests
+    added, up to its first hit (the kernel's lane stops there)."""
     for r0, r1, o_l, d_l, _ in _row_batches(scene, xf_host, o, d, time):
-        occluded |= torch.isfinite(rows_t(r0, r1, o_l, d_l)).any(dim=0)
-    return occluded
+        hit = torch.isfinite(rows_t(r0, r1, o_l, d_l))
+        any_hit = hit.any(dim=0)
+        if tests is not None:
+            first = torch.argmax(hit.to(torch.int8), dim=0) + 1
+            tests = tests + torch.where(
+                occluded, 0, torch.where(any_hit, first, r1 - r0))
+        occluded = occluded | any_hit
+    return occluded, tests
 
 
 def _mt_for(scene: SceneData, occlusion: bool) -> str:
@@ -478,25 +485,30 @@ def scene_intersect(scene: SceneData, o: V3, d: V3, time, tmin,
 
 def _analytic_occluded(scene: SceneData, o: V3, d: V3, time, tmin, tmax):
     """Any-hit against the analytic shapes (planes, spheres, rects), each
-    in its local space."""
-    occluded = torch.zeros((o.x.shape[0],), dtype=torch.bool,
-                           device=o.x.device)
-
-    if scene.n_planes:
-        occluded |= _rows_occluded(
-            scene, scene.pln_xf_host, o, d, time,
-            lambda r0, r1, o_l, d_l: _plane_rows(scene, r0, r1, o_l, d_l,
-                                                 tmin, tmax))
-    if scene.n_spheres:
-        occluded |= _rows_occluded(
-            scene, scene.sph_xf_host, o, d, time,
-            lambda r0, r1, o_l, d_l: _sphere_rows(scene, r0, r1, o_l, d_l,
-                                                  tmin, tmax))
-    if scene.n_rects:
-        occluded |= _rows_occluded(
-            scene, scene.rect_xf_host, o, d, time,
-            lambda r0, r1, o_l, d_l: _rect_rows(scene, r0, r1, o_l, d_l,
-                                                tmin, tmax)[0])
+    in its local space. With tracing on it adds what the kernel counts:
+    ``analytic_fold.lanes.any`` (the query's lanes) and
+    ``analytic_fold.tests.<kind>`` (each lane's row tests of the kind, in
+    the row order up to its first hit)."""
+    n, dev = o.x.shape[0], o.x.device
+    counting = tracing.enabled()
+    occluded = torch.zeros((n,), dtype=torch.bool, device=dev)
+    kinds = (
+        (scene.pln_xf_host, lambda r0, r1, o_l, d_l: _plane_rows(
+            scene, r0, r1, o_l, d_l, tmin, tmax)),
+        (scene.sph_xf_host, lambda r0, r1, o_l, d_l: _sphere_rows(
+            scene, r0, r1, o_l, d_l, tmin, tmax)),
+        (scene.rect_xf_host, lambda r0, r1, o_l, d_l: _rect_rows(
+            scene, r0, r1, o_l, d_l, tmin, tmax)[0]))
+    if counting:
+        tracing.count("analytic_fold.lanes.any", n, where=o.x)
+    for kind, (xf_host, rows_t) in zip(AF_KINDS, kinds):
+        tests = (torch.zeros((n,), dtype=torch.int64, device=dev)
+                 if counting else None)
+        if xf_host:
+            occluded, tests = _rows_occluded(scene, xf_host, o, d, time,
+                                             rows_t, occluded, tests)
+        if counting:
+            tracing.count(f"analytic_fold.tests.{kind}", tests.sum())
     return occluded
 
 
@@ -522,10 +534,22 @@ def analytic_fold_plain(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
     tmax: [N]. Closest hit: (t [N] f32, shape id [N] i32, material [N]
     i32, world normal V3, color_mod [N] f32) of the nearest hit, ties to
     the earlier kind and the lower row, the fold's start where nothing
-    hits. Any hit: occluded [N] bool."""
+    hits. Any hit: occluded [N] bool.
+
+    With tracing on it adds what the kernel counts, keyed by the query's
+    kind: ``analytic_fold.lanes.closest`` or ``.any`` (the query's lanes)
+    and ``analytic_fold.tests.plane``, ``.sphere`` and ``.rect`` (every row
+    of the kind a lane on a closest-hit query; see
+    :func:`_analytic_occluded` for an any-hit one)."""
     if any_hit:
         return _analytic_occluded(scene, o, d, time, tmin, tmax)
     n, dev = o.x.shape[0], o.x.device
+    if tracing.enabled():
+        tracing.count("analytic_fold.lanes.closest", n, where=o.x)
+        for kind, rows in zip(AF_KINDS, (scene.n_planes, scene.n_spheres,
+                                         scene.n_rects)):
+            tracing.count(f"analytic_fold.tests.{kind}", n * rows,
+                          where=o.x)
     best = (_full(n, INF, torch.float32, dev), _full(n, -1, torch.int32, dev),
             _full(n, -1, torch.int32, dev), _zeros3(n, dev),
             torch.ones((n,), dtype=torch.float32, device=dev))
@@ -541,6 +565,8 @@ def analytic_fold_plain(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
     return best
 
 
+# the analytic kinds in their fold order (the kernel's test counters)
+AF_KINDS = ("plane", "sphere", "rect")
 # csrc/analytic_fold.cu's limits per launch: rows, distinct chains and
 # chain slots (a query with more launches again, each launch folding into
 # the last one's outputs; a chain has at most AF_MAX_SLOTS links)
@@ -643,7 +669,8 @@ def analytic_fold(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
     analytic shapes of one query in one launch (``csrc/analytic_fold.cu``;
     more past its limits, each folding into the last one's outputs), each
     lane's transform chains evaluated inside it. A scene without analytic
-    shapes launches nothing."""
+    shapes launches nothing. With tracing on the kernel adds the twin's
+    counters on the device."""
     name = "analytic_fold"
     n = o.x.shape[0]
     motion = scene.has_motion
@@ -669,6 +696,10 @@ def analytic_fold(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
     dev = o.x.device
     ptrs = dict(zip(_AF_TABLES, tables))
     ptrs.update(zip(_AF_LANES, lanes))
+    tests = tuple(tracing.counter_ptr(f"analytic_fold.tests.{k}", dev)
+                  for k in AF_KINDS)
+    lanes_ctr = tracing.counter_ptr(
+        "analytic_fold.lanes." + ("any" if any_hit else "closest"), dev)
     for spec in specs:
         if any_hit:
             outs = {"occ": torch.empty((n,), dtype=torch.bool, device=dev)}
@@ -686,9 +717,10 @@ def analytic_fold(scene: SceneData, o: V3, d: V3, time, tmin, tmax,
               for k in _AF_PTRS))
         if n:
             cuda_lib.check(lib.rt_analytic_fold(
-                ctypes.byref(spec), arr, float(tmin), int(any_hit), n,
-                stream), name)
+                ctypes.byref(spec), arr, float(tmin), int(any_hit), *tests,
+                lanes_ctr, n, stream), name)
             cuda_lib.count_launch(analytic_fold, dev)
+        lanes_ctr = None  # the query's lanes, added by its first launch
         ptrs.update(("s_" + k, v) for k, v in outs.items())
     if any_hit:
         return outs["occ"]

@@ -73,8 +73,9 @@ SIGNATURES = {
     "rt_shade_ptrs": [],
     # log, cursor, capacity, code, stream
     "rt_trace_mark": [_P, _P, _I, _I, _P],
-    # spec, pointer array, tmin, any_hit, n, stream
-    "rt_analytic_fold": [_P, _P, _F, _I, _I, _P],
+    # spec, pointer array, tmin, any_hit, 3 test counters, lane counter,
+    # n, stream
+    "rt_analytic_fold": [_P, _P, _F, _I] + [_P] * 4 + [_I, _P],
     "rt_analytic_fold_spec_bytes": [],
     "rt_analytic_fold_ptrs": [],
     # 7 ray planes, box, soa8, operand, live counter, chain slots, 5

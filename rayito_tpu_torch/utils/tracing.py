@@ -58,7 +58,11 @@ chain), and the
 tiny-mesh fold's
 ``fold_small.tests.closest`` / ``.any``, ``fold_small.lanes.closest`` /
 ``.any`` and ``fold_small.links`` (``render/mesh_intersect.py``, added by
-``fold_small_kernel`` once per block).
+``fold_small_kernel`` once per block), and the analytic fold's
+``analytic_fold.tests.plane`` / ``.sphere`` / ``.rect`` (the row tests
+its lanes ran, an any-hit lane's up to its first hit) and
+``analytic_fold.lanes.closest`` / ``.any`` (a query's lanes)
+(``render/trace.py``, added by ``analytic_fold_kernel`` once per block).
 
 ``snapshot()`` reads it all back (it waits for the devices) and
 ``reset()`` starts anew; nothing is written out unless asked.

@@ -90,7 +90,14 @@ times before, on and past its keys, each of big_instanced's four one-key
 copies, a nested two-link chain) bit for bit with its plain twin and
 ops/transform.py local_ray (rows, operand, local ray, rotation, live
 rays), the depth-0 instance on the world ray, and traverse() through the
-chain with traverse() of the local ray. The launch counters
+chain with traverse() of the local ray; and the analytic fold's counters
+(row tests by kind, a query's lanes) equal its plain twin's on the
+256-light rig (three chained launches a query) and stage 7, nothing added
+with tracing off; and the shading past its old limits (65 lights, a light
+nine links deep, the 256-light rig of ``stage6_lights256``) beside stage
+6 and 7: the light table read from the scene's device memory, both
+kernels bit for bit with their plain twins, and a whole eager pass
+through them equal to one through the twins. The launch counters
 count only with tracing on, so each test that reads them turns it on
 around what it counts, captures included.
 Every kernel comparison is exact: kernel and plain version run the same
@@ -2301,6 +2308,123 @@ def test_analytic_fold_launches_once_per_query(dev, graph_scenes, name):
     graphs.clear()
 
 
+def _af_counts(fn):
+    """(fn(), the analytic fold's nonzero counters it added)."""
+    tracing.reset()
+    out = fn()
+    c = {k: v for k, v in tracing.counters().items()
+         if k.startswith("analytic_fold.") and v}
+    tracing.reset()
+    return out, c
+
+
+@pytest.mark.parametrize("name", ["rig256", "stage7"])
+def test_analytic_fold_counters_equal_the_plain_twins(dev, many_lights,
+                                                      af_scenes, name):
+    """131,072 seeded bounce and shadow lanes of the 256-light rig (261
+    rows, three chained launches a query) and of stage 7 (keyed rows): the
+    counters the kernel adds on the device equal the plain twin's, rows x
+    lanes on a closest-hit query, each lane's rows to its first hit on an
+    any-hit one; with tracing off the kernel adds nothing."""
+    from rayito_tpu_torch.render import trace as tr
+
+    sd = many_lights[name][0] if name == "rig256" else af_scenes[name]
+    rows = sd.n_planes + sd.n_spheres + sd.n_rects
+    args = (sd, *_af_rays(sd, dev, "bounce", seed=25))
+    shadow = (sd, *_af_rays(sd, dev, "shadow", seed=26))
+    with tracing.on():
+        got, c_k = _af_counts(lambda: tr.analytic_fold(*args))
+        want, c_p = _af_counts(lambda: tr.analytic_fold_plain(*args))
+        occ, a_k = _af_counts(lambda: tr.analytic_fold(*shadow,
+                                                       any_hit=True))
+        occ_p, a_p = _af_counts(lambda: tr.analytic_fold_plain(
+            *shadow, any_hit=True))
+    for g, w in zip(_af_flat(got), _af_flat(want)):
+        assert _same_bits(g, w)
+    assert torch.equal(occ, occ_p)
+    assert c_k == c_p == {
+        "analytic_fold.lanes.closest": AF_N,
+        "analytic_fold.tests.plane": AF_N * sd.n_planes,
+        "analytic_fold.tests.sphere": AF_N * sd.n_spheres,
+        "analytic_fold.tests.rect": AF_N * sd.n_rects}
+    assert min(sd.n_planes, sd.n_spheres, sd.n_rects) > 0
+    assert a_k == a_p and a_k["analytic_fold.lanes.any"] == AF_N
+    assert 0 < sum(a_k[f"analytic_fold.tests.{k}"]
+                   for k in tr.AF_KINDS) < AF_N * rows
+    _, off = _af_counts(lambda: tr.analytic_fold(*args))
+    assert off == {}
+
+
+# ---------------------------------------------------------------------------
+# many lights: the shading's light table in device memory
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def many_lights(dev, graph_scenes, tmp_path_factory):
+    """{name: (scene on the card, config, camera)}: 65 sphere lights, a
+    sphere light nested nine groups deep (a chain of nine keyed links) and
+    the benchmark's ``stage6_lights256`` (the stage-6 scene under 256
+    lights, on the n=8 stand-in), at graph_scenes' traffic."""
+    import json
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import port_scene, run, standin
+    from rayito_tpu_torch.models import demo
+    from rayito_tpu_torch.models.camera import PerspectiveCamera
+
+    cfg = graph_scenes["stage6"][1]
+    with open(os.path.join(root, "portbench", "configs",
+                           "stage6_lights256.json")) as f:
+        rig = json.load(f)
+    path = str(tmp_path_factory.mktemp("obj") / "bumpy8.obj")
+    standin.write_bumpy_standin(path, n=8)
+    near = PerspectiveCamera.make(40.0, (0, 3, 10), (0, 0, 0), (0, 1, 0),
+                                  shutter_close=1.0)
+    return {
+        "lights65": (demo.many_sphere_lights_scene().compile(dev), cfg,
+                     near),
+        "deep9": (demo.deep_light_scene().compile(dev), cfg, near),
+        "rig256": (port_scene.build(rig, {"bumpy": path}).compile(dev), cfg,
+                   run.camera_of(rig["camera"])),
+    }
+
+
+@pytest.mark.parametrize("name", ["lights65", "deep9", "rig256", "stage6",
+                                  "stage7"])
+def test_many_lights_render_on_the_card_bit_for_bit(dev, graph_scenes,
+                                                    many_lights, name,
+                                                    monkeypatch):
+    """Scenes past the card's old shading limits (65 lights, a light chain
+    of nine links, the 256-light rig) and stage 6 and 7: a whole eager
+    pass through the shading kernels renders the image, the overflow and
+    the queries of the pass through their plain twins, bit for bit."""
+    from rayito_tpu_torch.render import pathtracer as pt
+    from rayito_tpu_torch.render import shade
+
+    scene, cfg, cam = many_lights.get(name) or graph_scenes[name]
+    if name == "deep9":
+        assert int(scene.light_table[:, 2].max()) == 9
+
+    def one_pass():
+        si = torch.arange(2, dtype=torch.int32, device=dev)
+        row0 = torch.full((), 16, dtype=torch.int32, device=dev)
+        return pt._path_pass_body(scene, cfg, cam.to(dev), si, row0, 16)
+
+    got = one_pass()
+    monkeypatch.setattr(shade, "bounce_prepare", shade.bounce_prepare_plain)
+    monkeypatch.setattr(shade, "bounce_resolve", shade.bounce_resolve_plain)
+    want = one_pass()
+    assert _same_bits(got[0], want[0])
+    assert int(got[1]) == int(want[1]) == 0
+    assert int(got[2]) == int(want[2]) > 0
+    assert float(want[0].sum()) > 0.0
+
+
 # ---------------------------------------------------------------------------
 # the bounce's shading (csrc/shade.cu)
 # ---------------------------------------------------------------------------
@@ -2369,13 +2493,16 @@ def _check_shade_call(call, time=None):
 
 
 @pytest.mark.parametrize("name", ["stage6", "stage7", "mesh_light",
-                                  "lights16_ls2"])
-def test_shade_kernels_match_plain(dev, graph_scenes, name):
+                                  "lights16_ls2", "lights65", "deep9",
+                                  "rig256"])
+def test_shade_kernels_match_plain(dev, graph_scenes, many_lights, name):
     """Both shading kernels against their plain versions on the inputs the
     eager pass hands them at bounces 0 and 1: stage 6, stage 7 (also at
     seeded lane times in [-0.5, 1.5], outside its keys), the mesh light
-    (the BRDF-side closest-hit branch) and sixteen lights at
-    light_samples=2."""
+    (the BRDF-side closest-hit branch), sixteen lights at
+    light_samples=2, and past the kernel's old limits: 65 lights, a light
+    chain of nine links (also at seeded lane times) and the 256-light rig,
+    each light table read from the scene's device memory."""
     import dataclasses
 
     from rayito_tpu_torch.models import demo
@@ -2386,14 +2513,15 @@ def test_shade_kernels_match_plain(dev, graph_scenes, name):
         cfg = dataclasses.replace(graph_scenes["stage6"][1], light_samples=2)
         cam = PerspectiveCamera.make(40.0, (0, 3, 10), (0, 0, 0), (0, 1, 0))
     else:
-        scene, cfg, cam = graph_scenes[name]
+        scene, cfg, cam = many_lights.get(name) or graph_scenes[name]
+    assert scene.light_table.device == scene.light_slots.device == dev
     calls = _shade_calls(scene, cfg, cam, dev)
     assert len(calls) == 2
     for call in calls:
         got = _check_shade_call(call)
         assert int(got.lane.sum()) > 0
     assert int(calls[0][1][2].ok_l.sum()) > 100
-    if name == "stage7":
+    if name in ("stage7", "deep9"):
         rs = np.random.default_rng(15)
         n = calls[0][0][3].t.shape[0]
         time = torch.from_numpy(

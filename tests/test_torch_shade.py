@@ -3,11 +3,13 @@ package on the CPU.
 
 ``bounce_prepare_plain`` and ``bounce_resolve_plain`` run on seeded lanes
 (every material kind of the scene, hits and misses, dead lanes, positions
-inside a sphere light, lane times in [-0.5, 1.5]) of four scenes: stage 6
+inside a sphere light, lane times in [-0.5, 1.5]) of six scenes: stage 6
 on the n=8 stand-in (a rect and a sphere light), ``stage7_scene1`` (a
 keyed rect and a four-key sphere light; Lambert, glossy, mirror and
-emitter materials), the box mesh light (the BRDF-side closest-hit branch)
-and the sixteen-light scene, the last two at light_samples=2. Each output
+emitter materials), the box mesh light (the BRDF-side closest-hit branch),
+the sixteen-light scene, the last two at light_samples=2, and the two
+scenes past the card's old light limits: 65 sphere lights, and a sphere
+light nested nine groups deep (a keyed chain of nine links). Each output
 is held, field by field, against the reference's own functions fed the
 same lanes: ``evaluate_sa`` / ``sample_sa`` (ops/brdf.py),
 ``sample_chosen_light_rolled`` (``sample_light`` per light for the mesh
@@ -21,7 +23,7 @@ at atol 2e-4.
 
 The refactored ``pathtrace_wave`` is held bit for bit against the frames
 of the code before it was split into the two halves (pinned SHA-256 of
-the image, overflow, queries) at 16x16, depth 3, on the same four scenes.
+the image, overflow, queries) at 16x16, depth 3, on the first four scenes.
 The wrappers run the plain versions on CPU tensors and raise on mixed
 devices; their kernels are held against the plain versions on the card in
 tests/test_torch_cuda.py.
@@ -61,7 +63,10 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 GLOSSY = dict(rtol=5e-5, atol=1e-5)
 TRIG = dict(rtol=1e-5, atol=2e-4)
 SCENES = ("stage6", "stage7", "box_light", "lights16")
-LIGHT_SAMPLES = {"stage6": 1, "stage7": 1, "box_light": 2, "lights16": 2}
+# the field-by-field scenes: SCENES and the two past the card's old limits
+PARITY = SCENES + ("lights65", "deep9")
+LIGHT_SAMPLES = {"stage6": 1, "stage7": 1, "box_light": 2, "lights16": 2,
+                 "lights65": 1, "deep9": 1}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -102,8 +107,10 @@ def _scenes(name, path):
         return jdemo.stage7_scene1(path), tdemo.stage7_scene1(path)
     if name == "box_light":
         return _box_light(rt, jdemo), _box_light(tt, tdemo)
-    return (tdemo.sixteen_lights_scene(pkg=rt),
-            tdemo.sixteen_lights_scene(pkg=tt))
+    build = {"lights16": tdemo.sixteen_lights_scene,
+             "lights65": tdemo.many_sphere_lights_scene,
+             "deep9": tdemo.deep_light_scene}[name]
+    return build(pkg=rt), build(pkg=tt)
 
 
 @pytest.fixture(scope="module")
@@ -220,14 +227,14 @@ def _light_sample_ref(jsd, tsd, light_idx, jpos, jtime, u):
     return lp, lpdf
 
 
-@pytest.mark.parametrize("scene", SCENES)
+@pytest.mark.parametrize("scene", PARITY)
 def test_prepare_against_reference(compiled, scene):
     """bounce_prepare_plain field by field against the reference's
     functions on the same lanes."""
     jsd, tsd = compiled(scene)
     nls = LIGHT_SAMPLES[scene] ** 2
     cfg = TConfig(light_samples=LIGHT_SAMPLES[scene])
-    lanes = _lanes(tsd, nls, seed=3 + SCENES.index(scene))
+    lanes = _lanes(tsd, nls, seed=3 + PARITY.index(scene))
     _, prep = _prepare(tsd, cfg, lanes)
     analytic = shade.analytic_lights(tsd)
     assert prep.light_idx.shape == (nls, N) and (prep.t_l is None) != analytic
@@ -340,14 +347,14 @@ def _query_bits(tsd, prep, nls, seed):
     return occluded, None, hits
 
 
-@pytest.mark.parametrize("scene", SCENES)
+@pytest.mark.parametrize("scene", PARITY)
 def test_resolve_against_reference(compiled, scene):
     """bounce_resolve_plain against the reference's light_intersect_pdf,
     power heuristic and the bounce body's sums, on the prepared lanes."""
     jsd, tsd = compiled(scene)
     nls = LIGHT_SAMPLES[scene] ** 2
     cfg = TConfig(light_samples=LIGHT_SAMPLES[scene])
-    lanes = _lanes(tsd, nls, seed=11 + SCENES.index(scene))
+    lanes = _lanes(tsd, nls, seed=11 + PARITY.index(scene))
     args, prep = _prepare(tsd, cfg, lanes)
     occluded, blocked, hits = _query_bits(tsd, prep, nls, seed=5)
     normal, tp = args[3].normal, args[5]
